@@ -1,0 +1,72 @@
+"""Operation cast-policy tables for the precision engine.
+
+The port's copy of ``apex_tpu.amp.lists``: the same three op-name groups
+(resolved by ``Policy.op_dtype``) and the module tables that
+:func:`apex_tpu_torch.amp.auto_cast` applies to the port's own modules.
+
+- HALF  ("whitelist"): tensor-core ops — run in the policy's half dtype.
+- FLOAT ("blacklist"): reductions, norms, losses, transcendentals — fp32.
+- PROMOTE: multi-input elementwise ops — widest input dtype wins.
+"""
+
+from __future__ import annotations
+
+HALF_OPS = {
+    "conv", "conv1d", "conv2d", "conv3d", "conv_transpose",
+    "dense", "linear", "matmul", "einsum", "dot_general",
+    "attention", "mlp", "rnn_cell", "lstm_cell", "gru_cell",
+}
+
+FLOAT_OPS = {
+    "softmax", "log_softmax", "layer_norm", "group_norm", "batch_norm",
+    "rms_norm", "weight_norm", "cross_entropy", "softmax_cross_entropy",
+    "nll_loss", "mse_loss", "l1_loss", "cosine_similarity",
+    "exp", "expm1", "log", "log1p", "log2", "log10", "pow", "erf", "erfinv",
+    "sum", "mean", "prod", "cumsum", "cumprod", "var", "std", "norm",
+    "sigmoid_focal_loss", "renorm", "softplus", "gelu_exact",
+}
+
+PROMOTE_OPS = {
+    "add", "sub", "mul", "div", "addcmul", "addcdiv",
+    "concatenate", "stack", "where", "equal", "maximum", "minimum",
+    "atan2", "cross", "bilinear", "dot",
+}
+
+BANNED_HALF_OPS = {
+    "binary_cross_entropy",
+}
+
+BANNED_MESSAGE = (
+    "{name} is numerically unsafe in {dtype}. Compute it in float32 — e.g. "
+    "use apex_tpu_torch.ops.softmax_cross_entropy_loss (fused, fp32 "
+    "internals) or pass logits and use a *_with_logits loss, which is "
+    "stable in mixed precision."
+)
+
+
+def classify(op_name: str) -> str:
+    """Return 'banned' | 'half' | 'float' | 'promote' | 'neutral'."""
+    if op_name in BANNED_HALF_OPS:
+        return "banned"
+    if op_name in HALF_OPS:
+        return "half"
+    if op_name in FLOAT_OPS:
+        return "float"
+    if op_name in PROMOTE_OPS:
+        return "promote"
+    return "neutral"
+
+
+# --- module-class tables (consulted by amp.interceptor) ---------------------
+
+def module_tables():
+    """(HALF_MODULES, FLOAT_MODULES) over the port's module classes.
+
+    Embedding counts as HALF, as flax's ``nn.Embed`` does in the JAX
+    package. The fused LayerNorm module is in neither table: in the JAX
+    package it is a custom module the interceptor passes through, so it
+    normalizes in whatever dtype reaches it.
+    """
+    from apex_tpu_torch.models.transformer import Dense, Embed
+
+    return (Dense, Embed), ()

@@ -1,0 +1,36 @@
+"""The port's fused ops: each hand-written Hopper kernel sits beside a plain
+PyTorch version of the same function. A wrapper takes the plain version
+only for a tensor on the CPU; on a CUDA tensor it launches its kernel or
+raises. Every kernel wrapper counts its launches in ``.launches``."""
+
+from apex_tpu_torch.ops.attention import (  # noqa: F401
+    attention_reference, flash_attention, flash_bwd_kernel, flash_fwd_kernel,
+)
+from apex_tpu_torch.ops.layer_norm import (  # noqa: F401
+    FusedLayerNorm, fused_layer_norm, fused_layer_norm_affine,
+    layer_norm_reference, ln_bwd_kernel, ln_fwd_kernel,
+)
+from apex_tpu_torch.ops.multihead_attn import SelfMultiheadAttn  # noqa: F401
+from apex_tpu_torch.ops.xentropy import (  # noqa: F401
+    softmax_cross_entropy_loss, softmax_cross_entropy_reference,
+    xentropy_bwd_kernel, xentropy_fwd_kernel,
+)
+
+#: every kernel wrapper of the port, by name
+KERNELS = {
+    "layer_norm_fwd": ln_fwd_kernel,
+    "layer_norm_bwd": ln_bwd_kernel,
+    "xentropy_fwd": xentropy_fwd_kernel,
+    "xentropy_bwd": xentropy_bwd_kernel,
+    "flash_attn_fwd": flash_fwd_kernel,
+    "flash_attn_bwd": flash_bwd_kernel,
+}
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0

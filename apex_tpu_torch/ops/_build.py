@@ -1,0 +1,124 @@
+"""Build and load the port's hand-written kernels at first use.
+
+CUDA C++: every ``*.cu`` under ``apex_tpu_torch/csrc/`` is compiled by
+``nvcc`` for ``sm_90a`` into a shared library with a plain C interface
+(one library per source, all sources compiled in parallel), under
+``build/apex_tpu_torch/`` at the repository root, and loaded with
+``ctypes``. A library's file name carries a digest of its source, the
+shared headers and the flags, so an edited source is rebuilt and a stale
+build is never loaded. ``ptxas -v`` output (registers, shared memory,
+spills) is kept beside each library as ``<name>.ptxas.txt``.
+
+Triton: kernels are plain functions in their op modules; :func:`triton_jit`
+imports Triton and compiles them at their first launch, so importing the
+port never needs Triton or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_LIBS: Dict[str, ctypes.CDLL] = {}   # loaded libraries, by source stem
+
+
+def _nvcc() -> str:
+    for cand in (os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "nvcc"),
+                 shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.isfile(cand):
+            return cand
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH "
+                       "to build apex_tpu_torch's CUDA kernels")
+
+
+def _target(src: Path) -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in [src] + sorted(CSRC.glob("*.cuh")):
+        h.update(f.read_bytes())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every CUDA source that has no current build; return
+    ``{source stem: library path}``. One ``nvcc`` per source, all started
+    together; raises with the compiler's output if any fails."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out, procs = {}, []
+    for src in sorted(CSRC.glob("*.cu")):
+        lib = out[src.stem] = _target(src)
+        if lib.exists():
+            continue
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        procs.append((src, lib, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for src, lib, tmp, proc in procs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc failed on {src.name}:\n{log}")
+            continue
+        lib.with_suffix(".ptxas.txt").write_text(log)
+        os.replace(tmp, lib)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library built from ``csrc/<name>.cu`` (built if needed)."""
+    if name not in _LIBS:
+        _LIBS[name] = ctypes.CDLL(str(build_all()[name]))
+    return _LIBS[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def stream_ptr(t) -> int:
+    import torch
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def triton_jit(fn):
+    """``triton.jit(fn)``, importing Triton at the first launch.
+
+    The kernel bodies name ``tl``; it is bound in the kernel's module here,
+    since that module cannot import Triton at import time.
+    """
+    import triton
+    import triton.language as tl
+
+    fn.__globals__["tl"] = tl
+    return triton.jit(fn)
+
+
+def check_operands(*tensors, dtypes=None) -> None:
+    """Kernel operands: contiguous tensors on one CUDA device, and (with
+    ``dtypes``) each of one of those dtypes."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"kernel operands must share one CUDA device; "
+                             f"got {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel operands must be contiguous")
+        if dtypes is not None and t.dtype not in dtypes:
+            raise ValueError(f"kernel operand dtype {t.dtype} not in "
+                             f"{dtypes}")

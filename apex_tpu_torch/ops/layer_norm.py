@@ -1,0 +1,272 @@
+"""Fused LayerNorm: Triton forward and backward with a custom autograd.
+
+Port of ``apex_tpu/ops/layer_norm.py``. Kernels replaced:
+
+- ``ln_fwd_kernel`` ← ``_ln_fwd_kernel`` (``_ln_forward``'s pallas_call):
+  per row, centered two-pass mean/var in f32, normalize, optional affine,
+  output in the input dtype.
+- ``ln_bwd_kernel`` ← ``_ln_bwd_kernel`` (``_ln_backward``): recompute the
+  moments from x, dx = rstd·(gw − mean(gw) − x̂·mean(gw·x̂)), and per-program
+  f32 partial dγ/dβ rows summed in a second stage.
+
+What bounds them on an H100: bytes. Both are one read of each row operand
+and one write, with a few flops per byte (the forward moves 2·N·H
+elements, the backward 3·N·H), so they sit far below the card's
+operations-per-byte ridge. Design: one program owns whole rows, so the
+row reductions stay in registers and each element is read once; a masked
+``tl.load`` covers a ragged H; the backward's program walks a run of rows
+and keeps its dγ/dβ partial in registers, written once per program, with
+no cross-program accumulation (Hopper blocks run in no order).
+
+Only x (and the weight) is saved for the backward; the moments are
+recomputed there, as the JAX package does.
+"""
+
+from __future__ import annotations
+
+import numbers
+
+import torch
+import torch.nn as nn
+
+from apex_tpu_torch.ops import _build
+
+tl = None  # triton.language, bound by _build.triton_jit at the first launch
+
+
+# --- Triton kernels -----------------------------------------------------------
+
+def _ln_fwd_triton(X, W, B, Y, H, stride, eps,
+                   AFFINE: "tl.constexpr", BLOCK: "tl.constexpr"):
+    row = tl.program_id(0).to(tl.int64)
+    cols = tl.arange(0, BLOCK)
+    mask = cols < H
+    x = tl.load(X + row * stride + cols, mask=mask, other=0.0).to(tl.float32)
+    mean = tl.sum(x, axis=0) / H
+    xc = tl.where(mask, x - mean, 0.0)
+    var = tl.sum(xc * xc, axis=0) / H
+    y = xc * (1.0 / tl.sqrt(var + eps))
+    if AFFINE:
+        w = tl.load(W + cols, mask=mask, other=0.0).to(tl.float32)
+        b = tl.load(B + cols, mask=mask, other=0.0).to(tl.float32)
+        y = y * w + b
+    tl.store(Y + row * stride + cols, y.to(Y.dtype.element_ty), mask=mask)
+
+
+def _ln_bwd_triton(G, X, W, DX, DW, DB, N, H, stride, eps, rows_per_prog,
+                   AFFINE: "tl.constexpr", BLOCK: "tl.constexpr"):
+    pid = tl.program_id(0)
+    cols = tl.arange(0, BLOCK)
+    mask = cols < H
+    if AFFINE:
+        w = tl.load(W + cols, mask=mask, other=0.0).to(tl.float32)
+    dw = tl.zeros([BLOCK], dtype=tl.float32)
+    db = tl.zeros([BLOCK], dtype=tl.float32)
+    for i in range(0, rows_per_prog):
+        row = (pid * rows_per_prog + i).to(tl.int64)
+        m = mask & (row < N)
+        x = tl.load(X + row * stride + cols, mask=m, other=0.0).to(tl.float32)
+        g = tl.load(G + row * stride + cols, mask=m, other=0.0).to(tl.float32)
+        mean = tl.sum(x, axis=0) / H
+        xc = tl.where(m, x - mean, 0.0)
+        rstd = 1.0 / tl.sqrt(tl.sum(xc * xc, axis=0) / H + eps)
+        xhat = xc * rstd
+        if AFFINE:
+            gw = g * w
+        else:
+            gw = g
+        m1 = tl.sum(gw, axis=0) / H
+        m2 = tl.sum(gw * xhat, axis=0) / H
+        dx = rstd * (gw - m1 - xhat * m2)
+        tl.store(DX + row * stride + cols, dx.to(DX.dtype.element_ty), mask=m)
+        if AFFINE:
+            dw += g * xhat
+            db += g
+    if AFFINE:
+        tl.store(DW + pid * H + cols, dw, mask=mask)
+        tl.store(DB + pid * H + cols, db, mask=mask)
+
+
+_FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _check(x2, *params):
+    """(N, H) float rows; affine params f32-or-16-bit vectors of H."""
+    _build.check_operands(x2, dtypes=_FLOATS)
+    if x2.dim() != 2:
+        raise ValueError(f"expected (N, H) rows, got {tuple(x2.shape)}")
+    for p in params:
+        if p is not None:
+            _build.check_operands(x2, p, dtypes=_FLOATS)
+            if p.shape != (x2.shape[1],):
+                raise ValueError(f"param {tuple(p.shape)} != ({x2.shape[1]},)")
+
+
+def _block(h: int) -> tuple:
+    block = 1 << max(0, (h - 1).bit_length())
+    return block, max(1, min(16, block // 256))
+
+
+def ln_fwd_kernel(x2, weight, bias, eps):
+    """Triton forward on a contiguous (N, H) CUDA tensor."""
+    _check(x2, weight, bias)
+    n, h = x2.shape
+    y = torch.empty_like(x2)
+    block, warps = _block(h)
+    affine = weight is not None
+    _build.triton_jit(_ln_fwd_triton)[(n,)](
+        x2, weight if affine else x2, bias if affine else x2, y, h, h,
+        float(eps), AFFINE=affine, BLOCK=block, num_warps=warps)
+    ln_fwd_kernel.launches += 1
+    return y
+
+
+ln_fwd_kernel.launches = 0
+
+
+def ln_bwd_kernel(g2, x2, weight, eps):
+    """Triton backward: (dx, dγ, dβ) with dγ/dβ in f32 (None if no affine)."""
+    _check(x2, weight)
+    _build.check_operands(g2, x2, dtypes=(x2.dtype,))
+    if g2.shape != x2.shape:
+        raise ValueError(f"grad {tuple(g2.shape)} != input {tuple(x2.shape)}")
+    n, h = x2.shape
+    dx = torch.empty_like(x2)
+    block, warps = _block(h)
+    progs = min(n, 4 * torch.cuda.get_device_properties(
+        x2.device).multi_processor_count)
+    rows = -(-n // progs)
+    progs = -(-n // rows)
+    affine = weight is not None
+    part = (torch.empty((2, progs, h), dtype=torch.float32, device=x2.device)
+            if affine else x2)
+    _build.triton_jit(_ln_bwd_triton)[(progs,)](
+        g2, x2, weight if affine else x2, dx,
+        part[0] if affine else x2, part[1] if affine else x2,
+        n, h, h, float(eps), rows, AFFINE=affine, BLOCK=block,
+        num_warps=warps)
+    ln_bwd_kernel.launches += 1
+    if not affine:
+        return dx, None, None
+    dwdb = part.sum(dim=1)          # stage-2 sum of the per-program partials
+    return dx, dwdb[0], dwdb[1]
+
+
+ln_bwd_kernel.launches = 0
+
+
+# --- plain versions (the kernels' arithmetic, in PyTorch) --------------------
+
+def _moments(x):
+    mean = x.sum(dim=1, keepdim=True) / x.shape[1]
+    var = torch.square(x - mean).sum(dim=1, keepdim=True) / x.shape[1]
+    return mean, var
+
+
+def ln_fwd_plain(x2, weight, bias, eps):
+    x = x2.float()
+    mean, var = _moments(x)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float() + bias.float()
+    return y.to(x2.dtype)
+
+
+def ln_bwd_plain(g2, x2, weight, eps):
+    x, g = x2.float(), g2.float()
+    mean, var = _moments(x)
+    rstd = torch.rsqrt(var + eps)
+    xhat = (x - mean) * rstd
+    gw = g * weight.float() if weight is not None else g
+    h = x.shape[1]
+    m1 = gw.sum(dim=1, keepdim=True) / h
+    m2 = (gw * xhat).sum(dim=1, keepdim=True) / h
+    dx = (rstd * (gw - m1 - xhat * m2)).to(x2.dtype)
+    if weight is None:
+        return dx, None, None
+    return dx, (g * xhat).sum(dim=0), g.sum(dim=0)
+
+
+def _ln_fwd(x2, weight, bias, eps):
+    if x2.is_cuda:
+        return ln_fwd_kernel(x2, weight, bias, eps)
+    return ln_fwd_plain(x2, weight, bias, eps)
+
+
+def _ln_bwd(g2, x2, weight, eps):
+    if x2.is_cuda:
+        return ln_bwd_kernel(g2, x2, weight, eps)
+    return ln_bwd_plain(g2, x2, weight, eps)
+
+
+# --- autograd + public API ---------------------------------------------------
+
+class _LayerNormFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        shape = x.shape
+        x2 = x.reshape(-1, shape[-1]).contiguous()
+        ctx.save_for_backward(x2, weight)
+        ctx.eps = eps
+        return _ln_fwd(x2, weight, bias, eps).reshape(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, weight = ctx.saved_tensors
+        g2 = g.reshape(x2.shape).contiguous()
+        dx, dw, db = _ln_bwd(g2, x2, weight, ctx.eps)
+        dx = dx.reshape(g.shape)
+        if weight is None:
+            return dx, None, None, None
+        return dx, dw.to(weight.dtype), db.to(weight.dtype), None
+
+
+def fused_layer_norm_affine(x, weight, bias, eps=1e-5):
+    """LayerNorm over the last dim with affine params; weight/bias grads
+    come back in the weight's dtype."""
+    return _LayerNormFn.apply(x, weight, bias, eps)
+
+
+def fused_layer_norm(x, eps=1e-5):
+    """Non-affine LayerNorm."""
+    return _LayerNormFn.apply(x, None, None, eps)
+
+
+def layer_norm_reference(x, weight=None, bias=None, eps=1e-5):
+    """Plain-PyTorch oracle (mean/var over the last dim in fp32)."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, keepdim=True, unbiased=False)
+    y = (x32 - mean) * torch.rsqrt(var + eps)
+    if weight is not None:
+        y = y * weight.float() + bias.float()
+    return y.to(x.dtype)
+
+
+class FusedLayerNorm(nn.Module):
+    """Module mirror of ``apex.normalization.FusedLayerNorm``; params are
+    named ``scale`` and ``bias`` as in the JAX package."""
+
+    def __init__(self, normalized_shape, eps=1e-5, elementwise_affine=True,
+                 device="cuda"):
+        super().__init__()
+        if isinstance(normalized_shape, numbers.Integral):
+            normalized_shape = (normalized_shape,)
+        h = 1
+        for d in normalized_shape:
+            h *= int(d)
+        self.normalized_shape = tuple(normalized_shape)
+        self.eps = eps
+        self.elementwise_affine = elementwise_affine
+        if elementwise_affine:
+            self.scale = nn.Parameter(torch.ones(h, device=device))
+            self.bias = nn.Parameter(torch.zeros(h, device=device))
+
+    def forward(self, x):
+        shape = x.shape
+        x = x.reshape(*shape[:x.dim() - len(self.normalized_shape)], -1)
+        if self.elementwise_affine:
+            y = fused_layer_norm_affine(x, self.scale, self.bias, self.eps)
+        else:
+            y = fused_layer_norm(x, self.eps)
+        return y.reshape(shape)

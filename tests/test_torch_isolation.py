@@ -1,0 +1,74 @@
+"""apex_tpu_torch stands alone: no JAX and nothing of apex_tpu.
+
+Importing the port (every module of it) in a fresh interpreter leaves no
+``jax`` and no ``apex_tpu`` module in ``sys.modules``; an AST scan of its
+sources finds no such import; and its entry points ask for ``cuda``
+unless the caller passes a device.
+"""
+
+import ast
+import json
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+PKG = pathlib.Path(__file__).resolve().parents[1] / "apex_tpu_torch"
+
+
+def _modules():
+    for path in sorted(PKG.rglob("*.py")):
+        rel = path.relative_to(PKG.parent).with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        yield path, ".".join(parts)
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "flax", "optax", "apex_tpu")
+
+
+def test_import_leaves_no_jax_or_apex_tpu():
+    names = [m for _, m in _modules()]
+    code = ("import importlib, json, sys\n"
+            f"for m in {names!r}:\n"
+            "    importlib.import_module(m)\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True,
+                         cwd=str(PKG.parent)).stdout
+    loaded = json.loads(out.strip().splitlines()[-1])
+    assert "apex_tpu_torch.train" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+@pytest.mark.parametrize("path", [p for p, _ in _modules()],
+                         ids=[m for _, m in _modules()])
+def test_sources_import_no_jax_or_apex_tpu(path):
+    tree = ast.parse(path.read_text())
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            if node.level == 0 and _forbidden(node.module):
+                bad.append(node.module)
+    assert bad == []
+
+
+def test_entry_points_default_to_cuda(monkeypatch):
+    """Without a device the model and the step ask for cuda, which this
+    check makes unavailable: they raise instead of running on the CPU."""
+    from apex_tpu_torch import models, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.build_bert_step(2, 8)
+    enc = models.BertEncoder(50, hidden=16, layers=1, heads=2, max_len=8,
+                             device="cpu")
+    step, state, (toks, _), _, _ = train.build_bert_step(
+        2, 8, encoder=enc, device="cpu")
+    assert toks.device.type == "cpu"
+    assert all(p.device.type == "cpu" for p in state.params.values())
