@@ -5,10 +5,12 @@ It imports ``torch`` and never ``jax`` nor anything of ``apex_tpu``.
 
 - ``apex_tpu_torch.amp``    — precision policy (O0–O3), functional dynamic
                               loss scaler, ``auto_cast`` and ``Amp``.
-- ``apex_tpu_torch.ops``    — hand-written Hopper kernels (Triton LayerNorm
-                              and softmax cross-entropy, CUDA C++ flash
-                              attention) beside their plain versions.
-- ``apex_tpu_torch.optim``  — ``FusedLAMB`` (tree update).
+- ``apex_tpu_torch.arena``  — the flat per-dtype parameter arena.
+- ``apex_tpu_torch.ops``    — hand-written Hopper kernels (Triton LayerNorm,
+                              softmax cross-entropy, arena L2 norm and
+                              LAMB stages; CUDA C++ flash attention)
+                              beside their plain versions.
+- ``apex_tpu_torch.optim``  — ``FusedLAMB`` (arena and tree updates).
 - ``apex_tpu_torch.models`` — the BERT encoder and its MLM loss.
 - ``apex_tpu_torch.train``  — the BERT MLM training step.
 

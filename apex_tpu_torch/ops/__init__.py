@@ -10,7 +10,13 @@ from apex_tpu_torch.ops.layer_norm import (  # noqa: F401
     FusedLayerNorm, fused_layer_norm, fused_layer_norm_affine,
     layer_norm_reference, ln_bwd_kernel, ln_fwd_kernel,
 )
+from apex_tpu_torch.ops.multi_tensor import (  # noqa: F401
+    l2norm_kernel, multi_tensor_l2norm,
+)
 from apex_tpu_torch.ops.multihead_attn import SelfMultiheadAttn  # noqa: F401
+from apex_tpu_torch.ops.optim_kernels import (  # noqa: F401
+    lamb_stage1, lamb_stage1_kernel, lamb_stage2, lamb_stage2_kernel,
+)
 from apex_tpu_torch.ops.xentropy import (  # noqa: F401
     softmax_cross_entropy_loss, softmax_cross_entropy_reference,
     xentropy_bwd_kernel, xentropy_fwd_kernel,
@@ -24,6 +30,9 @@ KERNELS = {
     "xentropy_bwd": xentropy_bwd_kernel,
     "flash_attn_fwd": flash_fwd_kernel,
     "flash_attn_bwd": flash_bwd_kernel,
+    "multi_tensor_l2norm": l2norm_kernel,
+    "lamb_stage1": lamb_stage1_kernel,
+    "lamb_stage2": lamb_stage2_kernel,
 }
 
 

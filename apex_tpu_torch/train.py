@@ -3,8 +3,11 @@
 Port of ``bench._bert_step_builder``: the same model (BERT-Large unless an
 encoder is given), the same inputs from ``np.random.RandomState(seed)``,
 and the same step through the normal entry points: ``amp.Amp(policy,
-FusedLAMB(lr=1e-3))``, ``Amp.backward``, ``Amp.apply_gradients`` and
-``models.mlm_loss`` under ``amp.auto_cast``.
+FusedLAMB(lr=1e-3, strategy=strategy))``, ``Amp.backward``,
+``Amp.apply_gradients`` and ``models.mlm_loss`` under ``amp.auto_cast``.
+``strategy`` is ``FusedLAMB``'s own option ("auto", the JAX step's
+default, takes the tree update for BERT-Large and the flat arena for a
+model below 8M params; "arena" forces the arena kernels).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from apex_tpu_torch.optim import FusedLAMB
 
 def build_bert_step(batch: int, seq: int, encoder=None, opt_level="O1",
                     half_dtype=torch.bfloat16, device="cuda", seed: int = 0,
-                    vocab: Optional[int] = None):
+                    vocab: Optional[int] = None, strategy: str = "auto"):
     """Returns ``(step, state, (toks, labels), policy, enc)``.
 
     ``step(state, toks, labels) -> (state', loss)`` runs one training step.
@@ -42,7 +45,7 @@ def build_bert_step(batch: int, seq: int, encoder=None, opt_level="O1",
                            dtype=torch.int64, device=device)
     labels = torch.as_tensor(rng.randint(0, vocab, (batch, seq)),
                              dtype=torch.int64, device=device)
-    amp_opt = amp.Amp(policy, FusedLAMB(lr=1e-3))
+    amp_opt = amp.Amp(policy, FusedLAMB(lr=1e-3, strategy=strategy))
     state = amp_opt.init(dict(enc.named_parameters()))
 
     def step(state, toks, labels):

@@ -7,10 +7,15 @@ Builds the port's kernels from this checkout, holds each kernel against its
 plain PyTorch version on the card at the BERT-Large shapes (and a ragged
 shape), times kernel, plain version, a library call (yardstick only) and
 the data-sheet bound, then trains BERT-Large (B16, S512, amp O1 bf16,
-FusedLAMB) for 5 steps through the kernels and checks every kernel
-launched the expected number of times. Then a depth-2 full-width step is
-compared with the same step run through the plain versions, and a short
-fp16 O1 run with dynamic loss scaling takes one forced overflow.
+FusedLAMB) for 5 steps through the kernels with the tree update (the
+"auto" default at this size) and 5 steps with the flat-arena update
+(``strategy="arena"``), checking that every kernel launched the expected
+number of times and that the two runs' losses agree. One LAMB update
+from the same state is then run both ways and compared, timed in turns,
+and its device kernels counted with ``torch.profiler``. Then a depth-2
+full-width step is compared with the same step run through the plain
+versions, and a short fp16 O1 run with dynamic loss scaling takes one
+forced overflow.
 
 Prints one line per phase, the card's name and power limit, a JSON line of
 per-kernel numbers, and as its last line
@@ -29,9 +34,13 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet HBM3 bandwidth
 BF16_FLOPS = 989e12           # dense bf16/fp16 tensor-core peak
+F32_FLOPS = 67e12             # f32 outside the tensor cores
 EXPECTED_PER_STEP = {"layer_norm_fwd": 49, "layer_norm_bwd": 49,
                      "xentropy_fwd": 1, "xentropy_bwd": 1,
                      "flash_attn_fwd": 24, "flash_attn_bwd": 24}
+# launches per step of the arena update's kernels (one f32 partition)
+ARENA_PER_STEP = {"multi_tensor_l2norm": 1, "lamb_stage1": 1,
+                  "lamb_stage2": 1}
 REPLACES = {
     "layer_norm_fwd": "apex_tpu/ops/layer_norm.py:62",
     "layer_norm_bwd": "apex_tpu/ops/layer_norm.py:111",
@@ -39,6 +48,9 @@ REPLACES = {
     "xentropy_bwd": "apex_tpu/ops/xentropy.py:77",
     "flash_attn_fwd": "apex_tpu/ops/attention.py:720",
     "flash_attn_bwd": "apex_tpu/ops/attention.py:1064",
+    "multi_tensor_l2norm": "apex_tpu/ops/multi_tensor.py:91",
+    "lamb_stage1": "apex_tpu/ops/optim_kernels.py:169",
+    "lamb_stage2": "apex_tpu/ops/optim_kernels.py:217",
 }
 SOURCES = {
     "layer_norm_fwd": ("triton", "apex_tpu_torch/ops/layer_norm.py"),
@@ -47,11 +59,22 @@ SOURCES = {
     "xentropy_bwd": ("triton", "apex_tpu_torch/ops/xentropy.py"),
     "flash_attn_fwd": ("cuda", "apex_tpu_torch/csrc/flash_attn_fwd.cu"),
     "flash_attn_bwd": ("cuda", "apex_tpu_torch/csrc/flash_attn_bwd.cu"),
+    "multi_tensor_l2norm": ("triton", "apex_tpu_torch/ops/multi_tensor.py"),
+    "lamb_stage1": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
+    "lamb_stage2": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
 }
 # tolerances: 16-bit outputs within 2% of the plain output's max magnitude
 # (a few bf16 ulps: the kernels sum in another order and round P per tile);
-# f32 outputs within 1e-3 of it (f32 sums in another order)
-TOL16, TOL32 = 2e-2, 1e-3
+# f32 outputs within 1e-3 of it (f32 sums in another order); the arena
+# kernels' f32 outputs within 1e-5 of it (the same elementwise formulas,
+# and one f32 sum in another order for the norm)
+TOL16, TOL32, TOL_ARENA = 2e-2, 1e-3, 1e-5
+# arena against tree update on BERT-Large: p and m within 1e-5 of each
+# tensor's largest magnitude; v within 2e-5, because the kernels take
+# (1 - beta2) in f32 from the f32 beta2, as the JAX package's kernels do,
+# and the tree update from the Python float, as the JAX tree update does
+# (1.3e-5 apart at beta2 = 0.999)
+TOL_UPDATE = {"p": 1e-5, "m": 1e-5, "v": 2e-5}
 
 
 def log(msg):
@@ -78,14 +101,14 @@ def timed(fn, iters=10, flush=None):
     return total / iters
 
 
-def compare(name, outs_k, outs_p):
+def compare(name, outs_k, outs_p, tol32=TOL32):
     """Max abs error over paired outputs; raise past the stated tolerance."""
     import torch
     worst = 0.0
     for i, (k, p) in enumerate(zip(outs_k, outs_p)):
         err = (k.float() - p.float()).abs().max().item()
         ref = p.float().abs().max().item()
-        tol = (TOL32 if p.dtype == torch.float32 else TOL16) * max(ref, 1e-6)
+        tol = (tol32 if p.dtype == torch.float32 else TOL16) * max(ref, 1e-6)
         if not math.isfinite(err) or err > tol:
             raise AssertionError(f"{name} output {i}: max|kernel-plain| "
                                  f"{err:.3e} > tolerance {tol:.3e}")
@@ -99,13 +122,17 @@ def plain_versions():
     op module's kernel wrapper to its plain version (the wrappers counted
     in ``ops.KERNELS`` are not called, so their counts stay put)."""
     from apex_tpu_torch.ops import attention as A, layer_norm as L
+    from apex_tpu_torch.ops import multi_tensor as M, optim_kernels as K
     from apex_tpu_torch.ops import xentropy as X
     swaps = [(L, "ln_fwd_kernel", L.ln_fwd_plain),
              (L, "ln_bwd_kernel", L.ln_bwd_plain),
              (X, "xentropy_fwd_kernel", X.xentropy_fwd_plain),
              (X, "xentropy_bwd_kernel", X.xentropy_bwd_plain),
              (A, "flash_fwd_kernel", A.flash_fwd_plain),
-             (A, "flash_bwd_kernel", A.flash_bwd_plain)]
+             (A, "flash_bwd_kernel", A.flash_bwd_plain),
+             (M, "l2norm_kernel", M.l2norm_plain),
+             (K, "lamb_stage1_kernel", K.lamb_stage1_plain),
+             (K, "lamb_stage2_kernel", K.lamb_stage2_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -141,9 +168,9 @@ def check_kernels(rows):
         torch.cuda.synchronize()
     del warm
 
-    def row(name, err, ms, plain_ms, lib_ms, nbytes, flops):
+    def row(name, err, ms, plain_ms, lib_ms, nbytes, flops, peak=BF16_FLOPS):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / BF16_FLOPS * 1e3
+        t_ops = flops / peak * 1e3
         route, src = SOURCES[name]
         rows[name] = {
             "name": name, "route": route, "source": src,
@@ -280,20 +307,102 @@ def check_kernels(rows):
                                             retain_graph=True), flush=flush)
     row("flash_attn_bwd", bwd_err, ms, plain, lib,
         nbytes=7 * io + 2 * bsz * h * s * 4, flops=10 * bsz * h * s * s * d)
+    check_arena_kernels(rnd, flush, row)
     del sweep
 
 
-def bert_large_steps(rows):
-    """Phase 4: 5 BERT-Large steps (B16, S512, O1 bf16, FusedLAMB)."""
+def check_arena_kernels(rnd, flush, row):
+    """The arena kernels against their plain versions: a ragged arena of
+    an f32 and a bf16 partition (stage 2 with a bf16 copy-out), then
+    BERT-Large's one f32 partition (``buffer_len`` from ``arena.plan``),
+    where they are timed."""
+    import torch
+    from apex_tpu_torch import arena, models
+    from apex_tpu_torch.ops import _arena, multi_tensor as M
+    from apex_tpu_torch.ops import optim_kernels as K
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    s1 = _arena.device_scalars((0.9, 0.999, 1e-6, 0.01, 1 - 0.9 ** 3,
+                                1 - 0.999 ** 3, 0.5, 0.1), dev)
+    s2 = _arena.device_scalars((1e-3,), dev)
+
+    def moments(n):
+        return rnd(n, dtype=f32, std=0.1), rnd(n, dtype=f32, std=0.01).abs()
+
+    # ragged: two partitions, each of the kernels' constexpr variants
+    tree = {"w": rnd(1000, 300, dtype=f32), "e": rnd(513, 129),
+            "b": rnd(77, dtype=f32), "s": rnd(5)}
+    spec = arena.plan(tree)
+    pb = arena.flatten(tree, spec)
+    gb = arena.flatten({k: rnd(*t.shape, dtype=f32) for k, t in tree.items()},
+                       spec, cast=f32)
+    for dt, adam_w, copy in (("float32", True, torch.bfloat16),
+                             ("bfloat16", False, None)):
+        p, g = pb[dt], gb[dt]
+        m, v = moments(p.numel())
+        for x in (p, g):
+            compare(f"multi_tensor_l2norm ragged {dt} {x.dtype}",
+                    [M.l2norm_kernel(x)], [M.l2norm_plain(x)], TOL_ARENA)
+        compare(f"lamb_stage1 ragged {dt} adam_w={adam_w}",
+                K.lamb_stage1_kernel(p, g, m, v, s1, adam_w),
+                K.lamb_stage1_plain(p, g, m, v, s1, adam_w), TOL_ARENA)
+        u = K.lamb_stage1_plain(p, g, m, v, s1, adam_w)[0]
+        r = rnd(p.numel(), dtype=f32).abs()
+        outs = [K.lamb_stage2_kernel(p, u, r, s2, copy),
+                K.lamb_stage2_plain(p, u, r, s2, copy)]
+        if copy is None:
+            outs = [[o] for o in outs]
+        compare(f"lamb_stage2 ragged {dt} copy={copy}", *outs, TOL_ARENA)
+
+    # BERT-Large: one f32 partition of buffer_len elements
+    n = arena.plan(dict(models.BertLarge(device=dev).named_parameters())
+                   ).partition("float32").buffer_len
+    p, g, r = (rnd(n, dtype=f32), rnd(n, dtype=f32, std=3.0),
+               rnd(n, dtype=f32).abs())
+    m, v = moments(n)
+    l2_err = compare("multi_tensor_l2norm BERT-Large", [M.l2norm_kernel(g)],
+                     [M.l2norm_plain(g)], TOL_ARENA)
+    s1_err = compare("lamb_stage1 BERT-Large",
+                     K.lamb_stage1_kernel(p, g, m, v, s1, True),
+                     K.lamb_stage1_plain(p, g, m, v, s1, True), TOL_ARENA)
+    u = K.lamb_stage1_plain(p, g, m, v, s1, True)[0]
+    s2_err = compare("lamb_stage2 BERT-Large",
+                     [K.lamb_stage2_kernel(p, u, r, s2)],
+                     [K.lamb_stage2_plain(p, u, r, s2)], TOL_ARENA)
+    log(f"phase kernels: arena l2norm and LAMB stages agree with the plain "
+        f"versions (BERT-Large buffer of {n} elements, ragged bf16 + f32)")
+    ms = timed(lambda: M.l2norm_kernel(g), flush=flush)
+    plain = timed(lambda: M.l2norm_plain(g), flush=flush)
+    lib = timed(lambda: torch.linalg.vector_norm(g), flush=flush)
+    row("multi_tensor_l2norm", l2_err, ms, plain, lib, nbytes=4 * n,
+        flops=2 * n, peak=F32_FLOPS)
+    ms = timed(lambda: K.lamb_stage1_kernel(p, g, m, v, s1, True),
+               flush=flush)
+    plain = timed(lambda: K.lamb_stage1_plain(p, g, m, v, s1, True),
+                  flush=flush)
+    row("lamb_stage1", s1_err, ms, plain, None, nbytes=28 * n,
+        flops=15 * n, peak=F32_FLOPS)
+    ms = timed(lambda: K.lamb_stage2_kernel(p, u, r, s2), flush=flush)
+    plain = timed(lambda: K.lamb_stage2_plain(p, u, r, s2), flush=flush)
+    row("lamb_stage2", s2_err, ms, plain, None, nbytes=16 * n,
+        flops=3 * n, peak=F32_FLOPS)
+
+
+def train_bert_large(phase, rows, strategy="auto"):
+    """5 BERT-Large steps (B16, S512, O1 bf16) with ``FusedLAMB(lr=1e-3,
+    strategy=strategy)``, built by ``train.build_bert_step``; checks every
+    kernel's launches in those steps. Returns (losses, state, step ms)."""
     import torch
     from apex_tpu_torch import ops, train
-    from apex_tpu_torch.optim import FusedLAMB
 
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    step, state, (toks, labels), _policy, enc = train.build_bert_step(16, 512)
+    step, state, (toks, labels), _policy, enc = train.build_bert_step(
+        16, 512, strategy=strategy)
     n_params = sum(p.numel() for p in enc.parameters())
-    log(f"phase bert_large: built, {n_params} params, "
-        f"{len(state.params)} tensors")
+    log(f"phase {phase}: built, {n_params} params, "
+        f"{len(state.params)} tensors, FusedLAMB strategy {strategy!r}")
     ops.reset_launch_counts()
     times, losses = [], []
     for _ in range(5):
@@ -305,22 +414,36 @@ def bert_large_steps(rows):
         times.append((time.perf_counter() - t0) * 1e3)
     counts = ops.launch_counts()
     for i, (l, t) in enumerate(zip(losses, times)):
-        log(f"bert_large step {i}: loss {l:.6f}  {t:.2f} ms")
+        log(f"{phase} step {i}: loss {l:.6f}  {t:.2f} ms")
         if not math.isfinite(l):
             raise AssertionError(f"step {i} loss is not finite: {l}")
     if int(state.step.item()) != 5:
         raise AssertionError(f"state.step {int(state.step)} != 5")
-    for name, per_step in EXPECTED_PER_STEP.items():
+    arena = strategy == "arena"
+    expected = dict(EXPECTED_PER_STEP, **{
+        k: v if arena else 0 for k, v in ARENA_PER_STEP.items()})
+    for name, per_step in expected.items():
         if counts[name] != 5 * per_step:
             raise AssertionError(f"{name}: {counts[name]} launches in 5 "
                                  f"steps, expected {5 * per_step}")
-        rows[name]["launches"] = counts[name]
+        if per_step:
+            rows[name]["launches"] = counts[name]
     step_ms = sorted(times[1:])[len(times[1:]) // 2]
-    log(f"phase bert_large: launches per step "
+    log(f"phase {phase}: launches per step "
         f"{ {k: v // 5 for k, v in counts.items()} }")
-    log(f"phase bert_large: median step {step_ms:.2f} ms (steps 1-4), "
+    log(f"phase {phase}: median step {step_ms:.2f} ms (steps 1-4), "
         f"{16 / step_ms * 1e3:.2f} seq/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return losses, state, step_ms
+
+
+def bert_large_steps(rows):
+    """Phase 4: 5 BERT-Large steps with the default ("auto": tree) update,
+    then the tree-LAMB update alone."""
+    import torch
+    from apex_tpu_torch.optim import FusedLAMB
+
+    losses, state, step_ms = train_bert_large("bert_large", rows)
 
     # the tree-LAMB update alone, on this run's state
     grads = {k: torch.full_like(p, 1e-3) for k, p in state.params.items()}
@@ -338,13 +461,99 @@ def bert_large_steps(rows):
     return losses
 
 
+def bert_large_arena(rows, tree_losses):
+    """Phase 5: 5 BERT-Large steps with ``strategy="arena"`` from the same
+    seed: one launch per step of each arena kernel, and every loss within
+    1e-3 relative of the tree run's at the same step. Then one update from
+    this run's state, arena against tree."""
+    losses, state, _ = train_bert_large("bert_large_arena", rows, "arena")
+    for i, (a, t) in enumerate(zip(losses, tree_losses)):
+        rel = abs(a - t) / abs(t)
+        if not rel <= 1e-3:
+            raise AssertionError(f"arena step {i} loss {a} vs tree {t}: "
+                                 f"rel {rel:.2e} > 1e-3")
+    log(f"phase bert_large_arena: losses within "
+        f"{max(abs(a - t) / abs(t) for a, t in zip(losses, tree_losses)):.2e}"
+        f" relative of the tree run's (limit 1e-3)")
+    arena_vs_tree_update(state.params, state.opt_state)
+
+
+def arena_vs_tree_update(params, opt_state):
+    """One LAMB update from the same params, grads and state, arena against
+    tree: p, m, v compared per tensor (``TOL_UPDATE``), the two timed alone
+    in turns, and the device kernels of each counted by ``torch.profiler``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from apex_tpu_torch import arena
+    from apex_tpu_torch.optim import FusedLAMB, FusedOptState
+
+    spec = arena.plan(params)
+    dev = next(iter(params.values())).device
+    gen = torch.Generator(dev).manual_seed(1)
+    grads = {k: torch.randn(p.shape, generator=gen, device=dev) * 1e-2
+             for k, p in params.items()}
+    txs = {"arena": FusedLAMB(lr=1e-3, strategy="arena"),
+           "tree": FusedLAMB(lr=1e-3, strategy="tree")}
+    states = {"arena": opt_state, "tree": FusedOptState(
+        count=opt_state.count,
+        slots={s: arena.unflatten(b, spec) for s, b in opt_state.slots.items()})}
+
+    def update(name):
+        return txs[name].step(grads, states[name], params)
+
+    (pa, sa), (pt, st) = update("arena"), update("tree")
+    got = {"p": pa, "m": arena.unflatten(sa.slots["m"], spec),
+           "v": arena.unflatten(sa.slots["v"], spec)}
+    want = {"p": pt, "m": st.slots["m"], "v": st.slots["v"]}
+    worst = {}
+    for key, tol in TOL_UPDATE.items():
+        errs = torch.stack([
+            (got[key][k] - want[key][k]).abs().max()
+            / want[key][k].abs().max().clamp(min=1e-30) for k in params])
+        worst[key] = errs.max().item()
+        if not worst[key] <= tol:
+            raise AssertionError(f"arena vs tree update: {key} differs by "
+                                 f"{worst[key]:.3e} of a tensor's max > {tol}")
+    del pa, sa, pt, st, got, want
+    log(f"phase arena_vs_tree: one update from the same state agrees, "
+        f"worst per-tensor error / max: p {worst['p']:.2e}, "
+        f"m {worst['m']:.2e}, v {worst['v']:.2e}")
+
+    times = {"arena": [], "tree": []}
+    for name in ("arena", "tree", "tree", "arena") * 2:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        update(name)
+        torch.cuda.synchronize()
+        times[name].append((time.perf_counter() - t0) * 1e3)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    log(f"phase arena_vs_tree: update alone, median of 4 in turns: arena "
+        f"{med['arena']:.2f} ms, tree {med['tree']:.2f} ms "
+        f"(arena {sorted(times['arena'])}, tree {sorted(times['tree'])})")
+
+    kernels = {}
+    for name in txs:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            update(name)
+            torch.cuda.synchronize()
+        kernels[name] = sum(1 for e in prof.events() if e.device_type
+                            == torch.autograd.DeviceType.CUDA)
+    seen = kernels["arena"] > 0 and kernels["tree"] > 0
+    log(f"phase arena_vs_tree: device kernels in one update (torch.profiler):"
+        f" arena {kernels['arena']}, tree {kernels['tree']}, "
+        f"{len(params)} tensors"
+        + ("" if seen else " (not measured: the profiler saw no device "
+           "events)"))
+
+
 def depth2_encoder():
     from apex_tpu_torch import models
     return models.BertEncoder(30522, hidden=1024, layers=2, heads=16)
 
 
 def plain_vs_kernel_step():
-    """Phase 5: first-step loss, kernels vs plain versions, depth 2."""
+    """Phase 6: first-step loss, kernels vs plain versions, depth 2."""
     import torch
     from apex_tpu_torch import ops, train
 
@@ -369,7 +578,7 @@ def plain_vs_kernel_step():
 
 
 def fp16_overflow_run():
-    """Phase 6: fp16 O1 + dynamic scaling, one forced overflow, depth 2."""
+    """Phase 7: fp16 O1 + dynamic scaling, one forced overflow, depth 2."""
     import numpy as np
     import torch
     from apex_tpu_torch import amp, models
@@ -443,12 +652,14 @@ def main() -> int:
 
     rows = {}
     check_kernels(rows)
-    bert_large_steps(rows)
+    tree_losses = bert_large_steps(rows)
+    bert_large_arena(rows, tree_losses)
     torch.cuda.empty_cache()
     plain_vs_kernel_step()
     fp16_overflow_run()
 
-    print(json.dumps({"kernels": [rows[n] for n in EXPECTED_PER_STEP]}))
+    print(json.dumps({"kernels": [rows[n] for n in (*EXPECTED_PER_STEP,
+                                                    *ARENA_PER_STEP)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

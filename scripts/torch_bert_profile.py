@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where one BERT-Large training step of apex_tpu_torch spends its time.
 
-    python3 scripts/torch_bert_profile.py [--steps 2] [--out PATH]
+    python3 scripts/torch_bert_profile.py [--steps 2] [--strategy auto]
+                                          [--out PATH]
 
-Builds the port's BERT-Large MLM step (B16, S512, amp O1 bf16, FusedLAMB)
-on one CUDA device, warms it up, then traces ``--steps`` steps with
+Builds the port's BERT-Large MLM step (B16, S512, amp O1 bf16, FusedLAMB
+with the given strategy: "auto" takes the tree update at this size,
+"arena" the flat-arena kernels) on one CUDA device, warms it up, then traces ``--steps`` steps with
 ``torch.profiler`` and prints one JSON object: the step's wall time, the
 device kernel time summed by category (the port's kernels, GEMMs, and the
 rest), the device idle share of the traced window, and the top kernels by
@@ -24,6 +26,8 @@ _CATEGORIES = (
     ("flash_attn", ("flash_fwd", "flash_bwd")),
     ("layer_norm", ("_ln_fwd_triton", "_ln_bwd_triton")),
     ("xentropy", ("_ce_fwd_triton", "_ce_bwd_triton")),
+    ("arena_lamb", ("_l2norm_partials_triton", "_l2norm_finish_triton",
+                    "_lamb_stage1_triton", "_lamb_stage2_triton")),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "cublas")),
 )
 
@@ -39,6 +43,8 @@ def _category(name: str) -> str:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--strategy", default="auto",
+                    choices=("auto", "tree", "arena"))
     ap.add_argument("--out", default=None,
                     help="also write the JSON (and a chrome trace beside it)")
     args = ap.parse_args()
@@ -54,7 +60,8 @@ def main() -> int:
     from apex_tpu_torch import train
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    step, state, (toks, labels), _, _ = train.build_bert_step(16, 512)
+    step, state, (toks, labels), _, _ = train.build_bert_step(
+        16, 512, strategy=args.strategy)
     for _ in range(2):
         state, loss = step(state, toks, labels)
     torch.cuda.synchronize()
@@ -80,7 +87,8 @@ def main() -> int:
                          text=True).stdout.strip()
     out = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
-        "steps": args.steps, "loss": loss.item(),
+        "steps": args.steps, "strategy": args.strategy,
+        "loss": loss.item(),
         "step_ms": wall_ms / args.steps,
         "kernel_ms_per_step": busy_ms / args.steps,
         "device_idle_share": (max(0.0, 1.0 - busy_ms / wall_ms)

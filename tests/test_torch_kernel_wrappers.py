@@ -17,6 +17,8 @@ import chip_smoke
 from apex_tpu_torch import ops
 from apex_tpu_torch.ops import attention as A
 from apex_tpu_torch.ops import layer_norm as L
+from apex_tpu_torch.ops import multi_tensor as M
+from apex_tpu_torch.ops import optim_kernels as K
 from apex_tpu_torch.ops import xentropy as X
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -53,8 +55,10 @@ def test_flash_wrapper_checks_layout_before_device():
 
 def test_chip_smoke_names_every_kernel():
     names = set(ops.KERNELS)
-    for table in (chip_smoke.EXPECTED_PER_STEP, chip_smoke.REPLACES,
-                  chip_smoke.SOURCES):
+    per_step = set(chip_smoke.EXPECTED_PER_STEP)
+    assert per_step | set(chip_smoke.ARENA_PER_STEP) == names
+    assert not per_step & set(chip_smoke.ARENA_PER_STEP)
+    for table in (chip_smoke.REPLACES, chip_smoke.SOURCES):
         assert set(table) == names
     for name, (route, src) in chip_smoke.SOURCES.items():
         assert route in ("cuda", "triton") and (ROOT / src).is_file(), name
@@ -65,7 +69,7 @@ def test_chip_smoke_names_every_kernel():
 
 
 def test_plain_versions_swaps_every_wrapper_and_restores():
-    modules = (A, L, X)
+    modules = (A, L, M, K, X)
     wrappers = {n: fn for n, fn in ops.KERNELS.items()}
 
     def bound():
