@@ -1,9 +1,12 @@
-"""Carry BERT weights and optimizer state from the JAX package to the port.
+"""Carry weights, BN statistics and optimizer state from the JAX package
+to the port.
 
 The flax tree (as nested dicts of numpy arrays) maps name for name onto
 the port's ``state_dict``: path components join with ``.``, a Dense
-``kernel`` (in, out) becomes a ``Linear.weight`` (out, in), and the token
-table ``tok_emb/embedding`` becomes ``tok_emb.weight``. Optimizer slots
+``kernel`` (in, out) becomes a ``Linear.weight`` (out, in), a conv
+``kernel`` (kh, kw, I, O) becomes a conv ``weight`` (O, I, kh, kw) in
+``channels_last`` memory, and the token table ``tok_emb/embedding``
+becomes ``tok_emb.weight``. Optimizer slots
 follow the same map: the JAX package's tree slots are trees like the
 params, and its arena slots are flat buffers in its own layout (leaves in
 ``jax.tree_util``'s sorted-key order), which differs from the port's
@@ -33,19 +36,36 @@ def _flatten(tree, prefix="", sort=False):
 def _port_leaf(name, arr):
     """(port name, array) of one JAX leaf."""
     if name.endswith(".kernel"):
-        return name[:-len("kernel")] + "weight", arr.T
+        # conv (kh, kw, I, O) -> (O, I, kh, kw); Dense (in, out) -> (out, in)
+        arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        return name[:-len("kernel")] + "weight", arr
     if name.endswith(".embedding"):
         return name[:-len("embedding")] + "weight", arr
     return name, arr
 
 
-def bert_params_from_jax(params, device="cuda") -> Dict[str, torch.Tensor]:
-    """``{port name: tensor}`` from a flax BERT ``params`` tree."""
+def _tensor(arr, device):
+    t = torch.tensor(np.ascontiguousarray(arr), device=device)
+    return t.contiguous(memory_format=torch.channels_last) if t.dim() == 4 \
+        else t
+
+
+def params_from_jax(params, device="cuda") -> Dict[str, torch.Tensor]:
+    """``{port name: f32 tensor}`` from a flax ``params`` tree (or any
+    tree shaped like it: grads, optimizer slots)."""
     out = {}
     for name, leaf in _flatten(params):
         name, arr = _port_leaf(name, np.asarray(leaf, dtype=np.float32))
-        out[name] = torch.tensor(arr, device=device)
+        out[name] = _tensor(arr, device)
     return out
+
+
+def resnet_variables_from_jax(params, batch_stats, device="cuda"):
+    """``({port name: param}, {port name: running statistic})`` from a flax
+    ResNet's ``params`` and ``batch_stats`` trees."""
+    stats = {name: torch.tensor(np.asarray(leaf, np.float32), device=device)
+             for name, leaf in _flatten(batch_stats)}
+    return params_from_jax(params, device), stats
 
 
 def fused_state_from_jax(state, params, port_params,
@@ -69,12 +89,12 @@ def fused_state_from_jax(state, params, port_params,
                      for dt, buf in tree.items()}
             named = arena.unflatten(jbufs, jspec)
             mapped = dict(_port_leaf(k, v.numpy()) for k, v in named.items())
-            tensors = {k: torch.tensor(np.asarray(mapped[k], np.float32),
-                                       device=device) for k in order}
+            tensors = {k: _tensor(np.asarray(mapped[k], np.float32), device)
+                       for k in order}
             slots[slot] = arena.flatten(
                 tensors, arena.plan(port_params), cast=torch.float32)
         else:
-            mapped = bert_params_from_jax(tree, device=device)
+            mapped = params_from_jax(tree, device=device)
             slots[slot] = {k: mapped[k] for k in order}
     count = torch.tensor(int(np.asarray(state.count)), dtype=torch.int32,
                          device=device)

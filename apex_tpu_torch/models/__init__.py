@@ -2,3 +2,7 @@ from apex_tpu_torch.models.transformer import (  # noqa: F401
     BertEncoder, BertLarge, Dense, Embed, FusedLayerNormModule,
     MultiheadAttention, TransformerLayer, mlm_loss,
 )
+from apex_tpu_torch.models.resnet import (  # noqa: F401
+    RESNET50_FLOPS_PER_IMAGE, BasicBlock, BottleneckBlock, ResNet, ResNet18,
+    ResNet50, ResNet101,
+)

@@ -9,7 +9,7 @@ to the token embedding.
 Submodule and parameter names follow the flax auto-naming of the JAX
 package (``TransformerLayer_0.MultiheadAttention_0.SelfMultiheadAttn_0.
 qkv_proj.weight``, ...), so :func:`apex_tpu_torch.convert.
-bert_params_from_jax` maps one tree onto the other name for name. Weights
+params_from_jax` maps one tree onto the other name for name. Weights
 are drawn from an explicit ``torch.Generator`` by :meth:`BertEncoder.
 reset_parameters`.
 """
@@ -29,12 +29,18 @@ from apex_tpu_torch.amp.interceptor import module_cast_dtype
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` that computes in the ``auto_cast`` policy's half
-    dtype (a HALF module, like flax's ``nn.Dense`` under the interceptor)
-    and otherwise in the promoted dtype of its input and weight."""
+    """``nn.Linear`` with flax ``nn.Dense``'s compute ``dtype``: it
+    computes in ``dtype`` if given, else in the ``auto_cast`` policy's half
+    dtype (a HALF module, like flax's ``nn.Dense`` under the interceptor),
+    else in the promoted dtype of its input and weight. Params are f32."""
+
+    def __init__(self, in_features, out_features, bias=True, device=None,
+                 dtype=None):
+        super().__init__(in_features, out_features, bias=bias, device=device)
+        self.dtype = dtype
 
     def forward(self, x):
-        dt = module_cast_dtype(self) or torch.promote_types(
+        dt = self.dtype or module_cast_dtype(self) or torch.promote_types(
             x.dtype, self.weight.dtype)
         b = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), b)

@@ -6,6 +6,10 @@ raises. Every kernel wrapper counts its launches in ``.launches``."""
 from apex_tpu_torch.ops.attention import (  # noqa: F401
     attention_reference, flash_attention, flash_bwd_kernel, flash_fwd_kernel,
 )
+from apex_tpu_torch.ops.bn_act import (  # noqa: F401
+    FusedBNAct, bn_act_reference, bn_act_train, bn_add_act_train,
+    bn_dx_kernel, bn_sums_kernel, make_cfg,
+)
 from apex_tpu_torch.ops.layer_norm import (  # noqa: F401
     FusedLayerNorm, fused_layer_norm, fused_layer_norm_affine,
     layer_norm_reference, ln_bwd_kernel, ln_fwd_kernel,
@@ -16,6 +20,7 @@ from apex_tpu_torch.ops.multi_tensor import (  # noqa: F401
 from apex_tpu_torch.ops.multihead_attn import SelfMultiheadAttn  # noqa: F401
 from apex_tpu_torch.ops.optim_kernels import (  # noqa: F401
     lamb_stage1, lamb_stage1_kernel, lamb_stage2, lamb_stage2_kernel,
+    sgd_kernel, sgd_update,
 )
 from apex_tpu_torch.ops.xentropy import (  # noqa: F401
     softmax_cross_entropy_loss, softmax_cross_entropy_reference,
@@ -33,6 +38,9 @@ KERNELS = {
     "multi_tensor_l2norm": l2norm_kernel,
     "lamb_stage1": lamb_stage1_kernel,
     "lamb_stage2": lamb_stage2_kernel,
+    "bn_sums": bn_sums_kernel,
+    "bn_dx": bn_dx_kernel,
+    "sgd": sgd_kernel,
 }
 
 

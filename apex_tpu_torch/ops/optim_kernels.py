@@ -1,22 +1,30 @@
-"""The LAMB update over the flat arena: two Triton kernels.
+"""Optimizer updates over the flat arena: LAMB's two stages and SGD, in
+Triton.
 
-Port of ``apex_tpu/ops/optim_kernels.py``'s LAMB pair. Kernels replaced:
+Port of ``apex_tpu/ops/optim_kernels.py``'s LAMB pair and SGD kernel.
+Kernels replaced:
 
 - ``lamb_stage1_kernel`` ← ``_lamb_stage1_kernel``: the clipped grad's new
   moments m, v and the update direction u = m̂/(√v̂ + eps) (+ wd·p), f32.
 - ``lamb_stage2_kernel`` ← ``_lamb_stage2_kernel``: p −= lr·r·u with the
   trust ratio r given per position, and an optional low-precision copy
   of the new p written in the same pass.
+- ``sgd_kernel`` ← ``_sgd_kernel``: SGD with momentum, dampening,
+  nesterov, weight decay before or after the momentum, the first step's
+  momentum buffer set to the gradient by a runtime flag, and the optional
+  low-precision copy of the new p.
 
 What bounds them on an H100: bytes. Each is one streaming pass with a
 few flops per element and no reuse: stage 1 reads p, g, m, v and writes
 u, m, v (28N bytes for an f32 partition of N elements), stage 2 reads p,
-u, r and writes p (16N). Design: one program per 1024-element block of
-the buffer (whose length is a multiple of 65536, so no block needs a
-mask), offsets in int64, all math in f32 whatever p's dtype, and the
-runtime scalars (betas, eps, wd, bias corrections, clip factor, β3, lr)
-loaded from one f32 device tensor, so that a step count, a global norm or
-a scheduled lr never leaves the device. The algorithm flags (AdamW mode,
+u, r and writes p (16N), SGD reads p, g, m and writes p, m (20N).
+Design: one program per 1024-element block of the buffer (whose length
+is a multiple of 65536, so no block needs a mask), offsets in int64, all
+math in f32 whatever p's dtype, and the runtime scalars (betas, eps, wd,
+bias corrections, clip factor, β3, lr; SGD's lr, momentum, dampening,
+wd, grad scale and first-step flag) loaded from one f32 device tensor, so
+that a step count, a global norm or a scheduled lr never leaves the
+device. The algorithm flags (AdamW mode, nesterov, wd after momentum,
 the copy-out) are ``tl.constexpr``: each combination compiles its own
 kernel, as the JAX package specialises its Pallas kernels. Divisions and
 roots round as IEEE (``div_rn``, ``sqrt_rn``), as the plain versions do.
@@ -76,6 +84,35 @@ def _lamb_stage2_triton(P, U, R, S, PO, CP, HAS_COPY: "tl.constexpr",
         tl.store(CP + offs, p.to(CP.dtype.element_ty))
 
 
+def _sgd_triton(P, G, M, S, PO, MO, CP, NESTEROV: "tl.constexpr",
+                WD_AFTER_MOMENTUM: "tl.constexpr", HAS_COPY: "tl.constexpr",
+                BLOCK: "tl.constexpr"):
+    offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    lr = tl.load(S)
+    momentum = tl.load(S + 1)
+    dampening = tl.load(S + 2)
+    wd = tl.load(S + 3)
+    gscale = tl.load(S + 4)
+    first = tl.load(S + 5)
+    p = tl.load(P + offs).to(tl.float32)
+    g = tl.load(G + offs).to(tl.float32) * gscale
+    m = tl.load(M + offs).to(tl.float32)
+    if not WD_AFTER_MOMENTUM:
+        g = g + wd * p
+    m = tl.where(first > 0.5, g, momentum * m + (1.0 - dampening) * g)
+    if NESTEROV:
+        upd = g + momentum * m
+    else:
+        upd = m
+    if WD_AFTER_MOMENTUM:
+        upd = upd + wd * p
+    p = p - lr * upd
+    tl.store(PO + offs, p.to(PO.dtype.element_ty))
+    tl.store(MO + offs, m.to(MO.dtype.element_ty))
+    if HAS_COPY:
+        tl.store(CP + offs, p.to(CP.dtype.element_ty))
+
+
 def lamb_stage1_kernel(p, g, m, v, scalars, adam_w):
     """Triton stage 1 on flat CUDA buffers; ``scalars`` is the f32 device
     vector (beta1, beta2, eps, wd, bc1, bc2, clip, b3). Returns
@@ -118,6 +155,29 @@ def lamb_stage2_kernel(p, u, ratio, scalars, copy_dtype=None):
 lamb_stage2_kernel.launches = 0
 
 
+def sgd_kernel(p, g, m, scalars, nesterov, wd_after_momentum,
+               copy_dtype=None):
+    """Triton SGD on flat CUDA buffers; ``scalars`` is the f32 device
+    vector (lr, momentum, dampening, wd, grad_scale, first). Returns
+    (p', m') or (p', m', p' in ``copy_dtype``)."""
+    n = _arena.check_buffers(p, g, m, dtypes=_FLOATS)
+    _build.check_operands(p, scalars)
+    if scalars.shape != (6,) or scalars.dtype != torch.float32:
+        raise ValueError("SGD takes 6 f32 scalars")
+    p2, m2 = torch.empty_like(p), torch.empty_like(m)
+    cp = None if copy_dtype is None else torch.empty(n, dtype=copy_dtype,
+                                                     device=p.device)
+    _build.triton_jit(_sgd_triton)[(n // _BLOCK,)](
+        p, g, m, scalars, p2, m2, p2 if cp is None else cp,
+        NESTEROV=bool(nesterov), WD_AFTER_MOMENTUM=bool(wd_after_momentum),
+        HAS_COPY=cp is not None, BLOCK=_BLOCK, num_warps=4)
+    sgd_kernel.launches += 1
+    return (p2, m2) if cp is None else (p2, m2, cp)
+
+
+sgd_kernel.launches = 0
+
+
 # --- plain versions (the kernels' arithmetic, in PyTorch) --------------------
 
 def lamb_stage1_plain(p, g, m, v, scalars, adam_w):
@@ -139,6 +199,23 @@ def lamb_stage2_plain(p, u, ratio, scalars, copy_dtype=None):
     if copy_dtype is None:
         return p32.to(p.dtype)
     return p32.to(p.dtype), p32.to(copy_dtype)
+
+
+def sgd_plain(p, g, m, scalars, nesterov, wd_after_momentum,
+              copy_dtype=None):
+    lr, momentum, dampening, wd, gscale, first = scalars.unbind(0)
+    p32 = p.float()
+    g = g.float() * gscale
+    if not wd_after_momentum:
+        g = g + wd * p32
+    m2 = torch.where(first > 0.5, g,
+                     momentum * m.float() + (1.0 - dampening) * g)
+    upd = g + momentum * m2 if nesterov else m2
+    if wd_after_momentum:
+        upd = upd + wd * p32
+    p32 = p32 - lr * upd
+    out = (p32.to(p.dtype), m2.to(m.dtype))
+    return out if copy_dtype is None else out + (p32.to(copy_dtype),)
 
 
 # --- public functions, with the JAX package's signatures -----------------------
@@ -178,3 +255,20 @@ def lamb_stage2(p, u, ratio_per_pos, *, lr, param_copy_dtype=None):
     scalars = _arena.device_scalars((lr,), p.device)
     stage2 = lamb_stage2_kernel if p.is_cuda else lamb_stage2_plain
     return stage2(p, u, ratio_per_pos, scalars, param_copy_dtype)
+
+
+def sgd_update(p, g, m, *, lr, momentum=0.0, dampening=0.0, weight_decay=0.0,
+               nesterov=False, first_run=False, wd_after_momentum=False,
+               grad_scale=1.0, param_copy_dtype=None):
+    """Fused SGD with momentum over one flat partition. ``first_run``
+    (a bool or a device flag) sets the momentum buffer to the gradient,
+    as PyTorch's SGD does on its first step; ``lr`` and ``first_run`` may
+    be device tensors, which are not read back to the host. Returns
+    (p, m), or (p, m, p_copy) with ``param_copy_dtype``."""
+    _arena.check_length(p, g, m)
+    scalars = _arena.device_scalars(
+        (lr, momentum, dampening, weight_decay, grad_scale, first_run),
+        p.device)
+    sgd = sgd_kernel if p.is_cuda else sgd_plain
+    return sgd(p, g, m, scalars, nesterov, wd_after_momentum,
+               param_copy_dtype)

@@ -1,1 +1,3 @@
-from apex_tpu_torch.optim.fused import FusedLAMB, FusedOptState  # noqa: F401
+from apex_tpu_torch.optim.fused import (  # noqa: F401
+    FusedLAMB, FusedOptState, FusedSGD,
+)

@@ -1,15 +1,17 @@
-"""Fused optimizers over the flat arena: ``FusedLAMB``.
+"""Fused optimizers over the flat arena: ``FusedLAMB`` and ``FusedSGD``.
 
-Port of ``apex_tpu/optim/fused.py``'s ``FusedOptimizer`` base and
+Port of ``apex_tpu/optim/fused.py``'s ``FusedOptimizer`` base,
 ``FusedLAMB`` with its defaults (weight_decay 0.01, max_grad_norm 1.0,
-adam_w_mode, bias_correction). Two strategies compute the same f32 update:
+adam_w_mode, bias_correction) and ``FusedSGD`` (momentum, dampening,
+nesterov, weight decay before or after the momentum). Two strategies
+compute the same f32 update:
 
 - ``"arena"``: params, grads and moments live in flat per-dtype buffers
   (:mod:`apex_tpu_torch.arena`) and one launch of each kernel updates a
-  whole partition: the global grad norm (``multi_tensor_l2norm``), LAMB
+  whole partition: for LAMB the global grad norm (``multi_tensor_l2norm``),
   stage 1, the per-tensor trust ratios (plain PyTorch over static ranges)
-  and stage 2. The number of launches does not grow with the number of
-  tensors.
+  and stage 2; for SGD one ``sgd`` launch. The number of launches does not
+  grow with the number of tensors.
 - ``"tree"``: per-tensor eager PyTorch, a few launches per tensor.
 - ``"auto"`` (default): tree from ``TREE_THRESHOLD`` params up, arena
   below, as in the JAX package.
@@ -230,3 +232,54 @@ class FusedLAMB(FusedOptimizer):
             new_m[k], new_v[k] = m2, v2
         return new_p, FusedOptState(count=count,
                                     slots={"m": new_m, "v": new_v})
+
+
+class FusedSGD(FusedOptimizer):
+    """SGD with momentum (``apex/optimizers/fused_sgd.py``). The first
+    step sets the momentum buffer to the gradient (PyTorch's rule) through
+    ``count == 1``, a device flag that is never read back to the host."""
+
+    slot_names = ("m",)
+
+    def __init__(self, lr=1e-3, momentum=0.0, dampening=0.0,
+                 weight_decay=0.0, nesterov=False, wd_after_momentum=False,
+                 strategy="auto"):
+        super().__init__(lr, strategy)
+        if nesterov and (momentum <= 0 or dampening != 0):
+            raise ValueError(
+                "Nesterov momentum requires a momentum and zero dampening")
+        self.momentum = momentum
+        self.dampening = dampening
+        self.weight_decay = weight_decay
+        self.nesterov = nesterov
+        self.wd_after_momentum = wd_after_momentum
+
+    def _first(self, count):
+        return (count == 1) & (self.momentum > 0)
+
+    def _partition_step(self, spec, dt, p, g, slots, count, lr, ctx):
+        p2, m2 = K.sgd_update(
+            p, g, slots["m"], lr=lr, momentum=self.momentum,
+            dampening=self.dampening, weight_decay=self.weight_decay,
+            nesterov=self.nesterov, first_run=self._first(count),
+            wd_after_momentum=self.wd_after_momentum)
+        return p2, {"m": m2}
+
+    def _tree_step(self, grads, state, params):
+        count = state.count + 1
+        lr = self._resolve_lr(count)
+        first = self._first(count)
+        mom, damp, wd = self.momentum, self.dampening, self.weight_decay
+        new_p, new_m = {}, {}
+        for k, p in params.items():
+            p32 = p.float()
+            g32 = grads[k].float()
+            if not self.wd_after_momentum:
+                g32 = g32 + wd * p32
+            m2 = torch.where(first, g32,
+                             mom * state.slots["m"][k] + (1.0 - damp) * g32)
+            upd = g32 + mom * m2 if self.nesterov else m2
+            if self.wd_after_momentum:
+                upd = upd + wd * p32
+            new_p[k], new_m[k] = (p32 - lr * upd).to(p.dtype), m2
+        return new_p, FusedOptState(count=count, slots={"m": new_m})

@@ -4,18 +4,25 @@
     python3 chip_smoke.py
 
 Builds the port's kernels from this checkout, holds each kernel against its
-plain PyTorch version on the card at the BERT-Large shapes (and a ragged
-shape), times kernel, plain version, a library call (yardstick only) and
-the data-sheet bound, then trains BERT-Large (B16, S512, amp O1 bf16,
-FusedLAMB) for 5 steps through the kernels with the tree update (the
-"auto" default at this size) and 5 steps with the flat-arena update
-(``strategy="arena"``), checking that every kernel launched the expected
-number of times and that the two runs' losses agree. One LAMB update
-from the same state is then run both ways and compared, timed in turns,
-and its device kernels counted with ``torch.profiler``. Then a depth-2
-full-width step is compared with the same step run through the plain
-versions, and a short fp16 O1 run with dynamic loss scaling takes one
-forced overflow.
+plain PyTorch version on the card at the shapes its main path gives it
+(and a ragged shape), times kernel, plain version, a library call
+(yardstick only) and the data-sheet bound. Then:
+
+- BERT-Large (B16, S512, amp O1 bf16, FusedLAMB) trains 5 steps through
+  the kernels with the tree update (the "auto" default at this size) and 5
+  steps with the flat-arena update (``strategy="arena"``), checking every
+  kernel's launches and that the two runs' losses agree. One LAMB update
+  from the same state is run both ways and compared, timed in turns, and
+  its device kernels counted with ``torch.profiler``. A depth-2
+  full-width step is compared with the same step run through the plain
+  versions, and a short fp16 O1 run with dynamic loss scaling takes one
+  forced overflow.
+- ResNet-50 (B256, 224x224, NHWC, amp O2 bf16, FusedSGD(lr=0.1,
+  momentum=0.9)) trains 5 steps with the tree update ("auto") and 5 with
+  the arena, with the same checks and one SGD update compared both ways;
+  then a one-block-per-stage ResNet at full widths compares its first
+  step's gradients and second step's loss through the kernels with the
+  same run through the plain versions.
 
 Prints one line per phase, the card's name and power limit, a JSON line of
 per-kernel numbers, and as its last line
@@ -41,6 +48,10 @@ EXPECTED_PER_STEP = {"layer_norm_fwd": 49, "layer_norm_bwd": 49,
 # launches per step of the arena update's kernels (one f32 partition)
 ARENA_PER_STEP = {"multi_tensor_l2norm": 1, "lamb_stage1": 1,
                   "lamb_stage2": 1}
+# ResNet-50: 53 BN units (33 BN+ReLU, 16 joins, 4 projections)
+RESNET_PER_STEP = {"bn_sums": 53, "bn_dx": 53, "xentropy_fwd": 1,
+                   "xentropy_bwd": 1}
+SGD_PER_STEP = {"sgd": 1}           # the arena SGD, one f32 partition
 REPLACES = {
     "layer_norm_fwd": "apex_tpu/ops/layer_norm.py:62",
     "layer_norm_bwd": "apex_tpu/ops/layer_norm.py:111",
@@ -51,6 +62,9 @@ REPLACES = {
     "multi_tensor_l2norm": "apex_tpu/ops/multi_tensor.py:91",
     "lamb_stage1": "apex_tpu/ops/optim_kernels.py:169",
     "lamb_stage2": "apex_tpu/ops/optim_kernels.py:217",
+    "bn_sums": "apex_tpu/ops/bn_act.py:178",
+    "bn_dx": "apex_tpu/ops/bn_act.py:206",
+    "sgd": "apex_tpu/ops/optim_kernels.py:95",
 }
 SOURCES = {
     "layer_norm_fwd": ("triton", "apex_tpu_torch/ops/layer_norm.py"),
@@ -62,6 +76,9 @@ SOURCES = {
     "multi_tensor_l2norm": ("triton", "apex_tpu_torch/ops/multi_tensor.py"),
     "lamb_stage1": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
     "lamb_stage2": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
+    "bn_sums": ("triton", "apex_tpu_torch/ops/bn_act.py"),
+    "bn_dx": ("triton", "apex_tpu_torch/ops/bn_act.py"),
+    "sgd": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
 }
 # tolerances: 16-bit outputs within 2% of the plain output's max magnitude
 # (a few bf16 ulps: the kernels sum in another order and round P per tile);
@@ -75,6 +92,8 @@ TOL16, TOL32, TOL_ARENA = 2e-2, 1e-3, 1e-5
 # and the tree update from the Python float, as the JAX tree update does
 # (1.3e-5 apart at beta2 = 0.999)
 TOL_UPDATE = {"p": 1e-5, "m": 1e-5, "v": 2e-5}
+# SGD arena against tree: the same f32 formulas elementwise
+TOL_SGD_UPDATE = {"p": 1e-5, "m": 1e-5}
 
 
 def log(msg):
@@ -121,7 +140,8 @@ def plain_versions():
     """Run the model through the plain versions on the card: rebind each
     op module's kernel wrapper to its plain version (the wrappers counted
     in ``ops.KERNELS`` are not called, so their counts stay put)."""
-    from apex_tpu_torch.ops import attention as A, layer_norm as L
+    from apex_tpu_torch.ops import attention as A, bn_act as B
+    from apex_tpu_torch.ops import layer_norm as L
     from apex_tpu_torch.ops import multi_tensor as M, optim_kernels as K
     from apex_tpu_torch.ops import xentropy as X
     swaps = [(L, "ln_fwd_kernel", L.ln_fwd_plain),
@@ -132,7 +152,10 @@ def plain_versions():
              (A, "flash_bwd_kernel", A.flash_bwd_plain),
              (M, "l2norm_kernel", M.l2norm_plain),
              (K, "lamb_stage1_kernel", K.lamb_stage1_plain),
-             (K, "lamb_stage2_kernel", K.lamb_stage2_plain)]
+             (K, "lamb_stage2_kernel", K.lamb_stage2_plain),
+             (B, "bn_sums_kernel", B.bn_sums_plain),
+             (B, "bn_dx_kernel", B.bn_dx_plain),
+             (K, "sgd_kernel", K.sgd_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -261,6 +284,7 @@ def check_kernels(rows):
     row("xentropy_bwd", bwd_err, ms, plain, lib,
         nbytes=2 * n * v * 2 + n * 8 + 2 * n * 4, flops=0)
     del logits, lg, ll
+    check_xentropy_resnet(rnd, gen, flush)
 
     # --- attention: (16, 512, 16, 64) bf16, ragged (2, 200, 4, 64), fp16
     fwd_err = bwd_err = 0.0
@@ -308,7 +332,232 @@ def check_kernels(rows):
     row("flash_attn_bwd", bwd_err, ms, plain, lib,
         nbytes=7 * io + 2 * bsz * h * s * 4, flops=10 * bsz * h * s * s * d)
     check_arena_kernels(rnd, flush, row)
+    check_bn_kernels(rnd, flush, row)
+    check_sgd_kernel(rnd, flush, row)
     del sweep
+
+
+def check_xentropy_resnet(rnd, gen, flush):
+    """The cross-entropy kernels at ResNet-50's (256, 1000) bf16 logits
+    (every label valid, the mean's 1/256 as the incoming gradient): held
+    against the plain versions and timed (a check line; the rows keep the
+    BERT-Large shape)."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import xentropy as X
+
+    n, v = 256, 1000
+    logits = rnd(n, v, std=3.0)
+    labels = torch.randint(0, v, (n,), generator=gen, device=logits.device)
+    gl = torch.full((n,), 1.0 / n, device=logits.device)
+    e1 = compare("xentropy_fwd (256, 1000)",
+                 X.xentropy_fwd_kernel(logits, labels, 0.0),
+                 X.xentropy_fwd_plain(logits, labels, 0.0))
+    _, lse = X.xentropy_fwd_plain(logits, labels, 0.0)
+    e2 = compare("xentropy_bwd (256, 1000)",
+                 [X.xentropy_bwd_kernel(logits, labels, lse, gl, 0.0)],
+                 [X.xentropy_bwd_plain(logits, labels, lse, gl, 0.0)])
+    times = [timed(f, flush=flush) for f in (
+        lambda: X.xentropy_fwd_kernel(logits, labels, 0.0),
+        lambda: X.xentropy_fwd_plain(logits, labels, 0.0),
+        lambda: F.cross_entropy(logits, labels, reduction="none"),
+        lambda: X.xentropy_bwd_kernel(logits, labels, lse, gl, 0.0),
+        lambda: X.xentropy_bwd_plain(logits, labels, lse, gl, 0.0))]
+    lg = logits.detach().requires_grad_(True)
+    ll = F.cross_entropy(lg, labels, reduction="none")
+    times.append(timed(lambda: torch.autograd.grad(
+        ll, lg, gl.to(ll.dtype), retain_graph=True), flush=flush))
+    b_fwd = (n * v * 2 + n * 8 + 2 * n * 4) / HBM_BYTES_PER_S * 1e3
+    b_bwd = (2 * n * v * 2 + n * 8 + 2 * n * 4) / HBM_BYTES_PER_S * 1e3
+    log(f"kernel xentropy at (256, 1000) bf16: fwd max_abs_err {e1:.3e} "
+        f"kernel {times[0]:.4f} ms plain {times[1]:.4f} ms library "
+        f"{times[2]:.4f} ms bound {b_fwd:.4f} ms (bytes); bwd max_abs_err "
+        f"{e2:.3e} kernel {times[3]:.4f} ms plain {times[4]:.4f} ms "
+        f"library {times[5]:.4f} ms bound {b_bwd:.4f} ms (bytes)")
+
+
+def check_bn_kernels(rnd, flush, row):
+    """The BN backward pair against its plain versions: every mode at the
+    ResNet-50 stem (3,211,264 x 64), at a layer-4 unit (12,544 x 2048) and
+    at a ragged (12,345 x 96); "addrelu" at a layer-1 join (802,816 x
+    256). bf16 activations and scale/bias (O2 casts them), f32 statistics
+    of x. The incoming gradient has a per-channel mean and a part along
+    x̂, so k1 and x̂·k2 are as large as g itself: at every shape and mode
+    the check asserts that a dx fed zeroed sums, a negated Σg·x̂ or twice
+    the count lies outside the tolerance.
+
+    Timed at the stem in "plain" mode, against the library calls that
+    compute the same two functions without a ReLU mask:
+    ``torch.batch_norm_backward_reduce`` (Σg, Σg·(x−μ) and dγ, dβ) and
+    ``torch.batch_norm_backward_elemt`` (dx from those sums), on the same
+    channels-last bf16 tensor. "relu" mode and the two-pass autograd
+    backward of ``F.batch_norm(training=True)`` are timed for the log."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import bn_act as B
+
+    bf16 = torch.bfloat16
+    all_modes = ("plain", "relu", "addrelu")
+    errs = {"sums": 0.0, "dx": 0.0}
+    for (m, c), modes in (((3211264, 64), all_modes),
+                          ((802816, 256), ("addrelu",)),
+                          ((12544, 2048), all_modes),
+                          ((12345, 96), all_modes)):
+        x = rnd(m, c, std=2.0) + 0.5
+        z = rnd(m, c).clamp_min(0.0)
+        scale, bias = rnd(c, std=0.3) + 1.0, rnd(c, std=0.3)
+        x32 = x.float()
+        mean = x32.mean(dim=0)
+        invstd = torch.rsqrt(x32.var(dim=0, unbiased=False) + 1e-5)
+        g = ((rnd(m, c, dtype=torch.float32)
+              + rnd(c, dtype=torch.float32, std=0.5)
+              + rnd(c, dtype=torch.float32, std=0.7) * (x32 - mean) * invstd)
+             * 1e-3).to(bf16)
+        del x32
+        for mode in modes:
+            args = (x, g, z, scale, bias, mean, invstd, mode, bf16)
+            ks, kdr = B.bn_sums_kernel(*args)
+            ps, pdr = B.bn_sums_plain(*args)
+            e1 = compare(f"bn_sums {m}x{c} {mode}",
+                         [ks] + ([kdr] if kdr is not None else []),
+                         [ps] + ([pdr] if pdr is not None else []))
+            dx_args = (x, pdr if mode == "addrelu" else g, scale, bias,
+                       mean, invstd, ps, m, mode == "relu", bf16)
+            want = B.bn_dx_plain(*dx_args)
+            e2 = compare(f"bn_dx {m}x{c} {mode}", [B.bn_dx_kernel(*dx_args)],
+                         [want])
+            for fault, sums, count in (
+                    ("zeroed sums", torch.zeros_like(ps), m),
+                    ("negated sum of g*xhat", ps * ps.new_tensor([[1.], [-1.]]),
+                     m),
+                    ("twice the count", ps, 2 * m)):
+                bad = B.bn_dx_kernel(*dx_args[:6], sums, count, *dx_args[8:])
+                try:
+                    compare("", [bad], [want])
+                except AssertionError:
+                    continue
+                raise AssertionError(f"bn_dx {m}x{c} {mode}: a dx with "
+                                     f"{fault} passes the check")
+            if m == 3211264:
+                errs["sums"] = max(errs["sums"], e1)
+                errs["dx"] = max(errs["dx"], e2)
+                stem = (x, g, z, scale, bias, mean, invstd)
+        if m != 3211264:
+            del x, g, z
+    log("phase kernels: bn_sums (3 modes) and bn_dx (2 modes) agree with "
+        "the plain versions at the stem, a layer-1 join, layer 4 and a "
+        "ragged shape; a dx with zeroed sums, a negated sum of g*xhat or "
+        "twice the count fails the check at each")
+
+    (m, c), n = (3211264, 64), 256
+    x, g, z, scale, bias, mean, invstd = stem
+    times, plain_out = {}, None
+    for mode in ("plain", "relu"):
+        args = (x, g, z, scale, bias, mean, invstd, mode, bf16)
+        sums = B.bn_sums_plain(*args)[0]
+        dx_args = (x, g, scale, bias, mean, invstd, sums, m, mode == "relu",
+                   bf16)
+        if mode == "plain":
+            plain_out = (sums, B.bn_dx_plain(*dx_args))
+        times[mode] = [timed(f, flush=flush) for f in (
+            lambda: B.bn_sums_kernel(*args), lambda: B.bn_sums_plain(*args),
+            lambda: B.bn_dx_kernel(*dx_args), lambda: B.bn_dx_plain(*dx_args))]
+    # the library calls, on the NCHW view of the same channels-last rows
+    xl, gl = (t.view(n, 112, 112, c).permute(0, 3, 1, 2) for t in (x, g))
+    w = scale.float()
+    red = torch.batch_norm_backward_reduce(gl, xl, mean, invstd, w,
+                                           True, True, True)
+    counts = torch.tensor([m], dtype=torch.int32, device=x.device)
+    dxl = torch.batch_norm_backward_elemt(gl, xl, mean, invstd, w, red[0],
+                                          red[1], counts)
+    want_s, want_dx = plain_out
+    lib_err = (
+        max((red[0] - want_s[0]).abs().max().item(),
+            (red[1] * invstd - want_s[1]).abs().max().item())
+        / want_s.abs().max().item(),
+        (dxl.permute(0, 2, 3, 1).reshape(m, c).float()
+         - want_dx.float()).abs().max().item())
+    lib_sums = timed(lambda: torch.batch_norm_backward_reduce(
+        gl, xl, mean, invstd, w, True, True, True), flush=flush)
+    lib_dx = timed(lambda: torch.batch_norm_backward_elemt(
+        gl, xl, mean, invstd, w, red[0], red[1], counts), flush=flush)
+    xg = xl.detach().requires_grad_(True)
+    wg = w.detach().requires_grad_(True)
+    bg = bias.float().requires_grad_(True)
+    yl = F.batch_norm(xg, None, None, wg, bg, training=True, eps=1e-5)
+    two_pass = timed(lambda: torch.autograd.grad(yl, (xg, wg, bg), gl,
+                                                 retain_graph=True),
+                     flush=flush)
+    del red, dxl, xg, yl
+    log(f"kernel bn_sums/bn_dx at the stem, 'relu' mode: sums kernel "
+        f"{times['relu'][0]:.4f} ms plain {times['relu'][1]:.4f} ms; dx "
+        f"kernel {times['relu'][2]:.4f} ms plain {times['relu'][3]:.4f} ms; "
+        f"autograd backward of F.batch_norm (both passes, no mask) "
+        f"{two_pass:.4f} ms; the library rows' calls agree with the plain "
+        f"versions to {lib_err[0]:.3e} (sums, of their max) and "
+        f"{lib_err[1]:.3e} (dx, abs)")
+    k = times["plain"]
+    row("bn_sums", errs["sums"], k[0], k[1], lib_sums,
+        nbytes=4 * m * c + 4 * c * 4, flops=5 * m * c, peak=F32_FLOPS)
+    row("bn_dx", errs["dx"], k[2], k[3], lib_dx,
+        nbytes=6 * m * c + 6 * c * 4, flops=6 * m * c, peak=F32_FLOPS)
+
+
+def check_sgd_kernel(rnd, flush, row):
+    """The SGD kernel against its plain version: every flag on a ragged
+    arena of an f32 and a bf16 partition (the f32 one with a bf16
+    copy-out), then ResNet-50's one f32 partition, where it is timed. The
+    library yardstick is ``torch._fused_sgd_`` over ResNet-50's 161
+    tensors."""
+    import torch
+    from apex_tpu_torch import arena, models
+    from apex_tpu_torch.ops import _arena, optim_kernels as K
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    tree = {"w": rnd(1000, 300, dtype=f32), "e": rnd(513, 129),
+            "b": rnd(77, dtype=f32), "s": rnd(5)}
+    spec = arena.plan(tree)
+    pb = arena.flatten(tree, spec)
+    gb = arena.flatten({k: rnd(*t.shape, dtype=f32) for k, t in tree.items()},
+                       spec, cast=f32)
+    for dt, p in pb.items():
+        m = rnd(p.numel(), dtype=f32, std=0.1)
+        copy = torch.bfloat16 if dt == "float32" else None
+        for nesterov in (False, True):
+            for wd_after in (False, True):
+                for first in (0.0, 1.0):
+                    s = _arena.device_scalars((0.1, 0.9, 0.0, 1e-4, 0.5,
+                                               first), dev)
+                    compare(f"sgd ragged {dt} nesterov={nesterov} "
+                            f"wd_after={wd_after} first={first}",
+                            K.sgd_kernel(p, gb[dt], m, s, nesterov, wd_after,
+                                         copy),
+                            K.sgd_plain(p, gb[dt], m, s, nesterov, wd_after,
+                                        copy), TOL_ARENA)
+
+    rspec = arena.plan(dict(models.ResNet50(device="meta").named_parameters()))
+    n = rspec.partition("float32").buffer_len
+    p, g, m = (rnd(n, dtype=f32), rnd(n, dtype=f32, std=1e-2),
+               rnd(n, dtype=f32, std=1e-2))
+    s = _arena.device_scalars((0.1, 0.9, 0.0, 0.0, 1.0, 0.0), dev)
+    err = compare("sgd ResNet-50", K.sgd_kernel(p, g, m, s, False, False),
+                  K.sgd_plain(p, g, m, s, False, False), TOL_ARENA)
+    log(f"phase kernels: sgd agrees with the plain version (ResNet-50 "
+        f"buffer of {n} elements, ragged bf16 + f32, every flag)")
+    ms = timed(lambda: K.sgd_kernel(p, g, m, s, False, False), flush=flush)
+    plain = timed(lambda: K.sgd_plain(p, g, m, s, False, False), flush=flush)
+    lists = [list(arena.unflatten({"float32": t.clone()}, rspec).values())
+             for t in (p, g, m)]
+    try:
+        lib = timed(lambda: torch._fused_sgd_(
+            *lists, weight_decay=0.0, momentum=0.9, lr=0.1, dampening=0.0,
+            nesterov=False, maximize=False, is_first_step=False), flush=flush)
+    except (RuntimeError, TypeError, AttributeError) as e:
+        lib = None
+        log(f"kernel sgd: library null: torch._fused_sgd_ did not run: {e}")
+    row("sgd", err, ms, plain, lib, nbytes=20 * n, flops=6 * n,
+        peak=F32_FLOPS)
 
 
 def check_arena_kernels(rnd, flush, row):
@@ -419,15 +668,9 @@ def train_bert_large(phase, rows, strategy="auto"):
             raise AssertionError(f"step {i} loss is not finite: {l}")
     if int(state.step.item()) != 5:
         raise AssertionError(f"state.step {int(state.step)} != 5")
-    arena = strategy == "arena"
-    expected = dict(EXPECTED_PER_STEP, **{
-        k: v if arena else 0 for k, v in ARENA_PER_STEP.items()})
-    for name, per_step in expected.items():
-        if counts[name] != 5 * per_step:
-            raise AssertionError(f"{name}: {counts[name]} launches in 5 "
-                                 f"steps, expected {5 * per_step}")
-        if per_step:
-            rows[name]["launches"] = counts[name]
+    check_launches(phase, counts, dict(
+        EXPECTED_PER_STEP, **(ARENA_PER_STEP if strategy == "arena" else {})),
+        rows)
     step_ms = sorted(times[1:])[len(times[1:]) // 2]
     log(f"phase {phase}: launches per step "
         f"{ {k: v // 5 for k, v in counts.items()} }")
@@ -435,6 +678,18 @@ def train_bert_large(phase, rows, strategy="auto"):
         f"{16 / step_ms * 1e3:.2f} seq/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return losses, state, step_ms
+
+
+def check_launches(phase, counts, per_step, rows, steps=5):
+    """Every kernel of the package launched ``per_step`` times a step (0
+    for those not named); records the path's counts in ``rows``."""
+    for name, n in counts.items():
+        want = steps * per_step.get(name, 0)
+        if n != want:
+            raise AssertionError(f"{phase}: {name}: {n} launches in {steps} "
+                                 f"steps, expected {want}")
+        if want:
+            rows[name]["launches"] = n
 
 
 def bert_large_steps(rows):
@@ -475,25 +730,27 @@ def bert_large_arena(rows, tree_losses):
     log(f"phase bert_large_arena: losses within "
         f"{max(abs(a - t) / abs(t) for a, t in zip(losses, tree_losses)):.2e}"
         f" relative of the tree run's (limit 1e-3)")
-    arena_vs_tree_update(state.params, state.opt_state)
+    from apex_tpu_torch.optim import FusedLAMB
+    arena_vs_tree_update(state.params, state.opt_state,
+                         lambda s: FusedLAMB(lr=1e-3, strategy=s), TOL_UPDATE)
 
 
-def arena_vs_tree_update(params, opt_state):
-    """One LAMB update from the same params, grads and state, arena against
-    tree: p, m, v compared per tensor (``TOL_UPDATE``), the two timed alone
-    in turns, and the device kernels of each counted by ``torch.profiler``."""
+def arena_vs_tree_update(params, opt_state, make_tx, tols):
+    """One update from the same params, grads and state, arena against
+    tree: p and each slot compared per tensor (``tols``), the two timed
+    alone in turns, and the device kernels of each counted by
+    ``torch.profiler``. ``make_tx(strategy)`` builds the optimizer."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from apex_tpu_torch import arena
-    from apex_tpu_torch.optim import FusedLAMB, FusedOptState
+    from apex_tpu_torch.optim import FusedOptState
 
     spec = arena.plan(params)
     dev = next(iter(params.values())).device
     gen = torch.Generator(dev).manual_seed(1)
     grads = {k: torch.randn(p.shape, generator=gen, device=dev) * 1e-2
              for k, p in params.items()}
-    txs = {"arena": FusedLAMB(lr=1e-3, strategy="arena"),
-           "tree": FusedLAMB(lr=1e-3, strategy="tree")}
+    txs = {"arena": make_tx("arena"), "tree": make_tx("tree")}
     states = {"arena": opt_state, "tree": FusedOptState(
         count=opt_state.count,
         slots={s: arena.unflatten(b, spec) for s, b in opt_state.slots.items()})}
@@ -502,11 +759,11 @@ def arena_vs_tree_update(params, opt_state):
         return txs[name].step(grads, states[name], params)
 
     (pa, sa), (pt, st) = update("arena"), update("tree")
-    got = {"p": pa, "m": arena.unflatten(sa.slots["m"], spec),
-           "v": arena.unflatten(sa.slots["v"], spec)}
-    want = {"p": pt, "m": st.slots["m"], "v": st.slots["v"]}
+    got = {"p": pa, **{k: arena.unflatten(b, spec)
+                       for k, b in sa.slots.items()}}
+    want = {"p": pt, **st.slots}
     worst = {}
-    for key, tol in TOL_UPDATE.items():
+    for key, tol in tols.items():
         errs = torch.stack([
             (got[key][k] - want[key][k]).abs().max()
             / want[key][k].abs().max().clamp(min=1e-30) for k in params])
@@ -515,9 +772,9 @@ def arena_vs_tree_update(params, opt_state):
             raise AssertionError(f"arena vs tree update: {key} differs by "
                                  f"{worst[key]:.3e} of a tensor's max > {tol}")
     del pa, sa, pt, st, got, want
-    log(f"phase arena_vs_tree: one update from the same state agrees, "
-        f"worst per-tensor error / max: p {worst['p']:.2e}, "
-        f"m {worst['m']:.2e}, v {worst['v']:.2e}")
+    log(f"phase arena_vs_tree: one {type(txs['tree']).__name__} update from "
+        f"the same state agrees, worst per-tensor error / max: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
 
     times = {"arena": [], "tree": []}
     for name in ("arena", "tree", "tree", "arena") * 2:
@@ -545,6 +802,133 @@ def arena_vs_tree_update(params, opt_state):
         f"{len(params)} tensors"
         + ("" if seen else " (not measured: the profiler saw no device "
            "events)"))
+
+
+def train_resnet50(phase, rows, strategy="auto"):
+    """5 ResNet-50 steps (B256, 224x224, O2 bf16) with ``FusedSGD(lr=0.1,
+    momentum=0.9, strategy=strategy)``, built by
+    ``train.build_resnet_step``; checks every kernel's launches in those
+    steps, the step count and the running statistics. Returns (losses,
+    state, step ms)."""
+    import torch
+    from apex_tpu_torch import ops, train
+    from apex_tpu_torch.ops import bn_act
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, (state, bstats), (x, y), _policy, model = train.build_resnet_step(
+        256, 224, strategy=strategy)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase {phase}: built, {n_params} params, {len(state.params)} "
+        f"tensors, input {tuple(x.shape)} {x.dtype}, FusedSGD strategy "
+        f"{strategy!r}")
+    ops.reset_launch_counts()
+    copies = bn_act.layout_copies
+    times, losses = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, bstats, loss = step(state, bstats, x, y)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = ops.launch_counts()
+    copies = bn_act.layout_copies - copies
+    for i, (l, t) in enumerate(zip(losses, times)):
+        log(f"{phase} step {i}: loss {l:.6f}  {t:.2f} ms")
+        if not math.isfinite(l):
+            raise AssertionError(f"step {i} loss is not finite: {l}")
+    if int(state.step.item()) != 5:
+        raise AssertionError(f"state.step {int(state.step)} != 5")
+    if not torch.stack([torch.isfinite(v).all()
+                        for v in bstats.values()]).all().item():
+        raise AssertionError("a running statistic is not finite")
+    check_launches(phase, counts, dict(
+        RESNET_PER_STEP, **(SGD_PER_STEP if strategy == "arena" else {})),
+        rows)
+    step_ms = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"phase {phase}: launches per step "
+        f"{ {k: v // 5 for k, v in counts.items() if v} }, gradients "
+        f"copied into the BN row layout per step {copies / 5:g}")
+    log(f"phase {phase}: median step {step_ms:.2f} ms (steps 1-4), "
+        f"{256 / step_ms * 1e3:.2f} img/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return losses, state, step_ms
+
+
+def resnet50_arena(rows, tree_losses):
+    """5 ResNet-50 steps with ``strategy="arena"`` from the same seed: one
+    ``sgd`` launch a step, every loss within 1e-3 relative of the tree
+    run's. Then one SGD update from this run's state, arena against tree."""
+    from apex_tpu_torch.optim import FusedSGD
+
+    losses, state, _ = train_resnet50("resnet50_arena", rows, "arena")
+    rel = [abs(a - t) / max(abs(t), 1e-30)
+           for a, t in zip(losses, tree_losses)]
+    if not max(rel) <= 1e-3:
+        raise AssertionError(f"arena losses {losses} vs tree {tree_losses}: "
+                             f"rel {max(rel):.2e} > 1e-3")
+    log(f"phase resnet50_arena: losses within {max(rel):.2e} relative of "
+        f"the tree run's (limit 1e-3)")
+    arena_vs_tree_update(
+        state.params, state.opt_state,
+        lambda s: FusedSGD(lr=0.1, momentum=0.9, strategy=s), TOL_SGD_UPDATE)
+
+
+def resnet_plain_vs_kernel():
+    """One block per stage at full widths (B256, 224x224, O2 bf16): the
+    first step's gradients (per tensor, within 2e-2 of the tensor's max:
+    bf16 activations, and ReLU-threshold ties may flip a mask bit where
+    the sums differ in order) and the second step's loss (within 5e-3
+    relative) through the kernels and through the plain versions."""
+    import torch
+    from torch.func import functional_call
+    from apex_tpu_torch import amp, models, ops, train
+    from apex_tpu_torch.optim import FusedSGD
+
+    grads, losses = {}, {}
+    for mode in ("kernel", "plain"):
+        model = models.ResNet(stage_sizes=[1, 1, 1, 1], dtype=torch.bfloat16)
+        step, (state, bs), (x, y), policy, _ = train.build_resnet_step(
+            256, 224, model=model)
+        amp_opt = amp.Amp(policy, FusedSGD(lr=0.1, momentum=0.9))
+
+        def loss_fn(mp):
+            logits, new = functional_call(model, {**mp, **bs}, (x,),
+                                          {"train": True})
+            return torch.mean(ops.softmax_cross_entropy_loss(logits, y)), new
+
+        ops.reset_launch_counts()
+        with (plain_versions() if mode == "plain"
+              else contextlib.nullcontext()):
+            _, grads[mode], _, _ = amp_opt.backward(state, loss_fn,
+                                                    has_aux=True)
+            for _ in range(2):
+                state, bs, loss = step(state, bs, x, y)
+        losses[mode] = loss.item()
+        counts = ops.launch_counts()
+        bn = (counts["bn_sums"], counts["bn_dx"])
+        if mode == "kernel" and bn != (51, 51):
+            raise AssertionError(f"kernel run: BN launches {bn}, expected "
+                                 f"51 each (17 units, 3 backward passes)")
+        if mode == "plain" and sum(counts.values()):
+            raise AssertionError(f"plain run launched kernels: {counts}")
+        del step, state, bs, model, amp_opt
+        torch.cuda.empty_cache()
+    errs = {k: ((grads["kernel"][k] - g).abs().max()
+                / g.abs().max().clamp(min=1e-30)).item()
+            for k, g in grads["plain"].items()}
+    worst = max(errs, key=errs.get)
+    rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+    log(f"phase resnet_plain_vs_kernel: first-step grads of {len(errs)} "
+        f"tensors, worst {errs[worst]:.2e} of the tensor's max ({worst}); "
+        f"second-step loss kernel {losses['kernel']:.6f} plain "
+        f"{losses['plain']:.6f} rel {rel:.2e}")
+    if not errs[worst] <= 2e-2:
+        raise AssertionError(f"kernel/plain grads of {worst} differ by "
+                             f"{errs[worst]:.2e} of its max > 2e-2")
+    if not rel <= 5e-3:
+        raise AssertionError(f"kernel/plain loss differ by {rel:.2e} > 5e-3")
 
 
 def depth2_encoder():
@@ -657,9 +1041,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     plain_vs_kernel_step()
     fp16_overflow_run()
+    torch.cuda.empty_cache()
+    resnet_losses = train_resnet50("resnet50", rows)[0]
+    resnet50_arena(rows, resnet_losses)
+    torch.cuda.empty_cache()
+    resnet_plain_vs_kernel()
 
-    print(json.dumps({"kernels": [rows[n] for n in (*EXPECTED_PER_STEP,
-                                                    *ARENA_PER_STEP)]}))
+    from apex_tpu_torch import ops
+    print(json.dumps({"kernels": [rows[n] for n in ops.KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -159,6 +159,17 @@ def test_auto_cast_casts_half_modules_only():
     assert tamp.current_policy().enabled is False
 
 
+def test_dense_explicit_dtype_wins_over_auto_cast():
+    from apex_tpu_torch import models
+
+    dense = models.Dense(8, 4, device="cpu", dtype=torch.float16)
+    assert dense.weight.dtype == torch.float32
+    x = torch.randn(2, 8)
+    assert dense(x).dtype == torch.float16
+    with tamp.auto_cast(tamp.Policy.from_opt_level("O1")):
+        assert dense(x).dtype == torch.float16
+
+
 def test_unported_hooks_raise():
     from apex_tpu_torch.optim import FusedLAMB
 

@@ -72,14 +72,14 @@ def test_dropout_is_not_ported():
 def test_self_multihead_attn_matches_jax():
     """Packed-QKV module with weights carried over from flax."""
     from apex_tpu.ops.multihead_attn import SelfMultiheadAttn as JM
-    from apex_tpu_torch.convert import bert_params_from_jax
+    from apex_tpu_torch.convert import params_from_jax
 
     x = np.random.RandomState(3).randn(2, 32, 128).astype(np.float32)
     jm = JM(128, 2)
     params = jm.init(jax.random.PRNGKey(0), jnp.asarray(x))["params"]
     jy = jm.apply({"params": params}, jnp.asarray(x))
     tm = TM.SelfMultiheadAttn(128, 2, device="cpu")
-    tm.load_state_dict(bert_params_from_jax(params, device="cpu"))
+    tm.load_state_dict(params_from_jax(params, device="cpu"))
     ty = tm(torch.tensor(x))
     np.testing.assert_allclose(ty.detach().numpy(), np.asarray(jy),
                                atol=2e-5, rtol=0)

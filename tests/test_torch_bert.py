@@ -2,7 +2,7 @@
 
 A structural BERT (vocab 1000, hidden 128, 2 layers, 2 heads, seq 64,
 batch 2) is built by flax, and its weights are carried to the port by
-``bert_params_from_jax``; inputs come from the same
+``params_from_jax``; inputs come from the same
 ``np.random.RandomState(0)`` draws on both sides. The JAX side runs its
 Pallas kernels in interpret mode; the port runs its plain versions.
 
@@ -27,7 +27,7 @@ from apex_tpu.optim import FusedLAMB as JLAMB
 from apex_tpu_torch import amp as tamp
 from apex_tpu_torch import models as tmodels
 from apex_tpu_torch import train
-from apex_tpu_torch.convert import bert_params_from_jax
+from apex_tpu_torch.convert import params_from_jax
 from apex_tpu_torch.optim import FusedLAMB as TLAMB
 
 VOCAB, HIDDEN, LAYERS, HEADS, SEQ, BATCH = 1000, 128, 2, 2, 64, 2
@@ -40,7 +40,7 @@ def _encoders():
     params = jenc.init(jax.random.PRNGKey(0), toks)["params"]
     tenc = tmodels.BertEncoder(VOCAB, hidden=HIDDEN, layers=LAYERS,
                                heads=HEADS, max_len=SEQ, device="cpu")
-    tenc.load_state_dict(bert_params_from_jax(params, device="cpu"))
+    tenc.load_state_dict(params_from_jax(params, device="cpu"))
     return jenc, params, tenc
 
 
@@ -52,7 +52,7 @@ def _batch():
 
 def test_param_names_map_one_to_one():
     _, params, tenc = _encoders()
-    carried = bert_params_from_jax(params, device="cpu")
+    carried = params_from_jax(params, device="cpu")
     assert set(carried) == {n for n, _ in tenc.named_parameters()}
     n_jax = sum(int(np.prod(x.shape))
                 for x in jax.tree_util.tree_leaves(params))
@@ -76,7 +76,7 @@ def test_o0_loss_and_grads_match():
     assert finite is True
     np.testing.assert_allclose(tloss.item(), float(jloss), rtol=1e-4,
                                atol=1e-4)
-    want = bert_params_from_jax(jgrads, device="cpu")
+    want = params_from_jax(jgrads, device="cpu")
     assert set(want) == set(tgrads)
     for name, g in want.items():
         assert tgrads[name].dtype == torch.float32
@@ -88,7 +88,7 @@ def test_o1_bf16_three_steps_track_jax():
     jenc, _, tenc = _encoders()
     jstep, jstate, (jtoks, jlab), _, _, jvars = bench._bert_step_builder(
         BATCH, SEQ, encoder=jenc, vocab=VOCAB)
-    tenc.load_state_dict(bert_params_from_jax(jvars["params"], device="cpu"))
+    tenc.load_state_dict(params_from_jax(jvars["params"], device="cpu"))
     tstep, tstate, (ttoks, tlab), policy, _ = train.build_bert_step(
         BATCH, SEQ, encoder=tenc, device="cpu", vocab=VOCAB)
     np.testing.assert_array_equal(ttoks.numpy(), np.asarray(jtoks))

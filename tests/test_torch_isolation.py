@@ -2,8 +2,9 @@
 
 Importing the port (every module of it) in a fresh interpreter leaves no
 ``jax`` and no ``apex_tpu`` module in ``sys.modules``; an AST scan of its
-sources finds no such import; and its entry points ask for ``cuda``
-unless the caller passes a device.
+sources, of ``chip_smoke.py`` and of its scripts (``scripts/torch_*.py``)
+finds no such import; and its entry points ask for ``cuda`` unless the
+caller passes a device.
 """
 
 import ast
@@ -15,7 +16,8 @@ import sys
 import pytest
 import torch
 
-PKG = pathlib.Path(__file__).resolve().parents[1] / "apex_tpu_torch"
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = ROOT / "apex_tpu_torch"
 
 
 def _modules():
@@ -44,8 +46,15 @@ def test_import_leaves_no_jax_or_apex_tpu():
     assert [m for m in loaded if _forbidden(m)] == []
 
 
-@pytest.mark.parametrize("path", [p for p, _ in _modules()],
-                         ids=[m for _, m in _modules()])
+def _sources():
+    yield from _modules()
+    for path in [ROOT / "chip_smoke.py",
+                 *sorted((ROOT / "scripts").glob("torch_*.py"))]:
+        yield path, str(path.relative_to(ROOT))
+
+
+@pytest.mark.parametrize("path", [p for p, _ in _sources()],
+                         ids=[m for _, m in _sources()])
 def test_sources_import_no_jax_or_apex_tpu(path):
     tree = ast.parse(path.read_text())
     bad = []
@@ -72,3 +81,19 @@ def test_entry_points_default_to_cuda(monkeypatch):
         2, 8, encoder=enc, device="cpu")
     assert toks.device.type == "cpu"
     assert all(p.device.type == "cpu" for p in state.params.values())
+
+
+def test_resnet_entry_points_default_to_cuda(monkeypatch):
+    from apex_tpu_torch import models, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.build_resnet_step(2, 16)
+    model = models.ResNet(stage_sizes=[1], num_classes=4, width=4,
+                          dtype=torch.bfloat16, device="cpu")
+    step, (state, bstats), (x, y), _, _ = train.build_resnet_step(
+        2, 16, model=model, device="cpu")
+    assert x.device.type == "cpu" and x.dtype == torch.bfloat16
+    state, bstats, loss = step(state, bstats, x, y)
+    assert int(state.step) == 1 and torch.isfinite(loss)
+    assert all(t.device.type == "cpu" for t in bstats.values())

@@ -16,6 +16,7 @@ import torch
 import chip_smoke
 from apex_tpu_torch import ops
 from apex_tpu_torch.ops import attention as A
+from apex_tpu_torch.ops import bn_act as B
 from apex_tpu_torch.ops import layer_norm as L
 from apex_tpu_torch.ops import multi_tensor as M
 from apex_tpu_torch.ops import optim_kernels as K
@@ -36,7 +37,12 @@ ROOT = Path(__file__).resolve().parents[1]
                                   torch.zeros(4), torch.ones(4), 0.0),
     lambda: A.flash_fwd_kernel(*(torch.ones(1, 8, 2, 64,
                                             dtype=torch.bfloat16),) * 3, 0.125),
-], ids=["ln_fwd", "ln_bwd", "xent_fwd", "xent_bwd", "flash_fwd"])
+    lambda: B.bn_sums_kernel(*(torch.ones(16, 8),) * 3,
+                             *(torch.ones(8),) * 4, "addrelu"),
+    lambda: B.bn_dx_kernel(*(torch.ones(16, 8),) * 2, *(torch.ones(8),) * 4,
+                           torch.ones(2, 8), 16.0, True, torch.float32),
+], ids=["ln_fwd", "ln_bwd", "xent_fwd", "xent_bwd", "flash_fwd", "bn_sums",
+        "bn_dx"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     before = ops.launch_counts()
     with pytest.raises(ValueError):
@@ -56,8 +62,11 @@ def test_flash_wrapper_checks_layout_before_device():
 def test_chip_smoke_names_every_kernel():
     names = set(ops.KERNELS)
     per_step = set(chip_smoke.EXPECTED_PER_STEP)
-    assert per_step | set(chip_smoke.ARENA_PER_STEP) == names
+    assert per_step | set(chip_smoke.ARENA_PER_STEP) \
+        | set(chip_smoke.RESNET_PER_STEP) | set(chip_smoke.SGD_PER_STEP) \
+        == names
     assert not per_step & set(chip_smoke.ARENA_PER_STEP)
+    assert not set(chip_smoke.RESNET_PER_STEP) & set(chip_smoke.SGD_PER_STEP)
     for table in (chip_smoke.REPLACES, chip_smoke.SOURCES):
         assert set(table) == names
     for name, (route, src) in chip_smoke.SOURCES.items():
@@ -69,7 +78,7 @@ def test_chip_smoke_names_every_kernel():
 
 
 def test_plain_versions_swaps_every_wrapper_and_restores():
-    modules = (A, L, M, K, X)
+    modules = (A, B, L, M, K, X)
     wrappers = {n: fn for n, fn in ops.KERNELS.items()}
 
     def bound():

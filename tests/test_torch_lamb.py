@@ -20,7 +20,7 @@ from apex_tpu import arena as JA
 from apex_tpu import models as jmodels
 from apex_tpu.optim import FusedLAMB as JLAMB
 from apex_tpu_torch import arena as TA
-from apex_tpu_torch.convert import bert_params_from_jax, fused_state_from_jax
+from apex_tpu_torch.convert import params_from_jax, fused_state_from_jax
 from apex_tpu_torch.optim import FusedLAMB as TLAMB
 
 _SHAPES = {"w1": (16, 8), "b1": (8,), "w2": (8, 5), "scale": (5,),
@@ -189,15 +189,15 @@ def test_state_carried_from_jax_continues_the_run(strategy):
     jp, js = params, jopt.init(params)
     for _ in range(2):
         jp, js = jopt.step(grads(), js, jp)
-    tp = _port_order(bert_params_from_jax(jax.device_get(jp), device="cpu"))
+    tp = _port_order(params_from_jax(jax.device_get(jp), device="cpu"))
     ts = fused_state_from_jax(jax.device_get(js), jax.device_get(jp), tp,
                               device="cpu")
     assert int(ts.count) == 2
     g = grads()
     jp, js = jopt.step(g, js, jp)
-    tg = bert_params_from_jax(jax.device_get(g), device="cpu")
+    tg = params_from_jax(jax.device_get(g), device="cpu")
     tp, ts = TLAMB(lr=1e-2, strategy=strategy).step(tg, ts, tp)
-    want_p = bert_params_from_jax(jax.device_get(jp), device="cpu")
+    want_p = params_from_jax(jax.device_get(jp), device="cpu")
     want = fused_state_from_jax(jax.device_get(js), jax.device_get(jp), tp,
                                 device="cpu")
     assert int(ts.count) == int(want.count) == 3

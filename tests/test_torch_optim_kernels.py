@@ -113,3 +113,59 @@ def test_arena_kernel_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError):
         call(torch.ones(N), lambda k: torch.ones(k))
     assert ops.launch_counts() == before
+
+
+def _sgd_buffers(seed):
+    rng = np.random.RandomState(seed)
+    return (rng.randn(N).astype(np.float32),
+            (rng.randn(N) * 3.0).astype(np.float32),
+            (rng.randn(N) * 0.1).astype(np.float32))
+
+
+@pytest.mark.parametrize("first_run", [False, True])
+@pytest.mark.parametrize("wd_after_momentum", [False, True])
+@pytest.mark.parametrize("nesterov", [False, True])
+def test_sgd_update_matches_jax(nesterov, wd_after_momentum, first_run):
+    p, g, m = _sgd_buffers(5)
+    kw = dict(lr=0.1, momentum=0.9, dampening=0.0, weight_decay=1e-4,
+              nesterov=nesterov, first_run=first_run,
+              wd_after_momentum=wd_after_momentum, grad_scale=0.5)
+    want = JK.sgd_update(*(jnp.asarray(x) for x in (p, g, m)), **kw)
+    got = TK.sgd_update(*(torch.tensor(x) for x in (p, g, m)), **kw)
+    assert [t.dtype for t in got] == [torch.float32] * 2
+    for a, b in zip(got, want):
+        _close(a, b)
+
+
+def test_sgd_update_device_flags_dampening_and_bf16_copy():
+    """lr and the first-step flag as 0-d tensors (as FusedSGD passes them
+    from the device), dampening, and a bf16 copy of the new params within
+    one bf16 ulp."""
+    p, g, m = _sgd_buffers(6)
+    kw = dict(momentum=0.8, dampening=0.25, weight_decay=0.0)
+    want = JK.sgd_update(*(jnp.asarray(x) for x in (p, g, m)), lr=0.05,
+                         first_run=jnp.bool_(False),
+                         param_copy_dtype=jnp.bfloat16, **kw)
+    got = TK.sgd_update(*(torch.tensor(x) for x in (p, g, m)),
+                        lr=torch.tensor(0.05), first_run=torch.tensor(False),
+                        param_copy_dtype=torch.bfloat16, **kw)
+    _close(got[0], want[0])
+    _close(got[1], want[1])
+    assert got[2].dtype == torch.bfloat16
+    want_c = np.asarray(jnp.asarray(want[2], jnp.float32))
+    diff = np.abs(got[2].float().numpy() - want_c)
+    assert np.all(diff <= np.abs(want_c) * 2.0 ** -7)
+
+
+def test_sgd_refuses_unpadded_buffers():
+    x = torch.ones(N + 1024)
+    with pytest.raises(ValueError, match="BUFFER_MULTIPLE"):
+        TK.sgd_update(x, x, x, lr=0.1, momentum=0.9)
+
+
+def test_sgd_kernel_refuses_cpu_tensors():
+    before = ops.launch_counts()
+    with pytest.raises(ValueError):
+        TK.sgd_kernel(torch.ones(N), torch.ones(N), torch.ones(N),
+                      torch.ones(6), False, False)
+    assert ops.launch_counts() == before
