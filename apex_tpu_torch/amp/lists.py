@@ -62,11 +62,13 @@ def classify(op_name: str) -> str:
 def module_tables():
     """(HALF_MODULES, FLOAT_MODULES) over the port's module classes.
 
-    Embedding counts as HALF, as flax's ``nn.Embed`` does in the JAX
-    package. The fused LayerNorm module is in neither table: in the JAX
-    package it is a custom module the interceptor passes through, so it
-    normalizes in whatever dtype reaches it.
+    As the JAX package's flax tables: Dense, Embed, Conv and ConvTranspose
+    are HALF, BatchNorm is FLOAT. The fused LayerNorm module and the fused
+    BN unit are in neither table: in the JAX package they are custom
+    modules the interceptor passes through, so they normalize in whatever
+    dtype reaches them.
     """
+    from apex_tpu_torch.models.layers import BatchNorm, Conv, ConvTranspose
     from apex_tpu_torch.models.transformer import Dense, Embed
 
-    return (Dense, Embed), ()
+    return (Dense, Embed, Conv, ConvTranspose), (BatchNorm,)

@@ -5,8 +5,11 @@ The flax tree (as nested dicts of numpy arrays) maps name for name onto
 the port's ``state_dict``: path components join with ``.``, a Dense
 ``kernel`` (in, out) becomes a ``Linear.weight`` (out, in), a conv
 ``kernel`` (kh, kw, I, O) becomes a conv ``weight`` (O, I, kh, kw) in
-``channels_last`` memory, and the token table ``tok_emb/embedding``
-becomes ``tok_emb.weight``. Optimizer slots
+``channels_last`` memory, a ``ConvTranspose_*`` kernel (kh, kw, I, O)
+becomes the spatially flipped (I, O, kh, kw) weight that
+``F.conv_transpose2d`` needs for flax's unflipped kernel, and the token
+table ``tok_emb/embedding`` becomes ``tok_emb.weight``. The map depends on
+the module's kind, not only on the leaf's rank. Optimizer slots
 follow the same map: the JAX package's tree slots are trees like the
 params, and its arena slots are flat buffers in its own layout (leaves in
 ``jax.tree_util``'s sorted-key order), which differs from the port's
@@ -36,8 +39,13 @@ def _flatten(tree, prefix="", sort=False):
 def _port_leaf(name, arr):
     """(port name, array) of one JAX leaf."""
     if name.endswith(".kernel"):
-        # conv (kh, kw, I, O) -> (O, I, kh, kw); Dense (in, out) -> (out, in)
-        arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+        module = name.split(".")[-2]
+        if arr.ndim != 4:                        # Dense (in, out) -> (out, in)
+            arr = arr.T
+        elif module.startswith("ConvTranspose"):  # -> flipped (I, O, kh, kw)
+            arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+        else:                                    # conv -> (O, I, kh, kw)
+            arr = arr.transpose(3, 2, 0, 1)
         return name[:-len("kernel")] + "weight", arr
     if name.endswith(".embedding"):
         return name[:-len("embedding")] + "weight", arr
@@ -62,10 +70,13 @@ def params_from_jax(params, device="cuda") -> Dict[str, torch.Tensor]:
 
 def resnet_variables_from_jax(params, batch_stats, device="cuda"):
     """``({port name: param}, {port name: running statistic})`` from a flax
-    ResNet's ``params`` and ``batch_stats`` trees."""
+    conv model's ``params`` and ``batch_stats`` trees (ResNet, DCGAN)."""
     stats = {name: torch.tensor(np.asarray(leaf, np.float32), device=device)
              for name, leaf in _flatten(batch_stats)}
     return params_from_jax(params, device), stats
+
+
+dcgan_variables_from_jax = resnet_variables_from_jax
 
 
 def fused_state_from_jax(state, params, port_params,

@@ -26,63 +26,15 @@ batch statistics, it is the counterpart of flax's
 
 from __future__ import annotations
 
-import math
 from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from apex_tpu_torch.models.layers import Conv, lecun_normal_
 from apex_tpu_torch.models.transformer import Dense
 from apex_tpu_torch.ops.bn_act import FusedBNAct
-
-
-def _compute_dtype(dtype, *tensors):
-    """An explicit ``dtype`` wins; otherwise the promoted dtype, as flax's
-    ``promote_dtype`` does for a module without one."""
-    if dtype is not None:
-        return dtype
-    out = tensors[0].dtype
-    for t in tensors[1:]:
-        out = torch.promote_types(out, t.dtype)
-    return out
-
-
-def _same_pads(size: int, k: int, s: int):
-    """(low, high) padding of XLA's "SAME" for one spatial dim."""
-    total = max((-(-size // s) - 1) * s + k - size, 0)
-    return total // 2, total - total // 2
-
-
-class Conv(nn.Module):
-    """``nn.Conv(features, kernel_size, strides, padding="SAME",
-    use_bias=False)`` over NHWC input. "SAME" pads a stride-2 3x3 conv by
-    (0, 1), which ``F.conv2d`` cannot express; such an input is padded
-    explicitly first."""
-
-    def __init__(self, in_features: int, features: int, kernel_size,
-                 strides=(1, 1), padding=None, dtype=None, device="cuda"):
-        super().__init__()
-        self.kernel_size, self.strides = tuple(kernel_size), tuple(strides)
-        self.padding = padding       # explicit ((lo, hi), (lo, hi)) or SAME
-        self.dtype = dtype
-        self.weight = nn.Parameter(torch.empty(
-            features, in_features, *self.kernel_size, device=device
-        ).contiguous(memory_format=torch.channels_last))
-
-    def forward(self, x):
-        dt = _compute_dtype(self.dtype, x, self.weight)
-        w = self.weight.to(dt).contiguous(memory_format=torch.channels_last)
-        pads = self.padding or [_same_pads(n, k, s) for n, k, s in zip(
-            x.shape[1:3], self.kernel_size, self.strides)]
-        x = x.to(dt)
-        if any(lo != hi for lo, hi in pads):
-            (ht, hb), (wl, wr) = pads
-            x = F.pad(x, (0, 0, wl, wr, ht, hb))
-            pads = [(0, 0), (0, 0)]
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.strides,
-                     padding=tuple(lo for lo, _ in pads))
-        return y.permute(0, 2, 3, 1)
 
 
 class _BN(nn.Module):
@@ -211,10 +163,7 @@ class ResNet(nn.Module):
         var 1."""
         for mod in self.modules():
             if isinstance(mod, (Conv, Dense)):
-                w = mod.weight
-                std = math.sqrt(1.0 / (w[0].numel())) / .87962566103423978
-                nn.init.trunc_normal_(w, 0.0, std, -2 * std, 2 * std,
-                                      generator=generator)
+                lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
                 if isinstance(mod, Dense):
                     mod.bias.zero_()
             elif isinstance(mod, FusedBNAct):

@@ -34,7 +34,7 @@ class Dense(nn.Linear):
     dtype (a HALF module, like flax's ``nn.Dense`` under the interceptor),
     else in the promoted dtype of its input and weight. Params are f32."""
 
-    def __init__(self, in_features, out_features, bias=True, device=None,
+    def __init__(self, in_features, out_features, bias=True, device="cuda",
                  dtype=None):
         super().__init__(in_features, out_features, bias=bias, device=device)
         self.dtype = dtype

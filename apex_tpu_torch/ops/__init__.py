@@ -19,8 +19,8 @@ from apex_tpu_torch.ops.multi_tensor import (  # noqa: F401
 )
 from apex_tpu_torch.ops.multihead_attn import SelfMultiheadAttn  # noqa: F401
 from apex_tpu_torch.ops.optim_kernels import (  # noqa: F401
-    lamb_stage1, lamb_stage1_kernel, lamb_stage2, lamb_stage2_kernel,
-    sgd_kernel, sgd_update,
+    adam_kernel, adam_update, lamb_stage1, lamb_stage1_kernel, lamb_stage2,
+    lamb_stage2_kernel, sgd_kernel, sgd_update,
 )
 from apex_tpu_torch.ops.xentropy import (  # noqa: F401
     softmax_cross_entropy_loss, softmax_cross_entropy_reference,
@@ -41,6 +41,7 @@ KERNELS = {
     "bn_sums": bn_sums_kernel,
     "bn_dx": bn_dx_kernel,
     "sgd": sgd_kernel,
+    "adam": adam_kernel,
 }
 
 

@@ -1,8 +1,8 @@
-"""Optimizer updates over the flat arena: LAMB's two stages and SGD, in
-Triton.
+"""Optimizer updates over the flat arena: LAMB's two stages, SGD and Adam,
+in Triton.
 
-Port of ``apex_tpu/ops/optim_kernels.py``'s LAMB pair and SGD kernel.
-Kernels replaced:
+Port of ``apex_tpu/ops/optim_kernels.py``'s LAMB pair, SGD and Adam
+kernels. Kernels replaced:
 
 - ``lamb_stage1_kernel`` ← ``_lamb_stage1_kernel``: the clipped grad's new
   moments m, v and the update direction u = m̂/(√v̂ + eps) (+ wd·p), f32.
@@ -13,21 +13,28 @@ Kernels replaced:
   nesterov, weight decay before or after the momentum, the first step's
   momentum buffer set to the gradient by a runtime flag, and the optional
   low-precision copy of the new p.
+- ``adam_kernel`` ← ``_adam_kernel``: Adam, or AdamW with the weight decay
+  decoupled, the bias corrections and a grad scale as runtime scalars,
+  and the optional low-precision copy of the new p.
 
 What bounds them on an H100: bytes. Each is one streaming pass with a
 few flops per element and no reuse: stage 1 reads p, g, m, v and writes
 u, m, v (28N bytes for an f32 partition of N elements), stage 2 reads p,
-u, r and writes p (16N), SGD reads p, g, m and writes p, m (20N).
+u, r and writes p (16N), SGD reads p, g, m and writes p, m (20N), Adam
+reads p, g, m, v and writes p, m, v (28N).
 Design: one program per 1024-element block of the buffer (whose length
 is a multiple of 65536, so no block needs a mask), offsets in int64, all
 math in f32 whatever p's dtype, and the runtime scalars (betas, eps, wd,
 bias corrections, clip factor, β3, lr; SGD's lr, momentum, dampening,
-wd, grad scale and first-step flag) loaded from one f32 device tensor, so
+wd, grad scale and first-step flag; Adam's lr, betas, eps, wd, bias
+corrections and grad scale) loaded from one f32 device tensor, so
 that a step count, a global norm or a scheduled lr never leaves the
 device. The algorithm flags (AdamW mode, nesterov, wd after momentum,
 the copy-out) are ``tl.constexpr``: each combination compiles its own
 kernel, as the JAX package specialises its Pallas kernels. Divisions and
-roots round as IEEE (``div_rn``, ``sqrt_rn``), as the plain versions do.
+roots round as IEEE (``div_rn``, ``sqrt_rn``), as the plain versions do;
+the Adam kernel also compiles without FMA contraction, so it rounds each
+product and sum where its plain version does.
 """
 
 from __future__ import annotations
@@ -113,6 +120,36 @@ def _sgd_triton(P, G, M, S, PO, MO, CP, NESTEROV: "tl.constexpr",
         tl.store(CP + offs, p.to(CP.dtype.element_ty))
 
 
+def _adam_triton(P, G, M, V, S, PO, MO, VO, CP, ADAM_W: "tl.constexpr",
+                 HAS_COPY: "tl.constexpr", BLOCK: "tl.constexpr"):
+    offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    lr = tl.load(S)
+    b1 = tl.load(S + 1)
+    b2 = tl.load(S + 2)
+    eps = tl.load(S + 3)
+    wd = tl.load(S + 4)
+    bc1 = tl.load(S + 5)
+    bc2 = tl.load(S + 6)
+    gscale = tl.load(S + 7)
+    p = tl.load(P + offs).to(tl.float32)
+    g = tl.load(G + offs).to(tl.float32) * gscale
+    m = tl.load(M + offs).to(tl.float32)
+    v = tl.load(V + offs).to(tl.float32)
+    if not ADAM_W:
+        g = g + wd * p
+    m = b1 * m + (1.0 - b1) * g
+    v = b2 * v + (1.0 - b2) * g * g
+    upd = tl.div_rn(tl.div_rn(m, bc1), tl.sqrt_rn(tl.div_rn(v, bc2)) + eps)
+    if ADAM_W:
+        upd = upd + wd * p
+    p = p - lr * upd
+    tl.store(PO + offs, p.to(PO.dtype.element_ty))
+    tl.store(MO + offs, m.to(MO.dtype.element_ty))
+    tl.store(VO + offs, v.to(VO.dtype.element_ty))
+    if HAS_COPY:
+        tl.store(CP + offs, p.to(CP.dtype.element_ty))
+
+
 def lamb_stage1_kernel(p, g, m, v, scalars, adam_w):
     """Triton stage 1 on flat CUDA buffers; ``scalars`` is the f32 device
     vector (beta1, beta2, eps, wd, bc1, bc2, clip, b3). Returns
@@ -178,6 +215,28 @@ def sgd_kernel(p, g, m, scalars, nesterov, wd_after_momentum,
 sgd_kernel.launches = 0
 
 
+def adam_kernel(p, g, m, v, scalars, adam_w, copy_dtype=None):
+    """Triton Adam on flat CUDA buffers; ``scalars`` is the f32 device
+    vector (lr, beta1, beta2, eps, wd, bc1, bc2, grad_scale). Returns
+    (p', m', v') or (p', m', v', p' in ``copy_dtype``)."""
+    n = _arena.check_buffers(p, g, m, v, dtypes=_FLOATS)
+    _build.check_operands(p, scalars)
+    if scalars.shape != (8,) or scalars.dtype != torch.float32:
+        raise ValueError("Adam takes 8 f32 scalars")
+    p2, m2, v2 = torch.empty_like(p), torch.empty_like(m), torch.empty_like(v)
+    cp = None if copy_dtype is None else torch.empty(n, dtype=copy_dtype,
+                                                     device=p.device)
+    _build.triton_jit(_adam_triton)[(n // _BLOCK,)](
+        p, g, m, v, scalars, p2, m2, v2, p2 if cp is None else cp,
+        ADAM_W=bool(adam_w), HAS_COPY=cp is not None, BLOCK=_BLOCK,
+        num_warps=4, enable_fp_fusion=False)
+    adam_kernel.launches += 1
+    return (p2, m2, v2) if cp is None else (p2, m2, v2, cp)
+
+
+adam_kernel.launches = 0
+
+
 # --- plain versions (the kernels' arithmetic, in PyTorch) --------------------
 
 def lamb_stage1_plain(p, g, m, v, scalars, adam_w):
@@ -218,7 +277,34 @@ def sgd_plain(p, g, m, scalars, nesterov, wd_after_momentum,
     return out if copy_dtype is None else out + (p32.to(copy_dtype),)
 
 
+def adam_plain(p, g, m, v, scalars, adam_w, copy_dtype=None):
+    lr, b1, b2, eps, wd, bc1, bc2, gscale = scalars.unbind(0)
+    p32 = p.float()
+    g = g.float() * gscale
+    if not adam_w:
+        g = g + wd * p32
+    m2 = b1 * m.float() + (1.0 - b1) * g
+    v2 = b2 * v.float() + (1.0 - b2) * g * g
+    upd = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+    if adam_w:
+        upd = upd + wd * p32
+    p32 = p32 - lr * upd
+    out = (p32.to(p.dtype), m2.to(m.dtype), v2.to(v.dtype))
+    return out if copy_dtype is None else out + (p32.to(copy_dtype),)
+
+
 # --- public functions, with the JAX package's signatures -----------------------
+
+def bias_corrections(beta1, beta2, step, enabled, device):
+    """Adam's bias corrections 1 − β^step, computed on the device from the
+    step count (a Python int or a device tensor, never read back)."""
+    if not enabled:
+        return 1.0, 1.0
+    step = torch.as_tensor(step, device=device).float()
+    return tuple(1.0 - torch.pow(torch.full((), b, dtype=torch.float32,
+                                            device=device), step)
+                 for b in (beta1, beta2))
+
 
 def lamb_stage1(p, g, m, v, *, beta1, beta2, eps, weight_decay, step,
                 bias_correction=True, adam_w_mode=True, clip_scale=1.0,
@@ -232,14 +318,7 @@ def lamb_stage1(p, g, m, v, *, beta1, beta2, eps, weight_decay, step,
     """
     _arena.check_length(p, g, m, v)
     dev = p.device
-    if bias_correction:
-        step = torch.as_tensor(step, device=dev).float()
-        bc1 = 1.0 - torch.pow(torch.full((), beta1, dtype=torch.float32,
-                                         device=dev), step)
-        bc2 = 1.0 - torch.pow(torch.full((), beta2, dtype=torch.float32,
-                                         device=dev), step)
-    else:
-        bc1 = bc2 = 1.0
+    bc1, bc2 = bias_corrections(beta1, beta2, step, bias_correction, dev)
     b3 = (1.0 - beta1) if grad_averaging else 1.0
     scalars = _arena.device_scalars(
         (beta1, beta2, eps, weight_decay, bc1, bc2, clip_scale, b3), dev)
@@ -272,3 +351,19 @@ def sgd_update(p, g, m, *, lr, momentum=0.0, dampening=0.0, weight_decay=0.0,
     sgd = sgd_kernel if p.is_cuda else sgd_plain
     return sgd(p, g, m, scalars, nesterov, wd_after_momentum,
                param_copy_dtype)
+
+
+def adam_update(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, step,
+                adam_w_mode=True, bias_correction=True, grad_scale=1.0,
+                param_copy_dtype=None):
+    """One fused Adam/AdamW step over a flat partition. ``step`` is the
+    1-based count after the increment; it, ``lr`` and ``grad_scale`` may
+    be device tensors, which are not read back to the host. Returns
+    (p, m, v), or (p, m, v, p_copy) with ``param_copy_dtype``."""
+    _arena.check_length(p, g, m, v)
+    dev = p.device
+    bc1, bc2 = bias_corrections(beta1, beta2, step, bias_correction, dev)
+    scalars = _arena.device_scalars(
+        (lr, beta1, beta2, eps, weight_decay, bc1, bc2, grad_scale), dev)
+    adam = adam_kernel if p.is_cuda else adam_plain
+    return adam(p, g, m, v, scalars, adam_w_mode, param_copy_dtype)

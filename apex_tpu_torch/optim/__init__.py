@@ -1,3 +1,3 @@
 from apex_tpu_torch.optim.fused import (  # noqa: F401
-    FusedLAMB, FusedOptState, FusedSGD,
+    FusedAdam, FusedLAMB, FusedOptState, FusedSGD,
 )

@@ -1,16 +1,19 @@
-"""Fused optimizers over the flat arena: ``FusedLAMB`` and ``FusedSGD``.
+"""Fused optimizers over the flat arena: ``FusedAdam``, ``FusedLAMB`` and
+``FusedSGD``.
 
 Port of ``apex_tpu/optim/fused.py``'s ``FusedOptimizer`` base,
-``FusedLAMB`` with its defaults (weight_decay 0.01, max_grad_norm 1.0,
-adam_w_mode, bias_correction) and ``FusedSGD`` (momentum, dampening,
-nesterov, weight decay before or after the momentum). Two strategies
-compute the same f32 update:
+``FusedAdam`` (eps 1e-8, no weight decay, AdamW mode and bias correction
+by default), ``FusedLAMB`` with its defaults (weight_decay 0.01,
+max_grad_norm 1.0, adam_w_mode, bias_correction) and ``FusedSGD``
+(momentum, dampening, nesterov, weight decay before or after the
+momentum). Two strategies compute the same f32 update:
 
 - ``"arena"``: params, grads and moments live in flat per-dtype buffers
   (:mod:`apex_tpu_torch.arena`) and one launch of each kernel updates a
   whole partition: for LAMB the global grad norm (``multi_tensor_l2norm``),
   stage 1, the per-tensor trust ratios (plain PyTorch over static ranges)
-  and stage 2; for SGD one ``sgd`` launch. The number of launches does not
+  and stage 2; for Adam one ``adam`` launch, for SGD one ``sgd`` launch.
+  The number of launches does not
   grow with the number of tensors.
 - ``"tree"``: per-tensor eager PyTorch, a few launches per tensor.
 - ``"auto"`` (default): tree from ``TREE_THRESHOLD`` params up, arena
@@ -141,6 +144,53 @@ def lamb_trust_ratios(part, p, u, *, use_nvlamb, weight_decay):
     return MT.spread_per_tensor(ratio, part.offsets, part.padded, p.numel())
 
 
+class FusedAdam(FusedOptimizer):
+    """Adam/AdamW (``apex/optimizers/fused_adam.py``); ``adam_w_mode=True``
+    decouples the weight decay (AdamW), the reference's default."""
+
+    slot_names = ("m", "v")
+
+    def __init__(self, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                 weight_decay=0.0, adam_w_mode=True, bias_correction=True,
+                 strategy="auto"):
+        super().__init__(lr, strategy)
+        self.beta1, self.beta2 = betas
+        self.eps = eps
+        self.weight_decay = weight_decay
+        self.adam_w_mode = adam_w_mode
+        self.bias_correction = bias_correction
+
+    def _partition_step(self, spec, dt, p, g, slots, count, lr, ctx):
+        p2, m2, v2 = K.adam_update(
+            p, g, slots["m"], slots["v"], lr=lr, beta1=self.beta1,
+            beta2=self.beta2, eps=self.eps, weight_decay=self.weight_decay,
+            step=count, adam_w_mode=self.adam_w_mode,
+            bias_correction=self.bias_correction)
+        return p2, {"m": m2, "v": v2}
+
+    def _tree_step(self, grads, state, params):
+        count = state.count + 1
+        lr = self._resolve_lr(count)
+        bc1, bc2 = K.bias_corrections(self.beta1, self.beta2, count,
+                                      self.bias_correction, count.device)
+        b1, b2, eps, wd = self.beta1, self.beta2, self.eps, self.weight_decay
+        new_p, new_m, new_v = {}, {}, {}
+        for k, p in params.items():
+            p32 = p.float()
+            g32 = grads[k].float()
+            if not self.adam_w_mode:
+                g32 = g32 + wd * p32
+            m2 = b1 * state.slots["m"][k] + (1.0 - b1) * g32
+            v2 = b2 * state.slots["v"][k] + (1.0 - b2) * g32 * g32
+            upd = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
+            if self.adam_w_mode:
+                upd = upd + wd * p32
+            new_p[k] = (p32 - lr * upd).to(p.dtype)
+            new_m[k], new_v[k] = m2, v2
+        return new_p, FusedOptState(count=count,
+                                    slots={"m": new_m, "v": new_v})
+
+
 class FusedLAMB(FusedOptimizer):
     """LAMB (``apex/optimizers/fused_lamb.py``): global grad-norm clip,
     Adam-style direction, per-tensor trust ratio."""
@@ -186,19 +236,11 @@ class FusedLAMB(FusedOptimizer):
         p2 = K.lamb_stage2(p, u, ratio_pos, lr=lr)
         return p2, {"m": m2, "v": v2}
 
-    def _bias_corrections(self, count):
-        if not self.bias_correction:
-            return 1.0, 1.0
-        step = count.float()
-        one = torch.ones((), dtype=torch.float32, device=count.device)
-        bc1 = 1.0 - torch.pow(one * self.beta1, step)
-        bc2 = 1.0 - torch.pow(one * self.beta2, step)
-        return bc1, bc2
-
     def _tree_step(self, grads, state, params):
         count = state.count + 1
-        lr = self.lr(count) if callable(self.lr) else self.lr
-        bc1, bc2 = self._bias_corrections(count)
+        lr = self._resolve_lr(count)
+        bc1, bc2 = K.bias_corrections(self.beta1, self.beta2, count,
+                                      self.bias_correction, count.device)
         b1, b2, eps, wd = self.beta1, self.beta2, self.eps, self.weight_decay
 
         if self.max_grad_norm:

@@ -1,5 +1,6 @@
-"""The training steps: BERT MLM (amp O1 + FusedLAMB, auto_cast forward)
-and ResNet-50 (amp O2 + FusedSGD).
+"""The training steps: BERT MLM (amp O1 + FusedLAMB, auto_cast forward),
+ResNet-50 (amp O2 + FusedSGD) and DCGAN (two amp bundles, three losses,
+FusedAdam).
 
 ``build_bert_step`` is the port of ``bench._bert_step_builder``: the same
 model (BERT-Large unless an encoder is given), the same inputs from
@@ -17,6 +18,13 @@ same inputs from ``np.random.RandomState(seed)`` (pre-cast to the compute
 dtype when the policy casts the model), ``Amp(policy, FusedSGD(lr=0.1,
 momentum=0.9, strategy=strategy))``, and the mean fused cross-entropy as
 the loss, with the new BN running statistics as the loss's aux output.
+
+``build_dcgan_step`` is the port of the ``step`` in ``bench._bench_dcgan``,
+line for line: a generator and a discriminator, each under its own
+``amp.Amp(policy, FusedAdam(lr=2e-4, betas=(0.5, 0.999)))`` (D's with
+``num_losses=2``), every model call under ``amp.auto_cast``, and three
+scaled backwards a step: D on the real batch (``loss_id=0``), D on the
+detached fake batch (``loss_id=1``), then G through D.
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ import torch
 from torch.func import functional_call
 
 from apex_tpu_torch import amp, models, ops
-from apex_tpu_torch.optim import FusedLAMB, FusedSGD
+from apex_tpu_torch.optim import FusedAdam, FusedLAMB, FusedSGD
 
 
 def _device(device, entry):
@@ -113,3 +121,92 @@ def build_resnet_step(batch: int, size: int, opt_level: str = "O2",
         return amp_opt.apply_gradients(state, grads, finite), new_bs, loss
 
     return step, (state, batch_stats), (x, y), policy, model
+
+
+def bce(logit, target):
+    """Binary cross-entropy on logits, in the logits' dtype (the O1 patch
+    surface has no ``exp``/``log1p``, so under O1 it runs in the half
+    dtype, as the JAX step's does)."""
+    return torch.mean(torch.clamp_min(logit, 0) - logit * target
+                      + torch.log1p(torch.exp(-torch.abs(logit))))
+
+
+def build_dcgan_step(batch: int, opt_level: str = "O1",
+                     half_dtype=torch.bfloat16, device="cuda", seed: int = 0,
+                     nz: int = 100, ngf: int = 64, ndf: int = 64,
+                     strategy: str = "auto", **policy_overrides):
+    """Returns ``(step, (gstate, dstate, g_bs, d_bs), (z, real), policy,
+    (G, D))``.
+
+    ``step(gstate, dstate, g_bs, d_bs, z, real) -> (gstate', dstate',
+    g_bs', d_bs', (loss_d_real, loss_d_fake, loss_g))`` runs one step. The
+    models are ``Generator(nz, ngf)`` and ``Discriminator(ndf)`` on
+    ``device`` with weights from ``seed`` (D's from ``seed + 1``); ``z``
+    (batch, 1, 1, nz) and ``real`` (batch, 64, 64, 3) are drawn from
+    ``np.random.RandomState(seed)`` as ``bench.py`` draws them.
+    ``strategy`` is ``FusedAdam``'s ("auto" takes the arena at these
+    sizes); ``policy_overrides`` go to ``Policy.from_opt_level`` (e.g.
+    ``enabled=False`` runs everything in f32).
+    """
+    device = _device(device, "build_dcgan_step")
+    policy = amp.Policy.from_opt_level(opt_level, half_dtype=half_dtype,
+                                       **policy_overrides)
+    G = models.Generator(nz=nz, ngf=ngf, device=device, seed=seed)
+    D = models.Discriminator(ndf=ndf, device=device, seed=seed + 1)
+    rng = np.random.RandomState(seed)
+    z = torch.as_tensor(rng.randn(batch, 1, 1, nz).astype(np.float32),
+                        device=device)
+    real = torch.as_tensor(rng.rand(batch, 64, 64, 3).astype(np.float32),
+                           device=device)
+
+    def adam():
+        return FusedAdam(lr=2e-4, betas=(0.5, 0.999), strategy=strategy)
+
+    ampG = amp.Amp(policy, adam())
+    ampD = amp.Amp(policy, adam(), num_losses=2)
+    gstate = ampG.init(dict(G.named_parameters()))
+    dstate = ampD.init(dict(D.named_parameters()))
+    g_bs = {k: b.detach().clone() for k, b in G.named_buffers()}
+    d_bs = {k: b.detach().clone() for k, b in D.named_buffers()}
+    train = {"train": True}
+
+    def step(gstate, dstate, g_bs, d_bs, z, real):
+        with amp.auto_cast(policy):
+            fake, g_bs = functional_call(
+                G, {**ampG.model_params(gstate), **g_bs}, (z,), train)
+
+        def d_real(mp):
+            with amp.auto_cast(policy):
+                out, bs = functional_call(D, {**mp, **d_bs}, (real,), train)
+            return bce(out, 1.0), bs
+
+        (loss_real, d_bs2), gr, dstate, f1 = ampD.backward(
+            dstate, d_real, loss_id=0, has_aux=True)
+        dstate = ampD.apply_gradients(dstate, gr, f1)
+
+        def d_fake(mp):
+            with amp.auto_cast(policy):
+                out, bs = functional_call(D, {**mp, **d_bs2},
+                                          (fake.detach(),), train)
+            return bce(out, 0.0), bs
+
+        (loss_fake, d_bs3), gf, dstate, f2 = ampD.backward(
+            dstate, d_fake, loss_id=1, has_aux=True)
+        dstate = ampD.apply_gradients(dstate, gf, f2)
+
+        def g_loss(mp):
+            with amp.auto_cast(policy):
+                fake2, bs = functional_call(G, {**mp, **g_bs}, (z,), train)
+                # D at its twice-updated params; its new statistics are
+                # dropped, as the JAX step drops them
+                out = functional_call(
+                    D, {**ampD.model_params(dstate), **d_bs3}, (fake2,),
+                    train)[0]
+            return bce(out.float(), 1.0), bs
+
+        (loss_g, g_bs4), gg, gstate, f3 = ampG.backward(
+            gstate, g_loss, has_aux=True)
+        gstate = ampG.apply_gradients(gstate, gg, f3)
+        return gstate, dstate, g_bs4, d_bs3, (loss_real, loss_fake, loss_g)
+
+    return step, (gstate, dstate, g_bs, d_bs), (z, real), policy, (G, D)

@@ -23,6 +23,14 @@ plain PyTorch version on the card at the shapes its main path gives it
   then a one-block-per-stage ResNet at full widths compares its first
   step's gradients and second step's loss through the kernels with the
   same run through the plain versions.
+- DCGAN (B128, 64x64, generator nz 100 / ngf 64, discriminator ndf 64,
+  amp O1 bf16 under ``auto_cast``, two ``FusedAdam(lr=2e-4, betas=(0.5,
+  0.999))`` bundles, three scaled backwards a step) trains 20 steps with
+  the arena update ("auto" at these sizes: 3 Adam launches a step) and 20
+  with the tree update, whose losses it holds against the arena run's; one
+  Adam update is compared both ways; one step is compared through the
+  kernel and through the plain versions; and a short fp16 run with three
+  dynamic loss scalers takes a forced overflow on one of them.
 
 Prints one line per phase, the card's name and power limit, a JSON line of
 per-kernel numbers, and as its last line
@@ -52,6 +60,10 @@ ARENA_PER_STEP = {"multi_tensor_l2norm": 1, "lamb_stage1": 1,
 RESNET_PER_STEP = {"bn_sums": 53, "bn_dx": 53, "xentropy_fwd": 1,
                    "xentropy_bwd": 1}
 SGD_PER_STEP = {"sgd": 1}           # the arena SGD, one f32 partition
+# DCGAN: three Adam updates a step (D real, D fake, G), one f32 partition
+# each under the arena; nothing else of the package is on that path
+DCGAN_PER_STEP = {"adam": 3}
+DCGAN_STEPS = 20
 REPLACES = {
     "layer_norm_fwd": "apex_tpu/ops/layer_norm.py:62",
     "layer_norm_bwd": "apex_tpu/ops/layer_norm.py:111",
@@ -65,6 +77,7 @@ REPLACES = {
     "bn_sums": "apex_tpu/ops/bn_act.py:178",
     "bn_dx": "apex_tpu/ops/bn_act.py:206",
     "sgd": "apex_tpu/ops/optim_kernels.py:95",
+    "adam": "apex_tpu/ops/optim_kernels.py:42",
 }
 SOURCES = {
     "layer_norm_fwd": ("triton", "apex_tpu_torch/ops/layer_norm.py"),
@@ -79,6 +92,7 @@ SOURCES = {
     "bn_sums": ("triton", "apex_tpu_torch/ops/bn_act.py"),
     "bn_dx": ("triton", "apex_tpu_torch/ops/bn_act.py"),
     "sgd": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
+    "adam": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
 }
 # tolerances: 16-bit outputs within 2% of the plain output's max magnitude
 # (a few bf16 ulps: the kernels sum in another order and round P per tile);
@@ -155,7 +169,8 @@ def plain_versions():
              (K, "lamb_stage2_kernel", K.lamb_stage2_plain),
              (B, "bn_sums_kernel", B.bn_sums_plain),
              (B, "bn_dx_kernel", B.bn_dx_plain),
-             (K, "sgd_kernel", K.sgd_plain)]
+             (K, "sgd_kernel", K.sgd_plain),
+             (K, "adam_kernel", K.adam_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -334,6 +349,7 @@ def check_kernels(rows):
     check_arena_kernels(rnd, flush, row)
     check_bn_kernels(rnd, flush, row)
     check_sgd_kernel(rnd, flush, row)
+    check_adam_kernel(rnd, flush, row)
     del sweep
 
 
@@ -557,6 +573,69 @@ def check_sgd_kernel(rnd, flush, row):
         lib = None
         log(f"kernel sgd: library null: torch._fused_sgd_ did not run: {e}")
     row("sgd", err, ms, plain, lib, nbytes=20 * n, flops=6 * n,
+        peak=F32_FLOPS)
+
+
+def check_adam_kernel(rnd, flush, row):
+    """The Adam kernel against its plain version: AdamW mode on and off,
+    the copy-out on and off, on a ragged arena of an f32 and a bf16
+    partition; then at the DCGAN generator's one f32 partition, where it
+    is timed. The library yardstick is ``torch._fused_adam_`` over the
+    generator's 13 tensors (context only; the port does not call it)."""
+    import torch
+    from apex_tpu_torch import arena, models
+    from apex_tpu_torch.ops import _arena, optim_kernels as K
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    s = _arena.device_scalars((2e-4, 0.5, 0.999, 1e-8, 1e-2, 1 - 0.5 ** 3,
+                               1 - 0.999 ** 3, 0.5), dev)
+    tree = {"w": rnd(1000, 300, dtype=f32), "e": rnd(513, 129),
+            "b": rnd(77, dtype=f32), "s": rnd(5)}
+    spec = arena.plan(tree)
+    pb = arena.flatten(tree, spec)
+    gb = arena.flatten({k: rnd(*t.shape, dtype=f32) for k, t in tree.items()},
+                       spec, cast=f32)
+    for dt, p in pb.items():
+        m = rnd(p.numel(), dtype=f32, std=0.1)
+        v = rnd(p.numel(), dtype=f32, std=0.01).abs()
+        half = torch.bfloat16 if dt == "float32" else torch.float16
+        for adam_w in (True, False):
+            for copy in (None, half):
+                compare(f"adam ragged {dt} adam_w={adam_w} copy={copy}",
+                        K.adam_kernel(p, gb[dt], m, v, s, adam_w, copy),
+                        K.adam_plain(p, gb[dt], m, v, s, adam_w, copy),
+                        TOL_ARENA)
+
+    gparams = dict(models.Generator(device="meta").named_parameters())
+    gspec = arena.plan(gparams)
+    n = gspec.partition("float32").buffer_len
+    live = sum(t.numel() for t in gparams.values())
+    p, g = rnd(n, dtype=f32, std=0.02), rnd(n, dtype=f32, std=1e-2)
+    m, v = rnd(n, dtype=f32, std=1e-3), rnd(n, dtype=f32, std=1e-2).square()
+    s = _arena.device_scalars((2e-4, 0.5, 0.999, 1e-8, 0.0, 1 - 0.5 ** 3,
+                               1 - 0.999 ** 3, 1.0), dev)
+    err = max(compare(f"adam generator adam_w={w}",
+                      K.adam_kernel(p, g, m, v, s, w),
+                      K.adam_plain(p, g, m, v, s, w), TOL_ARENA)
+              for w in (True, False))
+    log(f"phase kernels: adam agrees with the plain version (DCGAN "
+        f"generator buffer of {n} elements for {live} params, ragged bf16 "
+        f"+ f32, AdamW on/off, copy-out on/off)")
+    ms = timed(lambda: K.adam_kernel(p, g, m, v, s, True), flush=flush)
+    plain = timed(lambda: K.adam_plain(p, g, m, v, s, True), flush=flush)
+    lists = [list(arena.unflatten({"float32": t.clone()}, gspec).values())
+             for t in (p, g, m, v)]
+    steps = [torch.full((), 3.0, device=dev) for _ in lists[0]]
+    try:
+        lib = timed(lambda: torch._fused_adam_(
+            *lists, [], steps, lr=2e-4, beta1=0.5, beta2=0.999,
+            weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False),
+            flush=flush)
+    except (RuntimeError, TypeError, AttributeError) as e:
+        lib = None
+        log(f"kernel adam: library null: torch._fused_adam_ did not run: {e}")
+    row("adam", err, ms, plain, lib, nbytes=28 * n, flops=18 * n,
         peak=F32_FLOPS)
 
 
@@ -931,6 +1010,237 @@ def resnet_plain_vs_kernel():
         raise AssertionError(f"kernel/plain loss differ by {rel:.2e} > 5e-3")
 
 
+def _bf16_close(a, b, rtol=1e-3):
+    """Within ``rtol`` relative, or one bf16 ulp apart (a bf16 loss
+    resolves no finer: 2**-8 to 2**-7 of its value)."""
+    ulp = max(2.0 ** (math.frexp(x)[1] - 8) for x in (a, b))
+    return abs(a - b) <= max(rtol * abs(b), ulp)
+
+
+def train_dcgan(phase, rows, strategy="auto"):
+    """DCGAN_STEPS DCGAN steps (B128, 64x64, O1 bf16, two ``FusedAdam(lr=
+    2e-4, betas=(0.5, 0.999), strategy=strategy)`` bundles), built by
+    ``train.build_dcgan_step``; checks every kernel's launches, the step
+    counts (G once a step, D twice), the running statistics and that all
+    three losses are finite. Returns (losses per step, (G state, D
+    state), step ms)."""
+    import torch
+    from apex_tpu_torch import ops, train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, (gs, ds, gbs, dbs), (z, real), _policy, (G, D) = \
+        train.build_dcgan_step(128, strategy=strategy)
+    log(f"phase {phase}: built, generator "
+        f"{sum(p.numel() for p in G.parameters())} params in "
+        f"{len(gs.params)} tensors, discriminator "
+        f"{sum(p.numel() for p in D.parameters())} in {len(ds.params)}, "
+        f"z {tuple(z.shape)}, real {tuple(real.shape)}, FusedAdam strategy "
+        f"{strategy!r}")
+    ops.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(DCGAN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gs, ds, gbs, dbs, out = step(gs, ds, gbs, dbs, z, real)
+        losses.append([l.item() for l in out])
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = ops.launch_counts()
+    for i in (0, 1, DCGAN_STEPS // 2, DCGAN_STEPS - 1):
+        log(f"{phase} step {i}: loss D(real) {losses[i][0]:.6f} D(fake) "
+            f"{losses[i][1]:.6f} G {losses[i][2]:.6f}  {times[i]:.2f} ms")
+    bad = [(i, l) for i, l in enumerate(losses)
+           if not all(math.isfinite(x) for x in l)]
+    if bad:
+        raise AssertionError(f"{phase}: losses not finite at {bad[:3]}")
+    n = DCGAN_STEPS
+    got = (int(gs.step), int(gs.opt_state.count), int(ds.step),
+           int(ds.opt_state.count))
+    if got != (n, n, 2 * n, 2 * n):
+        raise AssertionError(f"{phase}: G step/count, D step/count {got}, "
+                             f"expected {(n, n, 2 * n, 2 * n)}")
+    if not torch.stack([torch.isfinite(v).all() for v in
+                        (*gbs.values(), *dbs.values())]).all().item():
+        raise AssertionError(f"{phase}: a running statistic is not finite")
+    check_launches(phase, counts,
+                   DCGAN_PER_STEP if strategy != "tree" else {}, rows, n)
+    step_ms = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"phase {phase}: launches per step "
+        f"{ {k: v / n for k, v in counts.items() if v} }")
+    log(f"phase {phase}: median step {step_ms:.2f} ms (steps 1-{n - 1}), "
+        f"{128 / step_ms * 1e3:.2f} img/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return losses, (gs, ds), step_ms
+
+
+def dcgan_tree(rows, arena_losses):
+    """DCGAN_STEPS steps with ``strategy="tree"`` from the same seed (no
+    ``adam`` launch). Free-running, the two runs part: the update's last
+    bits differ ((1 − β2) is rounded in f32 by the kernel and taken from
+    the Python float by the tree, as in the JAX package), a bf16 weight
+    then rounds the other way, and the GAN's dynamics grow that; their
+    distance is logged. What is held: the arena run is replayed, and from
+    each state it passes through one tree step gives the three losses
+    within 1e-3 relative of the arena step's (a bf16 D loss: or one bf16
+    ulp). Then one Adam update from the replay's last generator state,
+    arena against tree."""
+    from apex_tpu_torch import arena, train
+    from apex_tpu_torch.optim import FusedAdam, FusedOptState
+
+    losses, _, _ = train_dcgan("dcgan_tree", rows, "tree")
+    apart = [max(abs(t - a) / abs(a) for t, a in zip(tl, al))
+             for tl, al in zip(losses, arena_losses)]
+    log(f"phase dcgan_tree: free-running, the tree run's losses are "
+        f"{', '.join(f'{x:.1e}' for x in apart)} relative from the arena "
+        f"run's (worst of three, steps 0-{len(apart) - 1})")
+
+    def as_tree(state):
+        spec = arena.plan(state.params)
+        opt = state.opt_state
+        return state._replace(opt_state=FusedOptState(count=opt.count, slots={
+            s: arena.unflatten(b, spec) for s, b in opt.slots.items()}))
+
+    tree_step = train.build_dcgan_step(128, strategy="tree")[0]
+    step, (gs, ds, gbs, dbs), (z, real), _, _ = train.build_dcgan_step(128)
+    worst = 0.0
+    for i in range(DCGAN_STEPS):
+        t_out = tree_step(as_tree(gs), as_tree(ds), gbs, dbs, z, real)[-1]
+        gs, ds, gbs, dbs, a_out = step(gs, ds, gbs, dbs, z, real)
+        for name, t, a in zip(("D(real)", "D(fake)", "G"), t_out, a_out):
+            t, a = t.item(), a.item()
+            if not _bf16_close(t, a):
+                raise AssertionError(f"dcgan_tree step {i} from the arena "
+                                     f"run's state: {name} loss {t} vs {a}")
+            worst = max(worst, abs(t - a) / abs(a))
+    log(f"phase dcgan_tree: from each of {DCGAN_STEPS} arena states, one "
+        f"tree step's losses within {worst:.2e} relative of the arena "
+        f"step's (limit 1e-3, or one bf16 ulp for the bf16 D losses)")
+    arena_vs_tree_update(
+        gs.params, gs.opt_state,
+        lambda s: FusedAdam(lr=2e-4, betas=(0.5, 0.999), strategy=s),
+        TOL_UPDATE)
+
+
+def dcgan_plain_vs_kernel():
+    """One DCGAN step (B128, O1 bf16, arena) from the same seed through the
+    Adam kernel and inside ``plain_versions()``: the three losses within
+    1e-3 relative (a bf16 D loss: or one bf16 ulp), and per tensor the
+    update each run made within 1e-2 of its norm, ‖Δ_kernel − Δ_plain‖ ≤
+    1e-2·‖Δ_plain‖. (Elementwise bounds say nothing here: Adam moves an
+    element by about lr whatever its gradient's size, so a near-zero
+    gradient whose last bits differ moves it up to 2·lr apart.)"""
+    import torch
+    from apex_tpu_torch import ops, train
+
+    runs = {}
+    for mode in ("kernel", "plain"):
+        step, (gs, ds, gbs, dbs), (z, real), _, _ = train.build_dcgan_step(
+            128)
+        p0 = {**{f"G.{k}": v.clone() for k, v in gs.params.items()},
+              **{f"D.{k}": v.clone() for k, v in ds.params.items()}}
+        ops.reset_launch_counts()
+        with (plain_versions() if mode == "plain"
+              else contextlib.nullcontext()):
+            gs, ds, _, _, out = step(gs, ds, gbs, dbs, z, real)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        want = DCGAN_PER_STEP if mode == "kernel" else {}
+        if counts != want:
+            raise AssertionError(f"{mode} DCGAN step launched {counts}, "
+                                 f"expected {want}")
+        p1 = {**{f"G.{k}": v for k, v in gs.params.items()},
+              **{f"D.{k}": v for k, v in ds.params.items()}}
+        runs[mode] = ([l.item() for l in out],
+                      {k: p1[k] - p0[k] for k in p0})
+        del step, gs, ds
+        torch.cuda.empty_cache()
+    (lk, dk), (lp, dp) = runs["kernel"], runs["plain"]
+    errs = {k: ((dk[k] - d).norm() / d.norm().clamp(min=1e-30)).item()
+            for k, d in dp.items()}
+    worst = max(errs, key=errs.get)
+    log(f"phase dcgan_plain_vs_kernel: first-step losses kernel "
+        f"{[f'{x:.6f}' for x in lk]} plain {[f'{x:.6f}' for x in lp]}; "
+        f"updates of {len(errs)} tensors, worst {errs[worst]:.2e} of the "
+        f"update's norm ({worst})")
+    for name, a, b in zip(("D(real)", "D(fake)", "G"), lk, lp):
+        if not _bf16_close(a, b):
+            raise AssertionError(f"kernel/plain {name} loss {a} vs {b}")
+    if not errs[worst] <= 1e-2:
+        raise AssertionError(f"kernel/plain update of {worst} differs by "
+                             f"{errs[worst]:.2e} of its norm > 1e-2")
+
+
+def dcgan_fp16_overflow():
+    """Three DCGAN steps (B128) at O1 fp16: dynamic loss scaling, one
+    scaler per loss (D's two, G's one). Before the third step D's
+    ``scalers[1]`` is set to 2**24, which overflows. Every update is
+    recorded: each scaler follows the schedule its own finite flags give
+    (halve on overflow, else keep and count), the injected one halves,
+    and every skipped update leaves the bundle's params, Adam count and
+    step bitwise as they were, while the other two losses update."""
+    import torch
+    from apex_tpu_torch import amp, train
+    from apex_tpu_torch.amp.scaler import LossScaleState
+
+    step, (gs, ds, gbs, dbs), (z, real), policy, _ = train.build_dcgan_step(
+        128, half_dtype=torch.float16)
+    calls = []
+    original = amp.Amp.apply_gradients
+
+    def recording(self, state, grads, finite):
+        new = original(self, state, grads, finite)
+        calls.append((state, new, bool(finite)))
+        return new
+
+    amp.Amp.apply_gradients = recording
+    try:
+        expect = {("D", 0): (2.0 ** 16, 0), ("D", 1): (2.0 ** 16, 0),
+                  ("G", 0): (2.0 ** 16, 0)}
+        for i in range(3):
+            if i == 2:
+                ds = ds._replace(scalers=(ds.scalers[0], LossScaleState(
+                    torch.tensor(2.0 ** 24, device=z.device),
+                    ds.scalers[1].growth_tracker)))
+                expect[("D", 1)] = (2.0 ** 24, expect[("D", 1)][1])
+            del calls[:]
+            gs, ds, gbs, dbs, out = step(gs, ds, gbs, dbs, z, real)
+            flags = [f for _, _, f in calls]
+            for key, (before, after, ok) in zip(
+                    (("D", 0), ("D", 1), ("G", 0)), calls):
+                scale, tracker = expect[key]
+                expect[key] = (scale, tracker + 1) if ok else (scale / 2, 0)
+                if not ok and not (
+                        int(after.step) == int(before.step)
+                        and int(after.opt_state.count)
+                        == int(before.opt_state.count)
+                        and all(torch.equal(after.params[k], before.params[k])
+                                for k in before.params)):
+                    raise AssertionError(f"fp16 step {i}: skipped {key} "
+                                         f"update moved the state")
+            got = {("D", 0): ds.scalers[0], ("D", 1): ds.scalers[1],
+                   ("G", 0): gs.scalers[0]}
+            for key, sc in got.items():
+                if (sc.loss_scale.item(), int(sc.growth_tracker)) \
+                        != expect[key]:
+                    raise AssertionError(
+                        f"fp16 step {i}: scaler {key} at "
+                        f"{(sc.loss_scale.item(), int(sc.growth_tracker))}, "
+                        f"expected {expect[key]}")
+            log(f"dcgan fp16 step {i}: finite (D real, D fake, G) {flags}; "
+                f"scales {[got[k].loss_scale.item() for k in got]}; losses "
+                f"{[f'{l.item():.5f}' for l in out]}")
+            if i == 2 and (flags[1] or not flags[0] or not flags[2]):
+                raise AssertionError(f"fp16 step 2: finite flags {flags}, "
+                                     f"expected D fake alone to overflow")
+    finally:
+        amp.Amp.apply_gradients = original
+    if not math.isfinite(out[2].item()):
+        raise AssertionError("fp16 run: the last G loss is not finite")
+    log("phase dcgan_fp16_overflow: the injected scaler halved, its skipped "
+        "D update held params and count bitwise, the other two scalers "
+        "followed their own schedules")
+
+
 def depth2_encoder():
     from apex_tpu_torch import models
     return models.BertEncoder(30522, hidden=1024, layers=2, heads=16)
@@ -1046,6 +1356,10 @@ def main() -> int:
     resnet50_arena(rows, resnet_losses)
     torch.cuda.empty_cache()
     resnet_plain_vs_kernel()
+    torch.cuda.empty_cache()
+    dcgan_tree(rows, train_dcgan("dcgan", rows)[0])
+    dcgan_plain_vs_kernel()
+    dcgan_fp16_overflow()
 
     from apex_tpu_torch import ops
     print(json.dumps({"kernels": [rows[n] for n in ops.KERNELS]}))

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
 """Where one training step of apex_tpu_torch spends its time.
 
-    python3 scripts/torch_bert_profile.py [--model bert_large|resnet50]
+    python3 scripts/torch_bert_profile.py [--model bert_large|resnet50|dcgan]
         [--steps 2] [--strategy auto] [--out PATH]
 
-Builds the port's BERT-Large MLM step (B16, S512, amp O1 bf16, FusedLAMB)
-or its ResNet-50 step (B256, 224x224, amp O2 bf16, FusedSGD(lr=0.1,
-momentum=0.9)) with the given optimizer strategy ("auto" takes the tree
-update at both sizes, "arena" the flat-arena kernels) on one CUDA device,
-warms it up, then traces ``--steps`` steps with ``torch.profiler`` and
-prints one JSON object: the step's wall time, the device kernel time
-summed by category (the port's kernels, convolutions, GEMMs, the plain
-BN forward passes, and the rest), the device idle share of the traced
-window, and the top kernels by time. Needs a CUDA device; fails without
-one.
+Builds the port's BERT-Large MLM step (B16, S512, amp O1 bf16, FusedLAMB),
+its ResNet-50 step (B256, 224x224, amp O2 bf16, FusedSGD(lr=0.1,
+momentum=0.9)) or its DCGAN step (B128, 64x64, amp O1 bf16, two
+FusedAdam(lr=2e-4, betas=(0.5, 0.999)) bundles, three backwards) with
+the given optimizer strategy ("auto" takes the tree update for BERT-Large
+and ResNet-50 and the arena for DCGAN, "arena" the flat-arena kernels)
+on one CUDA device, warms it up, then traces ``--steps`` steps with
+``torch.profiler`` and prints one JSON object: the step's wall time, the
+device kernel time summed by category (the port's kernels, convolutions,
+GEMMs, dtype casts, other elementwise and reduction kernels, the plain BN
+forward of ResNet-50, DCGAN's BatchNorm forward and backward, and the
+rest), the device idle share of the traced window, and the top kernels by
+time. Needs a CUDA device; fails without one.
 """
 
 from __future__ import annotations
@@ -33,11 +36,17 @@ _CATEGORIES = (
                     "_lamb_stage1_triton", "_lamb_stage2_triton")),
     ("bn_bwd", ("_bn_sums_triton", "_bn_dx_triton")),
     ("arena_sgd", ("_sgd_triton",)),
+    ("arena_adam", ("_adam_triton",)),
     ("conv", ("fprop", "dgrad", "wgrad", "cudnn", "convolve", "conv2d",
               "nchwtonhwc", "nhwctonchw")),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "cublas")),
+    ("cast", ("direct_copy_kernel",)),
+    ("elementwise", ("elementwise_kernel",)),
+    ("reduce", ("reduce_kernel",)),
 )
 BN_FWD = "bn_fwd"       # the record_function around the plain BN forward
+BATCH_NORM = "batch_norm"   # ... around DCGAN's BatchNorm modules
+_BACKWARD = "autograd::engine::evaluate_function"
 
 
 def _category(name: str) -> str:
@@ -48,25 +57,48 @@ def _category(name: str) -> str:
     return "other"
 
 
-def _bn_forward_ms(prof):
-    """Device ms of the kernels launched under a ``bn_fwd`` range, by the
-    category their names put them in."""
+def _region_ms(prof, name, backward=False):
+    """Device ms of the kernels launched under a ``name`` range, by the
+    category their names put them in; with ``backward`` also those of the
+    autograd nodes recorded there (linked by thread and sequence number).
+    Casts stay casts."""
     import torch
+    cpu = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU]
+
+    def under(e, match):
+        while e is not None and not match(e.name):
+            e = e.cpu_parent
+        return e is not None
+
+    # the autograd nodes made in the range: the sequence numbers its ops
+    # saw, less those ops outside it saw too (an op that makes no node
+    # sees the number the next node will take)
+    seen = {}
+    for e in cpu:
+        if (backward and e.sequence_nr >= 0
+                and not under(e, lambda n: n.startswith(_BACKWARD))):
+            inside = under(e, lambda n: n == name)
+            seen.setdefault(inside, set()).add((e.thread, e.sequence_nr))
+    fwd = seen.get(True, set()) - seen.get(False, set())
+
+    def in_region(e):
+        while e is not None:
+            if e.name == name or (e.name.startswith(_BACKWARD) and (
+                    e.fwd_thread, e.sequence_nr) in fwd):
+                return True
+            e = e.cpu_parent
+        return False
+
     out = {}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CPU:
-            continue
+    for e in cpu:
         kernels = getattr(e, "kernels", None) or []
-        if not kernels:
-            continue
-        parent = e
-        while parent is not None and parent.name != BN_FWD:
-            parent = parent.cpu_parent
-        if parent is None:
+        if not kernels or not in_region(e):
             continue
         for k in kernels:
             cat = _category(k.name)
-            out[cat] = out.get(cat, 0.0) + k.duration / 1e3
+            if cat != "cast":
+                out[cat] = out.get(cat, 0.0) + k.duration / 1e3
     return out
 
 
@@ -83,6 +115,16 @@ def _builder(model, strategy):
             carry[0], loss = step(carry[0], toks, labels)
             return loss
         return one_step, 16
+    if model == "dcgan":
+        step, states, (z, real), _, _ = train.build_dcgan_step(
+            128, strategy=strategy)
+        carry = list(states)
+
+        def one_step():
+            out = step(*carry, z, real)
+            carry[:] = out[:4]
+            return out[4][2]           # the generator's loss
+        return one_step, 128
     step, (state, bstats), (x, y), _, _ = train.build_resnet_step(
         256, 224, strategy=strategy)
     carry = [state, bstats]
@@ -96,7 +138,7 @@ def _builder(model, strategy):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="bert_large",
-                    choices=("bert_large", "resnet50"))
+                    choices=("bert_large", "resnet50", "dcgan"))
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--strategy", default="auto",
                     choices=("auto", "tree", "arena"))
@@ -113,16 +155,19 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     from torch.profiler import record_function
+    from apex_tpu_torch.models import layers
     from apex_tpu_torch.ops import bn_act
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    fwd_common = bn_act._fwd_common
 
-    def traced_fwd_common(*a, **kw):
-        with record_function(BN_FWD):
-            return fwd_common(*a, **kw)
+    def traced(fn, name):
+        def wrapper(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return wrapper
 
-    bn_act._fwd_common = traced_fwd_common
+    bn_act._fwd_common = traced(bn_act._fwd_common, BN_FWD)
+    layers.BatchNorm.forward = traced(layers.BatchNorm.forward, BATCH_NORM)
     one_step, batch = _builder(args.model, args.strategy)
     for _ in range(2):
         loss = one_step()
@@ -136,10 +181,10 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    # device events, less the device-side span of the bn_fwd annotation
+    # device events, less the device-side spans of the annotations
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.name != BN_FWD]
+               and e.name not in (BN_FWD, BATCH_NORM)]
     by_cat, by_name = {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
@@ -147,11 +192,14 @@ def main() -> int:
         by_name[e.name] = by_name.get(e.name, 0.0) + us
     busy_ms = sum(by_cat.values()) / 1e3
     by_cat = {k: v / 1e3 for k, v in by_cat.items()}
-    bn_fwd = _bn_forward_ms(prof)
-    for cat, ms in bn_fwd.items():       # moved out of its name's category
-        by_cat[cat] -= ms
-    if args.model == "resnet50":
-        by_cat["bn_fwd"] = sum(bn_fwd.values()) if bn_fwd else None
+    region, backward = {"resnet50": (BN_FWD, False),
+                        "dcgan": (BATCH_NORM, True)}.get(args.model,
+                                                         (None, False))
+    if region is not None:
+        moved = _region_ms(prof, region, backward)
+        for cat, ms in moved.items():    # out of its name's category
+            by_cat[cat] -= ms
+        by_cat[region] = sum(moved.values()) if moved else None
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()

@@ -97,3 +97,31 @@ def test_resnet_entry_points_default_to_cuda(monkeypatch):
     state, bstats, loss = step(state, bstats, x, y)
     assert int(state.step) == 1 and torch.isfinite(loss)
     assert all(t.device.type == "cpu" for t in bstats.values())
+
+
+def test_dcgan_entry_points_and_dense_default_to_cuda(monkeypatch):
+    """``build_dcgan_step``, ``Generator``, ``Discriminator`` and ``Dense``
+    ask for cuda when no device is given; with ``device="cpu"`` the DCGAN
+    step runs its plain versions on the CPU."""
+    import inspect
+
+    from apex_tpu_torch import models, train
+
+    for fn in (train.build_dcgan_step, models.Generator, models.Discriminator,
+               models.Dense, models.Conv, models.ConvTranspose,
+               models.BatchNorm):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.build_dcgan_step(2)
+    for make in (lambda: models.Generator(nz=4, ngf=2),
+                 lambda: models.Discriminator(ndf=2),
+                 lambda: models.Dense(4, 2)):
+        with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+            make()
+    step, (gs, ds, gbs, dbs), (z, real), _, _ = train.build_dcgan_step(
+        2, device="cpu", nz=4, ngf=2, ndf=2)
+    assert z.device.type == real.device.type == "cpu"
+    gs, ds, gbs, dbs, losses = step(gs, ds, gbs, dbs, z, real)
+    assert int(gs.step) == 1 and int(ds.step) == 2
+    assert all(torch.isfinite(l) for l in losses)

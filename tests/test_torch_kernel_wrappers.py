@@ -41,8 +41,10 @@ ROOT = Path(__file__).resolve().parents[1]
                              *(torch.ones(8),) * 4, "addrelu"),
     lambda: B.bn_dx_kernel(*(torch.ones(16, 8),) * 2, *(torch.ones(8),) * 4,
                            torch.ones(2, 8), 16.0, True, torch.float32),
+    lambda: K.adam_kernel(*(torch.ones(65536),) * 4, torch.ones(8), False,
+                          torch.bfloat16),
 ], ids=["ln_fwd", "ln_bwd", "xent_fwd", "xent_bwd", "flash_fwd", "bn_sums",
-        "bn_dx"])
+        "bn_dx", "adam"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     before = ops.launch_counts()
     with pytest.raises(ValueError):
@@ -64,9 +66,10 @@ def test_chip_smoke_names_every_kernel():
     per_step = set(chip_smoke.EXPECTED_PER_STEP)
     assert per_step | set(chip_smoke.ARENA_PER_STEP) \
         | set(chip_smoke.RESNET_PER_STEP) | set(chip_smoke.SGD_PER_STEP) \
-        == names
+        | set(chip_smoke.DCGAN_PER_STEP) == names
     assert not per_step & set(chip_smoke.ARENA_PER_STEP)
     assert not set(chip_smoke.RESNET_PER_STEP) & set(chip_smoke.SGD_PER_STEP)
+    assert chip_smoke.DCGAN_PER_STEP == {"adam": 3}
     for table in (chip_smoke.REPLACES, chip_smoke.SOURCES):
         assert set(table) == names
     for name, (route, src) in chip_smoke.SOURCES.items():
