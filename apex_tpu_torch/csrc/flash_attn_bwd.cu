@@ -2,13 +2,17 @@
 //
 // Replaces apex_tpu/ops/attention.py::_bwd_fused_kernel_nl (the
 // single-block sweep BERT's S=512 takes, pallas_call in
-// _flash_bwd_fused_nl) and the split pair _bwd_dq_kernel_nl /
-// _bwd_dkv_kernel_nl (_flash_bwd_nl). Per head, with P = exp(s·scale − lse)
-// recomputed from the forward's lse and delta = Σ do·o (computed by the
-// caller, as the JAX package computes it in jnp):
-//   dV = Pᵀ·dO  (P cast to dO's dtype)
-//   dS = P ∘ (dO·Vᵀ − delta)  (cast to q's dtype)
+// _flash_bwd_fused_nl), the split pair _bwd_dq_kernel_nl /
+// _bwd_dkv_kernel_nl (_flash_bwd_nl, multi-block sequences and the lse
+// variant's shifted delta) and the (B·H, S, D)-layout pair _bwd_dq_kernel /
+// _bwd_dkv_kernel (_flash_bwd, heads that do not group into 128 lanes).
+// Per head, with P = exp(s − lse) recomputed from the forward's lse (s the
+// scaled, biased and masked score; see flash_common.cuh) and delta taken
+// from the caller (Σ do·o, minus the lse cotangent for the lse variant):
+//   dV = P̃ᵀ·dO  (P̃ = keep·P/(1 − rate), cast to dO's dtype)
+//   dS = P ∘ (dP̃ − delta),  dP̃ = keep·(dO·Vᵀ)/(1 − rate)  (cast to q's dtype)
 //   dK = dSᵀ·Q·scale,  dQ = dS·K·scale
+// with the dropout mask regenerated from the forward's seed, bit for bit.
 //
 // What bounds it on an H100: operations. At the BERT shape the five
 // products of the function are 10·B·H·S²·D = 42.9 GFLOP (43 us at the
@@ -18,12 +22,13 @@
 // block, which does not carry over to Hopper's 227 KB of shared memory and
 // unordered blocks. Instead, flash_bwd_dkv runs one block per (64-key tile,
 // batch·head) looping over the q tiles, and flash_bwd_dq one block per
-// (64-row q tile, batch·head) looping over the k tiles. Each block owns its
-// output rows outright, so no accumulation crosses blocks and the result
-// is deterministic; the price is that both kernels recompute s and dP. The
-// dK/dV and dQ sums stay in wmma accumulator fragments (f32) across the
-// loop; products are wmma 16x16x16. Rows and keys past S are masked to
-// P = 0. This is the simple first kernel: no TMA, no wgmma, no pipelining.
+// (64-row q tile, batch·head) looping over the k tiles; both skip tiles
+// wholly past the causal frontier. Each block owns its output rows
+// outright, so no accumulation crosses blocks and the result is
+// deterministic; the price is that both kernels recompute s, dP and the
+// dropout mask. The dK/dV and dQ sums stay in wmma accumulator fragments
+// (f32) across the loop; products are wmma 16x16x16. This is the simple
+// first kernel: no TMA, no wgmma, no pipelining.
 #include "flash_common.cuh"
 
 using namespace nvcuda;
@@ -45,8 +50,9 @@ template <typename T, int D>
 constexpr size_t bwd_smem_bytes() {
   return sizeof(T) * 4 * 64 * Ld<D>::T       // q, do, k, v tiles
          + sizeof(float) * ScoreRegion<D>::floats  // s and dP (f32), staging
-         + sizeof(T) * 2 * 64 * Ld<D>::P      // P and dS (16-bit)
-         + sizeof(float) * 2 * BM;            // lse, delta
+         + sizeof(T) * 2 * 64 * Ld<D>::P      // P̃ and dS (16-bit)
+         + sizeof(float) * 2 * BM             // lse, delta
+         + sizeof(unsigned) * BM;             // dropout row hashes
 }
 
 // this warp's 16 rows of A·Bᵀ (A rows from `a`, B rows from `bm`, both 64
@@ -74,44 +80,66 @@ __device__ __forceinline__ void rows_abt(float* out, const T* a, const T* bm,
                             wmma::mem_row_major);
 }
 
-// this warp's 16 q rows: P and dS (16-bit) from the f32 s and dP tiles
-template <typename T, int D>
+// this warp's 16 q rows: P̃ and dS (16-bit) from the f32 s and dP tiles
+template <typename T, int D, bool OPTS>
 __device__ __forceinline__ void probs_rows(T* sP, T* sdS, const float* sS,
                                            const float* sdP, const float* sLse,
-                                           const float* sDelta, int w0,
-                                           int q0, int k0, int S, float scale) {
+                                           const float* sDelta,
+                                           const unsigned* sHr, int w0,
+                                           int q0, int k0, const FlashArgs& a,
+                                           const Head& hd) {
   const int lane = threadIdx.x % 32;
+  unsigned hc[BN / 32] = {};
+  float bc[BN / 32] = {};
+  if (OPTS) {
+#pragma unroll
+    for (int j = 0; j < BN / 32; ++j) {
+      bc[j] = col_bias(a, hd, k0 + lane + 32 * j);
+      if (a.seed) hc[j] = col_hash(a, hd, k0 + lane + 32 * j);
+    }
+  }
   for (int r = 0; r < 16; ++r) {
-    const int row = w0 + r;
-    const bool row_ok = q0 + row < S;
-    for (int c = lane; c < BN; c += 32) {
-      float p = 0.f;
-      if (row_ok && k0 + c < S)
-        p = expf(sS[row * Ld<D>::S + c] * scale - sLse[row]);
-      const float ds = p * (sdP[row * Ld<D>::S + c] - sDelta[row]);
-      sP[row * Ld<D>::P + c] = from_float<T>(p);
-      sdS[row * Ld<D>::P + c] = from_float<T>(ds);
+    const int row = w0 + r, rg = q0 + row;
+    const unsigned hr = OPTS && a.seed ? sHr[row] : 0u;
+#pragma unroll
+    for (int j = 0; j < BN / 32; ++j) {
+      const int c = lane + 32 * j;
+      // masked elements score -inf: p = 0 (rows past Sq load lse 0)
+      const float p = expf(score<OPTS>(a, hd, sS[row * Ld<D>::S + c], rg,
+                                       k0 + c, bc[j]) - sLse[row]);
+      float dp = sdP[row * Ld<D>::S + c], pv = p;
+      if (OPTS && a.seed) {
+        if (keep(a, hr + hc[j])) {
+          pv = p * a.drop_scale;
+          dp *= a.drop_scale;
+        } else {
+          pv = dp = 0.f;
+        }
+      }
+      sP[row * Ld<D>::P + c] = from_float<T>(pv);
+      sdS[row * Ld<D>::P + c] = from_float<T>(p * (dp - sDelta[row]));
     }
   }
 }
 
-template <typename T, int D>
-__device__ __forceinline__ void load_rowvec(float* dst, const float* src,
-                                            int r0, int S) {
-  for (int i = threadIdx.x; i < BM; i += NTHREADS)
-    dst[i] = r0 + i < S ? src[r0 + i] : 0.f;
+// lse and delta of rows [r0, r0 + BM) (0 past Sq), and with dropout the
+// rows' hash terms
+template <bool OPTS>
+__device__ __forceinline__ void load_rows(float* sLse, float* sDelta,
+                                          unsigned* sHr, const float* lse,
+                                          const float* delta, int r0,
+                                          const FlashArgs& a, const Head& hd) {
+  for (int i = threadIdx.x; i < BM; i += NTHREADS) {
+    const bool in = r0 + i < a.Sq;
+    sLse[i] = in ? lse[r0 + i] : 0.f;
+    sDelta[i] = in ? delta[r0 + i] : 0.f;
+    if (OPTS && a.seed) sHr[i] = row_hash(a, hd, r0 + i);
+  }
 }
 
 // One block per (64-key tile, batch·head): dK, dV for its keys.
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ dout,
-              const float* __restrict__ lse, const float* __restrict__ delta,
-              T* __restrict__ dk, T* __restrict__ dv, int S, int H,
-              long long q_bs, long long q_rs, long long k_bs, long long k_rs,
-              long long v_bs, long long v_rs, long long do_bs, long long do_rs,
-              long long g_bs, long long g_rs, float scale) {
+template <typename T, int D, bool OPTS>
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv(const FlashArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sdO = sQ + 64 * Ld<D>::T;
@@ -123,14 +151,22 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   T* sdS = sP + 64 * Ld<D>::P;
   float* sLse = reinterpret_cast<float*>(sdS + 64 * Ld<D>::P);
   float* sDelta = sLse + BM;
+  unsigned* sHr = reinterpret_cast<unsigned*>(sDelta + BM);
 
   const int warp = threadIdx.x / 32;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int bh = blockIdx.y;
+  const Head hd = head_of(a, bh);
   const int k0 = blockIdx.x * BN;
   const int w0 = warp * 16;   // q rows of s/dP; key rows of dK/dV
+  const T* q = static_cast<const T*>(a.q) + hd.b * a.q_bs + hd.h * D;
+  const T* k = static_cast<const T*>(a.k) + hd.b * a.k_bs + hd.h * D;
+  const T* v = static_cast<const T*>(a.v) + hd.b * a.v_bs + hd.h * D;
+  const T* dout = static_cast<const T*>(a.dout) + hd.b * a.do_bs + hd.h * D;
+  const float* lse = a.lse + (long long)bh * a.Sq;
+  const float* delta = a.delta + (long long)bh * a.Sq;
 
-  load_tile<T, D>(sK, k + b * k_bs + h * D, k_rs, k0, S);
-  load_tile<T, D>(sV, v + b * v_bs + h * D, v_rs, k0, S);
+  load_tile<T, D>(sK, k, a.k_rs, k0, a.Sk);
+  load_tile<T, D>(sV, v, a.v_rs, k0, a.Sk);
 
   FragAcc dk_acc[D / 16], dv_acc[D / 16];
 #pragma unroll
@@ -139,21 +175,23 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
     wmma::fill_fragment(dv_acc[j], 0.f);
   }
 
-  for (int q0 = 0; q0 < S; q0 += BM) {
+  for (int q0 = 0; q0 < a.Sq; q0 += BM) {
+    // every row of this q tile is before the frontier of key k0
+    if (OPTS && a.causal && min(q0 + BM, a.Sq) - 1 + hd.off < k0) continue;
     __syncthreads();                        // previous q tile consumed
-    load_tile<T, D>(sQ, q + b * q_bs + h * D, q_rs, q0, S);
-    load_tile<T, D>(sdO, dout + b * do_bs + h * D, do_rs, q0, S);
-    load_rowvec<T, D>(sLse, lse + (long long)bh * S, q0, S);
-    load_rowvec<T, D>(sDelta, delta + (long long)bh * S, q0, S);
+    load_tile<T, D>(sQ, q, a.q_rs, q0, a.Sq);
+    load_tile<T, D>(sdO, dout, a.do_rs, q0, a.Sq);
+    load_rows<OPTS>(sLse, sDelta, sHr, lse, delta, q0, a, hd);
     __syncthreads();
 
     rows_abt<T, D>(sS, sQ, sK, w0);         // s  = Q·Kᵀ
     rows_abt<T, D>(sdP, sdO, sV, w0);       // dP = dO·Vᵀ
     __syncwarp();
-    probs_rows<T, D>(sP, sdS, sS, sdP, sLse, sDelta, w0, q0, k0, S, scale);
-    __syncthreads();                        // all q rows of P, dS ready
+    probs_rows<T, D, OPTS>(sP, sdS, sS, sdP, sLse, sDelta, sHr, w0, q0, k0,
+                           a, hd);
+    __syncthreads();                        // all q rows of P̃, dS ready
 
-    // dV[keys] += Pᵀ·dO ; dK[keys] += dSᵀ·Q   (contraction over q rows)
+    // dV[keys] += P̃ᵀ·dO ; dK[keys] += dSᵀ·Q   (contraction over q rows)
 #pragma unroll
     for (int kk = 0; kk < BM / 16; ++kk) {
       wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major> pt, dst;
@@ -174,31 +212,26 @@ flash_bwd_dkv(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();                          // score region free for staging
 
   float* stage = sS;
+  T* dkb = static_cast<T*>(a.dk) + hd.b * a.dkv_bs + hd.h * D;
+  T* dvb = static_cast<T*>(a.dv) + hd.b * a.dkv_bs + hd.h * D;
 #pragma unroll
   for (int jd = 0; jd < D / 16; ++jd)
     wmma::store_matrix_sync(stage + w0 * Ld<D>::O + jd * 16, dv_acc[jd],
                             Ld<D>::O, wmma::mem_row_major);
   __syncwarp();
-  store_rows<T, D>(dv + b * g_bs + h * D, g_rs, stage, k0, S, 1.f);
+  store_rows<T, D>(dvb, a.dkv_rs, stage, k0, a.Sk, 1.f);
   __syncwarp();
 #pragma unroll
   for (int jd = 0; jd < D / 16; ++jd)
     wmma::store_matrix_sync(stage + w0 * Ld<D>::O + jd * 16, dk_acc[jd],
                             Ld<D>::O, wmma::mem_row_major);
   __syncwarp();
-  store_rows<T, D>(dk + b * g_bs + h * D, g_rs, stage, k0, S, scale);
+  store_rows<T, D>(dkb, a.dkv_rs, stage, k0, a.Sk, a.scale);
 }
 
 // One block per (64-row q tile, batch·head): dQ for its rows.
-template <typename T, int D>
-__global__ void __launch_bounds__(NTHREADS)
-flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, const T* __restrict__ dout,
-             const float* __restrict__ lse, const float* __restrict__ delta,
-             T* __restrict__ dq, int S, int H, long long q_bs, long long q_rs,
-             long long k_bs, long long k_rs, long long v_bs, long long v_rs,
-             long long do_bs, long long do_rs, long long g_bs, long long g_rs,
-             float scale) {
+template <typename T, int D, bool OPTS>
+__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq(const FlashArgs a) {
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sdO = sQ + 64 * Ld<D>::T;
@@ -210,31 +243,40 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
   T* sdS = sP + 64 * Ld<D>::P;
   float* sLse = reinterpret_cast<float*>(sdS + 64 * Ld<D>::P);
   float* sDelta = sLse + BM;
+  unsigned* sHr = reinterpret_cast<unsigned*>(sDelta + BM);
 
   const int warp = threadIdx.x / 32;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const int bh = blockIdx.y;
+  const Head hd = head_of(a, bh);
   const int q0 = blockIdx.x * BM;
   const int w0 = warp * 16;
+  const T* q = static_cast<const T*>(a.q) + hd.b * a.q_bs + hd.h * D;
+  const T* k = static_cast<const T*>(a.k) + hd.b * a.k_bs + hd.h * D;
+  const T* v = static_cast<const T*>(a.v) + hd.b * a.v_bs + hd.h * D;
+  const T* dout = static_cast<const T*>(a.dout) + hd.b * a.do_bs + hd.h * D;
 
-  load_tile<T, D>(sQ, q + b * q_bs + h * D, q_rs, q0, S);
-  load_tile<T, D>(sdO, dout + b * do_bs + h * D, do_rs, q0, S);
-  load_rowvec<T, D>(sLse, lse + (long long)bh * S, q0, S);
-  load_rowvec<T, D>(sDelta, delta + (long long)bh * S, q0, S);
+  load_tile<T, D>(sQ, q, a.q_rs, q0, a.Sq);
+  load_tile<T, D>(sdO, dout, a.do_rs, q0, a.Sq);
+  load_rows<OPTS>(sLse, sDelta, sHr, a.lse + (long long)bh * a.Sq,
+                  a.delta + (long long)bh * a.Sq, q0, a, hd);
 
   FragAcc dq_acc[D / 16];
 #pragma unroll
   for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(dq_acc[j], 0.f);
 
-  for (int k0 = 0; k0 < S; k0 += BN) {
+  int k_end = a.Sk;
+  if (OPTS && a.causal) k_end = min(k_end, min(q0 + BM, a.Sq) + hd.off);
+  for (int k0 = 0; k0 < k_end; k0 += BN) {
     __syncthreads();                        // previous k tile consumed
-    load_tile<T, D>(sK, k + b * k_bs + h * D, k_rs, k0, S);
-    load_tile<T, D>(sV, v + b * v_bs + h * D, v_rs, k0, S);
+    load_tile<T, D>(sK, k, a.k_rs, k0, a.Sk);
+    load_tile<T, D>(sV, v, a.v_rs, k0, a.Sk);
     __syncthreads();
 
     rows_abt<T, D>(sS, sQ, sK, w0);
     rows_abt<T, D>(sdP, sdO, sV, w0);
     __syncwarp();
-    probs_rows<T, D>(sP, sdS, sS, sdP, sLse, sDelta, w0, q0, k0, S, scale);
+    probs_rows<T, D, OPTS>(sP, sdS, sS, sdP, sLse, sDelta, sHr, w0, q0, k0,
+                           a, hd);
     __syncwarp();
 
     // dQ[rows] += dS[rows]·K   (contraction over keys)
@@ -259,53 +301,44 @@ flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
     wmma::store_matrix_sync(stage + w0 * Ld<D>::O + jd * 16, dq_acc[jd],
                             Ld<D>::O, wmma::mem_row_major);
   __syncwarp();
-  store_rows<T, D>(dq + b * g_bs + h * D, g_rs, stage, q0, S, scale);
+  store_rows<T, D>(static_cast<T*>(a.dq) + hd.b * a.dq_bs + hd.h * D, a.dq_rs,
+                   stage, q0, a.Sq, a.scale);
+}
+
+template <typename T, int D, bool OPTS>
+int launch_opts(const FlashArgs& a, cudaStream_t stream) {
+  constexpr size_t smem = bwd_smem_bytes<T, D>();
+  int err = smem_optin((const void*)flash_bwd_dkv<T, D, OPTS>, smem);
+  if (err) return err;
+  err = smem_optin((const void*)flash_bwd_dq<T, D, OPTS>, smem);
+  if (err) return err;
+  flash_bwd_dkv<T, D, OPTS><<<dim3((a.Sk + BN - 1) / BN, a.B * a.H), NTHREADS,
+                              smem, stream>>>(a);
+  err = (int)cudaGetLastError();
+  if (err) return err;
+  flash_bwd_dq<T, D, OPTS><<<dim3((a.Sq + BM - 1) / BM, a.B * a.H), NTHREADS,
+                             smem, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* dout,
-           const float* lse, const float* delta, void* dq, void* dk, void* dv,
-           int B, int S, int H, long long q_bs, long long q_rs, long long k_bs,
-           long long k_rs, long long v_bs, long long v_rs, long long do_bs,
-           long long do_rs, long long g_bs, long long g_rs, float scale,
-           cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<T, D>();
-  int err = smem_optin((const void*)flash_bwd_dkv<T, D>, smem);
-  if (err) return err;
-  err = smem_optin((const void*)flash_bwd_dq<T, D>, smem);
-  if (err) return err;
-  dim3 grid((S + 63) / 64, B * H);
-  flash_bwd_dkv<T, D><<<grid, NTHREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dk, (T*)dv, S, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, do_bs, do_rs,
-      g_bs, g_rs, scale);
-  err = (int)cudaGetLastError();
-  if (err) return err;
-  flash_bwd_dq<T, D><<<grid, NTHREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout, lse, delta,
-      (T*)dq, S, H, q_bs, q_rs, k_bs, k_rs, v_bs, v_rs, do_bs, do_rs, g_bs,
-      g_rs, scale);
-  return (int)cudaGetLastError();
+int launch(const FlashArgs& a, cudaStream_t stream) {
+  return a.bias || a.causal || a.seed ? launch_opts<T, D, true>(a, stream)
+                                      : launch_opts<T, D, false>(a, stream);
 }
 
 }  // namespace
 
-// dtype: 0 = bf16, 1 = fp16. dq, dk, dv share strides (g_bs, g_rs).
-// Returns a cudaError_t (0 = both kernels launched).
-extern "C" int apex_flash_attn_bwd(
-    int dtype, int d, const void* q, const void* k, const void* v,
-    const void* dout, const float* lse, const float* delta, void* dq, void* dk,
-    void* dv, int B, int S, int H, long long q_bs, long long q_rs,
-    long long k_bs, long long k_rs, long long v_bs, long long v_rs,
-    long long do_bs, long long do_rs, long long g_bs, long long g_rs,
-    float scale, void* stream) {
+// dtype: 0 = bf16, 1 = fp16; d: 32, 64 or 128. Returns a cudaError_t
+// (0 = both kernels launched).
+extern "C" int apex_flash_attn_bwd(int dtype, int d, const FlashArgs* a,
+                                   void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define APEX_BWD(T, D_)                                                      \
-  return launch<T, D_>(q, k, v, dout, lse, delta, dq, dk, dv, B, S, H, q_bs, \
-                       q_rs, k_bs, k_rs, v_bs, v_rs, do_bs, do_rs, g_bs,     \
-                       g_rs, scale, st)
-  if (dtype == 0 && d == 64) APEX_BWD(__nv_bfloat16, 64);
-  if (dtype == 1 && d == 64) APEX_BWD(__half, 64);
-#undef APEX_BWD
+  if (dtype == 0 && d == 32) return launch<__nv_bfloat16, 32>(*a, st);
+  if (dtype == 0 && d == 64) return launch<__nv_bfloat16, 64>(*a, st);
+  if (dtype == 0 && d == 128) return launch<__nv_bfloat16, 128>(*a, st);
+  if (dtype == 1 && d == 32) return launch<__half, 32>(*a, st);
+  if (dtype == 1 && d == 64) return launch<__half, 64>(*a, st);
+  if (dtype == 1 && d == 128) return launch<__half, 128>(*a, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -79,12 +79,14 @@ class MultiheadAttention(nn.Module):
         self.SelfMultiheadAttn_0 = ops.SelfMultiheadAttn(
             hidden, heads, dropout=dropout, device=device)
 
-    def forward(self, x, mask=None, deterministic: bool = True):
+    def forward(self, x, mask=None, deterministic: bool = True,
+                generator=None):
         bias = None
         if mask is not None:
             bias = torch.where(mask, 0.0, -1e9).float()
         return self.SelfMultiheadAttn_0(x, attn_bias=bias,
-                                        deterministic=deterministic)
+                                        deterministic=deterministic,
+                                        generator=generator)
 
 
 class TransformerLayer(nn.Module):
@@ -100,10 +102,13 @@ class TransformerLayer(nn.Module):
         self.Dense_0 = Dense(hidden, ffn_hidden, device=device)
         self.Dense_1 = Dense(ffn_hidden, hidden, device=device)
 
-    def forward(self, x, mask=None, deterministic: bool = True):
-        """Post-LN block (the JAX package's ``pre_ln=False``, all BERT uses)."""
+    def forward(self, x, mask=None, deterministic: bool = True,
+                generator=None):
+        """Post-LN block (the JAX package's ``pre_ln=False``, all BERT uses).
+        Dropout acts on the attention probabilities only, as in the JAX
+        package's encoder."""
         x = self.FusedLayerNormModule_0(
-            x + self.MultiheadAttention_0(x, mask, deterministic))
+            x + self.MultiheadAttention_0(x, mask, deterministic, generator))
         # jax.nn.gelu defaults to the tanh approximation
         y = self.Dense_1(F.gelu(self.Dense_0(x), approximate="tanh"))
         return self.FusedLayerNormModule_1(x + y)
@@ -118,6 +123,7 @@ class BertEncoder(nn.Module):
                  seed: int = 0):
         super().__init__()
         self.vocab_size, self.hidden, self.layers = vocab_size, hidden, layers
+        self.dropout = dropout
         ffn = ffn_hidden or 4 * hidden
         self.tok_emb = Embed(vocab_size, hidden, device=device)
         self.pos_emb = nn.Parameter(torch.empty(max_len, hidden,
@@ -145,7 +151,11 @@ class BertEncoder(nn.Module):
                 p.normal_(0.0, 1.0 / math.sqrt(p.shape[1]),
                           generator=generator)
 
-    def forward(self, tokens, attn_mask=None, deterministic: bool = True):
+    def forward(self, tokens, attn_mask=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """``attn_mask`` (B, S), True where a token is real, becomes the
+        additive (B, 1, 1, S) bias; ``deterministic=False`` applies the
+        layers' attention dropout with seeds drawn from ``generator``."""
         emb = self.tok_emb(tokens)
         x = emb + self.pos_emb[None, :tokens.shape[1]].to(emb.dtype)
         x = self.FusedLayerNormModule_0(x)
@@ -153,7 +163,8 @@ class BertEncoder(nn.Module):
         if attn_mask is not None:
             mask = attn_mask[:, None, None, :].bool()
         for i in range(self.layers):
-            x = getattr(self, f"TransformerLayer_{i}")(x, mask, deterministic)
+            x = getattr(self, f"TransformerLayer_{i}")(x, mask, deterministic,
+                                                       generator)
         return x
 
 
@@ -170,7 +181,12 @@ def mlm_loss(encoder: BertEncoder, params, tokens, labels, smoothing=0.0):
     if params is None:
         params = dict(encoder.named_parameters())
     hidden = functional_call(encoder, params, (tokens,))
-    emb = params["tok_emb.weight"]
+    return _mlm_head(hidden, params["tok_emb.weight"], labels, smoothing)
+
+
+def _mlm_head(hidden, emb, labels, smoothing=0.0):
+    """The MLM loss on encoder output: logits from the tied token table,
+    fused CE, mean over the labels >= 0."""
     logits = hidden @ emb.t().to(hidden.dtype)
     losses = ops.softmax_cross_entropy_loss(logits, labels, smoothing)
     n = torch.clamp((labels >= 0).sum(), min=1)

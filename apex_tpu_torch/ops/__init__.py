@@ -4,7 +4,8 @@ only for a tensor on the CPU; on a CUDA tensor it launches its kernel or
 raises. Every kernel wrapper counts its launches in ``.launches``."""
 
 from apex_tpu_torch.ops.attention import (  # noqa: F401
-    attention_reference, flash_attention, flash_bwd_kernel, flash_fwd_kernel,
+    attention_reference, flash_attention, flash_attention_lse,
+    flash_bwd_kernel, flash_fwd_kernel,
 )
 from apex_tpu_torch.ops.bn_act import (  # noqa: F401
     FusedBNAct, bn_act_reference, bn_act_train, bn_add_act_train,
@@ -17,7 +18,9 @@ from apex_tpu_torch.ops.layer_norm import (  # noqa: F401
 from apex_tpu_torch.ops.multi_tensor import (  # noqa: F401
     l2norm_kernel, multi_tensor_l2norm,
 )
-from apex_tpu_torch.ops.multihead_attn import SelfMultiheadAttn  # noqa: F401
+from apex_tpu_torch.ops.multihead_attn import (  # noqa: F401
+    EncdecMultiheadAttn, SelfMultiheadAttn,
+)
 from apex_tpu_torch.ops.optim_kernels import (  # noqa: F401
     adam_kernel, adam_update, lamb_stage1, lamb_stage1_kernel, lamb_stage2,
     lamb_stage2_kernel, sgd_kernel, sgd_update,

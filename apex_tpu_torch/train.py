@@ -6,11 +6,13 @@ FusedAdam).
 model (BERT-Large unless an encoder is given), the same inputs from
 ``np.random.RandomState(seed)``, and the same step through the normal
 entry points: ``amp.Amp(policy, FusedLAMB(lr=1e-3, strategy=strategy))``,
-``Amp.backward``,
-``Amp.apply_gradients`` and ``models.mlm_loss`` under ``amp.auto_cast``.
-``strategy`` is ``FusedLAMB``'s own option ("auto", the JAX step's
+``Amp.backward``, ``Amp.apply_gradients``, and the encoder with
+``models.mlm_loss``'s head under ``amp.auto_cast``. ``strategy`` is ``FusedLAMB``'s own option ("auto", the JAX step's
 default, takes the tree update for BERT-Large and the flat arena for a
-model below 8M params; "arena" forces the arena kernels).
+model below 8M params; "arena" forces the arena kernels). ``dropout=0.1,
+padded=True`` trains BERT as published: padding masks and attention
+dropout, the encoder called as the JAX package's ``BertEncoder(tokens,
+attn_mask, deterministic=False)`` with the MLM head of ``mlm_loss``.
 
 ``build_resnet_step`` is the port of ``bench._resnet_step_builder``:
 ResNet-50 (NHWC, the model computing in the policy's compute dtype), the
@@ -36,6 +38,7 @@ import torch
 from torch.func import functional_call
 
 from apex_tpu_torch import amp, models, ops
+from apex_tpu_torch.models.transformer import _mlm_head
 from apex_tpu_torch.optim import FusedAdam, FusedLAMB, FusedSGD
 
 
@@ -50,34 +53,54 @@ def _device(device, entry):
 
 def build_bert_step(batch: int, seq: int, encoder=None, opt_level="O1",
                     half_dtype=torch.bfloat16, device="cuda", seed: int = 0,
-                    vocab: Optional[int] = None, strategy: str = "auto"):
+                    vocab: Optional[int] = None, strategy: str = "auto",
+                    dropout: float = 0.0, padded: bool = False):
     """Returns ``(step, state, (toks, labels), policy, enc)``.
 
     ``step(state, toks, labels) -> (state', loss)`` runs one training step.
-    ``encoder=None`` builds BERT-Large on ``device``; tokens and labels are
+    ``encoder=None`` builds BERT-Large on ``device`` (with attention dropout
+    ``dropout``; a given encoder brings its own); tokens and labels are
     drawn below ``vocab`` (default: 30000, as ``bench.py`` draws them, or
     the encoder's vocab if smaller).
+
+    BERT as published trains with ``dropout=0.1, padded=True``: each
+    sequence's length is drawn from [128, seq] after the tokens and labels,
+    the encoder gets the padding mask (``step.attn_mask``) and labels at
+    padded positions are -1, which the loss ignores; an encoder with
+    dropout > 0 runs ``deterministic=False`` and draws its dropout seeds
+    from ``step.generator`` (a ``torch.Generator`` on ``device`` seeded with
+    ``seed``).
     """
     device = _device(device, "build_bert_step")
     policy = amp.Policy.from_opt_level(opt_level, half_dtype=half_dtype)
     enc = encoder if encoder is not None else models.BertLarge(
-        device=device, seed=seed)
+        device=device, seed=seed, dropout=dropout)
     vocab = vocab if vocab is not None else min(30000, enc.vocab_size)
     rng = np.random.RandomState(seed)
     toks = torch.as_tensor(rng.randint(0, vocab, (batch, seq)),
                            dtype=torch.int64, device=device)
-    labels = torch.as_tensor(rng.randint(0, vocab, (batch, seq)),
-                             dtype=torch.int64, device=device)
+    labels = rng.randint(0, vocab, (batch, seq))
+    attn_mask = None
+    if padded:
+        lengths = rng.randint(128, seq + 1, batch)
+        mask = np.arange(seq) < lengths[:, None]
+        labels = np.where(mask, labels, -1)
+        attn_mask = torch.as_tensor(mask, device=device)
+    labels = torch.as_tensor(labels, dtype=torch.int64, device=device)
     amp_opt = amp.Amp(policy, FusedLAMB(lr=1e-3, strategy=strategy))
     state = amp_opt.init(dict(enc.named_parameters()))
+    gen = torch.Generator(device).manual_seed(seed)
+    kwargs = {"deterministic": enc.dropout == 0.0, "generator": gen}
 
     def step(state, toks, labels):
         def loss_fn(mp):
             with amp.auto_cast(policy):
-                return models.mlm_loss(enc, mp, toks, labels)
+                hidden = functional_call(enc, mp, (toks, attn_mask), kwargs)
+                return _mlm_head(hidden, mp["tok_emb.weight"], labels)
         loss, grads, state, finite = amp_opt.backward(state, loss_fn)
         return amp_opt.apply_gradients(state, grads, finite), loss
 
+    step.attn_mask, step.generator = attn_mask, gen
     return step, state, (toks, labels), policy, enc
 
 

@@ -13,10 +13,15 @@ plain PyTorch version on the card at the shapes its main path gives it
   steps with the flat-arena update (``strategy="arena"``), checking every
   kernel's launches and that the two runs' losses agree. One LAMB update
   from the same state is run both ways and compared, timed in turns, and
-  its device kernels counted with ``torch.profiler``. A depth-2
-  full-width step is compared with the same step run through the plain
-  versions, and a short fp16 O1 run with dynamic loss scaling takes one
-  forced overflow.
+  its device kernels counted with ``torch.profiler``. Then 5 steps of
+  BERT-Large as published: padding masks and attention dropout 0.1
+  (phase bert_large_dropout). A depth-2 full-width step, without and
+  with mask and dropout, is compared with the same step run through the
+  plain versions, and a short fp16 O1 run with dynamic loss scaling takes
+  one forced overflow. The attention kernels' options (bias modes,
+  causal, Sq != Sk, dropout, block offsets, head dims 32/64/128, odd H)
+  are held against the plain versions, and a probe reads the dropout
+  keep mask out of the forward kernel bit for bit.
 - ResNet-50 (B256, 224x224, NHWC, amp O2 bf16, FusedSGD(lr=0.1,
   momentum=0.9)) trains 5 steps with the tree update ("auto") and 5 with
   the arena, with the same checks and one SGD update compared both ways;
@@ -79,6 +84,26 @@ REPLACES = {
     "sgd": "apex_tpu/ops/optim_kernels.py:95",
     "adam": "apex_tpu/ops/optim_kernels.py:42",
 }
+# rows of the kernels JSON line beyond one per kernel: the two attention
+# wrappers timed again at the published BERT path's shape (padding bias,
+# dropout 0.1) and at H = 15, where the JAX package takes its (B·H, S, D)
+# kernels (rows 9-11); {row: (kernel, TPU kernel replaced, phase whose run
+# drives this row's geometry, or None: no path runs H = 15, 0 launches)}
+EXTRA_ROWS = {
+    "flash_attn_fwd_mask_dropout": ("flash_attn_fwd",
+                                    "apex_tpu/ops/attention.py:720",
+                                    "bert_large_dropout"),
+    "flash_attn_bwd_mask_dropout": ("flash_attn_bwd",
+                                    "apex_tpu/ops/attention.py:1064",
+                                    "bert_large_dropout"),
+    "flash_attn_fwd_h15": ("flash_attn_fwd", "apex_tpu/ops/attention.py:212",
+                           None),
+    "flash_attn_bwd_h15": ("flash_attn_bwd", "apex_tpu/ops/attention.py:357",
+                           None),
+}
+# integer operations of the dropout hash per score element (mix, avalanche,
+# compare, select and scale), counted at the f32 rate of the CUDA cores
+HASH_OPS = 20
 SOURCES = {
     "layer_norm_fwd": ("triton", "apex_tpu_torch/ops/layer_norm.py"),
     "layer_norm_bwd": ("triton", "apex_tpu_torch/ops/layer_norm.py"),
@@ -206,13 +231,16 @@ def check_kernels(rows):
         torch.cuda.synchronize()
     del warm
 
-    def row(name, err, ms, plain_ms, lib_ms, nbytes, flops, peak=BF16_FLOPS):
+    def row(name, err, ms, plain_ms, lib_ms, nbytes, flops, peak=BF16_FLOPS,
+            int_ops=0):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / peak * 1e3
-        route, src = SOURCES[name]
+        t_ops = max(flops / peak, int_ops / F32_FLOPS) * 1e3
+        kernel, replaces, _ = EXTRA_ROWS.get(
+            name, (name, REPLACES.get(name), None))
+        route, src = SOURCES[kernel]
         rows[name] = {
             "name": name, "route": route, "source": src,
-            "replaces": REPLACES[name], "launches": 0,
+            "replaces": replaces, "launches": 0,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -346,11 +374,180 @@ def check_kernels(rows):
                                             retain_graph=True), flush=flush)
     row("flash_attn_bwd", bwd_err, ms, plain, lib,
         nbytes=7 * io + 2 * bsz * h * s * 4, flops=10 * bsz * h * s * s * d)
+    del qg, kg, vg, og
+    check_attention_options(rnd, gen, flush, row)
+    mask_probe()
     check_arena_kernels(rnd, flush, row)
     check_bn_kernels(rnd, flush, row)
     check_sgd_kernel(rnd, flush, row)
     check_adam_kernel(rnd, flush, row)
     del sweep
+
+
+def _padding_bias(gen, b, s):
+    """BERT's (B, 1, 1, S) f32 padding bias: lengths from [128, S], 0 on a
+    sequence's tokens and -1e9 past its end (the models' mask → bias)."""
+    import torch
+    dev = torch.device("cuda")
+    lengths = torch.randint(128, s + 1, (b,), generator=gen, device=dev)
+    keep = torch.arange(s, device=dev) < lengths[:, None]
+    return torch.where(keep, 0.0, -1e9).view(b, 1, 1, s)
+
+
+def check_attention_options(rnd, gen, flush, row):
+    """The flash kernels' options against their plain versions (TOL16 for
+    16-bit outputs, TOL32 for lse): BERT's shape with the padding bias and
+    dropout 0.1; Sq 200 / Sk 328 at H = 3 in fp16, causal at the default
+    frontier, at a runtime offset and with dropout; D = 128 with a full
+    bias; D = 32 with a head bias and dropout; dropout block offsets; a
+    multi-block S = 600 (the JAX dropout blocks are 128 there) with padding
+    and dropout; Sq > Sk causal, whose first rows see no key (o = 0, lse =
+    -1e30, zero gradients). Then the two wrappers are timed at BERT's shape
+    with padding and dropout and at H = 15."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    bf16, fp16, f32 = torch.bfloat16, torch.float16, torch.float32
+
+    def i32(*vals):
+        return torch.tensor(vals, dtype=torch.int32, device=dev)
+
+    cases = [
+        ("BERT padding+dropout", (16, 512, 512, 16, 64), bf16,
+         dict(bias=_padding_bias(gen, 16, 512), rate=0.1, seed=i32(12345))),
+        ("causal", (2, 200, 328, 3, 64), fp16, dict(causal=True)),
+        ("causal offset 50", (2, 200, 328, 3, 64), fp16,
+         dict(causal=True, causal_off=i32(50))),
+        ("causal+dropout", (2, 200, 328, 3, 64), fp16,
+         dict(causal=True, rate=0.1, seed=i32(-77))),
+        ("D128 full bias", (2, 256, 192, 4, 128), bf16,
+         dict(bias=rnd(2, 4, 256, 192, dtype=f32))),
+        ("D32 head bias+dropout", (2, 300, 300, 5, 32), bf16,
+         dict(bias=rnd(1, 5, 300, 300, dtype=f32), rate=0.1, seed=i32(9))),
+        ("dropout block offset", (2, 512, 512, 2, 64), bf16,
+         dict(rate=0.1, seed=i32(31), dbo=i32(1, 2))),
+        ("S600 padding+dropout", (2, 600, 600, 4, 64), bf16,
+         dict(bias=_padding_bias(gen, 2, 600), rate=0.1, seed=i32(5))),
+        ("Sq>Sk causal", (2, 200, 128, 2, 64), bf16, dict(causal=True)),
+        ("H15", (16, 512, 512, 15, 64), bf16, {}),
+    ]
+    main = {}
+    for label, (b, sq, sk, h, d), dt, opts in cases:
+        q, do = rnd(b, sq, h, d, dtype=dt), rnd(b, sq, h, d, dtype=dt)
+        k, v = rnd(b, sk, h, d, dtype=dt), rnd(b, sk, h, d, dtype=dt)
+        scale = 1.0 / math.sqrt(d)
+        o_k, lse_k = A.flash_fwd_kernel(q, k, v, scale, **opts)
+        o_p, lse_p = A.flash_fwd_plain(q, k, v, scale, **opts)
+        blind = lse_p == A.NEG_INF            # rows that see no key
+        if not torch.equal(blind, lse_k == A.NEG_INF):
+            raise AssertionError(f"flash_attn_fwd {label}: rows without a "
+                                 f"key differ")
+        n_blind = int(blind.sum())
+        if n_blind:
+            rows_k = o_k.transpose(1, 2).reshape(b * h, sq, d)[blind]
+            if rows_k.abs().max().item() != 0.0:
+                raise AssertionError(f"flash_attn_fwd {label}: a row "
+                                     f"without a key has o != 0")
+        e1 = compare(f"flash_attn_fwd {label}", [o_k, lse_k.masked_fill(
+            blind, 0.0)], [o_p, lse_p.masked_fill(blind, 0.0)])
+        delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).reshape(
+            b * h, sq).contiguous()
+        e2 = compare(f"flash_attn_bwd {label}",
+                     A.flash_bwd_kernel(q, k, v, do, lse_p, delta, scale,
+                                        **opts),
+                     A.flash_bwd_plain(q, k, v, do, lse_p, delta, scale,
+                                       **opts))
+        log(f"kernel flash attention {label} {(b, sq, sk, h, d)} "
+            f"{str(dt)[6:]}: fwd max_abs_err {e1:.3e}, bwd {e2:.3e}"
+            + (f", {n_blind} rows see no key" if n_blind else ""))
+        if label in ("BERT padding+dropout", "H15"):
+            main[label] = (e1, e2, q, k, v, do, lse_p, delta, scale, opts)
+    log("phase kernels: flash attention options (bias modes, causal, "
+        "offsets, Sq != Sk, dropout, block offsets, D 32/64/128, odd H) "
+        "agree with the plain versions")
+
+    for label, suffix in (("BERT padding+dropout", "mask_dropout"),
+                          ("H15", "h15")):
+        e1, e2, q, k, v, do, lse, delta, scale, opts = main.pop(label)
+        b, s, h, d = q.shape
+        rate = opts.get("rate", 0.0)
+        bias = opts.get("bias")
+        io = b * s * h * d * 2
+        extra = b * s * 4 if bias is not None else 0
+        hash_ops = HASH_OPS * b * h * s * s if rate else 0
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        mask = None if bias is None else bias.to(q.dtype)
+
+        def sdpa(qt=qt, kt=kt, vt=vt):
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                  dropout_p=rate)
+        ms = timed(lambda: A.flash_fwd_kernel(q, k, v, scale, **opts),
+                   flush=flush)
+        plain = timed(lambda: A.flash_fwd_plain(q, k, v, scale, **opts),
+                      flush=flush)
+        lib = timed(sdpa, flush=flush)
+        row(f"flash_attn_fwd_{suffix}", e1, ms, plain, lib,
+            nbytes=4 * io + b * h * s * 4 + extra,
+            flops=4 * b * h * s * s * d, int_ops=hash_ops)
+        ms = timed(lambda: A.flash_bwd_kernel(q, k, v, do, lse, delta, scale,
+                                              **opts), flush=flush)
+        plain = timed(lambda: A.flash_bwd_plain(q, k, v, do, lse, delta,
+                                                scale, **opts), flush=flush)
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+        og = sdpa(qg, kg, vg)
+        dot = do.transpose(1, 2)
+        lib = timed(lambda: torch.autograd.grad(og, (qg, kg, vg), dot,
+                                                retain_graph=True),
+                    flush=flush)
+        row(f"flash_attn_bwd_{suffix}", e2, ms, plain, lib,
+            nbytes=7 * io + 2 * b * h * s * 4 + extra,
+            flops=10 * b * h * s * s * d, int_ops=hash_ops)
+        del qg, kg, vg, og
+
+
+def mask_probe():
+    """The dropout keep mask read out of the forward kernel through
+    ``flash_attention``, bit for bit against the plain ``_keep_mask_dense``
+    (a tolerance alone can miss a wrong bit: at S = 512 one changed keep
+    bit moves o by about 1/512). With q = k = 0 and a (1, 1, 1, S) bias 0
+    on keys [j0, j0 + 64) and -1e9 elsewhere, p is 1/64 on that window; v
+    is the identity there, so o[r, d]·64·(1 − rate) is 1 where keep[r, j0 +
+    d] and 0 where not (> 0.5 read as kept; o is bf16). j0 sweeps the keys,
+    at S = 512 (one JAX dropout block) and S = 600 (blocks of 128), B = H =
+    2."""
+    import torch
+    from apex_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    b, h, d, rate = 2, 2, 64, 0.1
+    seed = torch.tensor([-1234567], dtype=torch.int32, device=dev)
+    for s in (512, 600):
+        qk = torch.zeros(b, s, h, d, dtype=torch.bfloat16, device=dev)
+        got = torch.zeros(b * h, s, s, dtype=torch.bool, device=dev)
+        starts = list(range(0, s - d + 1, d))
+        if starts[-1] + d < s:
+            starts.append(s - d)
+        eye = torch.eye(d, dtype=torch.bfloat16, device=dev)
+        for j0 in starts:
+            bias = torch.full((1, 1, 1, s), -1e9, device=dev)
+            bias[..., j0:j0 + d] = 0.0
+            v = torch.zeros_like(qk)
+            v[:, j0:j0 + d] = eye[None, :, None, :]
+            o = A.flash_attention(qk, qk, v, bias=bias, dropout_rate=rate,
+                                  dropout_seed=seed)
+            bits = o.float() * d * (1 - rate) > 0.5          # (b, s, h, d)
+            got[:, :, j0:j0 + d] = bits.transpose(1, 2).reshape(b * h, s, d)
+        want = A._keep_mask_dense(seed, b, h, s, s, *A._dropout_blocks(s, s),
+                                  rate)
+        wrong = int((got != want).sum())
+        if wrong:
+            raise AssertionError(f"mask probe S={s}: {wrong} of "
+                                 f"{want.numel()} keep bits differ")
+        log(f"phase kernels: mask probe S={s}: {want.numel()} keep bits "
+            f"equal the plain mask bit for bit (kept "
+            f"{want.float().mean().item():.4f}, {len(starts)} windows)")
 
 
 def check_xentropy_resnet(rnd, gen, flush):
@@ -717,20 +914,25 @@ def check_arena_kernels(rnd, flush, row):
         flops=3 * n, peak=F32_FLOPS)
 
 
-def train_bert_large(phase, rows, strategy="auto"):
+def train_bert_large(phase, rows, strategy="auto", **options):
     """5 BERT-Large steps (B16, S512, O1 bf16) with ``FusedLAMB(lr=1e-3,
-    strategy=strategy)``, built by ``train.build_bert_step``; checks every
-    kernel's launches in those steps. Returns (losses, state, step ms)."""
+    strategy=strategy)``, built by ``train.build_bert_step`` (``options``:
+    its ``dropout``/``padded``); checks every kernel's launches in those
+    steps. Returns (losses, state, step ms)."""
     import torch
     from apex_tpu_torch import ops, train
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     step, state, (toks, labels), _policy, enc = train.build_bert_step(
-        16, 512, strategy=strategy)
+        16, 512, strategy=strategy, **options)
     n_params = sum(p.numel() for p in enc.parameters())
     log(f"phase {phase}: built, {n_params} params, "
-        f"{len(state.params)} tensors, FusedLAMB strategy {strategy!r}")
+        f"{len(state.params)} tensors, FusedLAMB strategy {strategy!r}"
+        + (f", {options}: {int(step.attn_mask.sum())} of "
+           f"{step.attn_mask.numel()} tokens real, "
+           f"{int((labels >= 0).sum())} labels"
+           if step.attn_mask is not None else ""))
     ops.reset_launch_counts()
     times, losses = [], []
     for _ in range(5):
@@ -793,6 +995,26 @@ def bert_large_steps(rows):
     log(f"phase bert_large: tree-LAMB update {lamb_ms:.2f} ms = "
         f"{100 * lamb_ms / step_ms:.1f}% of the step")
     return losses
+
+
+def take_phase_launches(phase, rows):
+    """The extra rows that ``phase`` drives take their kernel's launches
+    from the run ``check_launches`` just recorded for ``phase``; the others
+    keep theirs."""
+    for name, (kernel, _, driven_by) in EXTRA_ROWS.items():
+        if driven_by == phase:
+            rows[name]["launches"] = rows[kernel]["launches"]
+
+
+def bert_large_dropout(rows):
+    """BERT-Large as published: padding masks (lengths from [128, 512]) and
+    attention dropout 0.1, 5 steps of the default update; 24 launches of
+    each attention kernel a step (the rows timed at this path's shape take
+    their launches from here) and finite losses."""
+    _, _, step_ms = train_bert_large("bert_large_dropout", rows, dropout=0.1,
+                                     padded=True)
+    take_phase_launches("bert_large_dropout", rows)
+    return step_ms
 
 
 def bert_large_arena(rows, tree_losses):
@@ -1241,34 +1463,43 @@ def dcgan_fp16_overflow():
         "followed their own schedules")
 
 
-def depth2_encoder():
+def depth2_encoder(dropout=0.0):
     from apex_tpu_torch import models
-    return models.BertEncoder(30522, hidden=1024, layers=2, heads=16)
+    return models.BertEncoder(30522, hidden=1024, layers=2, heads=16,
+                              dropout=dropout)
 
 
 def plain_vs_kernel_step():
-    """Phase 6: first-step loss, kernels vs plain versions, depth 2."""
+    """Phase 6: first-step loss, kernels vs plain versions, depth 2: as
+    the bert_large step, then with padding masks and attention dropout 0.1
+    (both runs draw the same dropout seeds from the step's generator)."""
     import torch
     from apex_tpu_torch import ops, train
 
-    losses = {}
-    for mode in ("kernel", "plain"):
-        step, state, (toks, labels), _p, _e = train.build_bert_step(
-            16, 512, encoder=depth2_encoder())
-        ops.reset_launch_counts()
-        with (plain_versions() if mode == "plain" else contextlib.nullcontext()):
-            state, loss = step(state, toks, labels)
-        losses[mode] = loss.item()
-        used = sum(ops.launch_counts().values())
-        if (used == 0) != (mode == "plain"):
-            raise AssertionError(f"{mode} step launched {used} kernels")
-        del step, state
-        torch.cuda.empty_cache()
-    rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
-    log(f"phase plain_vs_kernel: depth-2 first-step loss kernel "
-        f"{losses['kernel']:.6f} plain {losses['plain']:.6f} rel {rel:.2e}")
-    if not rel <= 5e-3:
-        raise AssertionError(f"kernel/plain loss differ by {rel:.2e} > 5e-3")
+    for dropout, padded in ((0.0, False), (0.1, True)):
+        losses = {}
+        for mode in ("kernel", "plain"):
+            step, state, (toks, labels), _p, _e = train.build_bert_step(
+                16, 512, encoder=depth2_encoder(dropout), padded=padded)
+            ops.reset_launch_counts()
+            with (plain_versions() if mode == "plain"
+                  else contextlib.nullcontext()):
+                state, loss = step(state, toks, labels)
+            losses[mode] = loss.item()
+            used = sum(ops.launch_counts().values())
+            if (used == 0) != (mode == "plain"):
+                raise AssertionError(f"{mode} step launched {used} kernels")
+            del step, state
+            torch.cuda.empty_cache()
+        rel = abs(losses["kernel"] - losses["plain"]) / abs(losses["plain"])
+        what = (f"padded, dropout {dropout}" if padded
+                else "no mask, no dropout")
+        log(f"phase plain_vs_kernel: depth-2 {what} first-step loss kernel "
+            f"{losses['kernel']:.6f} plain {losses['plain']:.6f} rel "
+            f"{rel:.2e}")
+        if not rel <= 5e-3:
+            raise AssertionError(f"kernel/plain loss differ by {rel:.2e} > "
+                                 f"5e-3 ({what})")
 
 
 def fp16_overflow_run():
@@ -1348,6 +1579,7 @@ def main() -> int:
     check_kernels(rows)
     tree_losses = bert_large_steps(rows)
     bert_large_arena(rows, tree_losses)
+    bert_large_dropout(rows)
     torch.cuda.empty_cache()
     plain_vs_kernel_step()
     fp16_overflow_run()
@@ -1362,7 +1594,8 @@ def main() -> int:
     dcgan_fp16_overflow()
 
     from apex_tpu_torch import ops
-    print(json.dumps({"kernels": [rows[n] for n in ops.KERNELS]}))
+    print(json.dumps({"kernels": [rows[n] for n in (*ops.KERNELS,
+                                                     *EXTRA_ROWS)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
 """Where one training step of apex_tpu_torch spends its time.
 
-    python3 scripts/torch_bert_profile.py [--model bert_large|resnet50|dcgan]
-        [--steps 2] [--strategy auto] [--out PATH]
+    python3 scripts/torch_bert_profile.py [--model bert_large|
+        bert_large_dropout|resnet50|dcgan] [--steps 2] [--strategy auto]
+        [--out PATH]
 
-Builds the port's BERT-Large MLM step (B16, S512, amp O1 bf16, FusedLAMB),
-its ResNet-50 step (B256, 224x224, amp O2 bf16, FusedSGD(lr=0.1,
+Builds the port's BERT-Large MLM step (B16, S512, amp O1 bf16, FusedLAMB;
+``bert_large_dropout``: as published, with padding masks and attention
+dropout 0.1), its ResNet-50 step (B256, 224x224, amp O2 bf16, FusedSGD(lr=0.1,
 momentum=0.9)) or its DCGAN step (B128, 64x64, amp O1 bf16, two
 FusedAdam(lr=2e-4, betas=(0.5, 0.999)) bundles, three backwards) with
 the given optimizer strategy ("auto" takes the tree update for BERT-Large
@@ -15,8 +17,9 @@ on one CUDA device, warms it up, then traces ``--steps`` steps with
 device kernel time summed by category (the port's kernels, convolutions,
 GEMMs, dtype casts, other elementwise and reduction kernels, the plain BN
 forward of ResNet-50, DCGAN's BatchNorm forward and backward, and the
-rest), the device idle share of the traced window, and the top kernels by
-time. Needs a CUDA device; fails without one.
+rest), the device idle share of the traced window, the top kernels by
+time, and the top host ops by self CPU time. Needs a CUDA device; fails
+without one.
 """
 
 from __future__ import annotations
@@ -106,9 +109,11 @@ def _builder(model, strategy):
     """``(one_step, batch)``: ``one_step()`` runs a step and returns its
     loss."""
     from apex_tpu_torch import train
-    if model == "bert_large":
+    if model.startswith("bert_large"):
+        published = model == "bert_large_dropout"
         step, state, (toks, labels), _, _ = train.build_bert_step(
-            16, 512, strategy=strategy)
+            16, 512, strategy=strategy, dropout=0.1 if published else 0.0,
+            padded=published)
         carry = [state]
 
         def one_step():
@@ -138,7 +143,8 @@ def _builder(model, strategy):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="bert_large",
-                    choices=("bert_large", "resnet50", "dcgan"))
+                    choices=("bert_large", "bert_large_dropout", "resnet50",
+                             "dcgan"))
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--strategy", default="auto",
                     choices=("auto", "tree", "arena"))
@@ -220,6 +226,11 @@ def main() -> int:
         "top_kernels_ms_per_step": [
             [n[:90], v / 1e3 / args.steps] for n, v in
             sorted(by_name.items(), key=lambda kv: -kv[1])[:15]],
+        "top_host_ops_ms_per_step": [
+            [e.key[:90], e.self_cpu_time_total / 1e3 / args.steps, e.count
+             // args.steps] for e in sorted(
+                 prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+            [:15]],
     }
     text = json.dumps(out, indent=1)
     print(text)

@@ -63,10 +63,14 @@ def test_reference_and_plain_bias_causal_match_jax(causal):
     np.testing.assert_allclose(tfa.numpy(), tref.numpy(), atol=2e-5, rtol=0)
 
 
-def test_dropout_is_not_ported():
-    q = torch.zeros(1, 8, 2, 64)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TA.flash_attention(q, q, q, dropout_rate=0.1)
+def test_dropout_without_seed_raises_jax_error():
+    q = np.zeros((1, 8, 2, 64), np.float32)
+    with pytest.raises(ValueError) as jerr:
+        JA.flash_attention(*(jnp.asarray(q),) * 3, dropout_rate=0.1)
+    with pytest.raises(ValueError) as terr:
+        TA.flash_attention(*(torch.tensor(q),) * 3, dropout_rate=0.1)
+    assert str(terr.value) == str(jerr.value) == \
+        "dropout_rate > 0 requires dropout_seed"
 
 
 def test_self_multihead_attn_matches_jax():

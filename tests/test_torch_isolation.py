@@ -125,3 +125,34 @@ def test_dcgan_entry_points_and_dense_default_to_cuda(monkeypatch):
     gs, ds, gbs, dbs, losses = step(gs, ds, gbs, dbs, z, real)
     assert int(gs.step) == 1 and int(ds.step) == 2
     assert all(torch.isfinite(l) for l in losses)
+
+
+def test_attention_modules_and_dropout_path_default_to_cuda(monkeypatch):
+    """``SelfMultiheadAttn``, ``EncdecMultiheadAttn`` and the published
+    BERT path (``build_bert_step(..., dropout=0.1, padded=True)``) ask for
+    cuda when no device is given; with ``device="cpu"`` the path runs a step
+    of its plain versions on the CPU, drawing its dropout seeds from a CPU
+    generator."""
+    import inspect
+
+    from apex_tpu_torch import models, ops, train
+
+    for fn in (ops.SelfMultiheadAttn, ops.EncdecMultiheadAttn,
+               train.build_bert_step):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.build_bert_step(2, 256, dropout=0.1, padded=True)
+    for make in (lambda: ops.EncdecMultiheadAttn(16, 2),
+                 lambda: ops.SelfMultiheadAttn(16, 2)):
+        with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+            make()
+    enc = models.BertEncoder(50, hidden=16, layers=1, heads=2, max_len=160,
+                             dropout=0.1, device="cpu")
+    step, state, (toks, labels), _, _ = train.build_bert_step(
+        2, 160, encoder=enc, device="cpu", padded=True)
+    assert step.generator.device.type == "cpu"
+    assert step.attn_mask.device.type == toks.device.type == "cpu"
+    assert bool((labels[~step.attn_mask] == -1).all())
+    state, loss = step(state, toks, labels)
+    assert int(state.step) == 1 and torch.isfinite(loss)

@@ -56,9 +56,70 @@ def test_flash_wrapper_checks_layout_before_device():
     q = torch.ones(1, 8, 2, 64, dtype=torch.float32)
     with pytest.raises(ValueError, match="bf16/fp16"):
         A.flash_fwd_kernel(q, q, q, 0.125)
-    q = torch.ones(1, 8, 2, 32, dtype=torch.bfloat16)
+    q = torch.ones(1, 8, 2, 48, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         A.flash_fwd_kernel(q, q, q, 0.125)
+
+
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("opts", [
+    {}, {"bias": torch.zeros(2, 1, 1, 24)}, {"causal": True},
+    {"causal": True, "causal_off": torch.tensor([3], dtype=torch.int32)},
+    {"rate": 0.1, "seed": torch.tensor([5], dtype=torch.int32)},
+], ids=["plain", "bias", "causal", "causal_off", "dropout"])
+def test_flash_wrappers_refuse_cpu_tensors_with_every_option(d, opts):
+    """Each option and head dim the kernels take is refused on CPU
+    tensors, forward and backward, before any launch."""
+    q = torch.ones(2, 16, 3, d, dtype=torch.bfloat16)
+    k = torch.ones(2, 24, 3, d, dtype=torch.bfloat16)
+    lse = torch.zeros(6, 16)
+    before = ops.launch_counts()
+    with pytest.raises(ValueError, match="CUDA device"):
+        A.flash_fwd_kernel(q, k, k, 0.125, **opts)
+    with pytest.raises(ValueError, match="CUDA device"):
+        A.flash_bwd_kernel(q, k, k, q, lse, lse, 0.125, **opts)
+    assert ops.launch_counts() == before
+
+
+def test_flash_kernel_args_mirror_the_c_struct():
+    """``_FlashArgs`` lists ``FlashArgs``'s fields in the header's order."""
+    import re
+
+    src = (ROOT / "apex_tpu_torch/csrc/flash_common.cuh").read_text()
+    body = src[src.index("struct FlashArgs {"):]
+    body = body[:body.index("};")]
+    fields = []
+    for line in body.splitlines()[1:]:
+        line = re.sub(r"//.*", "", line).strip().rstrip(";")
+        if line:
+            fields += [n.strip().lstrip("*") for n in
+                       re.sub(r"^(const |long )?\w+\*? ", "", line).split(",")]
+    assert fields == [name for name, _ in A._FlashArgs._fields_]
+
+
+def test_chip_smoke_extra_rows_name_attention_kernels():
+    for name, (kernel, where, _) in chip_smoke.EXTRA_ROWS.items():
+        assert kernel in ("flash_attn_fwd", "flash_attn_bwd"), name
+        path, line = where.rsplit(":", 1)
+        lines = (ROOT / path).read_text().splitlines()
+        assert lines[int(line) - 1].startswith("def _"), name
+    assert not set(chip_smoke.EXTRA_ROWS) & set(ops.KERNELS)
+
+
+def test_chip_smoke_extra_rows_take_only_their_phase_launches():
+    """The padding + dropout rows take bert_large_dropout's attention
+    counts; the H = 15 rows, a geometry no path runs, keep 0."""
+    rows = {name: {"launches": 0}
+            for name in (*ops.KERNELS, *chip_smoke.EXTRA_ROWS)}
+    rows["flash_attn_fwd"]["launches"] = 120
+    rows["flash_attn_bwd"]["launches"] = 121
+    chip_smoke.take_phase_launches("bert_large", rows)
+    assert all(rows[n]["launches"] == 0 for n in chip_smoke.EXTRA_ROWS)
+    chip_smoke.take_phase_launches("bert_large_dropout", rows)
+    assert {n: rows[n]["launches"] for n in chip_smoke.EXTRA_ROWS} == {
+        "flash_attn_fwd_mask_dropout": 120,
+        "flash_attn_bwd_mask_dropout": 121,
+        "flash_attn_fwd_h15": 0, "flash_attn_bwd_h15": 0}
 
 
 def test_chip_smoke_names_every_kernel():
