@@ -36,6 +36,14 @@ def _flatten(tree, prefix="", sort=False):
             yield name, v
 
 
+def _port_name(name):
+    """The port's name of one JAX leaf."""
+    for leaf in ("kernel", "embedding"):
+        if name.endswith("." + leaf):
+            return name[:-len(leaf)] + "weight"
+    return name
+
+
 def _port_leaf(name, arr):
     """(port name, array) of one JAX leaf."""
     if name.endswith(".kernel"):
@@ -46,10 +54,7 @@ def _port_leaf(name, arr):
             arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
         else:                                    # conv -> (O, I, kh, kw)
             arr = arr.transpose(3, 2, 0, 1)
-        return name[:-len("kernel")] + "weight", arr
-    if name.endswith(".embedding"):
-        return name[:-len("embedding")] + "weight", arr
-    return name, arr
+    return _port_name(name), arr
 
 
 def _tensor(arr, device):
@@ -88,22 +93,38 @@ def fused_state_from_jax(state, params, port_params,
     the port's ``{name: tensor}`` params in the order the port's optimizer
     sees them. Tree slots are mapped name for name; arena slot buffers are
     cut into tensors by the JAX package's layout, mapped, and packed again
-    in the port's layout (``arena.plan(port_params)``).
+    in the port's layout (``arena.plan(port_params)``). An arena slot of
+    one value per tensor (NovoGrad's ``vnorm``: a (num_tensors,) vector
+    per partition, keyed by dtype like a buffer) is told from a buffer by
+    its length and mapped from the JAX partition's tensor order to the
+    port's by name.
     """
     order = list(port_params)
     jleaves = dict(_flatten(params, sort=True))
     jspec = arena.plan({k: np.asarray(v) for k, v in jleaves.items()})
+    tspec = arena.plan(port_params)
     slots = {}
     for slot, tree in state.slots.items():
-        if set(tree) == set(jspec.dtypes):      # arena buffers, by dtype
+        per_tensor = set(tree) == set(jspec.dtypes) and all(
+            np.shape(tree[p.dtype]) == (len(p.sizes),)
+            for p in jspec.partitions)
+        if per_tensor:                          # one value per tensor
+            value = {_port_name(jspec.names[i]): v
+                     for p in jspec.partitions
+                     for i, v in zip(p.leaves, np.asarray(tree[p.dtype],
+                                                          np.float32))}
+            slots[slot] = {p.dtype: torch.tensor(
+                np.array([value[tspec.names[i]] for i in p.leaves],
+                         np.float32), device=device)
+                for p in tspec.partitions}
+        elif set(tree) == set(jspec.dtypes):    # arena buffers, by dtype
             jbufs = {dt: torch.from_numpy(np.array(buf))
                      for dt, buf in tree.items()}
             named = arena.unflatten(jbufs, jspec)
             mapped = dict(_port_leaf(k, v.numpy()) for k, v in named.items())
             tensors = {k: _tensor(np.asarray(mapped[k], np.float32), device)
                        for k in order}
-            slots[slot] = arena.flatten(
-                tensors, arena.plan(port_params), cast=torch.float32)
+            slots[slot] = arena.flatten(tensors, tspec, cast=torch.float32)
         else:
             mapped = params_from_jax(tree, device=device)
             slots[slot] = {k: mapped[k] for k in order}

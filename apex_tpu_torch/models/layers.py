@@ -18,11 +18,12 @@ Port of the flax modules the JAX package's ResNet and DCGAN call:
   batch variance.
 
 Weights are f32 ``Parameter``s, conv weights in ``channels_last`` memory.
-Each module computes in its explicit ``dtype`` if given, else in the
-dtype :func:`apex_tpu_torch.amp.auto_cast` gives its class (the convs are
+Under an enabled :func:`apex_tpu_torch.amp.auto_cast` each module first
+casts its input to the dtype the tables give its class (the convs are
 HALF modules, BatchNorm a FLOAT one, as flax's are under the JAX
-package's interceptor), else in the promoted dtype of its input and
-params, as flax's ``promote_dtype`` does.
+package's interceptor). It then computes in its explicit ``dtype`` if
+given, else in that ``auto_cast`` dtype, else in the promoted dtype of
+its input and params, as flax's ``promote_dtype`` does.
 """
 
 from __future__ import annotations
@@ -34,6 +35,15 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from apex_tpu_torch.amp.interceptor import module_cast_dtype
+
+
+def cast_input(module, x):
+    """``x`` in the dtype an enabled ``auto_cast`` gives ``module``'s class
+    (the half dtype for HALF modules, f32 for FLOAT ones), else as it is.
+    As the JAX package's interceptor, this cast comes first, whatever
+    ``module.dtype``: an explicit dtype then promotes the cast input."""
+    dt = module_cast_dtype(module)
+    return x if dt is None else x.to(dt)
 
 
 def _compute_dtype(module, *tensors):
@@ -97,6 +107,7 @@ class Conv(nn.Module):
         ).contiguous(memory_format=torch.channels_last))
 
     def forward(self, x):
+        x = cast_input(self, x)
         dt = _compute_dtype(self, x, self.weight)
         w = self.weight.to(dt).contiguous(memory_format=torch.channels_last)
         pads = self.padding or [_same_pads(n, k, s) for n, k, s in zip(
@@ -139,6 +150,7 @@ class ConvTranspose(nn.Module):
         ).contiguous(memory_format=torch.channels_last))
 
     def forward(self, x):
+        x = cast_input(self, x)
         dt = _compute_dtype(self, x, self.weight)
         w = self.weight.to(dt).contiguous(memory_format=torch.channels_last)
         y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2), w,
@@ -152,9 +164,11 @@ class BatchNorm(nn.Module):
     defaults over the channels (last) axis: params ``scale`` and ``bias``,
     running statistics the buffers ``mean`` and ``var``.
 
-    The statistics and the normalisation are computed in f32 (at least),
-    as flax computes them, as ``(x − mean)·(rsqrt(var + eps)·scale) +
-    bias``; the output takes the compute dtype. In training the new
+    The statistics and the normalisation are computed in f32 (at least)
+    from the input as it arrives (after ``auto_cast``'s f32 cast, never
+    cast to an explicit ``dtype``), as flax computes them, as ``(x −
+    mean)·(rsqrt(var + eps)·scale) + bias``; the output takes the compute
+    dtype. In training the new
     running statistics go into ``stats[self]`` when a dict is given (the
     model collects them); the module's own buffers are not touched."""
 
@@ -168,9 +182,7 @@ class BatchNorm(nn.Module):
         self.register_buffer("var", torch.ones(features, device=device))
 
     def forward(self, x, train: bool = True, stats=None):
-        dt = self.dtype or module_cast_dtype(self)
-        if dt is not None:
-            x = x.to(dt)
+        x = cast_input(self, x)
         out_dtype = _compute_dtype(self, x, self.scale, self.bias)
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:

@@ -26,13 +26,15 @@ from torch.func import functional_call
 
 from apex_tpu_torch import ops
 from apex_tpu_torch.amp.interceptor import module_cast_dtype
+from apex_tpu_torch.models.layers import cast_input
 
 
 class Dense(nn.Linear):
-    """``nn.Linear`` with flax ``nn.Dense``'s compute ``dtype``: it
-    computes in ``dtype`` if given, else in the ``auto_cast`` policy's half
-    dtype (a HALF module, like flax's ``nn.Dense`` under the interceptor),
-    else in the promoted dtype of its input and weight. Params are f32."""
+    """``nn.Linear`` with flax ``nn.Dense``'s compute ``dtype``. Under an
+    enabled ``auto_cast`` its input is first cast to the policy's half
+    dtype (a HALF module, like flax's ``nn.Dense`` under the interceptor);
+    it then computes in ``dtype`` if given, else in that half dtype, else
+    in the promoted dtype of its input and weight. Params are f32."""
 
     def __init__(self, in_features, out_features, bias=True, device="cuda",
                  dtype=None):
@@ -40,6 +42,7 @@ class Dense(nn.Linear):
         self.dtype = dtype
 
     def forward(self, x):
+        x = cast_input(self, x)
         dt = self.dtype or module_cast_dtype(self) or torch.promote_types(
             x.dtype, self.weight.dtype)
         b = None if self.bias is None else self.bias.to(dt)

@@ -16,14 +16,17 @@ from apex_tpu_torch.ops.layer_norm import (  # noqa: F401
     layer_norm_reference, ln_bwd_kernel, ln_fwd_kernel,
 )
 from apex_tpu_torch.ops.multi_tensor import (  # noqa: F401
-    l2norm_kernel, multi_tensor_l2norm,
+    axpby_kernel, l2norm_kernel, maxnorm_kernel, multi_tensor_axpby,
+    multi_tensor_l2norm, multi_tensor_maxnorm, multi_tensor_scale,
+    scale_kernel,
 )
 from apex_tpu_torch.ops.multihead_attn import (  # noqa: F401
     EncdecMultiheadAttn, SelfMultiheadAttn,
 )
 from apex_tpu_torch.ops.optim_kernels import (  # noqa: F401
-    adam_kernel, adam_update, lamb_stage1, lamb_stage1_kernel, lamb_stage2,
-    lamb_stage2_kernel, sgd_kernel, sgd_update,
+    adagrad_kernel, adagrad_update, adam_kernel, adam_update, lamb_stage1,
+    lamb_stage1_kernel, lamb_stage2, lamb_stage2_kernel, novograd_kernel,
+    novograd_update, sgd_kernel, sgd_update,
 )
 from apex_tpu_torch.ops.xentropy import (  # noqa: F401
     softmax_cross_entropy_loss, softmax_cross_entropy_reference,
@@ -45,6 +48,11 @@ KERNELS = {
     "bn_dx": bn_dx_kernel,
     "sgd": sgd_kernel,
     "adam": adam_kernel,
+    "multi_tensor_maxnorm": maxnorm_kernel,
+    "multi_tensor_scale": scale_kernel,
+    "multi_tensor_axpby": axpby_kernel,
+    "adagrad": adagrad_kernel,
+    "novograd": novograd_kernel,
 }
 
 

@@ -1,19 +1,36 @@
-"""Reductions over the flat arena: the global L2 norm (a Triton kernel) and
-the per-tensor norms and spreads of the LAMB trust ratio (plain PyTorch).
+"""Reductions and elementwise passes over the flat arena: the global L2
+and max norms, scale and axpby (Triton kernels), and the per-tensor norms
+and spreads of the LAMB trust ratio and the NovoGrad norms (plain
+PyTorch).
 
-Port of ``apex_tpu/ops/multi_tensor.py``. Kernel replaced:
+Port of ``apex_tpu/ops/multi_tensor.py``. Kernels replaced (each reached
+through ``_dispatch.launch``):
 
-- ``l2norm_kernel`` ← ``_l2norm_kernel`` (``multi_tensor_l2norm``'s launch
-  through ``_dispatch.launch``): ‖x‖₂ of a flat arena buffer, f32 sums.
+- ``l2norm_kernel`` ← ``_l2norm_kernel`` (``multi_tensor_l2norm``): ‖x‖₂
+  of a flat arena buffer, f32 sums.
+- ``maxnorm_kernel`` ← ``_maxnorm_kernel`` (``multi_tensor_maxnorm``):
+  max |x| in f32, NaN if any element is NaN.
+- ``scale_kernel`` ← ``_scale_kernel`` (``multi_tensor_scale``): s·x in
+  f32, cast to the output dtype, and an all-finite flag.
+- ``axpby_kernel`` ← ``_axpby_kernel`` (``multi_tensor_axpby``): a·x + b·y
+  in f32, cast, and the same flag.
 
-What bounds it on an H100: bytes, one read of the buffer (4N bytes for
-an f32 buffer of N elements) and a handful of flops per element. The TPU
-kernel adds every block into one SMEM scalar, relying on its grid running
-in order; on Hopper blocks run in no order. So the reduction has two
-deterministic stages and no float atomics: a fixed number of programs
-each walk every ``_L2_PROGRAMS``-th block of the buffer and write one f32
-partial of Σx², then one program sums the partials and takes the root.
-The clip factor LAMB computes from it is the same from run to run.
+What bounds them on an H100: bytes, one read of each input and one write
+of the output (4N bytes for the norms of an f32 buffer of N elements, 8N
+for scale and 12N for axpby in f32), with a handful of flops per element.
+The TPU kernels carry their sum, max or flag from block to block in one
+SMEM scalar, relying on the grid running in order; on Hopper blocks run
+in no order. So each has two deterministic stages and no atomics: a fixed
+number of programs each walk every ``_PROGRAMS``-th block of the buffer
+and write one partial (Σx², max |x| with a NaN count, or a count of
+non-finite results), then one program reduces the partials. The norms and
+the flag are the same from run to run.
+
+The flag follows the JAX kernels' code: it tests the f32 product before
+the cast to the output dtype, so a value that overflows only in the cast
+(1e5 scaled by 1 into f16) comes out inf with the flag True, as it does
+there (the comment in the JAX kernel and the reference Apex say the
+converted value is checked; the code does not).
 
 The per-tensor functions take the arena's static ranges. They reduce
 rows (up to ``_ROW`` wide) of the buffer in one pass and sum each
@@ -23,8 +40,7 @@ put back the launch-bound per-tensor update the arena exists to avoid).
 That needs the arena's layout: slot starts on row boundaries and zero
 padding after each tensor, which :func:`apex_tpu_torch.arena.flatten`
 guarantees (and an update direction ``u`` computed from zero padding is
-zero there too). The scale, axpby and max-norm kernels of the JAX module
-are not ported yet.
+zero there too).
 """
 
 from __future__ import annotations
@@ -40,8 +56,8 @@ from apex_tpu_torch.ops import _arena, _build
 tl = None  # triton.language, bound by _build.triton_jit at the first launch
 
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
-_L2_PROGRAMS = 1024      # stage-1 programs: every SM holds several
-_L2_BLOCK = 4096         # elements per program per step; divides 65536
+_PROGRAMS = 1024         # stage-1 programs: every SM holds several
+_BLOCK = 4096            # elements per program per step; divides 65536
 _ROW = 1024              # widest row the per-tensor reductions use
 
 
@@ -66,13 +82,13 @@ def _l2norm_finish_triton(PART, OUT, PROGRAMS: "tl.constexpr"):
 def l2norm_kernel(buf):
     """Triton ‖buf‖₂ (f32 0-d tensor) of a flat CUDA arena buffer."""
     n = _arena.check_buffers(buf, dtypes=_FLOATS)
-    part = torch.empty(_L2_PROGRAMS, dtype=torch.float32, device=buf.device)
+    part = torch.empty(_PROGRAMS, dtype=torch.float32, device=buf.device)
     out = torch.empty((), dtype=torch.float32, device=buf.device)
-    _build.triton_jit(_l2norm_partials_triton)[(_L2_PROGRAMS,)](
-        buf, part, n // _L2_BLOCK, BLOCK=_L2_BLOCK, PROGRAMS=_L2_PROGRAMS,
+    _build.triton_jit(_l2norm_partials_triton)[(_PROGRAMS,)](
+        buf, part, n // _BLOCK, BLOCK=_BLOCK, PROGRAMS=_PROGRAMS,
         num_warps=8)
     _build.triton_jit(_l2norm_finish_triton)[(1,)](
-        part, out, PROGRAMS=_L2_PROGRAMS, num_warps=4)
+        part, out, PROGRAMS=_PROGRAMS, num_warps=4)
     l2norm_kernel.launches += 1
     return out
 
@@ -91,6 +107,164 @@ def multi_tensor_l2norm(buf):
     if buf.is_cuda:
         return l2norm_kernel(buf)
     return l2norm_plain(buf)
+
+
+# --- multi_tensor_maxnorm ------------------------------------------------------
+
+def _maxnorm_partials_triton(X, PART, NANS, n_blocks, BLOCK: "tl.constexpr",
+                             PROGRAMS: "tl.constexpr"):
+    pid = tl.program_id(0)
+    cols = tl.arange(0, BLOCK)
+    acc = tl.zeros([BLOCK], dtype=tl.float32)
+    nan = tl.zeros([BLOCK], dtype=tl.int32)
+    for b in range(pid, n_blocks, PROGRAMS):
+        x = tl.abs(tl.load(X + b.to(tl.int64) * BLOCK + cols).to(tl.float32))
+        acc = tl.maximum(acc, x)
+        nan = tl.maximum(nan, (x != x).to(tl.int32))
+    tl.store(PART + pid, tl.max(acc, axis=0))
+    tl.store(NANS + pid, tl.max(nan, axis=0))
+
+
+def _maxnorm_finish_triton(PART, NANS, OUT, PROGRAMS: "tl.constexpr"):
+    idx = tl.arange(0, PROGRAMS)
+    m = tl.max(tl.load(PART + idx), axis=0)
+    nan = tl.max(tl.load(NANS + idx), axis=0)
+    tl.store(OUT, tl.where(nan > 0, float("nan"), m))
+
+
+def maxnorm_kernel(buf):
+    """Triton max |buf| (f32 0-d tensor) of a flat CUDA arena buffer; NaN
+    if any element is NaN (``tl.maximum`` drops NaN, so both stages count
+    NaNs beside the max)."""
+    n = _arena.check_buffers(buf, dtypes=_FLOATS)
+    part = torch.empty(_PROGRAMS, dtype=torch.float32, device=buf.device)
+    nans = torch.empty(_PROGRAMS, dtype=torch.int32, device=buf.device)
+    out = torch.empty((), dtype=torch.float32, device=buf.device)
+    _build.triton_jit(_maxnorm_partials_triton)[(_PROGRAMS,)](
+        buf, part, nans, n // _BLOCK, BLOCK=_BLOCK, PROGRAMS=_PROGRAMS,
+        num_warps=8)
+    _build.triton_jit(_maxnorm_finish_triton)[(1,)](
+        part, nans, out, PROGRAMS=_PROGRAMS, num_warps=4)
+    maxnorm_kernel.launches += 1
+    return out
+
+
+maxnorm_kernel.launches = 0
+
+
+def maxnorm_plain(buf):
+    return torch.amax(torch.abs(buf.float()))
+
+
+def multi_tensor_maxnorm(buf):
+    """Global max-abs (L∞) norm of a flat arena buffer, as a 0-d f32 tensor
+    on the buffer's device (0 for an all-zero buffer, NaN if any element
+    is NaN)."""
+    _arena.check_length(buf)
+    if buf.is_cuda:
+        return maxnorm_kernel(buf)
+    return maxnorm_plain(buf)
+
+
+# --- multi_tensor_scale and multi_tensor_axpby ---------------------------------
+
+def _axpby_triton(X, Y, S, OUT, BAD, n_blocks, HAS_Y: "tl.constexpr",
+                  BLOCK: "tl.constexpr", PROGRAMS: "tl.constexpr"):
+    pid = tl.program_id(0)
+    cols = tl.arange(0, BLOCK)
+    a = tl.load(S)
+    if HAS_Y:
+        b = tl.load(S + 1)
+    bad = tl.zeros([BLOCK], dtype=tl.int32)
+    for blk in range(pid, n_blocks, PROGRAMS):
+        offs = blk.to(tl.int64) * BLOCK + cols
+        r = a * tl.load(X + offs).to(tl.float32)
+        if HAS_Y:
+            r = r + b * tl.load(Y + offs).to(tl.float32)
+        # not finite: inf fails the comparison, and so does NaN
+        bad = tl.maximum(bad, tl.where(tl.abs(r) < float("inf"), 0, 1))
+        tl.store(OUT + offs, r.to(OUT.dtype.element_ty))
+    tl.store(BAD + pid, tl.max(bad, axis=0))
+
+
+def _flag_finish_triton(BAD, OUT, PROGRAMS: "tl.constexpr"):
+    bad = tl.max(tl.load(BAD + tl.arange(0, PROGRAMS)), axis=0)
+    tl.store(OUT, bad == 0)
+
+
+def _axpby_launch(x, y, scalars, out_dtype):
+    """(out, all_finite) of a·x (+ b·y) on flat CUDA buffers."""
+    bufs = (x,) if y is None else (x, y)
+    n = _arena.check_buffers(*bufs, dtypes=_FLOATS)
+    _build.check_operands(x, scalars)
+    if scalars.shape != (len(bufs),) or scalars.dtype != torch.float32:
+        raise ValueError(f"{len(bufs)} f32 scalars expected")
+    out = torch.empty(n, dtype=out_dtype, device=x.device)
+    bad = torch.empty(_PROGRAMS, dtype=torch.int32, device=x.device)
+    flag = torch.empty((), dtype=torch.bool, device=x.device)
+    _build.triton_jit(_axpby_triton)[(_PROGRAMS,)](
+        x, x if y is None else y, scalars, out, bad, n // _BLOCK,
+        HAS_Y=y is not None, BLOCK=_BLOCK, PROGRAMS=_PROGRAMS, num_warps=8,
+        enable_fp_fusion=False)
+    _build.triton_jit(_flag_finish_triton)[(1,)](
+        bad, flag, PROGRAMS=_PROGRAMS, num_warps=4)
+    return out, flag
+
+
+def scale_kernel(x, scalars, out_dtype):
+    """Triton s·x on a flat CUDA buffer; ``scalars`` is the f32 device
+    vector (s,). Returns (out in ``out_dtype``, all-finite 0-d bool)."""
+    res = _axpby_launch(x, None, scalars, out_dtype)
+    scale_kernel.launches += 1
+    return res
+
+
+scale_kernel.launches = 0
+
+
+def axpby_kernel(x, y, scalars, out_dtype):
+    """Triton a·x + b·y on flat CUDA buffers, without FMA contraction (the
+    two products round as in the plain version); ``scalars`` is the f32
+    device vector (a, b). Returns (out in ``out_dtype``, all-finite 0-d
+    bool)."""
+    res = _axpby_launch(x, y, scalars, out_dtype)
+    axpby_kernel.launches += 1
+    return res
+
+
+axpby_kernel.launches = 0
+
+
+def scale_plain(x, scalars, out_dtype):
+    r = scalars[0] * x.float()
+    return r.to(out_dtype), torch.isfinite(r).all()
+
+
+def axpby_plain(x, y, scalars, out_dtype):
+    r = scalars[0] * x.float() + scalars[1] * y.float()
+    return r.to(out_dtype), torch.isfinite(r).all()
+
+
+def multi_tensor_scale(buf, scale, *, out_dtype=None):
+    """``out = buf * scale`` over a flat arena buffer (f32 math, cast to
+    ``out_dtype``, default the buffer's), with an all-finite flag over
+    the f32 products. ``scale`` may be a device tensor. Returns ``(out,
+    all_finite)``, the flag a 0-d bool tensor that stays on the device."""
+    _arena.check_length(buf)
+    scalars = _arena.device_scalars((scale,), buf.device)
+    fn = scale_kernel if buf.is_cuda else scale_plain
+    return fn(buf, scalars, out_dtype or buf.dtype)
+
+
+def multi_tensor_axpby(a, x, b, y, *, out_dtype=None):
+    """``out = a*x + b*y`` over flat arena buffers (f32 math, cast to
+    ``out_dtype``, default x's), with an all-finite flag over the f32
+    result. ``a`` and ``b`` may be device tensors. Returns ``(out,
+    all_finite)``, the flag a 0-d bool tensor on the device."""
+    _arena.check_length(x, y)
+    scalars = _arena.device_scalars((a, b), x.device)
+    fn = axpby_kernel if x.is_cuda else axpby_plain
+    return fn(x, y, scalars, out_dtype or x.dtype)
 
 
 # --- per-tensor norms and spreads over static ranges ---------------------------

@@ -1,8 +1,7 @@
-"""Optimizer updates over the flat arena: LAMB's two stages, SGD and Adam,
-in Triton.
+"""Optimizer updates over the flat arena: LAMB's two stages, SGD, Adam,
+Adagrad and NovoGrad, in Triton.
 
-Port of ``apex_tpu/ops/optim_kernels.py``'s LAMB pair, SGD and Adam
-kernels. Kernels replaced:
+Port of ``apex_tpu/ops/optim_kernels.py``'s kernels. Kernels replaced:
 
 - ``lamb_stage1_kernel`` ← ``_lamb_stage1_kernel``: the clipped grad's new
   moments m, v and the update direction u = m̂/(√v̂ + eps) (+ wd·p), f32.
@@ -16,25 +15,36 @@ kernels. Kernels replaced:
 - ``adam_kernel`` ← ``_adam_kernel``: Adam, or AdamW with the weight decay
   decoupled, the bias corrections and a grad scale as runtime scalars,
   and the optional low-precision copy of the new p.
+- ``adagrad_kernel`` ← ``_adagrad_kernel``: Adagrad, h += g², p −=
+  lr·g/(√h + eps), the weight decay folded into g or (W mode) decoupled,
+  with a grad scale.
+- ``novograd_kernel`` ← ``_novograd_kernel``: NovoGrad's elementwise
+  stage, the denominator v/bc2 + eps from the per-tensor norm EMA v given
+  per position; the reference's default moment mode (raw-grad momentum,
+  decoupled decay) or ``reg_inside_moment`` (normalised grad and decay
+  inside the momentum).
 
 What bounds them on an H100: bytes. Each is one streaming pass with a
 few flops per element and no reuse: stage 1 reads p, g, m, v and writes
 u, m, v (28N bytes for an f32 partition of N elements), stage 2 reads p,
 u, r and writes p (16N), SGD reads p, g, m and writes p, m (20N), Adam
-reads p, g, m, v and writes p, m, v (28N).
+reads p, g, m, v and writes p, m, v (28N), Adagrad reads p, g, h and
+writes p, h (20N), NovoGrad reads p, g, m, v and writes p, m (24N).
 Design: one program per 1024-element block of the buffer (whose length
 is a multiple of 65536, so no block needs a mask), offsets in int64, all
 math in f32 whatever p's dtype, and the runtime scalars (betas, eps, wd,
 bias corrections, clip factor, β3, lr; SGD's lr, momentum, dampening,
 wd, grad scale and first-step flag; Adam's lr, betas, eps, wd, bias
-corrections and grad scale) loaded from one f32 device tensor, so
-that a step count, a global norm or a scheduled lr never leaves the
-device. The algorithm flags (AdamW mode, nesterov, wd after momentum,
-the copy-out) are ``tl.constexpr``: each combination compiles its own
-kernel, as the JAX package specialises its Pallas kernels. Divisions and
-roots round as IEEE (``div_rn``, ``sqrt_rn``), as the plain versions do;
-the Adam kernel also compiles without FMA contraction, so it rounds each
-product and sum where its plain version does.
+corrections and grad scale; Adagrad's lr, eps, wd and grad scale;
+NovoGrad's lr, β1, β3, eps, wd and bias corrections) loaded from one f32
+device tensor, so that a step count, a global norm or a scheduled lr
+never leaves the device. The algorithm flags (AdamW mode, nesterov, wd
+after momentum, the copy-out, Adagrad's W mode, NovoGrad's moment mode)
+are ``tl.constexpr``: each combination compiles its own kernel, as the
+JAX package specialises its Pallas kernels. Divisions and roots round as
+IEEE (``div_rn``, ``sqrt_rn``), as the plain versions do; the Adam,
+Adagrad and NovoGrad kernels also compile without FMA contraction, so
+they round each product and sum where their plain versions do.
 """
 
 from __future__ import annotations
@@ -150,6 +160,52 @@ def _adam_triton(P, G, M, V, S, PO, MO, VO, CP, ADAM_W: "tl.constexpr",
         tl.store(CP + offs, p.to(CP.dtype.element_ty))
 
 
+def _adagrad_triton(P, G, H, S, PO, HO, ADAGRAD_W: "tl.constexpr",
+                    BLOCK: "tl.constexpr"):
+    offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    lr = tl.load(S)
+    eps = tl.load(S + 1)
+    wd = tl.load(S + 2)
+    gscale = tl.load(S + 3)
+    p = tl.load(P + offs).to(tl.float32)
+    g = tl.load(G + offs).to(tl.float32) * gscale
+    h = tl.load(H + offs).to(tl.float32)
+    if not ADAGRAD_W:
+        g = g + wd * p
+    h = h + g * g
+    upd = tl.div_rn(g, tl.sqrt_rn(h) + eps)
+    if ADAGRAD_W:
+        upd = upd + wd * p
+    p = p - lr * upd
+    tl.store(PO + offs, p.to(PO.dtype.element_ty))
+    tl.store(HO + offs, h.to(HO.dtype.element_ty))
+
+
+def _novograd_triton(P, G, M, V, S, PO, MO, REG_INSIDE_MOMENT: "tl.constexpr",
+                     BLOCK: "tl.constexpr"):
+    offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
+    lr = tl.load(S)
+    b1 = tl.load(S + 1)
+    b3 = tl.load(S + 2)
+    eps = tl.load(S + 3)
+    wd = tl.load(S + 4)
+    bc1 = tl.load(S + 5)
+    bc2 = tl.load(S + 6)
+    p = tl.load(P + offs).to(tl.float32)
+    g = tl.load(G + offs).to(tl.float32)
+    m = tl.load(M + offs).to(tl.float32)
+    denom = tl.div_rn(tl.load(V + offs), bc2) + eps
+    if REG_INSIDE_MOMENT:
+        g = tl.div_rn(g, denom) + wd * p
+        m = b1 * m + b3 * g
+        p = p - lr * tl.div_rn(m, bc1)
+    else:
+        m = b1 * m + b3 * g
+        p = p - lr * (tl.div_rn(tl.div_rn(m, bc1), denom) + wd * p)
+    tl.store(PO + offs, p.to(PO.dtype.element_ty))
+    tl.store(MO + offs, m.to(MO.dtype.element_ty))
+
+
 def lamb_stage1_kernel(p, g, m, v, scalars, adam_w):
     """Triton stage 1 on flat CUDA buffers; ``scalars`` is the f32 device
     vector (beta1, beta2, eps, wd, bc1, bc2, clip, b3). Returns
@@ -237,6 +293,46 @@ def adam_kernel(p, g, m, v, scalars, adam_w, copy_dtype=None):
 adam_kernel.launches = 0
 
 
+def adagrad_kernel(p, g, h, scalars, adagrad_w):
+    """Triton Adagrad on flat CUDA buffers; ``scalars`` is the f32 device
+    vector (lr, eps, wd, grad_scale). Returns (p', h')."""
+    n = _arena.check_buffers(p, g, h, dtypes=_FLOATS)
+    _build.check_operands(p, scalars)
+    if scalars.shape != (4,) or scalars.dtype != torch.float32:
+        raise ValueError("Adagrad takes 4 f32 scalars")
+    p2, h2 = torch.empty_like(p), torch.empty_like(h)
+    _build.triton_jit(_adagrad_triton)[(n // _BLOCK,)](
+        p, g, h, scalars, p2, h2, ADAGRAD_W=bool(adagrad_w), BLOCK=_BLOCK,
+        num_warps=4, enable_fp_fusion=False)
+    adagrad_kernel.launches += 1
+    return p2, h2
+
+
+adagrad_kernel.launches = 0
+
+
+def novograd_kernel(p, g, m, vpos, scalars, reg_inside_moment):
+    """Triton NovoGrad stage on flat CUDA buffers; ``vpos`` is the f32 norm
+    EMA per position, ``scalars`` the f32 device vector (lr, beta1, b3,
+    eps, wd, bc1, bc2). Returns (p', m')."""
+    n = _arena.check_buffers(p, g, m, vpos, dtypes=_FLOATS)
+    _build.check_operands(p, scalars)
+    if (vpos.dtype != torch.float32 or scalars.shape != (7,)
+            or scalars.dtype != torch.float32):
+        raise ValueError("NovoGrad takes an f32 norm buffer and 7 f32 "
+                         "scalars")
+    p2, m2 = torch.empty_like(p), torch.empty_like(m)
+    _build.triton_jit(_novograd_triton)[(n // _BLOCK,)](
+        p, g, m, vpos, scalars, p2, m2,
+        REG_INSIDE_MOMENT=bool(reg_inside_moment), BLOCK=_BLOCK,
+        num_warps=4, enable_fp_fusion=False)
+    novograd_kernel.launches += 1
+    return p2, m2
+
+
+novograd_kernel.launches = 0
+
+
 # --- plain versions (the kernels' arithmetic, in PyTorch) --------------------
 
 def lamb_stage1_plain(p, g, m, v, scalars, adam_w):
@@ -293,17 +389,48 @@ def adam_plain(p, g, m, v, scalars, adam_w, copy_dtype=None):
     return out if copy_dtype is None else out + (p32.to(copy_dtype),)
 
 
+def adagrad_plain(p, g, h, scalars, adagrad_w):
+    lr, eps, wd, gscale = scalars.unbind(0)
+    p32 = p.float()
+    g = g.float() * gscale
+    if not adagrad_w:
+        g = g + wd * p32
+    h2 = h.float() + g * g
+    upd = g / (torch.sqrt(h2) + eps)
+    if adagrad_w:
+        upd = upd + wd * p32
+    return (p32 - lr * upd).to(p.dtype), h2.to(h.dtype)
+
+
+def novograd_plain(p, g, m, vpos, scalars, reg_inside_moment):
+    lr, b1, b3, eps, wd, bc1, bc2 = scalars.unbind(0)
+    p32 = p.float()
+    g = g.float()
+    denom = vpos / bc2 + eps
+    if reg_inside_moment:
+        g = g / denom + wd * p32
+        m2 = b1 * m.float() + b3 * g
+        p32 = p32 - lr * (m2 / bc1)
+    else:
+        m2 = b1 * m.float() + b3 * g
+        p32 = p32 - lr * ((m2 / bc1) / denom + wd * p32)
+    return p32.to(p.dtype), m2.to(m.dtype)
+
+
 # --- public functions, with the JAX package's signatures -----------------------
 
-def bias_corrections(beta1, beta2, step, enabled, device):
+def bias_corrections(beta1, beta2, step, enabled, device, sqrt2=False):
     """Adam's bias corrections 1 − β^step, computed on the device from the
-    step count (a Python int or a device tensor, never read back)."""
+    step count (a Python int or a device tensor, never read back); with
+    ``sqrt2`` the second is √(1 − β2^step), NovoGrad's correction of a
+    norm."""
     if not enabled:
         return 1.0, 1.0
     step = torch.as_tensor(step, device=device).float()
-    return tuple(1.0 - torch.pow(torch.full((), b, dtype=torch.float32,
-                                            device=device), step)
-                 for b in (beta1, beta2))
+    bc1, bc2 = (1.0 - torch.pow(torch.full((), b, dtype=torch.float32,
+                                           device=device), step)
+                for b in (beta1, beta2))
+    return bc1, (torch.sqrt(bc2) if sqrt2 else bc2)
 
 
 def lamb_stage1(p, g, m, v, *, beta1, beta2, eps, weight_decay, step,
@@ -367,3 +494,34 @@ def adam_update(p, g, m, v, *, lr, beta1, beta2, eps, weight_decay, step,
         (lr, beta1, beta2, eps, weight_decay, bc1, bc2, grad_scale), dev)
     adam = adam_kernel if p.is_cuda else adam_plain
     return adam(p, g, m, v, scalars, adam_w_mode, param_copy_dtype)
+
+
+def adagrad_update(p, g, h, *, lr, eps=1e-10, weight_decay=0.0,
+                   adagrad_w_mode=False, grad_scale=1.0):
+    """One fused Adagrad step over a flat partition: h += g², p −= lr·g/(√h
+    + eps), the weight decay folded into g (or decoupled, W mode); ``lr``
+    and ``grad_scale`` may be device tensors. Returns (p, h)."""
+    _arena.check_length(p, g, h)
+    scalars = _arena.device_scalars((lr, eps, weight_decay, grad_scale),
+                                    p.device)
+    adagrad = adagrad_kernel if p.is_cuda else adagrad_plain
+    return adagrad(p, g, h, scalars, adagrad_w_mode)
+
+
+def novograd_update(p, g, m, vnorm_per_pos, *, lr, beta1, beta2, eps,
+                    weight_decay, step, grad_averaging=True,
+                    bias_correction=True, reg_inside_moment=False):
+    """NovoGrad's elementwise stage over a flat partition. The per-tensor
+    norm EMAs are kept outside and come in per position
+    (``vnorm_per_pos``, f32); bc2 = √(1 − β2^step) corrects a norm.
+    ``step`` (after the increment) and ``lr`` may be device tensors,
+    never read back. Returns (p, m)."""
+    _arena.check_length(p, g, m, vnorm_per_pos)
+    dev = p.device
+    bc1, bc2 = bias_corrections(beta1, beta2, step, bias_correction, dev,
+                                sqrt2=True)
+    b3 = (1.0 - beta1) if grad_averaging else 1.0
+    scalars = _arena.device_scalars(
+        (lr, beta1, b3, eps, weight_decay, bc1, bc2), dev)
+    novograd = novograd_kernel if p.is_cuda else novograd_plain
+    return novograd(p, g, m, vnorm_per_pos, scalars, reg_inside_moment)

@@ -1,3 +1,4 @@
 from apex_tpu_torch.optim.fused import (  # noqa: F401
-    FusedAdam, FusedLAMB, FusedOptState, FusedSGD,
+    FusedAdagrad, FusedAdam, FusedLAMB, FusedNovoGrad, FusedOptState,
+    FusedSGD,
 )

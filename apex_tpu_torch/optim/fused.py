@@ -1,20 +1,25 @@
-"""Fused optimizers over the flat arena: ``FusedAdam``, ``FusedLAMB`` and
-``FusedSGD``.
+"""Fused optimizers over the flat arena: ``FusedAdam``, ``FusedLAMB``,
+``FusedSGD``, ``FusedAdagrad`` and ``FusedNovoGrad``.
 
 Port of ``apex_tpu/optim/fused.py``'s ``FusedOptimizer`` base,
 ``FusedAdam`` (eps 1e-8, no weight decay, AdamW mode and bias correction
 by default), ``FusedLAMB`` with its defaults (weight_decay 0.01,
-max_grad_norm 1.0, adam_w_mode, bias_correction) and ``FusedSGD``
+max_grad_norm 1.0, adam_w_mode, bias_correction), ``FusedSGD``
 (momentum, dampening, nesterov, weight decay before or after the
-momentum). Two strategies compute the same f32 update:
+momentum), ``FusedAdagrad`` (lr 1e-2, eps 1e-10, weight decay folded into
+the grad unless ``adagrad_w_mode``) and ``FusedNovoGrad`` (per-tensor
+norm EMAs, the reference's defaults). Two strategies compute the same f32
+update:
 
 - ``"arena"``: params, grads and moments live in flat per-dtype buffers
   (:mod:`apex_tpu_torch.arena`) and one launch of each kernel updates a
   whole partition: for LAMB the global grad norm (``multi_tensor_l2norm``),
   stage 1, the per-tensor trust ratios (plain PyTorch over static ranges)
-  and stage 2; for Adam one ``adam`` launch, for SGD one ``sgd`` launch.
-  The number of launches does not
-  grow with the number of tensors.
+  and stage 2; for Adam one ``adam`` launch, for SGD one ``sgd`` launch,
+  for Adagrad one ``adagrad`` launch; for NovoGrad the per-tensor grad
+  norms and their EMA (plain PyTorch over static ranges) and one
+  ``novograd`` launch. The number of launches does not grow with the
+  number of tensors.
 - ``"tree"``: per-tensor eager PyTorch, a few launches per tensor.
 - ``"auto"`` (default): tree from ``TREE_THRESHOLD`` params up, arena
   below, as in the JAX package.
@@ -47,7 +52,8 @@ class FusedOptimizer:
     """Base: strategy choice, arena planning, flatten/unflatten, and the
     fused (``step``) and optax-style (``update``) protocols."""
 
-    #: names of f32 state buffers allocated per partition
+    #: names of f32 state buffers allocated per partition (a subclass's
+    #: ``init`` may add slots of another shape; ``step`` carries them all)
     slot_names = ()
 
     #: "auto" switches to the tree strategy at this many parameters
@@ -90,14 +96,14 @@ class FusedOptimizer:
         lr = self._resolve_lr(count)
 
         ctx = self._step_context(spec, g_bufs)
-        new_p, new_slots = {}, {name: {} for name in self.slot_names}
+        new_p, new_slots = {}, {name: {} for name in state.slots}
         for part in spec.partitions:
             dt = part.dtype
-            slots = {name: state.slots[name][dt] for name in self.slot_names}
+            slots = {name: state.slots[name][dt] for name in state.slots}
             p_out, s_out = self._partition_step(
                 spec, dt, p_bufs[dt], g_bufs[dt], slots, count, lr, ctx=ctx)
             new_p[dt] = p_out
-            for name in self.slot_names:
+            for name in state.slots:
                 new_slots[name][dt] = s_out[name]
         return (arena.unflatten(new_p, spec),
                 FusedOptState(count=count, slots=new_slots))
@@ -325,3 +331,143 @@ class FusedSGD(FusedOptimizer):
                 upd = upd + wd * p32
             new_p[k], new_m[k] = (p32 - lr * upd).to(p.dtype), m2
         return new_p, FusedOptState(count=count, slots={"m": new_m})
+
+
+class FusedAdagrad(FusedOptimizer):
+    """Adagrad (``apex/optimizers/fused_adagrad.py``): h += g², p −=
+    lr·g/(√h + eps); the weight decay is folded into the grad, or
+    decoupled with ``adagrad_w_mode``."""
+
+    slot_names = ("h",)
+
+    def __init__(self, lr=1e-2, eps=1e-10, weight_decay=0.0,
+                 adagrad_w_mode=False, strategy="auto"):
+        super().__init__(lr, strategy)
+        self.eps = eps
+        self.weight_decay = weight_decay
+        self.adagrad_w_mode = adagrad_w_mode
+
+    def _partition_step(self, spec, dt, p, g, slots, count, lr, ctx):
+        p2, h2 = K.adagrad_update(
+            p, g, slots["h"], lr=lr, eps=self.eps,
+            weight_decay=self.weight_decay,
+            adagrad_w_mode=self.adagrad_w_mode)
+        return p2, {"h": h2}
+
+    def _tree_step(self, grads, state, params):
+        count = state.count + 1
+        lr = self._resolve_lr(count)
+        wd, eps = self.weight_decay, self.eps
+        new_p, new_h = {}, {}
+        for k, p in params.items():
+            p32 = p.float()
+            g32 = grads[k].float()
+            if not self.adagrad_w_mode:
+                g32 = g32 + wd * p32
+            h2 = state.slots["h"][k] + g32 * g32
+            upd = g32 / (torch.sqrt(h2) + eps)
+            if self.adagrad_w_mode:
+                upd = upd + wd * p32
+            new_p[k], new_h[k] = (p32 - lr * upd).to(p.dtype), h2
+        return new_p, FusedOptState(count=count, slots={"h": new_h})
+
+
+class FusedNovoGrad(FusedOptimizer):
+    """NovoGrad (``apex/optimizers/fused_novograd.py``).
+
+    The per-tensor norm EMAs are the ``vnorm`` slot: a (num_tensors,) f32
+    vector per partition under the arena, a 0-d f32 per tensor under the
+    tree. They hold norms (the reference's ``exp_avg_sq`` stores norms,
+    not squares) and blend linearly, β2·v + (1 − β2)·‖g‖; on the first
+    step (``count == 1``, a device flag) the norm itself is taken, unless
+    ``init_zero``. Defaults as the reference: decoupled decay
+    (``reg_inside_moment=False``), bias correction, grad averaging, L2
+    norms (``norm_type=2``; 0 takes max norms).
+    """
+
+    slot_names = ("m",)
+
+    def __init__(self, lr=1e-3, betas=(0.9, 0.999), eps=1e-8,
+                 weight_decay=0.0, bias_correction=True,
+                 reg_inside_moment=False, grad_averaging=True, norm_type=2,
+                 init_zero=False, strategy="auto"):
+        super().__init__(lr, strategy)
+        self.beta1, self.beta2 = betas
+        self.eps = eps
+        self.weight_decay = weight_decay
+        self.bias_correction = bias_correction
+        self.reg_inside_moment = reg_inside_moment
+        self.grad_averaging = grad_averaging
+        if norm_type not in (0, 2):
+            raise ValueError("FusedNovoGrad only supports l2/inf norm")
+        self.norm_type = norm_type
+        self.init_zero = init_zero
+
+    def init(self, params) -> FusedOptState:
+        state = super().init(params)
+        if self._use_tree(params):
+            vnorm = {k: torch.zeros((), dtype=torch.float32,
+                                    device=p.device)
+                     for k, p in params.items()}
+        else:
+            vnorm = {part.dtype: torch.zeros(len(part.sizes),
+                                             dtype=torch.float32,
+                                             device=state.count.device)
+                     for part in arena.plan(params).partitions}
+        return state._replace(slots={**state.slots, "vnorm": vnorm})
+
+    def _blend(self, v_prev, norms, count):
+        """The new norm EMA: the norm itself on the first step unless
+        ``init_zero``, decided on the device."""
+        blended = self.beta2 * v_prev + (1.0 - self.beta2) * norms
+        if self.init_zero:
+            return blended
+        return torch.where(count == 1, norms, blended)
+
+    def _partition_step(self, spec, dt, p, g, slots, count, lr, ctx):
+        """Per-tensor grad norms over the partition's static ranges, their
+        EMA, its spread over the layout (1.0 in gaps and the tail, where g
+        and m are 0, so p stays 0 there) and one ``novograd`` launch."""
+        part = spec.partition(dt)
+        norm = (MT.per_tensor_l2norm_ranges if self.norm_type == 2
+                else MT.per_tensor_maxnorm_ranges)
+        v = self._blend(slots["vnorm"], norm(g, part.offsets, part.sizes),
+                        count)
+        vpos = MT.spread_per_tensor(v, part.offsets, part.padded, p.numel(),
+                                    fill=1.0)
+        p2, m2 = K.novograd_update(
+            p, g, slots["m"], vpos, lr=lr, beta1=self.beta1, beta2=self.beta2,
+            eps=self.eps, weight_decay=self.weight_decay, step=count,
+            grad_averaging=self.grad_averaging,
+            bias_correction=self.bias_correction,
+            reg_inside_moment=self.reg_inside_moment)
+        return p2, {"m": m2, "vnorm": v}
+
+    def _tree_step(self, grads, state, params):
+        count = state.count + 1
+        lr = self._resolve_lr(count)
+        bc1, bc2 = K.bias_corrections(self.beta1, self.beta2, count,
+                                      self.bias_correction, count.device,
+                                      sqrt2=True)
+        b1, wd, eps = self.beta1, self.weight_decay, self.eps
+        b3 = (1.0 - b1) if self.grad_averaging else 1.0
+        new_p, new_m, new_v = {}, {}, {}
+        for k, p in params.items():
+            p32 = p.float()
+            g32 = grads[k].float()
+            if self.norm_type == 2:
+                nrm = torch.sqrt(torch.sum(torch.square(g32)))
+            else:
+                nrm = torch.amax(torch.abs(g32))
+            v = self._blend(state.slots["vnorm"][k], nrm, count)
+            denom = v / bc2 + eps
+            m = state.slots["m"][k]
+            if self.reg_inside_moment:
+                m2 = b1 * m + b3 * (g32 / denom + wd * p32)
+                p2 = p32 - lr * (m2 / bc1)
+            else:
+                m2 = b1 * m + b3 * g32
+                p2 = p32 - lr * ((m2 / bc1) / denom + wd * p32)
+            new_p[k], new_m[k], new_v[k] = p2.to(p.dtype), m2, v
+        return new_p, FusedOptState(count=count,
+                                    slots={"m": new_m, "vnorm": new_v})

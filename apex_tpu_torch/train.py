@@ -1,15 +1,18 @@
-"""The training steps: BERT MLM (amp O1 + FusedLAMB, auto_cast forward),
-ResNet-50 (amp O2 + FusedSGD) and DCGAN (two amp bundles, three losses,
-FusedAdam).
+"""The training steps: BERT MLM (amp O1 + FusedLAMB or another fused
+optimizer, auto_cast forward), ResNet-50 (amp O2 + FusedSGD) and DCGAN
+(two amp bundles, three losses, FusedAdam).
 
 ``build_bert_step`` is the port of ``bench._bert_step_builder``: the same
 model (BERT-Large unless an encoder is given), the same inputs from
 ``np.random.RandomState(seed)``, and the same step through the normal
 entry points: ``amp.Amp(policy, FusedLAMB(lr=1e-3, strategy=strategy))``,
 ``Amp.backward``, ``Amp.apply_gradients``, and the encoder with
-``models.mlm_loss``'s head under ``amp.auto_cast``. ``strategy`` is ``FusedLAMB``'s own option ("auto", the JAX step's
-default, takes the tree update for BERT-Large and the flat arena for a
-model below 8M params; "arena" forces the arena kernels). ``dropout=0.1,
+``models.mlm_loss``'s head under ``amp.auto_cast``. ``strategy`` is
+``FusedLAMB``'s own option ("auto", the JAX step's default, takes the
+tree update for BERT-Large and the flat arena for a model below 8M
+params; "arena" forces the arena kernels); ``optimizer=`` trains the same
+step with another optimizer instead (``FusedNovoGrad``,
+``FusedAdagrad``), which brings its own strategy. ``dropout=0.1,
 padded=True`` trains BERT as published: padding masks and attention
 dropout, the encoder called as the JAX package's ``BertEncoder(tokens,
 attn_mask, deterministic=False)`` with the MLM head of ``mlm_loss``.
@@ -54,8 +57,14 @@ def _device(device, entry):
 def build_bert_step(batch: int, seq: int, encoder=None, opt_level="O1",
                     half_dtype=torch.bfloat16, device="cuda", seed: int = 0,
                     vocab: Optional[int] = None, strategy: str = "auto",
-                    dropout: float = 0.0, padded: bool = False):
+                    dropout: float = 0.0, padded: bool = False,
+                    optimizer=None):
     """Returns ``(step, state, (toks, labels), policy, enc)``.
+
+    ``optimizer=None`` trains with ``FusedLAMB(lr=1e-3, strategy=
+    strategy)``; an optimizer given (``FusedNovoGrad(...)``,
+    ``FusedAdagrad(...)``, ...) is used as it is and brings its own
+    strategy, so passing ``strategy`` with it raises.
 
     ``step(state, toks, labels) -> (state', loss)`` runs one training step.
     ``encoder=None`` builds BERT-Large on ``device`` (with attention dropout
@@ -72,6 +81,11 @@ def build_bert_step(batch: int, seq: int, encoder=None, opt_level="O1",
     ``seed``).
     """
     device = _device(device, "build_bert_step")
+    if optimizer is None:
+        optimizer = FusedLAMB(lr=1e-3, strategy=strategy)
+    elif strategy != "auto":
+        raise ValueError("build_bert_step takes strategy= for its default "
+                         "FusedLAMB only; set it on the optimizer given")
     policy = amp.Policy.from_opt_level(opt_level, half_dtype=half_dtype)
     enc = encoder if encoder is not None else models.BertLarge(
         device=device, seed=seed, dropout=dropout)
@@ -87,7 +101,7 @@ def build_bert_step(batch: int, seq: int, encoder=None, opt_level="O1",
         labels = np.where(mask, labels, -1)
         attn_mask = torch.as_tensor(mask, device=device)
     labels = torch.as_tensor(labels, dtype=torch.int64, device=device)
-    amp_opt = amp.Amp(policy, FusedLAMB(lr=1e-3, strategy=strategy))
+    amp_opt = amp.Amp(policy, optimizer)
     state = amp_opt.init(dict(enc.named_parameters()))
     gen = torch.Generator(device).manual_seed(seed)
     kwargs = {"deterministic": enc.dropout == 0.0, "generator": gen}

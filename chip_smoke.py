@@ -22,6 +22,16 @@ plain PyTorch version on the card at the shapes its main path gives it
   causal, Sq != Sk, dropout, block offsets, head dims 32/64/128, odd H)
   are held against the plain versions, and a probe reads the dropout
   keep mask out of the forward kernel bit for bit.
+- BERT-Large trains 5 steps with ``FusedNovoGrad(lr=1e-3, betas=(0.95,
+  0.98), eps=1e-8, weight_decay=1e-3)`` and 5 with ``FusedAdagrad(lr=1e-2,
+  weight_decay=1e-4)`` on the arena (phases bert_large_novograd and
+  bert_large_adagrad: one launch of the optimizer's kernel a step), each
+  with one update compared arena against tree; the public
+  ``multi_tensor_scale``/``axpby``/``maxnorm`` run once each on the
+  NovoGrad run's master arena (phase multi_tensor_ops). The kernel phase
+  holds maxnorm, scale, axpby, Adagrad and NovoGrad against their plain
+  versions on a ragged arena (every variant, the flags' edge cases) and
+  at BERT-Large's arena size.
 - ResNet-50 (B256, 224x224, NHWC, amp O2 bf16, FusedSGD(lr=0.1,
   momentum=0.9)) trains 5 steps with the tree update ("auto") and 5 with
   the arena, with the same checks and one SGD update compared both ways;
@@ -69,6 +79,14 @@ SGD_PER_STEP = {"sgd": 1}           # the arena SGD, one f32 partition
 # each under the arena; nothing else of the package is on that path
 DCGAN_PER_STEP = {"adam": 3}
 DCGAN_STEPS = 20
+# BERT-Large with FusedNovoGrad / FusedAdagrad on the arena: one launch of
+# the optimizer's kernel a step (one f32 partition), no LAMB kernel
+NOVOGRAD_PER_STEP = {"novograd": 1}
+ADAGRAD_PER_STEP = {"adagrad": 1}
+# phase multi_tensor_ops: one call of each public function (no training
+# step of either package calls them)
+MULTI_TENSOR_OPS = {"multi_tensor_maxnorm": 1, "multi_tensor_scale": 1,
+                    "multi_tensor_axpby": 1}
 REPLACES = {
     "layer_norm_fwd": "apex_tpu/ops/layer_norm.py:62",
     "layer_norm_bwd": "apex_tpu/ops/layer_norm.py:111",
@@ -83,6 +101,11 @@ REPLACES = {
     "bn_dx": "apex_tpu/ops/bn_act.py:206",
     "sgd": "apex_tpu/ops/optim_kernels.py:95",
     "adam": "apex_tpu/ops/optim_kernels.py:42",
+    "multi_tensor_maxnorm": "apex_tpu/ops/multi_tensor.py:114",
+    "multi_tensor_scale": "apex_tpu/ops/multi_tensor.py:28",
+    "multi_tensor_axpby": "apex_tpu/ops/multi_tensor.py:62",
+    "adagrad": "apex_tpu/ops/optim_kernels.py:141",
+    "novograd": "apex_tpu/ops/optim_kernels.py:244",
 }
 # rows of the kernels JSON line beyond one per kernel: the two attention
 # wrappers timed again at the published BERT path's shape (padding bias,
@@ -118,6 +141,11 @@ SOURCES = {
     "bn_dx": ("triton", "apex_tpu_torch/ops/bn_act.py"),
     "sgd": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
     "adam": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
+    "multi_tensor_maxnorm": ("triton", "apex_tpu_torch/ops/multi_tensor.py"),
+    "multi_tensor_scale": ("triton", "apex_tpu_torch/ops/multi_tensor.py"),
+    "multi_tensor_axpby": ("triton", "apex_tpu_torch/ops/multi_tensor.py"),
+    "adagrad": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
+    "novograd": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
 }
 # tolerances: 16-bit outputs within 2% of the plain output's max magnitude
 # (a few bf16 ulps: the kernels sum in another order and round P per tile);
@@ -133,6 +161,13 @@ TOL16, TOL32, TOL_ARENA = 2e-2, 1e-3, 1e-5
 TOL_UPDATE = {"p": 1e-5, "m": 1e-5, "v": 2e-5}
 # SGD arena against tree: the same f32 formulas elementwise
 TOL_SGD_UPDATE = {"p": 1e-5, "m": 1e-5}
+# Adagrad arena against tree: the same f32 formulas elementwise
+TOL_ADAGRAD_UPDATE = {"p": 1e-5, "h": 1e-5}
+# NovoGrad arena against tree: m the same formula; vnorm within 1e-5 of
+# each tensor's norm (the arena sums row norms and then rows, the tree
+# each tensor at once: f32 sums in another order), and p, whose update
+# divides by it, within 1e-5 of each tensor's largest magnitude
+TOL_NOVOGRAD_UPDATE = {"p": 1e-5, "m": 1e-5, "vnorm": 1e-5}
 
 
 def log(msg):
@@ -195,7 +230,12 @@ def plain_versions():
              (B, "bn_sums_kernel", B.bn_sums_plain),
              (B, "bn_dx_kernel", B.bn_dx_plain),
              (K, "sgd_kernel", K.sgd_plain),
-             (K, "adam_kernel", K.adam_plain)]
+             (K, "adam_kernel", K.adam_plain),
+             (M, "maxnorm_kernel", M.maxnorm_plain),
+             (M, "scale_kernel", M.scale_plain),
+             (M, "axpby_kernel", M.axpby_plain),
+             (K, "adagrad_kernel", K.adagrad_plain),
+             (K, "novograd_kernel", K.novograd_plain)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -378,6 +418,7 @@ def check_kernels(rows):
     check_attention_options(rnd, gen, flush, row)
     mask_probe()
     check_arena_kernels(rnd, flush, row)
+    check_arena_remainder(rnd, flush, row)
     check_bn_kernels(rnd, flush, row)
     check_sgd_kernel(rnd, flush, row)
     check_adam_kernel(rnd, flush, row)
@@ -914,21 +955,191 @@ def check_arena_kernels(rnd, flush, row):
         flops=3 * n, peak=F32_FLOPS)
 
 
-def train_bert_large(phase, rows, strategy="auto", **options):
+def _check_flagged(name, got, want):
+    """(out, all-finite flag) of a kernel against its plain version: flags
+    equal, outputs within TOL_ARENA (16-bit: TOL16) of the largest."""
+    if bool(got[1]) != bool(want[1]):
+        raise AssertionError(f"{name}: flag {bool(got[1])}, plain "
+                             f"{bool(want[1])}")
+    return compare(name, [got[0]], [want[0]], TOL_ARENA)
+
+
+def check_arena_remainder(rnd, flush, row):
+    """Rows 15d-f and 15i-j against their plain versions: maxnorm, scale
+    and axpby (out_dtype None, bf16, f16), Adagrad (both weight-decay
+    modes) and NovoGrad (both moment modes) on a ragged arena of an f32
+    and a bf16 partition; the flags' cases (an inf makes each flag False;
+    1e5 scaled into f16 overflows only in the cast, so the flag is True
+    and the output inf, as in the JAX package); maxnorm NaN with a NaN in
+    the first or the last block, 0 on zeros. Then BERT-Large's f32
+    partition, where each is timed. Library yardsticks: maxnorm
+    ``torch.linalg.vector_norm(ord=inf)``, scale ``torch.mul(out=)``,
+    Adagrad ``torch._fused_adagrad_`` over BERT-Large's 292 tensors (if
+    this build has it on CUDA); axpby and NovoGrad have no single call."""
+    import torch
+    from apex_tpu_torch import arena, models
+    from apex_tpu_torch.ops import _arena, multi_tensor as M
+    from apex_tpu_torch.ops import optim_kernels as K
+
+    dev = torch.device("cuda")
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    s_scale = _arena.device_scalars((0.37,), dev)
+    s_axpby = _arena.device_scalars((1.7, -0.6), dev)
+    s_ada = _arena.device_scalars((1e-2, 1e-10, 1e-4, 0.5), dev)
+    s_novo = _arena.device_scalars((1e-3, 0.95, 0.05, 1e-8, 1e-3,
+                                    1 - 0.95 ** 3,
+                                    math.sqrt(1 - 0.98 ** 3)), dev)
+    tree = {"w": rnd(1000, 300, dtype=f32), "e": rnd(513, 129),
+            "b": rnd(77, dtype=f32), "s": rnd(5)}
+    spec = arena.plan(tree)
+    pb = arena.flatten(tree, spec)
+    gb = arena.flatten({k: rnd(*t.shape, dtype=f32) for k, t in tree.items()},
+                       spec, cast=f32)
+    for dt, p in pb.items():
+        n, g = p.numel(), gb[dt]
+        h = rnd(n, dtype=f32, std=0.1).abs()
+        m = rnd(n, dtype=f32, std=0.1)
+        vpos = rnd(n, dtype=f32).abs() + 0.1
+        for x in (p, g):
+            compare(f"multi_tensor_maxnorm ragged {dt} {x.dtype}",
+                    [M.maxnorm_kernel(x)], [M.maxnorm_plain(x)], TOL_ARENA)
+        for out in (p.dtype, bf16, f16):
+            _check_flagged(f"multi_tensor_scale ragged {dt} -> {out}",
+                           M.scale_kernel(p, s_scale, out),
+                           M.scale_plain(p, s_scale, out))
+            _check_flagged(f"multi_tensor_axpby ragged {dt} -> {out}",
+                           M.axpby_kernel(p, g, s_axpby, out),
+                           M.axpby_plain(p, g, s_axpby, out))
+        for w in (False, True):
+            compare(f"adagrad ragged {dt} adagrad_w={w}",
+                    K.adagrad_kernel(p, g, h, s_ada, w),
+                    K.adagrad_plain(p, g, h, s_ada, w), TOL_ARENA)
+        for r in (False, True):
+            compare(f"novograd ragged {dt} reg_inside_moment={r}",
+                    K.novograd_kernel(p, g, m, vpos, s_novo, r),
+                    K.novograd_plain(p, g, m, vpos, s_novo, r), TOL_ARENA)
+
+    # the flags' and the norm's edge cases, each on kernel and plain
+    x = rnd(2 * 65536, dtype=f32)
+    one = _arena.device_scalars((1.0,), dev)
+    for pos in (0, x.numel() - 1):
+        bad = x.clone()
+        bad[pos] = float("nan")
+        for fn in (M.maxnorm_kernel, M.maxnorm_plain):
+            if not math.isnan(fn(bad).item()):
+                raise AssertionError(f"{fn.__name__}: a NaN at {pos} did "
+                                     f"not give NaN")
+        bad[pos] = float("inf")
+        for fn, args in ((M.scale_kernel, (bad, one, f32)),
+                         (M.scale_plain, (bad, one, f32)),
+                         (M.axpby_kernel, (x, bad, s_axpby, f32)),
+                         (M.axpby_plain, (x, bad, s_axpby, f32))):
+            if bool(fn(*args)[1]):
+                raise AssertionError(f"{fn.__name__}: an inf at {pos} left "
+                                     f"the flag True")
+    big = x.clone()
+    big[70000] = 1e5
+    for fn in (M.scale_kernel, M.scale_plain):
+        out, ok = fn(big, one, f16)
+        if not (bool(ok) and math.isinf(out[70000].item())):
+            raise AssertionError(f"{fn.__name__}: 1e5 into f16 gave flag "
+                                 f"{bool(ok)}, out {out[70000].item()}")
+    zeros = torch.zeros_like(x)
+    if M.maxnorm_kernel(zeros).item() != 0.0:
+        raise AssertionError("maxnorm of zeros is not 0")
+    log("phase kernels: maxnorm, scale, axpby, adagrad and novograd agree "
+        "with the plain versions (ragged bf16 + f32, every variant); NaN "
+        "gives NaN from maxnorm, an inf makes each flag False, 1e5 into "
+        "f16 gives inf with the flag True, as in the JAX package")
+
+    # BERT-Large: one f32 partition of buffer_len elements
+    bspec = arena.plan(dict(models.BertLarge(device=dev).named_parameters()))
+    n = bspec.partition("float32").buffer_len
+    p, g = rnd(n, dtype=f32), rnd(n, dtype=f32, std=1e-2)
+    h, m = rnd(n, dtype=f32, std=1e-2).square(), rnd(n, dtype=f32, std=1e-3)
+    vpos = rnd(n, dtype=f32).abs() + 0.1
+    errs = {
+        "multi_tensor_maxnorm": compare("multi_tensor_maxnorm BERT-Large",
+                                        [M.maxnorm_kernel(g)],
+                                        [M.maxnorm_plain(g)], TOL_ARENA),
+        "multi_tensor_scale": _check_flagged(
+            "multi_tensor_scale BERT-Large", M.scale_kernel(g, s_scale, f32),
+            M.scale_plain(g, s_scale, f32)),
+        "multi_tensor_axpby": _check_flagged(
+            "multi_tensor_axpby BERT-Large",
+            M.axpby_kernel(p, g, s_axpby, f32),
+            M.axpby_plain(p, g, s_axpby, f32)),
+        "adagrad": compare("adagrad BERT-Large",
+                           K.adagrad_kernel(p, g, h, s_ada, False),
+                           K.adagrad_plain(p, g, h, s_ada, False), TOL_ARENA),
+        "novograd": compare("novograd BERT-Large",
+                            K.novograd_kernel(p, g, m, vpos, s_novo, False),
+                            K.novograd_plain(p, g, m, vpos, s_novo, False),
+                            TOL_ARENA)}
+    log(f"phase kernels: maxnorm, scale, axpby, adagrad and novograd agree "
+        f"with the plain versions (BERT-Large buffer of {n} elements)")
+
+    lists = [list(arena.unflatten({"float32": t.clone()}, bspec).values())
+             for t in (p, g, h)]
+    steps = [torch.full((), 3.0, device=dev) for _ in lists[0]]
+    try:
+        ada_lib = timed(lambda: torch._fused_adagrad_(
+            *lists, steps, lr=1e-2, lr_decay=0.0, weight_decay=1e-4,
+            eps=1e-10, maximize=False), flush=flush)
+    except (RuntimeError, TypeError, AttributeError,
+            NotImplementedError) as e:
+        ada_lib = None
+        log(f"kernel adagrad: library null: torch._fused_adagrad_ did not "
+            f"run on CUDA: {str(e).splitlines()[0]}")
+    del lists, steps
+    o = torch.empty_like(g)
+    cases = {
+        "multi_tensor_maxnorm": (
+            lambda: M.maxnorm_kernel(g), lambda: M.maxnorm_plain(g),
+            lambda: torch.linalg.vector_norm(g, ord=math.inf), 4 * n, n),
+        "multi_tensor_scale": (
+            lambda: M.scale_kernel(g, s_scale, f32),
+            lambda: M.scale_plain(g, s_scale, f32),
+            lambda: torch.mul(g, s_scale[0], out=o), 8 * n, n),
+        "multi_tensor_axpby": (
+            lambda: M.axpby_kernel(p, g, s_axpby, f32),
+            lambda: M.axpby_plain(p, g, s_axpby, f32), None, 12 * n, 3 * n),
+        "adagrad": (lambda: K.adagrad_kernel(p, g, h, s_ada, False),
+                    lambda: K.adagrad_plain(p, g, h, s_ada, False), None,
+                    20 * n, 10 * n),
+        "novograd": (lambda: K.novograd_kernel(p, g, m, vpos, s_novo, False),
+                     lambda: K.novograd_plain(p, g, m, vpos, s_novo, False),
+                     None, 24 * n, 11 * n)}
+    for name, (kernel, plain, lib, nbytes, flops) in cases.items():
+        ms = timed(kernel, flush=flush)
+        plain_ms = timed(plain, flush=flush)
+        lib_ms = ada_lib if name == "adagrad" else (
+            None if lib is None else timed(lib, flush=flush))
+        row(name, errs[name], ms, plain_ms, lib_ms, nbytes=nbytes,
+            flops=flops, peak=F32_FLOPS)
+
+
+def train_bert_large(phase, rows, strategy="auto", optimizer=None,
+                     per_step=None, **options):
     """5 BERT-Large steps (B16, S512, O1 bf16) with ``FusedLAMB(lr=1e-3,
-    strategy=strategy)``, built by ``train.build_bert_step`` (``options``:
-    its ``dropout``/``padded``); checks every kernel's launches in those
-    steps. Returns (losses, state, step ms)."""
+    strategy=strategy)``, or with ``optimizer``, built by
+    ``train.build_bert_step`` (``options``: its ``dropout``/``padded``);
+    checks every kernel's launches in those steps (``per_step``: the
+    optimizer's kernels). Returns (losses, state, step ms)."""
     import torch
     from apex_tpu_torch import ops, train
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    opt = (dict(strategy=strategy) if optimizer is None
+           else dict(optimizer=optimizer))
     step, state, (toks, labels), _policy, enc = train.build_bert_step(
-        16, 512, strategy=strategy, **options)
+        16, 512, **opt, **options)
     n_params = sum(p.numel() for p in enc.parameters())
+    tx, how = ((type(optimizer).__name__, optimizer.strategy)
+               if optimizer is not None else ("FusedLAMB", strategy))
     log(f"phase {phase}: built, {n_params} params, "
-        f"{len(state.params)} tensors, FusedLAMB strategy {strategy!r}"
+        f"{len(state.params)} tensors, {tx} strategy {how!r}"
         + (f", {options}: {int(step.attn_mask.sum())} of "
            f"{step.attn_mask.numel()} tokens real, "
            f"{int((labels >= 0).sum())} labels"
@@ -950,8 +1161,8 @@ def train_bert_large(phase, rows, strategy="auto", **options):
     if int(state.step.item()) != 5:
         raise AssertionError(f"state.step {int(state.step)} != 5")
     check_launches(phase, counts, dict(
-        EXPECTED_PER_STEP, **(ARENA_PER_STEP if strategy == "arena" else {})),
-        rows)
+        EXPECTED_PER_STEP, **(ARENA_PER_STEP if strategy == "arena" else {}),
+        **(per_step or {})), rows)
     step_ms = sorted(times[1:])[len(times[1:]) // 2]
     log(f"phase {phase}: launches per step "
         f"{ {k: v // 5 for k, v in counts.items()} }")
@@ -1036,6 +1247,23 @@ def bert_large_arena(rows, tree_losses):
                          lambda s: FusedLAMB(lr=1e-3, strategy=s), TOL_UPDATE)
 
 
+def tree_slots(slots, spec):
+    """Arena slots per tensor: a buffer slot unflattened, a slot of one
+    value per tensor (NovoGrad's ``vnorm``, a (num_tensors,) vector per
+    partition) read through each partition's tensor order."""
+    from apex_tpu_torch import arena
+
+    out = {}
+    for name, bufs in slots.items():
+        if all(b.numel() == len(spec.partition(dt).sizes)
+               for dt, b in bufs.items()):
+            out[name] = {spec.names[i]: bufs[dt][j]
+                         for i, (dt, j) in enumerate(spec.leaf_partition)}
+        else:
+            out[name] = arena.unflatten(bufs, spec)
+    return out
+
+
 def arena_vs_tree_update(params, opt_state, make_tx, tols):
     """One update from the same params, grads and state, arena against
     tree: p and each slot compared per tensor (``tols``), the two timed
@@ -1053,15 +1281,13 @@ def arena_vs_tree_update(params, opt_state, make_tx, tols):
              for k, p in params.items()}
     txs = {"arena": make_tx("arena"), "tree": make_tx("tree")}
     states = {"arena": opt_state, "tree": FusedOptState(
-        count=opt_state.count,
-        slots={s: arena.unflatten(b, spec) for s, b in opt_state.slots.items()})}
+        count=opt_state.count, slots=tree_slots(opt_state.slots, spec))}
 
     def update(name):
         return txs[name].step(grads, states[name], params)
 
     (pa, sa), (pt, st) = update("arena"), update("tree")
-    got = {"p": pa, **{k: arena.unflatten(b, spec)
-                       for k, b in sa.slots.items()}}
+    got = {"p": pa, **tree_slots(sa.slots, spec)}
     want = {"p": pt, **st.slots}
     worst = {}
     for key, tol in tols.items():
@@ -1103,6 +1329,71 @@ def arena_vs_tree_update(params, opt_state, make_tx, tols):
         f"{len(params)} tensors"
         + ("" if seen else " (not measured: the profiler saw no device "
            "events)"))
+
+
+def novograd(strategy):
+    """The JAX package's own check's NovoGrad (``compile_check.py``)."""
+    from apex_tpu_torch.optim import FusedNovoGrad
+    return FusedNovoGrad(lr=1e-3, betas=(0.95, 0.98), eps=1e-8,
+                         weight_decay=1e-3, strategy=strategy)
+
+
+def adagrad(strategy):
+    """The JAX package's own check's Adagrad (``compile_check.py``)."""
+    from apex_tpu_torch.optim import FusedAdagrad
+    return FusedAdagrad(lr=1e-2, weight_decay=1e-4, strategy=strategy)
+
+
+def bert_large_remainder(rows, phase, make_tx, per_step, tols):
+    """5 BERT-Large steps (B16, S512, O1 bf16) through
+    ``train.build_bert_step(16, 512, optimizer=make_tx("arena"))``: finite
+    losses, ``state.step`` 5, one launch a step of the optimizer's kernel
+    and none of LAMB's, the attention, LN and CE launches of every BERT
+    step. Then one update from this run's state, arena against tree.
+    Returns the run's state."""
+    _, state, _ = train_bert_large(phase, rows, optimizer=make_tx("arena"),
+                                   per_step=per_step)
+    arena_vs_tree_update(state.params, state.opt_state, make_tx, tols)
+    return state
+
+
+def multi_tensor_ops(rows, state):
+    """Phase multi_tensor_ops: the public multi_tensor functions, one call
+    each, on BERT-Large's f32 master arena from a training run, as amp
+    uses them in the reference: the master-to-model copy (``scale`` by 1
+    into bf16), a scaled gradient unscaled into a stashed one (``axpby``
+    with 1/65536) and the L∞ norm of the sum (``maxnorm``). Each is held
+    against its plain version on the same inputs; the flags are True."""
+    import torch
+    from apex_tpu_torch import arena, ops
+    from apex_tpu_torch.ops import multi_tensor as M
+
+    spec = arena.plan(state.params)
+    p = arena.flatten(state.params, spec)["float32"]
+    gen = torch.Generator(p.device).manual_seed(2)
+    stash = torch.randn(p.shape, generator=gen, device=p.device) * 1e-3
+    scaled = torch.randn(p.shape, generator=gen, device=p.device) * 64.0
+    ops.reset_launch_counts()
+    model, ok_copy = ops.multi_tensor_scale(p, 1.0,
+                                            out_dtype=torch.bfloat16)
+    acc, ok_acc = ops.multi_tensor_axpby(1.0, stash, 1.0 / 65536, scaled)
+    norm = ops.multi_tensor_maxnorm(acc)
+    check_launches("multi_tensor_ops", ops.launch_counts(), MULTI_TENSOR_OPS,
+                   rows, steps=1)
+    one = torch.ones(1, device=p.device)
+    two = torch.tensor([1.0, 1.0 / 65536], device=p.device)
+    _check_flagged("multi_tensor_ops scale", (model, ok_copy),
+                   M.scale_plain(p, one, torch.bfloat16))
+    _check_flagged("multi_tensor_ops axpby", (acc, ok_acc),
+                   M.axpby_plain(stash, scaled, two, torch.float32))
+    want = M.maxnorm_plain(acc)
+    if not (bool(ok_copy) and bool(ok_acc) and norm.item() == want.item()):
+        raise AssertionError(f"multi_tensor_ops: flags {bool(ok_copy)}, "
+                             f"{bool(ok_acc)}; maxnorm {norm.item()} vs "
+                             f"{want.item()}")
+    log(f"phase multi_tensor_ops: scale, axpby, maxnorm once each on the "
+        f"{p.numel()}-element master arena: agree with the plain versions, "
+        f"flags True, L-inf norm {norm.item():.6e}")
 
 
 def train_resnet50(phase, rows, strategy="auto"):
@@ -1318,10 +1609,10 @@ def dcgan_tree(rows, arena_losses):
         f"run's (worst of three, steps 0-{len(apart) - 1})")
 
     def as_tree(state):
-        spec = arena.plan(state.params)
         opt = state.opt_state
-        return state._replace(opt_state=FusedOptState(count=opt.count, slots={
-            s: arena.unflatten(b, spec) for s, b in opt.slots.items()}))
+        return state._replace(opt_state=FusedOptState(
+            count=opt.count,
+            slots=tree_slots(opt.slots, arena.plan(state.params))))
 
     tree_step = train.build_dcgan_step(128, strategy="tree")[0]
     step, (gs, ds, gbs, dbs), (z, real), _, _ = train.build_dcgan_step(128)
@@ -1580,6 +1871,12 @@ def main() -> int:
     tree_losses = bert_large_steps(rows)
     bert_large_arena(rows, tree_losses)
     bert_large_dropout(rows)
+    state = bert_large_remainder(rows, "bert_large_novograd", novograd,
+                                 NOVOGRAD_PER_STEP, TOL_NOVOGRAD_UPDATE)
+    multi_tensor_ops(rows, state)
+    del state
+    bert_large_remainder(rows, "bert_large_adagrad", adagrad,
+                         ADAGRAD_PER_STEP, TOL_ADAGRAD_UPDATE)
     torch.cuda.empty_cache()
     plain_vs_kernel_step()
     fp16_overflow_run()

@@ -43,8 +43,15 @@ ROOT = Path(__file__).resolve().parents[1]
                            torch.ones(2, 8), 16.0, True, torch.float32),
     lambda: K.adam_kernel(*(torch.ones(65536),) * 4, torch.ones(8), False,
                           torch.bfloat16),
+    lambda: M.maxnorm_kernel(torch.ones(65536)),
+    lambda: M.scale_kernel(torch.ones(65536), torch.ones(1), torch.float16),
+    lambda: M.axpby_kernel(*(torch.ones(65536),) * 2, torch.ones(2),
+                           torch.float32),
+    lambda: K.adagrad_kernel(*(torch.ones(65536),) * 3, torch.ones(4), True),
+    lambda: K.novograd_kernel(*(torch.ones(65536),) * 4, torch.ones(7),
+                              True),
 ], ids=["ln_fwd", "ln_bwd", "xent_fwd", "xent_bwd", "flash_fwd", "bn_sums",
-        "bn_dx", "adam"])
+        "bn_dx", "adam", "maxnorm", "scale", "axpby", "adagrad", "novograd"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     before = ops.launch_counts()
     with pytest.raises(ValueError):
@@ -124,10 +131,17 @@ def test_chip_smoke_extra_rows_take_only_their_phase_launches():
 
 def test_chip_smoke_names_every_kernel():
     names = set(ops.KERNELS)
+    assert len(names) == 18
     per_step = set(chip_smoke.EXPECTED_PER_STEP)
     assert per_step | set(chip_smoke.ARENA_PER_STEP) \
         | set(chip_smoke.RESNET_PER_STEP) | set(chip_smoke.SGD_PER_STEP) \
-        | set(chip_smoke.DCGAN_PER_STEP) == names
+        | set(chip_smoke.DCGAN_PER_STEP) | set(chip_smoke.NOVOGRAD_PER_STEP) \
+        | set(chip_smoke.ADAGRAD_PER_STEP) \
+        | set(chip_smoke.MULTI_TENSOR_OPS) == names
+    assert chip_smoke.NOVOGRAD_PER_STEP == {"novograd": 1}
+    assert chip_smoke.ADAGRAD_PER_STEP == {"adagrad": 1}
+    assert not set(chip_smoke.MULTI_TENSOR_OPS) & (
+        per_step | set(chip_smoke.ARENA_PER_STEP))
     assert not per_step & set(chip_smoke.ARENA_PER_STEP)
     assert not set(chip_smoke.RESNET_PER_STEP) & set(chip_smoke.SGD_PER_STEP)
     assert chip_smoke.DCGAN_PER_STEP == {"adam": 3}
