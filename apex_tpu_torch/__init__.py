@@ -8,17 +8,19 @@ It imports ``torch`` and never ``jax`` nor anything of ``apex_tpu``.
 - ``apex_tpu_torch.arena``  — the flat per-dtype parameter arena.
 - ``apex_tpu_torch.ops``    — hand-written Hopper kernels (Triton LayerNorm,
                               softmax cross-entropy, BN backward sums and
-                              dx, arena L2 norm, LAMB stages, SGD and
-                              Adam; CUDA C++ flash attention) beside
-                              their plain versions.
+                              dx, the arena's norms, scale/axpby and
+                              optimizer updates; CUDA C++ flash attention
+                              and the fused MLP) beside their plain
+                              versions.
+- ``apex_tpu_torch.sparsity`` — 2:4 structured sparsity: masks and ASP.
 - ``apex_tpu_torch.optim``  — ``FusedAdam``, ``FusedLAMB``, ``FusedSGD``
                               (arena and tree updates).
 - ``apex_tpu_torch.models`` — the BERT encoder and its MLM loss, ResNet,
                               DCGAN, and the flax-style layers they share.
-- ``apex_tpu_torch.train``  — the BERT MLM, ResNet and DCGAN training
-                              steps.
-- ``apex_tpu_torch.convert`` — weights, statistics and optimizer state
-                              carried over from the JAX package.
+- ``apex_tpu_torch.train``  — the BERT MLM, ResNet, MLP and DCGAN
+                              training steps.
+- ``apex_tpu_torch.convert`` — weights, statistics, optimizer and ASP
+                              state carried over from the JAX package.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU every op runs its plain version.

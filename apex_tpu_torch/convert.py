@@ -13,11 +13,15 @@ the module's kind, not only on the leaf's rank. Optimizer slots
 follow the same map: the JAX package's tree slots are trees like the
 params, and its arena slots are flat buffers in its own layout (leaves in
 ``jax.tree_util``'s sorted-key order), which differs from the port's
-(leaves in the port's parameter order).
+(leaves in the port's parameter order). ``jax_name`` and
+``to_jax_layout``/``from_jax_layout`` run the map backwards for one port
+leaf, as the sparsity masks need; ``asp_state_from_jax`` carries masks
+and the wrapped optimizer's state.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -44,17 +48,69 @@ def _port_name(name):
     return name
 
 
+def _kernel_kind(name, ndim):
+    """How a JAX leaf's layout maps to the port's: None (as it is), "dense"
+    ((in, out) -> (out, in)), "conv" ((kh, kw, I, O) -> (O, I, kh, kw)) or
+    "conv_transpose" (-> the flipped (I, O, kh, kw))."""
+    if not name.endswith(".kernel"):
+        return None
+    if ndim != 4:
+        return "dense"
+    module = name.split(".")[-2]
+    return "conv_transpose" if module.startswith("ConvTranspose") else "conv"
+
+
 def _port_leaf(name, arr):
     """(port name, array) of one JAX leaf."""
-    if name.endswith(".kernel"):
-        module = name.split(".")[-2]
-        if arr.ndim != 4:                        # Dense (in, out) -> (out, in)
-            arr = arr.T
-        elif module.startswith("ConvTranspose"):  # -> flipped (I, O, kh, kw)
-            arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
-        else:                                    # conv -> (O, I, kh, kw)
-            arr = arr.transpose(3, 2, 0, 1)
+    kind = _kernel_kind(name, arr.ndim)
+    if kind == "dense":
+        arr = arr.T
+    elif kind == "conv_transpose":
+        arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)
+    elif kind == "conv":
+        arr = arr.transpose(3, 2, 0, 1)
     return _port_name(name), arr
+
+
+#: modules whose ``weight`` is a flax ``nn.Embed``'s ``embedding``: the
+#: JAX package's token table ``tok_emb`` and flax's automatic ``Embed_<i>``
+_EMBED_MODULE = re.compile(r"^(tok_emb|Embed_\d+)$")
+
+
+def jax_name(name: str) -> str:
+    """The JAX package's name of one port leaf, the inverse of the rename
+    above: a module's ``weight`` is its ``embedding`` if the module is an
+    embedding table, else its ``kernel``."""
+    module, _, leaf = name.rpartition(".")
+    if leaf != "weight" or not module:
+        return name
+    table = _EMBED_MODULE.match(module.rpartition(".")[2])
+    return f"{module}.{'embedding' if table else 'kernel'}"
+
+
+def to_jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    """A view of the port leaf ``name`` in the JAX package's layout."""
+    kind = _kernel_kind(jax_name(name), t.dim())
+    if kind == "dense":
+        return t.permute(*reversed(range(t.dim())))
+    if kind == "conv_transpose":
+        return t.permute(2, 3, 0, 1).flip(0, 1)
+    if kind == "conv":
+        return t.permute(2, 3, 1, 0)
+    return t
+
+
+def from_jax_layout(name: str, t: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`to_jax_layout`: a JAX-layout tensor of the
+    port leaf ``name`` in the port's layout."""
+    kind = _kernel_kind(jax_name(name), t.dim())
+    if kind == "dense":
+        return t.permute(*reversed(range(t.dim())))
+    if kind == "conv_transpose":
+        return t.flip(0, 1).permute(2, 3, 0, 1)
+    if kind == "conv":
+        return t.permute(3, 2, 0, 1)
+    return t
 
 
 def _tensor(arr, device):
@@ -131,3 +187,21 @@ def fused_state_from_jax(state, params, port_params,
     count = torch.tensor(int(np.asarray(state.count)), dtype=torch.int32,
                          device=device)
     return FusedOptState(count=count, slots=slots)
+
+
+def asp_state_from_jax(state, params, port_params, device="cuda"):
+    """The port's ``sparsity.ASPState`` from the JAX package's: the masks by
+    port name in the port's layout (None stays None: a dense leaf), and the
+    wrapped optimizer's state through :func:`fused_state_from_jax`."""
+    from apex_tpu_torch.sparsity import ASPState
+
+    masks = {}
+    for name, m in _flatten(state.masks):
+        if m is None:
+            masks[_port_name(name)] = None
+        else:
+            pname, arr = _port_leaf(name, np.asarray(m, dtype=bool))
+            masks[pname] = _tensor(arr, device)
+    return ASPState(masks={k: masks[k] for k in port_params},
+                    inner=fused_state_from_jax(state.inner, params,
+                                               port_params, device))

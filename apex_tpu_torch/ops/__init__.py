@@ -15,6 +15,9 @@ from apex_tpu_torch.ops.layer_norm import (  # noqa: F401
     FusedLayerNorm, fused_layer_norm, fused_layer_norm_affine,
     layer_norm_reference, ln_bwd_kernel, ln_fwd_kernel,
 )
+from apex_tpu_torch.ops.mlp import (  # noqa: F401
+    MLP, fused_mlp, mlp_fused_reference, mlp_fwd_kernel, mlp_reference,
+)
 from apex_tpu_torch.ops.multi_tensor import (  # noqa: F401
     axpby_kernel, l2norm_kernel, maxnorm_kernel, multi_tensor_axpby,
     multi_tensor_l2norm, multi_tensor_maxnorm, multi_tensor_scale,
@@ -53,6 +56,7 @@ KERNELS = {
     "multi_tensor_axpby": axpby_kernel,
     "adagrad": adagrad_kernel,
     "novograd": novograd_kernel,
+    "mlp_fwd": mlp_fwd_kernel,
 }
 
 

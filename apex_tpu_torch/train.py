@@ -1,6 +1,7 @@
 """The training steps: BERT MLM (amp O1 + FusedLAMB or another fused
-optimizer, auto_cast forward), ResNet-50 (amp O2 + FusedSGD) and DCGAN
-(two amp bundles, three losses, FusedAdam).
+optimizer, auto_cast forward), ResNet-50 (amp O2 + FusedSGD), the fused
+MLP (amp O2 + 2:4 ASP around FusedAdam) and DCGAN (two amp bundles, three
+losses, FusedAdam).
 
 ``build_bert_step`` is the port of ``bench._bert_step_builder``: the same
 model (BERT-Large unless an encoder is given), the same inputs from
@@ -24,6 +25,12 @@ dtype when the policy casts the model), ``Amp(policy, FusedSGD(lr=0.1,
 momentum=0.9, strategy=strategy))``, and the mean fused cross-entropy as
 the loss, with the new BN running statistics as the loss's aux output.
 
+``build_mlp_step`` trains ``ops.MLP`` (DLRM's bottom MLP by default,
+``--arch-mlp-bot=13-512-256-128``) under amp (O2 bf16 by default) with
+``sparsity.ASP(FusedAdam(lr=1e-3), pattern="m4n2_1d")`` as the optimizer,
+on an MSE loss to a target drawn from the seed. No JAX step builder trains
+the MLP; its parity test builds the same step from JAX functions.
+
 ``build_dcgan_step`` is the port of the ``step`` in ``bench._bench_dcgan``,
 line for line: a generator and a discriminator, each under its own
 ``amp.Amp(policy, FusedAdam(lr=2e-4, betas=(0.5, 0.999)))`` (D's with
@@ -40,7 +47,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from apex_tpu_torch import amp, models, ops
+from apex_tpu_torch import amp, models, ops, sparsity
 from apex_tpu_torch.models.transformer import _mlm_head
 from apex_tpu_torch.optim import FusedAdam, FusedLAMB, FusedSGD
 
@@ -158,6 +165,48 @@ def build_resnet_step(batch: int, size: int, opt_level: str = "O2",
         return amp_opt.apply_gradients(state, grads, finite), new_bs, loss
 
     return step, (state, batch_stats), (x, y), policy, model
+
+
+def build_mlp_step(batch: int, sizes=(13, 512, 256, 128),
+                   opt_level: str = "O2", half_dtype=torch.bfloat16,
+                   device="cuda", seed: int = 0, model=None,
+                   strategy: str = "auto"):
+    """Returns ``(step, state, (x, target), policy, model)``.
+
+    ``step(state, x, target) -> (state', loss)`` runs one training step of
+    ``model`` (default ``ops.MLP(sizes)`` on ``device``, weights from
+    ``seed``): the f32 mean squared error of its output against ``target``,
+    through ``amp.Amp(policy, ASP(FusedAdam(lr=1e-3, strategy=strategy),
+    pattern="m4n2_1d"))``. ``x`` (batch, D0) ~ N(0, 1) and ``target`` (batch,
+    D_L) ~ U[0, 1) come from ``np.random.RandomState(seed)``; ``x`` arrives
+    pre-cast to the compute dtype when the policy casts the model, as a
+    loader ships it.
+    """
+    device = _device(device, "build_mlp_step")
+    policy = amp.Policy.from_opt_level(opt_level, half_dtype=half_dtype)
+    if model is None:
+        model = ops.MLP(sizes, device=device, seed=seed)
+    d0, dl = model.sizes[0], model.sizes[-1]
+    rng = np.random.RandomState(seed)
+    x = torch.as_tensor(rng.randn(batch, d0).astype(np.float32),
+                        device=device)
+    if policy.cast_model_type is not None:
+        x = x.to(policy.compute_dtype)
+    target = torch.as_tensor(rng.rand(batch, dl).astype(np.float32),
+                             device=device)
+    amp_opt = amp.Amp(policy, sparsity.ASP(
+        FusedAdam(lr=1e-3, strategy=strategy), pattern="m4n2_1d"))
+    state = amp_opt.init(dict(model.named_parameters()))
+
+    def step(state, xb, tb):
+        def loss_fn(mp):
+            y = functional_call(model, mp, (xb,))
+            return torch.mean(torch.square(y.float() - tb))
+
+        loss, grads, state, finite = amp_opt.backward(state, loss_fn)
+        return amp_opt.apply_gradients(state, grads, finite), loss
+
+    return step, state, (x, target), policy, model
 
 
 def bce(logit, target):

@@ -38,6 +38,18 @@ plain PyTorch version on the card at the shapes its main path gives it
   then a one-block-per-stage ResNet at full widths compares its first
   step's gradients and second step's loss through the kernels with the
   same run through the plain versions.
+- DLRM's bottom MLP (``ops.MLP([13, 512, 256, 128])``: the
+  ``--arch-mlp-bot`` of facebookresearch/dlrm's Criteo Terabyte run, at
+  its ``--mini-batch-size=2048``) trains 20 steps under
+  amp O2 bf16 with ``sparsity.ASP(FusedAdam(lr=1e-3), "m4n2_1d")``
+  (phase mlp_dlrm_bottom: one ``mlp_fwd`` and one ``adam`` launch a step,
+  every weight 2:4 under its mask after every step, falling losses); the
+  reference Apex test's widths, over the kernel's 8 MiB budget, run
+  forward and backward with no launch and bitwise as ``mlp_reference``
+  (phase mlp_fallback); one step is compared through the kernels and the
+  plain versions (phase mlp_plain_vs_kernel). The kernel phase holds
+  ``mlp_fwd`` against its plain version at the path's shape, the budget's
+  edge and a ragged shape, and on its per-layer and multi-launch plans.
 - DCGAN (B128, 64x64, generator nz 100 / ngf 64, discriminator ndf 64,
   amp O1 bf16 under ``auto_cast``, two ``FusedAdam(lr=2e-4, betas=(0.5,
   0.999))`` bundles, three scaled backwards a step) trains 20 steps with
@@ -87,6 +99,15 @@ ADAGRAD_PER_STEP = {"adagrad": 1}
 # step of either package calls them)
 MULTI_TENSOR_OPS = {"multi_tensor_maxnorm": 1, "multi_tensor_scale": 1,
                     "multi_tensor_axpby": 1}
+# the DLRM bottom MLP (B2048, [13, 512, 256, 128], O2 bf16, 2:4 ASP around
+# FusedAdam): one mlp_fwd launch a step and one Adam launch for the f32
+# masters' one arena partition
+MLP_PER_STEP = {"mlp_fwd": 1, "adam": 1}
+MLP_STEPS = 20
+MLP_BOTTOM = (13, 512, 256, 128)
+# the reference Apex test's widths (DLRM's top MLP over a 480-wide input):
+# 8,782,848 bytes of f32 weights, over the kernel's 8 MiB budget
+MLP_OVER_BUDGET = (480, 1024, 1024, 512, 256, 1)
 REPLACES = {
     "layer_norm_fwd": "apex_tpu/ops/layer_norm.py:62",
     "layer_norm_bwd": "apex_tpu/ops/layer_norm.py:111",
@@ -106,6 +127,7 @@ REPLACES = {
     "multi_tensor_axpby": "apex_tpu/ops/multi_tensor.py:62",
     "adagrad": "apex_tpu/ops/optim_kernels.py:141",
     "novograd": "apex_tpu/ops/optim_kernels.py:244",
+    "mlp_fwd": "apex_tpu/ops/mlp.py:52",
 }
 # rows of the kernels JSON line beyond one per kernel: the two attention
 # wrappers timed again at the published BERT path's shape (padding bias,
@@ -146,6 +168,7 @@ SOURCES = {
     "multi_tensor_axpby": ("triton", "apex_tpu_torch/ops/multi_tensor.py"),
     "adagrad": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
     "novograd": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
+    "mlp_fwd": ("cuda", "apex_tpu_torch/csrc/mlp_fwd.cu"),
 }
 # tolerances: 16-bit outputs within 2% of the plain output's max magnitude
 # (a few bf16 ulps: the kernels sum in another order and round P per tile);
@@ -215,7 +238,7 @@ def plain_versions():
     op module's kernel wrapper to its plain version (the wrappers counted
     in ``ops.KERNELS`` are not called, so their counts stay put)."""
     from apex_tpu_torch.ops import attention as A, bn_act as B
-    from apex_tpu_torch.ops import layer_norm as L
+    from apex_tpu_torch.ops import layer_norm as L, mlp as P
     from apex_tpu_torch.ops import multi_tensor as M, optim_kernels as K
     from apex_tpu_torch.ops import xentropy as X
     swaps = [(L, "ln_fwd_kernel", L.ln_fwd_plain),
@@ -235,7 +258,8 @@ def plain_versions():
              (M, "scale_kernel", M.scale_plain),
              (M, "axpby_kernel", M.axpby_plain),
              (K, "adagrad_kernel", K.adagrad_plain),
-             (K, "novograd_kernel", K.novograd_plain)]
+             (K, "novograd_kernel", K.novograd_plain),
+             (P, "mlp_fwd_kernel", P.mlp_fused_reference)]
     saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
     for m, n, f in swaps:
         setattr(m, n, f)
@@ -422,6 +446,7 @@ def check_kernels(rows):
     check_bn_kernels(rnd, flush, row)
     check_sgd_kernel(rnd, flush, row)
     check_adam_kernel(rnd, flush, row)
+    check_mlp_kernel(rnd, flush, row)
     del sweep
 
 
@@ -875,6 +900,100 @@ def check_adam_kernel(rnd, flush, row):
         log(f"kernel adam: library null: torch._fused_adam_ did not run: {e}")
     row("adam", err, ms, plain, lib, nbytes=28 * n, flops=18 * n,
         peak=F32_FLOPS)
+
+
+def _mlp_operands(rnd, n, dims, act, bias, dt, wdt):
+    """x ~ N(0, 1) and weights scaled to keep every layer's output O(1)."""
+    import torch
+    x = rnd(n, dims[0], dtype=dt)
+    gain = 4.0 if act == "sigmoid" else 2.0
+    ws = [rnd(a, b, dtype=wdt, std=math.sqrt(gain / a))
+          for a, b in zip(dims, dims[1:])]
+    bs = [rnd(b, dtype=wdt, std=0.1) for b in dims[1:]] if bias else None
+    return x, ws, bs
+
+
+def check_mlp_kernel(rnd, flush, row):
+    """mlp_fwd against its plain version (the f32 chain with one cast),
+    TF32 off, timed with that version and with the chain of ``torch.addmm``
+    + activation in f32 (a chain: no single PyTorch call computes an MLP),
+    at the path's shape (B2048 x [13, 512, 256, 128], relu, bias, bf16 x
+    and bf16 weights as O2 gives them: the JSON row), the budget's edge
+    (B8192 x [1024, 1024, 1024] f32, exactly 8 MiB of weights, which <=
+    admits) and compile_check's ragged [224, 200, 136, 10] at 96 rows
+    (f32, sigmoid, no bias). Then, compared only: a layer too wide for the
+    fused kernel (one launch per layer over the f32 workspace) and 40
+    layers (two fused launches), fp16, and x, weights and biases of
+    different dtypes, each with its launch count."""
+    import torch
+    from apex_tpu_torch.ops import mlp as P
+
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the MLP check needs TF32 off")
+    acts = {"relu": torch.relu, "sigmoid": torch.sigmoid}
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    cases = [("path", 2048, list(MLP_BOTTOM), "relu", True, bf16, bf16),
+             ("edge", 8192, [1024, 1024, 1024], "relu", True, f32, f32),
+             ("ragged", 96, [224, 200, 136, 10], "sigmoid", False, f32, f32)]
+    for name, n, dims, act, bias, dt, wdt in cases:
+        x, ws, bs = _mlp_operands(rnd, n, dims, act, bias, dt, wdt)
+        if name == "edge" and (sum(w.numel() for w in ws) * 4 != 8 << 20
+                               or not P.weights_fit(ws)):
+            raise AssertionError("the edge case must hold exactly 8 MiB")
+        before = P.mlp_fwd_kernel.launches
+        err = compare(f"mlp_fwd {name} {n}x{dims} {dt}",
+                      [P.mlp_fwd_kernel(x, ws, bs, act)],
+                      [P.mlp_fused_reference(x, ws, bs, act)], 1e-4)
+        if P.mlp_fwd_kernel.launches - before != 1:
+            raise AssertionError(f"mlp_fwd {name}: "
+                                 f"{P.mlp_fwd_kernel.launches - before} "
+                                 f"launches, expected 1")
+        ms = timed(lambda: P.mlp_fwd_kernel(x, ws, bs, act), flush=flush)
+        plain = timed(lambda: P.mlp_fused_reference(x, ws, bs, act),
+                      flush=flush)
+        x32, w32 = x.float(), [w.float() for w in ws]
+        b32 = [b.float() for b in bs] if bias else None
+
+        def chain():
+            h = x32
+            for i, w in enumerate(w32):
+                h = acts[act](torch.addmm(b32[i], h, w) if bias
+                              else torch.mm(h, w))
+            return h
+
+        lib = timed(chain, flush=flush)
+        nbytes = (x.numel() + n * dims[-1]) * x.element_size() + sum(
+            t.numel() * t.element_size() for t in ws + (bs or []))
+        flops = 2 * n * sum(a * b for a, b in zip(dims, dims[1:]))
+        if name == "path":
+            row("mlp_fwd", err, ms, plain, lib, nbytes, flops, F32_FLOPS)
+        else:
+            bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
+            log(f"kernel mlp_fwd {name} {n}x{dims} {dt}: max_abs_err "
+                f"{err:.3e}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
+                f"library (addmm chain, f32) {lib:.4f} ms  bound "
+                f"{bound:.4f} ms (operations)")
+    for name, n, dims, act, dt, wdt, bdt, want in (
+            ("wide", 200, [96, 4096, 48], "relu", f16, f16, f16, 2),
+            ("deep", 100, [64] * 41, "sigmoid", f16, f16, f16, 2),
+            ("mixed", 50, [39, 128, 57], "none", bf16, f32, f32, 1),
+            ("mixed16", 33, [20, 64, 12], "relu", f16, f32, bf16, 1)):
+        x, ws, bs = _mlp_operands(rnd, n, dims, act, True, dt, wdt)
+        bs = [b.to(bdt) for b in bs]
+        before = P.mlp_fwd_kernel.launches
+        compare(f"mlp_fwd {name} {n}x{dims[:3]}... ({len(ws)} layers) x "
+                f"{dt}, weights {wdt}, biases {bdt}",
+                [P.mlp_fwd_kernel(x, ws, bs, act)],
+                [P.mlp_fused_reference(x, ws, bs, act)], 1e-4)
+        got = P.mlp_fwd_kernel.launches - before
+        if got != want:
+            raise AssertionError(f"mlp_fwd {name}: {got} launches, expected "
+                                 f"{want}")
+    log(f"phase kernels: mlp_fwd agrees with the plain version (path, edge, "
+        f"ragged; a layer past the fused width: 2 launches; 40 layers: 2; "
+        f"x, weights and biases of three dtypes) in "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def check_arena_kernels(rnd, flush, row):
@@ -1754,6 +1873,166 @@ def dcgan_fp16_overflow():
         "followed their own schedules")
 
 
+def _check_two_four(phase, i, state):
+    """Every pruned weight is 0 where its mask is 0, and each mask keeps 2
+    of every 4 along the last dim (density 0.5)."""
+    for k, m in state.opt_state.masks.items():
+        if m is None:
+            continue
+        p = state.params[k]
+        kept = m.reshape(-1, 4).sum(dim=-1)
+        if bool((p[~m] != 0).any()) or not bool((kept == 2).all()):
+            raise AssertionError(f"{phase} step {i}: {k} is not 2:4 under "
+                                 f"its mask")
+
+
+def mlp_dlrm_bottom(rows):
+    """MLP_STEPS steps of DLRM's bottom MLP (``--arch-mlp-bot=13-512-256-128``
+    at ``--mini-batch-size=2048``) under amp O2 bf16 with
+    ``ASP(FusedAdam(lr=1e-3), "m4n2_1d")`` on an MSE loss, built by
+    ``train.build_mlp_step``: one mlp_fwd launch and one adam launch a step
+    (the masters are one f32 arena partition), every weight 2:4 under its
+    mask after every step, the biases dense, and finite, falling losses."""
+    import torch
+    from apex_tpu_torch import arena, ops, sparsity, train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, state, (x, t), policy, model = train.build_mlp_step(2048)
+    masks = state.opt_state.masks
+    parts = arena.plan(state.params).partitions
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"phase mlp_dlrm_bottom: built MLP{list(MLP_BOTTOM)}, {n_params} "
+        f"params in {len(state.params)} tensors, x {tuple(x.shape)} "
+        f"{x.dtype}, model params "
+        f"{sorted({str(v.dtype) for v in policy.cast_params(state.params).values()})}, "
+        f"{len(parts)} arena partition(s) "
+        f"{[p.dtype for p in parts]}, masks "
+        f"{ {k: sparsity.density(m) for k, m in masks.items() if m is not None} }")
+    if sorted(k for k, m in masks.items() if m is not None) != [
+            f"weight_{i}" for i in range(len(MLP_BOTTOM) - 1)] or any(
+            sparsity.density(m) != 0.5 for m in masks.values()
+            if m is not None) or len(parts) != 1:
+        raise AssertionError("mlp_dlrm_bottom: expected 2:4 masks on the "
+                             "three weights only and one arena partition")
+    ops.reset_launch_counts()
+    times, losses = [], []
+    for i in range(MLP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, x, t)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(loss.item())
+        _check_two_four("mlp_dlrm_bottom", i, state)
+    counts = ops.launch_counts()
+    for i in (0, 1, MLP_STEPS // 2, MLP_STEPS - 1):
+        log(f"mlp_dlrm_bottom step {i}: loss {losses[i]:.6f}  "
+            f"{times[i]:.3f} ms")
+    if not all(math.isfinite(l) for l in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"mlp_dlrm_bottom: losses not finite and "
+                             f"falling: {losses}")
+    check_launches("mlp_dlrm_bottom", counts, MLP_PER_STEP, rows, MLP_STEPS)
+    if int(state.step) != MLP_STEPS:
+        raise AssertionError(f"mlp_dlrm_bottom: state.step {int(state.step)}")
+    step_ms = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"phase mlp_dlrm_bottom: launches per step "
+        f"{ {k: v / MLP_STEPS for k, v in counts.items() if v} }, weights "
+        f"2:4 after all {MLP_STEPS} steps, loss {losses[0]:.6f} -> "
+        f"{losses[-1]:.6f}")
+    log(f"phase mlp_dlrm_bottom: median step {step_ms:.3f} ms (steps "
+        f"1-{MLP_STEPS - 1}), {2048 / step_ms * 1e3:.1f} rows/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+
+def mlp_fallback():
+    """The reference Apex test's widths [480, 1024, 1024, 512, 256, 1] at
+    B1024, bf16 and f32: over the 8 MiB budget, so ``fused_mlp`` computes
+    ``mlp_reference`` and launches nothing; output and input gradient
+    bitwise equal to ``mlp_reference``'s on the card."""
+    import torch
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import mlp as P
+
+    dev = torch.device("cuda")
+    model = P.MLP(MLP_OVER_BUDGET, device=dev, seed=1)
+    ws32 = [getattr(model, f"weight_{i}").detach() for i in range(5)]
+    bs32 = [getattr(model, f"bias_{i}").detach() for i in range(5)]
+    if P.weights_fit(ws32):
+        raise AssertionError("mlp_fallback: the widths fit the budget")
+    gen = torch.Generator(dev).manual_seed(3)
+    for dt in (torch.bfloat16, torch.float32):
+        ws = [w.to(dt).requires_grad_(True) for w in ws32]
+        bs = [b.to(dt).requires_grad_(True) for b in bs32]
+        x = torch.randn(1024, 480, generator=gen, device=dev).to(dt)
+        x.requires_grad_(True)
+        g = torch.randn(1024, 1, generator=gen, device=dev).to(dt)
+
+        def run(fn):
+            y = fn(x, ws, bs, "relu")
+            return (y, *torch.autograd.grad(y, [x, *ws, *bs], g))
+
+        ops.reset_launch_counts()
+        got = run(P.fused_mlp)
+        launched = {k: v for k, v in ops.launch_counts().items() if v}
+        want = run(P.mlp_reference)
+        if launched:
+            raise AssertionError(f"mlp_fallback {dt}: launched {launched}")
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"mlp_fallback {dt}: fused_mlp differs from "
+                                 f"mlp_reference")
+        ms = timed(lambda: run(P.fused_mlp))
+        log(f"phase mlp_fallback: {dt}: 0 launches, output and all 11 "
+            f"gradients bitwise equal to mlp_reference; forward + backward "
+            f"{ms:.4f} ms")
+
+
+def mlp_plain_vs_kernel():
+    """One mlp_dlrm_bottom step from the same seed through the kernels and
+    inside ``plain_versions()``: the loss within 1e-3 relative and each
+    updated param within 1e-2 of the tensor's largest magnitude (the bf16
+    forward rounds once in both; Adam moves an element by about lr whatever
+    its gradient, so a near-zero gradient whose last bits differ moves it
+    up to 2·lr apart)."""
+    import torch
+    from apex_tpu_torch import ops, train
+
+    runs = {}
+    for mode in ("kernel", "plain"):
+        step, state, (x, t), _, _ = train.build_mlp_step(2048)
+        ops.reset_launch_counts()
+        with (plain_versions() if mode == "plain"
+              else contextlib.nullcontext()):
+            state, loss = step(state, x, t)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        want = MLP_PER_STEP if mode == "kernel" else {}
+        if counts != want:
+            raise AssertionError(f"{mode} MLP step launched {counts}, "
+                                 f"expected {want}")
+        runs[mode] = (loss.item(), state.params)
+    (lk, pk), (lp, pp) = runs["kernel"], runs["plain"]
+    errs = {k: ((pk[k] - v).abs().max() / v.abs().max()).item()
+            for k, v in pp.items()}
+    worst = max(errs, key=errs.get)
+    log(f"phase mlp_plain_vs_kernel: loss kernel {lk:.6f} plain {lp:.6f}; "
+        f"params worst {errs[worst]:.2e} of the tensor's max ({worst})")
+    if not abs(lk - lp) <= 1e-3 * abs(lp):
+        raise AssertionError(f"kernel/plain MLP loss {lk} vs {lp}")
+    if not errs[worst] <= 1e-2:
+        raise AssertionError(f"kernel/plain MLP {worst} differs by "
+                             f"{errs[worst]:.2e} of its max > 1e-2")
+
+
+def mlp_phases(rows):
+    t0 = time.perf_counter()
+    mlp_dlrm_bottom(rows)
+    mlp_fallback()
+    mlp_plain_vs_kernel()
+    log(f"phase mlp: mlp_dlrm_bottom, mlp_fallback and mlp_plain_vs_kernel "
+        f"in {time.perf_counter() - t0:.1f} s")
+
+
 def depth2_encoder(dropout=0.0):
     from apex_tpu_torch import models
     return models.BertEncoder(30522, hidden=1024, layers=2, heads=16,
@@ -1868,6 +2147,7 @@ def main() -> int:
 
     rows = {}
     check_kernels(rows)
+    mlp_phases(rows)
     tree_losses = bert_large_steps(rows)
     bert_large_arena(rows, tree_losses)
     bert_large_dropout(rows)

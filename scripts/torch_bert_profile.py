@@ -2,16 +2,19 @@
 """Where one training step of apex_tpu_torch spends its time.
 
     python3 scripts/torch_bert_profile.py [--model bert_large|
-        bert_large_dropout|resnet50|dcgan] [--steps 2] [--strategy auto]
-        [--out PATH]
+        bert_large_dropout|resnet50|dcgan|mlp_dlrm_bottom] [--steps 2]
+        [--strategy auto] [--out PATH]
 
 Builds the port's BERT-Large MLM step (B16, S512, amp O1 bf16, FusedLAMB;
 ``bert_large_dropout``: as published, with padding masks and attention
 dropout 0.1), its ResNet-50 step (B256, 224x224, amp O2 bf16, FusedSGD(lr=0.1,
-momentum=0.9)) or its DCGAN step (B128, 64x64, amp O1 bf16, two
-FusedAdam(lr=2e-4, betas=(0.5, 0.999)) bundles, three backwards) with
+momentum=0.9)), its DCGAN step (B128, 64x64, amp O1 bf16, two
+FusedAdam(lr=2e-4, betas=(0.5, 0.999)) bundles, three backwards) or its
+fused-MLP step (DLRM's bottom MLP [13, 512, 256, 128] at B2048, amp O2
+bf16, 2:4 ASP around FusedAdam(lr=1e-3)) with
 the given optimizer strategy ("auto" takes the tree update for BERT-Large
-and ResNet-50 and the arena for DCGAN, "arena" the flat-arena kernels)
+and ResNet-50 and the arena for DCGAN and the MLP, "arena" the
+flat-arena kernels)
 on one CUDA device, warms it up, then traces ``--steps`` steps with
 ``torch.profiler`` and prints one JSON object: the step's wall time, the
 device kernel time summed by category (the port's kernels, convolutions,
@@ -40,6 +43,7 @@ _CATEGORIES = (
     ("bn_bwd", ("_bn_sums_triton", "_bn_dx_triton")),
     ("arena_sgd", ("_sgd_triton",)),
     ("arena_adam", ("_adam_triton",)),
+    ("mlp_fwd", ("mlp_fused", "mlp_layer")),
     ("conv", ("fprop", "dgrad", "wgrad", "cudnn", "convolve", "conv2d",
               "nchwtonhwc", "nhwctonchw")),
     ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "cublas")),
@@ -120,6 +124,15 @@ def _builder(model, strategy):
             carry[0], loss = step(carry[0], toks, labels)
             return loss
         return one_step, 16
+    if model == "mlp_dlrm_bottom":
+        step, state, (x, t), _, _ = train.build_mlp_step(
+            2048, strategy=strategy)
+        carry = [state]
+
+        def one_step():
+            carry[0], loss = step(carry[0], x, t)
+            return loss
+        return one_step, 2048
     if model == "dcgan":
         step, states, (z, real), _, _ = train.build_dcgan_step(
             128, strategy=strategy)
@@ -144,7 +157,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="bert_large",
                     choices=("bert_large", "bert_large_dropout", "resnet50",
-                             "dcgan"))
+                             "dcgan", "mlp_dlrm_bottom"))
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--strategy", default="auto",
                     choices=("auto", "tree", "arena"))

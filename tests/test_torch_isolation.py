@@ -156,3 +156,36 @@ def test_attention_modules_and_dropout_path_default_to_cuda(monkeypatch):
     assert bool((labels[~step.attn_mask] == -1).all())
     state, loss = step(state, toks, labels)
     assert int(state.step) == 1 and torch.isfinite(loss)
+
+
+def test_mlp_and_sparsity_are_covered():
+    """The fused MLP and the sparsity package are among the modules the
+    import and AST checks above walk."""
+    names = [m for _, m in _modules()]
+    for m in ("apex_tpu_torch.ops.mlp", "apex_tpu_torch.sparsity",
+              "apex_tpu_torch.sparsity.asp",
+              "apex_tpu_torch.sparsity.masklib"):
+        assert m in names
+
+
+def test_mlp_entry_points_default_to_cuda(monkeypatch):
+    """``ops.MLP`` and ``train.build_mlp_step`` ask for cuda when no device
+    is given; with ``device="cpu"`` the MLP step (O2, ASP around
+    FusedAdam) runs its plain versions on the CPU."""
+    import inspect
+
+    from apex_tpu_torch import ops, train
+
+    for fn in (ops.MLP, train.build_mlp_step):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.build_mlp_step(4)
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+        ops.MLP([4, 8])
+    step, state, (x, t), _, model = train.build_mlp_step(
+        4, (8, 16, 4), device="cpu")
+    assert x.device.type == t.device.type == "cpu"
+    assert x.dtype == torch.bfloat16
+    state, loss = step(state, x, t)
+    assert int(state.step) == 1 and torch.isfinite(loss)

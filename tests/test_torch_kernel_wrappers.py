@@ -18,6 +18,7 @@ from apex_tpu_torch import ops
 from apex_tpu_torch.ops import attention as A
 from apex_tpu_torch.ops import bn_act as B
 from apex_tpu_torch.ops import layer_norm as L
+from apex_tpu_torch.ops import mlp as P
 from apex_tpu_torch.ops import multi_tensor as M
 from apex_tpu_torch.ops import optim_kernels as K
 from apex_tpu_torch.ops import xentropy as X
@@ -50,8 +51,12 @@ ROOT = Path(__file__).resolve().parents[1]
     lambda: K.adagrad_kernel(*(torch.ones(65536),) * 3, torch.ones(4), True),
     lambda: K.novograd_kernel(*(torch.ones(65536),) * 4, torch.ones(7),
                               True),
+    lambda: P.mlp_fwd_kernel(torch.ones(16, 13, dtype=torch.bfloat16),
+                             [torch.ones(13, 8, dtype=torch.bfloat16)],
+                             [torch.ones(8, dtype=torch.bfloat16)]),
 ], ids=["ln_fwd", "ln_bwd", "xent_fwd", "xent_bwd", "flash_fwd", "bn_sums",
-        "bn_dx", "adam", "maxnorm", "scale", "axpby", "adagrad", "novograd"])
+        "bn_dx", "adam", "maxnorm", "scale", "axpby", "adagrad", "novograd",
+        "mlp_fwd"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     before = ops.launch_counts()
     with pytest.raises(ValueError):
@@ -131,13 +136,14 @@ def test_chip_smoke_extra_rows_take_only_their_phase_launches():
 
 def test_chip_smoke_names_every_kernel():
     names = set(ops.KERNELS)
-    assert len(names) == 18
+    assert len(names) == 19
     per_step = set(chip_smoke.EXPECTED_PER_STEP)
     assert per_step | set(chip_smoke.ARENA_PER_STEP) \
         | set(chip_smoke.RESNET_PER_STEP) | set(chip_smoke.SGD_PER_STEP) \
         | set(chip_smoke.DCGAN_PER_STEP) | set(chip_smoke.NOVOGRAD_PER_STEP) \
         | set(chip_smoke.ADAGRAD_PER_STEP) \
-        | set(chip_smoke.MULTI_TENSOR_OPS) == names
+        | set(chip_smoke.MULTI_TENSOR_OPS) \
+        | set(chip_smoke.MLP_PER_STEP) == names
     assert chip_smoke.NOVOGRAD_PER_STEP == {"novograd": 1}
     assert chip_smoke.ADAGRAD_PER_STEP == {"adagrad": 1}
     assert not set(chip_smoke.MULTI_TENSOR_OPS) & (
@@ -145,6 +151,7 @@ def test_chip_smoke_names_every_kernel():
     assert not per_step & set(chip_smoke.ARENA_PER_STEP)
     assert not set(chip_smoke.RESNET_PER_STEP) & set(chip_smoke.SGD_PER_STEP)
     assert chip_smoke.DCGAN_PER_STEP == {"adam": 3}
+    assert chip_smoke.MLP_PER_STEP == {"mlp_fwd": 1, "adam": 1}
     for table in (chip_smoke.REPLACES, chip_smoke.SOURCES):
         assert set(table) == names
     for name, (route, src) in chip_smoke.SOURCES.items():
@@ -156,7 +163,7 @@ def test_chip_smoke_names_every_kernel():
 
 
 def test_plain_versions_swaps_every_wrapper_and_restores():
-    modules = (A, B, L, M, K, X)
+    modules = (A, B, L, M, K, P, X)
     wrappers = {n: fn for n, fn in ops.KERNELS.items()}
 
     def bound():
@@ -176,3 +183,16 @@ def test_chip_smoke_fails_without_a_card():
                          capture_output=True, text=True, cwd=str(ROOT))
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_chip_smoke_mlp_widths_sit_on_each_side_of_the_budget():
+    """The path's MLP (DLRM's bottom) takes the kernel; the reference Apex
+    test's widths are 4.7% over the 8 MiB budget and take none."""
+    def weights(sizes):
+        return [torch.empty(a, b, device="meta")
+                for a, b in zip(sizes, sizes[1:])]
+
+    assert P.weights_fit(weights(chip_smoke.MLP_BOTTOM))
+    assert not P.weights_fit(weights(chip_smoke.MLP_OVER_BUDGET))
+    n = sum(w.numel() for w in weights(chip_smoke.MLP_OVER_BUDGET)) * 4
+    assert n == 8_782_848 and n > P.WEIGHT_BUDGET
