@@ -17,307 +17,479 @@
 // What bounds it on an H100: operations. At the BERT shape the five
 // products of the function are 10·B·H·S²·D = 42.9 GFLOP (43 us at the
 // bf16 tensor-core peak) against q, k, v, do, dq, dk, dv, 117 MB (35 us).
+// Two kernels recompute s, dP and the mask: 7 products, 60 GFLOP.
 //
-// Design: the TPU's fused single sweep holds the whole sequence in one
-// block, which does not carry over to Hopper's 227 KB of shared memory and
-// unordered blocks. Instead, flash_bwd_dkv runs one block per (64-key tile,
-// batch·head) looping over the q tiles, and flash_bwd_dq one block per
-// (64-row q tile, batch·head) looping over the k tiles; both skip tiles
-// wholly past the causal frontier. Each block owns its output rows
-// outright, so no accumulation crosses blocks and the result is
-// deterministic; the price is that both kernels recompute s, dP and the
-// dropout mask. The dK/dV and dQ sums stay in wmma accumulator fragments
-// (f32) across the loop; products are wmma 16x16x16. This is the simple
-// first kernel: no TMA, no wgmma, no pipelining.
+// Design (flash_common.cuh has the parts). Determinism without atomics:
+// each work item's outputs belong to one block, which sums them in a fixed
+// order, so the result is bit-for-bit repeatable; the price is that both
+// kernels recompute s, dP and the dropout mask. Both kernels are
+// persistent: one block an SM takes items in turn, and the producer loads
+// the next item's resident tiles (into the second of two buffers) and its
+// first streamed tiles while the consumers finish the item before.
+// - flash_bwd_dkv: items (128-key tile, batch·head). The producer loads
+//   k and v once an item and streams BQ-row q and do tiles (64 rows; 32 at
+//   D = 128) through a three-stage TMA ring, staging each tile's lse,
+//   delta (read a tile ahead) and dropout row hash in shared memory; q
+//   tiles wholly before the causal frontier are skipped. Each consumer
+//   warpgroup owns 64 keys and computes Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ (wgmma,
+//   K-major operands), so the fragments' rows are keys and their columns
+//   q rows (lse and delta are per column there, and the dropout hash takes
+//   its row term from the column). P̃ᵀ and dSᵀ go to 16 bits in registers
+//   as the A operands of dV += P̃ᵀ·dO and dK += dSᵀ·Q, with do and q
+//   MN-major. At D = 128 the dK and dV accumulators alone are 128 of the
+//   168 registers a thread, hence the narrower q tiles there (ptxas still
+//   spills some and serialises those products).
+// - flash_bwd_dq: items (128-row q tile, batch·head). The producer loads
+//   q and do once an item and streams 64-key k/v tiles, with their per-key
+//   bias (read a tile ahead) and dropout terms, up to the causal frontier.
+//   Each consumer warpgroup owns 64 q rows: S = Q·Kᵀ and dP = dO·Vᵀ, dS in
+//   registers as the A operand of dQ += dS·K with k MN-major.
+// In both, the two warpgroups take ping-pong turns to issue their
+// products, so one's elementwise work runs beside the other's products;
+// exponentials are one FFMA and ex2.approx. Outputs go through the
+// warpgroup's own rows of the resident buffer with 16-byte stores.
 #include "flash_common.cuh"
 
-using namespace nvcuda;
 using namespace apex_flash;
 
 namespace {
 
-using FragAcc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+constexpr int BK = 64;   // keys a streamed tile of the dQ kernel
 
-// f32 region for the score and dP tiles, reused as output staging at the
-// end (staging needs BM x Ld<D>::O floats)
-template <int D> struct ScoreRegion {
-  static constexpr int floats = 2 * BM * Ld<D>::S > BM * Ld<D>::O
-                                    ? 2 * BM * Ld<D>::S
-                                    : BM * Ld<D>::O;
+// byte offsets from the aligned shared-memory base
+template <int D> struct DkvSmem {
+  // q rows a streamed tile: at D = 128 the dK and dV accumulators take 128
+  // registers a thread, so the Sᵀ and dPᵀ tiles shrink
+  static constexpr int BQ = D <= 64 ? 64 : 32;
+  static constexpr int TK = BM * D * 2;           // a k or v tile
+  // item n's k at (n % 2)·2·TK, its v TK after it
+  static constexpr int TQ = BQ * D * 2;           // a q or do tile
+  static constexpr int RING = 4 * TK;             // stage s at RING + 2s·TQ
+  static constexpr int EXTRA = RING + NS * 2 * TQ;  // lse, delta, row hash
+  static constexpr int BAR = EXTRA + NS * BQ * 12;  // k/v full, empty; ring
+  static constexpr size_t bytes = BAR + 8 * (4 + 2 * NS) + 1024;
+};
+template <int D> struct DqSmem {
+  static constexpr int TQ = BM * D * 2;           // a q or do tile
+  // item n's q at (n % 2)·2·TQ, its do TQ after it
+  static constexpr int TB = BK * D * 2;           // a k or v tile
+  static constexpr int RING = 4 * TQ;             // stage s at RING + 2s·TB
+  static constexpr int EXTRA = RING + NS * 2 * TB;  // f32 bias, u32 hash
+  static constexpr int BAR = EXTRA + NS * BK * 8;  // q/do full, empty; ring
+  static constexpr size_t bytes = BAR + 8 * (4 + 2 * NS) + 1024;
 };
 
-template <typename T, int D>
-constexpr size_t bwd_smem_bytes() {
-  return sizeof(T) * 4 * 64 * Ld<D>::T       // q, do, k, v tiles
-         + sizeof(float) * ScoreRegion<D>::floats  // s and dP (f32), staging
-         + sizeof(T) * 2 * 64 * Ld<D>::P      // P̃ and dS (16-bit)
-         + sizeof(float) * 2 * BM             // lse, delta
-         + sizeof(unsigned) * BM;             // dropout row hashes
-}
-
-// this warp's 16 rows of A·Bᵀ (A rows from `a`, B rows from `bm`, both 64
-// rows of D in shared memory) into an f32 tile with leading dim Ld<D>::S
-template <typename T, int D>
-__device__ __forceinline__ void rows_abt(float* out, const T* a, const T* bm,
-                                         int w0) {
-  FragAcc acc[BN / 16];
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
-    wmma::load_matrix_sync(fa, a + w0 * Ld<D>::T + kk * 16, Ld<D>::T);
-#pragma unroll
-    for (int j = 0; j < BN / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb;
-      wmma::load_matrix_sync(fb, bm + j * 16 * Ld<D>::T + kk * 16, Ld<D>::T);
-      wmma::mma_sync(acc[j], fa, fb, acc[j]);
+// Barriers of the two resident buffers at rb: full[b] at rb + 8b (the
+// producer's transaction), empty[b] at rb + 16 + 8b (every consumer
+// thread, once the epilogue has read its staged rows).
+__device__ __forceinline__ void init_resident(uint32_t rb) {
+  if (threadIdx.x == 0)
+    for (int b = 0; b < 2; ++b) {
+      mbar_init(rb + 8 * b, 1);
+      mbar_init(rb + 16 + 8 * b, NCONS * 128);
     }
-  }
-#pragma unroll
-  for (int j = 0; j < BN / 16; ++j)
-    wmma::store_matrix_sync(out + w0 * Ld<D>::S + j * 16, acc[j], Ld<D>::S,
-                            wmma::mem_row_major);
 }
 
-// this warp's 16 q rows: P̃ and dS (16-bit) from the f32 s and dP tiles
+// dK, dV for (128-key tile, batch·head) work items: item w is key tile
+// w % nkt of head w / nkt, block i takes items i, i + gridDim.x, ...
 template <typename T, int D, bool OPTS>
-__device__ __forceinline__ void probs_rows(T* sP, T* sdS, const float* sS,
-                                           const float* sdP, const float* sLse,
-                                           const float* sDelta,
-                                           const unsigned* sHr, int w0,
-                                           int q0, int k0, const FlashArgs& a,
-                                           const Head& hd) {
-  const int lane = threadIdx.x % 32;
-  unsigned hc[BN / 32] = {};
-  float bc[BN / 32] = {};
-  if (OPTS) {
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_bwd_dkv(const __grid_constant__ FlashArgs a,
+                  const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tdo) {
+  using L = DkvSmem<D>;
+  constexpr int BQ = L::BQ;
+  unsigned char* sm = smem_base();
+  const uint32_t s0 = smem_u32(sm);
+  float* sLse = reinterpret_cast<float*>(sm + L::EXTRA);
+  float* sDelta = sLse + NS * BQ;
+  unsigned* sHr = reinterpret_cast<unsigned*>(sDelta + NS * BQ);
+  const uint32_t rb = s0 + L::BAR, bars = rb + 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  init_resident(rb);
+  init_barriers(0, bars);
+
+  const int nkt = (a.Sk + BM - 1) / BM, items = nkt * a.B * a.H;
+  const int nq = (a.Sq + BQ - 1) / BQ;
+  // q tiles whose rows are all before the frontier of key k0 are skipped:
+  // they form a prefix
+  auto first_tile = [&](const Head& hd, int k0) {
+    int qt0 = 0;
+    if (OPTS && a.causal)
+      while (qt0 < nq && min((qt0 + 1) * BQ, a.Sq) - 1 + hd.off < k0) ++qt0;
+    return qt0;
+  };
+
+  if (warp == PRODUCER_WARP) {
+    int g = 0;
+    for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+      const int bh = w / nkt, k0 = (w % nkt) * BM, b = n & 1;
+      const Head hd = head_of(a, bh);
+      const int qt0 = first_tile(hd, k0), nt = nq - qt0;
+      mbar_wait(rb + 16 + 8 * b, ((n >> 1) & 1) ^ 1);
+      if (lane == 0) {
+        const uint32_t kv = s0 + b * 2 * L::TK;
+        mbar_arrive_tx(rb + 8 * b, 2 * L::TK);
+        tma_tile<D>(kv, &tk, rb + 8 * b, BM, k0, hd.h, hd.b);
+        tma_tile<D>(kv + L::TK, &tv, rb + 8 * b, BM, k0, hd.h, hd.b);
+      }
+      const float* lse = a.lse + (long long)bh * a.Sq;
+      const float* delta = a.delta + (long long)bh * a.Sq;
+      // a tile's lse and delta are read a tile ahead, so their latency
+      // passes while the producer waits for a free stage; rows past Sq
+      // load 0
+      constexpr int PER = BQ / 32;
+      float nl[PER], nd[PER];
+      auto fetch = [&](int t) {
+        const int q0 = (qt0 + t) * BQ;
 #pragma unroll
-    for (int j = 0; j < BN / 32; ++j) {
-      bc[j] = col_bias(a, hd, k0 + lane + 32 * j);
-      if (a.seed) hc[j] = col_hash(a, hd, k0 + lane + 32 * j);
-    }
-  }
-  for (int r = 0; r < 16; ++r) {
-    const int row = w0 + r, rg = q0 + row;
-    const unsigned hr = OPTS && a.seed ? sHr[row] : 0u;
+        for (int j = 0; j < PER; ++j) {
+          const int q = q0 + lane + 32 * j;
+          const bool in = t < nt && q < a.Sq;
+          nl[j] = in ? lse[q] : 0.f;
+          nd[j] = in ? delta[q] : 0.f;
+        }
+      };
+      fetch(0);
+      for (int t = 0; t < nt; ++t) {
+        const int s = (g + t) % NS, q0 = (qt0 + t) * BQ;
+        mbar_wait(bar_empty(bars, s), (((g + t) / NS) & 1) ^ 1);
 #pragma unroll
-    for (int j = 0; j < BN / 32; ++j) {
-      const int c = lane + 32 * j;
-      // masked elements score -inf: p = 0 (rows past Sq load lse 0)
-      const float p = expf(score<OPTS>(a, hd, sS[row * Ld<D>::S + c], rg,
-                                       k0 + c, bc[j]) - sLse[row]);
-      float dp = sdP[row * Ld<D>::S + c], pv = p;
-      if (OPTS && a.seed) {
-        if (keep(a, hr + hc[j])) {
-          pv = p * a.drop_scale;
-          dp *= a.drop_scale;
+        for (int j = 0; j < PER; ++j) {
+          const int i = lane + 32 * j;
+          sLse[s * BQ + i] = nl[j] * LOG2E;   // as exp_diff takes it
+          sDelta[s * BQ + i] = nd[j];
+          if (OPTS && a.seed) sHr[s * BQ + i] = row_hash(a, hd, q0 + i);
+        }
+        fetch(t + 1);
+        if (lane == 0) {
+          const uint32_t dst = s0 + L::RING + 2 * s * L::TQ;
+          const uint32_t full = bar_full(bars, s);
+          mbar_arrive_tx(full, 2 * L::TQ);
+          tma_tile<D>(dst, &tq, full, BQ, q0, hd.h, hd.b);
+          tma_tile<D>(dst + L::TQ, &tdo, full, BQ, q0, hd.h, hd.b);
         } else {
-          pv = dp = 0.f;
+          mbar_arrive(bar_full(bars, s));
         }
       }
-      sP[row * Ld<D>::P + c] = from_float<T>(pv);
-      sdS[row * Ld<D>::P + c] = from_float<T>(p * (dp - sDelta[row]));
+      g += nt;
     }
-  }
-}
-
-// lse and delta of rows [r0, r0 + BM) (0 past Sq), and with dropout the
-// rows' hash terms
-template <bool OPTS>
-__device__ __forceinline__ void load_rows(float* sLse, float* sDelta,
-                                          unsigned* sHr, const float* lse,
-                                          const float* delta, int r0,
-                                          const FlashArgs& a, const Head& hd) {
-  for (int i = threadIdx.x; i < BM; i += NTHREADS) {
-    const bool in = r0 + i < a.Sq;
-    sLse[i] = in ? lse[r0 + i] : 0.f;
-    sDelta[i] = in ? delta[r0 + i] : 0.f;
-    if (OPTS && a.seed) sHr[i] = row_hash(a, hd, r0 + i);
-  }
-}
-
-// One block per (64-key tile, batch·head): dK, dV for its keys.
-template <typename T, int D, bool OPTS>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dkv(const FlashArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sdO = sQ + 64 * Ld<D>::T;
-  T* sK = sdO + 64 * Ld<D>::T;
-  T* sV = sK + 64 * Ld<D>::T;
-  float* sS = reinterpret_cast<float*>(sV + 64 * Ld<D>::T);
-  float* sdP = sS + BM * Ld<D>::S;
-  T* sP = reinterpret_cast<T*>(sS + ScoreRegion<D>::floats);
-  T* sdS = sP + 64 * Ld<D>::P;
-  float* sLse = reinterpret_cast<float*>(sdS + 64 * Ld<D>::P);
-  float* sDelta = sLse + BM;
-  unsigned* sHr = reinterpret_cast<unsigned*>(sDelta + BM);
-
-  const int warp = threadIdx.x / 32;
-  const int bh = blockIdx.y;
-  const Head hd = head_of(a, bh);
-  const int k0 = blockIdx.x * BN;
-  const int w0 = warp * 16;   // q rows of s/dP; key rows of dK/dV
-  const T* q = static_cast<const T*>(a.q) + hd.b * a.q_bs + hd.h * D;
-  const T* k = static_cast<const T*>(a.k) + hd.b * a.k_bs + hd.h * D;
-  const T* v = static_cast<const T*>(a.v) + hd.b * a.v_bs + hd.h * D;
-  const T* dout = static_cast<const T*>(a.dout) + hd.b * a.do_bs + hd.h * D;
-  const float* lse = a.lse + (long long)bh * a.Sq;
-  const float* delta = a.delta + (long long)bh * a.Sq;
-
-  load_tile<T, D>(sK, k, a.k_rs, k0, a.Sk);
-  load_tile<T, D>(sV, v, a.v_rs, k0, a.Sk);
-
-  FragAcc dk_acc[D / 16], dv_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) {
-    wmma::fill_fragment(dk_acc[j], 0.f);
-    wmma::fill_fragment(dv_acc[j], 0.f);
+    return;
   }
 
-  for (int q0 = 0; q0 < a.Sq; q0 += BM) {
-    // every row of this q tile is before the frontier of key k0
-    if (OPTS && a.causal && min(q0 + BM, a.Sq) - 1 + hd.off < k0) continue;
-    __syncthreads();                        // previous q tile consumed
-    load_tile<T, D>(sQ, q, a.q_rs, q0, a.Sq);
-    load_tile<T, D>(sdO, dout, a.do_rs, q0, a.Sq);
-    load_rows<OPTS>(sLse, sDelta, sHr, lse, delta, q0, a, hd);
-    __syncthreads();
-
-    rows_abt<T, D>(sS, sQ, sK, w0);         // s  = Q·Kᵀ
-    rows_abt<T, D>(sdP, sdO, sV, w0);       // dP = dO·Vᵀ
-    __syncwarp();
-    probs_rows<T, D, OPTS>(sP, sdS, sS, sdP, sLse, sDelta, sHr, w0, q0, k0,
-                           a, hd);
-    __syncthreads();                        // all q rows of P̃, dS ready
-
-    // dV[keys] += P̃ᵀ·dO ; dK[keys] += dSᵀ·Q   (contraction over q rows)
-#pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::col_major> pt, dst;
-      wmma::load_matrix_sync(pt, sP + kk * 16 * Ld<D>::P + w0, Ld<D>::P);
-      wmma::load_matrix_sync(dst, sdS + kk * 16 * Ld<D>::P + w0, Ld<D>::P);
-#pragma unroll
-      for (int jd = 0; jd < D / 16; ++jd) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fdo, fq;
-        wmma::load_matrix_sync(fdo, sdO + kk * 16 * Ld<D>::T + jd * 16,
-                               Ld<D>::T);
-        wmma::load_matrix_sync(fq, sQ + kk * 16 * Ld<D>::T + jd * 16,
-                               Ld<D>::T);
-        wmma::mma_sync(dv_acc[jd], pt, fdo, dv_acc[jd]);
-        wmma::mma_sync(dk_acc[jd], dst, fq, dk_acc[jd]);
+  // a consumer warpgroup: keys k0 + 64·wg + [0, 64) of each item, the
+  // fragments' rows. Two ping-pong turns a tile (flash_common.cuh): Sᵀ
+  // and dPᵀ, then dV and dK; a tile the warpgroup skips still takes its
+  // turns, and the turns run on across items.
+  const int wg = warp / 4, quad = lane % 4;
+  const int kl = 64 * wg + 16 * (warp % 4) + lane / 4;
+  float dk[D / 2], dv[D / 2], st[BQ / 2], dp[BQ / 2];
+  if (wg == 1) turn_pass(wg);
+  int g = 0;
+  for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+    const int bh = w / nkt, k0 = (w % nkt) * BM, b = n & 1;
+    const Head hd = head_of(a, bh);
+    const int qt0 = first_tile(hd, k0), nt = nq - qt0;
+    const uint32_t sk = s0 + b * 2 * L::TK, sv = sk + L::TK;
+    const int keys[2] = {k0 + kl, k0 + kl + 8};
+    float kb[2] = {0.f, 0.f};
+    unsigned kh[2] = {0u, 0u};
+    if (OPTS)
+      for (int hh = 0; hh < 2; ++hh) {
+        kb[hh] = col_bias(a, hd, keys[hh]);
+        if (a.seed) kh[hh] = col_hash(a, hd, keys[hh]);
       }
-    }
-  }
-  __syncthreads();                          // score region free for staging
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+    mbar_wait(rb + 8 * b, (n >> 1) & 1);
 
-  float* stage = sS;
-  T* dkb = static_cast<T*>(a.dk) + hd.b * a.dkv_bs + hd.h * D;
-  T* dvb = static_cast<T*>(a.dv) + hd.b * a.dkv_bs + hd.h * D;
+    for (int t = 0; t < nt; ++t) {
+      const int s = (g + t) % NS, q0 = (qt0 + t) * BQ;
+      mbar_wait(bar_full(bars, s), ((g + t) / NS) & 1);
+      // every row of this q tile is before the frontier of this
+      // warpgroup's first key
+      if (OPTS && a.causal
+          && min(q0 + BQ, a.Sq) - 1 + hd.off < k0 + 64 * wg) {
+        for (int i = 0; i < 2; ++i) {
+          turn_wait(wg);
+          turn_pass(wg);
+        }
+      } else {
+        const uint32_t sq = s0 + L::RING + 2 * s * L::TQ, sdo = sq + L::TQ;
+        // Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ
+        turn_wait(wg);
+        wgmma_fence();
 #pragma unroll
-  for (int jd = 0; jd < D / 16; ++jd)
-    wmma::store_matrix_sync(stage + w0 * Ld<D>::O + jd * 16, dv_acc[jd],
-                            Ld<D>::O, wmma::mem_row_major);
-  __syncwarp();
-  store_rows<T, D>(dvb, a.dkv_rs, stage, k0, a.Sk, 1.f);
-  __syncwarp();
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<T, BQ>::ss(st, desc_k<D>(sk, BM, 64 * wg, kk),
+                           desc_k<D>(sq, BQ, 0, kk), kk > 0);
 #pragma unroll
-  for (int jd = 0; jd < D / 16; ++jd)
-    wmma::store_matrix_sync(stage + w0 * Ld<D>::O + jd * 16, dk_acc[jd],
-                            Ld<D>::O, wmma::mem_row_major);
-  __syncwarp();
-  store_rows<T, D>(dkb, a.dkv_rs, stage, k0, a.Sk, a.scale);
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<T, BQ>::ss(dp, desc_k<D>(sv, BM, 64 * wg, kk),
+                           desc_k<D>(sdo, BQ, 0, kk), kk > 0);
+        wgmma_commit();
+        turn_pass(wg);
+        wgmma_wait0();
+        fence_regs(st);
+        fence_regs(dp);
+
+        // P̃ᵀ into st, dSᵀ into dp; masked elements score -inf: p = 0.
+        // Without options a tile inside Sq and Sk needs only the scale.
+        const bool plain = !OPTS && q0 + BQ <= a.Sq && k0 + BM <= a.Sk;
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int cl = 8 * j + 2 * quad + e, i = 4 * j + 2 * hh + e;
+              const float p = exp_diff(
+                  plain ? st[i] * a.scale
+                        : score<OPTS>(a, hd, st[i], q0 + cl, keys[hh],
+                                      kb[hh]),
+                  sLse[s * BQ + cl]);
+              float dpv = dp[i], pv = p;
+              if (OPTS && a.seed) {
+                if (keep(a, sHr[s * BQ + cl] + kh[hh])) {
+                  pv = p * a.drop_scale;
+                  dpv *= a.drop_scale;
+                } else {
+                  pv = dpv = 0.f;
+                }
+              }
+              st[i] = pv;
+              dp[i] = p * (dpv - sDelta[s * BQ + cl]);
+            }
+        uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+        frag_to_a<T, BQ / 2>(pa, st);
+        frag_to_a<T, BQ / 2>(da, dp);
+
+        // dV += P̃ᵀ·dO, dK += dSᵀ·Q (contraction over the tile's q rows)
+        fence_regs(dv);
+        fence_regs(dk);
+        turn_wait(wg);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          Wgmma<T, D>::rs(dv, pa[kk], desc_mn<D>(sdo, BQ, kk), 1);
+#pragma unroll
+        for (int kk = 0; kk < BQ / 16; ++kk)
+          Wgmma<T, D>::rs(dk, da[kk], desc_mn<D>(sq, BQ, kk), 1);
+        wgmma_commit();
+        turn_pass(wg);
+        wgmma_wait0();
+        fence_regs(dv);
+        fence_regs(dk);
+      }
+      if (lane == 0) mbar_arrive(bar_empty(bars, s));
+    }
+
+    // epilogue: the warpgroup's own rows of the k and v buffers stage dK
+    // (times scale) and dV, and the buffers go back to the producer
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk[i] *= a.scale;
+    const int off = 64 * wg * Geo<D>::SW, stride = BM * Geo<D>::SW;
+    unsigned char* kst = sm + b * 2 * L::TK + off;
+    wg_sync(wg);                            // every warp's products done
+    frag_to_stage<T, D>(kst, stride, dk);
+    frag_to_stage<T, D>(kst + L::TK, stride, dv);
+    wg_sync(wg);
+    const long long base = hd.b * a.dkv_bs + hd.h * D;
+    stage_to_global<D>(kst, stride, static_cast<T*>(a.dk) + base, a.dkv_rs,
+                       k0 + 64 * wg, a.Sk);
+    stage_to_global<D>(kst + L::TK, stride, static_cast<T*>(a.dv) + base,
+                       a.dkv_rs, k0 + 64 * wg, a.Sk);
+    fence_proxy_async();                    // before TMA rewrites them
+    mbar_arrive(rb + 16 + 8 * b);
+    g += nt;
+  }
+  if (wg == 0) turn_wait(wg);               // warpgroup 1's last pass
 }
 
-// One block per (64-row q tile, batch·head): dQ for its rows.
+// dQ for (128-row q tile, batch·head) work items: item w is q tile
+// w % nqt of head w / nqt, block i takes items i, i + gridDim.x, ...
 template <typename T, int D, bool OPTS>
-__global__ void __launch_bounds__(NTHREADS) flash_bwd_dq(const FlashArgs a) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* sQ = reinterpret_cast<T*>(smem);
-  T* sdO = sQ + 64 * Ld<D>::T;
-  T* sK = sdO + 64 * Ld<D>::T;
-  T* sV = sK + 64 * Ld<D>::T;
-  float* sS = reinterpret_cast<float*>(sV + 64 * Ld<D>::T);
-  float* sdP = sS + BM * Ld<D>::S;
-  T* sP = reinterpret_cast<T*>(sS + ScoreRegion<D>::floats);
-  T* sdS = sP + 64 * Ld<D>::P;
-  float* sLse = reinterpret_cast<float*>(sdS + 64 * Ld<D>::P);
-  float* sDelta = sLse + BM;
-  unsigned* sHr = reinterpret_cast<unsigned*>(sDelta + BM);
+__global__ void __launch_bounds__(NTHREADS, 1)
+    flash_bwd_dq(const __grid_constant__ FlashArgs a,
+                 const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 const __grid_constant__ CUtensorMap tdo) {
+  using L = DqSmem<D>;
+  unsigned char* sm = smem_base();
+  const uint32_t s0 = smem_u32(sm);
+  float* sBias = reinterpret_cast<float*>(sm + L::EXTRA);
+  unsigned* sHc = reinterpret_cast<unsigned*>(sm + L::EXTRA + NS * BK * 4);
+  const uint32_t rb = s0 + L::BAR, bars = rb + 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  init_resident(rb);
+  init_barriers(0, bars);
 
-  const int warp = threadIdx.x / 32;
-  const int bh = blockIdx.y;
-  const Head hd = head_of(a, bh);
-  const int q0 = blockIdx.x * BM;
-  const int w0 = warp * 16;
-  const T* q = static_cast<const T*>(a.q) + hd.b * a.q_bs + hd.h * D;
-  const T* k = static_cast<const T*>(a.k) + hd.b * a.k_bs + hd.h * D;
-  const T* v = static_cast<const T*>(a.v) + hd.b * a.v_bs + hd.h * D;
-  const T* dout = static_cast<const T*>(a.dout) + hd.b * a.do_bs + hd.h * D;
+  const int nqt = (a.Sq + BM - 1) / BM, items = nqt * a.B * a.H;
+  auto tiles = [&](const Head& hd, int q0) {
+    int k_end = a.Sk;
+    if (OPTS && a.causal) k_end = min(k_end, min(q0 + BM, a.Sq) + hd.off);
+    return k_end > 0 ? (k_end + BK - 1) / BK : 0;
+  };
 
-  load_tile<T, D>(sQ, q, a.q_rs, q0, a.Sq);
-  load_tile<T, D>(sdO, dout, a.do_rs, q0, a.Sq);
-  load_rows<OPTS>(sLse, sDelta, sHr, a.lse + (long long)bh * a.Sq,
-                  a.delta + (long long)bh * a.Sq, q0, a, hd);
-
-  FragAcc dq_acc[D / 16];
-#pragma unroll
-  for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(dq_acc[j], 0.f);
-
-  int k_end = a.Sk;
-  if (OPTS && a.causal) k_end = min(k_end, min(q0 + BM, a.Sq) + hd.off);
-  for (int k0 = 0; k0 < k_end; k0 += BN) {
-    __syncthreads();                        // previous k tile consumed
-    load_tile<T, D>(sK, k, a.k_rs, k0, a.Sk);
-    load_tile<T, D>(sV, v, a.v_rs, k0, a.Sk);
-    __syncthreads();
-
-    rows_abt<T, D>(sS, sQ, sK, w0);
-    rows_abt<T, D>(sdP, sdO, sV, w0);
-    __syncwarp();
-    probs_rows<T, D, OPTS>(sP, sdS, sS, sdP, sLse, sDelta, sHr, w0, q0, k0,
-                           a, hd);
-    __syncwarp();
-
-    // dQ[rows] += dS[rows]·K   (contraction over keys)
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fds;
-      wmma::load_matrix_sync(fds, sdS + w0 * Ld<D>::P + kk * 16, Ld<D>::P);
-#pragma unroll
-      for (int jd = 0; jd < D / 16; ++jd) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fk;
-        wmma::load_matrix_sync(fk, sK + kk * 16 * Ld<D>::T + jd * 16,
-                               Ld<D>::T);
-        wmma::mma_sync(dq_acc[jd], fds, fk, dq_acc[jd]);
+  if (warp == PRODUCER_WARP) {
+    int g = 0;
+    for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+      const int bh = w / nqt, q0 = (w % nqt) * BM, b = n & 1;
+      const Head hd = head_of(a, bh);
+      const int nt = tiles(hd, q0);
+      mbar_wait(rb + 16 + 8 * b, ((n >> 1) & 1) ^ 1);
+      if (lane == 0) {
+        const uint32_t qd = s0 + b * 2 * L::TQ;
+        mbar_arrive_tx(rb + 8 * b, 2 * L::TQ);
+        tma_tile<D>(qd, &tq, rb + 8 * b, BM, q0, hd.h, hd.b);
+        tma_tile<D>(qd + L::TQ, &tdo, rb + 8 * b, BM, q0, hd.h, hd.b);
       }
+      produce_kv<D, OPTS, BK>(a, hd, &tk, &tv, s0 + L::RING, bars, sBias,
+                              sHc, nt, g);
+      g += nt;
     }
+    return;
   }
-  __syncthreads();
 
-  float* stage = sS;
+  // a consumer warpgroup: q rows q0 + 64·wg + [0, 64) of each item. Two
+  // ping-pong turns a tile (flash_common.cuh): S and dP, then dQ; a tile
+  // the warpgroup skips still takes its turns, and the turns run on
+  // across items.
+  const int wg = warp / 4, quad = lane % 4;
+  const int rl = 64 * wg + 16 * (warp % 4) + lane / 4;
+  float dq[D / 2], sc[BK / 2], dp[BK / 2];
+  if (wg == 1) turn_pass(wg);
+  int g = 0;
+  for (int w = blockIdx.x, n = 0; w < items; w += gridDim.x, ++n) {
+    const int bh = w / nqt, q0 = (w % nqt) * BM, b = n & 1;
+    const Head hd = head_of(a, bh);
+    const int nt = tiles(hd, q0);
+    const uint32_t sq = s0 + b * 2 * L::TQ, sdo = sq + L::TQ;
+    const int rows[2] = {q0 + rl, q0 + rl + 8};
+    const int wg_last = min(q0 + 64 * wg + 63, a.Sq - 1);
+    float lse_l2[2], delta_r[2];
+    unsigned hr[2] = {0u, 0u};
+    for (int hh = 0; hh < 2; ++hh) {
+      const bool in = rows[hh] < a.Sq;      // rows past Sq load 0
+      lse_l2[hh] = in ? a.lse[(long long)bh * a.Sq + rows[hh]] * LOG2E : 0.f;
+      delta_r[hh] = in ? a.delta[(long long)bh * a.Sq + rows[hh]] : 0.f;
+      if (OPTS && a.seed) hr[hh] = row_hash(a, hd, rows[hh]);
+    }
 #pragma unroll
-  for (int jd = 0; jd < D / 16; ++jd)
-    wmma::store_matrix_sync(stage + w0 * Ld<D>::O + jd * 16, dq_acc[jd],
-                            Ld<D>::O, wmma::mem_row_major);
-  __syncwarp();
-  store_rows<T, D>(static_cast<T*>(a.dq) + hd.b * a.dq_bs + hd.h * D, a.dq_rs,
-                   stage, q0, a.Sq, a.scale);
+    for (int i = 0; i < D / 2; ++i) dq[i] = 0.f;
+    mbar_wait(rb + 8 * b, (n >> 1) & 1);
+
+    for (int t = 0; t < nt; ++t) {
+      const int s = (g + t) % NS, k0 = t * BK;
+      mbar_wait(bar_full(bars, s), ((g + t) / NS) & 1);
+      if (OPTS && a.causal && k0 > wg_last + hd.off) {
+        for (int i = 0; i < 2; ++i) {
+          turn_wait(wg);
+          turn_pass(wg);
+        }
+      } else {
+        const uint32_t sk = s0 + L::RING + 2 * s * L::TB, sv = sk + L::TB;
+        // S = Q·Kᵀ, dP = dO·Vᵀ
+        turn_wait(wg);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<T, BK>::ss(sc, desc_k<D>(sq, BM, 64 * wg, kk),
+                           desc_k<D>(sk, BK, 0, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk)
+          Wgmma<T, BK>::ss(dp, desc_k<D>(sdo, BM, 64 * wg, kk),
+                           desc_k<D>(sv, BK, 0, kk), kk > 0);
+        wgmma_commit();
+        turn_pass(wg);
+        wgmma_wait0();
+        fence_regs(sc);
+        fence_regs(dp);
+
+        // dS into dp; without options a tile inside Sq and Sk needs only
+        // the scale
+        const bool plain = !OPTS && q0 + BM <= a.Sq && k0 + BK <= a.Sk;
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int cl = 8 * j + 2 * quad + e, i = 4 * j + 2 * hh + e;
+              const float p = exp_diff(
+                  plain ? sc[i] * a.scale
+                        : score<OPTS>(a, hd, sc[i], rows[hh], k0 + cl,
+                                      OPTS ? sBias[s * BK + cl] : 0.f),
+                  lse_l2[hh]);
+              float dpv = dp[i];
+              if (OPTS && a.seed)
+                dpv = keep(a, hr[hh] + sHc[s * BK + cl]) ? dpv * a.drop_scale
+                                                          : 0.f;
+              dp[i] = p * (dpv - delta_r[hh]);
+            }
+        uint32_t da[BK / 16][4];
+        frag_to_a<T, BK / 2>(da, dp);
+
+        // dQ += dS·K (contraction over the tile's keys)
+        fence_regs(dq);
+        turn_wait(wg);
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          Wgmma<T, D>::rs(dq, da[kk], desc_mn<D>(sk, BK, kk), 1);
+        wgmma_commit();
+        turn_pass(wg);
+        wgmma_wait0();
+        fence_regs(dq);
+      }
+      if (lane == 0) mbar_arrive(bar_empty(bars, s));
+    }
+
+    // epilogue: the warpgroup's own rows of the q buffer stage dQ·scale,
+    // and the buffers go back to the producer
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq[i] *= a.scale;
+    unsigned char* stage = sm + b * 2 * L::TQ + 64 * wg * Geo<D>::SW;
+    wg_sync(wg);                            // every warp's products done
+    frag_to_stage<T, D>(stage, BM * Geo<D>::SW, dq);
+    wg_sync(wg);
+    stage_to_global<D>(stage, BM * Geo<D>::SW,
+                       static_cast<T*>(a.dq) + hd.b * a.dq_bs + hd.h * D,
+                       a.dq_rs, q0 + 64 * wg, a.Sq);
+    fence_proxy_async();                    // before TMA rewrites it
+    mbar_arrive(rb + 16 + 8 * b);
+    g += nt;
+  }
+  if (wg == 0) turn_wait(wg);               // warpgroup 1's last pass
 }
 
 template <typename T, int D, bool OPTS>
 int launch_opts(const FlashArgs& a, cudaStream_t stream) {
-  constexpr size_t smem = bwd_smem_bytes<T, D>();
-  int err = smem_optin((const void*)flash_bwd_dkv<T, D, OPTS>, smem);
+  CUtensorMap tq, tk, tv, tdo;
+  int err = encode_map<T, D>(&tq, a.q, a.q_bs, a.q_rs, a.H, a.Sq, a.B);
+  if (!err) err = encode_map<T, D>(&tk, a.k, a.k_bs, a.k_rs, a.H, a.Sk, a.B);
+  if (!err) err = encode_map<T, D>(&tv, a.v, a.v_bs, a.v_rs, a.H, a.Sk, a.B);
+  if (!err)
+    err = encode_map<T, D>(&tdo, a.dout, a.do_bs, a.do_rs, a.H, a.Sq, a.B);
   if (err) return err;
-  err = smem_optin((const void*)flash_bwd_dq<T, D, OPTS>, smem);
+  constexpr size_t smem_kv = DkvSmem<D>::bytes, smem_q = DqSmem<D>::bytes;
+  err = smem_optin((const void*)flash_bwd_dkv<T, D, OPTS>, smem_kv);
+  if (!err) err = smem_optin((const void*)flash_bwd_dq<T, D, OPTS>, smem_q);
+  int sms = 0;
+  if (!err) err = sm_count(&sms);
   if (err) return err;
-  flash_bwd_dkv<T, D, OPTS><<<dim3((a.Sk + BN - 1) / BN, a.B * a.H), NTHREADS,
-                              smem, stream>>>(a);
+  // one block an SM (registers allow no second), each taking items in turn
+  const int kv_items = (a.Sk + BM - 1) / BM * a.B * a.H;
+  const int q_items = (a.Sq + BM - 1) / BM * a.B * a.H;
+  flash_bwd_dkv<T, D, OPTS><<<min(kv_items, sms), NTHREADS, smem_kv,
+                              stream>>>(a, tq, tk, tv, tdo);
   err = (int)cudaGetLastError();
   if (err) return err;
-  flash_bwd_dq<T, D, OPTS><<<dim3((a.Sq + BM - 1) / BM, a.B * a.H), NTHREADS,
-                             smem, stream>>>(a);
+  flash_bwd_dq<T, D, OPTS><<<min(q_items, sms), NTHREADS, smem_q, stream>>>(
+      a, tq, tk, tv, tdo);
   return (int)cudaGetLastError();
 }
 
@@ -330,7 +502,7 @@ int launch(const FlashArgs& a, cudaStream_t stream) {
 }  // namespace
 
 // dtype: 0 = bf16, 1 = fp16; d: 32, 64 or 128. Returns a cudaError_t
-// (0 = both kernels launched).
+// (0 = both kernels launched) or one of flash_common.cuh's ERR_* codes.
 extern "C" int apex_flash_attn_bwd(int dtype, int d, const FlashArgs* a,
                                    void* stream) {
   cudaStream_t st = (cudaStream_t)stream;

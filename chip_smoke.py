@@ -21,7 +21,10 @@ plain PyTorch version on the card at the shapes its main path gives it
   one forced overflow. The attention kernels' options (bias modes,
   causal, Sq != Sk, dropout, block offsets, head dims 32/64/128, odd H)
   are held against the plain versions, and a probe reads the dropout
-  keep mask out of the forward kernel bit for bit.
+  keep mask out of the forward kernel bit for bit. Two launches of each
+  attention kernel at BERT's shape, as is and with padding and dropout
+  0.1, are held bitwise equal; the attention rows are timed by device
+  time too (the profiler's kernel time, ``device_ms``), beside SDPA's.
 - BERT-Large trains 5 steps with ``FusedNovoGrad(lr=1e-3, betas=(0.95,
   0.98), eps=1e-8, weight_decay=1e-3)`` and 5 with ``FusedAdagrad(lr=1e-2,
   weight_decay=1e-4)`` on the arena (phases bert_large_novograd and
@@ -59,7 +62,8 @@ plain PyTorch version on the card at the shapes its main path gives it
   kernel and through the plain versions; and a short fp16 run with three
   dynamic loss scalers takes a forced overflow on one of them.
 
-Prints one line per phase, the card's name and power limit, a JSON line of
+Prints one line per phase (and each CUDA kernel's registers and spills
+from ``ptxas -v``), the card's name and power limit, a JSON line of
 per-kernel numbers, and as its last line
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero on any failure, or when no CUDA device is available.
@@ -217,6 +221,39 @@ def timed(fn, iters=10, flush=None):
     return total / iters
 
 
+def device_ms(fn, iters=10, flush=None):
+    """Mean device time of one ``fn()`` call: the summed durations of the
+    CUDA kernels it launches, read from ``torch.profiler`` over ``iters``
+    calls, each after ``flush()`` (an L2 sweep, whose kernels are told
+    apart by name and left out), after 2 warm-up calls. Unlike
+    :func:`timed` it holds no host time: not the wrapper's, not the gaps
+    between a call's launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def kernels(run):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        return [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def calls():
+        for _ in range(iters):
+            if flush is not None:
+                flush()
+            fn()
+
+    for _ in range(2):
+        fn()
+    skip = {e.name for e in kernels(flush)} if flush is not None else set()
+    ks = [e for e in kernels(calls) if e.name not in skip]
+    if not ks:
+        raise AssertionError("device_ms: the call launched no kernel")
+    return sum(e.time_range.elapsed_us() for e in ks) / 1e3 / iters
+
+
 def compare(name, outs_k, outs_p, tol32=TOL32):
     """Max abs error over paired outputs; raise past the stated tolerance."""
     import torch
@@ -270,12 +307,11 @@ def plain_versions():
             setattr(m, n, f)
 
 
-def check_kernels(rows):
-    """Phase 3: every kernel against its plain version, with timings."""
+def bench_tools(rows):
+    """(rnd, gen, flush, row) for the kernel checks: seeded random tensors
+    on the card, an L2 sweep, and ``row(...)``, which records a kernel's
+    numbers in ``rows``."""
     import torch
-    import torch.nn.functional as F
-    from apex_tpu_torch.ops import attention as A, layer_norm as L
-    from apex_tpu_torch.ops import xentropy as X
 
     dev = torch.device("cuda")
     gen = torch.Generator(dev).manual_seed(0)
@@ -296,7 +332,7 @@ def check_kernels(rows):
     del warm
 
     def row(name, err, ms, plain_ms, lib_ms, nbytes, flops, peak=BF16_FLOPS,
-            int_ops=0):
+            int_ops=0, dev_ms=None, lib_dev_ms=None):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = max(flops / peak, int_ops / F32_FLOPS) * 1e3
         kernel, replaces, _ = EXTRA_ROWS.get(
@@ -308,11 +344,28 @@ def check_kernels(rows):
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": lib_ms}
+            "library_ms": lib_ms, "device_ms": dev_ms,
+            "library_device_ms": lib_dev_ms}
         log(f"kernel {name}: max_abs_err {err:.3e}  kernel {ms:.4f} ms  "
             f"plain {plain_ms:.4f} ms  library "
             f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms  bound "
-            f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']})")
+            f"{rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']})"
+            + ("" if dev_ms is None else
+               f"  device time: kernel {dev_ms:.4f} ms, library "
+               f"{'-' if lib_dev_ms is None else f'{lib_dev_ms:.4f}'} ms"))
+
+    return rnd, gen, flush, row
+
+
+def check_kernels(rows):
+    """Phase 3: every kernel against its plain version, with timings."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import layer_norm as L
+    from apex_tpu_torch.ops import xentropy as X
+
+    dev = torch.device("cuda")
+    rnd, gen, flush, row = bench_tools(rows)
 
     # --- LayerNorm: (8192, 1024) bf16 at both BERT eps, ragged (300, 1000)
     fwd_err = bwd_err = 0.0
@@ -393,6 +446,26 @@ def check_kernels(rows):
     del logits, lg, ll
     check_xentropy_resnet(rnd, gen, flush)
 
+    check_flash(rnd, gen, flush, row)
+    check_arena_kernels(rnd, flush, row)
+    check_arena_remainder(rnd, flush, row)
+    check_bn_kernels(rnd, flush, row)
+    check_sgd_kernel(rnd, flush, row)
+    check_adam_kernel(rnd, flush, row)
+    check_mlp_kernel(rnd, flush, row)
+
+
+def check_flash(rnd, gen, flush, row):
+    """The flash-attention kernels: BERT's (16, 512, 16, 64) bf16 and a
+    ragged (2, 200, 4, 64) in bf16 and fp16 against the plain versions,
+    timed at BERT's shape by events (``ms``) and by device time
+    (``device_ms``, beside SDPA's), every option (check_attention_options),
+    the dropout mask bit for bit (mask_probe), and two launches of each
+    kernel bitwise equal (check_flash_determinism)."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as A
+
     # --- attention: (16, 512, 16, 64) bf16, ragged (2, 200, 4, 64), fp16
     fwd_err = bwd_err = 0.0
     for shape, dt in (((16, 512, 16, 64), torch.bfloat16),
@@ -422,10 +495,13 @@ def check_kernels(rows):
     ms = timed(lambda: A.flash_fwd_kernel(q, k, vv, scale), flush=flush)
     plain = timed(lambda: A.flash_fwd_plain(q, k, vv, scale), flush=flush)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, vv))
-    lib = timed(lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                flush=flush)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+    lib = timed(sdpa, flush=flush)
     row("flash_attn_fwd", fwd_err, ms, plain, lib,
-        nbytes=4 * io + bsz * h * s * 4, flops=4 * bsz * h * s * s * d)
+        nbytes=4 * io + bsz * h * s * 4, flops=4 * bsz * h * s * s * d,
+        dev_ms=device_ms(lambda: A.flash_fwd_kernel(q, k, vv, scale),
+                         flush=flush),
+        lib_dev_ms=device_ms(sdpa, flush=flush))
     ms = timed(lambda: A.flash_bwd_kernel(q, k, vv, do, lse, delta, scale),
                flush=flush)
     plain = timed(lambda: A.flash_bwd_plain(q, k, vv, do, lse, delta, scale),
@@ -434,20 +510,18 @@ def check_kernels(rows):
                   for t in (q, k, vv))
     og = F.scaled_dot_product_attention(qg, kg, vg)
     dot = do.transpose(1, 2)
-    lib = timed(lambda: torch.autograd.grad(og, (qg, kg, vg), dot,
-                                            retain_graph=True), flush=flush)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        og, (qg, kg, vg), dot, retain_graph=True)
+    lib = timed(sdpa_bwd, flush=flush)
     row("flash_attn_bwd", bwd_err, ms, plain, lib,
-        nbytes=7 * io + 2 * bsz * h * s * 4, flops=10 * bsz * h * s * s * d)
+        nbytes=7 * io + 2 * bsz * h * s * 4, flops=10 * bsz * h * s * s * d,
+        dev_ms=device_ms(lambda: A.flash_bwd_kernel(q, k, vv, do, lse, delta,
+                                                    scale), flush=flush),
+        lib_dev_ms=device_ms(sdpa_bwd, flush=flush))
     del qg, kg, vg, og
     check_attention_options(rnd, gen, flush, row)
     mask_probe()
-    check_arena_kernels(rnd, flush, row)
-    check_arena_remainder(rnd, flush, row)
-    check_bn_kernels(rnd, flush, row)
-    check_sgd_kernel(rnd, flush, row)
-    check_adam_kernel(rnd, flush, row)
-    check_mlp_kernel(rnd, flush, row)
-    del sweep
+    check_flash_determinism(rnd, gen)
 
 
 def _padding_bias(gen, b, s):
@@ -549,27 +623,32 @@ def check_attention_options(rnd, gen, flush, row):
         def sdpa(qt=qt, kt=kt, vt=vt):
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
                                                   dropout_p=rate)
-        ms = timed(lambda: A.flash_fwd_kernel(q, k, v, scale, **opts),
-                   flush=flush)
+        fwd = lambda: A.flash_fwd_kernel(q, k, v, scale, **opts)  # noqa
+        ms = timed(fwd, flush=flush)
         plain = timed(lambda: A.flash_fwd_plain(q, k, v, scale, **opts),
                       flush=flush)
         lib = timed(sdpa, flush=flush)
         row(f"flash_attn_fwd_{suffix}", e1, ms, plain, lib,
             nbytes=4 * io + b * h * s * 4 + extra,
-            flops=4 * b * h * s * s * d, int_ops=hash_ops)
-        ms = timed(lambda: A.flash_bwd_kernel(q, k, v, do, lse, delta, scale,
-                                              **opts), flush=flush)
+            flops=4 * b * h * s * s * d, int_ops=hash_ops,
+            dev_ms=device_ms(fwd, flush=flush),
+            lib_dev_ms=device_ms(sdpa, flush=flush))
+        bwd = lambda: A.flash_bwd_kernel(  # noqa: E731
+            q, k, v, do, lse, delta, scale, **opts)
+        ms = timed(bwd, flush=flush)
         plain = timed(lambda: A.flash_bwd_plain(q, k, v, do, lse, delta,
                                                 scale, **opts), flush=flush)
         qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
         og = sdpa(qg, kg, vg)
         dot = do.transpose(1, 2)
-        lib = timed(lambda: torch.autograd.grad(og, (qg, kg, vg), dot,
-                                                retain_graph=True),
-                    flush=flush)
+        sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+            og, (qg, kg, vg), dot, retain_graph=True)
+        lib = timed(sdpa_bwd, flush=flush)
         row(f"flash_attn_bwd_{suffix}", e2, ms, plain, lib,
             nbytes=7 * io + 2 * b * h * s * 4 + extra,
-            flops=10 * b * h * s * s * d, int_ops=hash_ops)
+            flops=10 * b * h * s * s * d, int_ops=hash_ops,
+            dev_ms=device_ms(bwd, flush=flush),
+            lib_dev_ms=device_ms(sdpa_bwd, flush=flush))
         del qg, kg, vg, og
 
 
@@ -614,6 +693,36 @@ def mask_probe():
         log(f"phase kernels: mask probe S={s}: {want.numel()} keep bits "
             f"equal the plain mask bit for bit (kept "
             f"{want.float().mean().item():.4f}, {len(starts)} windows)")
+
+
+def check_flash_determinism(rnd, gen):
+    """Two launches of each flash kernel on the same inputs are bitwise
+    equal (each block owns its outputs and sums them in a fixed order, no
+    atomics): BERT's (16, 512, 16, 64) bf16 as it is and with the padding
+    bias and dropout 0.1."""
+    import torch
+    from apex_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+    for label, opts in (("BERT", {}), ("BERT padding+dropout", dict(
+            bias=_padding_bias(gen, 16, 512), rate=0.1, seed=seed))):
+        q, k, v, do = (rnd(16, 512, 16, 64) for _ in range(4))
+        scale = 0.125
+        runs = [A.flash_fwd_kernel(q, k, v, scale, **opts) for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"flash_attn_fwd {label}: two launches "
+                                 f"differ")
+        o, lse = runs[0]
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
+            16 * 16, 512).contiguous()
+        runs = [A.flash_bwd_kernel(q, k, v, do, lse, delta, scale, **opts)
+                for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*runs)):
+            raise AssertionError(f"flash_attn_bwd {label}: two launches "
+                                 f"differ")
+        log(f"phase kernels: flash attention {label}: two launches of each "
+            f"kernel bitwise equal (o, lse; dq, dk, dv)")
 
 
 def check_xentropy_resnet(rnd, gen, flush):
@@ -2116,6 +2225,53 @@ def fp16_overflow_run():
     log("phase fp16_overflow: scale halved, params and step held")
 
 
+def ptxas_entries(text):
+    """[(kernel, registers, spill stores, spill loads)] of each entry
+    function in a ``ptxas -v`` log, and its warning lines. A flash
+    instance is named ``flash_fwd<bf16, D=64, opts=0>``; other kernels
+    keep their mangled name."""
+    import re
+    entries, warnings, cur, spill = [], [], None, (None, None)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur, spill = m.group(1), (None, None)
+            f = re.search(r"(flash_(?:fwd|bwd_dkv|bwd_dq))I\d+(__nv_bfloat16|"
+                          r"__half)Li(\d+)ELb([01])E", cur)
+            if f:
+                dt = "bf16" if "bfloat" in f.group(2) else "fp16"
+                cur = (f"{f.group(1)}<{dt}, D={f.group(3)}, "
+                       f"opts={f.group(4)}>")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            entries.append((cur, int(m.group(1)), *spill))
+            cur = None
+        elif "warning" in line.lower():
+            warnings.append(line.strip())
+    return entries, warnings
+
+
+def echo_ptxas(libs):
+    """Each kernel's registers and spills, and ptxas' warnings, from the
+    ``ptxas -v`` logs the build keeps beside each library."""
+    for name, path in libs.items():
+        info = path.with_suffix(".ptxas.txt")
+        if not info.exists():
+            continue
+        entries, warnings = ptxas_entries(info.read_text())
+        for kernel, regs, st, ld in entries:
+            log(f"  ptxas {name}: {kernel}: {regs} registers, {st} bytes "
+                f"spill stores, {ld} bytes spill loads")
+        for w in warnings:
+            log(f"  ptxas {name}: {w}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2138,12 +2294,7 @@ def main() -> int:
     libs = _build.build_all()
     log(f"phase build: {len(libs)} CUDA libraries in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name, path in libs.items():
-        info = path.with_suffix(".ptxas.txt")
-        lines = [l.strip() for l in info.read_text().splitlines()
-                 if "registers" in l or "spill" in l] if info.exists() else []
-        for l in lines:
-            log(f"  ptxas {name}: {l}")
+    echo_ptxas(libs)
 
     rows = {}
     check_kernels(rows)
