@@ -91,8 +91,16 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(t) -> int:
+    """The raw handle of the current stream on ``t``'s device."""
     import torch
-    return torch.cuda.current_stream(t.device).cuda_stream
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The SM count of a CUDA device, read once a device."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)

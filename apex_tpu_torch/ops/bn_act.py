@@ -8,25 +8,26 @@ recomputed in-register. Kernels replaced (the JAX package's
 ``_bwd_pallas`` pair; its default ``_bwd_jnp`` computes the same function,
 which is what the plain versions below compute):
 
-- ``bn_sums_kernel`` ← ``_sums_kernel``: per channel Σg and Σg·x̂ over the
-  M rows, x̂ = (x−μ)·invstd; the mask is ``x̂γ+β > 0`` ("relu") or ``z > 0``
-  ("addrelu", which also writes dr = mask⊙dz).
-- ``bn_dx_kernel`` ← ``_dx_kernel``: dx = γ·invstd·(g − k1 − x̂·k2) with
-  k1 = Σg/n and k2 = Σg·x̂/n ("relu" recomputes the mask; "addrelu" passes
-  the pre-masked dr as g).
+- ``bn_sums_kernel`` (``csrc/bn_sums.cu``) ← ``_sums_kernel``: per channel
+  Σg and Σg·x̂ over the M rows, x̂ = (x−μ)·invstd; the mask is ``x̂γ+β > 0``
+  ("relu") or ``z > 0`` ("addrelu", which also writes dr = mask⊙dz).
+- ``bn_dx_kernel`` (Triton) ← ``_dx_kernel``: dx = γ·invstd·(g − k1 − x̂·k2)
+  with k1 = Σg/n and k2 = Σg·x̂/n ("relu" recomputes the mask; "addrelu"
+  passes the pre-masked dr as g).
 
 What bounds them on an H100: bytes. Each is one streaming pass over (M, C)
 rows with a few flops per element: the sums read x and g (and z, writing
-dr), dx reads x and g and writes dx. Design: tiles of (BLOCK_M, BLOCK_C)
-coalesced along C, masked on both axes so any (M, C) works, all math in
-f32 with the JAX formulas term for term and no FMA contraction (so the
-recomputed mask agrees with the plain version bit for bit). The TPU sums
-kernel adds every row block into one output block over its in-order grid;
-Hopper blocks run in no order, so here each program of a (row chunks ×
-channel blocks) grid keeps its sums in registers, writes one (2, BLOCK_C)
-partial, and ``torch.sum`` adds the partials: deterministic, no float
-atomics. k1 and k2 are formed inside the dx kernel from the sums buffer
-and the count, so nothing is read back to the host.
+dr), dx reads x and g and writes dx. All math is in f32 with the JAX
+formulas term for term and no FMA contraction, so the recomputed mask
+agrees with the plain version bit for bit. The TPU sums kernel adds every
+row block into one output block over its in-order grid; Hopper blocks run
+in no order, so the sums kernel's blocks each write a partial over rows
+fixed by :func:`_bn_sums_plan` (a pure function of the shape and the SM
+count), and the last block to finish adds the partials in block order in
+the same launch: deterministic, no float atomics. The dx kernel tiles
+(BLOCK_M, BLOCK_C) coalesced along C, masked on both axes so any (M, C)
+works, and forms k1 and k2 from the sums buffer and the count, so nothing
+is read back to the host.
 
 The forward (moments, normalise, add, ReLU) is plain PyTorch, as the JAX
 package has jnp there: one-pass f32 moments E[x²]−E[x]² (clamped at 0),
@@ -40,6 +41,9 @@ padding) is copied explicitly and counted in ``layout_copies``.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+import struct
 from typing import NamedTuple, Optional
 
 import torch
@@ -57,43 +61,7 @@ _TILE = 4096        # elements of one (BLOCK_M, BLOCK_C) tile
 layout_copies = 0
 
 
-# --- Triton kernels -----------------------------------------------------------
-
-def _bn_sums_triton(X, G, Z, SCALE, BIAS, MEAN, INVSTD, PART, DR, M, C,
-                    rows_per_prog, MODE: "tl.constexpr",
-                    BLOCK_M: "tl.constexpr", BLOCK_C: "tl.constexpr"):
-    pid_m = tl.program_id(0)
-    cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
-    cmask = cols < C
-    mean = tl.load(MEAN + cols, mask=cmask, other=0.0)[None, :]
-    invstd = tl.load(INVSTD + cols, mask=cmask, other=0.0)[None, :]
-    if MODE == 1:
-        scale = tl.load(SCALE + cols, mask=cmask,
-                        other=0.0).to(tl.float32)[None, :]
-        bias = tl.load(BIAS + cols, mask=cmask,
-                       other=0.0).to(tl.float32)[None, :]
-    acc_g = tl.zeros([BLOCK_M, BLOCK_C], dtype=tl.float32)
-    acc_gx = tl.zeros([BLOCK_M, BLOCK_C], dtype=tl.float32)
-    row0 = pid_m.to(tl.int64) * rows_per_prog
-    for i in range(0, rows_per_prog, BLOCK_M):
-        rows = row0 + i + tl.arange(0, BLOCK_M)
-        m = (rows < M)[:, None] & cmask[None, :]
-        offs = rows[:, None] * C + cols[None, :]
-        x = tl.load(X + offs, mask=m, other=0.0).to(tl.float32)
-        g = tl.load(G + offs, mask=m, other=0.0).to(tl.float32)
-        xhat = (x - mean) * invstd
-        if MODE == 1:
-            g = tl.where(xhat * scale + bias > 0, g, 0.0)
-        if MODE == 2:
-            z = tl.load(Z + offs, mask=m, other=0.0).to(tl.float32)
-            g = tl.where(z > 0, g, 0.0)
-            tl.store(DR + offs, g.to(DR.dtype.element_ty), mask=m)
-        acc_g += g
-        acc_gx += g * xhat
-    base = PART + pid_m.to(tl.int64) * 2 * C
-    tl.store(base + cols, tl.sum(acc_g, axis=0), mask=cmask)
-    tl.store(base + C + cols, tl.sum(acc_gx, axis=0), mask=cmask)
-
+# --- Triton dx kernel --------------------------------------------------------
 
 def _bn_dx_triton(X, G, SCALE, BIAS, MEAN, INVSTD, SUMS, DX, M, C, count,
                   RELU: "tl.constexpr", BLOCK_M: "tl.constexpr",
@@ -140,9 +108,71 @@ def _check_unit(x2, g2, scale, bias, mean, invstd):
             raise ValueError(f"per-channel vector {tuple(v.shape)} != ({c},)")
 
 
+# --- the CUDA sums kernel ----------------------------------------------------
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# csrc/bn_sums.cu: threads a block, rows a thread loads at once, and the
+# blocks an SM its launch bounds ask for
+_THREADS, _UNROLL, _BLOCKS_PER_SM = 512, 4, 1
+
+#: (partials, counters) of the sums kernel, by raw stream handle
+_sums_buffers = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _bn_sums_plan(m: int, c: int, sms: int, vec: int = 8) -> tuple:
+    """``(tpr, tiles, rows, row_blocks)`` of ``apex_bn_sums`` over (m, c)
+    rows, ``vec`` channels a thread: ``tpr`` threads (a power of two up to
+    32) cover a tile of ``tpr·vec`` channels, ``tiles`` tiles cover c, and
+    ``row_blocks`` blocks a tile take ``rows`` rows each (a multiple of
+    what the block loads at once; the last takes the rest), about
+    ``_BLOCKS_PER_SM`` blocks an SM in all. A pure function of its
+    arguments, so the order of every sum is fixed."""
+    chunks = -(-c // vec)
+    tpr = min(32, 1 << (chunks - 1).bit_length())
+    tiles = -(-chunks // tpr)
+    step = _THREADS // tpr * _UNROLL
+    blocks = max(1, min(-(-m // step), _BLOCKS_PER_SM * sms // tiles))
+    rows = -(-(-(-m // blocks)) // step) * step
+    return tpr, tiles, rows, -(-m // rows)
+
+
+def _sums_workspace(device, stream, n_part, tiles):
+    """The sums kernel's f32 partials (>= ``n_part``) and int32 tile
+    counters (>= ``tiles``, all 0), cached for one stream (a raw stream
+    handle, on ``device``). Sharing them between calls is safe: a stream
+    runs its launches in order, and a launch's last block has read every
+    partial and set its counters back to 0 before the next launch on the
+    stream starts."""
+    part, counters = _sums_buffers.get(stream, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < tiles:
+        counters = torch.zeros(tiles, dtype=torch.int32, device=device)
+    _sums_buffers[stream] = (part, counters)
+    return part, counters
+
+
+#: ``SumsCall`` of ``csrc/bn_sums.cu``, field by field, every field 64 bits.
+#: One packed struct crosses ctypes in one argument.
+SUMS_CALL_FIELDS = ("x", "g", "z", "scale", "bias", "mean", "invstd", "part",
+                    "counters", "out", "dr", "m", "c", "rows", "row_blocks",
+                    "tpr_log2", "tiles", "dtypes", "mode", "vector")
+_SUMS_CALL = struct.Struct("<20q")
+
+
+@functools.lru_cache(maxsize=None)
+def _sums_lib():
+    """The C entry point ``apex_bn_sums(const SumsCall*, stream)``."""
+    fn = _build.load("bn_sums").apex_bn_sums
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def bn_sums_kernel(x2, g2, z2, scale, bias, mean, invstd, mode, r_dtype=None):
-    """Triton channel sums over contiguous (M, C) CUDA rows. Returns
-    (sums (2, C) f32: Σg and Σg·x̂, dr in ``r_dtype`` for "addrelu" else
+    """CUDA channel sums over contiguous (M, C) CUDA rows. Returns (sums
+    (2, C) f32: Σg and Σg·x̂, dr in ``r_dtype`` for "addrelu" else
     None)."""
     _check_unit(x2, g2, scale, bias, mean, invstd)
     addrelu = mode == "addrelu"
@@ -151,24 +181,33 @@ def bn_sums_kernel(x2, g2, z2, scale, bias, mean, invstd, mode, r_dtype=None):
         if z2.shape != x2.shape:
             raise ValueError("z must have x's (M, C) shape")
     m, c = x2.shape
-    block_m, block_c = _tiles(c)
-    n_cb = -(-c // block_c)
-    # about four programs per SM in all, each walking a run of rows
-    sms = torch.cuda.get_device_properties(x2.device).multi_processor_count
-    progs = max(1, min(-(-m // block_m), 4 * sms // n_cb))
-    rows = -(-m // progs)
-    rows = -(-rows // block_m) * block_m
-    progs = -(-m // rows)
-    part = torch.empty((progs, 2, c), dtype=torch.float32, device=x2.device)
-    dr = torch.empty(x2.shape, dtype=r_dtype or g2.dtype,
-                     device=x2.device) if addrelu else None
-    _build.triton_jit(_bn_sums_triton)[(progs, n_cb)](
-        x2, g2, z2 if addrelu else x2, scale, bias, mean, invstd, part,
-        dr if addrelu else part, m, c, rows, MODE=_MODES[mode],
-        BLOCK_M=block_m, BLOCK_C=block_c, num_warps=8,
-        enable_fp_fusion=False)
+    dev = x2.device
+    sums = torch.empty((2, c), dtype=torch.float32, device=dev)
+    dr = torch.empty((m, c), dtype=r_dtype or g2.dtype,
+                     device=dev) if addrelu else None
+    if m == 0:
+        return sums.zero_(), dr
+    vec = 16 // x2.element_size()
+    vector = c % vec == 0 and all(
+        t.dtype == x2.dtype and t.data_ptr() % 16 == 0
+        for t in ((x2, g2, z2, dr) if addrelu else (x2, g2)))
+    tpr, tiles, rows, blocks = _bn_sums_plan(m, c, _build.sm_count(dev),
+                                             vec if vector else 1)
+    stream = _build.stream_ptr(x2)
+    part, counters = _sums_workspace(dev, stream, blocks * 2 * c, tiles)
+    dtypes = (_DTYPES[x2.dtype] | _DTYPES[g2.dtype] << 2
+              | (_DTYPES[z2.dtype] << 4 | _DTYPES[dr.dtype] << 6 if addrelu
+                 else 0)
+              | _DTYPES[scale.dtype] << 8 | _DTYPES[bias.dtype] << 10)
+    call = _SUMS_CALL.pack(
+        x2.data_ptr(), g2.data_ptr(), z2.data_ptr() if addrelu else 0,
+        scale.data_ptr(), bias.data_ptr(), mean.data_ptr(), invstd.data_ptr(),
+        part.data_ptr(), counters.data_ptr(), sums.data_ptr(),
+        dr.data_ptr() if addrelu else 0, m, c, rows, blocks,
+        tpr.bit_length() - 1, tiles, dtypes, _MODES[mode], vector)
+    _build.check(_sums_lib()(call, stream), "bn_sums")
     bn_sums_kernel.launches += 1
-    return part.sum(dim=0), dr       # stage-2 sum of the per-program partials
+    return sums, dr
 
 
 bn_sums_kernel.launches = 0

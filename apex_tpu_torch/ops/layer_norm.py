@@ -1,22 +1,27 @@
-"""Fused LayerNorm: Triton forward and backward with a custom autograd.
+"""Fused LayerNorm: a CUDA C++ forward and a Triton backward, with a custom
+autograd.
 
 Port of ``apex_tpu/ops/layer_norm.py``. Kernels replaced:
 
-- ``ln_fwd_kernel`` ← ``_ln_fwd_kernel`` (``_ln_forward``'s pallas_call):
-  per row, centered two-pass mean/var in f32, normalize, optional affine,
-  output in the input dtype.
-- ``ln_bwd_kernel`` ← ``_ln_bwd_kernel`` (``_ln_backward``): recompute the
-  moments from x, dx = rstd·(gw − mean(gw) − x̂·mean(gw·x̂)), and per-program
-  f32 partial dγ/dβ rows summed in a second stage.
+- ``ln_fwd_kernel`` (``csrc/layer_norm_fwd.cu``) ← ``_ln_fwd_kernel``
+  (``_ln_forward``'s pallas_call): per row, centered two-pass mean/var in
+  f32, normalize, optional affine, output in the input dtype.
+- ``ln_bwd_kernel`` (Triton) ← ``_ln_bwd_kernel`` (``_ln_backward``):
+  recompute the moments from x, dx = rstd·(gw − mean(gw) − x̂·mean(gw·x̂)),
+  and per-program f32 partial dγ/dβ rows summed in a second stage.
 
 What bounds them on an H100: bytes. Both are one read of each row operand
 and one write, with a few flops per byte (the forward moves 2·N·H
 elements, the backward 3·N·H), so they sit far below the card's
-operations-per-byte ridge. Design: one program owns whole rows, so the
-row reductions stay in registers and each element is read once; a masked
-``tl.load`` covers a ragged H; the backward's program walks a run of rows
-and keeps its dγ/dβ partial in registers, written once per program, with
-no cross-program accumulation (Hopper blocks run in no order).
+operations-per-byte ridge. The forward: a warp owns a row and holds it in
+registers, loaded and stored as 16-byte vectors where the rows allow
+(:func:`_ln_plan`), in a persistent grid whose blocks read γ and β once
+into shared memory; wider rows take a block a row (the source's notes). The backward: one
+program owns whole rows, so the row reductions stay in registers and each
+element is read once; a masked ``tl.load`` covers a ragged H; a program
+walks a run of rows and keeps its dγ/dβ partial in registers, written once
+per program, with no cross-program accumulation (Hopper blocks run in no
+order).
 
 Only x (and the weight) is saved for the backward; the moments are
 recomputed there, as the JAX package does.
@@ -24,7 +29,10 @@ recomputed there, as the JAX package does.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import numbers
+import struct
 
 import torch
 import torch.nn as nn
@@ -34,24 +42,7 @@ from apex_tpu_torch.ops import _build
 tl = None  # triton.language, bound by _build.triton_jit at the first launch
 
 
-# --- Triton kernels -----------------------------------------------------------
-
-def _ln_fwd_triton(X, W, B, Y, H, stride, eps,
-                   AFFINE: "tl.constexpr", BLOCK: "tl.constexpr"):
-    row = tl.program_id(0).to(tl.int64)
-    cols = tl.arange(0, BLOCK)
-    mask = cols < H
-    x = tl.load(X + row * stride + cols, mask=mask, other=0.0).to(tl.float32)
-    mean = tl.sum(x, axis=0) / H
-    xc = tl.where(mask, x - mean, 0.0)
-    var = tl.sum(xc * xc, axis=0) / H
-    y = xc * (1.0 / tl.sqrt(var + eps))
-    if AFFINE:
-        w = tl.load(W + cols, mask=mask, other=0.0).to(tl.float32)
-        b = tl.load(B + cols, mask=mask, other=0.0).to(tl.float32)
-        y = y * w + b
-    tl.store(Y + row * stride + cols, y.to(Y.dtype.element_ty), mask=mask)
-
+# --- Triton backward kernel --------------------------------------------------
 
 def _ln_bwd_triton(G, X, W, DX, DW, DB, N, H, stride, eps, rows_per_prog,
                    AFFINE: "tl.constexpr", BLOCK: "tl.constexpr"):
@@ -92,14 +83,13 @@ _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 def _check(x2, *params):
     """(N, H) float rows; affine params f32-or-16-bit vectors of H."""
-    _build.check_operands(x2, dtypes=_FLOATS)
+    _build.check_operands(x2, *[p for p in params if p is not None],
+                          dtypes=_FLOATS)
     if x2.dim() != 2:
         raise ValueError(f"expected (N, H) rows, got {tuple(x2.shape)}")
     for p in params:
-        if p is not None:
-            _build.check_operands(x2, p, dtypes=_FLOATS)
-            if p.shape != (x2.shape[1],):
-                raise ValueError(f"param {tuple(p.shape)} != ({x2.shape[1]},)")
+        if p is not None and p.shape != (x2.shape[1],):
+            raise ValueError(f"param {tuple(p.shape)} != ({x2.shape[1]},)")
 
 
 def _block(h: int) -> tuple:
@@ -107,16 +97,73 @@ def _block(h: int) -> tuple:
     return block, max(1, min(16, block // 256))
 
 
+# --- the CUDA forward --------------------------------------------------------
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+#: elements a lane of the warp-a-row kernel's instances (``ln_fwd_warp``)
+_EPL = (8, 16, 32, 64)
+#: most elements a lane of the scalar path for f32 rows (ptxas spilled
+#: the wider instances)
+_SCALAR_F32_EPL = 16
+#: widest row, in bytes, the block-a-row kernel stages in shared memory
+_MAX_STAGED = 231424
+# apex_ln_fwd's paths
+_SCALAR, _VECTOR, _STAGED, _STREAMED = range(4)
+
+
+@functools.lru_cache(maxsize=None)
+def _ln_plan(h: int, itemsize: int, aligned: bool) -> tuple:
+    """``(path, elements a lane)`` of ``apex_ln_fwd`` for rows of ``h``
+    elements of ``itemsize`` bytes. A row of up to 2048 elements takes a
+    warp, in registers: as 16-byte vectors (``_VECTOR``) when x's base is
+    16-byte ``aligned`` and a row is a whole number of vectors, else one
+    element a load (``_SCALAR``; f32 only up to 512, ``_SCALAR_F32_EPL``).
+    A wider row takes a block, staged in shared memory when it fits
+    (``_STAGED``), else read from device memory (``_STREAMED``), with 0
+    elements a lane."""
+    for epl in _EPL:
+        if 32 * epl >= h:
+            if aligned and (h * itemsize) % 16 == 0:
+                return _VECTOR, epl
+            if itemsize < 4 or epl <= _SCALAR_F32_EPL:
+                return _SCALAR, epl
+            break
+    return (_STAGED if h * itemsize <= _MAX_STAGED else _STREAMED), 0
+
+
+#: ``LnCall`` of ``csrc/layer_norm_fwd.cu``, field by field: every field 64
+#: bits, eps a double. One packed struct crosses ctypes in one argument.
+LN_CALL_FIELDS = ("x", "w", "b", "y", "n", "h", "x_dtype", "w_dtype",
+                  "b_dtype", "path", "epl", "eps")
+_LN_CALL = struct.Struct("<11qd")
+
+
+@functools.lru_cache(maxsize=None)
+def _ln_fwd_lib():
+    """The C entry point ``apex_ln_fwd(const LnCall*, stream)``."""
+    fn = _build.load("layer_norm_fwd").apex_ln_fwd
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def ln_fwd_kernel(x2, weight, bias, eps):
-    """Triton forward on a contiguous (N, H) CUDA tensor."""
+    """CUDA forward on a contiguous (N, H) CUDA tensor."""
     _check(x2, weight, bias)
     n, h = x2.shape
     y = torch.empty_like(x2)
-    block, warps = _block(h)
+    if y.numel() == 0:
+        return y
+    xp = x2.data_ptr()
+    path, epl = _ln_plan(h, x2.element_size(), xp % 16 == 0)
     affine = weight is not None
-    _build.triton_jit(_ln_fwd_triton)[(n,)](
-        x2, weight if affine else x2, bias if affine else x2, y, h, h,
-        float(eps), AFFINE=affine, BLOCK=block, num_warps=warps)
+    call = _LN_CALL.pack(
+        xp, weight.data_ptr() if affine else 0,
+        bias.data_ptr() if affine else 0, y.data_ptr(), n, h,
+        _DTYPES[x2.dtype], _DTYPES[weight.dtype] if affine else 0,
+        _DTYPES[bias.dtype] if affine else 0, path, epl, eps)
+    _build.check(_ln_fwd_lib()(call, _build.stream_ptr(x2)),
+                 "layer_norm_fwd")
     ln_fwd_kernel.launches += 1
     return y
 
@@ -133,8 +180,7 @@ def ln_bwd_kernel(g2, x2, weight, eps):
     n, h = x2.shape
     dx = torch.empty_like(x2)
     block, warps = _block(h)
-    progs = min(n, 4 * torch.cuda.get_device_properties(
-        x2.device).multi_processor_count)
+    progs = min(n, 4 * _build.sm_count(x2.device))
     rows = -(-n // progs)
     progs = -(-n // rows)
     affine = weight is not None

@@ -24,7 +24,12 @@ plain PyTorch version on the card at the shapes its main path gives it
   keep mask out of the forward kernel bit for bit. Two launches of each
   attention kernel at BERT's shape, as is and with padding and dropout
   0.1, are held bitwise equal; the attention rows are timed by device
-  time too (the profiler's kernel time, ``device_ms``), beside SDPA's.
+  time too (the profiler's kernel time, ``device_ms``), beside SDPA's,
+  and so is every other row timed against a library call. The CUDA
+  LayerNorm forward is held against its plain version on every path
+  (ragged, off 16 bytes, f32, fp16, staged and streamed rows), the CUDA
+  BN sums' dr bit for bit and its ReLU mask by its counts, and two
+  launches of each bitwise equal.
 - BERT-Large trains 5 steps with ``FusedNovoGrad(lr=1e-3, betas=(0.95,
   0.98), eps=1e-8, weight_decay=1e-3)`` and 5 with ``FusedAdagrad(lr=1e-2,
   weight_decay=1e-4)`` on the arena (phases bert_large_novograd and
@@ -154,7 +159,7 @@ EXTRA_ROWS = {
 # compare, select and scale), counted at the f32 rate of the CUDA cores
 HASH_OPS = 20
 SOURCES = {
-    "layer_norm_fwd": ("triton", "apex_tpu_torch/ops/layer_norm.py"),
+    "layer_norm_fwd": ("cuda", "apex_tpu_torch/csrc/layer_norm_fwd.cu"),
     "layer_norm_bwd": ("triton", "apex_tpu_torch/ops/layer_norm.py"),
     "xentropy_fwd": ("triton", "apex_tpu_torch/ops/xentropy.py"),
     "xentropy_bwd": ("triton", "apex_tpu_torch/ops/xentropy.py"),
@@ -163,7 +168,7 @@ SOURCES = {
     "multi_tensor_l2norm": ("triton", "apex_tpu_torch/ops/multi_tensor.py"),
     "lamb_stage1": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
     "lamb_stage2": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
-    "bn_sums": ("triton", "apex_tpu_torch/ops/bn_act.py"),
+    "bn_sums": ("cuda", "apex_tpu_torch/csrc/bn_sums.cu"),
     "bn_dx": ("triton", "apex_tpu_torch/ops/bn_act.py"),
     "sgd": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
     "adam": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
@@ -180,6 +185,9 @@ SOURCES = {
 # kernels' f32 outputs within 1e-5 of it (the same elementwise formulas,
 # and one f32 sum in another order for the norm)
 TOL16, TOL32, TOL_ARENA = 2e-2, 1e-3, 1e-5
+# clock cycles of the spin kernel that opens each device_ms profiler
+# session (~50 ms at the H100's 1.98 GHz)
+PAD_CYCLES = 100_000_000
 # arena against tree update on BERT-Large: p and m within 1e-5 of each
 # tensor's largest magnitude; v within 2e-5, because the kernels take
 # (1 - beta2) in f32 from the f32 beta2, as the JAX package's kernels do,
@@ -227,13 +235,22 @@ def device_ms(fn, iters=10, flush=None):
     calls, each after ``flush()`` (an L2 sweep, whose kernels are told
     apart by name and left out), after 2 warm-up calls. Unlike
     :func:`timed` it holds no host time: not the wrapper's, not the gaps
-    between a call's launches."""
+    between a call's launches.
+
+    Later sessions of one process lose the records of the kernels that run
+    in their first milliseconds, more the later the session (one kernel in
+    the 23rd session of a kernel phase, 1 ms of them three sessions on,
+    then every record of a 2 ms session). So every session opens with a
+    spin kernel of ``PAD_CYCLES`` clock cycles (~50 ms, ``torch.cuda.
+    _sleep``, left out by name) before the work it measures, and a session
+    that did not see all ``iters`` flushes is taken again."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     def kernels(run):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(PAD_CYCLES)
             run()
             torch.cuda.synchronize()
         return [e for e in prof.events()
@@ -247,8 +264,19 @@ def device_ms(fn, iters=10, flush=None):
 
     for _ in range(2):
         fn()
-    skip = {e.name for e in kernels(flush)} if flush is not None else set()
-    ks = [e for e in kernels(calls) if e.name not in skip]
+    spin_names = {e.name for e in kernels(lambda: torch.cuda._sleep(1000))}
+    flush_names = ({e.name for e in kernels(flush)} - spin_names
+                   if flush is not None else set())
+    if not spin_names or (flush is not None and not flush_names):
+        raise AssertionError("device_ms: the profiler saw no spin or flush")
+    skip = spin_names | flush_names
+    for _ in range(5):
+        ks = kernels(calls)
+        if flush is None or sum(e.name in flush_names for e in ks) == iters:
+            break
+    else:
+        raise AssertionError("device_ms: five sessions lost flush kernels")
+    ks = [e for e in ks if e.name not in skip]
     if not ks:
         raise AssertionError("device_ms: the call launched no kernel")
     return sum(e.time_range.elapsed_us() for e in ks) / 1e3 / iters
@@ -390,23 +418,34 @@ def check_kernels(rows):
     w = rnd(1024, dtype=torch.float32, std=0.2) + 1.0
     b = rnd(1024, dtype=torch.float32, std=0.2)
     g = rnd(8192, 1024)
-    ms = timed(lambda: L.ln_fwd_kernel(x, w, b, eps), flush=flush)
+    kernel = lambda: L.ln_fwd_kernel(x, w, b, eps)  # noqa: E731
+    ms = timed(kernel, flush=flush)
     plain = timed(lambda: L.ln_fwd_plain(x, w, b, eps), flush=flush)
     wl, bl = w.to(x.dtype), b.to(x.dtype)
-    lib = timed(lambda: F.layer_norm(x, (1024,), wl, bl, eps), flush=flush)
+    library = lambda: F.layer_norm(x, (1024,), wl, bl, eps)  # noqa: E731
+    lib = timed(library, flush=flush)
+    dev_ms = device_ms(kernel, flush=flush)
     row("layer_norm_fwd", fwd_err, ms, plain, lib,
-        nbytes=2 * nh * 2 + 2 * 1024 * 4, flops=0)
-    ms = timed(lambda: L.ln_bwd_kernel(g, x, w, eps), flush=flush)
+        nbytes=2 * nh * 2 + 2 * 1024 * 4, flops=0,
+        dev_ms=dev_ms, lib_dev_ms=device_ms(library, flush=flush))
+    log(f"kernel layer_norm_fwd: the wrapper's host time (events - device) "
+        f"{ms - dev_ms:.4f} ms")
+    kernel = lambda: L.ln_bwd_kernel(g, x, w, eps)  # noqa: E731
+    ms = timed(kernel, flush=flush)
     plain = timed(lambda: L.ln_bwd_plain(g, x, w, eps), flush=flush)
     xg = x.detach().requires_grad_(True)
     wg = wl.detach().requires_grad_(True)
     bg = bl.detach().requires_grad_(True)
     yl = F.layer_norm(xg, (1024,), wg, bg, eps)
-    lib = timed(lambda: torch.autograd.grad(yl, (xg, wg, bg), g,
-                                            retain_graph=True), flush=flush)
+    library = lambda: torch.autograd.grad(  # noqa: E731
+        yl, (xg, wg, bg), g, retain_graph=True)
+    lib = timed(library, flush=flush)
     row("layer_norm_bwd", bwd_err, ms, plain, lib,
-        nbytes=3 * nh * 2 + 3 * 1024 * 4, flops=0)
+        nbytes=3 * nh * 2 + 3 * 1024 * 4, flops=0,
+        dev_ms=device_ms(kernel, flush=flush),
+        lib_dev_ms=device_ms(library, flush=flush))
     del xg, yl
+    check_ln_paths(rnd)
 
     # --- cross-entropy: (8192, 30522) bf16, labels with -1, eps 0 and 0.1
     n, v = 8192, 30522
@@ -425,24 +464,32 @@ def check_kernels(rows):
             [X.xentropy_bwd_kernel(logits, labels, lse, gl, sm)],
             [X.xentropy_bwd_plain(logits, labels, lse, gl, sm)]))
     log("phase kernels: xentropy fwd/bwd agree with the plain versions")
-    ms = timed(lambda: X.xentropy_fwd_kernel(logits, labels, 0.0), flush=flush)
+    kernel = lambda: X.xentropy_fwd_kernel(logits, labels, 0.0)  # noqa: E731
+    ms = timed(kernel, flush=flush)
     plain = timed(lambda: X.xentropy_fwd_plain(logits, labels, 0.0),
                   flush=flush)
-    lib = timed(lambda: F.cross_entropy(logits, labels, ignore_index=-1,
-                                        reduction="none"), flush=flush)
+    library = lambda: F.cross_entropy(  # noqa: E731
+        logits, labels, ignore_index=-1, reduction="none")
+    lib = timed(library, flush=flush)
     row("xentropy_fwd", fwd_err, ms, plain, lib,
-        nbytes=n * v * 2 + n * 8 + 2 * n * 4, flops=0)
-    ms = timed(lambda: X.xentropy_bwd_kernel(logits, labels, lse, gl, 0.0),
-               flush=flush)
+        nbytes=n * v * 2 + n * 8 + 2 * n * 4, flops=0,
+        dev_ms=device_ms(kernel, flush=flush),
+        lib_dev_ms=device_ms(library, flush=flush))
+    kernel = lambda: X.xentropy_bwd_kernel(  # noqa: E731
+        logits, labels, lse, gl, 0.0)
+    ms = timed(kernel, flush=flush)
     plain = timed(lambda: X.xentropy_bwd_plain(logits, labels, lse, gl, 0.0),
                   flush=flush)
     lg = logits.detach().requires_grad_(True)
     ll = F.cross_entropy(lg, labels, ignore_index=-1, reduction="none")
     glb = gl.to(ll.dtype)
-    lib = timed(lambda: torch.autograd.grad(ll, lg, glb, retain_graph=True),
-                flush=flush)
+    library = lambda: torch.autograd.grad(  # noqa: E731
+        ll, lg, glb, retain_graph=True)
+    lib = timed(library, flush=flush)
     row("xentropy_bwd", bwd_err, ms, plain, lib,
-        nbytes=2 * n * v * 2 + n * 8 + 2 * n * 4, flops=0)
+        nbytes=2 * n * v * 2 + n * 8 + 2 * n * 4, flops=0,
+        dev_ms=device_ms(kernel, flush=flush),
+        lib_dev_ms=device_ms(library, flush=flush))
     del logits, lg, ll
     check_xentropy_resnet(rnd, gen, flush)
 
@@ -450,6 +497,7 @@ def check_kernels(rows):
     check_arena_kernels(rnd, flush, row)
     check_arena_remainder(rnd, flush, row)
     check_bn_kernels(rnd, flush, row)
+    check_norm_determinism(rnd)
     check_sgd_kernel(rnd, flush, row)
     check_adam_kernel(rnd, flush, row)
     check_mlp_kernel(rnd, flush, row)
@@ -809,6 +857,10 @@ def check_bn_kernels(rnd, flush, row):
             e1 = compare(f"bn_sums {m}x{c} {mode}",
                          [ks] + ([kdr] if kdr is not None else []),
                          [ps] + ([pdr] if pdr is not None else []))
+            check_bn_masks(f"bn_sums {m}x{c} {mode}", args, kdr, pdr)
+            if (m, c, mode) in ((802816, 256, "addrelu"),
+                                (12544, 2048, "plain")):
+                time_bn_sums(args, flush)
             dx_args = (x, pdr if mode == "addrelu" else g, scale, bias,
                        mean, invstd, ps, m, mode == "relu", bf16)
             want = B.bn_dx_plain(*dx_args)
@@ -839,7 +891,7 @@ def check_bn_kernels(rnd, flush, row):
 
     (m, c), n = (3211264, 64), 256
     x, g, z, scale, bias, mean, invstd = stem
-    times, plain_out = {}, None
+    times, plain_out, dev = {}, None, {}
     for mode in ("plain", "relu"):
         args = (x, g, z, scale, bias, mean, invstd, mode, bf16)
         sums = B.bn_sums_plain(*args)[0]
@@ -847,9 +899,14 @@ def check_bn_kernels(rnd, flush, row):
                    bf16)
         if mode == "plain":
             plain_out = (sums, B.bn_dx_plain(*dx_args))
+        kernels = (lambda: B.bn_sums_kernel(*args),
+                   lambda: B.bn_dx_kernel(*dx_args))
         times[mode] = [timed(f, flush=flush) for f in (
-            lambda: B.bn_sums_kernel(*args), lambda: B.bn_sums_plain(*args),
-            lambda: B.bn_dx_kernel(*dx_args), lambda: B.bn_dx_plain(*dx_args))]
+            kernels[0], lambda: B.bn_sums_plain(*args),
+            kernels[1], lambda: B.bn_dx_plain(*dx_args))]
+        if mode == "plain":
+            dev["sums"], dev["dx"] = (device_ms(f, flush=flush)
+                                      for f in kernels)
     # the library calls, on the NCHW view of the same channels-last rows
     xl, gl = (t.view(n, 112, 112, c).permute(0, 3, 1, 2) for t in (x, g))
     w = scale.float()
@@ -865,10 +922,12 @@ def check_bn_kernels(rnd, flush, row):
         / want_s.abs().max().item(),
         (dxl.permute(0, 2, 3, 1).reshape(m, c).float()
          - want_dx.float()).abs().max().item())
-    lib_sums = timed(lambda: torch.batch_norm_backward_reduce(
-        gl, xl, mean, invstd, w, True, True, True), flush=flush)
-    lib_dx = timed(lambda: torch.batch_norm_backward_elemt(
-        gl, xl, mean, invstd, w, red[0], red[1], counts), flush=flush)
+    libs = (lambda: torch.batch_norm_backward_reduce(
+        gl, xl, mean, invstd, w, True, True, True),
+        lambda: torch.batch_norm_backward_elemt(
+            gl, xl, mean, invstd, w, red[0], red[1], counts))
+    lib_sums, lib_dx = (timed(f, flush=flush) for f in libs)
+    lib_dev = [device_ms(f, flush=flush) for f in libs]
     xg = xl.detach().requires_grad_(True)
     wg = w.detach().requires_grad_(True)
     bg = bias.float().requires_grad_(True)
@@ -886,9 +945,105 @@ def check_bn_kernels(rnd, flush, row):
         f"{lib_err[1]:.3e} (dx, abs)")
     k = times["plain"]
     row("bn_sums", errs["sums"], k[0], k[1], lib_sums,
-        nbytes=4 * m * c + 4 * c * 4, flops=5 * m * c, peak=F32_FLOPS)
+        nbytes=4 * m * c + 4 * c * 4, flops=5 * m * c, peak=F32_FLOPS,
+        dev_ms=dev["sums"], lib_dev_ms=lib_dev[0])
     row("bn_dx", errs["dx"], k[2], k[3], lib_dx,
-        nbytes=6 * m * c + 6 * c * 4, flops=6 * m * c, peak=F32_FLOPS)
+        nbytes=6 * m * c + 6 * c * 4, flops=6 * m * c, peak=F32_FLOPS,
+        dev_ms=dev["dx"], lib_dev_ms=lib_dev[1])
+
+
+def check_bn_masks(name, args, kdr, pdr):
+    """The sums kernel's masks against the plain version's, exactly: dr
+    ("addrelu") bit for bit, and the "relu" mask through its count per
+    channel (Σg with g = 1, an integer below 2**24, exact in any order)."""
+    import torch
+    from apex_tpu_torch.ops import bn_act as B
+    x, g, z, scale, bias, mean, invstd, mode, r_dtype = args
+    if kdr is not None and not torch.equal(kdr, pdr):
+        raise AssertionError(f"{name}: dr differs from the plain version")
+    if mode == "relu":
+        ones = torch.ones_like(g)
+        counts = [f(x, ones, z, scale, bias, mean, invstd, mode)[0][0]
+                  for f in (B.bn_sums_kernel, B.bn_sums_plain)]
+        if not torch.equal(*counts):
+            raise AssertionError(f"{name}: the ReLU mask's counts differ "
+                                 f"from the plain version's")
+
+
+def time_bn_sums(args, flush):
+    """The sums kernel at a layer-1 join or a layer-4 unit, for the log:
+    events and device time beside the byte bound (x and g read; z read and
+    dr written at a join)."""
+    from apex_tpu_torch.ops import bn_act as B
+    x, mode = args[0], args[7]
+    m, c = x.shape
+    kernel = lambda: B.bn_sums_kernel(*args)  # noqa: E731
+    nbytes = (4 if mode == "addrelu" else 2) * m * c * x.element_size()
+    log(f"kernel bn_sums at {m}x{c} {mode}: kernel "
+        f"{timed(kernel, flush=flush):.4f} ms, device "
+        f"{device_ms(kernel, flush=flush):.4f} ms, bound "
+        f"{(nbytes + 4 * c * 4) / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
+
+
+def check_ln_paths(rnd):
+    """The LayerNorm forward kernel's other paths against the plain
+    version: a ragged H = 300 and a base off 16 bytes (one element a load),
+    f32 and fp16 rows, no affine, 16-bit weights, H = 2048 (64 elements a
+    lane), H = 4096 (a block a row, staged in shared memory) and an f32 row
+    of 70000 (a block a row, read from device memory)."""
+    import torch
+    from apex_tpu_torch.ops import layer_norm as L
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    cases = [((512, 300), bf16, f32), ((100, 768), f32, f32),
+             ((33, 1024), f16, None), ((64, 1024), bf16, bf16),
+             ((50, 2048), bf16, f32), ((9, 4096), bf16, f32),
+             ((3, 70000), f32, f32)]
+    for (n, h), dt, wdt in cases:
+        x = (rnd(n, h, dtype=f32, std=2.0) + 0.5).to(dt)
+        w = None if wdt is None else rnd(h, dtype=f32, std=0.2).to(wdt) + 1
+        b = None if wdt is None else rnd(h, dtype=f32, std=0.2).to(wdt)
+        compare(f"layer_norm_fwd {n}x{h} {dt} weights {wdt}",
+                [L.ln_fwd_kernel(x, w, b, 1e-5)],
+                [L.ln_fwd_plain(x, w, b, 1e-5)])
+    # bases off 16 bytes: one element a load, f32 past 512 a block a row
+    off = [((128, 1024), bf16), ((64, 300), f32), ((32, 1000), f32)]
+    for (n, h), dt in off:
+        x = rnd(n * h + 1, dtype=dt)[1:].view(n, h)
+        w, b = rnd(h, dtype=f32) + 1.0, rnd(h, dtype=f32)
+        compare(f"layer_norm_fwd {n}x{h} {dt} off 16 bytes",
+                [L.ln_fwd_kernel(x, w, b, 1e-5)],
+                [L.ln_fwd_plain(x, w, b, 1e-5)])
+    log(f"phase kernels: layer_norm fwd agrees with the plain version on "
+        f"{len(cases) + len(off)} more shapes (ragged, off 16 bytes, f32, "
+        f"fp16, no affine, 16-bit weights, H = 2048, 4096, 70000)")
+
+
+def check_norm_determinism(rnd):
+    """Two launches of the LayerNorm forward (BERT's (8192, 1024) bf16) and
+    of the BN sums (the stem's (3211264, 64) bf16, "addrelu") are bitwise
+    equal: a warp owns a row, and the sums' blocks and their order are
+    fixed by the shape."""
+    import torch
+    from apex_tpu_torch.ops import bn_act as B
+    from apex_tpu_torch.ops import layer_norm as L
+    f32 = torch.float32
+    x = rnd(8192, 1024, std=2.0) + 0.5
+    w, b = rnd(1024, dtype=f32, std=0.2) + 1.0, rnd(1024, dtype=f32, std=0.2)
+    if not torch.equal(L.ln_fwd_kernel(x, w, b, 1e-12),
+                       L.ln_fwd_kernel(x, w, b, 1e-12)):
+        raise AssertionError("layer_norm_fwd: two launches differ")
+    m, c = 3211264, 64
+    x, g = rnd(m, c, std=2.0) + 0.5, rnd(m, c, std=1e-3)
+    z = rnd(m, c).clamp_min(0.0)
+    mean = x.float().mean(dim=0)
+    invstd = torch.rsqrt(x.float().var(dim=0, unbiased=False) + 1e-5)
+    args = (x, g, z, rnd(c) + 1.0, rnd(c), mean, invstd, "addrelu",
+            torch.bfloat16)
+    (s1, d1), (s2, d2) = B.bn_sums_kernel(*args), B.bn_sums_kernel(*args)
+    if not (torch.equal(s1, s2) and torch.equal(d1, d2)):
+        raise AssertionError("bn_sums: two launches differ")
+    log("phase kernels: layer_norm fwd (BERT) and bn_sums (stem, addrelu): "
+        "two launches of each bitwise equal (y; sums, dr)")
 
 
 def check_sgd_kernel(rnd, flush, row):
@@ -994,21 +1149,24 @@ def check_adam_kernel(rnd, flush, row):
     log(f"phase kernels: adam agrees with the plain version (DCGAN "
         f"generator buffer of {n} elements for {live} params, ragged bf16 "
         f"+ f32, AdamW on/off, copy-out on/off)")
-    ms = timed(lambda: K.adam_kernel(p, g, m, v, s, True), flush=flush)
+    kernel = lambda: K.adam_kernel(p, g, m, v, s, True)  # noqa: E731
+    ms = timed(kernel, flush=flush)
     plain = timed(lambda: K.adam_plain(p, g, m, v, s, True), flush=flush)
     lists = [list(arena.unflatten({"float32": t.clone()}, gspec).values())
              for t in (p, g, m, v)]
     steps = [torch.full((), 3.0, device=dev) for _ in lists[0]]
+    library = lambda: torch._fused_adam_(  # noqa: E731
+        *lists, [], steps, lr=2e-4, beta1=0.5, beta2=0.999,
+        weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False)
     try:
-        lib = timed(lambda: torch._fused_adam_(
-            *lists, [], steps, lr=2e-4, beta1=0.5, beta2=0.999,
-            weight_decay=0.0, eps=1e-8, amsgrad=False, maximize=False),
-            flush=flush)
+        lib = timed(library, flush=flush)
+        lib_dev = device_ms(library, flush=flush)
     except (RuntimeError, TypeError, AttributeError) as e:
-        lib = None
+        lib = lib_dev = None
         log(f"kernel adam: library null: torch._fused_adam_ did not run: {e}")
     row("adam", err, ms, plain, lib, nbytes=28 * n, flops=18 * n,
-        peak=F32_FLOPS)
+        peak=F32_FLOPS, dev_ms=device_ms(kernel, flush=flush),
+        lib_dev_ms=lib_dev)
 
 
 def _mlp_operands(rnd, n, dims, act, bias, dt, wdt):
@@ -1076,7 +1234,10 @@ def check_mlp_kernel(rnd, flush, row):
             t.numel() * t.element_size() for t in ws + (bs or []))
         flops = 2 * n * sum(a * b for a, b in zip(dims, dims[1:]))
         if name == "path":
-            row("mlp_fwd", err, ms, plain, lib, nbytes, flops, F32_FLOPS)
+            row("mlp_fwd", err, ms, plain, lib, nbytes, flops, F32_FLOPS,
+                dev_ms=device_ms(lambda: P.mlp_fwd_kernel(x, ws, bs, act),
+                                 flush=flush),
+                lib_dev_ms=device_ms(chain, flush=flush))
         else:
             bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
             log(f"kernel mlp_fwd {name} {n}x{dims} {dt}: max_abs_err "
@@ -1166,11 +1327,14 @@ def check_arena_kernels(rnd, flush, row):
                      [K.lamb_stage2_plain(p, u, r, s2)], TOL_ARENA)
     log(f"phase kernels: arena l2norm and LAMB stages agree with the plain "
         f"versions (BERT-Large buffer of {n} elements, ragged bf16 + f32)")
-    ms = timed(lambda: M.l2norm_kernel(g), flush=flush)
+    kernel = lambda: M.l2norm_kernel(g)  # noqa: E731
+    library = lambda: torch.linalg.vector_norm(g)  # noqa: E731
+    ms = timed(kernel, flush=flush)
     plain = timed(lambda: M.l2norm_plain(g), flush=flush)
-    lib = timed(lambda: torch.linalg.vector_norm(g), flush=flush)
+    lib = timed(library, flush=flush)
     row("multi_tensor_l2norm", l2_err, ms, plain, lib, nbytes=4 * n,
-        flops=2 * n, peak=F32_FLOPS)
+        flops=2 * n, peak=F32_FLOPS, dev_ms=device_ms(kernel, flush=flush),
+        lib_dev_ms=device_ms(library, flush=flush))
     ms = timed(lambda: K.lamb_stage1_kernel(p, g, m, v, s1, True),
                flush=flush)
     plain = timed(lambda: K.lamb_stage1_plain(p, g, m, v, s1, True),
@@ -1343,8 +1507,12 @@ def check_arena_remainder(rnd, flush, row):
         plain_ms = timed(plain, flush=flush)
         lib_ms = ada_lib if name == "adagrad" else (
             None if lib is None else timed(lib, flush=flush))
+        # device time for the tie with its library call (row 15d)
+        dev = ({"dev_ms": device_ms(kernel, flush=flush),
+                "lib_dev_ms": device_ms(lib, flush=flush)}
+               if name == "multi_tensor_maxnorm" else {})
         row(name, errs[name], ms, plain_ms, lib_ms, nbytes=nbytes,
-            flops=flops, peak=F32_FLOPS)
+            flops=flops, peak=F32_FLOPS, **dev)
 
 
 def train_bert_large(phase, rows, strategy="auto", optimizer=None,
@@ -2225,23 +2393,47 @@ def fp16_overflow_run():
     log("phase fp16_overflow: scale halved, params and step held")
 
 
+def _instance_name(mangled):
+    """A readable name for an instance of the port's CUDA kernels:
+    ``flash_fwd<bf16, D=64, opts=0>``, ``ln_fwd_warp<bf16, CH=8, NC=4>``,
+    ``ln_fwd_block<f32, staged=1>``, ``bn_sums<bf16 x8, relu>`` (``scalar``
+    on the path of one element a thread); other kernels keep their mangled
+    name."""
+    import re
+    dt = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "f32"}
+    t = r"(13__nv_bfloat16|6__half|f)"
+    f = re.search(r"(flash_(?:fwd|bwd_dkv|bwd_dq))I\d+(__nv_bfloat16|"
+                  r"__half)Li(\d+)ELb([01])E", mangled)
+    if f:
+        kind = "bf16" if "bfloat" in f.group(2) else "fp16"
+        return f"{f.group(1)}<{kind}, D={f.group(3)}, opts={f.group(4)}>"
+    f = re.search(rf"ln_fwd_warpI{t}Li(\d+)ELi(\d+)E", mangled)
+    if f:
+        return (f"ln_fwd_warp<{dt[f.group(1)]}, CH={f.group(2)}, "
+                f"NC={f.group(3)}>")
+    f = re.search(rf"ln_fwd_blockI{t}Lb([01])E", mangled)
+    if f:
+        return f"ln_fwd_block<{dt[f.group(1)]}, staged={f.group(2)}>"
+    f = re.search(rf"bn_sumsINS_(?:5Vec16I{t}E|6Scalar)ELi([012])E",
+                  mangled)
+    if f:
+        mode = ("plain", "relu", "addrelu")[int(f.group(2))]
+        width = ("scalar" if f.group(1) is None else
+                 f"{dt[f.group(1)]} x{4 if f.group(1) == 'f' else 8}")
+        return f"bn_sums<{width}, {mode}>"
+    return mangled
+
+
 def ptxas_entries(text):
     """[(kernel, registers, spill stores, spill loads)] of each entry
-    function in a ``ptxas -v`` log, and its warning lines. A flash
-    instance is named ``flash_fwd<bf16, D=64, opts=0>``; other kernels
-    keep their mangled name."""
+    function in a ``ptxas -v`` log (named by :func:`_instance_name`), and
+    its warning lines."""
     import re
     entries, warnings, cur, spill = [], [], None, (None, None)
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur, spill = m.group(1), (None, None)
-            f = re.search(r"(flash_(?:fwd|bwd_dkv|bwd_dq))I\d+(__nv_bfloat16|"
-                          r"__half)Li(\d+)ELb([01])E", cur)
-            if f:
-                dt = "bf16" if "bfloat" in f.group(2) else "fp16"
-                cur = (f"{f.group(1)}<{dt}, D={f.group(3)}, "
-                       f"opts={f.group(4)}>")
+            cur, spill = _instance_name(m.group(1)), (None, None)
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)

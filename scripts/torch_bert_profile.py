@@ -17,7 +17,8 @@ and ResNet-50 and the arena for DCGAN and the MLP, "arena" the
 flat-arena kernels)
 on one CUDA device, warms it up, then traces ``--steps`` steps with
 ``torch.profiler`` and prints one JSON object: the step's wall time, the
-device kernel time summed by category (the port's kernels, convolutions,
+device kernel time summed by category (the port's kernels, the BN
+backward's two apart, convolutions,
 GEMMs, dtype casts, other elementwise and reduction kernels, the plain BN
 forward of ResNet-50, DCGAN's BatchNorm forward and backward, and the
 rest), the device idle share of the traced window, the top kernels by
@@ -36,11 +37,12 @@ import time
 
 _CATEGORIES = (
     ("flash_attn", ("flash_fwd", "flash_bwd")),
-    ("layer_norm", ("_ln_fwd_triton", "_ln_bwd_triton")),
+    ("layer_norm", ("ln_fwd_warp<", "ln_fwd_block<", "_ln_bwd_triton")),
     ("xentropy", ("_ce_fwd_triton", "_ce_bwd_triton")),
     ("arena_lamb", ("_l2norm_partials_triton", "_l2norm_finish_triton",
                     "_lamb_stage1_triton", "_lamb_stage2_triton")),
-    ("bn_bwd", ("_bn_sums_triton", "_bn_dx_triton")),
+    ("bn_sums", ("::bn_sums<",)),
+    ("bn_dx", ("_bn_dx_triton",)),
     ("arena_sgd", ("_sgd_triton",)),
     ("arena_adam", ("_adam_triton",)),
     ("mlp_fwd", ("mlp_fused", "mlp_layer")),
