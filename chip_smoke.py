@@ -186,8 +186,15 @@ SOURCES = {
 # and one f32 sum in another order for the norm)
 TOL16, TOL32, TOL_ARENA = 2e-2, 1e-3, 1e-5
 # clock cycles of the spin kernel that opens each device_ms profiler
-# session (~50 ms at the H100's 1.98 GHz)
-PAD_CYCLES = 100_000_000
+# session (~50 ms at the H100's 1.98 GHz) and of the short spins around it
+PAD_CYCLES, SHORT_CYCLES = 100_000_000, 1000
+# short spins each device_ms session launches first, doubled for the rest
+# of the run whenever a session loses records, up to MAX_LEAD
+_LEAD, MAX_LEAD = [64], 16384
+# the most leading records one accepted device_ms session lost
+_LOST = [0]
+# the spin kernel's name, as the profiler reports it
+_SPIN_NAMES = set()
 # arena against tree update on BERT-Large: p and m within 1e-5 of each
 # tensor's largest magnitude; v within 2e-5, because the kernels take
 # (1 - beta2) in f32 from the f32 beta2, as the JAX package's kernels do,
@@ -237,24 +244,51 @@ def device_ms(fn, iters=10, flush=None):
     :func:`timed` it holds no host time: not the wrapper's, not the gaps
     between a call's launches.
 
-    Later sessions of one process lose the records of the kernels that run
-    in their first milliseconds, more the later the session (one kernel in
-    the 23rd session of a kernel phase, 1 ms of them three sessions on,
-    then every record of a 2 ms session). So every session opens with a
-    spin kernel of ``PAD_CYCLES`` clock cycles (~50 ms, ``torch.cuda.
-    _sleep``, left out by name) before the work it measures, and a session
-    that did not see all ``iters`` flushes is taken again."""
+    A session loses the records of its first few kernels on the card
+    (their launches' records stay), more the older the process: one to
+    four of twenty 40-100 s in, once ten at 9 s
+    (``scripts/torch_profiler_window.py``; neither a longer first kernel
+    nor a wait on the host before it keeps them). So every session first launches ``_LEAD[0]``
+    short spin kernels (``torch.cuda._sleep``, left out by name) for the
+    loss to take, then a ~50 ms spin, the measured work and a last short
+    spin; it counts only if it kept one of the first spins, the long one
+    and the last, and, with a flush, all ``iters`` flushes. A session that
+    did not is taken again with twice as many first spins, and the longer
+    lead stays for the rest of the run."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     def kernels(run):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(_LEAD[0]):
+                torch.cuda._sleep(SHORT_CYCLES)
             torch.cuda._sleep(PAD_CYCLES)
             run()
+            torch.cuda._sleep(SHORT_CYCLES)
             torch.cuda.synchronize()
         return [e for e in prof.events()
                 if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def whole(run, kept):
+        """The first session of ``run`` whose kernels pass ``kept``; the
+        lead doubles after each that did not."""
+        while True:
+            ks = kernels(run)
+            if kept(ks):
+                if _SPIN_NAMES:
+                    spins = sum(e.name in _SPIN_NAMES for e in ks)
+                    _LOST[0] = max(_LOST[0], _LEAD[0] + 2 - spins)
+                return ks
+            if _LEAD[0] >= MAX_LEAD:
+                raise AssertionError("device_ms: profiler sessions lost "
+                                     f"records after a {_LEAD[0]}-kernel lead")
+            _LEAD[0] *= 2
+            log(f"device_ms: a profiler session lost records; sessions "
+                f"now open with {_LEAD[0]} short spins")
+
+    def bracketed(ks):
+        return sum(e.name in _SPIN_NAMES for e in ks) >= 3
 
     def calls():
         for _ in range(iters):
@@ -264,18 +298,18 @@ def device_ms(fn, iters=10, flush=None):
 
     for _ in range(2):
         fn()
-    spin_names = {e.name for e in kernels(lambda: torch.cuda._sleep(1000))}
-    flush_names = ({e.name for e in kernels(flush)} - spin_names
-                   if flush is not None else set())
-    if not spin_names or (flush is not None and not flush_names):
-        raise AssertionError("device_ms: the profiler saw no spin or flush")
-    skip = spin_names | flush_names
-    for _ in range(5):
-        ks = kernels(calls)
-        if flush is None or sum(e.name in flush_names for e in ks) == iters:
-            break
-    else:
-        raise AssertionError("device_ms: five sessions lost flush kernels")
+    if not _SPIN_NAMES:
+        # a session of spins alone names them
+        _SPIN_NAMES.update(e.name for e in
+                           whole(lambda: None, lambda ks: len(ks) >= 3))
+    flush_names = set()
+    if flush is not None:
+        flush_names = {e.name for e in whole(
+            flush, lambda ks: bracketed(ks)
+            and len({e.name for e in ks}) > 1)} - _SPIN_NAMES
+    skip = _SPIN_NAMES | flush_names
+    ks = whole(calls, lambda ks: bracketed(ks) and (
+        flush is None or sum(e.name in flush_names for e in ks) == iters))
     ks = [e for e in ks if e.name not in skip]
     if not ks:
         raise AssertionError("device_ms: the call launched no kernel")
@@ -501,6 +535,8 @@ def check_kernels(rows):
     check_sgd_kernel(rnd, flush, row)
     check_adam_kernel(rnd, flush, row)
     check_mlp_kernel(rnd, flush, row)
+    log(f"phase kernels: device_ms sessions lost at most {_LOST[0]} leading "
+        f"kernel records (each opened with {_LEAD[0]} short spins)")
 
 
 def check_flash(rnd, gen, flush, row):

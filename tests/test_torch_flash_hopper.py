@@ -157,12 +157,32 @@ def test_chip_smoke_checks_flash_determinism_and_device_time():
 
 
 def test_device_ms_leaves_the_flush_out():
-    """The flush's kernels (and the spin opening each session) are told
-    apart by name and left out, and a session that lost any of the
-    measured calls' flushes is taken again."""
+    """The flush's kernels (and the spins that open and close each
+    session) are told apart by name and left out, and a session that lost
+    its first spins, its last, or any of the measured calls' flushes is
+    taken again with more short spins ahead of the work."""
     src = inspect.getsource(chip_smoke.device_ms)
-    assert "flush_names = ({e.name for e in kernels(flush)} - spin_names" in src
+    assert "flush_names = {e.name for e in whole(" in src
+    assert "} - _SPIN_NAMES" in src
+    assert "for _ in range(_LEAD[0]):" in src
     assert "torch.cuda._sleep(PAD_CYCLES)" in src
-    assert "skip = spin_names | flush_names" in src
+    assert src.count("torch.cuda._sleep(SHORT_CYCLES)") == 2
+    assert "skip = _SPIN_NAMES | flush_names" in src
     assert "e.name not in skip" in src
     assert "sum(e.name in flush_names for e in ks) == iters" in src
+    assert "sum(e.name in _SPIN_NAMES for e in ks) >= 3" in src
+    assert "_LEAD[0] *= 2" in src
+    assert chip_smoke.MAX_LEAD > chip_smoke._LEAD[0] > 0
+
+
+def test_profiler_window_script_needs_a_card(capsys):
+    """The profiler-loss probe refuses to run without a CUDA card."""
+    import importlib.util
+    path = Path(chip_smoke.__file__).parent / "scripts" / \
+        "torch_profiler_window.py"
+    spec = importlib.util.spec_from_file_location("torch_profiler_window",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.main(["--rounds", "1", "--burst", "1", "--idle", "0"]) == 1
+    assert "needs a CUDA card" in capsys.readouterr().err
