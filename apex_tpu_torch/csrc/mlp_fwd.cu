@@ -6,9 +6,12 @@
 // (Di, Di+1) in one of those dtypes, the biases (Di+1,) in one; the
 // activation (none, relu = max(v, 0) keeping NaN, sigmoid = 1/(1 + e^-v))
 // follows every layer, the last included. Every product, bias add and
-// activation is f32 FMA on the CUDA cores, as the TPU kernel keeps h in f32
-// (no TF32, no bf16 split: the numbers stay those of the JAX interpret-mode
-// kernel up to the order of the sums).
+// activation is f32 FMA on the CUDA cores, as the TPU kernel keeps h in f32.
+// No TF32 and no bf16 split onto the tensor cores: TF32 keeps 10 bits of
+// each operand, and a split rounds every term again, so either moves the
+// numbers off the f32 chain that the JAX package's kernel computes and the
+// port's checks hold this one to (1e-4 of the plain version on the card);
+// that route is left for a change that also states its new tolerance.
 //
 // What bounds it on an H100: operations. At the DLRM bottom MLP (B2048 x
 // [13, 512, 256, 128]) the products are 2·n·Σ Di·Di+1 = 698 MFLOP, 10.4 us
@@ -16,37 +19,69 @@
 // (0.27 us at 3.35 TB/s). At the budget's edge (B8192 x [1024, 1024,
 // 1024], f32) 34.4 GFLOP, 513 us, against 41 MB.
 //
-// Design (the simple first kernel). The TPU kernel keeps every weight (up
-// to 8 MiB) in VMEM; a block here has at most 227 KB of shared memory, and
-// the 50 MB L2 holds the weights instead. One block of 256 threads owns 16
-// rows and keeps their activations in shared memory as f32, in two buffers
-// that swap between layers; it streams each weight matrix from L2, a
-// thread taking output columns j, tid + 256, ... and keeping that column's
-// 16 row sums in registers: per 4 steps of the reduction it loads 4
-// weights (neighbouring threads, neighbouring columns: coalesced) and 16
-// float4s of h (one address for the warp: a broadcast) for 64 FMAs. A
-// __syncthreads() separates the layers; nothing goes to device memory
-// between them. Each output row is written by one block, with no atomics,
-// so blocks may run in any order. Up to 32 layers run in one launch; more
-// layers continue in further launches from an f32 workspace.
-//
-// A layer wider than 1816 (two 16-row f32 buffers past the 227 KB opt-in)
-// runs one launch per layer of mlp_layer over an f32 workspace the wrapper
-// allocates: a block computes 16 rows x 256 columns, staging 512-wide
-// slices of its rows' input in shared memory. Every layer is still f32,
-// with one cast at the end.
+// Design. A block of 256 threads owns 16 rows and keeps their activations
+// in shared memory as f32 through every layer (two buffers that swap); it
+// writes nothing to device memory between layers, and each output row
+// comes from one block, with no atomics, so blocks may run in any order.
+// - Register tiles. A thread computes 4 rows x TN columns (TN = 4 for a
+//   layer wider than 128, 2 up to 128, 1 up to 64, so every thread has
+//   work at every width): a warp is 4 row groups x 8 column groups (16
+//   rows x 8·TN columns), the 8 warps side by side, and a layer wider than
+//   64·TN takes several passes. Per 4 steps of the reduction a thread loads
+//   4 float4s of h (rows r, r + 4, r + 8, r + 12: the row stride is 4 mod
+//   32 floats, so the four row groups read distinct banks) and 4 x TN
+//   weights, for 16·TN FMAs. Each output is summed by one thread in
+//   increasing k, so two launches agree bit for bit.
+// - Staged weights. The weight columns of a pass are copied from L2 into a
+//   ring of two shared-memory stages of 32 KB, 64 rows of the reduction
+//   (K) of 16-bit weights or 32 of f32 each, raw in the weights' dtype, by
+//   cp.async (16 bytes a copy, zeros past the matrix) where a weight row
+//   is a whole number of 16-byte chunks, else by plain loads. The copies
+//   run a slice ahead across passes and layers (the weights do not depend
+//   on the activations), so a slice's copy runs under the previous
+//   slice's FMAs, with one barrier a slice; 16-bit weights are widened to
+//   f32 as they are read from shared memory. Fewer, larger stages measured
+//   faster than more, smaller ones: the cost is per slice
+//   (scripts/torch_kernel_variants.py).
+// - Why 16 rows and one block an SM, and no cluster. At n = 2048 the 128
+//   blocks fill 128 of the 132 SMs, and every SM does 1/128 of the work
+//   whatever the tiling; what a tiling changes is the work an SM issues
+//   beside its FMAs and the bytes its shared memory delivers. With 16 rows
+//   an SM, a 4 x 4 tile is the largest that keeps 8 warps busy, and it
+//   takes 48 bytes of shared-memory delivery (h, then weights) for every
+//   32 FMAs of a warp, so the SM's 128 bytes a clock bind before its FMA
+//   pipes do: more warps over the same tiles, or a cluster of 2-4 blocks
+//   sharing a 16-row tile (each block a share of the columns, written into
+//   its peers' shared memory, with smaller tiles and a cluster barrier a
+//   layer) cannot lift that. A cluster over 32 or more rows would allow
+//   larger tiles but not fit the activations of the widest layers. No
+//   cluster was built.
+// A layer wider than kMaxLd (with the weight stages, past the 227 KB
+// opt-in) runs one launch per layer of mlp_layer over an f32 workspace the
+// wrapper allocates: a block computes 16 rows x 256 columns, staging
+// 512-wide slices of its rows' input in shared memory and streaming the
+// weights from L2. Every layer is still f32, with one cast at the end. Up
+// to 32 layers run in one fused launch; more continue in further launches
+// from the workspace.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <climits>
+#include <type_traits>
 
 namespace {
 
 constexpr int kRows = 16;          // rows a block owns
 constexpr int kThreads = 256;
 constexpr int kMaxLayers = 32;     // layers one fused launch runs
-constexpr int kMaxLd = 1816;       // widest layer the fused kernel holds
+constexpr int kStages = 2;         // weight stages in the ring
+constexpr int kCw = 256;           // widest pass: 8 warps x 8 groups x 4
+// widest layer (rounded up to 4) the fused kernel holds: two 16-row f32
+// activation buffers of a row stride of kMaxLd floats beside the ring of
+// f32 weight stages, within the 227 KB opt-in
+constexpr int kMaxLd = 1284;
 constexpr int kSlice = 512;        // input slice of the per-layer kernel
 
 enum Dtype { kF32 = 0, kBF16 = 1, kF16 = 2 };
@@ -58,7 +93,8 @@ struct FusedArgs {
   const void* w[kMaxLayers];
   const void* b[kMaxLayers];       // all null without bias
   int dims[kMaxLayers + 1];
-  int layers, n, in_dtype, out_dtype, b_dtype, act, ld;
+  unsigned vec;                    // bit l: W_l's rows are 16-byte chunks
+  int layers, n, in_dtype, out_dtype, b_dtype, act, ldp;
 };
 
 struct LayerArgs {
@@ -98,6 +134,266 @@ __device__ __forceinline__ float activate(float v, int act) {
   return v;
 }
 
+// --- the fused kernel -------------------------------------------------------
+
+// Reduction rows of a weight stage: 32 KB a stage in every dtype (64 rows
+// of 16-bit weights, 32 of f32), as few stages (and barriers) as the bytes
+// allow
+template <typename TW>
+struct Ring {
+  static constexpr int kKs = 128 / (int)sizeof(TW);
+};
+
+// TN of a layer of width dout (a pass covers 64·TN columns), as log2
+__device__ __forceinline__ int layer_tn_log2(int dout) {
+  return dout > 128 ? 2 : dout > 64 ? 1 : 0;
+}
+
+__device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
+
+// A weight stage's place in the stream of copies
+struct Slice {
+  int l, p, s;                     // layer, pass, slice of the pass
+};
+
+// Copies a stage: a pass's columns [c0, c0 + 64·tn) of reduction rows
+// [k0, k0 + kKs) of W_l (din x dout), raw, row stride kCw elements, zeros
+// past the matrix; one cp.async group a call.
+template <typename TW>
+__device__ __forceinline__ void copy_slice(const FusedArgs& a, Slice sl,
+                                           TW* stage) {
+  constexpr int kKs = Ring<TW>::kKs;
+  const int din = a.dims[sl.l], dout = a.dims[sl.l + 1];
+  const int cw_log2 = 6 + layer_tn_log2(dout);    // powers of two: shifts
+  const int k0 = sl.s * kKs, c0 = sl.p << cw_log2;
+  const TW* W = static_cast<const TW*>(a.w[sl.l]);
+  if (a.vec >> sl.l & 1) {
+    constexpr int V = 16 / sizeof(TW);
+    constexpr int V_LOG2 = V == 8 ? 3 : 2;
+    const int row_log2 = cw_log2 - V_LOG2;        // chunks a row
+    for (int q = threadIdx.x; q < kKs << row_log2; q += kThreads) {
+      const int kk = q >> row_log2, cc = (q & ((1 << row_log2) - 1)) * V;
+      const int k = k0 + kk, col = c0 + cc;
+      const bool in = k < din && col < dout;
+      const TW* src = in ? W + (long long)k * dout + col : W;
+      const unsigned dst = (unsigned)__cvta_generic_to_shared(
+          stage + kk * kCw + cc);
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                       dst),
+                   "l"(src), "r"(in ? 16 : 0));
+    }
+  } else {
+    for (int q = threadIdx.x; q < kKs << cw_log2; q += kThreads) {
+      const int kk = q >> cw_log2, cc = q & ((1 << cw_log2) - 1);
+      const int k = k0 + kk, col = c0 + cc;
+      stage[kk * kCw + cc] =
+          k < din && col < dout ? W[(long long)k * dout + col] : TW(0.f);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// the slice after sl in (layer, pass, slice) order; false past the last
+template <typename TW>
+__device__ __forceinline__ bool next_slice(const FusedArgs& a, Slice& sl) {
+  constexpr int kKs = Ring<TW>::kKs;
+  const int din = a.dims[sl.l], dout = a.dims[sl.l + 1];
+  if (++sl.s < (din + kKs - 1) / kKs) return true;
+  sl.s = 0;
+  const int cw_log2 = 6 + layer_tn_log2(dout);
+  if (++sl.p < (dout + (1 << cw_log2) - 1) >> cw_log2) return true;
+  sl.p = 0;
+  return ++sl.l < a.layers;
+}
+
+// TN weights of one reduction row from a stage, widened to f32
+template <typename TW, int TN>
+__device__ __forceinline__ void load_w(const TW* p, float (&w)[TN]) {
+  if constexpr (sizeof(TW) == 4) {
+    if constexpr (TN == 4) {
+      const float4 v = *reinterpret_cast<const float4*>(p);
+      w[0] = v.x; w[1] = v.y; w[2] = v.z; w[3] = v.w;
+    } else if constexpr (TN == 2) {
+      const float2 v = *reinterpret_cast<const float2*>(p);
+      w[0] = v.x; w[1] = v.y;
+    } else {
+      w[0] = to_f32(p[0]);
+    }
+  } else if constexpr (TN == 1) {
+    w[0] = to_f32(p[0]);
+  } else {
+    unsigned u[TN / 2];
+    if constexpr (TN == 4) {
+      const uint2 v = *reinterpret_cast<const uint2*>(p);
+      u[0] = v.x; u[1] = v.y;
+    } else {
+      u[0] = *reinterpret_cast<const unsigned*>(p);
+    }
+#pragma unroll
+    for (int i = 0; i < TN / 2; ++i) {
+      if constexpr (std::is_same<TW, __nv_bfloat16>::value) {
+        w[2 * i] = __uint_as_float(u[i] << 16);
+        w[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+      } else {
+        w[2 * i] = __half2float(__ushort_as_half((unsigned short)(u[i])));
+        w[2 * i + 1] =
+            __half2float(__ushort_as_half((unsigned short)(u[i] >> 16)));
+      }
+    }
+  }
+}
+
+// acc += h[rows][k0 + kk] · stage[kk][cols] for kk < kn (a multiple of 4)
+template <typename TW, int TN, bool FULL>
+__device__ __forceinline__ void fma_slice(float (&acc)[4][TN],
+                                          const float* h, int ldp,
+                                          const TW* wcol, int kn) {
+  constexpr int kKs = Ring<TW>::kKs;
+#pragma unroll
+  for (int kk = 0; kk < (FULL ? kKs : kn); kk += 4) {
+    float4 hv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      hv[i] = *reinterpret_cast<const float4*>(h + i * 4 * ldp + kk);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float w[TN];
+      load_w<TW, TN>(wcol + (kk + u) * kCw, w);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float hk = u == 0 ? hv[i].x : u == 1 ? hv[i].y
+                       : u == 2 ? hv[i].z : hv[i].w;
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(hk, w[j], acc[i][j]);
+      }
+    }
+  }
+}
+
+// One layer at TN columns a thread: every pass, every slice of each. A
+// slice waits for its own copy, then one barrier (every thread is done
+// with the previous slice's stage), then the copy kStages - 1 slices ahead
+// goes into that stage, then the FMAs. Returns with `next` and `stage`
+// advanced past the layer's slices.
+template <typename TW, int TN>
+__device__ void run_layer(const FusedArgs& a, int l, const float* hin,
+                          float* hout, TW* ring, Slice& next, bool& more,
+                          int& stage, int rows) {
+  constexpr int kKs = Ring<TW>::kKs;
+  const int din = a.dims[l], dout = a.dims[l + 1];
+  const bool last = l == a.layers - 1;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int rg = lane & 3, cg = lane >> 2;
+  const int col_off = warp * 8 * TN + cg * TN;
+  const int slices = (din + kKs - 1) / kKs;
+  const int kd = round4(din), rd = round4(dout);
+  const float* h = hin + rg * a.ldp;
+  for (int c0 = 0; c0 < dout; c0 += 64 * TN) {
+    float acc[4][TN];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
+    for (int s = 0; s < slices; ++s) {
+      asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+      __syncthreads();
+      if (more) more = next_slice<TW>(a, next);
+      if (more)
+        copy_slice<TW>(a, next,
+                       ring + (stage + kStages - 1) % kStages * kKs * kCw);
+      else
+        asm volatile("cp.async.commit_group;\n" ::);
+      const TW* wcol = ring + stage * kKs * kCw + col_off;
+      const int kn = min(kKs, kd - s * kKs);
+      if (kn == kKs)
+        fma_slice<TW, TN, true>(acc, h + s * kKs, a.ldp, wcol, kKs);
+      else
+        fma_slice<TW, TN, false>(acc, h + s * kKs, a.ldp, wcol, kn);
+      stage = (stage + 1) % kStages;
+    }
+    const int col = c0 + col_off;
+    if (col >= rd) continue;
+    float bj[TN];
+#pragma unroll
+    for (int j = 0; j < TN; ++j)
+      bj[j] = a.b[l] && col + j < dout ? load_any(a.b[l], a.b_dtype, col + j)
+                                       : 0.f;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = rg + 4 * i;
+      float v[TN];
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        v[j] = col + j < dout ? activate(acc[i][j] + bj[j], a.act) : 0.f;
+      if (!last) {
+        float* o = hout + r * a.ldp + col;
+        if constexpr (TN == 4)
+          *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
+        else if constexpr (TN == 2)
+          *reinterpret_cast<float2*>(o) = make_float2(v[0], v[1]);
+        else
+          o[0] = v[0];
+      } else if (r < rows) {
+        const long long base = ((long long)blockIdx.x * kRows + r) * dout;
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          if (col + j < dout) store_any(a.out, a.out_dtype, base + col + j,
+                                        v[j]);
+      }
+    }
+  }
+}
+
+template <typename TW>
+__global__ void __launch_bounds__(kThreads, 1) mlp_fused(const FusedArgs a) {
+  constexpr int kKs = Ring<TW>::kKs;
+  extern __shared__ __align__(16) float smem[];
+  float* hin = smem;
+  float* hout = smem + kRows * a.ldp;
+  TW* ring = reinterpret_cast<TW*>(smem + 2 * kRows * a.ldp);
+  const long long row0 = (long long)blockIdx.x * kRows;
+  const int rows = (int)min((long long)kRows, a.n - row0);
+
+  // the first kStages - 1 weight slices go out before x is read
+  Slice next{0, 0, 0};
+  copy_slice<TW>(a, next, ring);
+  bool more = true;
+#pragma unroll
+  for (int i = 1; i < kStages - 1; ++i) {
+    if (more) more = next_slice<TW>(a, next);
+    if (more)
+      copy_slice<TW>(a, next, ring + i * kKs * kCw);
+    else
+      asm volatile("cp.async.commit_group;\n" ::);
+  }
+  int stage = 0;
+  const int d0 = a.dims[0], w0 = round4(d0);
+  for (int i = threadIdx.x; i < kRows * w0; i += kThreads) {
+    const int r = i / w0, c = i % w0;
+    hin[r * a.ldp + c] = r < rows && c < d0
+        ? load_any(a.in, a.in_dtype, (row0 + r) * d0 + c) : 0.f;
+  }
+  // (the first slice's barrier orders these stores before any read)
+  for (int l = 0; l < a.layers; ++l) {
+    switch (layer_tn_log2(a.dims[l + 1])) {
+      case 2:
+        run_layer<TW, 4>(a, l, hin, hout, ring, next, more, stage, rows);
+        break;
+      case 1:
+        run_layer<TW, 2>(a, l, hin, hout, ring, next, more, stage, rows);
+        break;
+      default:
+        run_layer<TW, 1>(a, l, hin, hout, ring, next, more, stage, rows);
+    }
+    float* t = hin;
+    hin = hout;
+    hout = t;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// --- the per-layer kernel (past kMaxLd) -------------------------------------
+
 // acc[r] += Σ_{k < kn} h[r·ld + k] · W[(k0 + k)·dout + j], h 16-byte aligned
 // and ld a multiple of 4
 template <typename TW>
@@ -125,48 +421,6 @@ __device__ __forceinline__ void dot_rows(float (&acc)[kRows], const float* h,
     const float w = to_f32(wj[(long long)k * dout]);
 #pragma unroll
     for (int r = 0; r < kRows; ++r) acc[r] = fmaf(h[r * ld + k], w, acc[r]);
-  }
-}
-
-template <typename TW>
-__global__ void __launch_bounds__(kThreads) mlp_fused(const FusedArgs a) {
-  extern __shared__ __align__(16) float smem[];
-  float* hin = smem;
-  float* hout = smem + kRows * a.ld;
-  const long long row0 = (long long)blockIdx.x * kRows;
-  const int rows = (int)min((long long)kRows, a.n - row0);
-
-  const int d0 = a.dims[0];
-  for (int i = threadIdx.x; i < kRows * d0; i += kThreads) {
-    const int r = i / d0, c = i % d0;
-    hin[r * a.ld + c] =
-        r < rows ? load_any(a.in, a.in_dtype, (row0 + r) * d0 + c) : 0.f;
-  }
-  __syncthreads();
-
-  for (int l = 0; l < a.layers; ++l) {
-    const int din = a.dims[l], dout = a.dims[l + 1];
-    const TW* W = static_cast<const TW*>(a.w[l]);
-    const bool last = l == a.layers - 1;
-    for (int j = threadIdx.x; j < dout; j += kThreads) {
-      float acc[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-      dot_rows<TW>(acc, hin, a.ld, W, dout, j, 0, din);
-      const float bj = a.b[l] ? load_any(a.b[l], a.b_dtype, j) : 0.f;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float v = activate(acc[r] + bj, a.act);
-        if (!last)
-          hout[r * a.ld + j] = v;
-        else if (r < rows)
-          store_any(a.out, a.out_dtype, (row0 + r) * dout + j, v);
-      }
-    }
-    __syncthreads();
-    float* t = hin;
-    hin = hout;
-    hout = t;
   }
 }
 
@@ -202,28 +456,36 @@ __global__ void __launch_bounds__(kThreads) mlp_layer(const LayerArgs a) {
 }
 
 template <typename TW>
-int launch(const void* x, void* y, float* ws, const void* const* w,
-           const void* const* b, const int* dims, int layers, int n,
-           int x_dtype, int b_dtype, int act, cudaStream_t st,
-           int* launches) {
-  int widest = 0, hidden = 0;
+int launch(const void* x, void* y, float* ws, const long long* w,
+           const long long* b, const long long* dims, int layers, int n,
+           int x_dtype, int b_dtype, int act, cudaStream_t st) {
+  long long widest = 0, hidden = 0;
   for (int l = 0; l <= layers; ++l) {
-    if (dims[l] <= 0) return (int)cudaErrorInvalidValue;
+    if (dims[l] <= 0 || dims[l] > INT_MAX / 2)
+      return (int)cudaErrorInvalidValue;
     widest = std::max(widest, dims[l]);
     if (l > 0 && l < layers) hidden = std::max(hidden, dims[l]);
   }
-  const int ld = (widest + 3) / 4 * 4;
+  const int ld = (int)((widest + 3) / 4 * 4);
   const bool fused = ld <= kMaxLd;
   const int per_launch = fused ? kMaxLayers : 1;
   if (layers > per_launch && ws == nullptr) return (int)cudaErrorInvalidValue;
   float* buf[2] = {ws, ws ? ws + (long long)n * hidden : nullptr};
   const unsigned blocks = (unsigned)((n + kRows - 1) / kRows);
+  // the fused kernel's row stride: >= ld and 4 mod 32 floats
+  const int ldp = 32 * ((ld - 4 + 31) / 32) + 4;
+  const size_t smem = sizeof(float) * 2 * kRows * ldp +
+                      sizeof(TW) * kStages * Ring<TW>::kKs * kCw;
   if (fused) {
-    const size_t smem = sizeof(float) * 2 * kRows * ld;
-    cudaError_t e = cudaFuncSetAttribute(
-        mlp_fused<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+    static bool opted = false;    // once an instance, for the widest
+    if (!opted) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          mlp_fused<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)(sizeof(float) * 2 * kRows * kMaxLd +
+                sizeof(TW) * kStages * Ring<TW>::kKs * kCw));
+      if (e != cudaSuccess) return (int)e;
+      opted = true;
+    }
   }
   for (int l0 = 0, i = 0; l0 < layers; l0 += per_launch, ++i) {
     const int nl = std::min(per_launch, layers - l0);
@@ -236,55 +498,69 @@ int launch(const void* x, void* y, float* ws, const void* const* w,
       a.in = in;
       a.out = out;
       for (int l = 0; l < nl; ++l) {
-        a.w[l] = w[l0 + l];
-        a.b[l] = b ? b[l0 + l] : nullptr;
+        a.w[l] = reinterpret_cast<const void*>(w[l0 + l]);
+        a.b[l] = reinterpret_cast<const void*>(b[l0 + l]);
+        if ((dims[l0 + l + 1] * (long long)sizeof(TW)) % 16 == 0 &&
+            w[l0 + l] % 16 == 0)
+          a.vec |= 1u << l;
       }
-      for (int l = 0; l <= nl; ++l) a.dims[l] = dims[l0 + l];
+      for (int l = 0; l <= nl; ++l) a.dims[l] = (int)dims[l0 + l];
       a.layers = nl;
       a.n = n;
       a.in_dtype = in_dt;
       a.out_dtype = out_dt;
       a.b_dtype = b_dtype;
       a.act = act;
-      a.ld = ld;
-      mlp_fused<TW><<<blocks, kThreads, sizeof(float) * 2 * kRows * ld,
-                      st>>>(a);
+      a.ldp = ldp;
+      mlp_fused<TW><<<blocks, kThreads, smem, st>>>(a);
     } else {
-      LayerArgs a = {in, out, w[l0], b ? b[l0] : nullptr, dims[l0],
-                     dims[l0 + 1], n, in_dt, out_dt, b_dtype, act};
+      LayerArgs a = {in, out, reinterpret_cast<const void*>(w[l0]),
+                     reinterpret_cast<const void*>(b[l0]), (int)dims[l0],
+                     (int)dims[l0 + 1], n, in_dt, out_dt, b_dtype, act};
       dim3 grid(blocks, (unsigned)((dims[l0 + 1] + kThreads - 1) / kThreads));
       mlp_layer<TW><<<grid, kThreads, 0, st>>>(a);
     }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
-    ++*launches;
   }
   return 0;
 }
 
 }  // namespace
 
-// x (n, dims[0]) in x_dtype -> y (n, dims[layers]) in x_dtype. w, b: host
-// arrays of `layers` device pointers (b null: no bias); ws: an f32 device
-// workspace of 2·n·(widest hidden layer) elements, needed (else null) when
-// the layers take more than one launch. Dtypes: 0 = f32, 1 = bf16, 2 =
-// fp16; act: 0 = none, 1 = relu, 2 = sigmoid. Returns a cudaError_t (0 =
-// launched) and adds the number of launches to *launches.
-extern "C" int apex_mlp_fwd(const void* x, void* y, float* ws,
-                            const void* const* w, const void* const* b,
-                            const int* dims, int layers, int n, int x_dtype,
-                            int w_dtype, int b_dtype, int act, void* stream,
-                            int* launches) {
+// One call's arguments as the wrapper packs them, every field 64 bits:
+// x (n, dims[0]) in x_dtype -> y (n, dims[layers]) in x_dtype; ws an f32
+// device workspace of 2·n·(widest hidden layer) elements, needed (else 0)
+// when the layers take more than one launch (mlp._workspace_cols). Dtypes:
+// 0 = f32, 1 = bf16, 2 = fp16 (the weights one dtype, the biases one);
+// act: 0 = none, 1 = relu, 2 = sigmoid. The struct is followed in memory
+// by `layers` weight addresses, `layers` bias addresses (all 0: no bias)
+// and the layers + 1 widths, 64 bits each.
+struct MlpCall {
+  long long x, y, ws, n, layers, x_dtype, w_dtype, b_dtype, act;
+};
+
+// Launches on stream (mlp._launches(dims) launches); returns the CUDA
+// error code (0: launched).
+extern "C" int apex_mlp_fwd(const MlpCall* k, void* stream) {
+  const long long layers = k->layers, n = k->n;
+  if (layers <= 0 || n <= 0 || n > INT_MAX || layers > INT_MAX / 4)
+    return (int)cudaErrorInvalidValue;
+  const long long* w = reinterpret_cast<const long long*>(k + 1);
+  const long long* b = w + layers;
+  const long long* dims = b + layers;
+  const void* x = reinterpret_cast<const void*>(k->x);
+  void* y = reinterpret_cast<void*>(k->y);
+  float* ws = reinterpret_cast<float*>(k->ws);
+  const int L = (int)layers, N = (int)n, xd = (int)k->x_dtype;
+  const int bd = (int)k->b_dtype, act = (int)k->act;
   cudaStream_t st = (cudaStream_t)stream;
-  if (layers <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
-  if (w_dtype == kF32)
-    return launch<float>(x, y, ws, w, b, dims, layers, n, x_dtype, b_dtype,
-                         act, st, launches);
-  if (w_dtype == kBF16)
-    return launch<__nv_bfloat16>(x, y, ws, w, b, dims, layers, n, x_dtype,
-                                 b_dtype, act, st, launches);
-  if (w_dtype == kF16)
-    return launch<__half>(x, y, ws, w, b, dims, layers, n, x_dtype, b_dtype,
-                          act, st, launches);
+  if (k->w_dtype == kF32)
+    return launch<float>(x, y, ws, w, b, dims, L, N, xd, bd, act, st);
+  if (k->w_dtype == kBF16)
+    return launch<__nv_bfloat16>(x, y, ws, w, b, dims, L, N, xd, bd, act,
+                                 st);
+  if (k->w_dtype == kF16)
+    return launch<__half>(x, y, ws, w, b, dims, L, N, xd, bd, act, st);
   return (int)cudaErrorInvalidValue;
 }

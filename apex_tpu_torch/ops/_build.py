@@ -117,6 +117,22 @@ def triton_jit(fn):
     return triton.jit(fn)
 
 
+def workspace(cache, device, stream, n_part, n_counters):
+    """A kernel's f32 partials (>= ``n_part``) and int32 counters (>=
+    ``n_counters``, all 0), kept in ``cache`` for one stream (a raw stream
+    handle, on ``device``) and grown when a call needs more. Sharing them
+    between calls is safe for a kernel whose last block reads every partial
+    and sets its counters back to 0: a stream runs its launches in order."""
+    import torch
+    part, counters = cache.get(stream, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(n_part, dtype=torch.float32, device=device)
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(n_counters, dtype=torch.int32, device=device)
+    cache[stream] = (part, counters)
+    return part, counters
+
+
 def check_operands(*tensors, dtypes=None) -> None:
     """Kernel operands: contiguous tensors on one CUDA device, and (with
     ``dtypes``) each of one of those dtypes."""

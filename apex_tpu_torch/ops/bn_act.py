@@ -139,18 +139,8 @@ def _bn_sums_plan(m: int, c: int, sms: int, vec: int = 8) -> tuple:
 
 def _sums_workspace(device, stream, n_part, tiles):
     """The sums kernel's f32 partials (>= ``n_part``) and int32 tile
-    counters (>= ``tiles``, all 0), cached for one stream (a raw stream
-    handle, on ``device``). Sharing them between calls is safe: a stream
-    runs its launches in order, and a launch's last block has read every
-    partial and set its counters back to 0 before the next launch on the
-    stream starts."""
-    part, counters = _sums_buffers.get(stream, (None, None))
-    if part is None or part.numel() < n_part:
-        part = torch.empty(n_part, dtype=torch.float32, device=device)
-    if counters is None or counters.numel() < tiles:
-        counters = torch.zeros(tiles, dtype=torch.int32, device=device)
-    _sums_buffers[stream] = (part, counters)
-    return part, counters
+    counters (>= ``tiles``, all 0) for one stream (``_build.workspace``)."""
+    return _build.workspace(_sums_buffers, device, stream, n_part, tiles)
 
 
 #: ``SumsCall`` of ``csrc/bn_sums.cu``, field by field, every field 64 bits.

@@ -1,27 +1,29 @@
-"""Fused LayerNorm: a CUDA C++ forward and a Triton backward, with a custom
+"""Fused LayerNorm: CUDA C++ forward and backward kernels, with a custom
 autograd.
 
-Port of ``apex_tpu/ops/layer_norm.py``. Kernels replaced:
+Port of ``apex_tpu/ops/layer_norm.py``. Kernels replaced (sources under
+``apex_tpu_torch/csrc/``):
 
-- ``ln_fwd_kernel`` (``csrc/layer_norm_fwd.cu``) ← ``_ln_fwd_kernel``
+- ``ln_fwd_kernel`` (``layer_norm_fwd.cu``) ← ``_ln_fwd_kernel``
   (``_ln_forward``'s pallas_call): per row, centered two-pass mean/var in
   f32, normalize, optional affine, output in the input dtype.
-- ``ln_bwd_kernel`` (Triton) ← ``_ln_bwd_kernel`` (``_ln_backward``):
-  recompute the moments from x, dx = rstd·(gw − mean(gw) − x̂·mean(gw·x̂)),
-  and per-program f32 partial dγ/dβ rows summed in a second stage.
+- ``ln_bwd_kernel`` (``layer_norm_bwd.cu``) ← ``_ln_bwd_kernel``
+  (``_ln_backward``): recompute the moments from x, dx = rstd·(gw −
+  mean(gw) − x̂·mean(gw·x̂)), and f32 dγ/dβ from per-block partials added
+  in the same launch.
 
 What bounds them on an H100: bytes. Both are one read of each row operand
 and one write, with a few flops per byte (the forward moves 2·N·H
 elements, the backward 3·N·H), so they sit far below the card's
-operations-per-byte ridge. The forward: a warp owns a row and holds it in
+operations-per-byte ridge. Both: a warp owns a row and holds it in
 registers, loaded and stored as 16-byte vectors where the rows allow
-(:func:`_ln_plan`), in a persistent grid whose blocks read γ and β once
-into shared memory; wider rows take a block a row (the source's notes). The backward: one
-program owns whole rows, so the row reductions stay in registers and each
-element is read once; a masked ``tl.load`` covers a ragged H; a program
-walks a run of rows and keeps its dγ/dβ partial in registers, written once
-per program, with no cross-program accumulation (Hopper blocks run in no
-order).
+(:func:`_ln_plan`), with γ (and β) read once a block into shared memory;
+wider rows take a block a row (the sources' notes). The forward's grid is
+persistent; the backward's blocks own runs of rows fixed by the shape
+(:func:`_ln_bwd_plan`), add their warps' dγ/dβ in shared memory and write
+one partial each, and the last blocks to finish add the partials in a
+fixed order (integer tickets, no float atomics), so two launches agree bit
+for bit.
 
 Only x (and the weight) is saved for the backward; the moments are
 recomputed there, as the JAX package does.
@@ -39,45 +41,6 @@ import torch.nn as nn
 
 from apex_tpu_torch.ops import _build
 
-tl = None  # triton.language, bound by _build.triton_jit at the first launch
-
-
-# --- Triton backward kernel --------------------------------------------------
-
-def _ln_bwd_triton(G, X, W, DX, DW, DB, N, H, stride, eps, rows_per_prog,
-                   AFFINE: "tl.constexpr", BLOCK: "tl.constexpr"):
-    pid = tl.program_id(0)
-    cols = tl.arange(0, BLOCK)
-    mask = cols < H
-    if AFFINE:
-        w = tl.load(W + cols, mask=mask, other=0.0).to(tl.float32)
-    dw = tl.zeros([BLOCK], dtype=tl.float32)
-    db = tl.zeros([BLOCK], dtype=tl.float32)
-    for i in range(0, rows_per_prog):
-        row = (pid * rows_per_prog + i).to(tl.int64)
-        m = mask & (row < N)
-        x = tl.load(X + row * stride + cols, mask=m, other=0.0).to(tl.float32)
-        g = tl.load(G + row * stride + cols, mask=m, other=0.0).to(tl.float32)
-        mean = tl.sum(x, axis=0) / H
-        xc = tl.where(m, x - mean, 0.0)
-        rstd = 1.0 / tl.sqrt(tl.sum(xc * xc, axis=0) / H + eps)
-        xhat = xc * rstd
-        if AFFINE:
-            gw = g * w
-        else:
-            gw = g
-        m1 = tl.sum(gw, axis=0) / H
-        m2 = tl.sum(gw * xhat, axis=0) / H
-        dx = rstd * (gw - m1 - xhat * m2)
-        tl.store(DX + row * stride + cols, dx.to(DX.dtype.element_ty), mask=m)
-        if AFFINE:
-            dw += g * xhat
-            db += g
-    if AFFINE:
-        tl.store(DW + pid * H + cols, dw, mask=mask)
-        tl.store(DB + pid * H + cols, db, mask=mask)
-
-
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
 
@@ -92,12 +55,7 @@ def _check(x2, *params):
             raise ValueError(f"param {tuple(p.shape)} != ({x2.shape[1]},)")
 
 
-def _block(h: int) -> tuple:
-    block = 1 << max(0, (h - 1).bit_length())
-    return block, max(1, min(16, block // 256))
-
-
-# --- the CUDA forward --------------------------------------------------------
+# --- the CUDA kernels --------------------------------------------------------
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 #: elements a lane of the warp-a-row kernel's instances (``ln_fwd_warp``)
@@ -107,6 +65,8 @@ _EPL = (8, 16, 32, 64)
 _SCALAR_F32_EPL = 16
 #: widest row, in bytes, the block-a-row kernel stages in shared memory
 _MAX_STAGED = 231424
+#: warps of a block (``kWarps``)
+_WARPS = 8
 # apex_ln_fwd's paths
 _SCALAR, _VECTOR, _STAGED, _STREAMED = range(4)
 
@@ -171,30 +131,82 @@ def ln_fwd_kernel(x2, weight, bias, eps):
 ln_fwd_kernel.launches = 0
 
 
+#: most blocks of the backward's grid
+_BWD_BLOCKS = 256
+#: widest x and g row, in bytes, the backward stages (``kMaxStagedBwd``)
+_BWD_MAX_STAGED = _MAX_STAGED - 8192
+
+
+@functools.lru_cache(maxsize=None)
+def _ln_bwd_plan(n: int, h: int, itemsize: int, aligned: bool) -> tuple:
+    """``(path, elements a lane, rows a block, blocks)`` of ``apex_ln_bwd``
+    over (n, h) rows: the forward's paths (:func:`_ln_plan`; a staged row
+    holds x and g, up to ``_BWD_MAX_STAGED`` bytes of both), at
+    most ``_BWD_BLOCKS`` blocks of runs of ``rows`` rows (at least a row a
+    warp on the warp paths; the last block takes the rest), one dγ/dβ
+    partial each. A pure function of the shape, so the order of every sum
+    is fixed."""
+    path, epl = _ln_plan(h, itemsize, aligned)
+    if path == _STAGED and 2 * h * itemsize > _BWD_MAX_STAGED:
+        path = _STREAMED
+    per_block = _WARPS if path in (_SCALAR, _VECTOR) else 1
+    blocks = max(1, min(_BWD_BLOCKS, -(-n // per_block)))
+    rows = -(-n // blocks)
+    blocks = -(-n // rows)
+    return path, epl, rows, blocks
+
+
+#: ``LnBwdCall`` of ``csrc/layer_norm_bwd.cu``, field by field: every field
+#: 64 bits, eps a double.
+LN_BWD_CALL_FIELDS = ("g", "x", "w", "dx", "part", "counters", "out", "n",
+                      "h", "x_dtype", "w_dtype", "path", "epl", "rows",
+                      "blocks", "eps")
+_LN_BWD_CALL = struct.Struct("<15qd")
+#: the backward's (partials, counters), by raw stream handle
+_bwd_buffers = {}
+
+
+@functools.lru_cache(maxsize=None)
+def _ln_bwd_lib():
+    """The C entry point ``apex_ln_bwd(const LnBwdCall*, stream)``."""
+    fn = _build.load("layer_norm_bwd").apex_ln_bwd
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
 def ln_bwd_kernel(g2, x2, weight, eps):
-    """Triton backward: (dx, dγ, dβ) with dγ/dβ in f32 (None if no affine)."""
+    """CUDA backward: (dx, dγ, dβ) with dγ/dβ in f32 (None if no affine)."""
     _check(x2, weight)
     _build.check_operands(g2, x2, dtypes=(x2.dtype,))
     if g2.shape != x2.shape:
         raise ValueError(f"grad {tuple(g2.shape)} != input {tuple(x2.shape)}")
     n, h = x2.shape
     dx = torch.empty_like(x2)
-    block, warps = _block(h)
-    progs = min(n, 4 * _build.sm_count(x2.device))
-    rows = -(-n // progs)
-    progs = -(-n // rows)
     affine = weight is not None
-    part = (torch.empty((2, progs, h), dtype=torch.float32, device=x2.device)
-            if affine else x2)
-    _build.triton_jit(_ln_bwd_triton)[(progs,)](
-        g2, x2, weight if affine else x2, dx,
-        part[0] if affine else x2, part[1] if affine else x2,
-        n, h, h, float(eps), rows, AFFINE=affine, BLOCK=block,
-        num_warps=warps)
+    dwdb = (torch.empty((2, h), dtype=torch.float32, device=x2.device)
+            if affine else None)
+    if dx.numel() == 0:
+        return (dx, None, None) if not affine else (dx, *dwdb.zero_())
+    gp, xp = g2.data_ptr(), x2.data_ptr()
+    path, epl, rows, blocks = _ln_bwd_plan(n, h, x2.element_size(),
+                                           (gp | xp) % 16 == 0)
+    stream = _build.stream_ptr(x2)
+    part = counters = None
+    if affine:
+        part, counters = _build.workspace(
+            _bwd_buffers, x2.device, stream, blocks * (-(-2 * h // 4) * 4),
+            2)
+    call = _LN_BWD_CALL.pack(
+        gp, xp, weight.data_ptr() if affine else 0, dx.data_ptr(),
+        part.data_ptr() if affine else 0,
+        counters.data_ptr() if affine else 0,
+        dwdb.data_ptr() if affine else 0, n, h, _DTYPES[x2.dtype],
+        _DTYPES[weight.dtype] if affine else 0, path, epl, rows, blocks, eps)
+    _build.check(_ln_bwd_lib()(call, stream), "layer_norm_bwd")
     ln_bwd_kernel.launches += 1
     if not affine:
         return dx, None, None
-    dwdb = part.sum(dim=1)          # stage-2 sum of the per-program partials
     return dx, dwdb[0], dwdb[1]
 
 

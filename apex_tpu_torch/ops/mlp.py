@@ -6,8 +6,10 @@ Port of ``apex_tpu/ops/mlp.py``. Kernel replaced (source under
 - ``mlp_fwd_kernel`` (``mlp_fwd.cu``) ← ``_mlp_kernel`` (the pallas_call in
   ``_fused_mlp_fwd_impl``): ``act(…act(x·W₀ + b₀)·W₁ + b₁…)`` in f32
   throughout, one cast to x's dtype at the end. A block keeps its 16
-  rows' activations in shared memory through every layer; a width too
-  large for that runs one launch per layer over an f32 workspace.
+  rows' activations in shared memory through every layer, computes 4 rows
+  x up to 4 columns a thread and stages the weights through shared memory
+  with ``cp.async``; a width too large for that runs one launch per layer
+  over an f32 workspace.
 
 As in the JAX package, the kernel is taken only when the weights fit its
 budget (``WEIGHT_BUDGET``: the weights' element count at 4 bytes each,
@@ -25,7 +27,9 @@ The parameters keep the JAX layout: ``weight_i`` is (Dᵢ, Dᵢ₊₁), not
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
+import struct
 from typing import Sequence
 
 import torch
@@ -36,8 +40,9 @@ from apex_tpu_torch.ops import _build
 #: bytes of f32 weights the kernel takes (``_VMEM_WEIGHT_BUDGET``)
 WEIGHT_BUDGET = 8 << 20
 #: widest layer (rounded up to 4) the fused kernel keeps in shared memory:
-#: two f32 buffers of its 16 rows within the 227 KB opt-in (``kMaxLd``)
-FUSED_MAX_WIDTH = 1816
+#: two f32 buffers of its 16 rows beside its two 32 KB weight stages,
+#: within the 227 KB opt-in (``kMaxLd``)
+FUSED_MAX_WIDTH = 1284
 #: layers one launch of the fused kernel runs (``kMaxLayers``)
 MAX_LAYERS = 32
 
@@ -104,26 +109,36 @@ def mlp_fused_reference(x, weights, biases=None, activation="relu"):
 
 # --- the CUDA kernel ----------------------------------------------------------
 
+#: ``MlpCall`` of ``csrc/mlp_fwd.cu``, field by field, every field 64 bits;
+#: the layers' weight and bias addresses and widths follow it.
+MLP_CALL_FIELDS = ("x", "y", "ws", "n", "layers", "x_dtype", "w_dtype",
+                   "b_dtype", "act")
+_MLP_CALL = struct.Struct(f"<{len(MLP_CALL_FIELDS)}q")
+
+
+@functools.lru_cache(maxsize=None)
 def _lib():
-    """The C entry point ``apex_mlp_fwd`` of ``csrc/mlp_fwd.cu``."""
+    """The C entry point ``apex_mlp_fwd(const MlpCall*, stream)``."""
     fn = _build.load("mlp_fwd").apex_mlp_fwd
-    if fn.argtypes is None:
-        P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [P, P, P, ctypes.POINTER(P), ctypes.POINTER(P),
-                       ctypes.POINTER(I), I, I, I, I, I, I, P,
-                       ctypes.POINTER(I)]
-        fn.restype = I
+    fn.argtypes = [ctypes.c_char_p, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
     return fn
+
+
+def _launches(dims) -> int:
+    """Launches of one call: one per ``MAX_LAYERS`` layers while every
+    width (rounded up to 4) fits the fused kernel, else one per layer."""
+    layers = len(dims) - 1
+    if -(-max(dims) // 4) * 4 <= FUSED_MAX_WIDTH:
+        return -(-layers // MAX_LAYERS)
+    return layers
 
 
 def _workspace_cols(dims) -> int:
     """f32 columns of the (n, ·) workspace the launch plan needs: two
     buffers of the widest hidden layer when the layers run in more than one
-    launch (one launch per layer past ``FUSED_MAX_WIDTH``, one per
-    ``MAX_LAYERS`` layers below it), else none."""
-    layers = len(dims) - 1
-    fused = -(-max(dims) // 4) * 4 <= FUSED_MAX_WIDTH
-    if layers == 1 or (fused and layers <= MAX_LAYERS):
+    launch (:func:`_launches`), else none."""
+    if _launches(dims) == 1:
         return 0
     return 2 * max(dims[1:-1])
 
@@ -164,19 +179,16 @@ def mlp_fwd_kernel(x, weights, biases=None, activation="relu"):
     ws = (torch.empty((n, ws_cols), dtype=torch.float32, device=x.device)
           if ws_cols else None)
     L = len(weights)
-    wp = (ctypes.c_void_p * L)(*[w.data_ptr() for w in weights])
-    bp = None if biases is None else \
-        (ctypes.c_void_p * L)(*[b.data_ptr() for b in biases])
-    dp = (ctypes.c_int * (L + 1))(*dims)
-    launches = ctypes.c_int(0)
-    err = _lib()(x.data_ptr(), y.data_ptr(),
-                 None if ws is None else ws.data_ptr(), wp, bp, dp, L, n,
-                 _DTYPES[x.dtype], _DTYPES[weights[0].dtype],
-                 0 if biases is None else _DTYPES[biases[0].dtype],
-                 _ACT_CODES[activation], _build.stream_ptr(x),
-                 ctypes.byref(launches))
-    _build.check(err, "mlp_fwd")
-    mlp_fwd_kernel.launches += launches.value
+    call = _MLP_CALL.pack(
+        x.data_ptr(), y.data_ptr(), 0 if ws is None else ws.data_ptr(), n, L,
+        _DTYPES[x.dtype], _DTYPES[weights[0].dtype],
+        0 if biases is None else _DTYPES[biases[0].dtype],
+        _ACT_CODES[activation]) + struct.pack(
+        f"<{3 * L + 1}q", *[w.data_ptr() for w in weights],
+        *([b.data_ptr() for b in biases] if biases is not None else [0] * L),
+        *dims)
+    _build.check(_lib()(call, _build.stream_ptr(x)), "mlp_fwd")
+    mlp_fwd_kernel.launches += _launches(dims)
     return y
 
 

@@ -25,11 +25,12 @@ plain PyTorch version on the card at the shapes its main path gives it
   attention kernel at BERT's shape, as is and with padding and dropout
   0.1, are held bitwise equal; the attention rows are timed by device
   time too (the profiler's kernel time, ``device_ms``), beside SDPA's,
-  and so is every other row timed against a library call. The CUDA
-  LayerNorm forward is held against its plain version on every path
-  (ragged, off 16 bytes, f32, fp16, staged and streamed rows), the CUDA
-  BN sums' dr bit for bit and its ReLU mask by its counts, and two
-  launches of each bitwise equal.
+  and so is every other row. The CUDA LayerNorm forward and backward
+  are held against their plain versions on every path (ragged, off 16
+  bytes, f32, fp16, no affine, staged and streamed rows; the backward
+  also below its grid), the CUDA BN sums' dr bit for bit and its ReLU
+  mask by its counts, and two launches of each bitwise equal (the
+  backward in dx, dγ and dβ).
 - BERT-Large trains 5 steps with ``FusedNovoGrad(lr=1e-3, betas=(0.95,
   0.98), eps=1e-8, weight_decay=1e-3)`` and 5 with ``FusedAdagrad(lr=1e-2,
   weight_decay=1e-4)`` on the arena (phases bert_large_novograd and
@@ -57,7 +58,8 @@ plain PyTorch version on the card at the shapes its main path gives it
   (phase mlp_fallback); one step is compared through the kernels and the
   plain versions (phase mlp_plain_vs_kernel). The kernel phase holds
   ``mlp_fwd`` against its plain version at the path's shape, the budget's
-  edge and a ragged shape, and on its per-layer and multi-launch plans.
+  edge and a ragged shape (two launches of each bitwise equal), and on
+  its per-layer and multi-launch plans.
 - DCGAN (B128, 64x64, generator nz 100 / ngf 64, discriminator ndf 64,
   amp O1 bf16 under ``auto_cast``, two ``FusedAdam(lr=2e-4, betas=(0.5,
   0.999))`` bundles, three scaled backwards a step) trains 20 steps with
@@ -160,7 +162,7 @@ EXTRA_ROWS = {
 HASH_OPS = 20
 SOURCES = {
     "layer_norm_fwd": ("cuda", "apex_tpu_torch/csrc/layer_norm_fwd.cu"),
-    "layer_norm_bwd": ("triton", "apex_tpu_torch/ops/layer_norm.py"),
+    "layer_norm_bwd": ("cuda", "apex_tpu_torch/csrc/layer_norm_bwd.cu"),
     "xentropy_fwd": ("triton", "apex_tpu_torch/ops/xentropy.py"),
     "xentropy_bwd": ("triton", "apex_tpu_torch/ops/xentropy.py"),
     "flash_attn_fwd": ("cuda", "apex_tpu_torch/csrc/flash_attn_fwd.cu"),
@@ -480,6 +482,7 @@ def check_kernels(rows):
         lib_dev_ms=device_ms(library, flush=flush))
     del xg, yl
     check_ln_paths(rnd)
+    check_ln_bwd_paths(rnd)
 
     # --- cross-entropy: (8192, 30522) bf16, labels with -1, eps 0 and 0.1
     n, v = 8192, 30522
@@ -532,6 +535,7 @@ def check_kernels(rows):
     check_arena_remainder(rnd, flush, row)
     check_bn_kernels(rnd, flush, row)
     check_norm_determinism(rnd)
+    check_ln_bwd_determinism(rnd)
     check_sgd_kernel(rnd, flush, row)
     check_adam_kernel(rnd, flush, row)
     check_mlp_kernel(rnd, flush, row)
@@ -1082,6 +1086,70 @@ def check_norm_determinism(rnd):
         "two launches of each bitwise equal (y; sums, dr)")
 
 
+def check_ln_bwd_paths(rnd):
+    """The LayerNorm backward kernel on every path of its plan against the
+    plain version: 16-byte vectors (bf16 at 1024 and 2048, f32 rows of
+    512 and 768, a ragged H = 1000), one element a load (H = 300, bases
+    off 16 bytes), fp16 without affine params, bf16 weights, n below the
+    grid (5 rows, one block) and just past a block a warp row, a block a
+    row staged in shared memory (H = 4096 and 8192) and read from device
+    memory (f32, H = 70000). dγ and dβ within TOL32 of the plain sums."""
+    import torch
+    from apex_tpu_torch.ops import layer_norm as L
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    cases = [((300, 1000), bf16, f32), ((257, 512), f32, f32),
+             ((100, 768), f32, f32), ((512, 300), bf16, f32),
+             ((33, 1024), f16, None), ((64, 1024), bf16, bf16),
+             ((50, 2048), bf16, f32), ((5, 1024), bf16, f32),
+             ((2049, 1024), bf16, f32), ((9, 4096), bf16, f32),
+             ((6, 8192), bf16, f32), ((3, 70000), f32, f32),
+             ((40, 1500), f32, None)]
+    paths = set()
+    for (n, h), dt, wdt in cases:
+        x = (rnd(n, h, dtype=f32, std=2.0) + 0.5).to(dt)
+        g = rnd(n, h, dtype=dt)
+        w = None if wdt is None else (rnd(h, dtype=f32, std=0.2) + 1).to(wdt)
+        outs = [L.ln_bwd_kernel(g, x, w, 1e-5), L.ln_bwd_plain(g, x, w, 1e-5)]
+        compare(f"layer_norm_bwd {n}x{h} {dt} weights {wdt}",
+                *[o if w is not None else o[:1] for o in outs])
+        paths.add(L._ln_bwd_plan(n, h, x.element_size(), True)[0])
+    off = [((128, 1024), bf16), ((64, 300), f32), ((32, 1000), f32)]
+    for (n, h), dt in off:
+        x = rnd(n * h + 1, dtype=dt)[1:].view(n, h)
+        g = rnd(n * h + 1, dtype=dt)[1:].view(n, h)
+        w = rnd(h, dtype=f32) + 1.0
+        compare(f"layer_norm_bwd {n}x{h} {dt} off 16 bytes",
+                L.ln_bwd_kernel(g, x, w, 1e-5), L.ln_bwd_plain(g, x, w, 1e-5))
+        paths.add(L._ln_bwd_plan(n, h, x.element_size(), False)[0])
+    if paths != {L._SCALAR, L._VECTOR, L._STAGED, L._STREAMED}:
+        raise AssertionError(f"layer_norm_bwd: paths checked {paths}")
+    log(f"phase kernels: layer_norm bwd agrees with the plain version on "
+        f"{len(cases) + len(off)} more shapes (every path: vector, scalar, "
+        f"staged, streamed; bf16, f32, fp16; no affine; off 16 bytes; n "
+        f"below the grid)")
+
+
+def check_ln_bwd_determinism(rnd):
+    """Two launches of the LayerNorm backward bitwise equal in dx, dγ and
+    dβ at BERT's (8192, 1024) bf16, a ragged (300, 1000) and a block a row
+    (9, 4096): the blocks' rows and the order of every sum are fixed by
+    the shape."""
+    import torch
+    from apex_tpu_torch.ops import layer_norm as L
+    for n, h in ((8192, 1024), (300, 1000), (9, 4096)):
+        x = rnd(n, h, std=2.0) + 0.5
+        g = rnd(n, h)
+        w = rnd(h, dtype=torch.float32, std=0.2) + 1.0
+        one, two = L.ln_bwd_kernel(g, x, w, 1e-5), L.ln_bwd_kernel(g, x, w,
+                                                                   1e-5)
+        for name, a, b in zip(("dx", "dgamma", "dbeta"), one, two):
+            if not torch.equal(a, b):
+                raise AssertionError(f"layer_norm_bwd {n}x{h}: two launches "
+                                     f"differ in {name}")
+    log("phase kernels: layer_norm bwd: two launches bitwise equal in dx, "
+        "dgamma and dbeta (8192x1024, 300x1000, 9x4096)")
+
+
 def check_sgd_kernel(rnd, flush, row):
     """The SGD kernel against its plain version: every flag on a ragged
     arena of an f32 and a bf16 partition (the f32 one with a bf16
@@ -1124,19 +1192,23 @@ def check_sgd_kernel(rnd, flush, row):
                   K.sgd_plain(p, g, m, s, False, False), TOL_ARENA)
     log(f"phase kernels: sgd agrees with the plain version (ResNet-50 "
         f"buffer of {n} elements, ragged bf16 + f32, every flag)")
-    ms = timed(lambda: K.sgd_kernel(p, g, m, s, False, False), flush=flush)
+    kernel = lambda: K.sgd_kernel(p, g, m, s, False, False)  # noqa: E731
+    ms = timed(kernel, flush=flush)
     plain = timed(lambda: K.sgd_plain(p, g, m, s, False, False), flush=flush)
     lists = [list(arena.unflatten({"float32": t.clone()}, rspec).values())
              for t in (p, g, m)]
+    library = lambda: torch._fused_sgd_(  # noqa: E731
+        *lists, weight_decay=0.0, momentum=0.9, lr=0.1, dampening=0.0,
+        nesterov=False, maximize=False, is_first_step=False)
     try:
-        lib = timed(lambda: torch._fused_sgd_(
-            *lists, weight_decay=0.0, momentum=0.9, lr=0.1, dampening=0.0,
-            nesterov=False, maximize=False, is_first_step=False), flush=flush)
+        lib = timed(library, flush=flush)
+        lib_dev = device_ms(library, flush=flush)
     except (RuntimeError, TypeError, AttributeError) as e:
-        lib = None
+        lib = lib_dev = None
         log(f"kernel sgd: library null: torch._fused_sgd_ did not run: {e}")
     row("sgd", err, ms, plain, lib, nbytes=20 * n, flops=6 * n,
-        peak=F32_FLOPS)
+        peak=F32_FLOPS, dev_ms=device_ms(kernel, flush=flush),
+        lib_dev_ms=lib_dev)
 
 
 def check_adam_kernel(rnd, flush, row):
@@ -1224,10 +1296,11 @@ def check_mlp_kernel(rnd, flush, row):
     and bf16 weights as O2 gives them: the JSON row), the budget's edge
     (B8192 x [1024, 1024, 1024] f32, exactly 8 MiB of weights, which <=
     admits) and compile_check's ragged [224, 200, 136, 10] at 96 rows
-    (f32, sigmoid, no bias). Then, compared only: a layer too wide for the
-    fused kernel (one launch per layer over the f32 workspace) and 40
-    layers (two fused launches), fp16, and x, weights and biases of
-    different dtypes, each with its launch count."""
+    (f32, sigmoid, no bias), each also held bitwise equal to a second
+    launch. Then, compared only: a layer too wide for the fused kernel
+    (one launch per layer over the f32 workspace) and 40 layers (two fused
+    launches), fp16, and x, weights and biases of different dtypes, each
+    with its launch count."""
     import torch
     from apex_tpu_torch.ops import mlp as P
 
@@ -1245,13 +1318,15 @@ def check_mlp_kernel(rnd, flush, row):
                                or not P.weights_fit(ws)):
             raise AssertionError("the edge case must hold exactly 8 MiB")
         before = P.mlp_fwd_kernel.launches
-        err = compare(f"mlp_fwd {name} {n}x{dims} {dt}",
-                      [P.mlp_fwd_kernel(x, ws, bs, act)],
-                      [P.mlp_fused_reference(x, ws, bs, act)], 1e-4)
+        out = P.mlp_fwd_kernel(x, ws, bs, act)
         if P.mlp_fwd_kernel.launches - before != 1:
             raise AssertionError(f"mlp_fwd {name}: "
                                  f"{P.mlp_fwd_kernel.launches - before} "
                                  f"launches, expected 1")
+        err = compare(f"mlp_fwd {name} {n}x{dims} {dt}", [out],
+                      [P.mlp_fused_reference(x, ws, bs, act)], 1e-4)
+        if not torch.equal(out, P.mlp_fwd_kernel(x, ws, bs, act)):
+            raise AssertionError(f"mlp_fwd {name}: two launches differ")
         ms = timed(lambda: P.mlp_fwd_kernel(x, ws, bs, act), flush=flush)
         plain = timed(lambda: P.mlp_fused_reference(x, ws, bs, act),
                       flush=flush)
@@ -1297,8 +1372,9 @@ def check_mlp_kernel(rnd, flush, row):
             raise AssertionError(f"mlp_fwd {name}: {got} launches, expected "
                                  f"{want}")
     log(f"phase kernels: mlp_fwd agrees with the plain version (path, edge, "
-        f"ragged; a layer past the fused width: 2 launches; 40 layers: 2; "
-        f"x, weights and biases of three dtypes) in "
+        f"ragged, each two launches bitwise equal; a layer past the fused "
+        f"width: 2 launches; 40 layers: 2; x, weights and biases of three "
+        f"dtypes) in "
         f"{time.perf_counter() - t0:.1f} s")
 
 
@@ -1371,16 +1447,17 @@ def check_arena_kernels(rnd, flush, row):
     row("multi_tensor_l2norm", l2_err, ms, plain, lib, nbytes=4 * n,
         flops=2 * n, peak=F32_FLOPS, dev_ms=device_ms(kernel, flush=flush),
         lib_dev_ms=device_ms(library, flush=flush))
-    ms = timed(lambda: K.lamb_stage1_kernel(p, g, m, v, s1, True),
-               flush=flush)
+    kernel = lambda: K.lamb_stage1_kernel(p, g, m, v, s1, True)  # noqa: E731
+    ms = timed(kernel, flush=flush)
     plain = timed(lambda: K.lamb_stage1_plain(p, g, m, v, s1, True),
                   flush=flush)
     row("lamb_stage1", s1_err, ms, plain, None, nbytes=28 * n,
-        flops=15 * n, peak=F32_FLOPS)
-    ms = timed(lambda: K.lamb_stage2_kernel(p, u, r, s2), flush=flush)
+        flops=15 * n, peak=F32_FLOPS, dev_ms=device_ms(kernel, flush=flush))
+    kernel = lambda: K.lamb_stage2_kernel(p, u, r, s2)  # noqa: E731
+    ms = timed(kernel, flush=flush)
     plain = timed(lambda: K.lamb_stage2_plain(p, u, r, s2), flush=flush)
     row("lamb_stage2", s2_err, ms, plain, None, nbytes=16 * n,
-        flops=3 * n, peak=F32_FLOPS)
+        flops=3 * n, peak=F32_FLOPS, dev_ms=device_ms(kernel, flush=flush))
 
 
 def _check_flagged(name, got, want):
@@ -1510,13 +1587,15 @@ def check_arena_remainder(rnd, flush, row):
     lists = [list(arena.unflatten({"float32": t.clone()}, bspec).values())
              for t in (p, g, h)]
     steps = [torch.full((), 3.0, device=dev) for _ in lists[0]]
+    ada = lambda: torch._fused_adagrad_(  # noqa: E731
+        *lists, steps, lr=1e-2, lr_decay=0.0, weight_decay=1e-4,
+        eps=1e-10, maximize=False)
     try:
-        ada_lib = timed(lambda: torch._fused_adagrad_(
-            *lists, steps, lr=1e-2, lr_decay=0.0, weight_decay=1e-4,
-            eps=1e-10, maximize=False), flush=flush)
+        ada_lib = timed(ada, flush=flush)
+        ada_lib_dev = device_ms(ada, flush=flush)
     except (RuntimeError, TypeError, AttributeError,
             NotImplementedError) as e:
-        ada_lib = None
+        ada_lib = ada_lib_dev = None
         log(f"kernel adagrad: library null: torch._fused_adagrad_ did not "
             f"run on CUDA: {str(e).splitlines()[0]}")
     del lists, steps
@@ -1543,12 +1622,11 @@ def check_arena_remainder(rnd, flush, row):
         plain_ms = timed(plain, flush=flush)
         lib_ms = ada_lib if name == "adagrad" else (
             None if lib is None else timed(lib, flush=flush))
-        # device time for the tie with its library call (row 15d)
-        dev = ({"dev_ms": device_ms(kernel, flush=flush),
-                "lib_dev_ms": device_ms(lib, flush=flush)}
-               if name == "multi_tensor_maxnorm" else {})
+        lib_dev = ada_lib_dev if name == "adagrad" else (
+            None if lib is None else device_ms(lib, flush=flush))
         row(name, errs[name], ms, plain_ms, lib_ms, nbytes=nbytes,
-            flops=flops, peak=F32_FLOPS, **dev)
+            flops=flops, peak=F32_FLOPS,
+            dev_ms=device_ms(kernel, flush=flush), lib_dev_ms=lib_dev)
 
 
 def train_bert_large(phase, rows, strategy="auto", optimizer=None,
@@ -2432,9 +2510,9 @@ def fp16_overflow_run():
 def _instance_name(mangled):
     """A readable name for an instance of the port's CUDA kernels:
     ``flash_fwd<bf16, D=64, opts=0>``, ``ln_fwd_warp<bf16, CH=8, NC=4>``,
-    ``ln_fwd_block<f32, staged=1>``, ``bn_sums<bf16 x8, relu>`` (``scalar``
-    on the path of one element a thread); other kernels keep their mangled
-    name."""
+    ``ln_bwd_block<f32, staged=1>``, ``bn_sums<bf16 x8, relu>`` (``scalar``
+    on the path of one element a thread), ``mlp_fused<bf16>``; other
+    kernels keep their mangled name."""
     import re
     dt = {"13__nv_bfloat16": "bf16", "6__half": "fp16", "f": "f32"}
     t = r"(13__nv_bfloat16|6__half|f)"
@@ -2443,13 +2521,16 @@ def _instance_name(mangled):
     if f:
         kind = "bf16" if "bfloat" in f.group(2) else "fp16"
         return f"{f.group(1)}<{kind}, D={f.group(3)}, opts={f.group(4)}>"
-    f = re.search(rf"ln_fwd_warpI{t}Li(\d+)ELi(\d+)E", mangled)
+    f = re.search(rf"(ln_(?:fwd|bwd)_warp)I{t}Li(\d+)ELi(\d+)E", mangled)
     if f:
-        return (f"ln_fwd_warp<{dt[f.group(1)]}, CH={f.group(2)}, "
-                f"NC={f.group(3)}>")
-    f = re.search(rf"ln_fwd_blockI{t}Lb([01])E", mangled)
+        return (f"{f.group(1)}<{dt[f.group(2)]}, CH={f.group(3)}, "
+                f"NC={f.group(4)}>")
+    f = re.search(rf"(ln_(?:fwd|bwd)_block)I{t}Lb([01])E", mangled)
     if f:
-        return f"ln_fwd_block<{dt[f.group(1)]}, staged={f.group(2)}>"
+        return f"{f.group(1)}<{dt[f.group(2)]}, staged={f.group(3)}>"
+    f = re.search(rf"(mlp_(?:fused|layer))I{t}E", mangled)
+    if f:
+        return f"{f.group(1)}<{dt[f.group(2)]}>"
     f = re.search(rf"bn_sumsINS_(?:5Vec16I{t}E|6Scalar)ELi([012])E",
                   mangled)
     if f:

@@ -18,7 +18,8 @@ flat-arena kernels)
 on one CUDA device, warms it up, then traces ``--steps`` steps with
 ``torch.profiler`` and prints one JSON object: the step's wall time, the
 device kernel time summed by category (the port's kernels, the BN
-backward's two apart, convolutions,
+backward's two apart, the LayerNorm's forward and backward apart,
+convolutions,
 GEMMs, dtype casts, other elementwise and reduction kernels, the plain BN
 forward of ResNet-50, DCGAN's BatchNorm forward and backward, and the
 rest), the device idle share of the traced window, the top kernels by
@@ -37,7 +38,8 @@ import time
 
 _CATEGORIES = (
     ("flash_attn", ("flash_fwd", "flash_bwd")),
-    ("layer_norm", ("ln_fwd_warp<", "ln_fwd_block<", "_ln_bwd_triton")),
+    ("layer_norm", ("ln_fwd_warp<", "ln_fwd_block<", "ln_bwd_warp<",
+                    "ln_bwd_block<")),
     ("xentropy", ("_ce_fwd_triton", "_ce_bwd_triton")),
     ("arena_lamb", ("_l2norm_partials_triton", "_l2norm_finish_triton",
                     "_lamb_stage1_triton", "_lamb_stage2_triton")),
@@ -206,11 +208,17 @@ def main() -> int:
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and e.name not in (BN_FWD, BATCH_NORM)]
-    by_cat, by_name = {}, {}
+    by_cat, by_name, ln_parts = {}, {}, {}
     for e in kernels:
         us = e.time_range.elapsed_us()
-        by_cat[_category(e.name)] = by_cat.get(_category(e.name), 0.0) + us
+        cat = _category(e.name)
+        by_cat[cat] = by_cat.get(cat, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
+        if cat == "layer_norm":     # the forward and backward apart
+            part = "ln_bwd" if "ln_bwd_" in e.name else "ln_fwd"
+            ln_parts[part] = ln_parts.get(part, [0.0, 0])
+            ln_parts[part][0] += us
+            ln_parts[part][1] += 1
     busy_ms = sum(by_cat.values()) / 1e3
     by_cat = {k: v / 1e3 for k, v in by_cat.items()}
     region, backward = {"resnet50": (BN_FWD, False),
@@ -238,6 +246,9 @@ def main() -> int:
         "by_category_ms_per_step": {
             k: None if v is None else v / args.steps
             for k, v in sorted(by_cat.items())},
+        "layer_norm_ms_and_kernels_per_step": {
+            k: [us / 1e3 / args.steps, n / args.steps]
+            for k, (us, n) in sorted(ln_parts.items())},
         "top_kernels_ms_per_step": [
             [n[:90], v / 1e3 / args.steps] for n, v in
             sorted(by_name.items(), key=lambda kv: -kv[1])[:15]],

@@ -1,24 +1,26 @@
 #!/usr/bin/env python3
-"""LayerNorm forward and BN channel sums: this checkout's CUDA kernels
-against another checkout's wrappers, in one process on one card.
+"""LayerNorm forward and backward and BN channel sums: this checkout's CUDA
+kernels against another checkout's wrappers, in one process on one card.
 
     python3 scripts/torch_norm_ab.py --parent DIR [--out PATH]
 
-``DIR`` holds another checkout's ``apex_tpu_torch/ops/layer_norm.py`` and
-``bn_act.py`` (for example ``git archive <commit> apex_tpu_torch | tar -x
--C DIR``); their ``ln_fwd_kernel`` and ``bn_sums_kernel`` are loaded from
-there, beside this checkout's. First every shape and option of the two new
-kernels is held against the plain versions (TOL16 / TOL32 of chip_smoke.py;
-the "addrelu" dr bit for bit; the "relu" mask through its count, Σg with g
-= 1, exactly); then two launches of each are held bitwise equal; then both
+``DIR`` holds another checkout's ``apex_tpu_torch`` package (for example
+``git archive <commit> apex_tpu_torch | tar -x -C DIR``); its
+``ln_fwd_kernel``, ``ln_bwd_kernel`` and ``bn_sums_kernel`` are loaded from
+there, with its own ``ops/_build.py`` (its CUDA sources build into
+``DIR/build``), beside this checkout's. First every shape and option of
+this checkout's kernels is held against the plain versions (TOL16 / TOL32
+of chip_smoke.py; the "addrelu" dr bit for bit; the "relu" mask through its
+count, Σg with g = 1, exactly; the LayerNorm backward on every path of its
+plan); then two launches of each are held bitwise equal; then both
 checkouts' kernels are timed in turns (other, this, this, other) at the
 main paths' shapes, by CUDA events (``chip_smoke.timed``) and by device
-time (``chip_smoke.device_ms``), beside ``F.layer_norm`` and
-``torch.batch_norm_backward_reduce`` and the data-sheet byte bound. Prints
-one JSON object (and writes it to ``--out``); the host time of a call is
-also measured (``host_us``: calls enqueued behind a spin kernel), and the
-LayerNorm row is timed beside a copy of the same bytes. Needs a CUDA
-device.
+time (``chip_smoke.device_ms``), beside ``F.layer_norm`` (and its
+autograd), ``torch.batch_norm_backward_reduce`` and the data-sheet byte
+bound. Prints one JSON object (and writes it to ``--out``); the host time
+of a call is also measured (``host_us``: calls enqueued behind a spin
+kernel), and the LayerNorm forward is timed beside a copy of the same
+bytes. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -40,6 +42,22 @@ def _load(path, name):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def load_parent(parent, names):
+    """Op modules ``names`` of the checkout at ``parent``, each bound to
+    that checkout's own ``_build`` (its sources, its build directory), so
+    two versions of a CUDA entry point never share a library."""
+    import apex_tpu_torch.ops as ops
+    ops_dir = os.path.join(os.path.abspath(parent), "apex_tpu_torch", "ops")
+    build = _load(os.path.join(ops_dir, "_build.py"), "other__build")
+    saved = ops._build
+    ops._build = build      # what ``from apex_tpu_torch.ops import _build``
+    try:                    # finds while the modules execute
+        return build, [_load(os.path.join(ops_dir, f"{n}.py"), f"other_{n}")
+                       for n in names]
+    finally:
+        ops._build = saved
 
 
 def check_layer_norm(rnd, L):
@@ -203,10 +221,8 @@ def main() -> int:
     import chip_smoke
     from apex_tpu_torch.ops import _build, bn_act as B, layer_norm as L
 
-    ops_dir = os.path.join(os.path.abspath(args.parent), "apex_tpu_torch",
-                           "ops")
-    PL = _load(os.path.join(ops_dir, "layer_norm.py"), "other_layer_norm")
-    PB = _load(os.path.join(ops_dir, "bn_act.py"), "other_bn_act")
+    other_build, (PL, PB) = load_parent(args.parent,
+                                        ("layer_norm", "bn_act"))
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
@@ -215,7 +231,9 @@ def main() -> int:
     libs = _build.build_all()
     out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi,
            "build_s": time.perf_counter() - t0}
+    other_build.build_all()
     mine = {k: v for k, v in libs.items() if k in ("layer_norm_fwd",
+                                                    "layer_norm_bwd",
                                                     "bn_sums")}
     chip_smoke.echo_ptxas(mine)
     if args.out:     # the whole ptxas logs beside the JSON
@@ -230,9 +248,12 @@ def main() -> int:
     out["ln_cases"] = check_layer_norm(rnd, L)
     out["bn_cases"] = check_bn_sums(rnd, B)
     check_determinism(rnd, L, B)
-    print(f"checks: {out['ln_cases']} LayerNorm and {out['bn_cases']} "
-          f"bn_sums cases agree with the plain versions; two launches of "
-          f"each bitwise equal", flush=True)
+    chip_smoke.check_ln_bwd_paths(rnd)
+    chip_smoke.check_ln_bwd_determinism(rnd)
+    print(f"checks: {out['ln_cases']} LayerNorm forward and "
+          f"{out['bn_cases']} bn_sums cases and every path of the LayerNorm "
+          f"backward agree with the plain versions; two launches of each "
+          f"bitwise equal", flush=True)
 
     f32, bf16 = torch.float32, torch.bfloat16
     x = rnd(8192, 1024, std=2.0)
@@ -248,7 +269,18 @@ def main() -> int:
     print(f"  F.layer_norm {rec['library']}; copy {rec['copy']}", flush=True)
     rec["bound_ms"] = (2 * x.numel() * 2 + 2 * 1024 * 4) / \
         chip_smoke.HBM_BYTES_PER_S * 1e3
-    del x
+    g = rnd(8192, 1024)
+    rec = turns("layer_norm_bwd (8192, 1024) bf16",
+                lambda: PL.ln_bwd_kernel(g, x, w, 1e-5),
+                lambda: L.ln_bwd_kernel(g, x, w, 1e-5), flush, out)
+    xg, wg, bg = (t.detach().requires_grad_(True) for t in (x, wl, bl))
+    yl = F.layer_norm(xg, (1024,), wg, bg, 1e-5)
+    rec["library"] = measure(lambda: torch.autograd.grad(
+        yl, (xg, wg, bg), g, retain_graph=True), flush)
+    print(f"  autograd of F.layer_norm {rec['library']}", flush=True)
+    rec["bound_ms"] = (3 * x.numel() * 2 + 3 * 1024 * 4) / \
+        chip_smoke.HBM_BYTES_PER_S * 1e3
+    del x, g, xg, yl
 
     for (m, c), modes, hw in (((3211264, 64), ("plain", "relu"), 112),
                               ((802816, 256), ("addrelu",), 56),

@@ -332,8 +332,8 @@ def test_auto_cast_passes_the_module_through(xdt):
 @pytest.mark.parametrize("dims,cols", [
     ([13, 512, 256, 128], 0),            # one fused launch
     ([64, 32], 0),                       # one layer
-    ([1816, 8, 1816], 0),                # the widest the fused kernel holds
-    ([1817, 8, 4], 16),                  # past it: a launch per layer
+    ([1284, 8, 1284], 0),                # the widest the fused kernel holds
+    ([1285, 8, 4], 16),                  # past it: a launch per layer
     ([96, 4096, 48], 8192),
     ([64] * 33, 0),                      # 32 layers: one launch
     ([64] * 41, 128),                    # 40: two launches

@@ -1,17 +1,22 @@
-"""The Hopper LayerNorm forward and BN channel-sums kernels, on the CPU.
+"""The Hopper LayerNorm forward and backward and BN channel-sums kernels,
+on the CPU.
 
-The kernels (``csrc/layer_norm_fwd.cu``, ``csrc/bn_sums.cu``) build and run
-only on the card, where chip_smoke.py holds them against their plain
-versions, checks two launches bitwise equal and times them by device time.
-Here: each source exports the entry point its wrapper binds, with the
-argument struct the wrapper packs; the loads are 16-byte vectors; the sums
-form their masks with rounded f32 operations and add their partials
-without float atomics; the launch plans are pure functions of the shape
-(``_ln_plan``, ``_bn_sums_plan``), and a PyTorch model of the sums plan
-(block partials over the plan's rows, added in block order) computes the
-plain version's sums and dr, and the JAX package's Pallas sums kernel's.
-Also the profile script's categories and chip_smoke.py's checks and
-device-time fields for these rows.
+The kernels (``csrc/layer_norm_fwd.cu``, ``csrc/layer_norm_bwd.cu``,
+``csrc/bn_sums.cu``) build and run only on the card, where chip_smoke.py
+holds them against their plain versions, checks two launches bitwise equal
+and times them by device time. Here: each source exports the entry point
+its wrapper binds, with the argument struct the wrapper packs; the loads
+are 16-byte vectors; the sums form their masks with rounded f32 operations
+and add their partials without float atomics; the launch plans are pure
+functions of the shape (``_ln_plan``, ``_ln_bwd_plan``, ``_bn_sums_plan``)
+and cover every row once; a PyTorch model of the sums plan (block partials
+over the plan's rows, added in block order) computes the plain version's
+sums and dr, and the JAX package's Pallas sums kernel's; a PyTorch model
+of the LN backward's dγ/dβ plan (warp slabs in row order, block partials
+in warp order, group partials in block order, the result in group order)
+computes the plain version's and the JAX package's Pallas backward's
+(interpret mode). Also the profile script's categories and chip_smoke.py's
+checks and device-time fields for these rows.
 """
 
 import importlib.util
@@ -51,6 +56,8 @@ def _struct_fields(src, name):
 @pytest.mark.parametrize("name,entry,struct,fields,packer,last", [
     ("layer_norm_fwd.cu", "apex_ln_fwd", "LnCall", L.LN_CALL_FIELDS,
      L._LN_CALL, "double"),
+    ("layer_norm_bwd.cu", "apex_ln_bwd", "LnBwdCall", L.LN_BWD_CALL_FIELDS,
+     L._LN_BWD_CALL, "double"),
     ("bn_sums.cu", "apex_bn_sums", "SumsCall", B.SUMS_CALL_FIELDS,
      B._SUMS_CALL, "long long"),
 ])
@@ -78,9 +85,18 @@ def test_bn_sums_masks_are_rounded_and_no_float_atomics():
     assert "atomicAdd" not in (CSRC / "layer_norm_fwd.cu").read_text()
 
 
-@pytest.mark.parametrize("name", ["layer_norm_fwd.cu", "bn_sums.cu"])
-def test_sources_load_and_store_16_byte_vectors(name):
+def _with_headers(name):
+    """A source's text with the text of the repo headers it includes."""
     src = (CSRC / name).read_text()
+    for header in re.findall(r'#include "([^"]+)"', src):
+        src += (CSRC / header).read_text()
+    return src
+
+
+@pytest.mark.parametrize("name", ["layer_norm_fwd.cu", "bn_sums.cu",
+                                  "layer_norm_bwd.cu"])
+def test_sources_load_and_store_16_byte_vectors(name):
+    src = _with_headers(name)
     assert "__ldg(reinterpret_cast<const uint4*>(" in src
     assert "*reinterpret_cast<uint4*>(" in src
 
@@ -301,7 +317,8 @@ def _profile_script():
      "(anonymous namespace)::LnArgs)", "layer_norm"),
     ("void (anonymous namespace)::ln_fwd_block<float, true>("
      "(anonymous namespace)::LnArgs)", "layer_norm"),
-    ("_ln_bwd_triton", "layer_norm"),
+    ("void (anonymous namespace)::ln_bwd_warp<__nv_bfloat16, 8, 4>("
+     "(anonymous namespace)::LnBwdArgs)", "layer_norm"),
     ("void (anonymous namespace)::bn_sums<(anonymous namespace)::Vec16<"
      "__nv_bfloat16>, 2>((anonymous namespace)::SumsArgs)", "bn_sums"),
     ("void (anonymous namespace)::bn_sums<(anonymous namespace)::Scalar, 0>("
@@ -323,6 +340,15 @@ def test_profile_categories_name_the_cuda_kernels(kernel, category):
      "Li1EEEvNS_8SumsArgsE", "bn_sums<f32 x4, relu>"),
     ("_ZN43_GLOBAL__N__59a5b306_10_bn_sums_cu_60c800317bn_sumsINS_6ScalarE"
      "Li0EEEvNS_8SumsArgsE", "bn_sums<scalar, plain>"),
+    ("_ZN50_GLOBAL__N__214453cf_17_layer_norm_bwd_cu_1be0e6db11ln_bwd_warpI"
+     "13__nv_bfloat16Li8ELi4EEEvNS_9LnBwdArgsE",
+     "ln_bwd_warp<bf16, CH=8, NC=4>"),
+    ("_ZN50_GLOBAL__N__214453cf_17_layer_norm_bwd_cu_1be0e6db12ln_bwd_blockI"
+     "fLb0EEEvNS_9LnBwdArgsE", "ln_bwd_block<f32, staged=0>"),
+    ("_ZN43_GLOBAL__N__cccf732f_10_mlp_fwd_cu_5fa31bb59mlp_fusedI13__nv_"
+     "bfloat16EEvNS_9FusedArgsE", "mlp_fused<bf16>"),
+    ("_ZN43_GLOBAL__N__cccf732f_10_mlp_fwd_cu_5fa31bb59mlp_layerI6__halfEEvNS_"
+     "9LayerArgsE", "mlp_layer<fp16>"),
 ])
 def test_ptxas_report_names_the_new_instances(mangled, name):
     assert chip_smoke._instance_name(mangled) == name
@@ -357,10 +383,25 @@ def test_chip_smoke_rows_carry_device_time(fn, names):
 
 
 def test_chip_smoke_maxnorm_row_carries_device_time():
+    """Rows 15d-f and 15i-j: every row of the loop carries device_ms, and
+    library_device_ms where a library call exists (15d, 15e, 15i)."""
     src = inspect.getsource(chip_smoke.check_arena_remainder)
-    assert 'if name == "multi_tensor_maxnorm"' in src
-    assert '"dev_ms": device_ms(kernel' in src
-    assert '"lib_dev_ms": device_ms(lib' in src
+    assert "dev_ms=device_ms(kernel, flush=flush), lib_dev_ms=lib_dev" in src
+    assert "None if lib is None else device_ms(lib, flush=flush)" in src
+    assert "ada_lib_dev = device_ms(ada, flush=flush)" in src
+
+
+@pytest.mark.parametrize("fn,names,lib", [
+    ("check_arena_kernels", ["lamb_stage1", "lamb_stage2"], False),
+    ("check_sgd_kernel", ["sgd"], True),
+])
+def test_chip_smoke_remaining_rows_carry_device_time(fn, names, lib):
+    """Rows 15b-c (no library call) and 15h (``torch._fused_sgd_``)."""
+    src = inspect.getsource(getattr(chip_smoke, fn))
+    for name in names:
+        call = _row_call(src, name)
+        assert "dev_ms=device_ms(" in call, name
+        assert ("lib_dev_ms=" in call) == lib, name
 
 
 def test_chip_smoke_checks_the_new_kernels():
@@ -379,3 +420,140 @@ def test_chip_smoke_checks_the_new_kernels():
     assert "torch.equal(kdr, pdr)" in masks and "torch.ones_like(g)" in masks
     paths = inspect.getsource(chip_smoke.check_ln_paths)
     assert "(512, 300)" in paths and "[1:].view(n, h)" in paths
+
+
+# --- the LayerNorm backward --------------------------------------------------
+
+def test_ln_bwd_staged_bytes_are_the_sources():
+    src = (CSRC / "layer_norm_bwd.cu").read_text()
+    assert "kMaxStagedBwd = kMaxStaged - 8192;" in src
+    assert L._BWD_MAX_STAGED == L._MAX_STAGED - 8192
+
+
+def test_ln_bwd_has_no_float_atomics():
+    """The atomics are the integer tickets of the in-launch sum of the
+    partials (one a block, one a finisher); the last finisher sets both
+    counters back to 0; the finishers wait with an acquire load and a
+    watchdog."""
+    src = re.sub(r"//.*", "", (CSRC / "layer_norm_bwd.cu").read_text())
+    assert re.findall(r"atomicAdd\(([^,]+),", src) == [
+        "&a.counters[0]", "&a.counters[1]"]
+    assert "fence.acq_rel.gpu;" in src
+    assert "a.counters[0] = 0;" in src and "a.counters[1] = 0;" in src
+    assert "ld.acquire.gpu.global.b32" in src and "__trap()" in src
+    assert "__ldcg(" in src
+
+
+def test_the_ln_backward_is_cuda():
+    src = inspect.getsource(L)
+    assert not hasattr(L, "_ln_bwd_triton") and "_ln_bwd_triton" not in src
+    assert "triton" not in src.lower()
+    assert "part.sum(" not in inspect.getsource(L.ln_bwd_kernel)
+    assert 'load("layer_norm_bwd")' in inspect.getsource(L._ln_bwd_lib)
+
+
+LN_BWD_PLANS = [(n, h, itemsize, aligned)
+                for n in (1, 5, 7, 8, 9, 300, 2049, 8192, 12293)
+                for h in (1, 64, 300, 512, 1000, 1024, 2048, 4096, 70000)
+                for itemsize in (2, 4) for aligned in (False, True)]
+
+
+def test_ln_bwd_plan_covers_every_row_once():
+    """Every row belongs to one (block, warp) of the plan; at most 256
+    blocks (the finishers' 16 chunks of 16 partials); on the warp paths no
+    more blocks than runs of 8 rows; a staged row holds x and g."""
+    for n, h, itemsize, aligned in LN_BWD_PLANS:
+        path, epl, rows, blocks = L._ln_bwd_plan(n, h, itemsize, aligned)
+        assert (path, epl) == L._ln_plan(h, itemsize, aligned) or (
+            path == L._STREAMED and L._ln_plan(h, itemsize, aligned)[0]
+            == L._STAGED and 2 * h * itemsize > L._BWD_MAX_STAGED)
+        if path == L._STAGED:
+            assert 2 * h * itemsize <= L._BWD_MAX_STAGED
+        assert 1 <= blocks <= L._BWD_BLOCKS <= 16 * 16
+        assert (blocks - 1) * rows < n <= blocks * rows
+        warps = L._WARPS if path in (L._SCALAR, L._VECTOR) else 1
+        assert blocks <= -(-n // warps)
+        seen = np.zeros(n, dtype=np.int64)
+        for b in range(blocks):
+            for w in range(warps):
+                seen[b * rows + w:min(n, (b + 1) * rows):warps] += 1
+        assert (seen == 1).all()
+
+
+def test_ln_bwd_plan_at_bert_large():
+    """(8192, 1024) bf16: 256 blocks of 32 rows (4 a warp)."""
+    assert L._ln_bwd_plan(8192, 1024, 2, True) == (L._VECTOR, 32, 32, 256)
+    assert L._ln_bwd_plan(300, 1000, 2, True) == (L._VECTOR, 32, 8, 38)
+    assert L._ln_bwd_plan(5, 1024, 2, True)[2:] == (5, 1)
+
+
+def _ln_bwd_model(g2, x2, w, eps, itemsize):
+    """The kernel's dγ/dβ plan in PyTorch: each warp adds g·x̂ and g of its
+    rows (every 8th of its block's run; every row on the block paths) in
+    row order, the block adds its warps' sums in warp order, the finishers
+    add each chunk of 16 block partials in block order and the chunks'
+    sums in chunk order."""
+    n, h = x2.shape
+    path, _, rows, blocks = L._ln_bwd_plan(n, h, itemsize, True)
+    x, g = x2.float(), g2.float()
+    mean, var = L._moments(x)
+    xhat = (x - mean) * torch.rsqrt(var + eps)
+    terms = torch.cat([g * xhat, g], dim=1)
+    warps = L._WARPS if path in (L._SCALAR, L._VECTOR) else 1
+
+    def in_order(parts):
+        acc = torch.zeros(2 * h)
+        for p in parts:
+            acc = acc + p
+        return acc
+
+    partials = [in_order(in_order(terms[r] for r in range(
+        b * rows + w, min(n, (b + 1) * rows), warps)) for w in range(warps))
+        for b in range(blocks)]
+    out = in_order(in_order(partials[q:q + 16]) for q in range(0, blocks, 16))
+    return out[:h], out[h:]
+
+
+@pytest.mark.parametrize("n,h,itemsize", [(320, 1024, 2), (2100, 64, 2),
+                                          (300, 1000, 2), (257, 512, 4),
+                                          (9, 4096, 2)])
+def test_ln_bwd_model_matches_the_plain_version_and_jax(n, h, itemsize):
+    """BERT's width at a few hundred rows, 2100 narrow rows (234 blocks: 15
+    chunks of partials), a ragged 300 x 1000, f32 rows of 512 and a block a
+    row: the
+    model's dγ and dβ within 1e-5 of each output's largest magnitude of
+    ``ln_bwd_plain``'s and of the JAX ``_ln_backward``'s (interpret mode):
+    f32 sums in another order."""
+    rng = np.random.RandomState(n + h)
+    x = (rng.randn(n, h) * 2.0 + 0.5).astype(np.float32)
+    g = rng.randn(n, h).astype(np.float32)
+    w = (1.0 + 0.2 * rng.randn(h)).astype(np.float32)
+    got = _ln_bwd_model(torch.tensor(g), torch.tensor(x), torch.tensor(w),
+                        1e-5, itemsize)
+    _, pw, pb = L.ln_bwd_plain(torch.tensor(g), torch.tensor(x),
+                               torch.tensor(w), 1e-5)
+    _, jw, jb = JL._ln_backward(jnp.asarray(g), jnp.asarray(x),
+                                jnp.asarray(w), 1e-5)
+    for mine, refs in zip(got, ((pw, jw), (pb, jb))):
+        for ref in refs:
+            ref = np.asarray(ref, dtype=np.float32)
+            np.testing.assert_allclose(mine.numpy(), ref, rtol=0,
+                                       atol=1e-5 * np.abs(ref).max())
+    if n == 2100:
+        assert L._ln_bwd_plan(n, h, itemsize, True)[3] == 234
+
+
+def test_chip_smoke_checks_the_ln_backward():
+    assert chip_smoke.SOURCES["layer_norm_bwd"] == (
+        "cuda", "apex_tpu_torch/csrc/layer_norm_bwd.cu")
+    kernels = inspect.getsource(chip_smoke.check_kernels)
+    assert "check_ln_bwd_paths(rnd)" in kernels
+    assert "check_ln_bwd_determinism(rnd)" in kernels
+    paths = inspect.getsource(chip_smoke.check_ln_bwd_paths)
+    for shape in ("(300, 1000)", "(9, 4096)", "(6, 8192)", "(3, 70000)",
+                  "(5, 1024)", "[1:].view(n, h)"):
+        assert shape in paths, shape
+    assert "L._SCALAR, L._VECTOR, L._STAGED, L._STREAMED" in paths
+    det = inspect.getsource(chip_smoke.check_ln_bwd_determinism)
+    assert "torch.equal(a, b)" in det and '"dgamma", "dbeta"' in det
+    assert chip_smoke.EXPECTED_PER_STEP["layer_norm_bwd"] == 49
