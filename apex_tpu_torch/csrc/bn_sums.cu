@@ -43,15 +43,21 @@
 // - x̂ and the "relu" mask x̂·γ + β are formed with __fsub_rn, __fmul_rn and
 //   __fadd_rn: nvcc would contract a·b + c into one FMA, and the mask (and
 //   so dr) must equal the plain PyTorch version's bit for bit.
+// - fp8 residuals (the JAX package's _Cfg.fp8): x arrives as x̂ itself in
+//   e4m3 (dtype code 3) with the xhat flag, and is used as it is, with no
+//   centring. On the vector path its loads are V bytes (Fp8Vec) beside g's
+//   16: 3 bytes an element at a bf16 unit, against 4 for x and g.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 #include <climits>
+#include <type_traits>
 
 namespace {
 
-enum Dtype { kF32 = 0, kBF16 = 1, kF16 = 2 };
+enum Dtype { kF32 = 0, kBF16 = 1, kF16 = 2, kE4M3 = 3 };
 enum Mode { kPlain = 0, kRelu = 1, kAddRelu = 2 };
 
 constexpr int kThreads = 512;
@@ -64,6 +70,8 @@ __device__ __forceinline__ float load_any(const void* p, int dt, long long i) {
   if (dt == kBF16)
     return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
   if (dt == kF16) return __half2float(static_cast<const __half*>(p)[i]);
+  if (dt == kE4M3)
+    return static_cast<float>(static_cast<const __nv_fp8_e4m3*>(p)[i]);
   return static_cast<const float*>(p)[i];
 }
 
@@ -118,6 +126,22 @@ struct Vec16 {
   }
 };
 
+// N e4m3 values (8 bytes beside a 16-bit g, 4 beside an f32 g): the x̂
+// operand of the fp8 path, read only
+template <int N>
+struct Fp8Vec {
+  static constexpr int V = N;
+  using Raw = typename std::conditional<N == 8, uint2, unsigned int>::type;
+  static __device__ __forceinline__ Raw load(const void* p, int,
+                                             long long off) {
+    return __ldg(reinterpret_cast<const Raw*>(
+        static_cast<const __nv_fp8_e4m3*>(p) + off));
+  }
+  static __device__ __forceinline__ float get(const Raw& r, int j) {
+    return static_cast<float>(reinterpret_cast<const __nv_fp8_e4m3*>(&r)[j]);
+  }
+};
+
 // one channel of any dtype, read at run time
 struct Scalar {
   static constexpr int V = 1;
@@ -150,9 +174,11 @@ struct SumsArgs {
   int x_dt, g_dt, z_dt, r_dt, s_dt, b_dt;
 };
 
-template <typename L, int MODE>
+// L loads x (or, with XHAT, the e4m3 x̂), G loads g and z and stores dr
+template <typename L, typename G, int MODE, bool XHAT>
 __global__ void __launch_bounds__(kThreads, 1) bn_sums(const SumsArgs a) {
-  constexpr int V = L::V;
+  static_assert(L::V == G::V, "x and g loads cover the same channels");
+  constexpr int V = G::V;
   __shared__ float red[kWarps][2][kMaxTile];
   __shared__ int last;
 
@@ -166,8 +192,8 @@ __global__ void __launch_bounds__(kThreads, 1) bn_sums(const SumsArgs a) {
   float mu[V], is[V], sc[V], bi[V], sg[V], sgx[V];
 #pragma unroll
   for (int j = 0; j < V; ++j) {
-    mu[j] = on ? a.mean[c0 + j] : 0.f;
-    is[j] = on ? a.invstd[c0 + j] : 0.f;
+    mu[j] = (on && !XHAT) ? a.mean[c0 + j] : 0.f;
+    is[j] = (on && !XHAT) ? a.invstd[c0 + j] : 0.f;
     sc[j] = (MODE == kRelu && on) ? load_any(a.scale, a.s_dt, c0 + j) : 0.f;
     bi[j] = (MODE == kRelu && on) ? load_any(a.bias, a.b_dt, c0 + j) : 0.f;
     sg[j] = sgx[j] = 0.f;
@@ -178,15 +204,16 @@ __global__ void __launch_bounds__(kThreads, 1) bn_sums(const SumsArgs a) {
   const long long step = (long long)rpi * kUnroll;
   for (long long r0 = r_begin + (threadIdx.x >> a.tpr_log2); r0 < r_end;
        r0 += step) {
-    typename L::Raw rx[kUnroll], rg[kUnroll], rz[kUnroll];
+    typename L::Raw rx[kUnroll];
+    typename G::Raw rg[kUnroll], rz[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const long long r = r0 + (long long)u * rpi;
       if (on && r < r_end) {
         const long long off = r * c + c0;
         rx[u] = L::load(a.x, a.x_dt, off);
-        rg[u] = L::load(a.g, a.g_dt, off);
-        if (MODE == kAddRelu) rz[u] = L::load(a.z, a.z_dt, off);
+        rg[u] = G::load(a.g, a.g_dt, off);
+        if (MODE == kAddRelu) rz[u] = G::load(a.z, a.z_dt, off);
       }
     }
 #pragma unroll
@@ -196,16 +223,18 @@ __global__ void __launch_bounds__(kThreads, 1) bn_sums(const SumsArgs a) {
       float d[V];
 #pragma unroll
       for (int j = 0; j < V; ++j) {
-        const float xh = __fmul_rn(__fsub_rn(L::get(rx[u], j), mu[j]), is[j]);
-        float gv = L::get(rg[u], j);
+        const float xh =
+            XHAT ? L::get(rx[u], j)
+                 : __fmul_rn(__fsub_rn(L::get(rx[u], j), mu[j]), is[j]);
+        float gv = G::get(rg[u], j);
         if (MODE == kRelu)
           gv = __fadd_rn(__fmul_rn(xh, sc[j]), bi[j]) > 0.f ? gv : 0.f;
-        if (MODE == kAddRelu) gv = L::get(rz[u], j) > 0.f ? gv : 0.f;
+        if (MODE == kAddRelu) gv = G::get(rz[u], j) > 0.f ? gv : 0.f;
         d[j] = gv;
         sg[j] += gv;
         sgx[j] = __fmaf_rn(gv, xh, sgx[j]);
       }
-      if (MODE == kAddRelu) L::store(a.dr, a.r_dt, r * c + c0, d);
+      if (MODE == kAddRelu) G::store(a.dr, a.r_dt, r * c + c0, d);
     }
   }
 
@@ -275,15 +304,15 @@ __global__ void __launch_bounds__(kThreads, 1) bn_sums(const SumsArgs a) {
   if (threadIdx.x == 0) a.counters[blockIdx.y] = 0;
 }
 
-template <typename L>
+template <typename L, typename G, bool XHAT>
 int launch(const SumsArgs& a, int mode, int tiles, cudaStream_t st) {
   const dim3 grid(a.row_blocks, tiles);
   if (mode == kPlain)
-    bn_sums<L, kPlain><<<grid, kThreads, 0, st>>>(a);
+    bn_sums<L, G, kPlain, XHAT><<<grid, kThreads, 0, st>>>(a);
   else if (mode == kRelu)
-    bn_sums<L, kRelu><<<grid, kThreads, 0, st>>>(a);
+    bn_sums<L, G, kRelu, XHAT><<<grid, kThreads, 0, st>>>(a);
   else if (mode == kAddRelu)
-    bn_sums<L, kAddRelu><<<grid, kThreads, 0, st>>>(a);
+    bn_sums<L, G, kAddRelu, XHAT><<<grid, kThreads, 0, st>>>(a);
   else
     return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
@@ -294,14 +323,17 @@ int launch(const SumsArgs& a, int mode, int tiles, cudaStream_t st) {
 // One call's arguments as the wrapper packs them, every field 64 bits:
 // the operands' addresses (z and dr 0 outside "addrelu"), the shape, the
 // plan (tpr_log2, tiles, rows a block, row_blocks: bn_act._bn_sums_plan),
-// the dtype codes (0 f32, 1 bf16, 2 fp16) of x, g, z, dr, scale and bias,
-// two bits each from bit 0, the mode (0 plain, 1 relu, 2 addrelu) and
-// vector: every operand of x's dtype, c % (16 / itemsize) == 0 and
-// 16-byte aligned bases. part holds row_blocks x 2 x c floats and
-// counters `tiles` ints, all 0.
+// the dtype codes (0 f32, 1 bf16, 2 fp16, 3 e4m3: x only, with xhat) of x,
+// g, z, dr, scale and bias, two bits each from bit 0, the mode (0 plain,
+// 1 relu, 2 addrelu), vector (g, z and dr of one dtype, c % V == 0 for
+// V = 16 / g's itemsize, their bases 16-byte aligned, and x of g's dtype
+// and 16-byte aligned, or with xhat V-byte aligned) and xhat (x is x̂ in
+// e4m3, not centred). part holds row_blocks x 2 x c floats and counters
+// `tiles` ints, all 0.
 struct SumsCall {
   long long x, g, z, scale, bias, mean, invstd, part, counters, out, dr;
   long long m, c, rows, row_blocks, tpr_log2, tiles, dtypes, mode, vector;
+  long long xhat;
 };
 
 // Channel sums of (m, c) rows into out (2, c) f32 (and dr at "addrelu").
@@ -327,17 +359,36 @@ extern "C" int apex_bn_sums(const SumsCall* k, void* stream) {
       d & 3, (d >> 2) & 3, (d >> 4) & 3, (d >> 6) & 3, (d >> 8) & 3,
       (d >> 10) & 3};
   const int mode = (int)k->mode;
+  const bool xhat = k->xhat != 0;
   cudaStream_t st = (cudaStream_t)stream;
+  // an e4m3 operand is x̂, and only x may be one
+  if (xhat != (a.x_dt == kE4M3) || a.g_dt == kE4M3 || a.s_dt == kE4M3 ||
+      a.b_dt == kE4M3 ||
+      (mode == kAddRelu && (a.z_dt == kE4M3 || a.r_dt == kE4M3)))
+    return (int)cudaErrorInvalidValue;
   if (!k->vector) {
     if ((tiles << k->tpr_log2) < c) return (int)cudaErrorInvalidValue;
-    return launch<Scalar>(a, mode, (int)tiles, st);
+    return xhat ? launch<Scalar, Scalar, true>(a, mode, (int)tiles, st)
+                : launch<Scalar, Scalar, false>(a, mode, (int)tiles, st);
   }
-  const int v = a.x_dt == kF32 ? 4 : 8;
-  if (c % v || (tiles << k->tpr_log2) * v < c)
+  const int v = a.g_dt == kF32 ? 4 : 8;
+  if (c % v || (tiles << k->tpr_log2) * v < c ||
+      (!xhat && a.x_dt != a.g_dt))
     return (int)cudaErrorInvalidValue;
-  if (a.x_dt == kBF16)
-    return launch<Vec16<__nv_bfloat16>>(a, mode, (int)tiles, st);
-  if (a.x_dt == kF16) return launch<Vec16<__half>>(a, mode, (int)tiles, st);
-  if (a.x_dt == kF32) return launch<Vec16<float>>(a, mode, (int)tiles, st);
+  if (a.g_dt == kBF16)
+    return xhat ? launch<Fp8Vec<8>, Vec16<__nv_bfloat16>, true>(
+                      a, mode, (int)tiles, st)
+                : launch<Vec16<__nv_bfloat16>, Vec16<__nv_bfloat16>, false>(
+                      a, mode, (int)tiles, st);
+  if (a.g_dt == kF16)
+    return xhat ? launch<Fp8Vec<8>, Vec16<__half>, true>(a, mode, (int)tiles,
+                                                          st)
+                : launch<Vec16<__half>, Vec16<__half>, false>(
+                      a, mode, (int)tiles, st);
+  if (a.g_dt == kF32)
+    return xhat ? launch<Fp8Vec<4>, Vec16<float>, true>(a, mode, (int)tiles,
+                                                         st)
+                : launch<Vec16<float>, Vec16<float>, false>(
+                      a, mode, (int)tiles, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -15,6 +15,13 @@ which is what the plain versions below compute):
   with k1 = Σg/n and k2 = Σg·x̂/n ("relu" recomputes the mask; "addrelu"
   passes the pre-masked dr as g).
 
+With ``fp8`` residuals (``make_cfg(fp8=True)``, ``FusedBNAct(
+fp8_residuals=True)`` or ``APEX_TPU_FP8_RESIDUALS=1`` when the module is
+called, the JAX package's ``_xres_of``) the forward saves x̂ itself as
+``float8_e4m3fn`` in place of x, and both kernels take it with ``xhat=True``:
+x̂ is read as it is (no centring), the ReLU mask is x̂₈·γ + β > 0, and dx,
+still γ·invstd·(g − k1 − x̂₈·k2), is written in x's own dtype.
+
 What bounds them on an H100: bytes. Each is one streaming pass over (M, C)
 rows with a few flops per element: the sums read x and g (and z, writing
 dr), dx reads x and g and writes dx. All math is in f32 with the JAX
@@ -43,6 +50,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import os
 import struct
 from typing import NamedTuple, Optional
 
@@ -55,6 +63,10 @@ tl = None  # triton.language, bound by _build.triton_jit at the first launch
 
 _MODES = {"plain": 0, "relu": 1, "addrelu": 2}
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+#: the dtype of a saved x̂ (``fp8`` residuals)
+XHAT_DTYPE = torch.float8_e4m3fn
+#: set to "1", every FusedBNAct unit called in training saves fp8 residuals
+FP8_ENV = "APEX_TPU_FP8_RESIDUALS"
 _TILE = 4096        # elements of one (BLOCK_M, BLOCK_C) tile
 
 #: gradients copied into the (M, C) row layout by ``_grad_rows``
@@ -64,8 +76,8 @@ layout_copies = 0
 # --- Triton dx kernel --------------------------------------------------------
 
 def _bn_dx_triton(X, G, SCALE, BIAS, MEAN, INVSTD, SUMS, DX, M, C, count,
-                  RELU: "tl.constexpr", BLOCK_M: "tl.constexpr",
-                  BLOCK_C: "tl.constexpr"):
+                  RELU: "tl.constexpr", XHAT: "tl.constexpr",
+                  BLOCK_M: "tl.constexpr", BLOCK_C: "tl.constexpr"):
     rows = tl.program_id(0).to(tl.int64) * BLOCK_M + tl.arange(0, BLOCK_M)
     cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
     cmask = cols < C
@@ -76,9 +88,12 @@ def _bn_dx_triton(X, G, SCALE, BIAS, MEAN, INVSTD, SUMS, DX, M, C, count,
     k2 = tl.div_rn(tl.load(SUMS + C + cols, mask=cmask, other=0.0), count)
     m = (rows < M)[:, None] & cmask[None, :]
     offs = rows[:, None] * C + cols[None, :]
-    x = tl.load(X + offs, mask=m, other=0.0).to(tl.float32)
+    if XHAT:
+        xhat = tl.load(X + offs, mask=m).to(tl.float32)
+    else:
+        x = tl.load(X + offs, mask=m, other=0.0).to(tl.float32)
+        xhat = (x - mean[None, :]) * invstd[None, :]
     g = tl.load(G + offs, mask=m, other=0.0).to(tl.float32)
-    xhat = (x - mean[None, :]) * invstd[None, :]
     if RELU:
         bias = tl.load(BIAS + cols, mask=cmask, other=0.0).to(tl.float32)
         g = tl.where(xhat * scale[None, :] + bias[None, :] > 0, g, 0.0)
@@ -96,8 +111,12 @@ def _check_f32(*tensors):
         raise ValueError("BN statistics and sums must be f32")
 
 
-def _check_unit(x2, g2, scale, bias, mean, invstd):
-    _build.check_operands(x2, g2, scale, bias, mean, invstd, dtypes=_FLOATS)
+def _check_unit(x2, g2, scale, bias, mean, invstd, xhat=False):
+    """(M, C) rows of a float x (or, with ``xhat``, an e4m3 x̂) and g, and
+    per-channel vectors."""
+    _build.check_operands(x2, dtypes=(XHAT_DTYPE,) if xhat else _FLOATS)
+    _build.check_operands(x2, g2, scale, bias, mean, invstd)
+    _build.check_operands(g2, scale, bias, mean, invstd, dtypes=_FLOATS)
     _check_f32(mean, invstd)
     if x2.dim() != 2 or g2.shape != x2.shape:
         raise ValueError(f"expected (M, C) rows of one shape, got "
@@ -110,7 +129,8 @@ def _check_unit(x2, g2, scale, bias, mean, invstd):
 
 # --- the CUDA sums kernel ----------------------------------------------------
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+           XHAT_DTYPE: 3}
 # csrc/bn_sums.cu: threads a block, rows a thread loads at once, and the
 # blocks an SM its launch bounds ask for
 _THREADS, _UNROLL, _BLOCKS_PER_SM = 512, 4, 1
@@ -147,8 +167,8 @@ def _sums_workspace(device, stream, n_part, tiles):
 #: One packed struct crosses ctypes in one argument.
 SUMS_CALL_FIELDS = ("x", "g", "z", "scale", "bias", "mean", "invstd", "part",
                     "counters", "out", "dr", "m", "c", "rows", "row_blocks",
-                    "tpr_log2", "tiles", "dtypes", "mode", "vector")
-_SUMS_CALL = struct.Struct("<20q")
+                    "tpr_log2", "tiles", "dtypes", "mode", "vector", "xhat")
+_SUMS_CALL = struct.Struct("<21q")
 
 
 @functools.lru_cache(maxsize=None)
@@ -160,14 +180,17 @@ def _sums_lib():
     return fn
 
 
-def bn_sums_kernel(x2, g2, z2, scale, bias, mean, invstd, mode, r_dtype=None):
+def bn_sums_kernel(x2, g2, z2, scale, bias, mean, invstd, mode, r_dtype=None,
+                   xhat=False):
     """CUDA channel sums over contiguous (M, C) CUDA rows. Returns (sums
     (2, C) f32: Σg and Σg·x̂, dr in ``r_dtype`` for "addrelu" else
-    None)."""
-    _check_unit(x2, g2, scale, bias, mean, invstd)
+    None). With ``xhat``, ``x2`` is x̂ itself in e4m3 (mean and invstd
+    are not read)."""
+    _check_unit(x2, g2, scale, bias, mean, invstd, xhat)
     addrelu = mode == "addrelu"
     if addrelu:
-        _build.check_operands(x2, z2, dtypes=_FLOATS)
+        _build.check_operands(x2, z2)
+        _build.check_operands(z2, dtypes=_FLOATS)
         if z2.shape != x2.shape:
             raise ValueError("z must have x's (M, C) shape")
     m, c = x2.shape
@@ -177,10 +200,14 @@ def bn_sums_kernel(x2, g2, z2, scale, bias, mean, invstd, mode, r_dtype=None):
                      device=dev) if addrelu else None
     if m == 0:
         return sums.zero_(), dr
-    vec = 16 // x2.element_size()
-    vector = c % vec == 0 and all(
-        t.dtype == x2.dtype and t.data_ptr() % 16 == 0
-        for t in ((x2, g2, z2, dr) if addrelu else (x2, g2)))
+    # 16-byte loads of g (and z, dr); x of g's dtype too, or e4m3 x̂ loaded
+    # 16 / g's itemsize bytes at a time
+    vec = 16 // g2.element_size()
+    vector = (c % vec == 0 and all(
+        t.dtype == g2.dtype and t.data_ptr() % 16 == 0
+        for t in ((g2, z2, dr) if addrelu else (g2,)))
+        and (x2.data_ptr() % vec == 0 if xhat
+             else x2.dtype == g2.dtype and x2.data_ptr() % 16 == 0))
     tpr, tiles, rows, blocks = _bn_sums_plan(m, c, _build.sm_count(dev),
                                              vec if vector else 1)
     stream = _build.stream_ptr(x2)
@@ -194,7 +221,7 @@ def bn_sums_kernel(x2, g2, z2, scale, bias, mean, invstd, mode, r_dtype=None):
         scale.data_ptr(), bias.data_ptr(), mean.data_ptr(), invstd.data_ptr(),
         part.data_ptr(), counters.data_ptr(), sums.data_ptr(),
         dr.data_ptr() if addrelu else 0, m, c, rows, blocks,
-        tpr.bit_length() - 1, tiles, dtypes, _MODES[mode], vector)
+        tpr.bit_length() - 1, tiles, dtypes, _MODES[mode], vector, xhat)
     _build.check(_sums_lib()(call, stream), "bn_sums")
     bn_sums_kernel.launches += 1
     return sums, dr
@@ -204,11 +231,11 @@ bn_sums_kernel.launches = 0
 
 
 def bn_dx_kernel(x2, g2, scale, bias, mean, invstd, sums, count, relu,
-                 dx_dtype):
+                 dx_dtype, xhat=False):
     """Triton dx over contiguous (M, C) CUDA rows; ``sums`` is the (2, C)
     f32 output of the sums pass and ``count`` the number of rows the
-    statistics cover."""
-    _check_unit(x2, g2, scale, bias, mean, invstd)
+    statistics cover. With ``xhat``, ``x2`` is x̂ itself in e4m3."""
+    _check_unit(x2, g2, scale, bias, mean, invstd, xhat)
     _build.check_operands(x2, sums)
     _check_f32(sums)
     m, c = x2.shape
@@ -218,7 +245,8 @@ def bn_dx_kernel(x2, g2, scale, bias, mean, invstd, sums, count, relu,
     dx = torch.empty(x2.shape, dtype=dx_dtype, device=x2.device)
     _build.triton_jit(_bn_dx_triton)[(-(-m // block_m), -(-c // block_c))](
         x2, g2, scale, bias, mean, invstd, sums, dx, m, c, float(count),
-        RELU=bool(relu), BLOCK_M=block_m, BLOCK_C=block_c, num_warps=8,
+        RELU=bool(relu), XHAT=bool(xhat), BLOCK_M=block_m, BLOCK_C=block_c,
+        num_warps=8,
         enable_fp_fusion=False)
     bn_dx_kernel.launches += 1
     return dx
@@ -229,16 +257,17 @@ bn_dx_kernel.launches = 0
 
 # --- plain versions (the kernels' arithmetic, in PyTorch) --------------------
 
-def _xhat(x2, mean, invstd):
-    return (x2.float() - mean) * invstd
+def _xhat(x2, mean, invstd, xhat=False):
+    return x2.float() if xhat else (x2.float() - mean) * invstd
 
 
 def _relu_mask(xhat, scale, bias):
     return xhat * scale.float() + bias.float() > 0
 
 
-def bn_sums_plain(x2, g2, z2, scale, bias, mean, invstd, mode, r_dtype=None):
-    xhat = _xhat(x2, mean, invstd)
+def bn_sums_plain(x2, g2, z2, scale, bias, mean, invstd, mode, r_dtype=None,
+                  xhat=False):
+    xhat = _xhat(x2, mean, invstd, xhat)
     g = g2.float()
     dr = None
     if mode == "relu":
@@ -250,8 +279,8 @@ def bn_sums_plain(x2, g2, z2, scale, bias, mean, invstd, mode, r_dtype=None):
 
 
 def bn_dx_plain(x2, g2, scale, bias, mean, invstd, sums, count, relu,
-                dx_dtype):
-    xhat = _xhat(x2, mean, invstd)
+                dx_dtype, xhat=False):
+    xhat = _xhat(x2, mean, invstd, xhat)
     g = g2.float()
     if relu:
         g = torch.where(_relu_mask(xhat, scale, bias), g, 0.0)
@@ -263,9 +292,11 @@ def bn_dx_plain(x2, g2, scale, bias, mean, invstd, sums, count, relu,
 # --- forward (plain PyTorch, as the JAX package's jnp) -----------------------
 
 class _Cfg(NamedTuple):
-    """Static configuration of one unit."""
+    """Static configuration of one unit. ``fp8``: save x̂ in e4m3 for the
+    backward instead of x."""
     relu: bool
     eps: float
+    fp8: bool = False
 
 
 def make_cfg(*, relu: bool, eps: float = 1e-5, axis_name=None,
@@ -274,9 +305,7 @@ def make_cfg(*, relu: bool, eps: float = 1e-5, axis_name=None,
         raise NotImplementedError(
             "cross-device BN statistics (axis_name) are not ported yet "
             "(ROADMAP.md queue A, the distributed slice)")
-    if fp8:
-        raise NotImplementedError("fp8 backward residuals are not ported yet")
-    return _Cfg(relu=bool(relu), eps=float(eps))
+    return _Cfg(relu=bool(relu), eps=float(eps), fp8=bool(fp8))
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -340,20 +369,31 @@ def _fwd_common(x, r, scale, bias, cfg: _Cfg):
     return z.view(x.shape), mean, var, count, invstd
 
 
+def _xres_of(x, mean, invstd, cfg: _Cfg):
+    """The backward's activation residual: x, or under ``cfg.fp8`` x̂ =
+    (x − μ)·invstd in f32 rounded to e4m3 (x̂ has zero mean and unit
+    variance per channel, so e4m3's range holds it with no scale)."""
+    if not cfg.fp8:
+        return x
+    # x − μ promotes to f32 in one pass; the product is taken in place
+    return (_rows(x) - mean).mul_(invstd).to(XHAT_DTYPE).view(x.shape)
+
+
 def _bwd(cfg: _Cfg, x, scale, bias, mean, invstd, count, z, dz,
-         has_residual, r_dtype):
+         has_residual, r_dtype, dx_dtype):
     """The two passes: channel sums (+ dr), then dx. CUDA tensors launch
-    the kernels; CPU tensors take their plain versions."""
+    the kernels; CPU tensors take their plain versions. ``x`` is the saved
+    residual: x, or x̂ in e4m3 under ``cfg.fp8``."""
     x2, g2 = _rows(x), _grad_rows(dz)
     mode = ("addrelu" if cfg.relu and has_residual
             else "relu" if cfg.relu else "plain")
     sums_fn = bn_sums_kernel if x2.is_cuda else bn_sums_plain
     dx_fn = bn_dx_kernel if x2.is_cuda else bn_dx_plain
     sums, dr2 = sums_fn(x2, g2, None if z is None else _rows(z), scale, bias,
-                        mean, invstd, mode, r_dtype)
+                        mean, invstd, mode, r_dtype, xhat=cfg.fp8)
     g_src = dr2 if mode == "addrelu" else g2
     dx = dx_fn(x2, g_src, scale, bias, mean, invstd, sums, count,
-               mode == "relu", x.dtype).view(x.shape)
+               mode == "relu", dx_dtype, xhat=cfg.fp8).view(x.shape)
     dscale, dbias = sums[1].to(scale.dtype), sums[0].to(bias.dtype)
     if not has_residual:
         return dx, None, dscale, dbias
@@ -366,8 +406,9 @@ class _BNActFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, cfg):
         z, mean, var, count, invstd = _fwd_common(x, None, scale, bias, cfg)
-        ctx.save_for_backward(x, scale, bias, mean, invstd)
-        ctx.cfg, ctx.count = cfg, count
+        ctx.save_for_backward(_xres_of(x, mean, invstd, cfg), scale, bias,
+                              mean, invstd)
+        ctx.cfg, ctx.count, ctx.x_dtype = cfg, count, x.dtype
         ctx.mark_non_differentiable(mean, var)
         return z, mean, var
 
@@ -375,7 +416,8 @@ class _BNActFn(torch.autograd.Function):
     def backward(ctx, dz, _dmean, _dvar):
         x, scale, bias, mean, invstd = ctx.saved_tensors
         dx, _, dscale, dbias = _bwd(ctx.cfg, x, scale, bias, mean, invstd,
-                                    ctx.count, None, dz, False, None)
+                                    ctx.count, None, dz, False, None,
+                                    ctx.x_dtype)
         return dx, dscale, dbias, None
 
 
@@ -384,9 +426,10 @@ class _BNAddActFn(torch.autograd.Function):
     def forward(ctx, x, r, scale, bias, cfg):
         z, mean, var, count, invstd = _fwd_common(x, r, scale, bias, cfg)
         # z doubles as the ReLU mask source; it is the next conv's input
-        ctx.save_for_backward(x, scale, bias, mean, invstd,
-                              z if cfg.relu else None)
+        ctx.save_for_backward(_xres_of(x, mean, invstd, cfg), scale, bias,
+                              mean, invstd, z if cfg.relu else None)
         ctx.cfg, ctx.count, ctx.r_dtype = cfg, count, r.dtype
+        ctx.x_dtype = x.dtype
         ctx.mark_non_differentiable(mean, var)
         return z, mean, var
 
@@ -394,7 +437,8 @@ class _BNAddActFn(torch.autograd.Function):
     def backward(ctx, dz, _dmean, _dvar):
         x, scale, bias, mean, invstd, z = ctx.saved_tensors
         dx, dr, dscale, dbias = _bwd(ctx.cfg, x, scale, bias, mean, invstd,
-                                     ctx.count, z, dz, True, ctx.r_dtype)
+                                     ctx.count, z, dz, True, ctx.r_dtype,
+                                     ctx.x_dtype)
         return dx, dr, dscale, dbias, None
 
 
@@ -428,6 +472,16 @@ def bn_act_reference(x, scale, bias, *, residual=None, relu=True, eps=1e-5):
 
 # --- module ------------------------------------------------------------------
 
+def running_stats(unit, mean, var, count):
+    """The new running statistics of a BN unit (buffers ``mean``, ``var``,
+    attribute ``momentum``): unbiased variance, ``ra = m·ra + (1−m)·new``,
+    as the JAX package's units update theirs."""
+    m = unit.momentum
+    unbiased = var * count / max(count - 1.0, 1.0)
+    return (m * unit.mean + (1 - m) * mean,
+            m * unit.var + (1 - m) * unbiased)
+
+
 class FusedBNAct(nn.Module):
     """BatchNorm with optionally fused residual-add and ReLU, channels last.
 
@@ -437,6 +491,11 @@ class FusedBNAct(nn.Module):
     In training, ``stats`` (a dict) receives ``stats[self] = (mean, var)``,
     the new running statistics, the counterpart of flax's
     ``mutable=["batch_stats"]``; the buffers themselves are not written.
+    ``fp8_residuals``, or ``APEX_TPU_FP8_RESIDUALS=1`` in the environment
+    when the unit is called, saves x̂ in e4m3 for the backward. As in the
+    JAX package, a ReLU unit then derives its backward mask from the
+    rounded x̂, so an activation within one e4m3 step of 0 may take the
+    other side of the mask than in the forward.
     """
 
     def __init__(self, num_features: int, relu: bool = True,
@@ -471,14 +530,13 @@ class FusedBNAct(nn.Module):
             z = _apply(_rows(x), r2, self.scale, self.bias, self.mean, inv,
                        self.cfg.relu, x.dtype)
             return z.view(x.shape)
+        cfg = self.cfg
+        if os.environ.get(FP8_ENV) == "1":
+            cfg = cfg._replace(fp8=True)
         if residual is None:
-            z, mean, var, count = bn_act_train(x, self.scale, self.bias,
-                                               self.cfg)
+            z, mean, var, count = bn_act_train(x, self.scale, self.bias, cfg)
         else:
             z, mean, var, count = bn_add_act_train(x, residual, self.scale,
-                                                   self.bias, self.cfg)
-        m = self.momentum
-        unbiased = var * count / max(count - 1.0, 1.0)
-        stats[self] = (m * self.mean + (1 - m) * mean,
-                       m * self.var + (1 - m) * unbiased)
+                                                   self.bias, cfg)
+        stats[self] = running_stats(self, mean, var, count)
         return z

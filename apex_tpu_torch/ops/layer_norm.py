@@ -303,7 +303,13 @@ def layer_norm_reference(x, weight=None, bias=None, eps=1e-5):
 
 class FusedLayerNorm(nn.Module):
     """Module mirror of ``apex.normalization.FusedLayerNorm``; params are
-    named ``scale`` and ``bias`` as in the JAX package."""
+    named ``scale`` and ``bias`` as in the JAX package.
+
+    As the JAX package's module, it normalises over the last axis only,
+    whatever ``normalized_shape`` is, and holds (prod(normalized_shape),)
+    params; with ``elementwise_affine`` those must be as wide as the last
+    axis, so an affine module over more than one non-trivial axis raises
+    (the JAX module fails in a reshape there)."""
 
     def __init__(self, normalized_shape, eps=1e-5, elementwise_affine=True,
                  device="cuda"):
@@ -313,6 +319,11 @@ class FusedLayerNorm(nn.Module):
         h = 1
         for d in normalized_shape:
             h *= int(d)
+        if elementwise_affine and h != int(normalized_shape[-1]):
+            raise ValueError(
+                f"FusedLayerNorm{tuple(normalized_shape)} with affine params: "
+                f"the JAX package normalises over the last axis only and its "
+                f"({h},) scale cannot broadcast against it")
         self.normalized_shape = tuple(normalized_shape)
         self.eps = eps
         self.elementwise_affine = elementwise_affine
@@ -321,10 +332,6 @@ class FusedLayerNorm(nn.Module):
             self.bias = nn.Parameter(torch.zeros(h, device=device))
 
     def forward(self, x):
-        shape = x.shape
-        x = x.reshape(*shape[:x.dim() - len(self.normalized_shape)], -1)
         if self.elementwise_affine:
-            y = fused_layer_norm_affine(x, self.scale, self.bias, self.eps)
-        else:
-            y = fused_layer_norm(x, self.eps)
-        return y.reshape(shape)
+            return fused_layer_norm_affine(x, self.scale, self.bias, self.eps)
+        return fused_layer_norm(x, self.eps)

@@ -8,7 +8,10 @@ Port of ``apex_tpu/ops/xentropy.py``. Kernels replaced:
   dx_ij = g_i·(exp(x_ij − lse_i) − (1−ε)·1[j=y_i] − ε/V), in the logits
   dtype.
 
-Rows whose label is negative give zero loss and zero gradient.
+Rows whose label is negative give zero loss and zero gradient. Only a
+label in [0, V) names a column: a label >= V matches none, as in the JAX
+package (its one-hot compares the label with every column), so such a row's
+loss is lse − (ε/V)·Σ_j x_ij and its gradient g·(softmax − ε/V).
 
 What bounds them on an H100: bytes. At the BERT shape the logits are
 (8192, 30522) bf16, 500 MB: the forward reads them once, the backward
@@ -56,7 +59,9 @@ def _ce_fwd_triton(X, LAB, LOSS, LSE, V, stride, smoothing,
     lse = m + tl.log(s)
     label = tl.load(LAB + row)
     valid = label >= 0
-    x_label = tl.load(base + tl.where(valid, label, 0)).to(tl.float32)
+    hit = valid & (label < V)
+    x_label = tl.load(base + tl.where(hit, label, 0), mask=hit,
+                      other=0.0).to(tl.float32)
     loss = lse - (1.0 - smoothing) * x_label
     if SMOOTH:
         loss = loss - (smoothing / V) * tl.sum(sx_vec, axis=0)
@@ -130,12 +135,19 @@ xentropy_bwd_kernel.launches = 0
 
 # --- plain versions -----------------------------------------------------------
 
+def _hit(labels, v):
+    """Rows whose label names a column: 0 <= label < v."""
+    return (labels >= 0) & (labels < v)
+
+
 def xentropy_fwd_plain(x2, labels, smoothing):
     x = x2.float()
     v = x.shape[1]
     lse = torch.logsumexp(x, dim=1)
     valid = labels >= 0
-    x_label = x.gather(1, torch.where(valid, labels, 0)[:, None])[:, 0]
+    hit = _hit(labels, v)
+    x_label = torch.where(
+        hit, x.gather(1, torch.where(hit, labels, 0)[:, None])[:, 0], 0.0)
     loss = lse - (1.0 - smoothing) * x_label
     if smoothing:
         loss = loss - (smoothing / v) * x.sum(dim=1)
@@ -147,7 +159,9 @@ def xentropy_bwd_plain(x2, labels, lse, g, smoothing):
     v = x.shape[1]
     target = torch.zeros_like(x)
     valid = labels >= 0
-    target.scatter_(1, torch.where(valid, labels, 0)[:, None], 1.0 - smoothing)
+    hit = _hit(labels, v)
+    target.scatter_(1, torch.where(hit, labels, 0)[:, None],
+                    torch.where(hit, 1.0 - smoothing, 0.0)[:, None])
     if smoothing:
         target = target + smoothing / v
     g = torch.where(valid, g.float(), 0.0)
@@ -182,7 +196,8 @@ class _SoftmaxXentFn(torch.autograd.Function):
 
 def softmax_cross_entropy_loss(logits, labels, smoothing=0.0):
     """Per-example losses (f32), fused. ``logits`` (..., V), int
-    ``labels`` (...); rows with negative labels give zero loss/grad."""
+    ``labels`` (...); rows with negative labels give zero loss/grad, and a
+    label >= V matches no column."""
     return _SoftmaxXentFn.apply(logits, labels, smoothing)
 
 
@@ -191,6 +206,8 @@ def softmax_cross_entropy_reference(logits, labels, smoothing=0.0):
     x = logits.float()
     v = x.shape[-1]
     lse = torch.logsumexp(x, dim=-1)
-    x_label = torch.gather(x, -1, labels.clamp(min=0)[..., None])[..., 0]
+    hit = _hit(labels, v)
+    x_label = torch.where(hit, torch.gather(
+        x, -1, torch.where(hit, labels, 0)[..., None])[..., 0], 0.0)
     loss = lse - (1 - smoothing) * x_label - smoothing / v * x.sum(dim=-1)
     return torch.where(labels >= 0, loss, 0.0)

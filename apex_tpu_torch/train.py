@@ -1,5 +1,6 @@
 """The training steps: BERT MLM (amp O1 + FusedLAMB or another fused
-optimizer, auto_cast forward), ResNet-50 (amp O2 + FusedSGD), the fused
+optimizer, auto_cast forward), ResNet-50 (amp O0, O1 or O2 + FusedSGD or
+another fused optimizer), the fused
 MLP (amp O2 + 2:4 ASP around FusedAdam) and DCGAN (two amp bundles, three
 losses, FusedAdam).
 
@@ -19,11 +20,13 @@ dropout, the encoder called as the JAX package's ``BertEncoder(tokens,
 attn_mask, deterministic=False)`` with the MLM head of ``mlm_loss``.
 
 ``build_resnet_step`` is the port of ``bench._resnet_step_builder``:
-ResNet-50 (NHWC, the model computing in the policy's compute dtype), the
-same inputs from ``np.random.RandomState(seed)`` (pre-cast to the compute
-dtype when the policy casts the model), ``Amp(policy, FusedSGD(lr=0.1,
-momentum=0.9, strategy=strategy))``, and the mean fused cross-entropy as
-the loss, with the new BN running statistics as the loss's aux output.
+ResNet-50 (NHWC, the model computing in the policy's compute dtype: f32 at
+O0, the half dtype at O1 and O2), the same inputs from
+``np.random.RandomState(seed)`` (pre-cast to the compute dtype when the
+policy casts the model, as at O2; f32 at O0 and O1), ``Amp(policy,
+FusedSGD(lr=0.1, momentum=0.9, strategy=strategy))`` or ``Amp(policy,
+optimizer)``, and the mean fused cross-entropy as the loss, with the new
+BN running statistics as the loss's aux output.
 
 ``build_mlp_step`` trains ``ops.MLP`` (DLRM's bottom MLP by default,
 ``--arch-mlp-bot=13-512-256-128``) under amp (O2 bf16 by default) with
@@ -127,15 +130,23 @@ def build_bert_step(batch: int, seq: int, encoder=None, opt_level="O1",
 
 def build_resnet_step(batch: int, size: int, opt_level: str = "O2",
                       half_dtype=torch.bfloat16, device="cuda", seed: int = 0,
-                      model=None, strategy: str = "auto"):
+                      model=None, strategy: str = "auto", optimizer=None):
     """Returns ``(step, (state, batch_stats), (x, y), policy, model)``.
 
     ``step(state, batch_stats, x, y) -> (state', batch_stats', loss)`` runs
     one training step. ``model=None`` builds ResNet-50 (1000 classes, the
     policy's compute dtype) on ``device``; labels are drawn below the
-    model's ``num_classes``.
+    model's ``num_classes``. ``optimizer=None`` trains with
+    ``FusedSGD(lr=0.1, momentum=0.9, strategy=strategy)``; an optimizer
+    given (``FusedAdam(...)``, ...) brings its own strategy, so passing
+    ``strategy`` with it raises.
     """
     device = _device(device, "build_resnet_step")
+    if optimizer is None:
+        optimizer = FusedSGD(lr=0.1, momentum=0.9, strategy=strategy)
+    elif strategy != "auto":
+        raise ValueError("build_resnet_step takes strategy= for its default "
+                         "FusedSGD only; set it on the optimizer given")
     policy = amp.Policy.from_opt_level(opt_level, half_dtype=half_dtype)
     if model is None:
         model = models.ResNet50(num_classes=1000, dtype=policy.compute_dtype,
@@ -148,8 +159,7 @@ def build_resnet_step(batch: int, size: int, opt_level: str = "O2",
         x = x.to(policy.compute_dtype)
     y = torch.as_tensor(rng.randint(0, model.num_classes, batch),
                         dtype=torch.int64, device=device)
-    amp_opt = amp.Amp(policy, FusedSGD(lr=0.1, momentum=0.9,
-                                       strategy=strategy))
+    amp_opt = amp.Amp(policy, optimizer)
     state = amp_opt.init(dict(model.named_parameters()))
     batch_stats = {k: b.detach().clone() for k, b in model.named_buffers()}
 

@@ -206,7 +206,10 @@ def test_a_gradient_in_another_layout_is_copied_and_counted():
 
 
 def test_unported_options_raise():
+    """Cross-device statistics are still unported; fp8 residuals are
+    ported (``tests/test_torch_bn_fp8.py``) and no longer raise."""
     with pytest.raises(NotImplementedError):
         TB.make_cfg(relu=True, axis_name="data")
     with pytest.raises(NotImplementedError):
-        TB.FusedBNAct(8, fp8_residuals=True, device="cpu")
+        TB.make_cfg(relu=True, axis_index_groups=[[0, 1]])
+    assert TB.FusedBNAct(8, fp8_residuals=True, device="cpu").cfg.fp8
