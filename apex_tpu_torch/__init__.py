@@ -15,6 +15,9 @@ It imports ``torch`` and never ``jax`` nor anything of ``apex_tpu``.
 - ``apex_tpu_torch.sparsity`` — 2:4 structured sparsity: masks and ASP.
 - ``apex_tpu_torch.optim``  — ``FusedAdam``, ``FusedLAMB``, ``FusedSGD``
                               (arena and tree updates).
+- ``apex_tpu_torch.parallel`` — data parallelism over ``torch.distributed``:
+                              meshes, DDP and the gradient sync (bucketed,
+                              compressed), SyncBatchNorm, LARC.
 - ``apex_tpu_torch.models`` — the BERT encoder and its MLM loss, ResNet,
                               DCGAN, and the flax-style layers they share.
 - ``apex_tpu_torch.train``  — the BERT MLM, ResNet, MLP and DCGAN

@@ -15,7 +15,9 @@ Port of the flax modules the JAX package's ResNet and DCGAN call:
   ``F.batch_norm``'s: the running statistics move by ``momentum`` 0.99 of
   their old value, the batch variance is E[x²] − E[x]² clipped at 0
   (``use_fast_variance``), and the running variance takes that biased
-  batch variance.
+  batch variance. With ``axis_name`` (or inside
+  ``parallel.convert_sync_batchnorm``) E[x] and E[x²] are averaged over
+  the ranks of the group, as flax's ``pmean`` averages them.
 
 Weights are f32 ``Parameter``s, conv weights in ``channels_last`` memory.
 Under an enabled :func:`apex_tpu_torch.amp.auto_cast` each module first
@@ -35,6 +37,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from apex_tpu_torch.amp.interceptor import module_cast_dtype
+from apex_tpu_torch.parallel.sync_batchnorm import (converted_axis,
+                                                    pmean_moments)
 
 
 def cast_input(module, x):
@@ -170,12 +174,16 @@ class BatchNorm(nn.Module):
     mean)·(rsqrt(var + eps)·scale) + bias``; the output takes the compute
     dtype. In training the new
     running statistics go into ``stats[self]`` when a dict is given (the
-    model collects them); the module's own buffers are not touched."""
+    model collects them); the module's own buffers are not touched.
+    ``axis_name`` and ``axis_index_groups`` are flax's: the batch moments
+    are averaged over that group of the bound mesh."""
 
     def __init__(self, features: int, momentum: float = 0.99,
-                 epsilon: float = 1e-5, dtype=None, device="cuda"):
+                 epsilon: float = 1e-5, dtype=None, axis_name=None,
+                 axis_index_groups=None, device="cuda"):
         super().__init__()
         self.momentum, self.epsilon, self.dtype = momentum, epsilon, dtype
+        self.axis_name, self.axis_index_groups = axis_name, axis_index_groups
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
         self.register_buffer("mean", torch.zeros(features, device=device))
@@ -187,9 +195,12 @@ class BatchNorm(nn.Module):
         x32 = x.to(torch.promote_types(x.dtype, torch.float32))
         if train:
             axes = tuple(range(x.dim() - 1))
-            mean = x32.mean(dim=axes)
-            var = torch.clamp_min((x32 * x32).mean(dim=axes) - mean * mean,
-                                  0.0)
+            mean, mean2 = x32.mean(dim=axes), (x32 * x32).mean(dim=axes)
+            axis = ((self.axis_name, self.axis_index_groups)
+                    if self.axis_name is not None else converted_axis())
+            if axis is not None:
+                mean, mean2 = pmean_moments((mean, mean2), *axis)
+            var = torch.clamp_min(mean2 - mean * mean, 0.0)
             if stats is not None:
                 mom = self.momentum
                 stats[self] = tuple(

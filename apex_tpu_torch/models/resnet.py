@@ -6,7 +6,10 @@ blocks with the stride on the 3x3 conv, every BN a
 ``fused=True`` default) with the residual add and ReLU of a block's join
 fused into its last unit. ``fused_bn=False`` takes the JAX package's
 autodiff oracle instead: a ``models.layers.BatchNorm`` (flax's
-``nn.BatchNorm``) with the add and ReLU after it. ``dx_distribute="join"``
+``nn.BatchNorm``), or with ``bn_axis_name`` a
+``parallel.SyncBatchNorm`` (``SyncBatchNorm_0``), with the add and ReLU
+after it. ``bn_axis_name`` gives every BN unit statistics across the
+ranks of that axis of the bound mesh (``parallel.use_mesh``). ``dx_distribute="join"``
 makes each bottleneck block's join, and ``"all"`` every conv+BN pair of a
 block, one :class:`apex_tpu_torch.ops.conv_bn.ConvBNAct` unit (the
 distributed-dgrad backward), with the JAX package's module names: under
@@ -43,13 +46,16 @@ from apex_tpu_torch.models.layers import BatchNorm, Conv, lecun_normal_
 from apex_tpu_torch.models.transformer import Dense
 from apex_tpu_torch.ops.bn_act import FusedBNAct
 from apex_tpu_torch.ops.conv_bn import ConvBNAct
+from apex_tpu_torch.parallel.sync_batchnorm import SyncBatchNorm
 
 class _BN(nn.Module):
     """A BN unit with optional residual add and ReLU: the JAX package's
     ``_BN``. ``fused=True`` is one ``FusedBNAct_0`` unit; ``fused=False``
     casts x and the residual to ``dtype``, then runs ``BatchNorm_0``
     (flax's ``nn.BatchNorm`` with this unit's momentum, epsilon and
-    ``init_scale``), adds and applies the ReLU."""
+    ``init_scale``), or with ``axis_name`` ``SyncBatchNorm_0`` (momentum
+    ``1 − momentum`` in the torch sense, ``scale_init=init_scale``), adds
+    and applies the ReLU."""
 
     def __init__(self, features: int, axis_name=None, momentum=0.9,
                  epsilon=1e-5, init_scale=1.0, dtype=None, relu=False,
@@ -64,14 +70,20 @@ class _BN(nn.Module):
                 device=device)
             return
         if axis_name is not None:
-            raise NotImplementedError(
-                "the unfused BN across devices (SyncBatchNorm) is not "
-                "ported yet (ROADMAP.md queue A item 9)")
+            self.SyncBatchNorm_0 = SyncBatchNorm(
+                features, momentum=1 - momentum, epsilon=epsilon,
+                axis_name=axis_name, scale_init=init_scale, device=device)
+            return
         self.BatchNorm_0 = BatchNorm(features, momentum=momentum,
                                      epsilon=epsilon, dtype=dtype,
                                      device=device)
         with torch.no_grad():
             self.BatchNorm_0.scale.fill_(init_scale)
+
+    def bn_module(self):
+        """The unfused unit's ``BatchNorm_0`` or ``SyncBatchNorm_0``."""
+        sync = getattr(self, "SyncBatchNorm_0", None)
+        return sync if sync is not None else self.BatchNorm_0
 
     def forward(self, x, residual=None, train=True, stats=None):
         if self.fused:
@@ -80,7 +92,7 @@ class _BN(nn.Module):
             x = x.to(self.dtype)
             if residual is not None:
                 residual = residual.to(self.dtype)
-        y = self.BatchNorm_0(x, train=train, stats=stats)
+        y = self.bn_module()(x, train=train, stats=stats)
         if residual is not None:
             y = y + residual
         return torch.relu(y) if self.relu else y
@@ -237,7 +249,7 @@ class ResNet(nn.Module):
                 lecun_normal_(mod.weight, mod.weight[0].numel(), generator)
                 if isinstance(mod, Dense):
                     mod.bias.zero_()
-            bn = (mod.BatchNorm_0 if isinstance(mod, _BN) and not mod.fused
+            bn = (mod.bn_module() if isinstance(mod, _BN) and not mod.fused
                   else mod if isinstance(mod, (FusedBNAct, ConvBNAct))
                   else None)
             if bn is not None:

@@ -11,6 +11,9 @@ from apex_tpu_torch.ops.bn_act import (  # noqa: F401
     FusedBNAct, bn_act_reference, bn_act_train, bn_add_act_train,
     bn_dx_kernel, bn_sums_kernel, make_cfg,
 )
+from apex_tpu_torch.ops.group_bn import (  # noqa: F401
+    BatchNorm2d_NHWC, bn_group_spec,
+)
 from apex_tpu_torch.ops.layer_norm import (  # noqa: F401
     FusedLayerNorm, fused_layer_norm, fused_layer_norm_affine,
     layer_norm_reference, ln_bwd_kernel, ln_fwd_kernel,

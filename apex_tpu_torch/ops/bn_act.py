@@ -40,6 +40,17 @@ The forward (moments, normalise, add, ReLU) is plain PyTorch, as the JAX
 package has jnp there: one-pass f32 moments E[x²]−E[x]² (clamped at 0),
 reduced straight from the half input without an f32 copy of it.
 
+Across ranks (``axis_name``, optionally ``axis_index_groups``, resolved
+against the bound mesh when the unit runs: ``parallel.use_mesh``), the
+local moments are combined by the parallel Welford combine over the group
+(one gather of each rank's packed (mean, var, count)), the sums kernel's
+(2, C) output is all-reduced over the group before the dx kernel reads it,
+and the γ and β gradients are those all-reduced sums, as in the JAX
+package (so each rank holds the whole group's dγ and dβ). The group's
+count is then a 1-element f32 device tensor that the dx kernel reads (its
+``COUNT_PTR`` variant) and the running statistics use, so no count is
+read back to the host.
+
 Activations are contiguous NHWC tensors: a unit views them as (M, C) with
 ``.view`` and never copies one silently. A gradient that autograd hands
 over in another layout (a broadcast from the global mean, a slice from a
@@ -58,6 +69,10 @@ import torch
 import torch.nn as nn
 
 from apex_tpu_torch.ops import _build
+from apex_tpu_torch.parallel import collectives
+from apex_tpu_torch.parallel.mesh import normalize_groups, resolve_group
+from apex_tpu_torch.parallel.sync_batchnorm import SCOPE as SYNC_SCOPE
+from apex_tpu_torch.parallel.sync_batchnorm import combine_moments
 
 tl = None  # triton.language, bound by _build.triton_jit at the first launch
 
@@ -76,14 +91,17 @@ layout_copies = 0
 # --- Triton dx kernel --------------------------------------------------------
 
 def _bn_dx_triton(X, G, SCALE, BIAS, MEAN, INVSTD, SUMS, DX, M, C, count,
-                  RELU: "tl.constexpr", XHAT: "tl.constexpr",
-                  BLOCK_M: "tl.constexpr", BLOCK_C: "tl.constexpr"):
+                  COUNT_PTR: "tl.constexpr", RELU: "tl.constexpr",
+                  XHAT: "tl.constexpr", BLOCK_M: "tl.constexpr",
+                  BLOCK_C: "tl.constexpr"):
     rows = tl.program_id(0).to(tl.int64) * BLOCK_M + tl.arange(0, BLOCK_M)
     cols = tl.program_id(1) * BLOCK_C + tl.arange(0, BLOCK_C)
     cmask = cols < C
     mean = tl.load(MEAN + cols, mask=cmask, other=0.0)
     invstd = tl.load(INVSTD + cols, mask=cmask, other=0.0)
     scale = tl.load(SCALE + cols, mask=cmask, other=0.0).to(tl.float32)
+    if COUNT_PTR:           # the group's count, an f32 on the device
+        count = tl.load(count)
     k1 = tl.div_rn(tl.load(SUMS + cols, mask=cmask, other=0.0), count)
     k2 = tl.div_rn(tl.load(SUMS + C + cols, mask=cmask, other=0.0), count)
     m = (rows < M)[:, None] & cmask[None, :]
@@ -234,17 +252,26 @@ def bn_dx_kernel(x2, g2, scale, bias, mean, invstd, sums, count, relu,
                  dx_dtype, xhat=False):
     """Triton dx over contiguous (M, C) CUDA rows; ``sums`` is the (2, C)
     f32 output of the sums pass and ``count`` the number of rows the
-    statistics cover. With ``xhat``, ``x2`` is x̂ itself in e4m3."""
+    statistics cover: a number, or a 1-element f32 tensor on the card (the
+    group's count across ranks, read by the kernel). With ``xhat``, ``x2``
+    is x̂ itself in e4m3."""
     _check_unit(x2, g2, scale, bias, mean, invstd, xhat)
     _build.check_operands(x2, sums)
     _check_f32(sums)
+    count_ptr = isinstance(count, torch.Tensor)
+    if count_ptr:
+        _build.check_operands(x2, count)
+        _check_f32(count)
+        if count.numel() != 1:
+            raise ValueError(f"count tensor of {count.numel()} elements")
     m, c = x2.shape
     if sums.shape != (2, c):
         raise ValueError(f"sums {tuple(sums.shape)} != (2, {c})")
     block_m, block_c = _tiles(c)
     dx = torch.empty(x2.shape, dtype=dx_dtype, device=x2.device)
     _build.triton_jit(_bn_dx_triton)[(-(-m // block_m), -(-c // block_c))](
-        x2, g2, scale, bias, mean, invstd, sums, dx, m, c, float(count),
+        x2, g2, scale, bias, mean, invstd, sums, dx, m, c,
+        count if count_ptr else float(count), COUNT_PTR=count_ptr,
         RELU=bool(relu), XHAT=bool(xhat), BLOCK_M=block_m, BLOCK_C=block_c,
         num_warps=8,
         enable_fp_fusion=False)
@@ -293,19 +320,28 @@ def bn_dx_plain(x2, g2, scale, bias, mean, invstd, sums, count, relu,
 
 class _Cfg(NamedTuple):
     """Static configuration of one unit. ``fp8``: save x̂ in e4m3 for the
-    backward instead of x."""
+    backward instead of x. ``axis_name`` and ``groups`` (normalised
+    ``axis_index_groups``): the statistics' group across ranks."""
     relu: bool
     eps: float
     fp8: bool = False
+    axis_name: Optional[str] = None
+    groups: Optional[tuple] = None
 
 
 def make_cfg(*, relu: bool, eps: float = 1e-5, axis_name=None,
              axis_index_groups=None, fp8: bool = False) -> _Cfg:
-    if axis_name is not None or axis_index_groups is not None:
-        raise NotImplementedError(
-            "cross-device BN statistics (axis_name) are not ported yet "
-            "(ROADMAP.md queue A, the distributed slice)")
-    return _Cfg(relu=bool(relu), eps=float(eps), fp8=bool(fp8))
+    return _Cfg(relu=bool(relu), eps=float(eps), fp8=bool(fp8),
+                axis_name=axis_name,
+                groups=normalize_groups(axis_index_groups))
+
+
+def _group(cfg: _Cfg):
+    """The process group of ``cfg``'s statistics under the bound mesh, or
+    None for a unit whose statistics are its own."""
+    if cfg.axis_name is None:
+        return None
+    return resolve_group(cfg.axis_name, cfg.groups)
 
 
 def _rows(t: torch.Tensor) -> torch.Tensor:
@@ -360,9 +396,15 @@ def _apply(x2, r2, scale, bias, mean, invstd, relu, dtype):
     return z.copy_(y)
 
 
-def _fwd_common(x, r, scale, bias, cfg: _Cfg):
+def _fwd_common(x, r, scale, bias, cfg: _Cfg, group=None):
+    """z, mean, var, count and invstd of one unit; with ``group`` the
+    statistics (and the count, then a 0-dim f32 tensor) are the group's."""
     x2 = _rows(x)
     mean, var, count = _stats(x2)
+    if group is not None:
+        mean, var, count = combine_moments(
+            mean, var, torch.full((), count, dtype=torch.float32,
+                                  device=x.device), group)
     invstd = torch.rsqrt(var + cfg.eps)
     r2 = None if r is None else _rows(r)
     z = _apply(x2, r2, scale, bias, mean, invstd, cfg.relu, x.dtype)
@@ -379,11 +421,19 @@ def _xres_of(x, mean, invstd, cfg: _Cfg):
     return (_rows(x) - mean).mul_(invstd).to(XHAT_DTYPE).view(x.shape)
 
 
+def group_sums(sums, group):
+    """The (2, C) channel sums summed over ``group`` in place (the JAX
+    unit's ``psum``), or as they are without a group."""
+    if group is not None:
+        collectives.all_reduce(sums, group, SYNC_SCOPE)
+    return sums
+
+
 def _bwd(cfg: _Cfg, x, scale, bias, mean, invstd, count, z, dz,
-         has_residual, r_dtype, dx_dtype):
-    """The two passes: channel sums (+ dr), then dx. CUDA tensors launch
-    the kernels; CPU tensors take their plain versions. ``x`` is the saved
-    residual: x, or x̂ in e4m3 under ``cfg.fp8``."""
+         has_residual, r_dtype, dx_dtype, group=None):
+    """The two passes: channel sums (+ dr), summed over ``group``, then dx.
+    CUDA tensors launch the kernels; CPU tensors take their plain versions.
+    ``x`` is the saved residual: x, or x̂ in e4m3 under ``cfg.fp8``."""
     x2, g2 = _rows(x), _grad_rows(dz)
     mode = ("addrelu" if cfg.relu and has_residual
             else "relu" if cfg.relu else "plain")
@@ -391,6 +441,7 @@ def _bwd(cfg: _Cfg, x, scale, bias, mean, invstd, count, z, dz,
     dx_fn = bn_dx_kernel if x2.is_cuda else bn_dx_plain
     sums, dr2 = sums_fn(x2, g2, None if z is None else _rows(z), scale, bias,
                         mean, invstd, mode, r_dtype, xhat=cfg.fp8)
+    group_sums(sums, group)
     g_src = dr2 if mode == "addrelu" else g2
     dx = dx_fn(x2, g_src, scale, bias, mean, invstd, sums, count,
                mode == "relu", dx_dtype, xhat=cfg.fp8).view(x.shape)
@@ -402,58 +453,91 @@ def _bwd(cfg: _Cfg, x, scale, bias, mean, invstd, count, z, dz,
     return dx, dr, dscale, dbias
 
 
+def save_stats(ctx, cfg, group, count, *tensors):
+    """Save a unit's residuals: a group's count is a tensor, saved with
+    them; a rank's own count is a number on ``ctx``."""
+    ctx.save_for_backward(*tensors, count if group is not None else None)
+    ctx.cfg, ctx.group = cfg, group
+    ctx.count = None if group is not None else count
+
+
+def saved_stats(ctx):
+    """(saved residuals, count) of :func:`save_stats`."""
+    *saved, count = ctx.saved_tensors
+    return saved, ctx.count if count is None else count
+
+
+def unit_outputs(ctx, group, z, mean, var, count):
+    """A unit's outputs: ``(z, mean, var)``, and the group's count as a
+    fourth, non-differentiable output when the statistics are a group's."""
+    if group is None:
+        ctx.mark_non_differentiable(mean, var)
+        return z, mean, var
+    ctx.mark_non_differentiable(mean, var, count)
+    return z, mean, var, count
+
+
+def unit_result(out, z_like):
+    """``(z, mean, var, count)`` from a unit's outputs; a rank's own count
+    is the number of its rows."""
+    if len(out) == 4:
+        return out
+    return (*out, float(z_like.numel() // z_like.shape[-1]))
+
+
 class _BNActFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, bias, cfg):
-        z, mean, var, count, invstd = _fwd_common(x, None, scale, bias, cfg)
-        ctx.save_for_backward(_xres_of(x, mean, invstd, cfg), scale, bias,
-                              mean, invstd)
-        ctx.cfg, ctx.count, ctx.x_dtype = cfg, count, x.dtype
-        ctx.mark_non_differentiable(mean, var)
-        return z, mean, var
+        group = _group(cfg)
+        z, mean, var, count, invstd = _fwd_common(x, None, scale, bias, cfg,
+                                                  group)
+        save_stats(ctx, cfg, group, count, _xres_of(x, mean, invstd, cfg),
+                   scale, bias, mean, invstd)
+        ctx.x_dtype = x.dtype
+        return unit_outputs(ctx, group, z, mean, var, count)
 
     @staticmethod
-    def backward(ctx, dz, _dmean, _dvar):
-        x, scale, bias, mean, invstd = ctx.saved_tensors
+    def backward(ctx, dz, *_):
+        (x, scale, bias, mean, invstd), count = saved_stats(ctx)
         dx, _, dscale, dbias = _bwd(ctx.cfg, x, scale, bias, mean, invstd,
-                                    ctx.count, None, dz, False, None,
-                                    ctx.x_dtype)
+                                    count, None, dz, False, None,
+                                    ctx.x_dtype, ctx.group)
         return dx, dscale, dbias, None
 
 
 class _BNAddActFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, r, scale, bias, cfg):
-        z, mean, var, count, invstd = _fwd_common(x, r, scale, bias, cfg)
+        group = _group(cfg)
+        z, mean, var, count, invstd = _fwd_common(x, r, scale, bias, cfg,
+                                                  group)
         # z doubles as the ReLU mask source; it is the next conv's input
-        ctx.save_for_backward(_xres_of(x, mean, invstd, cfg), scale, bias,
-                              mean, invstd, z if cfg.relu else None)
-        ctx.cfg, ctx.count, ctx.r_dtype = cfg, count, r.dtype
-        ctx.x_dtype = x.dtype
-        ctx.mark_non_differentiable(mean, var)
-        return z, mean, var
+        save_stats(ctx, cfg, group, count, _xres_of(x, mean, invstd, cfg),
+                   scale, bias, mean, invstd, z if cfg.relu else None)
+        ctx.r_dtype, ctx.x_dtype = r.dtype, x.dtype
+        return unit_outputs(ctx, group, z, mean, var, count)
 
     @staticmethod
-    def backward(ctx, dz, _dmean, _dvar):
-        x, scale, bias, mean, invstd, z = ctx.saved_tensors
+    def backward(ctx, dz, *_):
+        (x, scale, bias, mean, invstd, z), count = saved_stats(ctx)
         dx, dr, dscale, dbias = _bwd(ctx.cfg, x, scale, bias, mean, invstd,
-                                     ctx.count, z, dz, True, ctx.r_dtype,
-                                     ctx.x_dtype)
+                                     count, z, dz, True, ctx.r_dtype,
+                                     ctx.x_dtype, ctx.group)
         return dx, dr, dscale, dbias, None
 
 
 def bn_act_train(x, scale, bias, cfg: _Cfg):
     """Training-mode ``relu?(bn(x))`` over channels-last ``x``. Returns
-    ``(z, mean, biased_var, count)``; the statistics carry no gradient."""
-    z, mean, var = _BNActFn.apply(x, scale, bias, cfg)
-    return z, mean, var, float(x.numel() // x.shape[-1])
+    ``(z, mean, biased_var, count)``; the statistics carry no gradient.
+    ``count`` is the number of rows, or with ``cfg.axis_name`` the group's
+    count as a 0-dim f32 tensor."""
+    return unit_result(_BNActFn.apply(x, scale, bias, cfg), x)
 
 
 def bn_add_act_train(x, r, scale, bias, cfg: _Cfg):
     """Training-mode ``relu?(bn(x) + r)``, the residual-join unit. Returns
     ``(z, mean, biased_var, count)``."""
-    z, mean, var = _BNAddActFn.apply(x, r, scale, bias, cfg)
-    return z, mean, var, float(x.numel() // x.shape[-1])
+    return unit_result(_BNAddActFn.apply(x, r, scale, bias, cfg), x)
 
 
 def bn_act_reference(x, scale, bias, *, residual=None, relu=True, eps=1e-5):
@@ -475,9 +559,13 @@ def bn_act_reference(x, scale, bias, *, residual=None, relu=True, eps=1e-5):
 def running_stats(unit, mean, var, count):
     """The new running statistics of a BN unit (buffers ``mean``, ``var``,
     attribute ``momentum``): unbiased variance, ``ra = m·ra + (1−m)·new``,
-    as the JAX package's units update theirs."""
+    as the JAX package's units update theirs. ``count`` is a number, or a
+    group's count as a tensor (kept on the device)."""
     m = unit.momentum
-    unbiased = var * count / max(count - 1.0, 1.0)
+    if isinstance(count, torch.Tensor):
+        unbiased = var * count / torch.clamp_min(count - 1.0, 1.0)
+    else:
+        unbiased = var * count / max(count - 1.0, 1.0)
     return (m * unit.mean + (1 - m) * mean,
             m * unit.var + (1 - m) * unbiased)
 

@@ -29,9 +29,11 @@ activations viewed as channels-last NCHW, as the JAX package leaves them to
 XLA; the transposes are ``aten.convolution_backward``. The forward is the
 port's BN forward (``bn_act._fwd_common``) on the conv output.
 
-Cross-device statistics raise, as the fused BN unit's do (ROADMAP.md queue
-A, item 9). The unit is in neither of ``auto_cast``'s module tables, as in
-the JAX package.
+With ``axis_name`` (and ``axis_index_groups``) the statistics are a group's
+across ranks, as the fused BN unit's: the forward combines the moments
+over the group and the backward all-reduces the channel sums before the
+per-channel terms are formed, as the JAX package's ``psum`` does. The unit
+is in neither of ``auto_cast``'s module tables, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from apex_tpu_torch.ops import bn_act
+from apex_tpu_torch.parallel.mesh import normalize_groups
 
 
 class _ConvCfg(NamedTuple):
@@ -51,25 +54,25 @@ class _ConvCfg(NamedTuple):
     padding: Any            # "SAME" | "VALID" | ((lo, hi), (lo, hi))
     relu: bool
     eps: float
+    axis_name: Optional[str] = None
+    groups: Optional[tuple] = None
 
     def bn(self) -> bn_act._Cfg:
-        return bn_act._Cfg(relu=self.relu, eps=self.eps)
+        return bn_act._Cfg(relu=self.relu, eps=self.eps,
+                           axis_name=self.axis_name, groups=self.groups)
 
 
 def make_conv_cfg(*, strides=(1, 1), padding="SAME", relu: bool,
                   eps: float = 1e-5, axis_name: Optional[str] = None,
                   axis_index_groups=None) -> _ConvCfg:
-    if axis_name is not None or axis_index_groups is not None:
-        raise NotImplementedError(
-            "cross-device BN statistics (axis_name) are not ported yet "
-            "(ROADMAP.md queue A, item 9)")
     if not isinstance(padding, str):
         padding = tuple(tuple(int(p) for p in pair) for pair in padding)
     elif padding not in ("SAME", "VALID"):
         raise ValueError(f"padding must be 'SAME', 'VALID' or explicit "
                          f"pairs, got {padding!r}")
     return _ConvCfg(strides=tuple(int(s) for s in strides), padding=padding,
-                    relu=bool(relu), eps=float(eps))
+                    relu=bool(relu), eps=float(eps), axis_name=axis_name,
+                    groups=normalize_groups(axis_index_groups))
 
 
 def _geometry(a_shape, w, cfg: _ConvCfg):
@@ -170,20 +173,22 @@ class _ConvBNActFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, w, scale, bias, cfg):
         x = _conv(a, w, cfg)
+        group = bn_act._group(cfg.bn())
         z, mean, var, count, invstd = bn_act._fwd_common(x, None, scale,
-                                                         bias, cfg.bn())
-        ctx.save_for_backward(a, w, x, scale, bias, mean, invstd)
-        ctx.cfg, ctx.count = cfg, count
-        ctx.mark_non_differentiable(mean, var)
-        return z, mean, var
+                                                         bias, cfg.bn(),
+                                                         group)
+        bn_act.save_stats(ctx, cfg, group, count, a, w, x, scale, bias, mean,
+                          invstd)
+        return bn_act.unit_outputs(ctx, group, z, mean, var, count)
 
     @staticmethod
-    def backward(ctx, dz, _dmean, _dvar):
-        a, w, x, scale, bias, mean, invstd = ctx.saved_tensors
+    def backward(ctx, dz, *_):
+        (a, w, x, scale, bias, mean, invstd), count = bn_act.saved_stats(ctx)
         cfg = ctx.cfg
         mode = "relu" if cfg.relu else "plain"
         sums, _ = _sums(x, dz, None, scale, bias, mean, invstd, mode)
-        a_, b_, cprime = _channel_terms(sums, scale, mean, invstd, ctx.count)
+        bn_act.group_sums(sums, ctx.group)
+        a_, b_, cprime = _channel_terms(sums, scale, mean, invstd, count)
         g32 = dz.float()
         if cfg.relu:
             g32 = torch.where(bn_act._relu_mask(
@@ -198,17 +203,18 @@ class _ConvBNAddActFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, w, r, scale, bias, cfg):
         x = _conv(a, w, cfg)
+        group = bn_act._group(cfg.bn())
         z, mean, var, count, invstd = bn_act._fwd_common(x, r, scale, bias,
-                                                         cfg.bn())
-        ctx.save_for_backward(a, w, x, scale, bias, mean, invstd,
-                              z if cfg.relu else None)
-        ctx.cfg, ctx.count, ctx.r_dtype = cfg, count, r.dtype
-        ctx.mark_non_differentiable(mean, var)
-        return z, mean, var
+                                                         cfg.bn(), group)
+        bn_act.save_stats(ctx, cfg, group, count, a, w, x, scale, bias, mean,
+                          invstd, z if cfg.relu else None)
+        ctx.r_dtype = r.dtype
+        return bn_act.unit_outputs(ctx, group, z, mean, var, count)
 
     @staticmethod
-    def backward(ctx, dz, _dmean, _dvar):
-        a, w, x, scale, bias, mean, invstd, z = ctx.saved_tensors
+    def backward(ctx, dz, *_):
+        (a, w, x, scale, bias, mean, invstd, z), count = \
+            bn_act.saved_stats(ctx)
         cfg = ctx.cfg
         if cfg.relu:
             sums, dr = _sums(x, dz, z, scale, bias, mean, invstd, "addrelu",
@@ -217,7 +223,8 @@ class _ConvBNAddActFn(torch.autograd.Function):
         else:
             dr = dz.to(ctx.r_dtype)
             sums, _ = _sums(x, dr, None, scale, bias, mean, invstd, "plain")
-        a_, b_, cprime = _channel_terms(sums, scale, mean, invstd, ctx.count)
+        bn_act.group_sums(sums, ctx.group)
+        a_, b_, cprime = _channel_terms(sums, scale, mean, invstd, count)
         da, dw = _distributed_grads(cfg, a, w, x, dr, a_, b_, a_ * cprime)
         return (da, dw.to(w.dtype), dr, sums[1].to(scale.dtype),
                 sums[0].to(bias.dtype), None)
@@ -227,15 +234,15 @@ def conv_bn_act_train(a, w, scale, bias, cfg: _ConvCfg):
     """Training-mode ``relu?(bn(conv(a, w)))`` over NHWC ``a`` and an (O, I,
     kh, kw) ``w``, with the distributed-dgrad backward. Returns ``(z, mean,
     biased_var, count)`` like :func:`bn_act.bn_act_train`."""
-    z, mean, var = _ConvBNActFn.apply(a, w, scale, bias, cfg)
-    return z, mean, var, float(z.numel() // z.shape[-1])
+    out = _ConvBNActFn.apply(a, w, scale, bias, cfg)
+    return bn_act.unit_result(out, out[0])
 
 
 def conv_bn_add_act_train(a, w, r, scale, bias, cfg: _ConvCfg):
     """Training-mode ``relu?(bn(conv(a, w)) + r)``, the residual-join unit
     with the distributed backward."""
-    z, mean, var = _ConvBNAddActFn.apply(a, w, r, scale, bias, cfg)
-    return z, mean, var, float(z.numel() // z.shape[-1])
+    out = _ConvBNAddActFn.apply(a, w, r, scale, bias, cfg)
+    return bn_act.unit_result(out, out[0])
 
 
 class ConvBNAct(nn.Module):
@@ -251,11 +258,12 @@ class ConvBNAct(nn.Module):
     def __init__(self, in_features: int, features: int, kernel_size=(1, 1),
                  strides=(1, 1), relu: bool = True, momentum: float = 0.9,
                  epsilon: float = 1e-5, axis_name=None,
-                 init_scale: float = 1.0,
+                 axis_index_groups=None, init_scale: float = 1.0,
                  dtype: Optional[torch.dtype] = None, device="cuda"):
         super().__init__()
         self.cfg = make_conv_cfg(strides=strides, relu=relu, eps=epsilon,
-                                 axis_name=axis_name)
+                                 axis_name=axis_name,
+                                 axis_index_groups=axis_index_groups)
         self.momentum, self.init_scale = momentum, init_scale
         self.dtype = dtype
         c = features

@@ -26,7 +26,12 @@ O0, the half dtype at O1 and O2), the same inputs from
 policy casts the model, as at O2; f32 at O0 and O1), ``Amp(policy,
 FusedSGD(lr=0.1, momentum=0.9, strategy=strategy))`` or ``Amp(policy,
 optimizer)``, and the mean fused cross-entropy as the loss, with the new
-BN running statistics as the loss's aux output.
+BN running statistics as the loss's aux output. With ``bn_axis_name`` it
+is ``bench._bench_resnet(sync_bn=True)``, BASELINE configuration 3: every
+BN unit's statistics across the ranks of the mesh's ``data`` axis, the
+gradients all-reduced over it with ``parallel.sync_gradients`` after the
+amp backward (or by a ``DistributedDataParallel``'s ``sync``), each rank
+training on its slice of the seeded global batch.
 
 ``build_mlp_step`` trains ``ops.MLP`` (DLRM's bottom MLP by default,
 ``--arch-mlp-bot=13-512-256-128``) under amp (O2 bf16 by default) with
@@ -50,7 +55,7 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from apex_tpu_torch import amp, models, ops, sparsity
+from apex_tpu_torch import amp, models, ops, parallel, sparsity
 from apex_tpu_torch.models.transformer import _mlm_head
 from apex_tpu_torch.optim import FusedAdam, FusedLAMB, FusedSGD
 
@@ -130,18 +135,32 @@ def build_bert_step(batch: int, seq: int, encoder=None, opt_level="O1",
 
 def build_resnet_step(batch: int, size: int, opt_level: str = "O2",
                       half_dtype=torch.bfloat16, device="cuda", seed: int = 0,
-                      model=None, strategy: str = "auto", optimizer=None):
+                      model=None, strategy: str = "auto", optimizer=None,
+                      bn_axis_name=None, ddp=None):
     """Returns ``(step, (state, batch_stats), (x, y), policy, model)``.
 
     ``step(state, batch_stats, x, y) -> (state', batch_stats', loss)`` runs
     one training step. ``model=None`` builds ResNet-50 (1000 classes, the
-    policy's compute dtype) on ``device``; labels are drawn below the
-    model's ``num_classes``. ``optimizer=None`` trains with
-    ``FusedSGD(lr=0.1, momentum=0.9, strategy=strategy)``; an optimizer
-    given (``FusedAdam(...)``, ...) brings its own strategy, so passing
-    ``strategy`` with it raises.
+    policy's compute dtype, BN statistics across ``bn_axis_name``) on
+    ``device``; labels are drawn below the model's ``num_classes``.
+    ``optimizer=None`` trains with ``FusedSGD(lr=0.1, momentum=0.9,
+    strategy=strategy)``; an optimizer given (``FusedAdam(...)``, ...)
+    brings its own strategy, so passing ``strategy`` with it raises.
+
+    Data parallel: with ``bn_axis_name`` (the JAX bench's ``"data"``) or a
+    ``parallel.DistributedDataParallel`` ``ddp``, the step runs with the
+    mesh bound (``ddp.mesh``, else ``parallel.data_parallel_mesh(device)``
+    over the started process group), ``batch`` is the global batch,
+    ``(x, y)`` are this rank's rows of it, and the gradients are synced over the ``data`` axis after the
+    amp backward: by ``parallel.sync_gradients`` or by ``ddp.sync``. As in
+    the JAX bench, the update applies with this rank's own finite flag
+    (taken before the sync) and ``loss`` is this rank's.
     """
     device = _device(device, "build_resnet_step")
+    dp = bn_axis_name is not None or ddp is not None
+    if dp:
+        mesh = ddp.mesh if ddp is not None else parallel.data_parallel_mesh(
+            device)
     if optimizer is None:
         optimizer = FusedSGD(lr=0.1, momentum=0.9, strategy=strategy)
     elif strategy != "auto":
@@ -150,15 +169,20 @@ def build_resnet_step(batch: int, size: int, opt_level: str = "O2",
     policy = amp.Policy.from_opt_level(opt_level, half_dtype=half_dtype)
     if model is None:
         model = models.ResNet50(num_classes=1000, dtype=policy.compute_dtype,
-                                device=device, seed=seed)
+                                device=device, seed=seed,
+                                bn_axis_name=bn_axis_name)
     rng = np.random.RandomState(seed)
-    x = torch.as_tensor(rng.rand(batch, size, size, 3).astype(np.float32),
-                        device=device)
+    x = rng.rand(batch, size, size, 3).astype(np.float32)
+    y = rng.randint(0, model.num_classes, batch)
+    if dp:
+        n = parallel.local_batch(batch, mesh)
+        me = parallel.axis_index(parallel.DATA_AXIS, mesh)
+        x, y = x[me * n:(me + 1) * n], y[me * n:(me + 1) * n]
+    x = torch.as_tensor(x, device=device)
     # inputs arrive pre-cast to the compute dtype, as a loader ships them
     if policy.cast_model_type is not None:
         x = x.to(policy.compute_dtype)
-    y = torch.as_tensor(rng.randint(0, model.num_classes, batch),
-                        dtype=torch.int64, device=device)
+    y = torch.as_tensor(y, dtype=torch.int64, device=device)
     amp_opt = amp.Amp(policy, optimizer)
     state = amp_opt.init(dict(model.named_parameters()))
     batch_stats = {k: b.detach().clone() for k, b in model.named_buffers()}
@@ -172,7 +196,18 @@ def build_resnet_step(batch: int, size: int, opt_level: str = "O2",
 
         (loss, new_bs), grads, state, finite = amp_opt.backward(
             state, loss_fn, has_aux=True)
+        if ddp is not None:
+            grads = ddp.sync(grads)
+        elif dp:
+            grads = parallel.sync_gradients(grads, parallel.DATA_AXIS)
         return amp_opt.apply_gradients(state, grads, finite), new_bs, loss
+
+    if dp:
+        local_step = step
+
+        def step(state, batch_stats, xb, yb):
+            with parallel.use_mesh(mesh):
+                return local_step(state, batch_stats, xb, yb)
 
     return step, (state, batch_stats), (x, y), policy, model
 

@@ -58,6 +58,21 @@ plain PyTorch version on the card at the shapes its main path gives it
   kernel phase also holds the BN pair in f32 and on an e4m3 x̂ at the
   stem (rows ``bn_{sums,dx}_{f32,fp8}``) and the cross-entropy kernels
   on labels >= V with the logits' next row NaN.
+- BASELINE configuration 3 (the JAX bench's ``_bench_resnet(sync_bn=
+  True)``): an NCCL process group of world size 1 over a ``file://``
+  store (phase dist_init), then ResNet-50 with every BN unit's
+  statistics across the ``data`` axis and the gradients all-reduced by
+  ``sync_gradients``, B256, O2 bf16, FusedSGD, 5 steps (phase
+  resnet50_syncbn: 53 + 53 BN launches and 106 + 161 collectives a step,
+  losses within 1e-3 of phase resnet50's), and with
+  ``DistributedDataParallel(delay_allreduce=True)`` and the arena SGD
+  (phase resnet50_syncbn_arena: one flat all-reduce a step); each unit
+  with statistics across ranks once under
+  ``torch.cuda.set_sync_debug_mode("error")`` (phase
+  syncbn_units_sync_free); two processes on the card in a gloo group
+  held against one process on their whole batch (phase
+  syncbn_two_ranks). The kernel phase holds row 13's count-on-the-card
+  variant against its plain version (row ``bn_dx_count``).
 - DLRM's bottom MLP (``ops.MLP([13, 512, 256, 128])``: the
   ``--arch-mlp-bot`` of facebookresearch/dlrm's Criteo Terabyte run, at
   its ``--mini-batch-size=2048``) trains 20 steps under
@@ -92,6 +107,8 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -185,7 +202,18 @@ EXTRA_BN_ROWS = {
     "bn_dx_f32": ("bn_dx", "apex_tpu/ops/bn_act.py:206", "resnet50_o0"),
     "bn_sums_fp8": ("bn_sums", "apex_tpu/ops/bn_act.py:178", "resnet50_fp8"),
     "bn_dx_fp8": ("bn_dx", "apex_tpu/ops/bn_act.py:206", "resnet50_fp8"),
+    # the dx kernel reading the group's count from the card (COUNT_PTR), as
+    # the BN units with statistics across ranks launch it
+    "bn_dx_count": ("bn_dx", "apex_tpu/ops/bn_act.py:206",
+                    "resnet50_syncbn"),
 }
+# BASELINE configuration 3 (SyncBN + gradient sync) at world size 1 on
+# NCCL: collectives a step by registry scope; each of the 53 BN units
+# gathers its statistics in the forward and all-reduces its channel sums
+# in the backward; the tree sync all-reduces each of the 161 gradients,
+# DistributedDataParallel(delay_allreduce=True) one flat f32 buffer
+SYNCBN_COLLECTIVES = {"sync_batchnorm": 106, "ddp/sync_gradients": 161}
+SYNCBN_ARENA_COLLECTIVES = {"sync_batchnorm": 106, "ddp/sync_gradients": 1}
 # integer operations of the dropout hash per score element (mix, avalanche,
 # compare, select and scale), counted at the f32 rate of the CUDA cores
 HASH_OPS = 20
@@ -565,6 +593,7 @@ def check_kernels(rows):
     check_arena_remainder(rnd, flush, row)
     check_bn_kernels(rnd, flush, row)
     check_bn_f32_fp8(rnd, flush, row)
+    check_bn_dx_count(rnd, flush, row)
     check_norm_determinism(rnd)
     check_ln_bwd_determinism(rnd)
     check_sgd_kernel(rnd, flush, row)
@@ -1190,6 +1219,69 @@ def check_bn_f32_fp8(rnd, flush, row):
     log("phase kernels: bn_sums and bn_dx in f32 and on an e4m3 x-hat agree "
         "with the plain versions at the stem in every mode; a dx with zeroed "
         "sums, a negated sum of g*xhat or twice the count fails the check")
+
+
+def check_bn_dx_count(rnd, flush, row):
+    """Row 13's variant with the group's count as a 1-element f32 operand
+    on the card (``COUNT_PTR``, what a unit with statistics across ranks
+    launches): at the stem (3,211,264 x 64) and a ragged (12,345 x 96),
+    "plain" and "relu", against ``bn_dx_plain`` fed the same tensor count,
+    and bit for bit against the kernel fed the count as a number (the same
+    f32 division). Timed in "plain" mode at the stem beside
+    ``torch.batch_norm_backward_elemt``, whose per-rank counts are a tensor
+    on the card too."""
+    import torch
+    from apex_tpu_torch.ops import bn_act as B
+
+    bf16 = torch.bfloat16
+    err = 0.0
+    for m, c in ((3211264, 64), (12345, 96)):
+        x = rnd(m, c, std=2.0) + 0.5
+        scale, bias = rnd(c, std=0.3) + 1.0, rnd(c, std=0.3)
+        x32 = x.float()
+        mean = x32.mean(dim=0)
+        invstd = torch.rsqrt(x32.var(dim=0, unbiased=False) + 1e-5)
+        g = ((rnd(m, c, dtype=torch.float32)
+              + rnd(c, dtype=torch.float32, std=0.5)
+              + rnd(c, dtype=torch.float32, std=0.7) * (x32 - mean) * invstd)
+             * 1e-3).to(bf16)
+        del x32
+        count = torch.full((), float(m), device=x.device)
+        for mode in ("plain", "relu"):
+            sums = B.bn_sums_plain(x, g, None, scale, bias, mean, invstd,
+                                   mode)[0]
+            args = (x, g, scale, bias, mean, invstd, sums)
+            tail = (mode == "relu", bf16)
+            got = B.bn_dx_kernel(*args, count, *tail)
+            if not torch.equal(got, B.bn_dx_kernel(*args, m, *tail)):
+                raise AssertionError(f"bn_dx_count {m}x{c} {mode}: differs "
+                                     f"from the kernel fed the count as a "
+                                     f"number")
+            e = compare(f"bn_dx_count {m}x{c} {mode}", [got],
+                        [B.bn_dx_plain(*args, count, *tail)])
+            if m == 3211264:
+                err = max(err, e)
+                stem = (args, count)
+    (args, count), (m, c), n = stem, (3211264, 64), 256
+    x, g, scale, bias, mean, invstd, sums = args
+    kernel = lambda: B.bn_dx_kernel(*args, count, False, bf16)  # noqa: E731
+    t = [timed(f, flush=flush) for f in (
+        kernel, lambda: B.bn_dx_plain(*args, count, False, bf16))]
+    xl, gl = (v.view(n, 112, 112, c).permute(0, 3, 1, 2) for v in (x, g))
+    w = scale.float()
+    red = torch.batch_norm_backward_reduce(gl, xl, mean, invstd, w, True,
+                                           True, True)
+    counts = torch.tensor([m], dtype=torch.int32, device=x.device)
+    lib = lambda: torch.batch_norm_backward_elemt(  # noqa: E731
+        gl, xl, mean, invstd, w, red[0], red[1], counts)
+    row("bn_dx_count", err, t[0], t[1], timed(lib, flush=flush),
+        nbytes=6 * m * c + 6 * c * 4 + 4, flops=6 * m * c, peak=F32_FLOPS,
+        dev_ms=device_ms(kernel, flush=flush),
+        lib_dev_ms=device_ms(lib, flush=flush))
+    del red
+    log("phase kernels: bn_dx with the count on the card agrees with the "
+        "plain version at the stem and a ragged shape, and bit for bit "
+        "with the kernel fed the count as a number")
 
 
 def check_ln_paths(rnd):
@@ -2076,10 +2168,13 @@ def multi_tensor_ops(rows, state):
 
 
 def train_resnet50(phase, rows, strategy="auto", batch=256, opt_level="O2",
-                   optimizer=None, model=None, per_step=None, report=True):
+                   optimizer=None, model=None, per_step=None, report=True,
+                   build_kw=None, collectives=None):
     """5 ResNet-50 steps (224x224, B256 and O2 bf16 unless given) with
     ``FusedSGD(lr=0.1, momentum=0.9, strategy=strategy)`` or ``optimizer``,
-    built by ``train.build_resnet_step`` (``model``: a given ResNet-50);
+    built by ``train.build_resnet_step`` (``model``: a given ResNet-50;
+    ``build_kw``: its data-parallel arguments; ``collectives``: the
+    collectives a step by registry scope, checked);
     checks every kernel's launches in those steps (``per_step``, else the
     fused model's with the arena SGD's when ``strategy`` is "arena"), the
     step count and the running statistics; ``report=False`` keeps the
@@ -2088,7 +2183,7 @@ def train_resnet50(phase, rows, strategy="auto", batch=256, opt_level="O2",
     than the path the rows report). Returns (losses, state, step ms, peak
     GiB)."""
     import torch
-    from apex_tpu_torch import ops, train
+    from apex_tpu_torch import ops, parallel, train
     from apex_tpu_torch.ops import bn_act
 
     torch.cuda.empty_cache()
@@ -2096,7 +2191,8 @@ def train_resnet50(phase, rows, strategy="auto", batch=256, opt_level="O2",
     opt = (dict(strategy=strategy) if optimizer is None
            else dict(optimizer=optimizer))
     step, (state, bstats), (x, y), _policy, model = train.build_resnet_step(
-        batch, 224, opt_level=opt_level, model=model, **opt)
+        batch, 224, opt_level=opt_level, model=model, **opt,
+        **(build_kw or {}))
     n_params = sum(p.numel() for p in model.parameters())
     tx, how = ((type(optimizer).__name__, optimizer.strategy)
                if optimizer is not None else ("FusedSGD", strategy))
@@ -2104,6 +2200,7 @@ def train_resnet50(phase, rows, strategy="auto", batch=256, opt_level="O2",
         f"tensors, input {tuple(x.shape)} {x.dtype}, {opt_level}, {tx} "
         f"strategy {how!r}")
     ops.reset_launch_counts()
+    parallel.reset_collective_counts()
     copies = bn_act.layout_copies
     times, losses = [], []
     for _ in range(5):
@@ -2114,7 +2211,14 @@ def train_resnet50(phase, rows, strategy="auto", batch=256, opt_level="O2",
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     counts = ops.launch_counts()
+    issued = dict(parallel.collective_counts)
     copies = bn_act.layout_copies - copies
+    if issued != {k: 5 * v for k, v in (collectives or {}).items()}:
+        raise AssertionError(f"{phase}: collectives in 5 steps {issued}, "
+                             f"expected 5 x {collectives or {}}")
+    if collectives:
+        log(f"phase {phase}: collectives per step "
+            f"{ {k: v // 5 for k, v in issued.items()} }")
     for i, (l, t) in enumerate(zip(losses, times)):
         log(f"{phase} step {i}: loss {l:.6f}  {t:.2f} ms")
         if not math.isfinite(l):
@@ -2519,6 +2623,340 @@ def resnet_unfused(rows):
                      loss_tol=1e-5 if exact else 5e-3)
         del base, model, want, grads
         torch.cuda.empty_cache()
+
+
+# --- data parallelism: BASELINE configuration 3 ------------------------------
+
+# the two-rank phase: one-block-per-stage ResNet at full widths, O0 f32, this
+# many images a rank (and the single-process reference at WORLD x as many)
+TWO_RANKS, TWO_RANKS_BATCH = 2, 32
+
+
+def dist_init():
+    """Phase dist_init: an NCCL process group of world size 1 over a
+    ``file://`` store in a temporary directory (no network), its
+    ``device_id`` set, through ``parallel.distributed_init``; one
+    all-reduce starts the communicator. Returns (the ``data`` mesh, the
+    store's directory)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import parallel
+
+    store = tempfile.mkdtemp(prefix="chip_smoke_store_")
+    parallel.distributed_init(init_method=f"file://{store}/store",
+                              num_processes=1, process_id=0, timeout_s=300)
+    mesh = parallel.data_parallel_mesh()
+    warm = torch.ones(1, device="cuda")
+    dist.all_reduce(warm)
+    torch.cuda.synchronize()
+    log(f"phase dist_init: backend {dist.get_backend()}, world "
+        f"{dist.get_world_size()}, NCCL "
+        f"{'.'.join(map(str, torch.cuda.nccl.version()))}, {mesh}")
+    return mesh, store
+
+
+def resnet50_syncbn(rows, base_losses):
+    """Phase resnet50_syncbn: BASELINE configuration 3, the JAX bench's
+    ``_bench_resnet(sync_bn=True)``: ResNet-50 with every BN unit's
+    statistics across the ``data`` axis, O2 bf16, B256, FusedSGD ("auto":
+    the tree update), ``sync_gradients`` over ``data`` after the amp
+    backward, 5 steps on NCCL at world size 1 (every collective issued as
+    at any world size). 53 + 53 BN kernel launches a step, the collectives
+    of ``SYNCBN_COLLECTIVES``; losses within 1e-3 relative of phase
+    resnet50's (at world 1 the combine is exact up to rounding)."""
+    losses, _, _, _ = train_resnet50(
+        "resnet50_syncbn", rows, build_kw=dict(bn_axis_name="data"),
+        collectives=SYNCBN_COLLECTIVES)
+    take_phase_launches("resnet50_syncbn", rows)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, base_losses))
+    if not rel <= 1e-3:
+        raise AssertionError(f"resnet50_syncbn losses {losses} vs resnet50's "
+                             f"{base_losses}: rel {rel:.2e} > 1e-3")
+    log(f"phase resnet50_syncbn: losses within {rel:.2e} relative of phase "
+        f"resnet50's (limit 1e-3)")
+    return losses
+
+
+def resnet50_syncbn_arena(rows, tree_losses, mesh):
+    """Phase resnet50_syncbn_arena: the same with
+    ``DistributedDataParallel(mesh, delay_allreduce=True)`` (one flat f32
+    all-reduce a step) and ``FusedSGD(strategy="arena")`` (one ``sgd``
+    launch a step); losses within 1e-3 relative of the tree run's."""
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.optim import FusedSGD
+
+    ddp = parallel.DistributedDataParallel(mesh, delay_allreduce=True)
+    losses, _, _, _ = train_resnet50(
+        "resnet50_syncbn_arena", rows,
+        optimizer=FusedSGD(lr=0.1, momentum=0.9, strategy="arena"),
+        per_step=dict(RESNET_PER_STEP, **SGD_PER_STEP),
+        build_kw=dict(bn_axis_name="data", ddp=ddp),
+        collectives=SYNCBN_ARENA_COLLECTIVES)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, tree_losses))
+    if not rel <= 1e-3:
+        raise AssertionError(f"resnet50_syncbn_arena losses {losses} vs the "
+                             f"tree run's {tree_losses}: rel {rel:.2e} > 1e-3")
+    log(f"phase resnet50_syncbn_arena: losses within {rel:.2e} relative of "
+        f"the tree run's (limit 1e-3)")
+
+
+def syncbn_units_sync_free(mesh):
+    """Phase syncbn_units_sync_free: one forward and backward of each unit
+    with statistics across the ``data`` axis (FusedBNAct alone and as a
+    residual join, ConvBNAct 3x3, SyncBatchNorm) at a layer-1 shape (B256,
+    56x56x64, bf16), once to warm up, then under
+    ``torch.cuda.set_sync_debug_mode("error")``, where any operation that
+    makes the host wait for the card raises: the group's count and
+    statistics stay on the card. Each run issues the unit's two
+    collectives and the BN kernels it should."""
+    import torch
+    from apex_tpu_torch import ops, parallel
+    from apex_tpu_torch.ops import conv_bn
+
+    bf16 = torch.bfloat16
+    gen = torch.Generator("cuda").manual_seed(3)
+    shape = (256, 56, 56, 64)
+    x = torch.randn(shape, generator=gen, device="cuda").to(bf16) \
+        .requires_grad_(True)
+    r = torch.randn(shape, generator=gen, device="cuda").to(bf16)
+    gz = torch.randn(shape, generator=gen, device="cuda").to(bf16)
+    conv = conv_bn.ConvBNAct(64, 64, (3, 3), axis_name="data", dtype=bf16)
+    with torch.no_grad():
+        conv.weight.normal_(0.0, (1 / 576) ** 0.5, generator=gen)
+    units = {
+        "FusedBNAct": (ops.FusedBNAct(64, axis_name="data", dtype=bf16),
+                       (x,), (1, 1)),
+        "FusedBNAct join": (ops.FusedBNAct(64, axis_name="data",
+                                           dtype=bf16), (x, r), (1, 1)),
+        "ConvBNAct": (conv, (x,), (1, 0)),
+        "SyncBatchNorm": (parallel.SyncBatchNorm(64, axis_name="data"), (x,),
+                          (0, 0))}
+    for name, (unit, args, (n_sums, n_dx)) in units.items():
+        def run():
+            stats = {}
+            with parallel.use_mesh(mesh):
+                unit(*args, train=True, stats=stats).backward(gz)
+            return stats
+
+        run()
+        torch.cuda.synchronize()
+        ops.reset_launch_counts()
+        parallel.reset_collective_counts()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            stats = run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        counts = ops.launch_counts()
+        issued = dict(parallel.collective_counts)
+        if (counts["bn_sums"], counts["bn_dx"]) != (n_sums, n_dx) or \
+                issued != {"sync_batchnorm": 2}:
+            raise AssertionError(f"syncbn_units_sync_free {name}: launches "
+                                 f"{counts}, collectives {issued}")
+        if not all(torch.isfinite(v).all().item() for v in stats[unit]):
+            raise AssertionError(f"{name}: running statistics not finite")
+    log(f"phase syncbn_units_sync_free: {', '.join(units)} ran forward and "
+        f"backward under set_sync_debug_mode('error') with no host sync, "
+        f"each with its two collectives and BN kernels")
+
+
+def two_ranks_model(kind, axis_name):
+    """The one-block-per-stage ResNet at full widths in f32 (``kind``
+    "fused": FusedBNAct units; "all": ``dx_distribute="all"``), seed 0, BN
+    γ and β drawn by ``randomize_bn``."""
+    from apex_tpu_torch import models
+    model = models.ResNet(stage_sizes=[1, 1, 1, 1], bn_axis_name=axis_name,
+                          dx_distribute=None if kind == "fused" else "all")
+    randomize_bn(model)
+    return model
+
+
+def two_ranks_step(kind, mesh, batch, plain):
+    """(loss, grads, launch counts) of one O0 step's ``Amp.backward`` at
+    224x224 over ``build_resnet_step``'s seeded global batch ``batch``:
+    with ``mesh``, this rank's rows, BN statistics across ranks and the
+    gradients synced by ``sync_gradients``; through the plain versions
+    when ``plain``."""
+    import torch
+    from torch.func import functional_call
+    from apex_tpu_torch import amp, ops, parallel, train
+    from apex_tpu_torch.optim import FusedSGD
+
+    model = two_ranks_model(kind, None if mesh is None else "data")
+    kw = {} if mesh is None else dict(bn_axis_name="data")
+    _, (state, bs), (x, y), policy, _ = train.build_resnet_step(
+        batch, 224, opt_level="O0", model=model, **kw)
+    amp_opt = amp.Amp(policy, FusedSGD(lr=0.1, momentum=0.9))
+
+    def loss_fn(mp):
+        logits, new = functional_call(model, {**mp, **bs}, (x,),
+                                      {"train": True})
+        return torch.mean(ops.softmax_cross_entropy_loss(logits, y)), new
+
+    ops.reset_launch_counts()
+    with contextlib.ExitStack() as stack:
+        if plain:
+            stack.enter_context(plain_versions())
+        if mesh is not None:
+            stack.enter_context(parallel.use_mesh(mesh))
+        (loss, _), grads, _, _ = amp_opt.backward(state, loss_fn,
+                                                  has_aux=True)
+        if mesh is not None:
+            grads = parallel.sync_gradients(grads, "data")
+    torch.cuda.synchronize()
+    return loss.item(), grads, ops.launch_counts()
+
+
+def two_ranks_body(rank, world, tmp):
+    """One rank of phase syncbn_two_ranks: a gloo process group over a
+    ``file://`` store in ``tmp`` on ``cuda:0``; both models through the
+    kernels and through the plain versions; results to ``tmp``."""
+    import datetime
+    import traceback
+    import torch
+    import torch.distributed as dist
+
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        dist.init_process_group(
+            "gloo", init_method=f"file://{tmp}/store", world_size=world,
+            rank=rank, timeout=datetime.timedelta(seconds=300))
+        from apex_tpu_torch import parallel
+        mesh = parallel.data_parallel_mesh()
+        out = {}
+        for kind in ("fused", "all"):
+            for plain in (False, True):
+                loss, grads, counts = two_ranks_step(kind, mesh,
+                                                     TWO_RANKS_BATCH * world,
+                                                     plain)
+                out[kind, plain] = (loss, {k: v.cpu() for k, v in
+                                           grads.items()}, counts)
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+        dist.destroy_process_group()
+    except BaseException:
+        with open(f"{tmp}/rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _is_bn_param(name):
+    return name.endswith((".scale", ".bias")) and not name.startswith(
+        "Dense_")
+
+
+def syncbn_two_ranks():
+    """Phase syncbn_two_ranks: two processes on ``cuda:0`` in a gloo group
+    (NCCL takes one rank a card; gloo carries CUDA tensors for the
+    all-reduce, all-gather and broadcast), the one-block-per-stage ResNet
+    at full widths, O0 f32, 32 images a rank, fused and
+    ``dx_distribute="all"``, with statistics across both ranks and the
+    gradients synced; against one process on all 64 images without
+    ``axis_name``:
+
+    - the mean of the ranks' losses within 1e-4 relative of the full
+      batch's;
+    - every other gradient (convolutions, the Dense) within 2e-2 of the
+      full batch's in relative L2, per tensor, and every BN unit's dγ and
+      dβ (each rank's mean loss) within 2e-2 of 2x the full batch's: the
+      unit returns its group's summed channel sums, as the JAX unit does
+      (ROADMAP.md, caveats). The largest error relative to a tensor's max
+      is logged: the units' one-pass f32 moments, E[x²] − E[x]², round
+      otherwise over 32 rows a rank than over 64 and their backward
+      amplifies it where |mean| ≫ std, up to 5.9e-2 of a tensor's max at
+      the last block on an H100 (the unfused-vs-fused check of phase
+      resnet_unfused meets the same amplification; ROADMAP.md, caveats);
+    - both ranks' synced gradients equal bit for bit; the kernels against
+      ``plain_versions()`` in the same two ranks within 1e-3 of each
+      tensor's max (the same moments: f32 sums in another order), loss
+      within 1e-4."""
+    import multiprocessing
+    import tempfile
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_two_ranks_")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=two_ranks_body, daemon=True,
+                         args=(r, TWO_RANKS, tmp)) for r in range(TWO_RANKS)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + 600
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * TWO_RANKS:
+        errs = [open(f"{tmp}/rank{r}.err").read()[-3000:]
+                for r in range(TWO_RANKS)
+                if os.path.exists(f"{tmp}/rank{r}.err")]
+        raise AssertionError(f"syncbn_two_ranks: exit codes {codes}\n"
+                             + "\n".join(errs))
+    ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+             for r in range(TWO_RANKS)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase syncbn_two_ranks: {TWO_RANKS} ranks ran in "
+        f"{time.perf_counter() - t0:.1f} s")
+    for kind, n_dx in (("fused", 17), ("all", 1)):
+        loss_ref, ref, _ = two_ranks_step(kind, None,
+                                          TWO_RANKS_BATCH * TWO_RANKS, False)
+        ref = {k: v.cpu() for k, v in ref.items()}
+        torch.cuda.empty_cache()
+        (loss, got, counts), (ploss, plain, pcounts) = (
+            ranks[0][kind, False], ranks[0][kind, True])
+        if (counts["bn_sums"], counts["bn_dx"]) != (17, n_dx) or \
+                sum(pcounts.values()):
+            raise AssertionError(f"syncbn_two_ranks {kind}: launches "
+                                 f"{counts}, plain run {pcounts}")
+        for k, g in got.items():
+            if not torch.equal(g, ranks[1][kind, False][1][k]):
+                raise AssertionError(f"syncbn_two_ranks {kind}: {k} differs "
+                                     f"between the ranks")
+        errs = {"other": {}, "bn": {}}       # (max-relative, relative L2)
+        for k, want in ref.items():
+            want = want * (float(TWO_RANKS) if _is_bn_param(k) else 1.0)
+            d = got[k] - want
+            errs["bn" if _is_bn_param(k) else "other"][k] = (
+                (d.abs().max() / want.abs().max().clamp(min=1e-30)).item(),
+                (d.norm() / want.norm().clamp(min=1e-30)).item())
+        kp = {k: ((got[k] - g).abs().max()
+                  / g.abs().max().clamp(min=1e-30)).item()
+              for k, g in plain.items()}
+        rel = abs(loss - ploss) / abs(ploss)
+        mean_loss = sum(r[kind, False][0] for r in ranks) / TWO_RANKS
+        rel_full = abs(mean_loss - loss_ref) / abs(loss_ref)
+        summary = []
+        for name, d in errs.items():
+            wmax = max(d, key=lambda k: d[k][0])
+            wl2 = max(d, key=lambda k: d[k][1])
+            summary.append(f"{name}: worst {d[wmax][0]:.2e} of a tensor's "
+                           f"max ({wmax}), relative L2 {d[wl2][1]:.2e} "
+                           f"({wl2}), {sum(v[0] > 1e-3 for v in d.values())}"
+                           f" of {len(d)} tensors past 1e-3 of their max")
+            if not d[wl2][1] <= 2e-2:
+                raise AssertionError(f"syncbn_two_ranks {kind}: {name} grads "
+                                     f"of {wl2} differ by {d[wl2][1]:.2e} in "
+                                     f"relative L2 > 2e-2")
+        worst = max(kp, key=kp.get)
+        log(f"phase syncbn_two_ranks ({kind}): rank losses "
+            f"{[r[kind, False][0] for r in ranks]}, mean {mean_loss:.6f} vs "
+            f"the full batch's {loss_ref:.6f} (rel {rel_full:.2e}); synced "
+            f"grads against the full batch's (BN dγ/dβ against 2x): "
+            f"{'; '.join(summary)}; kernels against plain versions: worst "
+            f"{kp[worst]:.2e} ({worst}), loss rel {rel:.2e}")
+        if not kp[worst] <= 1e-3:
+            raise AssertionError(f"syncbn_two_ranks {kind}: kernel/plain "
+                                 f"grads of {worst} differ by "
+                                 f"{kp[worst]:.2e} > 1e-3")
+        if not (rel <= 1e-4 and rel_full <= 1e-4):
+            raise AssertionError(f"syncbn_two_ranks {kind}: loss rel "
+                                 f"{rel:.2e} (kernel/plain), {rel_full:.2e} "
+                                 f"(ranks' mean/full batch) > 1e-4")
 
 
 def _bf16_close(a, b, rtol=1e-3):
@@ -3071,6 +3509,7 @@ def echo_ptxas(libs):
 
 def main() -> int:
     import torch
+    import torch.distributed
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False",
               file=sys.stderr)
@@ -3126,6 +3565,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     resnet_unfused(rows)
     torch.cuda.empty_cache()
+    mesh, store = dist_init()
+    syncbn_losses = resnet50_syncbn(rows, resnet_losses)
+    torch.cuda.empty_cache()
+    resnet50_syncbn_arena(rows, syncbn_losses, mesh)
+    torch.cuda.empty_cache()
+    syncbn_units_sync_free(mesh)
+    torch.cuda.empty_cache()
+    syncbn_two_ranks()
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+    shutil.rmtree(store, ignore_errors=True)
     dcgan_tree(rows, train_dcgan("dcgan", rows)[0])
     dcgan_plain_vs_kernel()
     dcgan_fp16_overflow()

@@ -2,14 +2,18 @@
 """Where one training step of apex_tpu_torch spends its time.
 
     python3 scripts/torch_bert_profile.py [--model bert_large|
-        bert_large_dropout|resnet50|dcgan|mlp_dlrm_bottom] [--steps 2]
-        [--strategy auto] [--out PATH]
+        bert_large_dropout|resnet50|resnet50_syncbn|dcgan|mlp_dlrm_bottom]
+        [--steps 2] [--strategy auto] [--out PATH]
 
 Builds the port's BERT-Large MLM step (B16, S512, amp O1 bf16, FusedLAMB;
 ``bert_large_dropout``: as published, with padding masks and attention
 dropout 0.1), its ResNet-50 step (B256, 224x224, amp O2 bf16, FusedSGD(lr=0.1,
-momentum=0.9)), its DCGAN step (B128, 64x64, amp O1 bf16, two
-FusedAdam(lr=2e-4, betas=(0.5, 0.999)) bundles, three backwards) or its
+momentum=0.9); ``resnet50_syncbn``: BASELINE configuration 3, BN
+statistics across ranks and the gradient sync, on an NCCL process group
+of world size 1 over a ``file://`` store, with ``--strategy arena``
+through ``DistributedDataParallel(delay_allreduce=True)``), its DCGAN
+step (B128, 64x64, amp O1 bf16, two FusedAdam(lr=2e-4, betas=(0.5,
+0.999)) bundles, three backwards) or its
 fused-MLP step (DLRM's bottom MLP [13, 512, 256, 128] at B2048, amp O2
 bf16, 2:4 ASP around FusedAdam(lr=1e-3)) with
 the given optimizer strategy ("auto" takes the tree update for BERT-Large
@@ -22,9 +26,10 @@ backward's two apart, the LayerNorm's forward and backward apart,
 convolutions,
 GEMMs, dtype casts, other elementwise and reduction kernels, the plain BN
 forward of ResNet-50, DCGAN's BatchNorm forward and backward, and the
-rest), the device idle share of the traced window, the top kernels by
-time, and the top host ops by self CPU time. Needs a CUDA device; fails
-without one.
+rest, NCCL's kernels), the device idle share of the traced window, the
+host time inside the port's collective ranges (``collectives``' scopes),
+the top kernels by time, and the top host ops by self CPU time. Needs a
+CUDA device; fails without one.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ _CATEGORIES = (
     ("cast", ("direct_copy_kernel",)),
     ("elementwise", ("elementwise_kernel",)),
     ("reduce", ("reduce_kernel",)),
+    ("nccl", ("nccl",)),
 )
 BN_FWD = "bn_fwd"       # the record_function around the plain BN forward
 BATCH_NORM = "batch_norm"   # ... around DCGAN's BatchNorm modules
@@ -113,6 +119,25 @@ def _region_ms(prof, name, backward=False):
     return out
 
 
+def _collective_host(prof, steps):
+    """{scope: [host ms, calls] a step} of the port's collectives: the CPU
+    time of each ``record_function`` range that ``parallel.collectives``
+    opens, by its registry scope (bucket ranges summed as ``bucketNN``)."""
+    import torch
+    from apex_tpu_torch.parallel import registry
+    out = {}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CPU:
+            continue
+        entry = registry.scope_entry(e.name)
+        if entry is None or e.name.startswith(("aten::", "cuda")):
+            continue
+        key = "bucketNN" if e.name.startswith("bucket") else e.name
+        ms, n = out.get(key, (0.0, 0))
+        out[key] = (ms + e.time_range.elapsed_us() / 1e3, n + 1)
+    return {k: [ms / steps, n / steps] for k, (ms, n) in sorted(out.items())}
+
+
 def _builder(model, strategy):
     """``(one_step, batch)``: ``one_step()`` runs a step and returns its
     loss."""
@@ -147,8 +172,21 @@ def _builder(model, strategy):
             carry[:] = out[:4]
             return out[4][2]           # the generator's loss
         return one_step, 128
+    kw = dict(strategy=strategy)
+    if model == "resnet50_syncbn":
+        import tempfile
+        from apex_tpu_torch import parallel
+        from apex_tpu_torch.optim import FusedSGD
+        parallel.distributed_init(
+            init_method=f"file://{tempfile.mkdtemp()}/store",
+            num_processes=1, process_id=0)
+        kw = dict(bn_axis_name="data")
+        if strategy == "arena":
+            kw.update(ddp=parallel.DistributedDataParallel(
+                parallel.data_parallel_mesh(), delay_allreduce=True),
+                optimizer=FusedSGD(lr=0.1, momentum=0.9, strategy="arena"))
     step, (state, bstats), (x, y), _, _ = train.build_resnet_step(
-        256, 224, strategy=strategy)
+        256, 224, **kw)
     carry = [state, bstats]
 
     def one_step():
@@ -161,7 +199,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="bert_large",
                     choices=("bert_large", "bert_large_dropout", "resnet50",
-                             "dcgan", "mlp_dlrm_bottom"))
+                             "resnet50_syncbn", "dcgan", "mlp_dlrm_bottom"))
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--strategy", default="auto",
                     choices=("auto", "tree", "arena"))
@@ -222,6 +260,7 @@ def main() -> int:
     busy_ms = sum(by_cat.values()) / 1e3
     by_cat = {k: v / 1e3 for k, v in by_cat.items()}
     region, backward = {"resnet50": (BN_FWD, False),
+                        "resnet50_syncbn": (BN_FWD, False),
                         "dcgan": (BATCH_NORM, True)}.get(args.model,
                                                          (None, False))
     if region is not None:
@@ -246,6 +285,8 @@ def main() -> int:
         "by_category_ms_per_step": {
             k: None if v is None else v / args.steps
             for k, v in sorted(by_cat.items())},
+        "collective_host_ms_and_calls_per_step": _collective_host(
+            prof, args.steps),
         "layer_norm_ms_and_kernels_per_step": {
             k: [us / 1e3 / args.steps, n / args.steps]
             for k, (us, n) in sorted(ln_parts.items())},

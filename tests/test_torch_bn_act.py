@@ -206,10 +206,14 @@ def test_a_gradient_in_another_layout_is_copied_and_counted():
 
 
 def test_unported_options_raise():
-    """Cross-device statistics are still unported; fp8 residuals are
-    ported (``tests/test_torch_bn_fp8.py``) and no longer raise."""
-    with pytest.raises(NotImplementedError):
-        TB.make_cfg(relu=True, axis_name="data")
-    with pytest.raises(NotImplementedError):
-        TB.make_cfg(relu=True, axis_index_groups=[[0, 1]])
+    """Cross-device statistics are ported (``tests/test_torch_bn_act_dist
+    .py``): the config carries the axis and groups, and a unit whose axis
+    name no mesh binds raises, as JAX does outside ``shard_map``. fp8
+    residuals are ported (``tests/test_torch_bn_fp8.py``) too."""
+    cfg = TB.make_cfg(relu=True, axis_name="data")
+    assert cfg.axis_name == "data" and cfg.groups is None
+    assert TB.make_cfg(relu=True, axis_index_groups=[[0, 1]]).groups == \
+        ((0, 1),)
+    with pytest.raises(NameError, match="unbound axis name"):
+        TB.bn_act_train(torch.ones(4, 8), torch.ones(8), torch.zeros(8), cfg)
     assert TB.FusedBNAct(8, fp8_residuals=True, device="cpu").cfg.fp8

@@ -141,7 +141,8 @@ def test_chip_smoke_dist_name_covers_every_leaf(mode, stages):
 
 def test_chip_smoke_extra_bn_rows():
     assert set(chip_smoke.EXTRA_BN_ROWS) == {
-        "bn_sums_f32", "bn_dx_f32", "bn_sums_fp8", "bn_dx_fp8"}
+        "bn_sums_f32", "bn_dx_f32", "bn_sums_fp8", "bn_dx_fp8",
+        "bn_dx_count"}
     rows = {n: {"launches": 0} for n in (*chip_smoke.EXTRA_ROWS,
                                          *chip_smoke.EXTRA_BN_ROWS)}
     rows.update(bn_sums={"launches": 265}, bn_dx={"launches": 264})
@@ -149,5 +150,8 @@ def test_chip_smoke_extra_bn_rows():
     assert rows["bn_sums_f32"]["launches"] == 265
     assert rows["bn_dx_f32"]["launches"] == 264
     assert rows["bn_sums_fp8"]["launches"] == 0
+    assert rows["bn_dx_count"]["launches"] == 0
+    chip_smoke.take_phase_launches("resnet50_syncbn", rows)
+    assert rows["bn_dx_count"]["launches"] == 264
     for name, (kernel, where, _) in chip_smoke.EXTRA_BN_ROWS.items():
         assert where == chip_smoke.REPLACES[kernel], name

@@ -212,8 +212,9 @@ def test_bad_modes_raise_value_errors():
                         dx_distribute="some")
     with pytest.raises(ValueError, match="dx_distribute"):
         jm.init(jax.random.PRNGKey(0), jnp.zeros((1, S, S, 3)), train=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TC.ConvBNAct(4, 8, axis_name="data", device="meta")
+    # statistics across ranks are ported: the unit carries its axis
+    cfg = TC.ConvBNAct(4, 8, axis_name="data", device="meta").cfg
+    assert cfg.bn().axis_name == "data"
 
 
 def test_conv_bn_act_is_in_no_auto_cast_table():

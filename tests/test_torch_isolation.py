@@ -2,9 +2,10 @@
 
 Importing the port (every module of it) in a fresh interpreter leaves no
 ``jax`` and no ``apex_tpu`` module in ``sys.modules``; an AST scan of its
-sources, of ``chip_smoke.py`` and of its scripts (``scripts/torch_*.py``)
-finds no such import; and its entry points ask for ``cuda`` unless the
-caller passes a device.
+sources, of ``chip_smoke.py``, of its scripts (``scripts/torch_*.py``) and
+of the rank bodies its multi-process tests spawn
+(``tests/_torch_parallel_cases.py``) finds no such import; and its entry
+points ask for ``cuda`` unless the caller passes a device.
 """
 
 import ast
@@ -49,6 +50,7 @@ def test_import_leaves_no_jax_or_apex_tpu():
 def _sources():
     yield from _modules()
     for path in [ROOT / "chip_smoke.py",
+                 ROOT / "tests" / "_torch_parallel_cases.py",
                  *sorted((ROOT / "scripts").glob("torch_*.py"))]:
         yield path, str(path.relative_to(ROOT))
 
@@ -189,3 +191,46 @@ def test_mlp_entry_points_default_to_cuda(monkeypatch):
     assert x.dtype == torch.bfloat16
     state, loss = step(state, x, t)
     assert int(state.step) == 1 and torch.isfinite(loss)
+
+
+def test_parallel_and_the_rank_bodies_are_covered():
+    names = [m for _, m in _modules()]
+    for m in ("apex_tpu_torch.parallel", "apex_tpu_torch.parallel.mesh",
+              "apex_tpu_torch.parallel.distributed",
+              "apex_tpu_torch.parallel.comm",
+              "apex_tpu_torch.parallel.sync_batchnorm",
+              "apex_tpu_torch.parallel.larc",
+              "apex_tpu_torch.parallel.launch",
+              "apex_tpu_torch.parallel.registry",
+              "apex_tpu_torch.parallel.collectives",
+              "apex_tpu_torch.ops.group_bn"):
+        assert m in names
+    assert "tests/_torch_parallel_cases.py" in [m for _, m in _sources()]
+
+
+def test_data_parallel_entry_points_default_to_cuda(monkeypatch):
+    """``build_resnet_step(bn_axis_name=...)`` asks for cuda when no
+    device is given, and the meshes, SyncBatchNorm and groupbn's
+    BatchNorm2d_NHWC and ``distributed_init`` default to it."""
+    import inspect
+
+    from apex_tpu_torch import ops, parallel, train
+
+    for fn in (parallel.make_mesh, parallel.data_parallel_mesh,
+               parallel.hierarchical_data_mesh, parallel.SyncBatchNorm,
+               ops.BatchNorm2d_NHWC, parallel.distributed_init):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.build_resnet_step(2, 16, bn_axis_name="data")
+
+
+def test_data_parallel_mesh_without_a_process_group_raises():
+    """A mesh is never started quietly: with no process group the error
+    says how to start one."""
+    from apex_tpu_torch import parallel
+
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        parallel.data_parallel_mesh()
+    with pytest.raises(RuntimeError, match="distributed_init"):
+        parallel.data_parallel_mesh("cpu")

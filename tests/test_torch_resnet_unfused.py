@@ -16,7 +16,9 @@ ResNet-18, width 8, 10 classes, B4, 32 px) with redrawn weights:
   running variance is unbiased, so only the loss and grads are compared);
 - O2's cast set at ResNet-50: ``BatchNorm_0`` leaves stay f32 in both
   packages (a norm name to ``keep_batchnorm_fp32``), every other leaf bf16;
-- ``axis_name`` (SyncBatchNorm) raises, naming ROADMAP item 9.
+- with ``axis_name`` the unit is ``SyncBatchNorm_0`` (ported, held across
+  ranks in ``tests/test_torch_resnet_dist.py``), whose axis name raises
+  when no mesh binds it.
 """
 
 import jax
@@ -149,8 +151,16 @@ def test_o2_keeps_unfused_bn_params_f32_as_jax():
 
 
 def test_axis_name_raises_naming_item_9():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _BN(8, axis_name="data", fused=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tmodels.ResNet(stage_sizes=[1], width=8, fused_bn=False,
-                       bn_axis_name="data", device="meta")
+    """Item 9 landed: with ``axis_name`` the unfused unit is a
+    ``SyncBatchNorm_0`` (momentum 1 − 0.9 in the torch sense, scale
+    ``init_scale``), and its axis name raises when no mesh binds it."""
+    unit = _BN(8, axis_name="data", fused=False, init_scale=0.5,
+               device="cpu")
+    bn = unit.SyncBatchNorm_0
+    assert bn.axis_name == "data" and abs(bn.momentum - 0.1) < 1e-12
+    assert torch.equal(bn.scale, torch.full((8,), 0.5))
+    model = tmodels.ResNet(stage_sizes=[1], width=8, fused_bn=False,
+                           bn_axis_name="data", device="meta")
+    assert any(".SyncBatchNorm_0." in n for n, _ in model.named_parameters())
+    with pytest.raises(NameError, match="unbound axis name"):
+        unit(torch.ones(2, 3, 3, 8), train=True, stats={})
