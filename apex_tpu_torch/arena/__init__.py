@@ -6,6 +6,7 @@ Tensors are laid out flat per dtype so one kernel covers a whole model
 """
 
 from apex_tpu_torch.arena.arena import (  # noqa: F401
-    ArenaSpec, BUFFER_MULTIPLE, DEFAULT_ALIGNMENT, flatten, plan,
-    segment_ids, unflatten, valid_mask, zeros,
+    ArenaSpec, BUFFER_MULTIPLE, DEFAULT_ALIGNMENT, bucket_ids, flatten,
+    plan, segment_ids, segment_ids_device, shard_pad, unflatten, valid_mask,
+    zeros,
 )

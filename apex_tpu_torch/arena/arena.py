@@ -196,3 +196,48 @@ def segment_ids(spec: ArenaSpec, dtype) -> np.ndarray:
 def valid_mask(spec: ArenaSpec, dtype) -> np.ndarray:
     """Host-side bool mask of non-padding positions."""
     return segment_ids(spec, dtype) >= 0
+
+
+def segment_ids_device(spec: ArenaSpec, dtype,
+                       device=None) -> torch.Tensor:
+    """:func:`segment_ids` computed on ``device``: only the (num_tensors,)
+    offsets and sizes cross to it, and the per-position map comes from a
+    ``searchsorted`` over the positions, so no buffer-sized host array is
+    made or copied. int32, -1 in padding."""
+    part = spec.partition(dtype)
+    starts = torch.tensor(part.offsets, dtype=torch.int64, device=device)
+    ends = starts + torch.tensor(part.sizes, dtype=torch.int64,
+                                 device=device)
+    pos = torch.arange(part.buffer_len, dtype=torch.int64, device=device)
+    ids = torch.searchsorted(starts, pos, right=True) - 1
+    valid = pos < ends[ids]
+    return torch.where(valid, ids, -1).to(torch.int32)
+
+
+def bucket_ids(spec: ArenaSpec, dtype, bucket_elems: int) -> np.ndarray:
+    """Greedy message-size bucketing of a partition's slots
+    (``native.plan_buckets`` over the padded slot sizes): per position the
+    bucket of its slot, -1 in the tail. The reference DDP's
+    ``message_size`` buckets."""
+    part = spec.partition(dtype)
+    ids, _ = native.plan_buckets(np.array(part.padded, np.int64),
+                                 bucket_elems)
+    out = np.full((part.buffer_len,), -1, np.int32)
+    for j, (off, size) in enumerate(zip(part.offsets, part.padded)):
+        out[off:off + size] = int(ids[j])
+    return out
+
+
+def shard_pad(buffers: Dict[str, torch.Tensor], world_size: int,
+              alignment: int = DEFAULT_ALIGNMENT):
+    """Each buffer zero-padded so that its length splits into
+    ``world_size`` equal ``alignment``-aligned shards
+    (``native.plan_shards``): the ZeRO layout."""
+    out = {}
+    for dt, buf in buffers.items():
+        _, per = native.plan_shards(buf.shape[0], world_size, alignment)
+        total = per * world_size
+        if total > buf.shape[0]:
+            buf = torch.nn.functional.pad(buf, (0, total - buf.shape[0]))
+        out[dt] = buf
+    return out

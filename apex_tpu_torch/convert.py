@@ -16,7 +16,8 @@ params, and its arena slots are flat buffers in its own layout (leaves in
 (leaves in the port's parameter order). ``jax_name`` and
 ``to_jax_layout``/``from_jax_layout`` run the map backwards for one port
 leaf, as the sparsity masks need; ``asp_state_from_jax`` carries masks
-and the wrapped optimizer's state.
+and the wrapped optimizer's state, and ``zero_state_from_jax`` ZeRO's
+per-rank shards.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch import arena
+from apex_tpu_torch.optim.distributed import ShardedOptState, _padded_len
 from apex_tpu_torch.optim.fused import FusedOptState
 
 
@@ -140,6 +142,19 @@ def resnet_variables_from_jax(params, batch_stats, device="cuda"):
 dcgan_variables_from_jax = resnet_variables_from_jax
 
 
+def _relayout(bufs, jspec, tspec, order, device):
+    """Flat f32 arena buffers in the JAX package's layout (``jspec``; a
+    buffer may run past its partition, padding) -> the port's
+    (``tspec``): cut into tensors, mapped and packed again."""
+    jbufs = {dt: torch.from_numpy(np.array(buf)[:jspec.partition(
+        dt).buffer_len]) for dt, buf in bufs.items()}
+    named = arena.unflatten(jbufs, jspec)
+    mapped = dict(_port_leaf(k, v.numpy()) for k, v in named.items())
+    tensors = {k: _tensor(np.asarray(mapped[k], np.float32), device)
+               for k in order}
+    return arena.flatten(tensors, tspec, cast=torch.float32)
+
+
 def fused_state_from_jax(state, params, port_params,
                          device="cuda") -> FusedOptState:
     """The port's ``FusedOptState`` from the JAX package's.
@@ -174,19 +189,47 @@ def fused_state_from_jax(state, params, port_params,
                          np.float32), device=device)
                 for p in tspec.partitions}
         elif set(tree) == set(jspec.dtypes):    # arena buffers, by dtype
-            jbufs = {dt: torch.from_numpy(np.array(buf))
-                     for dt, buf in tree.items()}
-            named = arena.unflatten(jbufs, jspec)
-            mapped = dict(_port_leaf(k, v.numpy()) for k, v in named.items())
-            tensors = {k: _tensor(np.asarray(mapped[k], np.float32), device)
-                       for k in order}
-            slots[slot] = arena.flatten(tensors, tspec, cast=torch.float32)
+            slots[slot] = _relayout(tree, jspec, tspec, order, device)
         else:
             mapped = params_from_jax(tree, device=device)
             slots[slot] = {k: mapped[k] for k in order}
     count = torch.tensor(int(np.asarray(state.count)), dtype=torch.int32,
                          device=device)
     return FusedOptState(count=count, slots=slots)
+
+
+def zero_state_from_jax(states, params, port_params, rank: int,
+                        device="cuda"):
+    """Rank ``rank``'s ``optim.ShardedOptState`` from the JAX package's.
+
+    ``states`` are the JAX ``ShardedOptState``s of every rank, in linear
+    rank order (numpy or arrays), ``params`` the flax params tree they were
+    built for and ``port_params`` the port's ``{name: tensor}`` params in
+    the port optimizer's order. Each slot's shards are joined into the
+    whole buffer, cut into tensors by the JAX layout, mapped, packed in the
+    port's layout (``arena.plan(port_params)``), padded for the world size
+    and cut into shards again."""
+    world = len(states)
+    order = list(port_params)
+    jleaves = dict(_flatten(params, sort=True))
+    jspec = arena.plan({k: np.asarray(v) for k, v in jleaves.items()})
+    tspec = arena.plan(port_params)
+    slots = {}
+    for slot in states[0].slots:
+        whole = {dt: np.concatenate([np.asarray(s.slots[slot][dt],
+                                                np.float32)
+                                     for s in states])
+                 for dt in states[0].slots[slot]}
+        bufs = _relayout(whole, jspec, tspec, order, device)
+        slots[slot] = {}
+        for part in tspec.partitions:
+            per = _padded_len(part.buffer_len, world) // world
+            buf = torch.nn.functional.pad(
+                bufs[part.dtype], (0, per * world - part.buffer_len))
+            slots[slot][part.dtype] = buf[rank * per:(rank + 1) * per].clone()
+    count = torch.tensor(int(np.asarray(states[0].count)), dtype=torch.int32,
+                         device=device)
+    return ShardedOptState(count=count, slots=slots)
 
 
 def asp_state_from_jax(state, params, port_params, device="cuda"):

@@ -32,7 +32,8 @@ the cast to the output dtype, so a value that overflows only in the cast
 there (the comment in the JAX kernel and the reference Apex say the
 converted value is checked; the code does not).
 
-The per-tensor functions take the arena's static ranges. They reduce
+The per-tensor functions take the arena's static ranges (or, for one
+ZeRO shard, those ranges clipped to the shard). They reduce
 rows (up to ``_ROW`` wide) of the buffer in one pass and sum each
 tensor's rows with one segmented reduction, so their launch count does
 not grow with the number of tensors (a loop of per-tensor slices would
@@ -274,6 +275,7 @@ class _Layout(NamedTuple):
     lengths: torch.Tensor     # rows of every segment (tensors and gaps)
     pick: torch.Tensor        # segment index of each tensor
     row_value: torch.Tensor   # per row: its tensor's index, or n for a gap
+    count: torch.Tensor       # per row: its leading elements in the range
 
 
 @functools.lru_cache(maxsize=64)
@@ -288,6 +290,7 @@ def _layout(offsets, spans, total, device, exact) -> _Layout:
         row //= 2
     rows = total // row
     lengths, pick, values, cur = [], [], [], 0
+    count = np.zeros(rows, np.int64)
     for j, (off, span) in enumerate(zip(offsets, spans)):
         start, end = off // row, -(-(off + span) // row)
         if start < cur or end > rows:
@@ -299,6 +302,9 @@ def _layout(offsets, spans, total, device, exact) -> _Layout:
         pick.append(len(lengths))
         lengths.append(end - start)
         values.append(j)
+        if end > start:
+            count[start:end] = row
+            count[end - 1] = off + span - (end - 1) * row
         cur = end
     if rows > cur:
         lengths.append(rows - cur)
@@ -306,7 +312,7 @@ def _layout(offsets, spans, total, device, exact) -> _Layout:
     as_dev = lambda a: torch.as_tensor(np.asarray(a, np.int64),
                                        device=device)
     return _Layout(row, as_dev(lengths), as_dev(pick),
-                   as_dev(np.repeat(values, lengths)))
+                   as_dev(np.repeat(values, lengths)), as_dev(count))
 
 
 def _segment_rows(buf, offsets, sizes, ord):
@@ -357,3 +363,56 @@ def spread_per_tensor(values, offsets, padded, total, fill=0.0):
     ext = torch.cat([values, torch.full((1,), fill, dtype=values.dtype,
                                         device=values.device)])
     return ext[lay.row_value][:, None].expand(-1, lay.row).reshape(-1)
+
+
+# --- per-tensor norms and spreads over one ZeRO shard --------------------------
+
+def _shard_ranges(offsets, sizes, start, per):
+    """Each tensor's range clipped to the shard ``[start, start + per)``,
+    in shard coordinates: (starts, spans), empty (span 0) where a tensor
+    does not reach the shard. Sorted and disjoint like the arena's."""
+    lo = [min(max(off - start, 0), per) for off in offsets]
+    hi = [min(max(off + sz - start, 0), per) for off, sz in zip(offsets,
+                                                                 sizes)]
+    return tuple(lo), tuple(h - l for l, h in zip(lo, hi))
+
+
+def per_tensor_sq_shard(buf, offsets, sizes, shard_start):
+    """(num_tensors,) f32 sums of squares of each tensor's part of ONE shard
+    of an arena partition: the sharded norm of ``DistributedFusedLAMB``;
+    sum them over the shards (an all-reduce) for the per-tensor norms.
+
+    ``buf`` is this rank's contiguous shard, ``shard_start`` its global
+    offset, a host int (the rank is known on the host), and ``offsets`` /
+    ``sizes`` the partition's static layout. Each range is clipped to the
+    shard once and the rows of the cached layout are reduced as in
+    :func:`per_tensor_l2norm_ranges` (a tensor that misses the shard is an
+    empty segment and sums to 0), so the launches do not grow with the
+    number of tensors and at ``shard_start=0`` over the whole buffer the
+    result is that function's squared, bit for bit. Every element enters
+    one f32 row sum. Tensors start on rows (arena alignment) and their
+    padding is zero, which the JAX package's masks make explicit."""
+    lo, spans = _shard_ranges(offsets, sizes, int(shard_start), buf.numel())
+    per_row, lay = _segment_rows(buf, lo, spans, 2)
+    sums = torch.segment_reduce(torch.square(per_row), "sum",
+                                lengths=lay.lengths, unsafe=True)
+    return sums[lay.pick]
+
+
+def spread_per_tensor_shard(values, offsets, sizes, shard_start, per,
+                            fill=0.0):
+    """Shard-local inverse of :func:`per_tensor_sq_shard`: the (num_tensors,)
+    ``values`` over this shard's ``per`` positions, each tensor's value on
+    its elements and ``fill`` elsewhere (padding and the tail): what
+    ``values[segment_ids]`` gives over the shard, in a few launches (a
+    gather per row and one masked broadcast write) from the cached row
+    layout of the clipped ranges."""
+    lo, spans = _shard_ranges(offsets, sizes, int(shard_start), int(per))
+    lay = _layout(lo, spans, int(per), values.device, False)
+    ext = torch.cat([values, torch.full((1,), fill, dtype=values.dtype,
+                                        device=values.device)])
+    cols = torch.arange(lay.row, device=values.device)
+    inside = cols[None, :] < lay.count[:, None]
+    return torch.where(inside, ext[lay.row_value][:, None],
+                       torch.full((), fill, dtype=values.dtype,
+                                  device=values.device)).reshape(-1)

@@ -44,7 +44,11 @@ are ``tl.constexpr``: each combination compiles its own kernel, as the
 JAX package specialises its Pallas kernels. Divisions and roots round as
 IEEE (``div_rn``, ``sqrt_rn``), as the plain versions do; the Adam,
 Adagrad and NovoGrad kernels also compile without FMA contraction, so
-they round each product and sum where their plain versions do.
+they round each product and sum where their plain versions do. A copy-out
+in ``torch.float8_e5m2`` (ZeRO's compressed all-gather) is written as
+bytes: PTX's f32 -> e5m2 convert saturates at the largest finite value,
+57344, and the kernels set |p| >= 61440 to ±inf, as PyTorch's and JAX's
+casts round it.
 """
 
 from __future__ import annotations
@@ -89,7 +93,7 @@ def _lamb_stage1_triton(P, G, M, V, S, U, MO, VO, ADAM_W: "tl.constexpr",
 
 
 def _lamb_stage2_triton(P, U, R, S, PO, CP, HAS_COPY: "tl.constexpr",
-                        BLOCK: "tl.constexpr"):
+                        COPY_E5M2: "tl.constexpr", BLOCK: "tl.constexpr"):
     offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
     lr = tl.load(S)
     p = tl.load(P + offs).to(tl.float32)
@@ -98,12 +102,21 @@ def _lamb_stage2_triton(P, U, R, S, PO, CP, HAS_COPY: "tl.constexpr",
     p = p - lr * r * u
     tl.store(PO + offs, p.to(PO.dtype.element_ty))
     if HAS_COPY:
-        tl.store(CP + offs, p.to(CP.dtype.element_ty))
+        if COPY_E5M2:
+            # CP is the e5m2 copy's bytes: PTX's f32 -> e5m2 convert
+            # saturates at 57344, where PyTorch and JAX round |p| >= 61440
+            # (half way to 2**16) to inf
+            bits = p.to(tl.float8e5, fp_downcast_rounding="rtne").to(
+                tl.uint8, bitcast=True)
+            inf = tl.where(p > 0, 0x7C, 0xFC).to(tl.uint8)
+            tl.store(CP + offs, tl.where(tl.abs(p) >= 61440.0, inf, bits))
+        else:
+            tl.store(CP + offs, p.to(CP.dtype.element_ty))
 
 
 def _sgd_triton(P, G, M, S, PO, MO, CP, NESTEROV: "tl.constexpr",
                 WD_AFTER_MOMENTUM: "tl.constexpr", HAS_COPY: "tl.constexpr",
-                BLOCK: "tl.constexpr"):
+                COPY_E5M2: "tl.constexpr", BLOCK: "tl.constexpr"):
     offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
     lr = tl.load(S)
     momentum = tl.load(S + 1)
@@ -127,11 +140,21 @@ def _sgd_triton(P, G, M, S, PO, MO, CP, NESTEROV: "tl.constexpr",
     tl.store(PO + offs, p.to(PO.dtype.element_ty))
     tl.store(MO + offs, m.to(MO.dtype.element_ty))
     if HAS_COPY:
-        tl.store(CP + offs, p.to(CP.dtype.element_ty))
+        if COPY_E5M2:
+            # CP is the e5m2 copy's bytes: PTX's f32 -> e5m2 convert
+            # saturates at 57344, where PyTorch and JAX round |p| >= 61440
+            # (half way to 2**16) to inf
+            bits = p.to(tl.float8e5, fp_downcast_rounding="rtne").to(
+                tl.uint8, bitcast=True)
+            inf = tl.where(p > 0, 0x7C, 0xFC).to(tl.uint8)
+            tl.store(CP + offs, tl.where(tl.abs(p) >= 61440.0, inf, bits))
+        else:
+            tl.store(CP + offs, p.to(CP.dtype.element_ty))
 
 
 def _adam_triton(P, G, M, V, S, PO, MO, VO, CP, ADAM_W: "tl.constexpr",
-                 HAS_COPY: "tl.constexpr", BLOCK: "tl.constexpr"):
+                 HAS_COPY: "tl.constexpr", COPY_E5M2: "tl.constexpr",
+                 BLOCK: "tl.constexpr"):
     offs = tl.program_id(0).to(tl.int64) * BLOCK + tl.arange(0, BLOCK)
     lr = tl.load(S)
     b1 = tl.load(S + 1)
@@ -157,7 +180,16 @@ def _adam_triton(P, G, M, V, S, PO, MO, VO, CP, ADAM_W: "tl.constexpr",
     tl.store(MO + offs, m.to(MO.dtype.element_ty))
     tl.store(VO + offs, v.to(VO.dtype.element_ty))
     if HAS_COPY:
-        tl.store(CP + offs, p.to(CP.dtype.element_ty))
+        if COPY_E5M2:
+            # CP is the e5m2 copy's bytes: PTX's f32 -> e5m2 convert
+            # saturates at 57344, where PyTorch and JAX round |p| >= 61440
+            # (half way to 2**16) to inf
+            bits = p.to(tl.float8e5, fp_downcast_rounding="rtne").to(
+                tl.uint8, bitcast=True)
+            inf = tl.where(p > 0, 0x7C, 0xFC).to(tl.uint8)
+            tl.store(CP + offs, tl.where(tl.abs(p) >= 61440.0, inf, bits))
+        else:
+            tl.store(CP + offs, p.to(CP.dtype.element_ty))
 
 
 def _adagrad_triton(P, G, H, S, PO, HO, ADAGRAD_W: "tl.constexpr",
@@ -206,6 +238,18 @@ def _novograd_triton(P, G, M, V, S, PO, MO, REG_INSIDE_MOMENT: "tl.constexpr",
     tl.store(MO + offs, m.to(MO.dtype.element_ty))
 
 
+def _is_e5m2(cp) -> bool:
+    return cp is not None and cp.dtype == torch.float8_e5m2
+
+
+def _copy_operand(cp, p2):
+    """The copy-out operand: ``p2`` (unused) without a copy, the bytes of an
+    e5m2 copy (the kernel writes them), else the copy itself."""
+    if cp is None:
+        return p2
+    return cp.view(torch.uint8) if _is_e5m2(cp) else cp
+
+
 def lamb_stage1_kernel(p, g, m, v, scalars, adam_w):
     """Triton stage 1 on flat CUDA buffers; ``scalars`` is the f32 device
     vector (beta1, beta2, eps, wd, bc1, bc2, clip, b3). Returns
@@ -239,8 +283,9 @@ def lamb_stage2_kernel(p, u, ratio, scalars, copy_dtype=None):
     cp = None if copy_dtype is None else torch.empty(n, dtype=copy_dtype,
                                                      device=p.device)
     _build.triton_jit(_lamb_stage2_triton)[(n // _BLOCK,)](
-        p, u, ratio, scalars, p2, p2 if cp is None else cp,
-        HAS_COPY=cp is not None, BLOCK=_BLOCK, num_warps=4)
+        p, u, ratio, scalars, p2, _copy_operand(cp, p2),
+        HAS_COPY=cp is not None, COPY_E5M2=_is_e5m2(cp), BLOCK=_BLOCK,
+        num_warps=4)
     lamb_stage2_kernel.launches += 1
     return p2 if cp is None else (p2, cp)
 
@@ -261,9 +306,10 @@ def sgd_kernel(p, g, m, scalars, nesterov, wd_after_momentum,
     cp = None if copy_dtype is None else torch.empty(n, dtype=copy_dtype,
                                                      device=p.device)
     _build.triton_jit(_sgd_triton)[(n // _BLOCK,)](
-        p, g, m, scalars, p2, m2, p2 if cp is None else cp,
+        p, g, m, scalars, p2, m2, _copy_operand(cp, p2),
         NESTEROV=bool(nesterov), WD_AFTER_MOMENTUM=bool(wd_after_momentum),
-        HAS_COPY=cp is not None, BLOCK=_BLOCK, num_warps=4)
+        HAS_COPY=cp is not None, COPY_E5M2=_is_e5m2(cp), BLOCK=_BLOCK,
+        num_warps=4)
     sgd_kernel.launches += 1
     return (p2, m2) if cp is None else (p2, m2, cp)
 
@@ -283,8 +329,9 @@ def adam_kernel(p, g, m, v, scalars, adam_w, copy_dtype=None):
     cp = None if copy_dtype is None else torch.empty(n, dtype=copy_dtype,
                                                      device=p.device)
     _build.triton_jit(_adam_triton)[(n // _BLOCK,)](
-        p, g, m, v, scalars, p2, m2, v2, p2 if cp is None else cp,
-        ADAM_W=bool(adam_w), HAS_COPY=cp is not None, BLOCK=_BLOCK,
+        p, g, m, v, scalars, p2, m2, v2, _copy_operand(cp, p2),
+        ADAM_W=bool(adam_w), HAS_COPY=cp is not None,
+        COPY_E5M2=_is_e5m2(cp), BLOCK=_BLOCK,
         num_warps=4, enable_fp_fusion=False)
     adam_kernel.launches += 1
     return (p2, m2, v2) if cp is None else (p2, m2, v2, cp)

@@ -19,8 +19,9 @@ Compressed modes, with an optional error-feedback residual:
 The compression error of a step comes back as the residual and is added
 to the next step's gradients, so it does not accumulate as bias. The
 exact mode (``compress=None``) is the arithmetic of
-``distributed.sync_gradients``. ``flat_ring_factor`` belongs to the
-hierarchical sync, which is not ported yet (ROADMAP.md queue A).
+``distributed.sync_gradients``. The hierarchical schedule, whose hops may
+each have their own wire dtype, is ``hierarchy.hierarchical_sync``;
+:func:`wire_bytes` and :func:`bucket_table` take its ``CommPlan`` too.
 """
 
 from __future__ import annotations
@@ -114,15 +115,23 @@ def wire_bytes(plan: List[Bucket], compress=None,
                compress_block: int = DEFAULT_COMPRESS_BLOCK) -> int:
     """Payload bytes on the wire for one sync under ``compress``, in
     all-reduce-equivalent units (before the ring's 2·(N−1)/N), so the
-    ratio against ``wire_bytes(plan)`` is the compression."""
+    ratio against ``wire_bytes(plan)`` is the compression.
+
+    ``compress`` is one mode for the whole sync, or a
+    ``hierarchy.CommPlan``: its hops' per-rank ring-factored bytes are
+    summed and divided by the flat all-reduce's ring factor, so flat and
+    hierarchical schedules compare in one unit."""
+    if hasattr(compress, "hops"):        # a CommPlan (no import cycle)
+        total = sum(compress.bucket_wire_bytes(b.elems) for b in plan)
+        return int(total / compress.flat_ring_factor())
     return sum(dtype_wire_bytes(b.elems, compress, compress_block)
                for b in plan)
 
 
 def bucket_table(plan: List[Bucket], compress=None,
                  compress_block: int = DEFAULT_COMPRESS_BLOCK) -> str:
-    """Human-readable bytes-per-bucket table; ``compress`` appends the wire
-    MiB each bucket moves."""
+    """Human-readable bytes-per-bucket table; ``compress`` (a mode or a
+    ``CommPlan``) appends the wire MiB each bucket moves."""
     head = "  bucket  dtype     tensors      elems        MiB"
     lines = [head + ("   wire MiB" if compress is not None else "")]
     for i, b in enumerate(plan):

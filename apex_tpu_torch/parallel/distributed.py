@@ -17,9 +17,13 @@ DDP exposes as knobs survives:
 ``message_size`` sizes the buckets of ``bucket_allreduce`` only. In the
 JAX package it also sets XLA's collective-combiner threshold, which has no
 counterpart: eager PyTorch issues each all-reduce as it is called.
-``collective_bytes`` and ``memory_report`` read the compiled HLO in JAX
-and raise here (ROADMAP.md queue A, item 11); ``comm_plan`` (the
-hierarchical sync) and ``dynamics_probe`` (the monitor) raise too.
+``comm_plan`` (a ``hierarchy.CommPlan``) replaces the axis and the
+compression: a hierarchical plan syncs through
+``hierarchy.hierarchical_sync`` over its (``data_inter``, ``data_intra``)
+axes, a flat one through ``comm.bucketed_all_reduce`` with the plan's
+dtype. ``collective_bytes`` and ``memory_report`` read the compiled HLO in
+JAX and raise here (ROADMAP.md queue A, item 11), as does
+``dynamics_probe`` (the monitor).
 
 Every collective runs inside a ``torch.profiler.record_function`` named by
 the registry (``ddp/sync_gradients``, ``bucketNN``, ``ddp/loss_pmean``)
@@ -35,9 +39,10 @@ from typing import Callable, Optional
 import torch
 import torch.distributed as dist
 
-from apex_tpu_torch.parallel import collectives, comm
-from apex_tpu_torch.parallel.mesh import (DATA_AXIS, axis_index, axis_size,
-                                          resolve_group, use_mesh)
+from apex_tpu_torch.parallel import collectives, comm, hierarchy
+from apex_tpu_torch.parallel.mesh import (DATA_AXIS, axes_size, axis_size,
+                                          linear_index, resolve_group,
+                                          use_mesh)
 from apex_tpu_torch.parallel.registry import known_patterns
 from apex_tpu_torch.utils import tree_leaves, tree_map
 
@@ -178,13 +183,34 @@ class DistributedDataParallel:
                  compress: Optional[str] = None,
                  compress_block: Optional[int] = None,
                  comm_plan=None):
+        names = tuple(mesh.mesh_dim_names or ())
         if comm_plan is not None:
-            raise NotImplementedError(
-                "comm_plan (the hierarchical sync, parallel/hierarchy.py) is "
-                "not ported yet (ROADMAP.md queue A, item 9's remainder)")
-        if axis_name not in mesh.mesh_dim_names:
-            raise ValueError(f"axis {axis_name!r} not in mesh "
-                             f"{mesh.mesh_dim_names}")
+            # the plan is the compression and topology spec: its axes
+            # replace axis_name, its per-hop dtypes replace compress
+            if compress is not None or allreduce_always_fp32 or \
+                    delay_allreduce or compress_block is not None:
+                raise ValueError(
+                    "comm_plan fixes the per-hop wire dtypes, the "
+                    "quantization block and the topology; it does not "
+                    "compose with compress, compress_block, "
+                    "allreduce_always_fp32 or delay_allreduce (set "
+                    "compress_block via plan_comm)")
+            for ax in comm_plan.axis_names:
+                if ax not in names:
+                    raise ValueError(
+                        f"comm_plan axis {ax!r} not in mesh {names}: build "
+                        "the mesh with hierarchical_data_mesh (or matching "
+                        "axis names) for a hierarchical plan")
+            for hop in comm_plan.hops:
+                if axis_size(hop.axis, mesh) != hop.size:
+                    raise ValueError(
+                        f"comm_plan axis {hop.axis!r} has size {hop.size} "
+                        f"but the mesh has {axis_size(hop.axis, mesh)}")
+            axis_name = (comm_plan.axis_names[0]
+                         if len(comm_plan.axis_names) == 1
+                         else tuple(comm_plan.axis_names))
+        elif axis_name not in names:
+            raise ValueError(f"axis {axis_name!r} not in mesh {names}")
         if compress not in comm.COMPRESS_MODES:
             raise ValueError(f"compress must be one of "
                              f"{comm.COMPRESS_MODES}, got {compress!r}")
@@ -197,6 +223,8 @@ class DistributedDataParallel:
                              "opposite modes")
         self.mesh = mesh
         self.axis_name = axis_name
+        #: None, or the hierarchy.CommPlan every sync follows
+        self.comm_plan = comm_plan
         self.gradient_average = gradient_average
         self.gradient_predivide_factor = gradient_predivide_factor
         self.allreduce_always_fp32 = allreduce_always_fp32
@@ -211,7 +239,7 @@ class DistributedDataParallel:
 
     @property
     def world_size(self) -> int:
-        return axis_size(self.axis_name, self.mesh)
+        return axes_size(self.axis_name, self.mesh)
 
     def _knobs(self):
         return dict(gradient_average=self.gradient_average,
@@ -222,17 +250,19 @@ class DistributedDataParallel:
         """Sync a gradient tree (inside the wrapped step, or under
         ``use_mesh(ddp.mesh)``). Honours ``no_sync`` and
         ``delay_allreduce``; ``bucket_allreduce`` or ``compress`` go through
-        ``comm.bucketed_all_reduce``. With ``residual`` (seed it with
-        :meth:`init_residual`) the return is ``(synced, new_residual)``;
-        the exact modes pass the residual through."""
+        ``comm.bucketed_all_reduce``, a ``comm_plan`` through its schedule.
+        With ``residual`` (seed it with :meth:`init_residual`) the return is
+        ``(synced, new_residual)``; the exact modes pass the residual
+        through."""
         if not self._sync_enabled:
             return grads if residual is None else (grads, residual)
+        # unbucketed compression (and a plan): one bucket per dtype
+        msg = self.message_size if self.message_size else (
+            comm.DEFAULT_MESSAGE_SIZE if self.bucket_allreduce else None)
         with use_mesh(self.mesh):
+            if self.comm_plan is not None:
+                return self._plan_sync(grads, residual, msg)
             if self.bucket_allreduce or self.compress is not None:
-                # compress without bucketing: one bucket per dtype
-                msg = self.message_size if self.message_size else (
-                    comm.DEFAULT_MESSAGE_SIZE if self.bucket_allreduce
-                    else None)
                 with torch.profiler.record_function(SYNC_SCOPE):
                     return comm.bucketed_all_reduce(
                         grads, self.axis_name, message_size=msg,
@@ -243,12 +273,32 @@ class DistributedDataParallel:
             synced = fn(grads, self.axis_name, **self._knobs())
         return synced if residual is None else (synced, residual)
 
+    def _plan_sync(self, grads, residual, msg):
+        plan = self.comm_plan
+        knobs = dict(gradient_average=self.gradient_average,
+                     gradient_predivide_factor=self.gradient_predivide_factor)
+        with torch.profiler.record_function(SYNC_SCOPE):
+            if plan.is_hierarchical:
+                return hierarchy.hierarchical_sync(
+                    grads, plan, message_size=msg, residual=residual,
+                    **knobs)
+            # a flat plan is the planner-chosen compress mode on one axis
+            return comm.bucketed_all_reduce(
+                grads, self.axis_name, message_size=msg,
+                compress=plan.hops[0].dtype, residual=residual,
+                compress_block=plan.compress_block, **knobs)
+
     def init_residual(self, grads):
         """Zeroed error-feedback residual (``comm.init_residual``)."""
         return comm.init_residual(grads)
 
     def pmean(self, x: torch.Tensor) -> torch.Tensor:
-        """Mean of ``x`` over the replicas (for the logged loss)."""
+        """Mean of ``x`` over the replicas (for the logged loss); with a
+        hierarchical ``comm_plan`` one sum per axis
+        (``hierarchy.hierarchical_pmean``)."""
+        if self.comm_plan is not None and self.comm_plan.is_hierarchical:
+            with use_mesh(self.mesh):
+                return hierarchy.hierarchical_pmean(x, self.comm_plan)
         group = self.mesh.get_group(self.axis_name)
         return collectives.all_reduce(x.detach().clone(), group,
                                       "ddp/loss_pmean") / self.world_size
@@ -272,7 +322,7 @@ class DistributedDataParallel:
         @functools.wraps(step_fn)
         def stepped(state, batch):
             n = self.world_size
-            me = axis_index(self.axis_name, self.mesh)
+            me = linear_index(self.axis_name, self.mesh)
 
             def shard(x):
                 if not isinstance(x, torch.Tensor):

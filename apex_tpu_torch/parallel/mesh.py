@@ -129,6 +129,26 @@ def axis_index(axis: str, mesh: Optional[DeviceMesh] = None) -> int:
     return _bound_mesh(axis, mesh).get_local_rank(axis)
 
 
+def axes_of(axis_name) -> Tuple[str, ...]:
+    """An axis name or a tuple of them, as a tuple."""
+    return (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+
+
+def axes_size(axis_name, mesh: Optional[DeviceMesh] = None) -> int:
+    """The product of the sizes of an axis name or tuple."""
+    return math.prod(axis_size(a, mesh) for a in axes_of(axis_name))
+
+
+def linear_index(axis_name, mesh: Optional[DeviceMesh] = None) -> int:
+    """This rank's index over an axis name or tuple, axis-major in tuple
+    order (row-major, as ``init_device_mesh`` lays out ranks): the tile a
+    scatter over each axis in turn leaves it."""
+    r = 0
+    for a in axes_of(axis_name):
+        r = r * axis_size(a, mesh) + axis_index(a, mesh)
+    return r
+
+
 def local_batch(global_batch: int, mesh: DeviceMesh,
                 axis: str = DATA_AXIS) -> int:
     n = axis_size(axis, mesh)

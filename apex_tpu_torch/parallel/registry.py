@@ -6,9 +6,10 @@ communicates over and the subsystem that owns it. In the port the scope is
 the ``torch.profiler.record_function`` name around the collective
 (``parallel.collectives``), so a profiler trace attributes each
 collective to its row; ``distributed.KNOWN_COLLECTIVE_SCOPES`` is the flat
-view of the patterns. Rows of subsystems not ported yet (ZeRO, the guard,
-ring attention, the hierarchical hops) stay, as the JAX package's table
-has them.
+view of the patterns. Rows of subsystems not ported yet (the guard, the
+monitor's probes) stay, as the JAX package's table has them. One row is
+the port's own (``PORT_ONLY_PATTERNS``): ``zero/grad_norm``, the ZeRO
+norm sums, which the JAX package issues unscoped.
 """
 
 from __future__ import annotations
@@ -20,8 +21,8 @@ from typing import Optional, Sequence, Tuple
 from apex_tpu_torch.parallel.mesh import (DATA_AXIS, DATA_INTER_AXIS,
                                     DATA_INTRA_AXIS, SEQ_AXIS)
 
-__all__ = ["CollectiveScope", "COLLECTIVE_SCOPES", "known_patterns",
-           "scope_axis", "scope_entry"]
+__all__ = ["CollectiveScope", "COLLECTIVE_SCOPES", "PORT_ONLY_PATTERNS",
+           "known_patterns", "scope_axis", "scope_entry"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,6 +77,13 @@ COLLECTIVE_SCOPES: Tuple[CollectiveScope, ...] = (
                     "zero",
                     "ZeRO gradient reduce-scatter / parameter "
                     "all-gather"),
+    # the port's own row: the JAX package issues these psums of the ZeRO
+    # optimizers outside any span (apex_tpu/optim/distributed.py:260-263,
+    # 334-336), and every port collective needs a scope
+    CollectiveScope(r"zero/grad_norm", DATA_AXIS, "zero",
+                    "ZeRO sharded-norm sums: the global grad norm of the "
+                    "clip and LAMB's per-tensor norms (unscoped in the "
+                    "JAX package)"),
     CollectiveScope(r"guard/integrity_(check|repair)", DATA_AXIS,
                     "guard",
                     "cross-replica integrity fingerprint compare "
@@ -85,6 +93,10 @@ COLLECTIVE_SCOPES: Tuple[CollectiveScope, ...] = (
                     "ring/Ulysses sequence-parallel attention "
                     "permutes and all-to-alls"),
 )
+
+
+#: patterns of the rows the JAX package's table does not have
+PORT_ONLY_PATTERNS = (r"zero/grad_norm",)
 
 
 def known_patterns() -> Tuple[str, ...]:

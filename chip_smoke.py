@@ -214,6 +214,39 @@ EXTRA_BN_ROWS = {
 # DistributedDataParallel(delay_allreduce=True) one flat f32 buffer
 SYNCBN_COLLECTIVES = {"sync_batchnorm": 106, "ddp/sync_gradients": 161}
 SYNCBN_ARENA_COLLECTIVES = {"sync_batchnorm": 106, "ddp/sync_gradients": 1}
+# ZeRO on BERT-Large (DistributedFusedLAMB, NCCL at world size 1): the arena
+# LAMB kernels once a step on the shard (the clip's norm, the two stages),
+# and five collectives a step: the gradient reduce-scatter, the clip's norm
+# sum, the two per-tensor norm sums and the parameter all-gather
+ZERO_PER_STEP = dict(ARENA_PER_STEP)
+ZERO_COLLECTIVES = {"zero/grad_scatter": 1, "zero/grad_norm": 3,
+                    "zero/param_gather": 1}
+# rows of the kernels JSON line for the kernels at the ZeRO and ring paths'
+# shapes (one row a kernel: LAMB's two stages on a shard and the flash
+# forward and backward at a ring hop are two rows each): {row: (kernel,
+# TPU kernel replaced, phase whose run gives this row's launches)}
+EXTRA_ZERO_ROWS = {
+    "lamb_shard_stage1": ("lamb_stage1", "apex_tpu/ops/optim_kernels.py:169",
+                          "bert_large_zero"),
+    "lamb_shard_stage2": ("lamb_stage2", "apex_tpu/ops/optim_kernels.py:217",
+                          "bert_large_zero"),
+    "adam_e5m2_copy": ("adam", "apex_tpu/ops/optim_kernels.py:42",
+                       "zero_adam_update"),
+    "flash_ring_hop_fwd": ("flash_attn_fwd", "apex_tpu/ops/attention.py:720",
+                           "ring_two_ranks"),
+    "flash_ring_hop_bwd": ("flash_attn_bwd",
+                           "apex_tpu/ops/attention.py:1064",
+                           "ring_two_ranks"),
+}
+# the ring's geometry on the card: BERT-Large's attention width (H16, D64),
+# B2, a global sequence of 8192 over two ranks (4096 a rank)
+RING_B, RING_S, RING_H, RING_D = 2, 8192, 16, 64
+SEQ_RANKS = 2
+# ZeRO across two ranks: BERT at full width, depth 2, B4 a rank
+ZERO_RANK_BATCH = 4
+# the link rates the hierarchical phases plan with: the wire dtype of
+# every hop is forced, so they only order candidates (not the card's)
+PLAN_LINKS = {"ici": 1.0e11, "dcn": 1.0e10}
 # integer operations of the dropout hash per score element (mix, avalanche,
 # compare, select and scale), counted at the f32 rate of the CUDA cores
 HASH_OPS = 20
@@ -456,7 +489,8 @@ def bench_tools(rows):
             int_ops=0, dev_ms=None, lib_dev_ms=None):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = max(flops / peak, int_ops / F32_FLOPS) * 1e3
-        kernel, replaces, _ = {**EXTRA_ROWS, **EXTRA_BN_ROWS}.get(
+        kernel, replaces, _ = {**EXTRA_ROWS, **EXTRA_BN_ROWS,
+                               **EXTRA_ZERO_ROWS}.get(
             name, (name, REPLACES.get(name), None))
         route, src = SOURCES[kernel]
         rows[name] = {
@@ -598,6 +632,8 @@ def check_kernels(rows):
     check_ln_bwd_determinism(rnd)
     check_sgd_kernel(rnd, flush, row)
     check_adam_kernel(rnd, flush, row)
+    check_zero_kernels(rnd, flush, row)
+    check_ring_hop_kernels(rnd, flush, row)
     check_mlp_kernel(rnd, flush, row)
     log(f"phase kernels: device_ms sessions lost at most {_LOST[0]} leading "
         f"kernel records (each opened with {_LEAD[0]} short spins)")
@@ -1889,21 +1925,28 @@ def check_arena_remainder(rnd, flush, row):
 
 
 def train_bert_large(phase, rows, strategy="auto", optimizer=None,
-                     per_step=None, **options):
+                     per_step=None, mesh=None, collectives=None, **options):
     """5 BERT-Large steps (B16, S512, O1 bf16) with ``FusedLAMB(lr=1e-3,
     strategy=strategy)``, or with ``optimizer``, built by
     ``train.build_bert_step`` (``options``: its ``dropout``/``padded``);
     checks every kernel's launches in those steps (``per_step``: the
-    optimizer's kernels). Returns (losses, state, step ms)."""
+    optimizer's kernels). With ``mesh`` the build and the steps run inside
+    ``parallel.use_mesh(mesh)`` and ``collectives`` (a step's, by registry
+    scope) are checked. Returns (losses, state, step ms)."""
     import torch
-    from apex_tpu_torch import ops, train
+    from apex_tpu_torch import ops, parallel, train
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    def bound():
+        return (parallel.use_mesh(mesh) if mesh is not None
+                else contextlib.nullcontext())
+
     opt = (dict(strategy=strategy) if optimizer is None
            else dict(optimizer=optimizer))
-    step, state, (toks, labels), _policy, enc = train.build_bert_step(
-        16, 512, **opt, **options)
+    with bound():
+        step, state, (toks, labels), _policy, enc = train.build_bert_step(
+            16, 512, **opt, **options)
     n_params = sum(p.numel() for p in enc.parameters())
     tx, how = ((type(optimizer).__name__, optimizer.strategy)
                if optimizer is not None else ("FusedLAMB", strategy))
@@ -1914,15 +1957,24 @@ def train_bert_large(phase, rows, strategy="auto", optimizer=None,
            f"{int((labels >= 0).sum())} labels"
            if step.attn_mask is not None else ""))
     ops.reset_launch_counts()
+    parallel.reset_collective_counts()
     times, losses = [], []
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, loss = step(state, toks, labels)
+        with bound():
+            state, loss = step(state, toks, labels)
         losses.append(loss.item())
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     counts = ops.launch_counts()
+    issued = dict(parallel.collective_counts)
+    if issued != {k: 5 * v for k, v in (collectives or {}).items()}:
+        raise AssertionError(f"{phase}: collectives in 5 steps {issued}, "
+                             f"expected 5 x {collectives or {}}")
+    if collectives:
+        log(f"phase {phase}: collectives per step "
+            f"{ {k: v // 5 for k, v in issued.items()} }")
     for i, (l, t) in enumerate(zip(losses, times)):
         log(f"{phase} step {i}: loss {l:.6f}  {t:.2f} ms")
         if not math.isfinite(l):
@@ -1933,6 +1985,7 @@ def train_bert_large(phase, rows, strategy="auto", optimizer=None,
         EXPECTED_PER_STEP, **(ARENA_PER_STEP if strategy == "arena" else {}),
         **(per_step or {})), rows)
     step_ms = sorted(times[1:])[len(times[1:]) // 2]
+    train_bert_large.peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"phase {phase}: launches per step "
         f"{ {k: v // 5 for k, v in counts.items()} }")
     log(f"phase {phase}: median step {step_ms:.2f} ms (steps 1-4), "
@@ -1982,8 +2035,8 @@ def take_phase_launches(phase, rows):
     """The extra rows that ``phase`` drives take their kernel's launches
     from the run ``check_launches`` just recorded for ``phase``; the others
     keep theirs."""
-    for name, (kernel, _, driven_by) in {**EXTRA_ROWS,
-                                         **EXTRA_BN_ROWS}.items():
+    for name, (kernel, _, driven_by) in {**EXTRA_ROWS, **EXTRA_BN_ROWS,
+                                         **EXTRA_ZERO_ROWS}.items():
         if driven_by == phase:
             rows[name]["launches"] = rows[kernel]["launches"]
 
@@ -2003,7 +2056,7 @@ def bert_large_arena(rows, tree_losses):
     """Phase 5: 5 BERT-Large steps with ``strategy="arena"`` from the same
     seed: one launch per step of each arena kernel, and every loss within
     1e-3 relative of the tree run's at the same step. Then one update from
-    this run's state, arena against tree."""
+    this run's state, arena against tree. Returns the losses."""
     losses, state, _ = train_bert_large("bert_large_arena", rows, "arena")
     for i, (a, t) in enumerate(zip(losses, tree_losses)):
         rel = abs(a - t) / abs(t)
@@ -2016,6 +2069,7 @@ def bert_large_arena(rows, tree_losses):
     from apex_tpu_torch.optim import FusedLAMB
     arena_vs_tree_update(state.params, state.opt_state,
                          lambda s: FusedLAMB(lr=1e-3, strategy=s), TOL_UPDATE)
+    return losses
 
 
 def tree_slots(slots, spec):
@@ -2808,38 +2862,25 @@ def two_ranks_step(kind, mesh, batch, plain):
     return loss.item(), grads, ops.launch_counts()
 
 
-def two_ranks_body(rank, world, tmp):
-    """One rank of phase syncbn_two_ranks: a gloo process group over a
-    ``file://`` store in ``tmp`` on ``cuda:0``; both models through the
-    kernels and through the plain versions; results to ``tmp``."""
-    import datetime
-    import traceback
-    import torch
-    import torch.distributed as dist
+def two_ranks_rank(rank, world):
+    """One rank of phase syncbn_two_ranks (a gloo group on ``cuda:0``, see
+    ``_run_rank``): both models through the kernels and through the plain
+    versions."""
+    from apex_tpu_torch import parallel
+    mesh = parallel.data_parallel_mesh()
+    out = {}
+    for kind in ("fused", "all"):
+        for plain in (False, True):
+            loss, grads, counts = two_ranks_step(kind, mesh,
+                                                 TWO_RANKS_BATCH * world,
+                                                 plain)
+            out[kind, plain] = (loss, {k: v.cpu() for k, v in
+                                       grads.items()}, counts)
+    return out
 
-    try:
-        torch.cuda.set_device(0)
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-        dist.init_process_group(
-            "gloo", init_method=f"file://{tmp}/store", world_size=world,
-            rank=rank, timeout=datetime.timedelta(seconds=300))
-        from apex_tpu_torch import parallel
-        mesh = parallel.data_parallel_mesh()
-        out = {}
-        for kind in ("fused", "all"):
-            for plain in (False, True):
-                loss, grads, counts = two_ranks_step(kind, mesh,
-                                                     TWO_RANKS_BATCH * world,
-                                                     plain)
-                out[kind, plain] = (loss, {k: v.cpu() for k, v in
-                                           grads.items()}, counts)
-        torch.save(out, f"{tmp}/rank{rank}.pt")
-        dist.destroy_process_group()
-    except BaseException:
-        with open(f"{tmp}/rank{rank}.err", "w") as f:
-            f.write(traceback.format_exc())
-        raise
+
+def two_ranks_body(rank, world, tmp):
+    _run_rank(two_ranks_rank, rank, world, tmp)
 
 
 def _is_bn_param(name):
@@ -2872,36 +2913,9 @@ def syncbn_two_ranks():
       ``plain_versions()`` in the same two ranks within 1e-3 of each
       tensor's max (the same moments: f32 sums in another order), loss
       within 1e-4."""
-    import multiprocessing
-    import tempfile
     import torch
 
-    tmp = tempfile.mkdtemp(prefix="chip_smoke_two_ranks_")
-    ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=two_ranks_body, daemon=True,
-                         args=(r, TWO_RANKS, tmp)) for r in range(TWO_RANKS)]
-    t0 = time.perf_counter()
-    for p in procs:
-        p.start()
-    deadline = time.monotonic() + 600
-    for p in procs:
-        p.join(max(deadline - time.monotonic(), 0.0))
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join(10)
-    codes = [p.exitcode for p in procs]
-    if codes != [0] * TWO_RANKS:
-        errs = [open(f"{tmp}/rank{r}.err").read()[-3000:]
-                for r in range(TWO_RANKS)
-                if os.path.exists(f"{tmp}/rank{r}.err")]
-        raise AssertionError(f"syncbn_two_ranks: exit codes {codes}\n"
-                             + "\n".join(errs))
-    ranks = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
-             for r in range(TWO_RANKS)]
-    shutil.rmtree(tmp, ignore_errors=True)
-    log(f"phase syncbn_two_ranks: {TWO_RANKS} ranks ran in "
-        f"{time.perf_counter() - t0:.1f} s")
+    ranks = _spawn("syncbn_two_ranks", two_ranks_body, TWO_RANKS)
     for kind, n_dx in (("fused", 17), ("all", 1)):
         loss_ref, ref, _ = two_ranks_step(kind, None,
                                           TWO_RANKS_BATCH * TWO_RANKS, False)
@@ -2957,6 +2971,867 @@ def syncbn_two_ranks():
             raise AssertionError(f"syncbn_two_ranks {kind}: loss rel "
                                  f"{rel:.2e} (kernel/plain), {rel_full:.2e} "
                                  f"(ranks' mean/full batch) > 1e-4")
+
+
+def _shard_valid(spec, dt, world, rank, device):
+    """Bool mask of the tensor positions (not padding) in rank ``rank``'s
+    ZeRO shard of partition ``dt``, and the shard's start and length."""
+    import torch
+    from apex_tpu_torch import arena
+    from apex_tpu_torch.optim.distributed import _padded_len
+
+    part = spec.partition(dt)
+    per = _padded_len(part.buffer_len, world) // world
+    ids = arena.segment_ids_device(spec, dt, device)
+    ids = torch.cat([ids, torch.full((per * world - ids.numel(),), -1,
+                                     dtype=ids.dtype, device=device)])
+    return ids[rank * per:(rank + 1) * per] >= 0, rank * per, per
+
+
+def _copy_bits_equal(name, kp, kc, pp, pc):
+    """A copy-out kernel's low-precision copy bit for bit against the plain
+    version's wherever the two f32 results are equal (elsewhere an f32 ulp
+    may move a rounding); returns the count of such unequal elements."""
+    import torch
+    same = kp.view(torch.int32) == pp.view(torch.int32)
+    width = {1: torch.uint8, 2: torch.int16}[kc.element_size()]
+    bad = int(((kc.view(width) != pc.view(width)) & same).sum())
+    if bad:
+        raise AssertionError(f"{name}: {bad} copy elements differ in bits "
+                             f"where the f32 results agree")
+    return int((~same).sum())
+
+
+def check_zero_kernels(rnd, flush, row):
+    """The arena kernels at the ZeRO paths' shapes. ``lamb_shard``: LAMB's
+    stages on rank 1's shard of BERT-Large's f32 partition at world size 2
+    (the shard begins inside a tensor), the trust ratio from
+    ``per_tensor_sq_shard`` spread by ``spread_per_tensor_shard``, stage 2
+    also with the bf16 and e5m2 copies of the compressed gathers.
+    ``adam_e5m2_copy``: the Adam kernel with an e5m2 copy at ResNet-50's
+    f32 master partition (the shard at world size 1), elements at and past
+    e5m2's largest finite value (57344) included: the copy bit for bit
+    against the plain version's (PTX's convert saturates; the kernel rounds
+    |p| >= 61440 to inf, as PyTorch and JAX do)."""
+    import torch
+    from apex_tpu_torch import arena, models
+    from apex_tpu_torch.ops import _arena, multi_tensor as M
+    from apex_tpu_torch.ops import optim_kernels as K
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    enc = models.BertLarge(device=dev)
+    spec = arena.plan(dict(enc.named_parameters()))
+    del enc
+    part = spec.partition("float32")
+    valid, start, per = _shard_valid(spec, "float32", 2, 1, dev)
+    if not any(o < start < o + n for o, n in zip(part.offsets, part.sizes)):
+        raise AssertionError("rank 1's shard of BERT-Large should begin "
+                             "inside a tensor")
+    p, g = rnd(per, dtype=f32) * valid, rnd(per, dtype=f32, std=3.0) * valid
+    m = rnd(per, dtype=f32, std=0.1) * valid
+    v = rnd(per, dtype=f32, std=0.01).abs() * valid
+    s1 = _arena.device_scalars((0.9, 0.999, 1e-6, 0.01, 1 - 0.9 ** 3,
+                                1 - 0.999 ** 3, 0.5, 0.1), dev)
+    s2 = _arena.device_scalars((1e-3,), dev)
+    e1 = compare("lamb_shard stage1", K.lamb_stage1_kernel(p, g, m, v, s1,
+                                                           True),
+                 K.lamb_stage1_plain(p, g, m, v, s1, True), TOL_ARENA)
+    u = K.lamb_stage1_plain(p, g, m, v, s1, True)[0]
+    sq_p = M.per_tensor_sq_shard(p, part.offsets, part.sizes, start)
+    sq_u = M.per_tensor_sq_shard(u, part.offsets, part.sizes, start)
+    ratio = torch.where((sq_p > 0) & (sq_u > 0),
+                        torch.sqrt(sq_p) / torch.sqrt(sq_u), 1.0)
+    r = M.spread_per_tensor_shard(ratio, part.offsets, part.sizes, start, per)
+    e2 = compare("lamb_shard stage2", [K.lamb_stage2_kernel(p, u, r, s2)],
+                 [K.lamb_stage2_plain(p, u, r, s2)], TOL_ARENA)
+    for copy in (torch.bfloat16, torch.float8_e5m2):
+        kp, kc = K.lamb_stage2_kernel(p, u, r, s2, copy)
+        pp, pc = K.lamb_stage2_plain(p, u, r, s2, copy)
+        e2 = max(e2, compare(f"lamb_shard stage2 copy={copy}", [kp], [pp],
+                             TOL_ARENA))
+        apart = _copy_bits_equal(f"lamb_shard stage2 copy={copy}", kp, kc,
+                                 pp, pc)
+        log(f"phase kernels: lamb_shard stage2 {copy} copy bit for bit "
+            f"where the f32 results agree ({apart} of {per} f32 results "
+            f"an ulp apart)")
+    log(f"phase kernels: lamb_shard: BERT-Large world-2 shard of {per} "
+        f"elements from {start} (inside a tensor), {len(part.sizes)} "
+        f"tensors' trust ratios; stages agree with the plain versions")
+    kernel = lambda: K.lamb_stage1_kernel(p, g, m, v, s1, True)  # noqa: E731
+    row("lamb_shard_stage1", e1, timed(kernel, flush=flush),
+        timed(lambda: K.lamb_stage1_plain(p, g, m, v, s1, True),
+              flush=flush), None, nbytes=28 * per, flops=15 * per,
+        peak=F32_FLOPS, dev_ms=device_ms(kernel, flush=flush))
+    kernel = lambda: K.lamb_stage2_kernel(p, u, r, s2)  # noqa: E731
+    row("lamb_shard_stage2", e2, timed(kernel, flush=flush),
+        timed(lambda: K.lamb_stage2_plain(p, u, r, s2), flush=flush), None,
+        nbytes=16 * per, flops=3 * per, peak=F32_FLOPS,
+        dev_ms=device_ms(kernel, flush=flush))
+    del p, g, m, v, u, r, valid
+
+    rparams = dict(models.ResNet50(dtype=torch.bfloat16, device=dev)
+                   .named_parameters())
+    n = arena.plan(rparams).partition("float32").buffer_len
+    del rparams
+    p = rnd(n, dtype=f32, std=0.05)
+    g, m = rnd(n, dtype=f32, std=1e-2), rnd(n, dtype=f32, std=1e-3)
+    v = rnd(n, dtype=f32, std=1e-2).square()
+    big = torch.tensor([57344.0, 59000.0, 61439.0, 61440.0, 61441.0, 1e6,
+                        -61440.0, -1e6, -57344.0, 1e-6], device=dev)
+    p[:big.numel()] = big
+    for t in (g, m, v):
+        t[:big.numel()] = 0.0
+    s = _arena.device_scalars((1e-3, 0.9, 0.999, 1e-8, 0.0, 1 - 0.9 ** 3,
+                               1 - 0.999 ** 3, 1.0), dev)
+    e8 = torch.float8_e5m2
+    kout = K.adam_kernel(p, g, m, v, s, True, e8)
+    pout = K.adam_plain(p, g, m, v, s, True, e8)
+    err = compare("adam_e5m2_copy", kout[:3], pout[:3], TOL_ARENA)
+    apart = _copy_bits_equal("adam_e5m2_copy", kout[0], kout[3], pout[0],
+                             pout[3])
+    head = kout[3][:big.numel()].view(torch.uint8).tolist()
+    if head != pout[3][:big.numel()].view(torch.uint8).tolist() or \
+            head[:6] != [123, 123, 123, 124, 124, 124]:
+        raise AssertionError(f"adam_e5m2_copy: the copy's bytes of {big} "
+                             f"are {head}")
+    log(f"phase kernels: adam_e5m2_copy: the e5m2 copy bit for bit against "
+        f"the plain version ({apart} of {n} f32 results an ulp apart); "
+        f"bytes of {big.tolist()}: {head} (0x7B = 57344, 0x7C = inf)")
+    kernel = lambda: K.adam_kernel(p, g, m, v, s, True, e8)  # noqa: E731
+    row("adam_e5m2_copy", err, timed(kernel, flush=flush),
+        timed(lambda: K.adam_plain(p, g, m, v, s, True, e8), flush=flush),
+        None, nbytes=29 * n, flops=18 * n, peak=F32_FLOPS,
+        dev_ms=device_ms(kernel, flush=flush))
+
+
+def check_ring_hop_kernels(rnd, flush, row):
+    """The flash kernels at a ring hop's shape: BERT-Large's heads (H16,
+    D64), B2, a 4096-query shard against a 4096-key block, with the causal
+    frontier read from the card at offsets +4096 (the block before this
+    rank's: every key visible), 0 (the diagonal) and -4096 (a later rank's
+    block, which the ring masks: every row sees no key), and dropout 0.1 at
+    block offsets (1, 0); the backward with an lse cotangent (the merge's).
+    Rows that see no key give o = 0, lse = -1e30 and zero gradients, not
+    NaN, in the kernel and the plain version alike."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    b, s, h, d = RING_B, RING_S // SEQ_RANKS, RING_H, RING_D
+    q, k, vv, do = (rnd(b, s, h, d) for _ in range(4))
+    dlse = rnd(b * h, s, dtype=torch.float32, std=0.1)
+    scale = 1.0 / math.sqrt(d)
+
+    def hop(off, drop):
+        kw = dict(causal=True, causal_off=torch.tensor(
+            [off], dtype=torch.int32, device=dev))
+        if drop:
+            kw.update(seed=torch.tensor([1234], dtype=torch.int32,
+                                        device=dev), rate=0.1,
+                      dbo=torch.tensor([1, 0], dtype=torch.int32,
+                                       device=dev))
+        return kw
+
+    def delta_of(o):
+        return ((do.float() * o.float()).sum(-1).transpose(1, 2)
+                .reshape(b * h, s) - dlse).contiguous()
+
+    ef = eb = 0.0
+    for off, drop in ((s, False), (0, False), (-s, False), (s, True)):
+        kw = hop(off, drop)
+        (ko, kl), (po, pl) = (A.flash_fwd_kernel(q, k, vv, scale, **kw),
+                              A.flash_fwd_plain(q, k, vv, scale, **kw))
+        delta = delta_of(po)
+        kg = A.flash_bwd_kernel(q, k, vv, do, pl, delta, scale, **kw)
+        pg = A.flash_bwd_plain(q, k, vv, do, pl, delta, scale, **kw)
+        what = f"flash ring hop off={off} dropout={drop}"
+        if off < 0:
+            for name, t in (("o", ko), ("o plain", po), *(
+                    (f"d{x}", t) for x, t in zip("qkv", kg)), *(
+                    (f"d{x} plain", t) for x, t in zip("qkv", pg))):
+                if not torch.isfinite(t).all() or t.abs().max().item():
+                    raise AssertionError(f"{what}: {name} is not all zero "
+                                         f"and finite")
+            if not (kl == A.NEG_INF).all() or not (pl == A.NEG_INF).all():
+                raise AssertionError(f"{what}: lse is not -1e30 everywhere")
+            log(f"phase kernels: {what}: no row sees a key; o, dq, dk, dv "
+                f"are 0 (finite) and lse -1e30, kernel and plain")
+            continue
+        ef = max(ef, compare(f"{what} fwd", [ko, kl], [po, pl]))
+        eb = max(eb, compare(f"{what} bwd", kg, pg))
+    log("phase kernels: flash attention at a ring hop's shape agrees with "
+        "the plain versions (causal offsets +S, 0, -S on the card, dropout "
+        "at block offsets (1, 0), the lse cotangent)")
+    del po, pl, pg, kg, ko, kl
+    torch.cuda.empty_cache()
+    kw = hop(s, False)
+    io = b * s * h * d * 2
+    fwd = lambda: A.flash_fwd_kernel(q, k, vv, scale, **kw)  # noqa: E731
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, vv))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+    row("flash_ring_hop_fwd", ef, timed(fwd, flush=flush),
+        timed(lambda: A.flash_fwd_plain(q, k, vv, scale, **kw), flush=flush),
+        timed(sdpa, flush=flush), nbytes=4 * io + b * h * s * 4,
+        flops=4 * b * h * s * s * d, dev_ms=device_ms(fwd, flush=flush),
+        lib_dev_ms=device_ms(sdpa, flush=flush))
+    o, lse = fwd()
+    delta = delta_of(o)
+    bwd = lambda: A.flash_bwd_kernel(  # noqa: E731
+        q, k, vv, do, lse, delta, scale, **kw)
+    plain = timed(lambda: A.flash_bwd_plain(q, k, vv, do, lse, delta, scale,
+                                            **kw), flush=flush)
+    qg, kg_, vg = (t.detach().transpose(1, 2).requires_grad_(True)
+                   for t in (q, k, vv))
+    og = F.scaled_dot_product_attention(qg, kg_, vg)
+    dot = do.transpose(1, 2)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        og, (qg, kg_, vg), dot, retain_graph=True)
+    row("flash_ring_hop_bwd", eb, timed(bwd, flush=flush), plain,
+        timed(sdpa_bwd, flush=flush), nbytes=7 * io + 2 * b * h * s * 4,
+        flops=10 * b * h * s * s * d, dev_ms=device_ms(bwd, flush=flush),
+        lib_dev_ms=device_ms(sdpa_bwd, flush=flush))
+
+
+def bert_large_zero(rows, arena_losses, mesh):
+    """Phase bert_large_zero, the slice's main path: BERT-Large (B16, S512,
+    O1 bf16) trained 5 steps through ``train.build_bert_step(optimizer=
+    DistributedFusedLAMB(lr=1e-3))`` inside ``parallel.use_mesh`` of the
+    NCCL world-size-1 ``data`` mesh, every collective issued: one launch of
+    each arena LAMB kernel a step and the five collectives of
+    ``ZERO_COLLECTIVES``; losses within 1e-3 relative of phase
+    bert_large_arena's (at world size 1 the sharded step is the arena
+    step). Step ms, seq/s and peak GiB are logged."""
+    from apex_tpu_torch.optim import DistributedFusedLAMB
+
+    opt = DistributedFusedLAMB(lr=1e-3)
+    losses, state, step_ms = train_bert_large(
+        "bert_large_zero", rows, optimizer=opt, per_step=ZERO_PER_STEP,
+        mesh=mesh, collectives=ZERO_COLLECTIVES)
+    take_phase_launches("bert_large_zero", rows)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, arena_losses))
+    if not rel <= 1e-3:
+        raise AssertionError(f"bert_large_zero losses {losses} vs the arena "
+                             f"run's {arena_losses}: rel {rel:.2e} > 1e-3")
+    held = sum(t.numel() * 4 for d in state.opt_state.slots.values()
+               for t in d.values())
+    want = opt.state_bytes(state.params, world=1)["sharded_bytes"]
+    if held != want:
+        raise AssertionError(f"bert_large_zero: the state holds {held} "
+                             f"bytes, state_bytes says {want}")
+    log(f"phase bert_large_zero: losses within {rel:.2e} relative of the "
+        f"arena run's (limit 1e-3); median step {step_ms:.2f} ms, "
+        f"{16 / step_ms * 1e3:.2f} seq/s, peak "
+        f"{train_bert_large.peak_gib:.2f} GiB; optimizer state {held} bytes "
+        f"(master, m, v shards at world size 1)")
+
+
+def zero_adam_update(rows, mesh):
+    """Phase zero_adam_update: one ``DistributedFusedAdam`` update on
+    ResNet-50's O2 f32 masters (NCCL world size 1) against
+    ``FusedAdam(strategy="arena")`` from the same state (the arena state
+    after one update, carried into the sharded state), p, m and v per
+    tensor within ``TOL_UPDATE``, with its collectives (one scatter, one
+    gather) and one ``adam`` launch; then the update of the bf16 model
+    params with ``param_gather_dtype=torch.float8_e5m2``: every gathered
+    bf16 param equals its new f32 master rounded to e5m2, bit for bit."""
+    import torch
+    from apex_tpu_torch import arena, models, ops, parallel
+    from apex_tpu_torch.optim import (DistributedFusedAdam, FusedAdam,
+                                      ShardedOptState)
+
+    dev = torch.device("cuda")
+    model = models.ResNet50(dtype=torch.bfloat16, device=dev)
+    masters = {k: p.detach().float() for k, p in model.named_parameters()}
+    # the bf16 params O2 gives the model (Policy.cast_params casts all 161)
+    half = {k: p.to(torch.bfloat16) for k, p in masters.items()}
+    del model
+    gen = torch.Generator(dev).manual_seed(5)
+    g1, g2 = ({k: torch.randn(p.shape, generator=gen, device=dev) * 1e-2
+               for k, p in masters.items()} for _ in range(2))
+    kw = dict(lr=1e-3, weight_decay=0.01)
+    tx = FusedAdam(strategy="arena", **kw)
+    p1, st = tx.step(g1, tx.init(masters), masters)
+    spec = arena.plan(p1)
+    zst = ShardedOptState(count=st.count.clone(), slots={
+        "master": arena.flatten(p1, spec, cast=torch.float32),
+        "m": {dt: b.clone() for dt, b in st.slots["m"].items()},
+        "v": {dt: b.clone() for dt, b in st.slots["v"].items()}})
+    ztx = DistributedFusedAdam(**kw)
+    ops.reset_launch_counts()
+    parallel.reset_collective_counts()
+    with parallel.use_mesh(mesh):
+        zp, zst = ztx.step(g2, zst, p1)
+    issued, launched = dict(parallel.collective_counts), ops.launch_counts()
+    ap, ast = tx.step(g2, st, p1)
+    if issued != {"zero/grad_scatter": 1, "zero/param_gather": 1} or \
+            launched["adam"] != 1:
+        raise AssertionError(f"zero_adam_update: collectives {issued}, adam "
+                             f"launches {launched['adam']}")
+    worst = {}
+    for name, got, want in (
+            ("p", zp, ap),
+            ("m", arena.unflatten(zst.slots["m"], spec),
+             arena.unflatten(ast.slots["m"], spec)),
+            ("v", arena.unflatten(zst.slots["v"], spec),
+             arena.unflatten(ast.slots["v"], spec))):
+        errs = {k: ((got[k].float() - w.float()).abs().max()
+                    / w.float().abs().max().clamp(min=1e-30)).item()
+                for k, w in want.items()}
+        k = max(errs, key=errs.get)
+        worst[name] = (errs[k], k)
+        if not errs[k] <= TOL_UPDATE[name]:
+            raise AssertionError(f"zero_adam_update {name}: {k} differs by "
+                                 f"{errs[k]:.2e} of its max > "
+                                 f"{TOL_UPDATE[name]}")
+    log(f"phase zero_adam_update: ResNet-50 ({len(masters)} tensors) one "
+        f"sharded Adam update against the arena's from the same state: "
+        f"worst {worst} (limits {TOL_UPDATE}); collectives {issued}")
+    e8 = DistributedFusedAdam(param_gather_dtype=torch.float8_e5m2, **kw)
+    with parallel.use_mesh(mesh):
+        st8 = e8.init(half)
+        ops.reset_launch_counts()
+        new, st8 = e8.step(g2, st8, half)
+    launched = ops.launch_counts()["adam"]
+    rows["adam_e5m2_copy"]["launches"] = launched
+    hspec = arena.plan(half)
+    master = arena.unflatten(st8.slots["master"], hspec)
+    bad = [k for k, p in new.items() if p.dtype != torch.bfloat16
+           or not torch.equal(p, master[k].to(torch.float8_e5m2)
+                              .to(torch.bfloat16))]
+    if bad or launched != 1:
+        raise AssertionError(f"zero_adam_update e5m2: {len(bad)} params "
+                             f"({bad[:3]}) are not the e5m2 rounding of "
+                             f"their masters; adam launches {launched}")
+    log(f"phase zero_adam_update: param_gather_dtype=float8_e5m2: all "
+        f"{len(new)} gathered bf16 params equal their new masters rounded "
+        f"to e5m2, bit for bit (one adam launch with the e5m2 copy)")
+
+
+def hierarchical_sync_world1():
+    """Phase hierarchical_sync_world1: BERT-Large's f32 gradients (seeded
+    normal) through ``DistributedDataParallel(comm_plan=plan_comm(dp1x1,
+    dtypes=(dt,)))`` over a (``data_inter``, ``data_intra``) mesh of sizes
+    (1, 1) on the NCCL world-size-1 group, each hop's wire dtype forced to
+    None, bf16 and int8 in turn; every hop issued (scatter and gather over
+    ``bucket00/ici``, the cross-node reduce over ``bucket00/dcn``). The
+    synced gradients equal the input bit for bit for None and lie within
+    the JAX suite's bounds for bf16 (3e-2) and int8 (5e-2)
+    (``tests/test_comm_compress.py:154, 231``). Logs ms a sync."""
+    import torch
+    from apex_tpu_torch import models, parallel
+    from apex_tpu_torch.lint.mesh_model import parse_mesh_spec
+
+    dev = torch.device("cuda")
+    enc = models.BertLarge(device=dev)
+    shapes = {k: p.shape for k, p in enc.named_parameters()}
+    del enc
+    gen = torch.Generator(dev).manual_seed(11)
+    grads = {k: torch.randn(sh, generator=gen, device=dev)
+             for k, sh in shapes.items()}
+    nbytes = 4 * sum(g.numel() for g in grads.values())
+    mesh = parallel.make_mesh([("data_inter", 1), ("data_intra", 1)])
+    model = parse_mesh_spec("dp1x1", link_bytes_per_s=PLAN_LINKS)
+    for dt, bound, hops in ((None, 0.0, (2, 1)), ("bf16", 3e-2, (2, 1)),
+                            ("int8", 5e-2, (4, 4))):
+        plan = parallel.plan_comm(model, nbytes, dtypes=(dt,))
+        ddp = parallel.DistributedDataParallel(mesh, comm_plan=plan)
+        parallel.reset_collective_counts()
+        synced = ddp.sync(grads)
+        issued = dict(parallel.collective_counts)
+        if issued != {"bucket00/ici": hops[0], "bucket00/dcn": hops[1]}:
+            raise AssertionError(f"hierarchical_sync_world1 {dt}: "
+                                 f"collectives {issued}")
+        worst = 0.0
+        for k, g in grads.items():
+            if dt is None:
+                if not torch.equal(synced[k], g):
+                    raise AssertionError(f"hierarchical_sync_world1: {k} "
+                                         f"changed with f32 hops")
+                continue
+            err = ((synced[k] - g).abs() - bound * g.abs()).max().item()
+            worst = max(worst, ((synced[k] - g).abs()
+                                / (g.abs() + bound)).max().item())
+            if err > bound:
+                raise AssertionError(f"hierarchical_sync_world1 {dt}: {k} "
+                                     f"past rtol = atol = {bound}")
+        del synced
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ddp.sync(grads)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        log(f"phase hierarchical_sync_world1: {plan.describe()}: "
+            f"{nbytes / 2**20:.0f} MiB of gradients, "
+            f"{sorted(times)[1]:.2f} ms a sync (median of 3), collectives "
+            f"{issued}, worst |err| / (|g| + {bound}) {worst:.2e}")
+    del grads
+
+
+def _spawn(phase, target, world, timeout_s=600):
+    """Run ``target(rank, world, tmp)`` in ``world`` spawned processes and
+    return each rank's saved result (``tmp/rank{r}.pt``); raise with the
+    ranks' tracebacks if one fails."""
+    import multiprocessing
+    import tempfile
+    import torch
+
+    tmp = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_")
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, daemon=True, args=(r, world, tmp))
+             for r in range(world)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + timeout_s
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+            p.join(10)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        errs = [open(f"{tmp}/rank{r}.err").read()[-3000:]
+                for r in range(world) if os.path.exists(f"{tmp}/rank{r}.err")]
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise AssertionError(f"{phase}: exit codes {codes}\n"
+                             + "\n".join(errs))
+    out = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+           for r in range(world)]
+    shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase {phase}: {world} ranks ran in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _gloo_rank(rank, world, tmp):
+    """A gloo process group of ``world`` processes on ``cuda:0``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp}/store", world_size=world,
+        rank=rank, timeout=datetime.timedelta(seconds=300))
+
+
+def _run_rank(body, rank, world, tmp):
+    import traceback
+    import torch
+    import torch.distributed as dist
+    try:
+        _gloo_rank(rank, world, tmp)
+        out = body(rank, world)
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+        dist.destroy_process_group()
+    except BaseException:
+        with open(f"{tmp}/rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _flat(tree):
+    import torch
+    return torch.cat([t.reshape(-1).float() for t in tree.values()])
+
+
+def zero_rank(rank, world):
+    """ZeRO on two ranks: BERT at full width, depth 2, O1 bf16, this rank's
+    ``ZERO_RANK_BATCH`` rows of ``build_bert_step``'s seeded global batch:
+    one ``DistributedFusedLAMB`` and one ``DistributedFusedAdam`` update
+    each, held in the rank against one process's arena ``FusedLAMB`` /
+    ``FusedAdam`` update with the mean of the ranks' gradients (the whole
+    batch's gradient: each rank's loss is the mean over its rows); rank 0
+    also takes the whole batch's gradient itself and reports its distance
+    from that mean. Returns the errors, the new params' digest, the state's
+    bytes and ``state_bytes``."""
+    import torch
+    import torch.distributed as dist
+    from torch.func import functional_call
+    from apex_tpu_torch import amp, parallel, train
+    from apex_tpu_torch.models.transformer import _mlm_head
+    from apex_tpu_torch.optim import (DistributedFusedAdam,
+                                      DistributedFusedLAMB, FusedAdam,
+                                      FusedLAMB)
+    from apex_tpu_torch.parallel import collectives
+
+    mesh = parallel.data_parallel_mesh()
+    out = {}
+    for name, zopt, ref in (
+            ("lamb", DistributedFusedLAMB(lr=1e-3),
+             FusedLAMB(lr=1e-3, strategy="arena")),
+            ("adam", DistributedFusedAdam(lr=1e-3, weight_decay=0.01),
+             FusedAdam(lr=1e-3, weight_decay=0.01, strategy="arena"))):
+        with parallel.use_mesh(mesh):
+            _, state, (toks, labels), policy, enc = train.build_bert_step(
+                ZERO_RANK_BATCH * world, 512, encoder=depth2_encoder(),
+                optimizer=zopt)
+        app = amp.Amp(policy, zopt)
+
+        def grads_of(tk, lb):
+            def loss_fn(mp):
+                with amp.auto_cast(policy):
+                    hidden = functional_call(enc, mp, (tk, None),
+                                             {"deterministic": True})
+                    return _mlm_head(hidden, mp["tok_emb.weight"], lb)
+            return app.backward(state, loss_fn)[1]
+
+        n = ZERO_RANK_BATCH
+        g = grads_of(toks[rank * n:(rank + 1) * n],
+                     labels[rank * n:(rank + 1) * n])
+        parallel.reset_collective_counts()
+        with parallel.use_mesh(mesh):
+            new = app.apply_gradients(state, g, True)
+        issued = dict(parallel.collective_counts)
+        # the reference: the mean of both ranks' gradients, one process's
+        # arena update from the same masters
+        flat = _flat(g)
+        both = collectives.all_gather(flat, None, "check")
+        mean = (both[0] + both[1]) / 2
+        off, gmean = 0, {}
+        for k, t in g.items():
+            gmean[k] = mean[off:off + t.numel()].view(t.shape)
+            off += t.numel()
+        want, _ = ref.step(gmean, ref.init(state.params), state.params)
+        errs = {k: (new.params[k] - w).abs().max().item()
+                for k, w in want.items()}
+        digest = _flat(new.params)
+        peers = collectives.all_gather(digest, None, "check")
+        held = sum(t.numel() * 4 for d in new.opt_state.slots.values()
+                   for t in d.values())
+        res = {"err": max(errs.values()), "worst": max(errs, key=errs.get),
+               "bit_equal": bool(torch.equal(peers[0], peers[1])),
+               "held": held,
+               "state_bytes": zopt.state_bytes(state.params, world=world),
+               "collectives": issued, "count": int(new.opt_state.count)}
+        if rank == 0:
+            full = _flat(grads_of(toks, labels))
+            res["full_vs_mean"] = ((full - mean).norm()
+                                   / full.norm()).item()
+        out[name] = res
+        del state, new, g, both, want
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def ring_rank(rank, world):
+    """Ring and Ulysses attention on two ranks over a ``seq`` mesh:
+    BERT-Large's attention width at a global sequence of ``RING_S`` (bf16,
+    seeded, the same on both ranks), this rank's shard; o and the q/k/v
+    gradients (cotangent ``do``) of ring attention non-causal, causal and
+    causal with dropout 0.1, and of Ulysses non-causal and causal; each
+    run's kernel launches and collectives; Ulysses' dropout refusal; and a
+    keep-mask probe of the ring (below)."""
+    import torch
+    from apex_tpu_torch import ops, parallel
+    from apex_tpu_torch.parallel import collectives
+
+    dev = torch.device("cuda")
+    mesh = parallel.make_mesh([("seq", world)])
+    b, s, h, d = RING_B, RING_S, RING_H, RING_D
+    sl = s // world
+    gen = torch.Generator(dev).manual_seed(7)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+    local = lambda t: t[:, rank * sl:(rank + 1) * sl].contiguous()  # noqa
+    out = {}
+    runs = (("ring", parallel.ring_attention, {}),
+            ("ring_causal", parallel.ring_attention, {"causal": True}),
+            ("ring_dropout", parallel.ring_attention,
+             {"causal": True, "dropout_rate": 0.1, "dropout_seed": seed}),
+            ("ulysses", parallel.ulysses_attention, {}),
+            ("ulysses_causal", parallel.ulysses_attention, {"causal": True}))
+    with parallel.use_mesh(mesh):
+        for name, fn, kw in runs:
+            ql, kl, vl = (local(t).requires_grad_(True) for t in (q, k, v))
+            ops.reset_launch_counts()
+            parallel.reset_collective_counts()
+            o = fn(ql, kl, vl, "seq", **kw)
+            (o.float() * local(do).float()).sum().backward()
+            torch.cuda.synchronize()
+            out[name] = {"o": o.detach().cpu(), "dq": ql.grad.cpu(),
+                         "dk": kl.grad.cpu(), "dv": vl.grad.cpu(),
+                         "dtype": str(o.dtype),
+                         "launches": {kk: vv for kk, vv in
+                                      ops.launch_counts().items() if vv},
+                         "collectives": dict(parallel.collective_counts),
+                         "staged": dict(collectives.staged)}
+        try:
+            parallel.ulysses_attention(local(q), local(k), local(v), "seq",
+                                       dropout_rate=0.1, dropout_seed=seed)
+            out["ulysses_dropout"] = "no error"
+        except NotImplementedError as e:
+            out["ulysses_dropout"] = str(e)
+        out["mask"] = ring_mask_probe(rank, world)
+    return out
+
+
+def ring_mask_probe(rank, world):
+    """The ring's dropout keep mask read out through ``ring_attention`` on
+    this rank's query rows: B1, H2, D64, 512 rows a rank. With q = k = 0
+    every score is equal, so o = Σ_j keep[r, j]·v[j]/(S(1 − rate)) over the
+    global keys; v is the identity on a 64-key window (on the rank that
+    holds it) and zero elsewhere, so o[r, c]·S·(1 − rate) is keep[r, j0 +
+    c]. The windows sweep the global keys; returns this rank's rows of the
+    mask read this way and of the single-device ``_keep_mask_dense`` of the
+    global sequence."""
+    import torch
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    b, h, d, sl, rate = 1, 2, 64, 512, 0.1
+    s = sl * world
+    seed = torch.tensor([-97531], dtype=torch.int32, device=dev)
+    zero = torch.zeros(b, sl, h, d, dtype=torch.bfloat16, device=dev)
+    eye = torch.eye(d, dtype=torch.bfloat16, device=dev)
+    got = torch.zeros(b * h, sl, s, dtype=torch.bool, device=dev)
+    for j0 in range(0, s, d):
+        v = torch.zeros_like(zero)
+        if j0 // sl == rank:
+            v[:, j0 - rank * sl:j0 - rank * sl + d] = eye[None, :, None, :]
+        o = parallel.ring_attention(zero, zero, v, "seq", dropout_rate=rate,
+                                    dropout_seed=seed)
+        bits = o.float() * s * (1 - rate) > 0.5            # (b, sl, h, d)
+        got[:, :, j0:j0 + d] = bits.transpose(1, 2).reshape(b * h, sl, d)
+    want = A._keep_mask_dense(seed, b, h, s, s, 512, 512, rate)[
+        :, rank * sl:(rank + 1) * sl]
+    return {"wrong": int((got != want).sum()), "bits": want.numel(),
+            "kept": want.float().mean().item()}
+
+
+def zero_and_ring_body(rank, world, tmp):
+    """One rank of phases zero_two_ranks and ring_two_ranks."""
+    _run_rank(lambda r, w: {"zero": zero_rank(r, w),
+                            "ring": ring_rank(r, w)}, rank, world, tmp)
+
+
+def zero_and_ring_two_ranks(rows):
+    """Phases zero_two_ranks and ring_two_ranks: two processes on
+    ``cuda:0`` in one gloo group (NCCL takes one rank a card; gloo's
+    send/recv, which the ring's permutes need, is staged through the host
+    for CUDA tensors, ``collectives.GLOO_HOST_STAGED``).
+
+    zero_two_ranks: per optimizer (``DistributedFusedLAMB``,
+    ``DistributedFusedAdam``) the new params within 1e-5 / 1e-6 (the JAX
+    suite's bounds, ``tests/test_distributed_optimizers.py:86, 185``) of
+    one process's arena update with the mean of the ranks' gradients, both
+    ranks' params bit for bit equal, each rank's state what
+    ``state_bytes`` says and half the replicated state (ratio <= 0.51),
+    and one scatter, one gather (and LAMB's three norm sums) issued.
+
+    ring_two_ranks: against single-process ``flash_attention_lse`` on the
+    gathered sequence through the kernels, o and the q/k/v gradients within
+    ``TOL16`` of the largest (bf16: the hand kernels take 16-bit inputs),
+    for ring attention non-causal, causal and causal with dropout 0.1, and
+    for Ulysses non-causal and causal; the ring's output in f32 (the merge
+    promotes), Ulysses' in bf16; the ring's keep mask read out through the
+    ring bit for bit the single-device mask; Ulysses' dropout refused; per
+    run and rank, 2 forward and 2 backward flash launches for the ring (4
+    permutes) and 1 each for Ulysses (8 all-to-alls)."""
+    import torch
+    from apex_tpu_torch.ops import attention as A
+
+    ranks = _spawn("zero_two_ranks and ring_two_ranks", zero_and_ring_body,
+                   SEQ_RANKS, timeout_s=900)
+    for name, bound in (("lamb", 1e-5), ("adam", 1e-6)):
+        per = [r["zero"][name] for r in ranks]
+        sb = per[0]["state_bytes"]
+        want_coll = {"zero/grad_scatter": 1, "zero/param_gather": 1}
+        if name == "lamb":
+            want_coll["zero/grad_norm"] = 3
+        for r, res in enumerate(per):
+            if not res["err"] <= bound:
+                raise AssertionError(f"zero_two_ranks {name} rank {r}: "
+                                     f"{res['worst']} differs by "
+                                     f"{res['err']:.2e} > {bound}")
+            if not res["bit_equal"] or res["count"] != 1 or \
+                    res["collectives"] != want_coll:
+                raise AssertionError(f"zero_two_ranks {name} rank {r}: "
+                                     f"{res}")
+            if res["held"] != sb["sharded_bytes"] or not sb["ratio"] <= 0.51:
+                raise AssertionError(f"zero_two_ranks {name}: state "
+                                     f"{res['held']} bytes, {sb}")
+        log(f"phase zero_two_ranks ({name}): params within "
+            f"{max(p['err'] for p in per):.2e} of one process's arena "
+            f"update on the mean gradient (limit {bound}), bit-equal on "
+            f"both ranks; state {sb['sharded_bytes']} of "
+            f"{sb['replicated_bytes']} bytes a rank (ratio "
+            f"{sb['ratio']:.4f}); whole-batch gradient vs the ranks' mean: "
+            f"relative L2 {per[0]['full_vs_mean']:.2e}")
+
+    dev = torch.device("cuda")
+    b, s, h, d = RING_B, RING_S, RING_H, RING_D
+    gen = torch.Generator(dev).manual_seed(7)
+    q, k, v, do = (torch.randn(b, s, h, d, generator=gen, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
+    refs = {"ring": {}, "ring_causal": {"causal": True},
+            "ring_dropout": {"causal": True, "dropout_rate": 0.1,
+                             "dropout_seed": seed},
+            "ulysses": {}, "ulysses_causal": {"causal": True}}
+    ring_launches = {}
+    for name, kw in refs.items():
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        o = A.flash_attention_lse(qg, kg, vg, **kw)[0]
+        (o.float() * do.float()).sum().backward()
+        want = {"o": o.detach(), "dq": qg.grad, "dk": kg.grad, "dv": vg.grad}
+        worst = {}
+        for key, w in want.items():
+            got = torch.cat([r["ring"][name][key] for r in ranks],
+                            dim=1).to(dev)
+            err = (got.float() - w.float()).abs().max().item()
+            lim = TOL16 * w.float().abs().max().item()
+            worst[key] = err
+            if not err <= lim:
+                raise AssertionError(f"ring_two_ranks {name}: {key} "
+                                     f"{err:.3e} > {lim:.3e}")
+        ring = name.startswith("ring")
+        want_launch = ({"flash_attn_fwd": 2, "flash_attn_bwd": 2} if ring
+                       else {"flash_attn_fwd": 1, "flash_attn_bwd": 1})
+        want_coll = ({"ring_ppermute": 4} if ring
+                     else {"ring_all_to_all": 8})
+        for r, rk in enumerate(ranks):
+            res = rk["ring"][name]
+            if res["launches"] != want_launch or \
+                    res["collectives"] != want_coll or \
+                    res["dtype"] != ("torch.float32" if ring
+                                     else "torch.bfloat16"):
+                raise AssertionError(f"ring_two_ranks {name} rank {r}: "
+                                     f"{res['launches']}, "
+                                     f"{res['collectives']}, {res['dtype']}")
+            if ring:
+                for kname, n in res["launches"].items():
+                    ring_launches[kname] = ring_launches.get(kname, 0) + (
+                        n if r == 0 else 0)
+        log(f"phase ring_two_ranks ({name}): o and grads within TOL16 of "
+            f"single-device flash attention, max |err| "
+            f"{ {kk: f'{vv:.2e}' for kk, vv in worst.items()} }; per rank "
+            f"{ranks[0]['ring'][name]['launches']}, collectives "
+            f"{ranks[0]['ring'][name]['collectives']}, staged through the "
+            f"host {ranks[0]['ring'][name]['staged'] or 'none'}")
+        del qg, kg, vg, o, want
+    rows["flash_ring_hop_fwd"]["launches"] = ring_launches["flash_attn_fwd"]
+    rows["flash_ring_hop_bwd"]["launches"] = ring_launches["flash_attn_bwd"]
+    for r, rk in enumerate(ranks):
+        if "batch-head mask coordinate" not in rk["ring"]["ulysses_dropout"]:
+            raise AssertionError(f"ring_two_ranks: Ulysses' dropout on rank "
+                                 f"{r}: {rk['ring']['ulysses_dropout']}")
+        mask = rk["ring"]["mask"]
+        if mask["wrong"]:
+            raise AssertionError(f"ring_two_ranks mask probe rank {r}: "
+                                 f"{mask['wrong']} of {mask['bits']} keep "
+                                 f"bits differ from the single-device mask")
+    log(f"phase ring_two_ranks: the ring's keep mask read through "
+        f"ring_attention equals the single-device mask bit for bit "
+        f"({sum(rk['ring']['mask']['bits'] for rk in ranks)} bits, kept "
+        f"{ranks[0]['ring']['mask']['kept']:.4f}); Ulysses' dropout "
+        f"refused; rank 0 launched {ring_launches} in the three ring runs")
+
+
+def hierarchy_rank(rank, world):
+    """One rank of phase hierarchy_four_ranks: small gradients (a (300, 7)
+    tensor scaled by the rank and a (513,) one) with a residual of the
+    rank's own through ``hierarchical_sync`` over the 2x2 (``data_inter``,
+    ``data_intra``) mesh, each hop's wire dtype forced to None, bf16 and
+    int8; and the flat f32 sync over a ``data`` mesh of the four."""
+    import torch
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.lint.mesh_model import parse_mesh_spec
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(3)
+    base = {"a": torch.randn(300, 7, generator=gen, device=dev),
+            "b": torch.randn(513, generator=gen, device=dev)}
+    g = {"a": base["a"] * float(rank + 1), "b": base["b"]}
+    r_in = {k: torch.full_like(t, 0.01 * (rank + 1)) for k, t in g.items()}
+    mesh = parallel.hierarchical_data_mesh(2)
+    model = parse_mesh_spec("dp2x2", link_bytes_per_s=PLAN_LINKS)
+    out = {"x": {k: (g[k] + r_in[k]).cpu() for k in g}}
+    with parallel.use_mesh(mesh):
+        for dt in (None, "bf16", "int8"):
+            plan = parallel.plan_comm(model, 1 << 20, dtypes=(dt,))
+            synced, r_out = parallel.hierarchical_sync(g, plan,
+                                                       residual=r_in)
+            out[str(dt)] = {"synced": {k: t.cpu() for k, t in synced.items()},
+                            "residual": {k: t.cpu()
+                                         for k, t in r_out.items()}}
+    flat = parallel.make_mesh([("data", world)])
+    with parallel.use_mesh(flat):
+        out["flat"] = {k: t.cpu() for k, t in parallel.bucketed_all_reduce(
+            {k: g[k] + r_in[k] for k in g}, "data").items()}
+    return out
+
+
+def hierarchy_body(rank, world, tmp):
+    _run_rank(hierarchy_rank, rank, world, tmp)
+
+
+def hierarchy_four_ranks():
+    """Phase hierarchy_four_ranks: four processes on ``cuda:0`` in a gloo
+    group, the hierarchical sync on a 2x2 (``data_inter``, ``data_intra``)
+    mesh with residuals (the rank's gradients plus its residual are the
+    sync's input x_r). None: equal to the flat f32 sync within 1e-6
+    relative (two orders of the same four-term f32 sums). bf16 and int8:
+    within the JAX suite's bounds of the exact mean (3e-2, 5e-2). The
+    error feedback: bf16's residual is x_r's own cast error, bit for bit
+    (every later bf16 hop carries bf16 values, and the rounding of the
+    sums inside a bf16 collective reaches no residual, in JAX as here);
+    int8's residuals are the hops' errors, each counted once (the sums run
+    in f32 after dequantizing): 4·synced equals Σ_r (x_r − residual_r)
+    within 1e-5 of Σ_r |x_r| (the f32 rounding of the sums), as it does
+    for None with zero residuals."""
+    import torch
+
+    ranks = _spawn("hierarchy_four_ranks", hierarchy_body, 4)
+    xs = {k: torch.stack([r["x"][k] for r in ranks]) for k in ranks[0]["x"]}
+    exact = {k: x.mean(0) for k, x in xs.items()}
+    for dt, bound in ((None, 1e-6), ("bf16", 3e-2), ("int8", 5e-2)):
+        worst = 0.0
+        for r, rk in enumerate(ranks):
+            res = rk[str(dt)]
+            for k, want in exact.items():
+                got = res["synced"][k]
+                if dt is None:
+                    torch.testing.assert_close(got, rk["flat"][k], rtol=1e-6,
+                                               atol=1e-6)
+                torch.testing.assert_close(got, want, rtol=bound, atol=bound)
+                e = res["residual"][k]
+                if dt == "bf16":
+                    x = xs[k][r]
+                    if not torch.equal(e, x - x.bfloat16().float()):
+                        raise AssertionError(f"hierarchy_four_ranks bf16 "
+                                             f"rank {r} {k}: the residual is "
+                                             f"not the local cast error")
+        for k, x in xs.items():
+            if dt == "bf16":
+                continue
+            synced = ranks[0][str(dt)]["synced"][k]
+            sent = (x - torch.stack([rk[str(dt)]["residual"][k]
+                                     for rk in ranks])).sum(0)
+            err = (4 * synced - sent).abs().max().item()
+            lim = 1e-5 * x.abs().sum(0).max().item()
+            worst = max(worst, err)
+            if not err <= lim:
+                raise AssertionError(f"hierarchy_four_ranks {dt} {k}: "
+                                     f"4·synced − Σ(x − e) = {err:.3e} > "
+                                     f"{lim:.3e}")
+        log(f"phase hierarchy_four_ranks ({dt}): synced within {bound} of "
+            f"the exact mean on all 4 ranks; "
+            + ("each residual the rank's cast error, bit for bit"
+               if dt == "bf16" else f"4·synced − Σ_r (x_r − residual_r) at "
+               f"most {worst:.2e}")
+            + ("; equal to the flat sync within 1e-6" if dt is None
+               else ""))
 
 
 def _bf16_close(a, b, rtol=1e-3):
@@ -3536,7 +4411,7 @@ def main() -> int:
     check_kernels(rows)
     mlp_phases(rows)
     tree_losses = bert_large_steps(rows)
-    bert_large_arena(rows, tree_losses)
+    arena_losses = bert_large_arena(rows, tree_losses)
     bert_large_dropout(rows)
     state = bert_large_remainder(rows, "bert_large_novograd", novograd,
                                  NOVOGRAD_PER_STEP, TOL_NOVOGRAD_UPDATE)
@@ -3574,15 +4449,25 @@ def main() -> int:
     torch.cuda.empty_cache()
     syncbn_two_ranks()
     torch.cuda.empty_cache()
+    bert_large_zero(rows, arena_losses, mesh)
+    torch.cuda.empty_cache()
+    zero_adam_update(rows, mesh)
+    torch.cuda.empty_cache()
+    hierarchical_sync_world1()
+    torch.cuda.empty_cache()
     torch.distributed.destroy_process_group()
     shutil.rmtree(store, ignore_errors=True)
+    zero_and_ring_two_ranks(rows)
+    torch.cuda.empty_cache()
+    hierarchy_four_ranks()
+    torch.cuda.empty_cache()
     dcgan_tree(rows, train_dcgan("dcgan", rows)[0])
     dcgan_plain_vs_kernel()
     dcgan_fp16_overflow()
 
     from apex_tpu_torch import ops
     print(json.dumps({"kernels": [rows[n] for n in (
-        *ops.KERNELS, *EXTRA_ROWS, *EXTRA_BN_ROWS)]}))
+        *ops.KERNELS, *EXTRA_ROWS, *EXTRA_BN_ROWS, *EXTRA_ZERO_ROWS)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,12 +2,17 @@
 """Where one training step of apex_tpu_torch spends its time.
 
     python3 scripts/torch_bert_profile.py [--model bert_large|
-        bert_large_dropout|resnet50|resnet50_syncbn|dcgan|mlp_dlrm_bottom]
-        [--steps 2] [--strategy auto] [--out PATH]
+        bert_large_dropout|bert_large_zero|resnet50|resnet50_syncbn|dcgan|
+        mlp_dlrm_bottom] [--steps 2] [--strategy auto] [--out PATH]
 
 Builds the port's BERT-Large MLM step (B16, S512, amp O1 bf16, FusedLAMB;
 ``bert_large_dropout``: as published, with padding masks and attention
-dropout 0.1), its ResNet-50 step (B256, 224x224, amp O2 bf16, FusedSGD(lr=0.1,
+dropout 0.1; ``bert_large_zero``: ZeRO's ``DistributedFusedLAMB(lr=1e-3)``
+on an NCCL process group of world size 1 over a ``file://`` store, every
+collective issued), ring attention's forward and backward on two ranks
+(``ring_two_ranks``: two processes on one card in a gloo group, BERT-Large's
+heads, B2, a global sequence of 8192, causal; rank 0 reports), its
+ResNet-50 step (B256, 224x224, amp O2 bf16, FusedSGD(lr=0.1,
 momentum=0.9); ``resnet50_syncbn``: BASELINE configuration 3, BN
 statistics across ranks and the gradient sync, on an NCCL process group
 of world size 1 over a ``file://`` store, with ``--strategy arena``
@@ -138,19 +143,81 @@ def _collective_host(prof, steps):
     return {k: [ms / steps, n / steps] for k, (ms, n) in sorted(out.items())}
 
 
-def _builder(model, strategy):
+def _ring_step(rank):
+    """One rank's ``(one_step, batch)`` of ``ring_two_ranks``: causal ring
+    attention forward and backward on its 4096-position shard."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import parallel
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.environ['RING_STORE']}",
+        world_size=2, rank=rank, timeout=datetime.timedelta(seconds=300))
+    mesh = parallel.make_mesh([("seq", 2)])
+    gen = torch.Generator("cuda").manual_seed(7)
+    b, s, h, d = 2, 8192, 16, 64
+    q, k, v, do = (torch.randn(b, s // 2, h, d, generator=gen,
+                               device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+
+    def one_step():
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        with parallel.use_mesh(mesh):
+            o = parallel.ring_attention(qg, kg, vg, "seq", causal=True)
+            loss = (o * do.float()).sum()
+            loss.backward()
+        return loss
+    return one_step, b
+
+
+def _ring_ranks(argv):
+    """Run this script as ranks 0 and 1 of ``ring_two_ranks``; print rank
+    0's JSON."""
+    import tempfile
+    env = dict(os.environ, RING_STORE=f"{tempfile.mkdtemp()}/store")
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                               *argv, "--rank", str(r)], env=env,
+                              stdout=subprocess.PIPE if r else None)
+             for r in range(2)]
+    codes = [p.wait(timeout=900) for p in procs]
+    return max(codes, key=abs)
+
+
+def _builder(model, strategy, rank=None):
     """``(one_step, batch)``: ``one_step()`` runs a step and returns its
     loss."""
+    import contextlib
     from apex_tpu_torch import train
+    if model == "ring_two_ranks":
+        return _ring_step(rank)
+    if model == "bert_large_zero":
+        import tempfile
+        from apex_tpu_torch import parallel
+        from apex_tpu_torch.optim import DistributedFusedLAMB
+        parallel.distributed_init(
+            init_method=f"file://{tempfile.mkdtemp()}/store",
+            num_processes=1, process_id=0)
+        mesh = parallel.data_parallel_mesh()
+
+        def bound():
+            return parallel.use_mesh(mesh)
+        opt = dict(optimizer=DistributedFusedLAMB(lr=1e-3))
+    else:
+        bound = contextlib.nullcontext
+        opt = dict(strategy=strategy)
     if model.startswith("bert_large"):
         published = model == "bert_large_dropout"
-        step, state, (toks, labels), _, _ = train.build_bert_step(
-            16, 512, strategy=strategy, dropout=0.1 if published else 0.0,
-            padded=published)
+        with bound():
+            step, state, (toks, labels), _, _ = train.build_bert_step(
+                16, 512, dropout=0.1 if published else 0.0,
+                padded=published, **opt)
         carry = [state]
 
         def one_step():
-            carry[0], loss = step(carry[0], toks, labels)
+            with bound():
+                carry[0], loss = step(carry[0], toks, labels)
             return loss
         return one_step, 16
     if model == "mlp_dlrm_bottom":
@@ -198,14 +265,19 @@ def _builder(model, strategy):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="bert_large",
-                    choices=("bert_large", "bert_large_dropout", "resnet50",
+                    choices=("bert_large", "bert_large_dropout",
+                             "bert_large_zero", "ring_two_ranks", "resnet50",
                              "resnet50_syncbn", "dcgan", "mlp_dlrm_bottom"))
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--strategy", default="auto",
                     choices=("auto", "tree", "arena"))
     ap.add_argument("--out", default=None,
                     help="also write the JSON (and a chrome trace beside it)")
+    ap.add_argument("--rank", type=int, default=None,
+                    help=argparse.SUPPRESS)   # a ring_two_ranks rank
     args = ap.parse_args()
+    if args.model == "ring_two_ranks" and args.rank is None:
+        return _ring_ranks(sys.argv[1:])
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -229,7 +301,7 @@ def main() -> int:
 
     bn_act._fwd_common = traced(bn_act._fwd_common, BN_FWD)
     layers.BatchNorm.forward = traced(layers.BatchNorm.forward, BATCH_NORM)
-    one_step, batch = _builder(args.model, args.strategy)
+    one_step, batch = _builder(args.model, args.strategy, args.rank)
     for _ in range(2):
         loss = one_step()
     torch.cuda.synchronize()
@@ -299,6 +371,8 @@ def main() -> int:
                  prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
             [:15]],
     }
+    if args.rank:            # ring_two_ranks: rank 0 reports
+        return 0 if kernels else 1
     text = json.dumps(out, indent=1)
     print(text)
     if args.out:

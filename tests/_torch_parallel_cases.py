@@ -5,7 +5,10 @@ names, tmp, inputs)`` starts ``world`` processes (the ``spawn`` start
 method), each a gloo rank over a ``file://`` store in ``tmp`` (no port to
 collide between test workers), with one CPU thread and a collective
 timeout of ``TIMEOUT_S``. Every rank runs the named cases in order, with
-the mesh of all ranks on one ``data`` axis bound, and saves each case's
+the mesh of all ranks bound (``axes``: ``[(name, size), ...]``, by default
+one ``data`` axis; ``[("data_inter", 2), ("data_intra", 2)]`` or
+``[("seq", W)]`` for the hierarchical sync and the ring), and saves each
+case's
 result (numpy arrays). The parent joins the group with a deadline
 (``DEADLINE_S``) and kills what still runs, so a hung collective fails the
 cases it stopped, not the suite. A case that raises records its traceback
@@ -43,15 +46,17 @@ class RankError(str):
     has none."""
 
 
-def run(world, names, tmp, inputs=None, deadline_s=DEADLINE_S):
+def run(world, names, tmp, inputs=None, deadline_s=DEADLINE_S, axes=None):
     """{case name: [rank 0's result, ...]}; a rank's result is a dict of
-    numpy arrays, or a :class:`RankError`."""
+    numpy arrays, or a :class:`RankError`. ``axes`` are the bound mesh's
+    (default ``[("data", world)]``)."""
+    axes = list(axes or [("data", world)])
     tmp = pathlib.Path(tmp)
     tmp.mkdir(parents=True, exist_ok=True)
     torch.save(inputs or {}, tmp / "inputs.pt")
     ctx = multiprocessing.get_context("spawn")
     procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(r, world, str(tmp), list(names)))
+                         args=(r, world, str(tmp), list(names), axes))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -100,7 +105,7 @@ def _numpy(tree):
     return tree
 
 
-def _rank_main(rank, world, tmp, names):
+def _rank_main(rank, world, tmp, names, axes):
     import torch.distributed as dist
     from apex_tpu_torch import parallel
 
@@ -110,7 +115,7 @@ def _rank_main(rank, world, tmp, names):
         "gloo", init_method=f"file://{tmp / 'store'}", world_size=world,
         rank=rank, timeout=datetime.timedelta(seconds=TIMEOUT_S))
     try:
-        mesh = parallel.data_parallel_mesh("cpu")
+        mesh = parallel.make_mesh(axes, "cpu")
         inputs = torch.load(tmp / "inputs.pt", weights_only=False)
         for name in names:
             try:
@@ -715,3 +720,375 @@ for _fused in (True, False):
         CASES[f"resnet_{'fused' if _fused else 'unfused'}_{_level}"] = (
             lambda rank, world, mesh, inputs, _f=_fused, _l=_level:
             _resnet_case(rank, world, mesh, inputs, _f, _l))
+
+
+# --- ZeRO (tests/test_torch_zero.py: 4 ranks, a 2x2 data_inter x data_intra
+# mesh; world-2 cases run over data_intra, two groups of two) ---------------
+
+def zero_inputs(seed, world):
+    """(params, [grads of linear rank r]): the JAX package's
+    ``tests/test_distributed_optimizers.py`` sizes (~720k elements, so
+    every 65536-aligned shard of up to 8 holds content), keys sorted so both
+    packages lay the arena out alike."""
+    rng = np.random.RandomState(seed)
+    params = {"w1": rng.randn(600, 1200).astype(np.float32),
+              "w2": rng.randn(257).astype(np.float32),
+              "w3": rng.randn(8, 4, 2).astype(np.float32)}
+    grads = [{k: (rng.randn(*p.shape) * 0.1).astype(np.float32)
+              for k, p in params.items()} for _ in range(world)]
+    return params, grads
+
+
+#: (case, optimizer, seed, steps, options) of the world-2 and world-4 runs
+ZERO_RUNS = {
+    "adam": ("adam", 0, 3, dict(lr=1e-2, weight_decay=0.01)),
+    "adam_clip": ("adam", 1, 2, dict(lr=1e-2, max_grad_norm=0.05)),
+    "adam_gather_bf16": ("adam", 2, 1, dict(
+        lr=1e-2, param_gather_dtype="bfloat16")),
+    "adam_scatter_bf16": ("adam", 6, 1, dict(
+        lr=1e-2, grad_scatter_dtype="bfloat16")),
+    "lamb": ("lamb", 4, 3, dict(lr=1e-2, weight_decay=0.01,
+                                max_grad_norm=1.0)),
+    "lamb_gather_bf16": ("lamb", 7, 2, dict(
+        lr=1e-2, weight_decay=0.01, param_gather_dtype="bfloat16")),
+}
+ZERO_RUNS_W4 = ("adam", "lamb")
+
+
+def zero_opt(kind, axis_name, options, torch_dtype):
+    """The port's ZeRO optimizer (``torch_dtype`` maps dtype names)."""
+    from apex_tpu_torch.optim import DistributedFusedAdam, DistributedFusedLAMB
+    kw = {k: (torch_dtype(v) if k.endswith("_dtype") else v)
+          for k, v in options.items()}
+    cls = DistributedFusedAdam if kind == "adam" else DistributedFusedLAMB
+    return cls(axis_name=axis_name, **kw)
+
+
+def _zero_run(name, axis, world, me):
+    from apex_tpu_torch import parallel
+    kind, seed, steps, options = ZERO_RUNS[name]
+    params, grads = zero_inputs(seed, world)
+    opt = zero_opt(kind, axis, options, lambda n: getattr(torch, n))
+    p = {k: t(v) for k, v in params.items()}
+    parallel.reset_collective_counts()
+    state = opt.init(p)
+    for _ in range(steps):
+        p, state = opt.step({k: t(v) for k, v in grads[me].items()}, state,
+                            p)
+    return {"params": p, "count": state.count,
+            "slots": {s: state.slots[s]["float32"] for s in state.slots},
+            "collectives": dict(parallel.collective_counts)}
+
+
+@case
+def zero_world2(rank, world, mesh, inputs):
+    from apex_tpu_torch import parallel
+    me = parallel.axis_index("data_intra")
+    return {name: _zero_run(name, "data_intra", 2, me) for name in ZERO_RUNS}
+
+
+@case
+def zero_world4(rank, world, mesh, inputs):
+    from apex_tpu_torch import parallel
+    flat = parallel.make_mesh([("data", 4)], "cpu")
+    with parallel.use_mesh(flat):
+        return {name: _zero_run(name, "data", 4, rank)
+                for name in ZERO_RUNS_W4}
+
+
+@case
+def zero_axis_tuple(rank, world, mesh, inputs):
+    """One Adam step over ("data_inter", "data_intra"): the rank's linear
+    index and master shard at init (global rank g must own tile g), and the
+    params after the step."""
+    import torch.distributed as dist
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.optim import DistributedFusedAdam
+    axes = ("data_inter", "data_intra")
+    params, grads = zero_inputs(3, 4)
+    opt = DistributedFusedAdam(lr=1e-2, axis_name=axes)
+    p = {k: t(v) for k, v in params.items()}
+    state = opt.init(p)
+    me = parallel.linear_index(axes)
+    shard0 = state.slots["master"]["float32"].clone()
+    p, state = opt.step({k: t(v) for k, v in grads[me].items()}, state, p)
+    return {"global_rank": dist.get_rank(), "linear_rank": me,
+            "world": parallel.axes_size(axes), "shard0": shard0, "params": p}
+
+
+@case
+def zero_skip_and_layout(rank, world, mesh, inputs):
+    """``Amp.apply_gradients`` over a ShardedOptState with a device flag:
+    False leaves params, slots and counts as they were, True steps; and
+    ``state_bytes`` / ``checkpoint_layout``."""
+    from apex_tpu_torch import amp, parallel
+    from apex_tpu_torch.optim import DistributedFusedLAMB
+    params, grads = zero_inputs(5, 2)
+    me = parallel.axis_index("data_intra")
+    opt = DistributedFusedLAMB(lr=1e-2, axis_name="data_intra")
+    app = amp.Amp(amp.Policy.from_opt_level("O0"), opt)
+    state = app.init({k: t(v) for k, v in params.items()})
+    g = {k: t(v) for k, v in grads[me].items()}
+    skipped = app.apply_gradients(state, g, torch.tensor(False))
+    stepped = app.apply_gradients(state, g, torch.tensor(True))
+    same = all(torch.equal(a, b) for a, b in zip(
+        tree_leaves_of(skipped), tree_leaves_of(state)))
+    return {"skip_same": same, "skip_step": skipped.step,
+            "skip_count": skipped.opt_state.count,
+            "step_step": stepped.step, "step_count": stepped.opt_state.count,
+            "stepped_params": stepped.params,
+            "state_bytes": {w: opt.state_bytes(params, world=w)
+                            for w in (1, 2, 8)},
+            "layout": opt.checkpoint_layout(params)}
+
+
+def tree_leaves_of(tree):
+    from apex_tpu_torch.utils import tree_leaves
+    return [x for x in tree_leaves(tree) if isinstance(x, torch.Tensor)]
+
+
+# a structural BERT for the ZeRO step (tests/test_torch_zero.py)
+ZB_VOCAB, ZB_HIDDEN, ZB_LAYERS, ZB_HEADS, ZB_SEQ, ZB_LOCAL = \
+    1000, 128, 2, 2, 64, 2
+
+
+def zero_bert_batch(world):
+    rng = np.random.RandomState(0)
+    shape = (world * ZB_LOCAL, ZB_SEQ)
+    return rng.randint(0, ZB_VOCAB, shape), rng.randint(0, ZB_VOCAB, shape)
+
+
+def _zero_bert_encoder(inputs):
+    from apex_tpu_torch import models
+    enc = models.BertEncoder(ZB_VOCAB, hidden=ZB_HIDDEN, layers=ZB_LAYERS,
+                             heads=ZB_HEADS, max_len=ZB_SEQ, device="cpu")
+    enc.load_state_dict(inputs["bert"])
+    return enc
+
+
+@case
+def zero_bert_o0(rank, world, mesh, inputs):
+    """One O0 f32 step of the structural BERT through ``Amp`` and
+    ``DistributedFusedLAMB`` over data_intra, each rank on its rows of the
+    global batch, the loss outside ``auto_cast``."""
+    from apex_tpu_torch import amp, models, parallel
+    from apex_tpu_torch.optim import DistributedFusedLAMB
+    enc = _zero_bert_encoder(inputs)
+    me = parallel.axis_index("data_intra")
+    toks, labels = (t(shard(a, me, 2)) for a in zero_bert_batch(2))
+    app = amp.Amp(amp.Policy.from_opt_level("O0"),
+                  DistributedFusedLAMB(lr=1e-3, axis_name="data_intra"))
+    state = app.init(dict(enc.named_parameters()))
+    loss, grads, state, finite = app.backward(
+        state, lambda mp: models.mlm_loss(enc, mp, toks, labels))
+    state = app.apply_gradients(state, grads, finite)
+    return {"loss": loss, "params": state.params, "count":
+            state.opt_state.count}
+
+
+@case
+def zero_bert_main_path(rank, world, mesh, inputs):
+    """``train.build_bert_step(optimizer=DistributedFusedLAMB(lr=1e-3))``
+    (O1 bf16) inside ``use_mesh`` of a mesh whose ``data`` axis pairs the
+    ranks: 2 steps on the same batch everywhere; the losses, params and the
+    collectives of a step, and the same 2 steps with
+    ``FusedLAMB(strategy="arena")`` in the same process."""
+    from apex_tpu_torch import parallel, train
+    from apex_tpu_torch.optim import DistributedFusedLAMB, FusedLAMB
+    pairs = parallel.make_mesh([("pair", 2), ("data", 2)], "cpu")
+    out = {}
+    for name, opt in (("zero", DistributedFusedLAMB(lr=1e-3)),
+                      ("arena", FusedLAMB(lr=1e-3, strategy="arena"))):
+        enc = _zero_bert_encoder(inputs)
+        with parallel.use_mesh(pairs):
+            step, state, (toks, labels), _, _ = train.build_bert_step(
+                ZB_LOCAL, ZB_SEQ, encoder=enc, device="cpu", vocab=ZB_VOCAB,
+                optimizer=opt)
+            losses = []
+            for _ in range(2):
+                parallel.reset_collective_counts()
+                state, loss = step(state, toks, labels)
+                losses.append(loss)
+        out[name] = {"losses": torch.stack(losses), "params": state.params,
+                     "step": state.step,
+                     "collectives": dict(parallel.collective_counts)}
+    return out
+
+
+# --- the hierarchical sync (tests/test_torch_hierarchy.py: 4 ranks on the
+# 2x2 data_inter x data_intra mesh) -------------------------------------------
+
+#: link rates both packages plan with in the parity tests (bytes/s): any
+#: numbers do; these are not a card's
+HIER_LINKS = {"ici": 4.5e11, "dcn": 2.5e10}
+
+
+def hier_plan(dtype, spec="dp2x2", grad_bytes=1 << 20, **kw):
+    """The port's plan with every hop's wire dtype forced to ``dtype``."""
+    from apex_tpu_torch.lint.mesh_model import parse_mesh_spec
+    from apex_tpu_torch.parallel import hierarchy
+    return hierarchy.plan_comm(
+        parse_mesh_spec(spec, link_bytes_per_s=HIER_LINKS), grad_bytes,
+        dtypes=(dtype,), **kw)
+
+
+def _hier_tree(s):
+    tree = grad_tree()
+    return {"a": t(tree["a"]) * float(s + 1), "b": t(tree["b"]),
+            "n": t(tree["n"])}
+
+
+@case
+def hier_sync(rank, world, mesh, inputs):
+    """Per wire dtype: the sync of a tree (bucketed at 600 elements) scaled
+    by the linear rank, and one step with a residual of the rank's own."""
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.parallel import hierarchy
+    s = rank        # linear rank on the row-major 2x2 mesh
+    out = {}
+    for dt in (None, "bf16", "int8"):
+        plan = hier_plan(dt)
+        parallel.reset_collective_counts()
+        synced = hierarchy.hierarchical_sync(_hier_tree(s), plan,
+                                             message_size=600)
+        counts = dict(parallel.collective_counts)
+        g = {"a": _hier_tree(s)["a"]}
+        r = {"a": torch.full_like(g["a"], 0.01 * (s + 1))}
+        ef, r2 = hierarchy.hierarchical_sync(g, plan, residual=r)
+        out[str(dt)] = {"synced": synced, "counts": counts, "ef": ef["a"],
+                        "residual": r2["a"]}
+    return out
+
+
+@case
+def hier_trajectory(rank, world, mesh, inputs):
+    """30 steps of data-parallel GD on 0.5‖w − t_rank‖², every gradient
+    through both int8 hops with error feedback (block 64), and exact."""
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.parallel import hierarchy
+    target = t(int8_targets(4)[rank])
+    plan = hier_plan("int8", grad_bytes=512 * 4, compress_block=64)
+    ws = {}
+    for hier in (True, False):
+        w, r = torch.zeros(512), torch.zeros(512)
+        for _ in range(30):
+            g = {"w": w - target}
+            if hier:
+                out, rr = hierarchy.hierarchical_sync(g, plan,
+                                                      residual={"w": r})
+                r = rr["w"]
+            else:
+                out = parallel.sync_gradients(g, "data_intra")
+                out = parallel.sync_gradients(out, "data_inter")
+            w = w - 0.4 * out["w"]
+        ws["ef" if hier else "exact"] = w
+    return ws
+
+
+@case
+def hier_ddp_and_pmean(rank, world, mesh, inputs):
+    """DDP with a hierarchical plan (synced values, residual, pmean,
+    world size, axis names) and with a flat bf16 plan over a flat mesh of
+    the four ranks."""
+    from apex_tpu_torch import parallel
+    plan = hier_plan("int8")
+    ddp = parallel.DistributedDataParallel(mesh, comm_plan=plan)
+    vals = torch.linspace(0.1, 1.7, 640)
+    out, r2 = ddp.sync({"w": vals}, residual=ddp.init_residual({"w": vals}))
+    flat_mesh = parallel.make_mesh([("data", 4)], "cpu")
+    flat = parallel.DistributedDataParallel(
+        flat_mesh, comm_plan=hier_plan("bf16", spec="ici4"))
+    x = torch.tensor(float(rank + 1))
+    parallel.reset_collective_counts()
+    pm = ddp.pmean(x)
+    pm_counts = dict(parallel.collective_counts)
+    return {"world": ddp.world_size, "axis": list(ddp.axis_name),
+            "synced": out["w"], "residual": r2["w"], "pmean": pm,
+            "pmean_counts": pm_counts,
+            "flat": flat.sync(_hier_tree(rank)),
+            "flat_axis": flat.axis_name}
+
+
+# --- ring and Ulysses attention (tests/test_torch_ring.py: 4 ranks on one
+# ``seq`` axis; world-2 cases pair them on a ("pair", "seq") mesh) ----------
+
+def ring_qkv(seed, b, s, h, d):
+    rng = np.random.RandomState(seed)
+    return tuple(rng.randn(b, s, h, d).astype(np.float32) for _ in range(3))
+
+
+#: (seed, B, S per rank, H, D, options) of the ring runs
+RING_RUNS = {
+    "plain": (0, 2, 32, 2, 32, dict()),
+    "causal": (1, 2, 32, 2, 32, dict(causal=True)),
+    "dropout": (3, 1, 512, 2, 64, dict(dropout_rate=0.3, dropout_seed=1234)),
+    "dropout_causal": (4, 1, 512, 2, 64, dict(causal=True, dropout_rate=0.25,
+                                              dropout_seed=77)),
+    "dropout_multiblock": (8, 1, 1024, 2, 64, dict(
+        causal=True, dropout_rate=0.3, dropout_seed=55)),
+}
+ULYSSES_RUNS = {
+    "plain": (2, 2, 32, 8, 16, dict()),
+    "causal": (5, 2, 32, 8, 16, dict(causal=True)),
+}
+
+
+def _seq_run(fn, run, world, me):
+    """(o, dq, dk, dv) of this rank's shard for the loss sum(sin(o))."""
+    seed, b, s, h, d, options = run
+    q, k, v = (t(shard(a.transpose(1, 0, 2, 3), me, world)
+                 .transpose(1, 0, 2, 3), requires_grad=True)
+               for a in ring_qkv(seed, b, s * world, h, d))
+    o = fn(q, k, v, "seq", **options)
+    torch.sin(o).sum().backward()
+    return {"o": o, "dq": q.grad, "dk": k.grad, "dv": v.grad}
+
+
+def _seq_mesh(world):
+    from apex_tpu_torch import parallel
+    if world == 4:
+        return parallel.make_mesh([("seq", 4)], "cpu")
+    return parallel.make_mesh([("pair", 4 // world), ("seq", world)], "cpu")
+
+
+@case
+def ring_runs(rank, world, mesh, inputs):
+    from apex_tpu_torch import parallel
+    out = {}
+    for w in (2, 4):
+        with parallel.use_mesh(_seq_mesh(w)):
+            me = parallel.axis_index("seq")
+            for name, run in RING_RUNS.items():
+                if w == 4 and name.startswith("dropout"):
+                    continue
+                parallel.reset_collective_counts()
+                res = _seq_run(parallel.ring_attention, run, w, me)
+                res["collectives"] = dict(parallel.collective_counts)
+                out[f"{name}/{w}"] = res
+            for name, run in ULYSSES_RUNS.items():
+                parallel.reset_collective_counts()
+                res = _seq_run(parallel.ulysses_attention, run, w, me)
+                res["collectives"] = dict(parallel.collective_counts)
+                out[f"ulysses_{name}/{w}"] = res
+    return out
+
+
+@case
+def ring_dtypes_and_refusals(rank, world, mesh, inputs):
+    """The ring's output dtype at axis size 1 (q's) and 2 (f32), and its
+    refusal of dropout on shards that are not 512-multiples."""
+    from apex_tpu_torch import parallel
+    q, k, v = (t(a[:, :16]).bfloat16() for a in ring_qkv(6, 1, 16, 2, 64))
+    out = {}
+    for w in (1, 2):
+        m = parallel.make_mesh([("pair", 4 // w), ("seq", w)], "cpu")
+        with parallel.use_mesh(m):
+            out[f"dtype/{w}"] = str(parallel.ring_attention(
+                q, k, v, "seq").dtype)
+            try:
+                parallel.ring_attention(q, k, v, "seq", dropout_rate=0.1,
+                                        dropout_seed=0)
+                out[f"unaligned/{w}"] = "no error"
+            except ValueError as e:
+                out[f"unaligned/{w}"] = str(e)
+    return out

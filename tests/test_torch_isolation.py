@@ -234,3 +234,33 @@ def test_data_parallel_mesh_without_a_process_group_raises():
         parallel.data_parallel_mesh()
     with pytest.raises(RuntimeError, match="distributed_init"):
         parallel.data_parallel_mesh("cpu")
+
+
+def test_zero_hierarchy_ring_and_mesh_model_are_covered():
+    """ZeRO, the hierarchical sync, ring attention and the mesh model are
+    among the modules the import and AST checks walk, and the probe script
+    of gloo's CUDA support among the scripts."""
+    names = [m for _, m in _modules()]
+    for m in ("apex_tpu_torch.optim.distributed",
+              "apex_tpu_torch.parallel.hierarchy",
+              "apex_tpu_torch.parallel.ring",
+              "apex_tpu_torch.lint", "apex_tpu_torch.lint.mesh_model"):
+        assert m in names
+    assert "scripts/torch_gloo_probe.py" in [m for _, m in _sources()]
+
+
+def test_zero_main_path_defaults_to_cuda(monkeypatch):
+    """``build_bert_step(optimizer=DistributedFusedLAMB(...))``, the ZeRO
+    main path, asks for cuda when no device is given; the ZeRO optimizers
+    take their devices from the params, and their state from the bound
+    mesh (none bound: NameError, as JAX raises for an unbound axis)."""
+    from apex_tpu_torch import models, optim, train
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.build_bert_step(2, 8, optimizer=optim.DistributedFusedLAMB())
+    enc = models.BertEncoder(50, hidden=16, layers=1, heads=2, max_len=8,
+                             device="cpu")
+    with pytest.raises(NameError, match="unbound axis name"):
+        train.build_bert_step(2, 8, encoder=enc, device="cpu",
+                              optimizer=optim.DistributedFusedLAMB())

@@ -155,8 +155,12 @@ def test_ddp_mode_validation_and_unported_parts():
                dict(bucket_allreduce=True, delay_allreduce=True)):
         with pytest.raises(ValueError):
             tpar.DistributedDataParallel(_fake_mesh(), **kw)
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        tpar.DistributedDataParallel(_fake_mesh(), comm_plan=object())
+    # comm_plan is ported: a hierarchical plan needs a mesh with its axes
+    from apex_tpu_torch.lint.mesh_model import parse_mesh_spec
+    plan = tpar.plan_comm(parse_mesh_spec(
+        "dp2x2", link_bytes_per_s={"ici": 1e11, "dcn": 1e10}), 1 << 20)
+    with pytest.raises(ValueError, match="hierarchical"):
+        tpar.DistributedDataParallel(_fake_mesh(), comm_plan=plan)
     ddp = tpar.DistributedDataParallel(_fake_mesh())
     for fn in (ddp.collective_bytes, ddp.memory_report):
         with pytest.raises(NotImplementedError, match="item 11"):
@@ -164,7 +168,10 @@ def test_ddp_mode_validation_and_unported_parts():
     from apex_tpu_torch.parallel import distributed
     with pytest.raises(NotImplementedError, match="item 11"):
         distributed.dynamics_probe({}, {})
-    assert distributed.KNOWN_COLLECTIVE_SCOPES == \
+    # the JAX package's patterns, in order, and the port's own row
+    from apex_tpu_torch.parallel.registry import PORT_ONLY_PATTERNS
+    assert tuple(p for p in distributed.KNOWN_COLLECTIVE_SCOPES
+                 if p not in PORT_ONLY_PATTERNS) == \
         jpar.distributed.KNOWN_COLLECTIVE_SCOPES
 
 
@@ -248,13 +255,32 @@ def test_registry_rows_match_jax(scope):
         assert (got.pattern, got.axis, got.subsystem) == \
             (want.pattern, want.axis, want.subsystem)
     assert tpar.scope_axis(scope) == jr.scope_axis(scope)
-    assert tpar.known_patterns() == jr.known_patterns()
+    from apex_tpu_torch.parallel.registry import PORT_ONLY_PATTERNS
+    assert tuple(p for p in tpar.known_patterns()
+                 if p not in PORT_ONLY_PATTERNS) == jr.known_patterns()
 
 
 def test_every_scope_the_port_issues_is_registered():
     for scope in ("ddp/sync_gradients", "bucket00", "ddp/loss_pmean",
-                  "sync_batchnorm", "guard/integrity_repair"):
+                  "sync_batchnorm", "guard/integrity_repair",
+                  "zero/grad_scatter", "zero/param_gather", "zero/grad_norm",
+                  "bucket00/ici", "bucket03/dcn", "ring_ppermute",
+                  "ring_all_to_all"):
         assert tpar.scope_entry(scope) is not None, scope
+
+
+def test_the_port_only_registry_row():
+    """``zero/grad_norm`` names the ZeRO norm sums, which the JAX package
+    issues outside any span: the port's one row the JAX table lacks, on
+    the data axis of the zero subsystem."""
+    from apex_tpu.parallel import registry as jr
+    from apex_tpu_torch.parallel.registry import PORT_ONLY_PATTERNS
+    assert PORT_ONLY_PATTERNS == ("zero/grad_norm",)
+    entry = tpar.scope_entry("zero/grad_norm")
+    assert (entry.pattern, entry.axis, entry.subsystem) == (
+        "zero/grad_norm", "data", "zero")
+    assert "unscoped in the JAX package" in entry.description
+    assert jr.scope_entry("zero/grad_norm") is None
 
 
 @pytest.mark.parametrize("world, kw", [(8, {}), (6, {}), (16, {"factor": 4}),
