@@ -8,11 +8,20 @@ the graph, so grads come back w.r.t. the masters; ``apply_gradients``
 commits the optimizer's result only where the grads were finite, so a
 skipped step moves neither params, optimizer state nor ``step``.
 
-    policy = amp.Policy.from_opt_level("O1")
-    amp_opt = amp.Amp(policy, FusedLAMB(lr=1e-3))
-    state = amp_opt.init(dict(model.named_parameters()))
+    amp_opt, state = amp.initialize(dict(model.named_parameters()),
+                                    FusedLAMB(lr=1e-3), "O1")
     loss, grads, state, finite = amp_opt.backward(state, loss_fn, *batch)
     state = amp_opt.apply_gradients(state, grads, finite)
+
+Gradient accumulation: ``backward_accumulate`` adds each microbatch's
+unscaled f32 grads onto the stash (the dynamic scale may move between
+microbatches) and ands the finite flags, so one overflowing microbatch
+skips the whole step. ``initialize`` builds the policy preset, the bundle
+and its state in one call; ``state_dict``/``load_state_dict`` carry the
+scalers (also from the dict the JAX package's ``Amp.state_dict`` gives, as
+numpy arrays); ``memory_footprint`` is the analytic byte count of the
+state; ``half_function``/``float_function``/``promote_function`` are the
+decorators of the reference Apex.
 """
 
 from __future__ import annotations
@@ -21,12 +30,15 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from apex_tpu_torch.amp.policy import Policy, policy_scope
-from apex_tpu_torch.amp.scaler import (
-    LossScaleConfig, LossScaleState, loss_scale_init, loss_scale_update,
-    scale_loss, unscale_grads,
+from apex_tpu_torch.amp.policy import (
+    Policy, _promote, current_policy, policy_scope,
 )
-from apex_tpu_torch.utils import tree_cast, tree_map, tree_select
+from apex_tpu_torch.amp.scaler import (
+    LossScaleConfig, LossScaleState, device_scalar, loss_scale_init,
+    loss_scale_update, scaled_backward, tx_step, unscale_grads,
+    unscale_grads_with_stashed,
+)
+from apex_tpu_torch.utils import tree_cast, tree_leaves, tree_map, tree_select
 
 _UNPORTED_HOOK = ("the {} hook of Amp is not ported yet (ROADMAP.md queue A "
                   "item 11, observability; item 10 for guard=)")
@@ -82,35 +94,74 @@ class Amp:
         ``loss_fn(model_params, *args, **kwargs)`` runs at the masters cast
         to the model dtype. Returns ``(out, grads_fp32, state', finite)``:
         ``finite`` is the Python bool True when the policy has no scaler,
-        else a device flag.
+        else a device flag. The ``stashed=None`` case of
+        :meth:`backward_accumulate`.
+        """
+        return self.backward_accumulate(
+            state, loss_fn, *args, stashed=None, finite=True,
+            loss_id=loss_id, has_aux=has_aux, **kwargs)
+
+    def backward_accumulate(self, state: AmpState, loss_fn: Callable,
+                            *args, stashed=None, finite=True,
+                            loss_id: int = 0, has_aux: bool = False,
+                            **kwargs):
+        """Scaled backward whose unscaled f32 grads are added onto
+        ``stashed`` (the previous microbatches' f32 grads, or None).
+
+        Each microbatch unscales at the scale current when it runs (the
+        dynamic schedule advances per backward); ``finite`` is and-ed with
+        this microbatch's flag, so one overflow skips the accumulated step.
+        Grads add up as a sum: divide each microbatch's loss by their
+        number for a mean. Returns ``(out, acc_grads, state', finite')``::
+
+            acc, fin = None, True
+            for mb in microbatches:
+                out, acc, state, fin = amp_opt.backward_accumulate(
+                    state, loss_fn, mb, stashed=acc, finite=fin)
+            state = amp_opt.apply_gradients(state, acc, fin)
+
+        With no scaler ``finite`` passes through unchanged (the Python
+        True stays a Python bool); with one, the flags stay device tensors.
         """
         sstate = state.scalers[loss_id]
-        masters = {k: v.detach().requires_grad_(v.is_floating_point())
-                   for k, v in state.params.items()}
-        with policy_scope(self.policy):
-            out = loss_fn(self.policy.cast_params(masters), *args, **kwargs)
-        loss = out[0] if has_aux else out
-        names = [k for k, v in masters.items() if v.requires_grad]
-        raw = torch.autograd.grad(scale_loss(loss, sstate),
-                                  [masters[k] for k in names],
-                                  allow_unused=True)
-        grads = {k: (torch.zeros_like(masters[k]) if g is None else g)
-                 for k, g in zip(names, raw)}
-        out = tree_map(lambda t: t.detach() if isinstance(t, torch.Tensor)
-                       else t, out)
+
+        def run(masters):
+            with policy_scope(self.policy):
+                return loss_fn(self.policy.cast_params(masters), *args,
+                               **kwargs)
+
+        out, grads = scaled_backward(run, state.params, sstate,
+                                     has_aux=has_aux)
         if self.scale_cfg is None:
-            return out, tree_cast(grads, torch.float32), state, True
-        grads, finite = unscale_grads(grads, sstate)
-        new_sstate = loss_scale_update(sstate, finite, self.scale_cfg)
+            grads = tree_cast(grads, torch.float32)
+            if stashed is not None:
+                grads = tree_map(lambda s, g: s + g if g.is_floating_point()
+                                 else g, stashed, grads)
+            return out, grads, state, finite
+        if stashed is None:
+            acc, this_finite = unscale_grads(grads, sstate)
+        else:
+            acc, this_finite = unscale_grads_with_stashed(grads, stashed,
+                                                          sstate)
+        new_sstate = loss_scale_update(sstate, this_finite, self.scale_cfg)
         scalers = tuple(new_sstate if i == loss_id else s
                         for i, s in enumerate(state.scalers))
-        return out, grads, state._replace(scalers=scalers), finite
+        if isinstance(finite, bool):
+            new_finite = (this_finite if finite
+                          else torch.zeros_like(this_finite))
+        else:
+            new_finite = torch.logical_and(finite, this_finite)
+        return out, acc, state._replace(scalers=scalers), new_finite
 
     def apply_gradients(self, state: AmpState, grads,
                         grads_finite) -> AmpState:
-        """Optimizer update committed only where grads were finite."""
-        new_params, new_opt_state = self.tx.step(grads, state.opt_state,
-                                                 state.params)
+        """Optimizer update committed only where grads were finite.
+
+        A fused optimizer's ``step`` gives the new params at once; an
+        optax-style ``tx`` with ``update`` and no ``step`` gives updates,
+        added to the params in their dtype."""
+        new_params, new_opt_state = tx_step(self.tx, grads, state.opt_state,
+                                            state.params)
         params = tree_select(grads_finite, new_params, state.params)
         opt_state = tree_select(grads_finite, new_opt_state, state.opt_state)
         if isinstance(grads_finite, bool):
@@ -131,3 +182,137 @@ class Amp:
             state, loss_fn, *args, loss_id=loss_id, has_aux=has_aux,
             **kwargs)
         return self.apply_gradients(state, grads, finite), out, finite
+
+    # -- memory accounting ---------------------------------------------------
+
+    def memory_footprint(self, params) -> dict:
+        """Analytic bytes of the mixed-precision state for ``params``, as
+        the JAX package's (dtype names as JAX writes them: "float32").
+
+        Under a master-weights policy (O1/O2) every parameter is held twice:
+        the f32 master and the model-dtype forward copy made each step
+        (only where the two dtypes differ); O3 keeps one model-dtype copy.
+        """
+        n = sum(p.numel() for p in tree_leaves(params))
+        if self.policy.master_weights or self.policy.cast_model_type is None:
+            master_dt = torch.float32
+        else:
+            master_dt = self.policy.compute_dtype
+        model_dt = self.policy.compute_dtype
+        master_bytes = n * master_dt.itemsize
+        model_copy = (n * model_dt.itemsize
+                      if (self.policy.cast_model_type is not None
+                          and master_dt != model_dt) else 0)
+        scaler_bytes = 8 * self.num_losses if self.scale_cfg is not None \
+            else 0
+        return {
+            "n_params": n,
+            "master_bytes": master_bytes,
+            "model_copy_bytes": model_copy,
+            "scaler_bytes": scaler_bytes,
+            "metrics_bytes": 0,
+            "total_bytes": master_bytes + model_copy + scaler_bytes,
+            "master_dtype": _dtype_name(master_dt),
+            "model_dtype": _dtype_name(model_dt),
+        }
+
+    # -- checkpoints ---------------------------------------------------------
+
+    def state_dict(self, state: AmpState) -> dict:
+        """The scalers as a plain dict (``amp.state_dict``)."""
+        return {
+            f"loss_scaler{i}": None if s is None else
+            {"loss_scale": s.loss_scale, "unskipped": s.growth_tracker}
+            for i, s in enumerate(state.scalers)}
+
+    def load_state_dict(self, state: AmpState, sd) -> AmpState:
+        """Restore the scalers from :meth:`state_dict`'s dict, or from the
+        JAX package's (numpy or tensor values), onto ``state``'s device."""
+        scalers = []
+        for i, s in enumerate(state.scalers):
+            entry = sd.get(f"loss_scaler{i}")
+            if s is None or entry is None:
+                scalers.append(s)
+                continue
+            dev = s.loss_scale.device
+            scalers.append(LossScaleState(
+                loss_scale=device_scalar(entry["loss_scale"], torch.float32,
+                                         dev),
+                growth_tracker=device_scalar(entry["unskipped"], torch.int32,
+                                             dev)))
+        return state._replace(scalers=tuple(scalers))
+
+
+def _dtype_name(dtype) -> str:
+    return str(dtype).replace("torch.", "")
+
+
+def initialize(params, tx, opt_level: str = "O1", *,
+               half_dtype=torch.bfloat16, num_losses: int = 1,
+               verbosity: int = 1, monitor: bool = False,
+               **policy_overrides) -> Tuple[Amp, AmpState]:
+    """One call: ``amp_opt, state = amp.initialize(params, tx, "O2")``.
+
+    Builds the opt level's policy (keyword overrides win), the ``Amp``
+    bundle and its initial state from ``params`` (a ``{name: tensor}``
+    dict). ``verbosity=1`` prints the settings on rank 0 through
+    ``parallel.launch.maybe_print``; 0 is silent."""
+    if monitor:
+        raise NotImplementedError(_UNPORTED_HOOK.format("monitor="))
+    policy = Policy.from_opt_level(opt_level, half_dtype=half_dtype,
+                                   **policy_overrides)
+    if verbosity > 0:
+        from apex_tpu_torch.parallel.launch import maybe_print
+        maybe_print(f"apex_tpu_torch.amp: selected optimization level "
+                    f"{opt_level}", rank0=True)
+        maybe_print("Settings for this optimization level (overrides "
+                    "applied):", rank0=True)
+        for field in ("enabled", "half_dtype", "cast_model_type",
+                      "patch_ops", "keep_batchnorm_fp32", "master_weights",
+                      "loss_scale"):
+            value = getattr(policy, field)
+            if isinstance(value, torch.dtype):
+                value = _dtype_name(value)
+            maybe_print(f"{field:<24}: {value}", rank0=True)
+    amp_opt = Amp(policy, tx, num_losses=num_losses)
+    return amp_opt, amp_opt.init(params)
+
+
+# -- the reference Apex's decorators -------------------------------------------
+
+def half_function(fn):
+    """Run ``fn`` with floating args cast to the ambient policy's half
+    dtype (under a policy that casts: O1's ops or a cast model)."""
+    def wrapped(*args, **kwargs):
+        p = current_policy()
+        if p.enabled and (p.patch_ops or p.cast_model_type is not None):
+            args = tree_cast(args, p.half_dtype)
+            kwargs = tree_cast(kwargs, p.half_dtype)
+        return fn(*args, **kwargs)
+    return wrapped
+
+
+def float_function(fn):
+    """Run ``fn`` with floating args cast to fp32 under an enabled
+    ambient policy."""
+    def wrapped(*args, **kwargs):
+        if current_policy().enabled:
+            args = tree_cast(args, torch.float32)
+            kwargs = tree_cast(kwargs, torch.float32)
+        return fn(*args, **kwargs)
+    return wrapped
+
+
+def promote_function(fn):
+    """Run ``fn`` with floating args promoted to their widest dtype (a
+    Python float counts as f32, as a JAX scalar does)."""
+    def wrapped(*args, **kwargs):
+        dts = [x.dtype if isinstance(x, torch.Tensor) else torch.float32
+               for x in tree_leaves((args, kwargs))
+               if isinstance(x, (torch.Tensor, float))]
+        if dts:
+            target = _promote(dts)
+            args = tree_cast(args, target)
+            kwargs = tree_cast(kwargs, target)
+        return fn(*args, **kwargs)
+    return wrapped

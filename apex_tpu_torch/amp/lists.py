@@ -7,9 +7,19 @@ The port's copy of ``apex_tpu.amp.lists``: the same three op-name groups
 - HALF  ("whitelist"): tensor-core ops — run in the policy's half dtype.
 - FLOAT ("blacklist"): reductions, norms, losses, transcendentals — fp32.
 - PROMOTE: multi-input elementwise ops — widest input dtype wins.
+
+Users extend the tables as in the JAX package: ``register_half_op`` /
+``register_float_op`` / ``register_promote_op`` / ``unregister_op`` take an
+op name, or a ``(module, attr)`` pair that gives a user function the O1
+functional patch's treatment; ``register_half_module`` /
+``register_float_module`` add module classes that :func:`auto_cast`
+consults before its built-in tables, so a user re-registration of a
+built-in wins.
 """
 
 from __future__ import annotations
+
+from apex_tpu_torch.amp import functional_patch
 
 HALF_OPS = {
     "conv", "conv1d", "conv2d", "conv3d", "conv_transpose",
@@ -57,7 +67,68 @@ def classify(op_name: str) -> str:
     return "neutral"
 
 
+def register_half_op(name) -> None:
+    """Classify op ``name`` (str) as half, or give a ``(module, attr)``
+    function the functional patch's half treatment."""
+    if not isinstance(name, str):
+        functional_patch.register_raw_target(name[0], name[1], "half")
+        return
+    FLOAT_OPS.discard(name)
+    PROMOTE_OPS.discard(name)
+    HALF_OPS.add(name)
+
+
+def register_float_op(name) -> None:
+    """Classify op ``name`` (str) as fp32, or give a ``(module, attr)``
+    function the functional patch's fp32 treatment."""
+    if not isinstance(name, str):
+        functional_patch.register_raw_target(name[0], name[1], "float")
+        return
+    HALF_OPS.discard(name)
+    PROMOTE_OPS.discard(name)
+    FLOAT_OPS.add(name)
+
+
+def register_promote_op(name: str) -> None:
+    HALF_OPS.discard(name)
+    FLOAT_OPS.discard(name)
+    PROMOTE_OPS.add(name)
+
+
+def unregister_op(name) -> None:
+    """Remove an op name from every table, or drop a ``(module, attr)``
+    registration of the functional patch (restored at once inside a live
+    scope). Idempotent."""
+    if not isinstance(name, str):
+        functional_patch.unregister_raw_target(name[0], name[1])
+        return
+    HALF_OPS.discard(name)
+    FLOAT_OPS.discard(name)
+    PROMOTE_OPS.discard(name)
+
+
 # --- module-class tables (consulted by amp.interceptor) ---------------------
+
+# user-registered module classes, consulted before the built-in tables
+_EXTRA_HALF_MODULES: list = []
+_EXTRA_FLOAT_MODULES: list = []
+
+
+def register_half_module(cls) -> None:
+    """Calls of ``cls`` under ``auto_cast`` run in the policy half dtype."""
+    if cls in _EXTRA_FLOAT_MODULES:
+        _EXTRA_FLOAT_MODULES.remove(cls)
+    if cls not in _EXTRA_HALF_MODULES:
+        _EXTRA_HALF_MODULES.append(cls)
+
+
+def register_float_module(cls) -> None:
+    """Calls of ``cls`` under ``auto_cast`` run in fp32."""
+    if cls in _EXTRA_HALF_MODULES:
+        _EXTRA_HALF_MODULES.remove(cls)
+    if cls not in _EXTRA_FLOAT_MODULES:
+        _EXTRA_FLOAT_MODULES.append(cls)
+
 
 def module_tables():
     """(HALF_MODULES, FLOAT_MODULES) over the port's module classes.

@@ -74,6 +74,12 @@ class Policy:
         policy.validate()
         return policy
 
+    def replace(self, **overrides) -> "Policy":
+        """A copy with ``overrides`` applied, validated."""
+        p = dataclasses.replace(self, **overrides)
+        p.validate()
+        return p
+
     def validate(self) -> None:
         if self.half_dtype not in _HALF:
             raise ValueError(
@@ -153,6 +159,23 @@ class Policy:
         pred = ((lambda name, _x: not self._bn_exempt(name))
                 if self.keep_batchnorm_fp32 else None)
         return tree_cast(params, self.cast_model_type, predicate=pred)
+
+    def cast_inputs(self, tree):
+        """Cast floating inputs to the model dtype (the cast amp puts
+        before the model's forward); a no-op without a cast model."""
+        if not self.enabled or self.cast_model_type is None:
+            return tree
+        return tree_cast(tree, self.cast_model_type)
+
+    def cast_outputs(self, tree):
+        """Cast floating outputs to ``output_dtype`` (f32 by default)."""
+        if not self.enabled or self.output_dtype is None:
+            return tree
+        return tree_cast(tree, self.output_dtype)
+
+    def cast_to_compute(self, tree):
+        """Cast floating leaves to :attr:`compute_dtype`."""
+        return tree_cast(tree, self.compute_dtype)
 
 
 _NORM_COMPONENT_RE = re.compile(

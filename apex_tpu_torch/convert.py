@@ -248,3 +248,86 @@ def asp_state_from_jax(state, params, port_params, device="cuda"):
     return ASPState(masks={k: masks[k] for k in port_params},
                     inner=fused_state_from_jax(state.inner, params,
                                                port_params, device))
+
+
+def _opt_state_from_jax(state, params, port_params, device):
+    """The port's optimizer state for a JAX ``FusedOptState`` (arena or
+    tree slots) or ``ASPState`` built for the flax tree ``params``."""
+    if hasattr(state, "masks"):
+        return asp_state_from_jax(state, params, port_params, device)
+    if hasattr(state, "count") and hasattr(state, "slots"):
+        return fused_state_from_jax(state, params, port_params, device)
+    raise TypeError(f"no port counterpart for optimizer state "
+                    f"{type(state).__name__}")
+
+
+def _scalers_from_jax(scalers, device):
+    from apex_tpu_torch.amp.scaler import LossScaleState, device_scalar
+    return tuple(None if s is None else LossScaleState(
+        loss_scale=device_scalar(s.loss_scale, torch.float32, device),
+        growth_tracker=device_scalar(s.growth_tracker, torch.int32, device))
+        for s in scalers)
+
+
+def _params_like(tree, port_params, device):
+    """A flax tree's leaves by port name in ``port_params``' order, each in
+    its own float dtype (bf16 and fp16 pass through f32, exactly)."""
+    mapped = {}
+    for name, leaf in _flatten(tree):
+        arr = np.asarray(leaf)
+        dtype = {"bfloat16": torch.bfloat16, "float16": torch.float16}.get(
+            str(arr.dtype), torch.float32)
+        pname, a = _port_leaf(name, np.asarray(arr, dtype=np.float32))
+        mapped[pname] = _tensor(a, device).to(dtype)
+    return {k: mapped[k] for k in port_params}
+
+
+def amp_state_from_jax(state, port_params, device="cuda"):
+    """The port's ``amp.AmpState`` from the JAX package's: ``step``, the
+    optimizer-facing params (f32 masters, or O3's half params) by port
+    name in the order of ``port_params`` (the port's ``{name: tensor}``
+    params, e.g. ``dict(model.named_parameters())``), the optimizer state
+    (:func:`fused_state_from_jax` or :func:`asp_state_from_jax`, laid out
+    as the state's own params) and the loss scalers."""
+    from apex_tpu_torch.amp.api import AmpState
+    params = _params_like(state.params, port_params, device)
+    return AmpState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=device),
+        params=params,
+        opt_state=_opt_state_from_jax(state.opt_state, state.params, params,
+                                      device),
+        scalers=_scalers_from_jax(state.scalers, device))
+
+
+def fp16_state_from_jax(state, port_params, device="cuda"):
+    """The port's ``fp16_utils.FP16OptState`` from the JAX package's: step,
+    the f32 masters by port name (in ``port_params``' order), the inner
+    optimizer's state (laid out as the masters) and the scaler."""
+    from apex_tpu_torch.fp16_utils import FP16OptState
+    masters = _params_like(state.masters, port_params, device)
+    scaler = None if state.scaler is None else \
+        _scalers_from_jax((state.scaler,), device)[0]
+    return FP16OptState(
+        step=torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                          device=device),
+        masters=masters,
+        inner_state=_opt_state_from_jax(state.inner_state, state.masters,
+                                        masters, device),
+        scaler=scaler)
+
+
+def scale_history_from_jax(state, device="cuda"):
+    """The port's ``amp.ScaleHistoryState`` from the JAX package's."""
+    from apex_tpu_torch.amp.scale_history import ScaleHistoryState
+
+    def t(a, dtype):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+    return ScaleHistoryState(
+        amax_history=t(state.amax_history, torch.float32),
+        cursor=t(state.cursor, torch.int32),
+        scale=t(state.scale, torch.float32),
+        growth_tracker=t(state.growth_tracker, torch.int32),
+        overflow_count=t(state.overflow_count, torch.int32),
+        step=t(state.step, torch.int32))

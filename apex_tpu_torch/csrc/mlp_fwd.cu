@@ -13,6 +13,17 @@
 // port's checks hold this one to (1e-4 of the plain version on the card);
 // that route is left for a change that also states its new tolerance.
 //
+// Half-operand mode (MlpCall.rnd: 1 = bf16, 2 = fp16). Under amp O1 the JAX
+// package's functional patch casts both operands of the kernel body's
+// jnp.dot to the policy's half dtype, with the products still summed in
+// f32. Here each product's two operands are rounded to that dtype (round
+// to nearest even) where they enter the kernel: x as it is loaded, h as it
+// is stored into shared memory for the next layer, the weights as they are
+// widened from their stage. The FMA loops and their summation order are
+// the same in every mode; the bias add, the activation and the last
+// layer's output stay f32, rounded once to x's dtype. The mode is a
+// template argument, so the rounding costs nothing where it is off.
+//
 // What bounds it on an H100: operations. At the DLRM bottom MLP (B2048 x
 // [13, 512, 256, 128]) the products are 2·n·Σ Di·Di+1 = 698 MFLOP, 10.4 us
 // at the 67 TFLOP/s f32 rate, against x, y and the bf16 weights, 0.92 MB
@@ -128,6 +139,23 @@ __device__ __forceinline__ void store_any(void* p, int dt, long long i,
     static_cast<float*>(p)[i] = v;
 }
 
+// an operand rounded to the half dtype of the half-operand mode, back in
+// f32: RND 0 none, 1 bf16, 2 fp16
+template <int RND>
+__device__ __forceinline__ float round_op(float v) {
+  if constexpr (RND == 1) return __bfloat162float(__float2bfloat16_rn(v));
+  else if constexpr (RND == 2) return __half2float(__float2half_rn(v));
+  else return v;
+}
+
+// true where widening a TW weight already gives the mode's value
+template <typename TW, int RND>
+struct Exact {
+  static constexpr bool value =
+      RND == 0 || (RND == 1 && std::is_same<TW, __nv_bfloat16>::value) ||
+      (RND == 2 && std::is_same<TW, __half>::value);
+};
+
 __device__ __forceinline__ float activate(float v, int act) {
   if (act == kRelu) return v < 0.f ? 0.f : v;   // NaN stays NaN
   if (act == kSigmoid) return 1.f / (1.f + expf(-v));
@@ -208,7 +236,7 @@ __device__ __forceinline__ bool next_slice(const FusedArgs& a, Slice& sl) {
 
 // TN weights of one reduction row from a stage, widened to f32
 template <typename TW, int TN>
-__device__ __forceinline__ void load_w(const TW* p, float (&w)[TN]) {
+__device__ __forceinline__ void load_w_raw(const TW* p, float (&w)[TN]) {
   if constexpr (sizeof(TW) == 4) {
     if constexpr (TN == 4) {
       const float4 v = *reinterpret_cast<const float4*>(p);
@@ -243,8 +271,18 @@ __device__ __forceinline__ void load_w(const TW* p, float (&w)[TN]) {
   }
 }
 
+// ... and rounded to the mode's dtype where widening does not already
+template <typename TW, int TN, int RND>
+__device__ __forceinline__ void load_w(const TW* p, float (&w)[TN]) {
+  load_w_raw<TW, TN>(p, w);
+  if constexpr (!Exact<TW, RND>::value) {
+#pragma unroll
+    for (int i = 0; i < TN; ++i) w[i] = round_op<RND>(w[i]);
+  }
+}
+
 // acc += h[rows][k0 + kk] · stage[kk][cols] for kk < kn (a multiple of 4)
-template <typename TW, int TN, bool FULL>
+template <typename TW, int TN, bool FULL, int RND>
 __device__ __forceinline__ void fma_slice(float (&acc)[4][TN],
                                           const float* h, int ldp,
                                           const TW* wcol, int kn) {
@@ -258,7 +296,7 @@ __device__ __forceinline__ void fma_slice(float (&acc)[4][TN],
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       float w[TN];
-      load_w<TW, TN>(wcol + (kk + u) * kCw, w);
+      load_w<TW, TN, RND>(wcol + (kk + u) * kCw, w);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const float hk = u == 0 ? hv[i].x : u == 1 ? hv[i].y
@@ -275,7 +313,7 @@ __device__ __forceinline__ void fma_slice(float (&acc)[4][TN],
 // with the previous slice's stage), then the copy kStages - 1 slices ahead
 // goes into that stage, then the FMAs. Returns with `next` and `stage`
 // advanced past the layer's slices.
-template <typename TW, int TN>
+template <typename TW, int TN, int RND>
 __device__ void run_layer(const FusedArgs& a, int l, const float* hin,
                           float* hout, TW* ring, Slice& next, bool& more,
                           int& stage, int rows) {
@@ -306,9 +344,9 @@ __device__ void run_layer(const FusedArgs& a, int l, const float* hin,
       const TW* wcol = ring + stage * kKs * kCw + col_off;
       const int kn = min(kKs, kd - s * kKs);
       if (kn == kKs)
-        fma_slice<TW, TN, true>(acc, h + s * kKs, a.ldp, wcol, kKs);
+        fma_slice<TW, TN, true, RND>(acc, h + s * kKs, a.ldp, wcol, kKs);
       else
-        fma_slice<TW, TN, false>(acc, h + s * kKs, a.ldp, wcol, kn);
+        fma_slice<TW, TN, false, RND>(acc, h + s * kKs, a.ldp, wcol, kn);
       stage = (stage + 1) % kStages;
     }
     const int col = c0 + col_off;
@@ -326,6 +364,9 @@ __device__ void run_layer(const FusedArgs& a, int l, const float* hin,
       for (int j = 0; j < TN; ++j)
         v[j] = col + j < dout ? activate(acc[i][j] + bj[j], a.act) : 0.f;
       if (!last) {
+        // the next layer's operand, rounded as it is stored
+#pragma unroll
+        for (int j = 0; j < TN; ++j) v[j] = round_op<RND>(v[j]);
         float* o = hout + r * a.ldp + col;
         if constexpr (TN == 4)
           *reinterpret_cast<float4*>(o) = make_float4(v[0], v[1], v[2], v[3]);
@@ -344,7 +385,7 @@ __device__ void run_layer(const FusedArgs& a, int l, const float* hin,
   }
 }
 
-template <typename TW>
+template <typename TW, int RND>
 __global__ void __launch_bounds__(kThreads, 1) mlp_fused(const FusedArgs a) {
   constexpr int kKs = Ring<TW>::kKs;
   extern __shared__ __align__(16) float smem[];
@@ -371,19 +412,23 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_fused(const FusedArgs a) {
   for (int i = threadIdx.x; i < kRows * w0; i += kThreads) {
     const int r = i / w0, c = i % w0;
     hin[r * a.ldp + c] = r < rows && c < d0
-        ? load_any(a.in, a.in_dtype, (row0 + r) * d0 + c) : 0.f;
+        ? round_op<RND>(load_any(a.in, a.in_dtype, (row0 + r) * d0 + c))
+        : 0.f;
   }
   // (the first slice's barrier orders these stores before any read)
   for (int l = 0; l < a.layers; ++l) {
     switch (layer_tn_log2(a.dims[l + 1])) {
       case 2:
-        run_layer<TW, 4>(a, l, hin, hout, ring, next, more, stage, rows);
+        run_layer<TW, 4, RND>(a, l, hin, hout, ring, next, more, stage,
+                              rows);
         break;
       case 1:
-        run_layer<TW, 2>(a, l, hin, hout, ring, next, more, stage, rows);
+        run_layer<TW, 2, RND>(a, l, hin, hout, ring, next, more, stage,
+                              rows);
         break;
       default:
-        run_layer<TW, 1>(a, l, hin, hout, ring, next, more, stage, rows);
+        run_layer<TW, 1, RND>(a, l, hin, hout, ring, next, more, stage,
+                              rows);
     }
     float* t = hin;
     hin = hout;
@@ -396,7 +441,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_fused(const FusedArgs a) {
 
 // acc[r] += Σ_{k < kn} h[r·ld + k] · W[(k0 + k)·dout + j], h 16-byte aligned
 // and ld a multiple of 4
-template <typename TW>
+template <typename TW, int RND>
 __device__ __forceinline__ void dot_rows(float (&acc)[kRows], const float* h,
                                          int ld, const TW* W, int dout,
                                          int j, int k0, int kn) {
@@ -404,10 +449,10 @@ __device__ __forceinline__ void dot_rows(float (&acc)[kRows], const float* h,
   int k = 0;
 #pragma unroll 2
   for (; k + 4 <= kn; k += 4) {
-    const float w0 = to_f32(wj[(long long)k * dout]);
-    const float w1 = to_f32(wj[(long long)(k + 1) * dout]);
-    const float w2 = to_f32(wj[(long long)(k + 2) * dout]);
-    const float w3 = to_f32(wj[(long long)(k + 3) * dout]);
+    const float w0 = round_op<RND>(to_f32(wj[(long long)k * dout]));
+    const float w1 = round_op<RND>(to_f32(wj[(long long)(k + 1) * dout]));
+    const float w2 = round_op<RND>(to_f32(wj[(long long)(k + 2) * dout]));
+    const float w3 = round_op<RND>(to_f32(wj[(long long)(k + 3) * dout]));
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const float4 hv = *reinterpret_cast<const float4*>(h + r * ld + k);
@@ -418,13 +463,13 @@ __device__ __forceinline__ void dot_rows(float (&acc)[kRows], const float* h,
     }
   }
   for (; k < kn; ++k) {
-    const float w = to_f32(wj[(long long)k * dout]);
+    const float w = round_op<RND>(to_f32(wj[(long long)k * dout]));
 #pragma unroll
     for (int r = 0; r < kRows; ++r) acc[r] = fmaf(h[r * ld + k], w, acc[r]);
   }
 }
 
-template <typename TW>
+template <typename TW, int RND>
 __global__ void __launch_bounds__(kThreads) mlp_layer(const LayerArgs a) {
   __shared__ __align__(16) float hs[kRows * kSlice];
   const long long row0 = (long long)blockIdx.x * kRows;
@@ -440,11 +485,13 @@ __global__ void __launch_bounds__(kThreads) mlp_layer(const LayerArgs a) {
     for (int i = threadIdx.x; i < kRows * kn; i += kThreads) {
       const int r = i / kn, c = i % kn;
       hs[r * kSlice + c] =
-          r < rows ? load_any(a.in, a.in_dtype,
-                              (row0 + r) * a.din + k0 + c) : 0.f;
+          r < rows ? round_op<RND>(load_any(a.in, a.in_dtype,
+                                            (row0 + r) * a.din + k0 + c))
+                   : 0.f;
     }
     __syncthreads();
-    if (j < a.dout) dot_rows<TW>(acc, hs, kSlice, W, a.dout, j, k0, kn);
+    if (j < a.dout)
+      dot_rows<TW, RND>(acc, hs, kSlice, W, a.dout, j, k0, kn);
   }
   if (j >= a.dout) return;
   const float bj = a.b ? load_any(a.b, a.b_dtype, j) : 0.f;
@@ -455,7 +502,7 @@ __global__ void __launch_bounds__(kThreads) mlp_layer(const LayerArgs a) {
                 activate(acc[r] + bj, a.act));
 }
 
-template <typename TW>
+template <typename TW, int RND>
 int launch(const void* x, void* y, float* ws, const long long* w,
            const long long* b, const long long* dims, int layers, int n,
            int x_dtype, int b_dtype, int act, cudaStream_t st) {
@@ -480,7 +527,7 @@ int launch(const void* x, void* y, float* ws, const long long* w,
     static bool opted = false;    // once an instance, for the widest
     if (!opted) {
       const cudaError_t e = cudaFuncSetAttribute(
-          mlp_fused<TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          mlp_fused<TW, RND>, cudaFuncAttributeMaxDynamicSharedMemorySize,
           (int)(sizeof(float) * 2 * kRows * kMaxLd +
                 sizeof(TW) * kStages * Ring<TW>::kKs * kCw));
       if (e != cudaSuccess) return (int)e;
@@ -512,18 +559,35 @@ int launch(const void* x, void* y, float* ws, const long long* w,
       a.b_dtype = b_dtype;
       a.act = act;
       a.ldp = ldp;
-      mlp_fused<TW><<<blocks, kThreads, smem, st>>>(a);
+      mlp_fused<TW, RND><<<blocks, kThreads, smem, st>>>(a);
     } else {
       LayerArgs a = {in, out, reinterpret_cast<const void*>(w[l0]),
                      reinterpret_cast<const void*>(b[l0]), (int)dims[l0],
                      (int)dims[l0 + 1], n, in_dt, out_dt, b_dtype, act};
       dim3 grid(blocks, (unsigned)((dims[l0 + 1] + kThreads - 1) / kThreads));
-      mlp_layer<TW><<<grid, kThreads, 0, st>>>(a);
+      mlp_layer<TW, RND><<<grid, kThreads, 0, st>>>(a);
     }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
+}
+
+template <typename TW>
+int launch_mode(int rnd, const void* x, void* y, float* ws,
+                const long long* w, const long long* b,
+                const long long* dims, int layers, int n, int x_dtype,
+                int b_dtype, int act, cudaStream_t st) {
+  if (rnd == 0)
+    return launch<TW, 0>(x, y, ws, w, b, dims, layers, n, x_dtype, b_dtype,
+                         act, st);
+  if (rnd == kBF16)
+    return launch<TW, 1>(x, y, ws, w, b, dims, layers, n, x_dtype, b_dtype,
+                         act, st);
+  if (rnd == kF16)
+    return launch<TW, 2>(x, y, ws, w, b, dims, layers, n, x_dtype, b_dtype,
+                         act, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -533,11 +597,13 @@ int launch(const void* x, void* y, float* ws, const long long* w,
 // device workspace of 2·n·(widest hidden layer) elements, needed (else 0)
 // when the layers take more than one launch (mlp._workspace_cols). Dtypes:
 // 0 = f32, 1 = bf16, 2 = fp16 (the weights one dtype, the biases one);
-// act: 0 = none, 1 = relu, 2 = sigmoid. The struct is followed in memory
+// act: 0 = none, 1 = relu, 2 = sigmoid; rnd: the half-operand mode, 0 =
+// off, 1 = bf16, 2 = fp16 (each product's operands rounded to it). The
+// struct is followed in memory
 // by `layers` weight addresses, `layers` bias addresses (all 0: no bias)
 // and the layers + 1 widths, 64 bits each.
 struct MlpCall {
-  long long x, y, ws, n, layers, x_dtype, w_dtype, b_dtype, act;
+  long long x, y, ws, n, layers, x_dtype, w_dtype, b_dtype, act, rnd;
 };
 
 // Launches on stream (mlp._launches(dims) launches); returns the CUDA
@@ -553,14 +619,16 @@ extern "C" int apex_mlp_fwd(const MlpCall* k, void* stream) {
   void* y = reinterpret_cast<void*>(k->y);
   float* ws = reinterpret_cast<float*>(k->ws);
   const int L = (int)layers, N = (int)n, xd = (int)k->x_dtype;
-  const int bd = (int)k->b_dtype, act = (int)k->act;
+  const int bd = (int)k->b_dtype, act = (int)k->act, rnd = (int)k->rnd;
   cudaStream_t st = (cudaStream_t)stream;
   if (k->w_dtype == kF32)
-    return launch<float>(x, y, ws, w, b, dims, L, N, xd, bd, act, st);
+    return launch_mode<float>(rnd, x, y, ws, w, b, dims, L, N, xd, bd, act,
+                              st);
   if (k->w_dtype == kBF16)
-    return launch<__nv_bfloat16>(x, y, ws, w, b, dims, L, N, xd, bd, act,
-                                 st);
+    return launch_mode<__nv_bfloat16>(rnd, x, y, ws, w, b, dims, L, N, xd,
+                                      bd, act, st);
   if (k->w_dtype == kF16)
-    return launch<__half>(x, y, ws, w, b, dims, L, N, xd, bd, act, st);
+    return launch_mode<__half>(rnd, x, y, ws, w, b, dims, L, N, xd, bd, act,
+                               st);
   return (int)cudaErrorInvalidValue;
 }

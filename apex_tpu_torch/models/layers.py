@@ -36,6 +36,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from apex_tpu_torch.amp import functional_patch
 from apex_tpu_torch.amp.interceptor import module_cast_dtype
 from apex_tpu_torch.parallel.sync_batchnorm import (converted_axis,
                                                     pmean_moments)
@@ -121,8 +122,11 @@ class Conv(nn.Module):
             (ht, hb), (wl, wr) = pads
             x = F.pad(x, (0, 0, wl, wr, ht, hb))
             pads = [(0, 0), (0, 0)]
-        y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.strides,
-                     padding=tuple(lo for lo, _ in pads))
+        # auto_cast decided this call's dtype: the functional patch stays
+        # out of the module's body, as the JAX interceptor suspends it
+        with functional_patch.suspend():
+            y = F.conv2d(x.permute(0, 3, 1, 2), w, stride=self.strides,
+                         padding=tuple(lo for lo, _ in pads))
         return y.permute(0, 2, 3, 1)
 
 
@@ -157,9 +161,10 @@ class ConvTranspose(nn.Module):
         x = cast_input(self, x)
         dt = _compute_dtype(self, x, self.weight)
         w = self.weight.to(dt).contiguous(memory_format=torch.channels_last)
-        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2), w,
-                               stride=self.strides, padding=self.pad,
-                               output_padding=self.output_pad)
+        with functional_patch.suspend():
+            y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2), w,
+                                   stride=self.strides, padding=self.pad,
+                                   output_padding=self.output_pad)
         return y.permute(0, 2, 3, 1)
 
 

@@ -34,6 +34,7 @@ import math
 
 import torch
 
+from apex_tpu_torch.amp import functional_patch
 from apex_tpu_torch.ops import _build
 
 NEG_INF = -1e30
@@ -345,6 +346,9 @@ def _keep(q, k, seed, rate, dbo):
                             rate, dbo).view(b, h, sq, sk)
 
 
+# the plain versions run with the O1 functional patch suspended: the JAX
+# package's flash kernels reach no patched entry point
+@functional_patch.unpatched
 def flash_fwd_plain(q, k, v, scale, bias=None, causal=False, causal_off=None,
                     seed=None, rate=0.0, dbo=None):
     b, sq, h, _ = q.shape
@@ -367,6 +371,7 @@ def flash_fwd_plain(q, k, v, scale, bias=None, causal=False, causal_off=None,
     return o.transpose(1, 2).to(q.dtype), lse
 
 
+@functional_patch.unpatched
 def flash_bwd_plain(q, k, v, do, lse, delta, scale, bias=None, causal=False,
                     causal_off=None, seed=None, rate=0.0, dbo=None):
     b, sq, h, _ = q.shape
@@ -519,11 +524,13 @@ def flash_attention_lse(q, k, v, bias=None, scale=None, causal=False, *,
 
 
 def attention_reference(q, k, v, bias=None, scale=None, causal=False):
-    """Plain-PyTorch oracle in fp32 (the reference's ``impl='default'``)."""
+    """Plain-PyTorch oracle in fp32 (the reference's ``impl='default'``),
+    with the O1 functional patch suspended, as the JAX package's."""
     scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
     return _attention_reference(q, k, v, bias, scale, causal)
 
 
+@functional_patch.unpatched
 def _attention_reference(q, k, v, bias, scale, causal):
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     if bias is not None:

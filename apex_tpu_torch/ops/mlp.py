@@ -11,6 +11,15 @@ Port of ``apex_tpu/ops/mlp.py``. Kernel replaced (source under
   with ``cp.async``; a width too large for that runs one launch per layer
   over an f32 workspace.
 
+Under amp O1 the JAX package's functional patch casts both operands of the
+kernel body's ``jnp.dot`` (and of ``mlp_reference``'s) to the policy's half
+dtype. The port's :func:`fused_mlp` and :func:`mlp_reference` read that
+dtype from :func:`apex_tpu_torch.amp.functional_patch.half_operand_dtype`
+(the innermost O1 ``auto_cast`` on this thread, unless suspended) and round
+each product's operands to it, summing in f32 as before: the kernel's
+half-operand mode (``operand_dtype``), and the same rounding in its plain
+version.
+
 As in the JAX package, the kernel is taken only when the weights fit its
 budget (``WEIGHT_BUDGET``: the weights' element count at 4 bytes each,
 whatever their dtype, ``<=`` 8 MiB); over it ``fused_mlp`` computes
@@ -18,7 +27,10 @@ whatever their dtype, ``<=`` 8 MiB); over it ``fused_mlp`` computes
 choice decides the function computed, on the CPU and on the card alike, and
 launches nothing. The backward is the autograd of :func:`mlp_reference`
 recomputed from (x, W, b), as the JAX package's ``_mlp_bwd``: its products
-are plain ``torch.matmul``, as the JAX package leaves them to XLA.
+are plain ``torch.matmul``, as the JAX package leaves them to XLA, with the
+operands rounded as the mode stands when the backward runs (off once the
+user's ``auto_cast`` block has closed, as in JAX, whose ``_mlp_bwd`` is
+traced when ``jax.grad`` transposes, after the block).
 
 The parameters keep the JAX layout: ``weight_i`` is (Dᵢ, Dᵢ₊₁), not
 ``nn.Linear``'s (out, in), so ``convert`` carries them across as they are.
@@ -35,6 +47,7 @@ from typing import Sequence
 import torch
 import torch.nn as nn
 
+from apex_tpu_torch.amp import functional_patch
 from apex_tpu_torch.ops import _build
 
 #: bytes of f32 weights the kernel takes (``_VMEM_WEIGHT_BUDGET``)
@@ -78,29 +91,62 @@ def weights_fit(weights) -> bool:
     return sum(w.numel() for w in weights) * 4 <= WEIGHT_BUDGET
 
 
+def _operand(t, operand_dtype):
+    """f32 ``t`` rounded to ``operand_dtype`` (round to nearest even) and
+    widened back, or ``t`` as it is for None."""
+    return t if operand_dtype is None else t.to(operand_dtype).float()
+
+
 def mlp_reference(x, weights, biases=None, activation="relu"):
     """The plain chain (``mlp.py:68``): each layer's product in f32 rounded
     to x's dtype, the bias added in that dtype, the activation after every
-    layer including the last."""
+    layer including the last. Under an O1 ``auto_cast`` each product's
+    operands are first rounded to the policy's half dtype, as the JAX
+    package's patched ``jnp.dot`` casts them."""
     _check_activation(activation)
     act = _ACTS[activation]
+    od = functional_patch.half_operand_dtype()
     h = x
-    for i, w in enumerate(weights):
-        h = torch.matmul(h.float(), w.float()).to(x.dtype)
-        if biases is not None:
-            h = h + biases[i].to(h.dtype)
-        h = act(h)
+    with functional_patch.suspend():
+        for i, w in enumerate(weights):
+            h = torch.matmul(_operand(h.float(), od),
+                             _operand(w.float(), od)).to(x.dtype)
+            if biases is not None:
+                h = h + biases[i].to(h.dtype)
+            h = act(h)
     return h
 
 
-def mlp_fused_reference(x, weights, biases=None, activation="relu"):
+def mlp_fused_reference(x, weights, biases=None, activation="relu",
+                        operand_dtype=None):
     """The kernel's plain version (``_mlp_kernel``): f32 throughout, one
-    cast to x's dtype at the end."""
+    cast to x's dtype at the end.
+
+    ``operand_dtype`` (bf16 or fp16) is the kernel's half-operand mode:
+    each product's two operands rounded to that dtype first. Their products
+    are then exact in f32, so summing them one k at a time in increasing k,
+    as the kernel's FMA chain does, gives the kernel's sums bit for bit;
+    a matrix product would sum in another order, and with every layer's
+    output rounded to half for the next, a sum a bit apart can round to
+    the neighbouring half value and carry a whole half ulp forward."""
     _check_activation(activation)
     act = _ACTS[activation]
     h = x.float()
+    if operand_dtype is None:
+        with functional_patch.suspend():
+            for i, w in enumerate(weights):
+                h = torch.matmul(h, w.float())
+                if biases is not None:
+                    h = h + biases[i].float()
+                h = act(h)
+        return h.to(x.dtype)
     for i, w in enumerate(weights):
-        h = torch.matmul(h, w.float())
+        a = _operand(h, operand_dtype)
+        w = _operand(w.float(), operand_dtype)
+        h = torch.zeros(a.shape[0], w.shape[1], dtype=torch.float32,
+                        device=a.device)
+        for k in range(w.shape[0]):
+            h = h + a[:, k:k + 1] * w[k:k + 1]
         if biases is not None:
             h = h + biases[i].float()
         h = act(h)
@@ -112,7 +158,7 @@ def mlp_fused_reference(x, weights, biases=None, activation="relu"):
 #: ``MlpCall`` of ``csrc/mlp_fwd.cu``, field by field, every field 64 bits;
 #: the layers' weight and bias addresses and widths follow it.
 MLP_CALL_FIELDS = ("x", "y", "ws", "n", "layers", "x_dtype", "w_dtype",
-                   "b_dtype", "act")
+                   "b_dtype", "act", "rnd")
 _MLP_CALL = struct.Struct(f"<{len(MLP_CALL_FIELDS)}q")
 
 
@@ -143,12 +189,18 @@ def _workspace_cols(dims) -> int:
     return 2 * max(dims[1:-1])
 
 
-def mlp_fwd_kernel(x, weights, biases=None, activation="relu"):
+def mlp_fwd_kernel(x, weights, biases=None, activation="relu",
+                   operand_dtype=None):
     """CUDA forward of an (n, D₀) x through every layer: (n, D_L) in x's
     dtype. x, the weights and the biases are contiguous tensors on one
     card; x f32, bf16 or fp16; the weights one of those dtypes together,
-    each (Dᵢ, Dᵢ₊₁); the biases one dtype together, each (Dᵢ₊₁,)."""
+    each (Dᵢ, Dᵢ₊₁); the biases one dtype together, each (Dᵢ₊₁,).
+    ``operand_dtype`` (bf16 or fp16) is the half-operand mode: each
+    product's two operands rounded to it, summed in f32."""
     _check_activation(activation)
+    if operand_dtype not in (None, torch.bfloat16, torch.float16):
+        raise ValueError(f"operand_dtype must be None, bfloat16 or float16, "
+                         f"got {operand_dtype}")
     weights = list(weights)
     if x.dim() != 2 or not weights:
         raise ValueError(f"mlp_fwd takes a 2-D x and at least one weight; "
@@ -183,7 +235,8 @@ def mlp_fwd_kernel(x, weights, biases=None, activation="relu"):
         x.data_ptr(), y.data_ptr(), 0 if ws is None else ws.data_ptr(), n, L,
         _DTYPES[x.dtype], _DTYPES[weights[0].dtype],
         0 if biases is None else _DTYPES[biases[0].dtype],
-        _ACT_CODES[activation]) + struct.pack(
+        _ACT_CODES[activation],
+        0 if operand_dtype is None else _DTYPES[operand_dtype]) + struct.pack(
         f"<{3 * L + 1}q", *[w.data_ptr() for w in weights],
         *([b.data_ptr() for b in biases] if biases is not None else [0] * L),
         *dims)
@@ -202,7 +255,8 @@ class _FusedMLPFn(torch.autograd.Function):
     backward: the vector-Jacobian product of :func:`mlp_reference`."""
 
     @staticmethod
-    def forward(ctx, x, activation, n_layers, has_bias, *params):
+    def forward(ctx, x, activation, n_layers, has_bias, operand_dtype,
+                *params):
         weights = params[:n_layers]
         biases = params[n_layers:] if has_bias else None
         ctx.activation, ctx.n_layers, ctx.has_bias = (activation, n_layers,
@@ -213,9 +267,10 @@ class _FusedMLPFn(torch.autograd.Function):
                                [w.contiguous() for w in weights],
                                None if biases is None
                                else [b.contiguous() for b in biases],
-                               activation)
+                               activation, operand_dtype)
         else:
-            y = mlp_fused_reference(x, weights, biases, activation)
+            y = mlp_fused_reference(x, weights, biases, activation,
+                                    operand_dtype)
         return y
 
     @staticmethod
@@ -228,14 +283,16 @@ class _FusedMLPFn(torch.autograd.Function):
                               inputs[L + 1:] if ctx.has_bias else None,
                               ctx.activation)
         grads = torch.autograd.grad(y, inputs, g)
-        return (grads[0], None, None, None, *grads[1:])
+        return (grads[0], None, None, None, None, *grads[1:])
 
 
 def fused_mlp(x, weights, biases=None, activation="relu"):
     """Whole-MLP forward ``x @ W0 (+b0) act @ W1 (+b1) act ...`` over x's
     last dim; ``weights`` (Dᵢ, Dᵢ₊₁) matrices, ``biases`` a matching
     sequence or None. Within ``WEIGHT_BUDGET``: the kernel on a CUDA tensor,
-    its plain version on a CPU one; over it: :func:`mlp_reference`."""
+    its plain version on a CPU one; over it: :func:`mlp_reference`. Under
+    an O1 ``auto_cast`` the kernel runs in its half-operand mode at the
+    policy's half dtype."""
     _check_activation(activation)
     weights = tuple(weights)
     if not weights_fit(weights):
@@ -243,7 +300,8 @@ def fused_mlp(x, weights, biases=None, activation="relu"):
     lead, d0 = x.shape[:-1], x.shape[-1]
     params = weights + (tuple(biases) if biases is not None else ())
     y = _FusedMLPFn.apply(x.reshape(-1, d0), activation, len(weights),
-                          biases is not None, *params)
+                          biases is not None,
+                          functional_patch.half_operand_dtype(), *params)
     return y.reshape(*lead, y.shape[-1])
 
 

@@ -78,9 +78,16 @@ def tree_select(pred, on_true, on_false):
     return tree_map(lambda a, b: torch.where(pred, a, b), on_true, on_false)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """Global L2 norm over all leaves, computed in fp32."""
+def global_norm(tree, ord=2) -> torch.Tensor:
+    """Global L2 (``ord=2``) or Linf (``ord=inf``, ``"inf"``) norm over all
+    leaves, computed in fp32."""
     leaves = tree_leaves(tree)
     if not leaves:
         return torch.tensor(0.0)
-    return torch.sqrt(sum(torch.sum(torch.square(x.float())) for x in leaves))
+    if ord == 2:
+        return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                              for x in leaves))
+    if ord == float("inf") or ord == "inf":
+        return torch.stack([torch.max(torch.abs(x.float()))
+                            for x in leaves]).max()
+    raise ValueError(f"unsupported ord={ord}")

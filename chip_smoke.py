@@ -95,6 +95,26 @@ plain PyTorch version on the card at the shapes its main path gives it
   kernel and through the plain versions; and a short fp16 run with three
   dynamic loss scalers takes a forced overflow on one of them.
 
+- The amp remainder, fp16_utils and the legacy optimizers, last: DLRM's
+  bottom MLP through ``amp.initialize(..., "O1")`` with the loss under
+  ``auto_cast`` (phase mlp_dlrm_bottom_o1: one ``mlp_fwd`` launch a step
+  in the kernel's bf16-operand mode, 2:4 after every step, one step
+  against the plain versions); the JAX package's L1 grid (phase l1_grid:
+  O0-O3 x dynamic/static/none scaling x keep-BN, the kernel path against
+  the plain versions with a plain SGD replica, decisions bit for bit, an
+  fp16 overflow injection and a resume); BERT-Large set up by
+  ``amp.initialize(..., "O2", half_dtype=torch.float16)`` with two
+  microbatches of B8 a step through ``backward_accumulate`` until 5 steps
+  are applied (phase bert_large_o2_fp16_accum: the accumulated grads
+  against one B16 backward, a ``state_dict`` resume bit for bit); the
+  pre-amp ``FP16_Optimizer`` from the legacy scale 2**32 until 5 steps are
+  applied (phase bert_large_fp16_optimizer); and one update of each legacy
+  optimizer on a gradient scaled by 1024 against the modern one on the
+  unscaled gradient (phase legacy_updates). The kernel phase also holds
+  the LayerNorm, flash and cross-entropy kernels in fp16 at BERT-Large's
+  shapes against their plain versions, and the MLP kernel's half-operand
+  mode bit for bit against its plain version (row ``mlp_fwd_o1``).
+
 Prints one line per phase (and each CUDA kernel's registers and spills
 from ``ptxas -v``), the card's name and power limit, a JSON line of
 per-kernel numbers, and as its last line
@@ -152,9 +172,21 @@ MULTI_TENSOR_OPS = {"multi_tensor_maxnorm": 1, "multi_tensor_scale": 1,
 MLP_PER_STEP = {"mlp_fwd": 1, "adam": 1}
 MLP_STEPS = 20
 MLP_BOTTOM = (13, 512, 256, 128)
+# mlp_dlrm_bottom_o1: relative L2 of each param's one-step update, kernel
+# path against plain path (the forward is bitwise, and on an H100 the
+# whole update was too: 0.0); an update missing or wrong in a layer is O(1)
+MLP_O1_UPDATE_TOL = 1e-4
 # the reference Apex test's widths (DLRM's top MLP over a 480-wide input):
 # 8,782,848 bytes of f32 weights, over the kernel's 8 MiB budget
 MLP_OVER_BUDGET = (480, 1024, 1024, 512, 256, 1)
+# BERT-Large at O2 fp16 with two microbatches of B8 a step through
+# backward_accumulate: every kernel of the forward and backward twice a
+# step, the arena LAMB once; steps until 5 are applied, at most 10
+BERT_ACCUM_PER_STEP = dict({k: 2 * v for k, v in EXPECTED_PER_STEP.items()},
+                           **ARENA_PER_STEP)
+BERT_ACCUM_MAX_STEPS = 10
+# FP16_Optimizer from the legacy 2**32: backwards until 5 steps are applied
+FP16_OPT_MAX_BACKWARDS = 32
 REPLACES = {
     "layer_norm_fwd": "apex_tpu/ops/layer_norm.py:62",
     "layer_norm_bwd": "apex_tpu/ops/layer_norm.py:111",
@@ -237,6 +269,12 @@ EXTRA_ZERO_ROWS = {
     "flash_ring_hop_bwd": ("flash_attn_bwd",
                            "apex_tpu/ops/attention.py:1064",
                            "ring_two_ranks"),
+}
+# the MLP kernel's half-operand mode (amp O1's functional patch) at the DLRM
+# bottom MLP's shape: {row: (kernel, TPU kernel replaced, phase)}
+EXTRA_O1_ROWS = {
+    "mlp_fwd_o1": ("mlp_fwd", "apex_tpu/ops/mlp.py:52",
+                   "mlp_dlrm_bottom_o1"),
 }
 # the ring's geometry on the card: BERT-Large's attention width (H16, D64),
 # B2, a global sequence of 8192 over two ranks (4096 a rank)
@@ -490,7 +528,7 @@ def bench_tools(rows):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = max(flops / peak, int_ops / F32_FLOPS) * 1e3
         kernel, replaces, _ = {**EXTRA_ROWS, **EXTRA_BN_ROWS,
-                               **EXTRA_ZERO_ROWS}.get(
+                               **EXTRA_ZERO_ROWS, **EXTRA_O1_ROWS}.get(
             name, (name, REPLACES.get(name), None))
         route, src = SOURCES[kernel]
         rows[name] = {
@@ -635,6 +673,7 @@ def check_kernels(rows):
     check_zero_kernels(rnd, flush, row)
     check_ring_hop_kernels(rnd, flush, row)
     check_mlp_kernel(rnd, flush, row)
+    check_fp16_kernels(rnd, gen, flush, row)
     log(f"phase kernels: device_ms sessions lost at most {_LOST[0]} leading "
         f"kernel records (each opened with {_LEAD[0]} short spins)")
 
@@ -2036,7 +2075,8 @@ def take_phase_launches(phase, rows):
     from the run ``check_launches`` just recorded for ``phase``; the others
     keep theirs."""
     for name, (kernel, _, driven_by) in {**EXTRA_ROWS, **EXTRA_BN_ROWS,
-                                         **EXTRA_ZERO_ROWS}.items():
+                                         **EXTRA_ZERO_ROWS,
+                                         **EXTRA_O1_ROWS}.items():
         if driven_by == phase:
             rows[name]["launches"] = rows[kernel]["launches"]
 
@@ -4308,6 +4348,665 @@ def fp16_overflow_run():
     log("phase fp16_overflow: scale halved, params and step held")
 
 
+# --- the amp remainder, fp16_utils and the legacy optimizers -----------------
+
+def check_fp16_kernels(rnd, gen, flush, row):
+    """fp16 at BERT-Large's shapes against the plain versions (TOL16; f32
+    outputs TOL32): LayerNorm forward and backward on fp16 x with fp16 γ/β
+    (as O2 and ``network_to_half`` give them) and with f32 γ/β;
+    flash forward and backward on fp16 q/k/v, plain and with the padding
+    bias and dropout 0.1; cross-entropy on fp16 logits. Then the MLP
+    kernel's half-operand mode (row mlp_fwd_o1): at the DLRM bottom MLP's
+    shape in f32 (as O1 gives it) with bf16 and fp16 operands and at the
+    budget's edge, and a layer past the fused width (one launch a layer
+    over the f32 workspace), each bit for bit against its plain version
+    (operands rounded, so every product is exact in f32 and the plain
+    version sums them in the kernel's order) and against a second launch,
+    timed beside the plain version and the chain of ``torch.addmm`` + ReLU
+    on the rounded operands upcast to f32 (the same function). The bound
+    is at the tensor cores' bf16/fp16 rate: half operands, f32 sums."""
+    import torch
+    from apex_tpu_torch.ops import attention as A
+    from apex_tpu_torch.ops import layer_norm as L
+    from apex_tpu_torch.ops import mlp as P
+    from apex_tpu_torch.ops import xentropy as X
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    fp16, f32 = torch.float16, torch.float32
+    x = rnd(8192, 1024, dtype=fp16, std=2.0) + 0.5
+    w = rnd(1024, dtype=f32, std=0.2) + 1.0
+    b = rnd(1024, dtype=f32, std=0.2)
+    g = rnd(8192, 1024, dtype=fp16)
+    errs = {}
+    # O2 and network_to_half give BERT's LayerNorms fp16 gamma/beta; f32
+    # gamma/beta is the extra case
+    for wdt in (fp16, f32):
+        wt, bt, name = w.to(wdt), b.to(wdt), f"{wdt}".split(".")[-1]
+        errs[f"layer_norm_fwd {name} gamma"] = compare(
+            f"layer_norm_fwd fp16 x, {name} gamma",
+            [L.ln_fwd_kernel(x, wt, bt, 1e-12)],
+            [L.ln_fwd_plain(x, wt, bt, 1e-12)])
+        errs[f"layer_norm_bwd {name} gamma"] = compare(
+            f"layer_norm_bwd fp16 x, {name} gamma",
+            L.ln_bwd_kernel(g, x, wt, 1e-12),
+            L.ln_bwd_plain(g, x, wt, 1e-12))
+    del x, g
+    i32 = torch.tensor([4242], dtype=torch.int32, device=dev)
+    for label, opts in (("plain", {}), ("padding+dropout 0.1", dict(
+            bias=_padding_bias(gen, 16, 512), rate=0.1, seed=i32))):
+        q, k, v, do = (rnd(16, 512, 16, 64, dtype=fp16) for _ in range(4))
+        scale = 0.125
+        errs[f"flash_attn_fwd {label}"] = compare(
+            f"flash_attn_fwd fp16 {label}",
+            A.flash_fwd_kernel(q, k, v, scale, **opts),
+            A.flash_fwd_plain(q, k, v, scale, **opts))
+        o, lse = A.flash_fwd_plain(q, k, v, scale, **opts)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
+            16 * 16, 512).contiguous()
+        errs[f"flash_attn_bwd {label}"] = compare(
+            f"flash_attn_bwd fp16 {label}",
+            A.flash_bwd_kernel(q, k, v, do, lse, delta, scale, **opts),
+            A.flash_bwd_plain(q, k, v, do, lse, delta, scale, **opts))
+        del q, k, v, do, o, lse, delta
+    n, vocab = 8192, 30522
+    logits = rnd(n, vocab, dtype=fp16, std=3.0)
+    labels = torch.randint(0, vocab, (n,), generator=gen, device=dev)
+    labels[torch.rand(n, generator=gen, device=dev) < 0.15] = -1
+    gl = torch.rand(n, generator=gen, device=dev)
+    errs["xentropy_fwd"] = compare(
+        "xentropy_fwd fp16", X.xentropy_fwd_kernel(logits, labels, 0.0),
+        X.xentropy_fwd_plain(logits, labels, 0.0))
+    _, lse = X.xentropy_fwd_plain(logits, labels, 0.0)
+    errs["xentropy_bwd"] = compare(
+        "xentropy_bwd fp16", [X.xentropy_bwd_kernel(logits, labels, lse, gl,
+                                                    0.0)],
+        [X.xentropy_bwd_plain(logits, labels, lse, gl, 0.0)])
+    del logits
+    log("phase kernels: fp16 at BERT-Large's shapes agrees with the plain "
+        "versions: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+    for label, n, dims, od, want in (
+            ("path", 2048, list(MLP_BOTTOM), torch.bfloat16, 1),
+            ("path fp16", 2048, list(MLP_BOTTOM), fp16, 1),
+            ("edge", 8192, [1024, 1024, 1024], torch.bfloat16, 1),
+            ("wide", 200, [96, 4096, 48], torch.bfloat16, 2),
+            ("wide fp16", 200, [96, 4096, 48], fp16, 2)):
+        x, ws, bs = _mlp_operands(rnd, n, dims, "relu", True, f32, f32)
+        before = P.mlp_fwd_kernel.launches
+        out = P.mlp_fwd_kernel(x, ws, bs, "relu", od)
+        if P.mlp_fwd_kernel.launches - before != want:
+            raise AssertionError(f"mlp_fwd_o1 {label}: expected {want} "
+                                 f"launches")
+        plain_out = P.mlp_fused_reference(x, ws, bs, "relu", od)
+        err = compare(f"mlp_fwd_o1 {label} {od}", [out], [plain_out], 1e-4)
+        if not torch.equal(out, plain_out):
+            raise AssertionError(f"mlp_fwd_o1 {label}: not bitwise equal to "
+                                 f"the plain version")
+        if not torch.equal(out, P.mlp_fwd_kernel(x, ws, bs, "relu", od)):
+            raise AssertionError(f"mlp_fwd_o1 {label}: two launches differ")
+        off = (out - P.mlp_fwd_kernel(x, ws, bs, "relu")).abs().max().item()
+        if off == 0.0:
+            raise AssertionError(f"mlp_fwd_o1 {label}: the mode changed "
+                                 f"nothing")
+        xr = x.to(od).float()
+        wr = [t.to(od).float() for t in ws]
+
+        def chain():
+            h = xr
+            for i, t in enumerate(wr):
+                if i:
+                    h = h.to(od).float()
+                h = torch.relu(torch.addmm(bs[i], h, t))
+            return h
+
+        kernel = lambda: P.mlp_fwd_kernel(x, ws, bs, "relu", od)  # noqa
+        ms = timed(kernel, flush=flush)
+        plain = timed(lambda: P.mlp_fused_reference(x, ws, bs, "relu", od),
+                      iters=3, flush=flush)
+        lib = timed(chain, flush=flush)
+        nbytes = (x.numel() + n * dims[-1]) * 4 + sum(
+            t.numel() * 4 for t in ws + bs)
+        flops = 2 * n * sum(a * c for a, c in zip(dims, dims[1:]))
+        dev_ms = device_ms(kernel, flush=flush)
+        # the function's products are of half operands with f32 sums: the
+        # tensor cores' rate, though the kernel runs them as f32 FMAs
+        if label == "path":
+            row("mlp_fwd_o1", err, ms, plain, lib, nbytes, flops, BF16_FLOPS,
+                dev_ms=dev_ms, lib_dev_ms=device_ms(chain, flush=flush))
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        log(f"kernel mlp_fwd_o1 {label} {n}x{dims} f32, {od} operands: "
+            f"bitwise as the plain version, {off:.3e} from the mode off; "
+            f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms)  plain "
+            f"{plain:.4f} ms  library (addmm chain) {lib:.4f} ms  bound "
+            f"{max(t_bytes, t_ops) * 1e3:.4f} ms "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+    log(f"phase kernels: fp16 checks and mlp_fwd_o1 in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def _bert_inputs(batch, seq, seed=0, vocab=30000):
+    """Tokens and labels as ``train.build_bert_step`` draws them."""
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(seed)
+    toks = torch.as_tensor(rng.randint(0, vocab, (batch, seq)),
+                           dtype=torch.int64, device="cuda")
+    labels = torch.as_tensor(rng.randint(0, vocab, (batch, seq)),
+                             dtype=torch.int64, device="cuda")
+    return toks, labels
+
+
+def _mlm_fn(enc, policy=None, div=1.0):
+    """``loss_fn(mp, toks, labels)``: the MLM loss of ``enc`` at ``mp``
+    (under ``auto_cast(policy)`` when given), divided by ``div``."""
+    from torch.func import functional_call
+    from apex_tpu_torch import amp
+    from apex_tpu_torch.models.transformer import _mlm_head
+
+    def loss_fn(mp, toks, labels):
+        scope = (amp.auto_cast(policy) if policy is not None
+                 else contextlib.nullcontext())
+        with scope:
+            hidden = functional_call(enc, mp, (toks,))
+            return _mlm_head(hidden, mp["tok_emb.weight"], labels) / div
+    return loss_fn
+
+
+def _equal_trees(a, b):
+    import torch
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm().clamp_min(
+        1e-30)).item()
+
+
+def bert_large_o2_fp16_accum(enc):
+    """This slice's main path: BERT-Large (B16 S512) set up by
+    ``amp.initialize(params, FusedLAMB(lr=1e-3, strategy="arena"), "O2",
+    half_dtype=torch.float16)``; each step two microbatches of B8 through
+    ``backward_accumulate`` (each loss halved) and one ``apply_gradients``,
+    until 5 steps are applied (at most BERT_ACCUM_MAX_STEPS). Hard checks:
+    BERT_ACCUM_PER_STEP launches a step; every skipped step holds params,
+    the optimizer count and ``step`` and halves the scale; the losses of
+    applied steps finite; the first applied step's accumulated grads
+    within 1e-2 relative L2 per tensor of one B16 backward from the same
+    state; a ``state_dict`` taken after step 2, carried with the params,
+    optimizer state and step into the state of a second ``initialize``,
+    continues steps 3-4 bit for bit (losses, scale, params). Returns
+    (state, accumulated grads of the last step)."""
+    import torch
+    from apex_tpu_torch import amp, ops
+    from apex_tpu_torch.optim import FusedLAMB
+
+    phase = "bert_large_o2_fp16_accum"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = dict(enc.named_parameters())
+    amp_opt, state = amp.initialize(
+        params, FusedLAMB(lr=1e-3, strategy="arena"), "O2",
+        half_dtype=torch.float16)
+    footprint = amp_opt.memory_footprint(params)
+    toks, labels = _bert_inputs(16, 512)
+    micro = [(toks[:8], labels[:8]), (toks[8:], labels[8:])]
+    loss_fn = _mlm_fn(enc, amp_opt.policy, div=2.0)
+
+    def step(state):
+        return _accum_step(amp_opt, state, micro, loss_fn)
+
+    ops.reset_launch_counts()
+    times, log_rows, applied, steps = [], [], 0, 0
+    saved, first_acc = None, None
+    while applied < 5:
+        if steps == BERT_ACCUM_MAX_STEPS:
+            raise AssertionError(f"{phase}: {applied} steps applied in "
+                                 f"{steps}")
+        before = state
+        scale0 = state.scalers[0].loss_scale.item()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, acc, fin, loss = step(state)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if steps == 0:       # before the checks below hold extra states
+            step_peak = torch.cuda.max_memory_allocated() / 2**30
+        ok = bool(fin.item())
+        scale1 = state.scalers[0].loss_scale.item()
+        log_rows.append((steps, loss.item(), ok, scale0, scale1, times[-1]))
+        if not ok:
+            same = _equal_trees(state.params, before.params)
+            if (scale1 != scale0 / 2 or not same
+                    or int(state.step) != int(before.step)
+                    or int(state.opt_state.count)
+                    != int(before.opt_state.count)):
+                raise AssertionError(f"{phase} step {steps}: a skipped step "
+                                     f"moved the state or did not halve the "
+                                     f"scale")
+        else:
+            applied += 1
+            if not math.isfinite(loss.item()):
+                raise AssertionError(f"{phase} step {steps}: loss {loss}")
+            if first_acc is None:
+                first_acc = (before, acc)
+        steps += 1
+        if steps == 3:
+            saved = (amp_opt.state_dict(state),
+                     {k: v.clone() for k, v in state.params.items()},
+                     type(state.opt_state)(
+                         count=state.opt_state.count.clone(),
+                         slots={n: {d: b.clone() for d, b in s.items()}
+                                for n, s in state.opt_state.slots.items()}),
+                     state.step.clone())
+        if steps == 5:
+            tail = (log_rows[3:5], state.params)
+    counts = ops.launch_counts()
+    for i, loss, ok, s0, s1, ms in log_rows:
+        log(f"{phase} step {i}: loss {loss:.6f} finite {ok} scale {s0:g} -> "
+            f"{s1:g}  {ms:.2f} ms")
+    check_launches(phase, counts, BERT_ACCUM_PER_STEP, None, steps)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    step_ms = sorted(times[1:5])[len(times[1:5]) // 2]
+    log(f"phase {phase}: launches per step "
+        f"{ {k: v // steps for k, v in counts.items() if v} }; {applied} "
+        f"applied of {steps} steps")
+    log(f"phase {phase}: median step {step_ms:.2f} ms (steps 1-4), "
+        f"{16 / step_ms * 1e3:.2f} seq/s, peak memory {step_peak:.2f} GiB "
+        f"over step 0 ({peak:.2f} GiB with the resume check's copies); "
+        f"memory_footprint {footprint}")
+
+    # the first applied step's accumulation against one B16 backward
+    st0, acc0 = first_acc
+    full_fn = _mlm_fn(enc, amp_opt.policy)
+    _, full, _, ffin = amp_opt.backward(st0, full_fn, toks, labels)
+    if not bool(ffin.item()):
+        raise AssertionError(f"{phase}: the B16 backward overflowed")
+    dist = {k: _rel_l2(acc0[k], full[k]) for k in full}
+    worst = max(dist, key=dist.get)
+    log(f"phase {phase}: accumulated grads vs one B16 backward: worst "
+        f"relative L2 {dist[worst]:.3e} ({worst}), median "
+        f"{sorted(dist.values())[len(dist) // 2]:.3e}")
+    if not dist[worst] <= 1e-2:
+        raise AssertionError(f"{phase}: accumulated grads {worst} at "
+                             f"{dist[worst]:.3e} > 1e-2 of the B16 grads")
+    del full, first_acc, st0, acc0
+
+    # resume: a second initialize, the state carried across, steps 3-4
+    sd, p2, o2, s2 = saved
+    amp_opt2, st2 = amp.initialize(params, FusedLAMB(lr=1e-3,
+                                                     strategy="arena"),
+                                   "O2", half_dtype=torch.float16,
+                                   verbosity=0)
+    st2 = amp_opt2.load_state_dict(st2._replace(params=p2, opt_state=o2,
+                                                step=s2), sd)
+    del saved, p2, o2
+    want_rows, want_params = tail
+    for i, want_loss, want_ok, _, want_scale, _ in want_rows:
+        st2, _, fin, loss = _accum_step(amp_opt2, st2, micro, loss_fn)
+        if (loss.item() != want_loss or bool(fin.item()) != want_ok
+                or st2.scalers[0].loss_scale.item() != want_scale):
+            raise AssertionError(f"{phase}: resumed step {i} differs: loss "
+                                 f"{loss.item()} vs {want_loss}")
+    if not _equal_trees(st2.params, want_params):
+        raise AssertionError(f"{phase}: resumed params differ after step 4")
+    log(f"phase {phase}: state_dict after step 2 carried into a second "
+        f"initialize; steps 3-4 bit for bit (losses, scale, params)")
+    del st2, amp_opt2, want_params, tail
+    return state, acc
+
+
+def _accum_step(amp_opt, state, micro, loss_fn):
+    """One accumulated step: each microbatch through
+    ``backward_accumulate``, then one ``apply_gradients``. Returns (state',
+    accumulated grads, finite, summed loss)."""
+    acc, fin, losses = None, True, []
+    for t, l in micro:
+        loss, acc, state, fin = amp_opt.backward_accumulate(
+            state, loss_fn, t, l, stashed=acc, finite=fin)
+        losses.append(loss)
+    return amp_opt.apply_gradients(state, acc, fin), acc, fin, sum(losses)
+
+
+def bert_large_fp16_optimizer(enc):
+    """The pre-amp path: BERT-Large (B16 S512) through
+    ``fp16_utils.FP16_Optimizer(FusedLAMB(lr=1e-3, strategy="arena"),
+    dynamic_loss_scale=True)`` (legacy schedule: init 2**32, never above
+    it), the forward at the masters cast as ``network_to_half(params)``
+    casts them, ``clip_master_grads(grads, 1.0)``, until 5 steps are
+    applied (at most FP16_OPT_MAX_BACKWARDS backwards). Hard checks: each
+    overflow halves the scale exactly and holds the masters and ``step``;
+    the scale never exceeds 2**32; one launch each of the arena LAMB
+    kernels a ``step`` call (the update is computed on every call and
+    committed only where the grads were finite). Returns (masters, the
+    last applied step's clipped grads)."""
+    import torch
+    from apex_tpu_torch import fp16_utils, ops
+    from apex_tpu_torch.optim import FusedLAMB
+
+    phase = "bert_large_fp16_optimizer"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = dict(enc.named_parameters())
+    like = fp16_utils.network_to_half(params)
+    ln_dtypes = sorted({str(v.dtype) for k, v in like.items()
+                        if "LayerNorm" in k})
+    opt = fp16_utils.FP16_Optimizer(FusedLAMB(lr=1e-3, strategy="arena"),
+                                    dynamic_loss_scale=True)
+    state = opt.init(params)
+    toks, labels = _bert_inputs(16, 512)
+    mlm = _mlm_fn(enc)
+
+    def loss_fn(mp):
+        return mlm({k: v.to(like[k].dtype) for k, v in mp.items()}, toks,
+                   labels)
+
+    ops.reset_launch_counts()
+    applied, calls, rows, times, grads = 0, 0, [], [], None
+    while applied < 5:
+        if calls == FP16_OPT_MAX_BACKWARDS:
+            raise AssertionError(f"{phase}: {applied} steps applied in "
+                                 f"{calls} backwards")
+        before = state
+        scale0 = opt.loss_scale(state).item()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g, fin, state = opt.backward(state, loss_fn)
+        g, norm = opt.clip_master_grads(g, 1.0)
+        state = opt.step(state, g, fin)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        ok = bool(fin.item())
+        scale1 = opt.loss_scale(state).item()
+        rows.append((calls, loss.item(), ok, scale0, scale1, norm.item()))
+        if scale1 > 2.0 ** 32:
+            raise AssertionError(f"{phase}: scale {scale1} > 2**32")
+        if ok:
+            applied += 1
+            grads = g
+            if not math.isfinite(loss.item()):
+                raise AssertionError(f"{phase}: loss {loss}")
+        elif (scale1 != scale0 / 2 or int(state.step) != int(before.step)
+              or not _equal_trees(state.masters, before.masters)):
+            raise AssertionError(f"{phase} backward {calls}: an overflow did "
+                                 f"not halve the scale and hold the state")
+        calls += 1
+    counts = ops.launch_counts()
+    for i, loss, ok, s0, s1, nrm in rows:
+        log(f"{phase} backward {i}: loss {loss:.6f} finite {ok} scale "
+            f"{s0:g} -> {s1:g} grad norm {nrm:.4g}")
+    check_launches(phase, counts, dict(EXPECTED_PER_STEP, **ARENA_PER_STEP),
+                   None, calls)
+    if int(state.step) != 5:
+        raise AssertionError(f"{phase}: state.step {int(state.step)}")
+    ms = [t for (_, _, ok, *_), t in zip(rows, times) if ok]
+    step_ms = sorted(ms)[len(ms) // 2]
+    log(f"phase {phase}: {calls - applied} overflows skipped before 5 "
+        f"applied steps (scale 2**32 -> {opt.loss_scale(state).item():g}); "
+        f"LayerNorm params as network_to_half gives them: {ln_dtypes}; "
+        f"median applied step {step_ms:.2f} ms, {16 / step_ms * 1e3:.2f} "
+        f"seq/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return state.masters, grads
+
+
+def legacy_updates(masters, grads):
+    """One update of each legacy optimizer (``legacy.FusedLAMB(
+    max_grad_norm=1.0)``, ``legacy.FusedAdam``, ``legacy.FusedSGD(
+    momentum=0.9)``) from BERT-Large's f32 params and a gradient scaled by
+    1024, with ``scale=1024.0, output_dtype=torch.float16``, against the
+    modern arena optimizer on the unscaled gradient: params and slots
+    within TOL_UPDATE of each tensor's max, the fp16 copy bitwise the new
+    params cast to fp16, and one launch of each optimizer kernel."""
+    import torch
+    from apex_tpu_torch import arena, ops
+    from apex_tpu_torch.optim import FusedAdam, FusedLAMB, FusedSGD, legacy
+
+    phase = "legacy_updates"
+    scaled = {k: g * 1024.0 for k, g in grads.items()}
+    spec = arena.plan(masters)
+    cases = (
+        ("FusedLAMB", legacy.FusedLAMB(max_grad_norm=1.0),
+         FusedLAMB(max_grad_norm=1.0, strategy="arena"),
+         dict(ARENA_PER_STEP)),
+        ("FusedAdam", legacy.FusedAdam(), FusedAdam(strategy="arena"),
+         dict(ADAM_PER_STEP)),
+        ("FusedSGD", legacy.FusedSGD(momentum=0.9),
+         FusedSGD(momentum=0.9, strategy="arena"), dict(SGD_PER_STEP)))
+    for name, lo, modern, per in cases:
+        ops.reset_launch_counts()
+        p1, s1, copy = lo.step(scaled, lo.init(masters), masters,
+                               scale=1024.0, output_dtype=torch.float16)
+        check_launches(f"{phase} {name}", ops.launch_counts(), per, None, 1)
+        p2, s2 = modern.step(grads, modern.init(masters), masters)
+        worst = {}
+        for k in masters:
+            ref = p2[k].abs().max().item()
+            worst[f"p:{k}"] = (p1[k] - p2[k]).abs().max().item() / max(
+                ref, 1e-30)
+            if not torch.equal(copy[k], p1[k].half()):
+                raise AssertionError(f"{phase} {name}: the fp16 copy of {k} "
+                                     f"is not the new param cast")
+        ta, tb = tree_slots(s1.slots, spec), tree_slots(s2.slots, spec)
+        for slot in tb:
+            a, b = ta[slot], tb[slot]
+            for k in a:
+                ref = b[k].abs().max().item()
+                worst[f"{slot}:{k}"] = (a[k] - b[k]).abs().max().item() / \
+                    max(ref, 1e-30)
+        by_slot = {}
+        for key, e in worst.items():
+            slot = key.split(":")[0]
+            by_slot[slot] = max(by_slot.get(slot, 0.0), e)
+            if e > TOL_UPDATE.get(slot, TOL_UPDATE["p"]):
+                raise AssertionError(f"{phase} {name}: {key} {e:.3e} of its "
+                                     f"max")
+        log(f"phase {phase}: legacy.{name}(scale=1024, fp16 copy) vs "
+            f"optim.{name}(strategy='arena') on the unscaled grad: worst "
+            f"{ {k: f'{v:.2e}' for k, v in by_slot.items()} } of each "
+            f"tensor's max; fp16 copy bitwise")
+        del p1, s1, copy, p2, s2
+
+
+def mlp_dlrm_bottom_o1(rows):
+    """DLRM's bottom MLP (B2048, [13, 512, 256, 128], ASP around
+    FusedAdam(lr=1e-3) as ``train.build_mlp_step``) through ``amp.initialize(
+    ..., "O1")`` with the loss under ``amp.auto_cast(policy)``, MLP_STEPS
+    steps: one mlp_fwd launch a step, in the bf16-operand mode; every
+    weight 2:4 after every step; finite, falling losses; one step through
+    the kernels against ``plain_versions()`` (loss within 1e-3 relative,
+    each param's update from its pruned start within MLP_O1_UPDATE_TOL
+    relative L2); the first forward differs from the same forward with the
+    mode off."""
+    import numpy as np
+    import torch
+    from torch.func import functional_call
+    from apex_tpu_torch import amp, ops, sparsity
+    from apex_tpu_torch.ops import mlp as P
+    from apex_tpu_torch.optim import FusedAdam
+
+    phase = "mlp_dlrm_bottom_o1"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    def build():
+        model = ops.MLP(MLP_BOTTOM, device="cuda", seed=0)
+        rng = np.random.RandomState(0)
+        x = torch.as_tensor(rng.randn(2048, MLP_BOTTOM[0]).astype(
+            np.float32), device="cuda")
+        t = torch.as_tensor(rng.rand(2048, MLP_BOTTOM[-1]).astype(
+            np.float32), device="cuda")
+        amp_opt, state = amp.initialize(
+            dict(model.named_parameters()),
+            sparsity.ASP(FusedAdam(lr=1e-3), pattern="m4n2_1d"), "O1",
+            verbosity=0)
+
+        def loss_fn(mp):
+            with amp.auto_cast(amp_opt.policy):
+                y = functional_call(model, mp, (x,))
+            return torch.mean(torch.square(y.float() - t))
+
+        def step(state):
+            loss, grads, state, fin = amp_opt.backward(state, loss_fn)
+            return amp_opt.apply_gradients(state, grads, fin), loss
+        return model, x, amp_opt, state, step
+
+    model, x, amp_opt, state, step = build()
+    modes = []
+    real = P._FusedMLPFn.apply
+
+    def spy(*a):            # (x, activation, n_layers, has_bias, mode, ...)
+        modes.append(a[4])
+        return real(*a)
+
+    mp0 = amp_opt.model_params(state)
+    with torch.no_grad():
+        with amp.auto_cast(amp_opt.policy):
+            y_on = functional_call(model, mp0, (x,))
+        y_off = functional_call(model, mp0, (x,))
+    moved = (y_on - y_off).abs().max().item()
+    if not moved > 0.0:
+        raise AssertionError(f"{phase}: the O1 forward equals the mode-off "
+                             f"forward")
+    ops.reset_launch_counts()
+    P._FusedMLPFn.apply = spy
+    try:
+        losses, times = [], []
+        for i in range(MLP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+            _check_two_four(phase, i, state)
+    finally:
+        del P._FusedMLPFn.apply      # back to torch.autograd.Function's
+    counts = ops.launch_counts()
+    check_launches(phase, counts, MLP_PER_STEP, None, MLP_STEPS)
+    rows["mlp_fwd_o1"]["launches"] = counts["mlp_fwd"]
+    if modes != [torch.bfloat16] * MLP_STEPS:
+        raise AssertionError(f"{phase}: kernel modes {set(modes)}")
+    if not all(math.isfinite(v) for v in losses) or not \
+            losses[-1] < losses[0]:
+        raise AssertionError(f"{phase}: losses not finite and falling")
+    step_ms = sorted(times[1:])[len(times[1:]) // 2]
+    log(f"phase {phase}: 1 mlp_fwd launch a step in the bf16-operand mode, "
+        f"1 adam; weights 2:4 after all {MLP_STEPS} steps; loss "
+        f"{losses[0]:.6f} -> {losses[-1]:.6f}; the first forward "
+        f"{moved:.3e} from the mode off; median step {step_ms:.3f} ms, "
+        f"{2048 / step_ms * 1e3:.1f} rows/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    runs = {}
+    for mode in ("kernel", "plain"):
+        _, _, _, st, stp = build()
+        # the update from the params as ASP's masks prune them
+        p0 = sparsity.prune(st.params, st.opt_state.masks)
+        ops.reset_launch_counts()
+        with (plain_versions() if mode == "plain"
+              else contextlib.nullcontext()):
+            st, loss = stp(st)
+        used = {k: v for k, v in ops.launch_counts().items() if v}
+        if used != (MLP_PER_STEP if mode == "kernel" else {}):
+            raise AssertionError(f"{phase} {mode} step launched {used}")
+        runs[mode] = (loss.item(), {k: v - p0[k]
+                                    for k, v in st.params.items()})
+    (lk, dk), (lp, dp) = runs["kernel"], runs["plain"]
+    errs = {k: _rel_l2(dk[k], v) for k, v in dp.items()}
+    worst = max(errs, key=errs.get)
+    log(f"phase {phase}: one step kernel vs plain: loss {lk:.6f} / {lp:.6f}, "
+        f"each param's update worst {errs[worst]:.3e} relative L2 "
+        f"({worst}; limit {MLP_O1_UPDATE_TOL:g}), update norms "
+        f"{ {k: f'{v.norm().item():.3e}' for k, v in dp.items()} }")
+    if not abs(lk - lp) <= 1e-3 * abs(lp) or \
+            not errs[worst] <= MLP_O1_UPDATE_TOL:
+        raise AssertionError(f"{phase}: kernel and plain steps differ")
+
+
+def l1_grid():
+    """The JAX package's L1 grid on the card (the net and runner of
+    ``tests/_torch_l1_grid.py``): every cell that validation admits, the
+    kernel path (LayerNorm and cross-entropy kernels, the arena
+    SGD) against the plain path inside ``plain_versions()`` with RefSGD;
+    decisions bitwise, losses and params within 1e-5 (f32 compute) or 2e-2
+    (half), the kernels launched once each a step (SGD once a partition);
+    then the fp16 overflow injection (steps 2 and 4 poisoned) and the
+    resume after 3 steps, both bit for bit."""
+    import torch
+    from apex_tpu_torch import ops
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    import _torch_l1_grid as G
+
+    t0 = time.perf_counter()
+    cells = skipped = 0
+    worst = {}
+    for ol, sn, sv, kb in G.GRID:
+        policy = G.policy(ol, sv, kb)
+        label = f"{ol}-{sn}-bn{int(kb)}"
+        if policy is None:
+            skipped += 1
+            continue
+        ops.reset_launch_counts()
+        fused = G.run(policy, True)
+        counts = ops.launch_counts()
+        parts = len({str(p.dtype) for p in fused[3].params.values()})
+        check_launches(f"l1 {label}", counts, dict(
+            G.PER_STEP, sgd=parts), None, G.STEPS)
+        with plain_versions():
+            ref = G.run(policy, False)
+        if ops.launch_counts() != counts:
+            raise AssertionError(f"l1 {label}: the plain path launched")
+        tol = 1e-5 if policy.compute_dtype == torch.float32 else 2e-2
+        worst[label] = G.compare(label, fused, ref, tol)
+        cells += 1
+    log(f"phase l1_grid: {cells} cells (skipped {skipped}) kernel path vs "
+        f"plain path: decisions bitwise; worst float distance "
+        f"{max(worst.values()):.3e} ({max(worst, key=worst.get)}); f32 "
+        f"cells worst "
+        f"{max(v for k, v in worst.items() if k.startswith('O0')):.3e}")
+    policy = G.policy("O2", "dynamic", True, half_dtype=torch.float16)
+    fused = G.run(policy, True, poison_steps=(2, 4))
+    with plain_versions():
+        ref = G.run(policy, False, poison_steps=(2, 4))
+    G.compare("fp16 overflow", fused, ref, 2e-2)
+    _, fin, scales, st, _ = fused
+    if [i for i, f in enumerate(fin) if not f] != [2, 4] or \
+            int(st.step) != G.STEPS - 2 or scales[2] != scales[1] / 2 or \
+            scales[4] != scales[3] / 2:
+        raise AssertionError(f"l1 fp16 overflow: finite {fin}, scales "
+                             f"{scales}")
+    policy = G.policy("O2", "dynamic", True, half_dtype=torch.float16)
+    whole = G.run(policy, True)
+    first = G.run(policy, True, steps=3)
+    saved = (first[3]._replace(
+        params={k: v.clone() for k, v in first[3].params.items()}),
+        {k: v.clone() for k, v in first[4].items()}, 3)
+    rest = G.run(policy, True, steps=G.STEPS - 3, state=saved)
+    if rest[0] != whole[0][3:] or not _equal_trees(rest[3].params,
+                                                   whole[3].params):
+        raise AssertionError("l1 resume: the resumed run differs")
+    log(f"phase l1_grid: fp16 overflow at steps 2 and 4 skipped and halved "
+        f"the scale on both paths ({scales}); the resume after 3 steps is "
+        f"bit for bit; {time.perf_counter() - t0:.1f} s")
+
+
+def amp_remainder_phases(rows):
+    """This slice's phases, in order; each logs its time."""
+    from apex_tpu_torch import models
+
+    t0 = time.perf_counter()
+    mlp_dlrm_bottom_o1(rows)
+    l1_grid()
+    enc = models.BertLarge(device="cuda", seed=0)
+    _, acc = bert_large_o2_fp16_accum(enc)
+    del acc
+    masters, grads = bert_large_fp16_optimizer(enc)
+    legacy_updates(masters, grads)
+    del masters, grads, enc
+    log(f"phase amp_remainder: all in {time.perf_counter() - t0:.1f} s")
+
+
 def _instance_name(mangled):
     """A readable name for an instance of the port's CUDA kernels:
     ``flash_fwd<bf16, D=64, opts=0>``, ``ln_fwd_warp<bf16, CH=8, NC=4>``,
@@ -4464,10 +5163,13 @@ def main() -> int:
     dcgan_tree(rows, train_dcgan("dcgan", rows)[0])
     dcgan_plain_vs_kernel()
     dcgan_fp16_overflow()
+    torch.cuda.empty_cache()
+    amp_remainder_phases(rows)
 
     from apex_tpu_torch import ops
     print(json.dumps({"kernels": [rows[n] for n in (
-        *ops.KERNELS, *EXTRA_ROWS, *EXTRA_BN_ROWS, *EXTRA_ZERO_ROWS)]}))
+        *ops.KERNELS, *EXTRA_ROWS, *EXTRA_BN_ROWS, *EXTRA_ZERO_ROWS,
+        *EXTRA_O1_ROWS)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

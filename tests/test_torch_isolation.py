@@ -4,8 +4,10 @@ Importing the port (every module of it) in a fresh interpreter leaves no
 ``jax`` and no ``apex_tpu`` module in ``sys.modules``; an AST scan of its
 sources, of ``chip_smoke.py``, of its scripts (``scripts/torch_*.py``) and
 of the rank bodies its multi-process tests spawn
-(``tests/_torch_parallel_cases.py``) finds no such import; and its entry
-points ask for ``cuda`` unless the caller passes a device.
+(``tests/_torch_parallel_cases.py``) and of the L1 grid's runner that
+``chip_smoke.py`` loads (``tests/_torch_l1_grid.py``) finds no such
+import; and its entry points ask for ``cuda`` unless the caller passes a
+device.
 """
 
 import ast
@@ -51,6 +53,7 @@ def _sources():
     yield from _modules()
     for path in [ROOT / "chip_smoke.py",
                  ROOT / "tests" / "_torch_parallel_cases.py",
+                 ROOT / "tests" / "_torch_l1_grid.py",
                  *sorted((ROOT / "scripts").glob("torch_*.py"))]:
         yield path, str(path.relative_to(ROOT))
 

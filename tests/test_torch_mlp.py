@@ -302,9 +302,9 @@ def test_converted_params_give_the_flax_outputs(activation, bias):
 def test_auto_cast_passes_the_module_through(xdt):
     """The JAX package's ``_MLP`` is in neither of the interceptor's module
     tables, so under ``auto_cast`` it computes in the dtype that reaches
-    it; the port keeps ``MLP`` out of ``module_tables()`` too. (O2: O1's
-    functional patch of ``jnp.dot``, not ported, also reaches the JAX MLP's
-    products.)"""
+    it; the port keeps ``MLP`` out of ``module_tables()`` too. (O2: under
+    O1 the functional patch also reaches the MLP's products, held in
+    ``tests/test_torch_functional_patch.py``.)"""
     assert TM.MLP not in tamp.lists.module_tables()[0] + \
         tamp.lists.module_tables()[1]
     sizes = [8, 16, 4]
