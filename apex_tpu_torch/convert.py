@@ -15,8 +15,9 @@ params, and its arena slots are flat buffers in its own layout (leaves in
 ``jax.tree_util``'s sorted-key order), which differs from the port's
 (leaves in the port's parameter order). ``jax_name`` and
 ``to_jax_layout``/``from_jax_layout`` run the map backwards for one port
-leaf, as the sparsity masks need; ``asp_state_from_jax`` carries masks
-and the wrapped optimizer's state, and ``zero_state_from_jax`` ZeRO's
+leaf, as the sparsity masks need. A flax ``WeightNorm``'s
+``"<layer>/kernel/scale"`` leaf becomes the port module's ``scale``;
+``asp_state_from_jax`` carries masks and the wrapped optimizer's state, and ``zero_state_from_jax`` ZeRO's
 per-rank shards.
 """
 
@@ -42,8 +43,16 @@ def _flatten(tree, prefix="", sort=False):
             yield name, v
 
 
+#: flax ``nn.WeightNorm``'s scale of the wrapped layer's kernel, a leaf of
+#: the ``WeightNorm_<i>`` node beside the layer: the port's ``scale``
+_WN_SCALE = re.compile(r"^(.*)WeightNorm_\d+\.[^.]+/kernel/scale$")
+
+
 def _port_name(name):
     """The port's name of one JAX leaf."""
+    wn = _WN_SCALE.match(name)
+    if wn:
+        return wn.group(1) + "scale"
     for leaf in ("kernel", "embedding"):
         if name.endswith("." + leaf):
             return name[:-len(leaf)] + "weight"
@@ -129,6 +138,14 @@ def params_from_jax(params, device="cuda") -> Dict[str, torch.Tensor]:
         name, arr = _port_leaf(name, np.asarray(leaf, dtype=np.float32))
         out[name] = _tensor(arr, device)
     return out
+
+
+#: the RNN stacks' trees (``LSTMCell_<i>.ii.kernel``, ...), the
+#: multihead-attention modules' (``ln_scale``, ``q_proj``, ...) and those
+#: holding ``WeightNorm``s (the wrapped layer's leaves, and each
+#: ``WeightNorm_<i>/"<layer>/kernel/scale"`` as the port module's ``scale``)
+#: map as any other tree
+rnn_params_from_jax = weight_norm_params_from_jax = params_from_jax
 
 
 def resnet_variables_from_jax(params, batch_stats, device="cuda"):

@@ -10,3 +10,7 @@ from apex_tpu_torch.models.resnet import (  # noqa: F401
     ResNet50, ResNet101,
 )
 from apex_tpu_torch.models.dcgan import Discriminator, Generator  # noqa: F401
+from apex_tpu_torch.models import rnn  # noqa: F401
+from apex_tpu_torch.models.rnn import (  # noqa: F401
+    GRU, LSTM, ReLU, StackedRNN, Tanh, mLSTM,
+)

@@ -1,6 +1,6 @@
 """BERT-style transformer encoder built on the port's fused ops.
 
-Port of ``apex_tpu/models/transformer.py``: post-LN blocks over
+Port of ``apex_tpu/models/transformer.py``: post-LN (or pre-LN) blocks over
 :func:`apex_tpu_torch.ops.fused_layer_norm_affine`, attention through
 :class:`apex_tpu_torch.ops.SelfMultiheadAttn` and an MLM head over
 :func:`apex_tpu_torch.ops.softmax_cross_entropy_loss` with the decoder tied
@@ -34,19 +34,50 @@ class Dense(nn.Linear):
     enabled ``auto_cast`` its input is first cast to the policy's half
     dtype (a HALF module, like flax's ``nn.Dense`` under the interceptor);
     it then computes in ``dtype`` if given, else in that half dtype, else
-    in the promoted dtype of its input and weight. Params are f32."""
+    in the promoted dtype of its input and weight. Params are f32.
+
+    ``casts``, a dict that the caller keeps across calls (a recurrent
+    cell's time loop keeps one for a forward), holds the weight and bias
+    cast to each compute dtype: they are cast once, and autograd saves one
+    copy for the backward, not one a call. Each call's gradient still
+    reaches the f32 param in f32, as when each call casts."""
 
     def __init__(self, in_features, out_features, bias=True, device="cuda",
                  dtype=None):
         super().__init__(in_features, out_features, bias=bias, device=device)
         self.dtype = dtype
 
-    def forward(self, x):
+    def forward(self, x, casts: Optional[dict] = None):
         x = cast_input(self, x)
         dt = self.dtype or module_cast_dtype(self) or torch.promote_types(
             x.dtype, self.weight.dtype)
-        b = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), b)
+        return F.linear(x.to(dt), _cast(self.weight, dt, casts, "weight"),
+                        _cast(self.bias, dt, casts, "bias"))
+
+
+class _SharedCast(torch.autograd.Function):
+    """``half``, the cast of ``param`` made once for many calls, as one
+    call's operand: the forward is a view of ``half`` (no copy); the
+    backward hands the call's gradient to ``param`` in its dtype, so the
+    calls' gradients add up there as the per-call casts' do."""
+
+    @staticmethod
+    def forward(ctx, param, half):
+        ctx.dtype = param.dtype
+        return half.view_as(half)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.to(ctx.dtype), None
+
+
+def _cast(t, dt, casts, key):
+    """``t`` in ``dt``; with ``casts``, through the one cast kept there."""
+    if t is None or t.dtype == dt or casts is None:
+        return None if t is None else t.to(dt)
+    if (key, dt) not in casts:
+        casts[key, dt] = t.detach().to(dt)
+    return _SharedCast.apply(t, casts[key, dt])
 
 
 class Embed(nn.Embedding):
@@ -93,9 +124,14 @@ class MultiheadAttention(nn.Module):
 
 
 class TransformerLayer(nn.Module):
+    """A post-LN block (``pre_ln=False``, all BERT uses) or a pre-LN one.
+    Both create their submodules in the same order, so they carry the same
+    names, as flax's construction-order names are in the JAX package."""
+
     def __init__(self, hidden: int, heads: int, ffn_hidden: int,
-                 dropout: float = 0.0, device="cuda"):
+                 dropout: float = 0.0, pre_ln: bool = False, device="cuda"):
         super().__init__()
+        self.pre_ln = pre_ln
         self.MultiheadAttention_0 = MultiheadAttention(hidden, heads, dropout,
                                                        device=device)
         self.FusedLayerNormModule_0 = FusedLayerNormModule(hidden,
@@ -107,14 +143,20 @@ class TransformerLayer(nn.Module):
 
     def forward(self, x, mask=None, deterministic: bool = True,
                 generator=None):
-        """Post-LN block (the JAX package's ``pre_ln=False``, all BERT uses).
-        Dropout acts on the attention probabilities only, as in the JAX
-        package's encoder."""
-        x = self.FusedLayerNormModule_0(
-            x + self.MultiheadAttention_0(x, mask, deterministic, generator))
+        """Dropout acts on the attention probabilities only, as in the JAX
+        package's layer."""
+        attn, ln1, ln2 = (self.MultiheadAttention_0,
+                          self.FusedLayerNormModule_0,
+                          self.FusedLayerNormModule_1)
+        if self.pre_ln:
+            x = x + attn(ln1(x), mask, deterministic, generator)
+            return x + self._ffn(ln2(x))
+        x = ln1(x + attn(x, mask, deterministic, generator))
+        return ln2(x + self._ffn(x))
+
+    def _ffn(self, x):
         # jax.nn.gelu defaults to the tanh approximation
-        y = self.Dense_1(F.gelu(self.Dense_0(x), approximate="tanh"))
-        return self.FusedLayerNormModule_1(x + y)
+        return self.Dense_1(F.gelu(self.Dense_0(x), approximate="tanh"))
 
 
 class BertEncoder(nn.Module):

@@ -5,7 +5,7 @@ raises. Every kernel wrapper counts its launches in ``.launches``."""
 
 from apex_tpu_torch.ops.attention import (  # noqa: F401
     attention_reference, flash_attention, flash_attention_lse,
-    flash_bwd_kernel, flash_fwd_kernel,
+    flash_bwd_kernel, flash_fwd_kernel, mask_softmax_dropout,
 )
 from apex_tpu_torch.ops.bn_act import (  # noqa: F401
     FusedBNAct, bn_act_reference, bn_act_train, bn_add_act_train,

@@ -71,10 +71,13 @@ def _choose_block(pref, s, lane: bool = False):
     return b
 
 
-def _dropout_blocks(sq, sk):
-    """(bq, bk): the JAX kernels' blocks under dropout, i.e. the dropout
-    mask's block coordinates (S = 512 gives one block, S = 600 gives 128s)."""
-    cq, ck = _block_cap(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K, True, 1.0)
+def _dropout_blocks(sq, sk, block_q=DEFAULT_BLOCK_Q,
+                    block_k=DEFAULT_BLOCK_K):
+    """(bq, bk): the JAX kernels' blocks under dropout for the caller's
+    ``block_q``/``block_k``, i.e. the dropout mask's block coordinates (at
+    the defaults S = 512 gives one block, S = 600 gives 128s; blocks of 128
+    give 128s at S = 512)."""
+    cq, ck = _block_cap(block_q, block_k, True, 1.0)
     return _choose_block(cq, sq), _choose_block(ck, sk, lane=True)
 
 
@@ -220,8 +223,10 @@ def _device_int32(t, n, what, device):
     return t.data_ptr()
 
 
-def _kernel_args(q, k, v, scale, bias, causal, causal_off, seed, rate, dbo):
-    """(_FlashArgs, tensors the launch reads) for q, k, v and the options."""
+def _kernel_args(q, k, v, scale, bias, causal, causal_off, seed, rate, dbo,
+                 blocks):
+    """(_FlashArgs, tensors the launch reads) for q, k, v and the options;
+    ``blocks`` are the caller's (block_q, block_k)."""
     _check_kernel_operands(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
@@ -249,7 +254,7 @@ def _kernel_args(q, k, v, scale, bias, causal, causal_off, seed, rate, dbo):
         a.seed = _device_int32(seed, 1, "the dropout seed", q.device)
         a.keep_threshold = int(rate * 4294967296.0)
         a.drop_scale = _drop_scale(rate)
-        a.drop_bq, a.drop_bk = _dropout_blocks(sq, sk)
+        a.drop_bq, a.drop_bk = _dropout_blocks(sq, sk, *blocks)
         if dbo is not None:
             a.dbo = _device_int32(dbo, 2, "dropout_block_offset", q.device)
     return a, held
@@ -266,16 +271,18 @@ def _lib(name):
 
 
 def flash_fwd_kernel(q, k, v, scale, bias=None, causal=False, causal_off=None,
-                     seed=None, rate=0.0, dbo=None):
+                     seed=None, rate=0.0, dbo=None,
+                     blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
     """CUDA forward: (o (B, Sq, H, D) in q's dtype, lse f32 (B·H, Sq)).
 
     ``bias`` broadcasts against (B, H, Sq, Sk); ``causal`` masks keys past
     ``row + off`` with ``off`` read from the int32 device tensor
     ``causal_off`` or Sk − Sq; ``rate > 0`` applies softmax dropout seeded
     by the int32 device tensor ``seed``, shifted by the (2,) int32 block
-    offsets ``dbo``."""
+    offsets ``dbo``, in the dropout blocks that the caller's ``blocks``
+    (block_q, block_k) realize."""
     a, _held = _kernel_args(q, k, v, scale, bias, causal, causal_off, seed,
-                            rate, dbo)
+                            rate, dbo, blocks)
     b, sq, h, d = q.shape
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
@@ -292,11 +299,12 @@ flash_fwd_kernel.launches = 0
 
 
 def flash_bwd_kernel(q, k, v, do, lse, delta, scale, bias=None, causal=False,
-                     causal_off=None, seed=None, rate=0.0, dbo=None):
+                     causal_off=None, seed=None, rate=0.0, dbo=None,
+                     blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
     """CUDA backward (dk/dv kernel, then dq kernel): (dq, dk, dv), with the
     forward's options."""
     a, _held = _kernel_args(q, k, v, scale, bias, causal, causal_off, seed,
-                            rate, dbo)
+                            rate, dbo, blocks)
     b, sq, h, d = q.shape
     if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
         raise ValueError("do must be a contiguous tensor like q")
@@ -339,18 +347,20 @@ def _scores(q, k, scale, bias, causal, causal_off):
     return s, rows + off >= torch.arange(sk, device=s.device).view(1, -1)
 
 
-def _keep(q, k, seed, rate, dbo):
+def _keep(q, k, seed, rate, dbo, blocks):
     b, sq, h, _ = q.shape
     sk = k.shape[1]
-    return _keep_mask_dense(seed, b, h, sq, sk, *_dropout_blocks(sq, sk),
-                            rate, dbo).view(b, h, sq, sk)
+    return _keep_mask_dense(seed, b, h, sq, sk,
+                            *_dropout_blocks(sq, sk, *blocks), rate,
+                            dbo).view(b, h, sq, sk)
 
 
 # the plain versions run with the O1 functional patch suspended: the JAX
 # package's flash kernels reach no patched entry point
 @functional_patch.unpatched
 def flash_fwd_plain(q, k, v, scale, bias=None, causal=False, causal_off=None,
-                    seed=None, rate=0.0, dbo=None):
+                    seed=None, rate=0.0, dbo=None,
+                    blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
     b, sq, h, _ = q.shape
     s, valid = _scores(q, k, scale, bias, causal, causal_off)
     if valid is not None:
@@ -362,8 +372,8 @@ def flash_fwd_plain(q, k, v, scale, bias=None, causal=False, causal_off=None,
         p = torch.where(valid, p, 0.0)
     l = p.sum(dim=-1, keepdim=True)
     if rate > 0.0:      # l sums the undropped p; only PV sees the mask
-        p = torch.where(_keep(q, k, seed, rate, dbo), p * _drop_scale(rate),
-                        0.0)
+        p = torch.where(_keep(q, k, seed, rate, dbo, blocks),
+                        p * _drop_scale(rate), 0.0)
     safe_l = torch.where(l == 0.0, 1.0, l)
     o = torch.einsum("bhqk,bkhd->bhqd", p.to(v.dtype).float(),
                      v.float()) / safe_l
@@ -373,7 +383,8 @@ def flash_fwd_plain(q, k, v, scale, bias=None, causal=False, causal_off=None,
 
 @functional_patch.unpatched
 def flash_bwd_plain(q, k, v, do, lse, delta, scale, bias=None, causal=False,
-                    causal_off=None, seed=None, rate=0.0, dbo=None):
+                    causal_off=None, seed=None, rate=0.0, dbo=None,
+                    blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
     b, sq, h, _ = q.shape
     q32, k32 = q.float(), k.float()
     s, valid = _scores(q, k, scale, bias, causal, causal_off)
@@ -383,7 +394,7 @@ def flash_bwd_plain(q, k, v, do, lse, delta, scale, bias=None, causal=False,
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     pv = p
     if rate > 0.0:
-        keep, inv = _keep(q, k, seed, rate, dbo), _drop_scale(rate)
+        keep, inv = _keep(q, k, seed, rate, dbo, blocks), _drop_scale(rate)
         pv = torch.where(keep, p * inv, 0.0)
         dp = torch.where(keep, dp * inv, 0.0)
     ds = (p * (dp - delta.reshape(b, h, sq, 1))).to(q.dtype).float()
@@ -393,7 +404,8 @@ def flash_bwd_plain(q, k, v, do, lse, delta, scale, bias=None, causal=False,
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def _bias_grad(q, k, v, bias, o, lse, do, delta, scale, causal, seed, rate):
+def _bias_grad(q, k, v, bias, o, lse, do, delta, scale, causal, seed, rate,
+               blocks):
     """Cotangent of a learned bias (``attention.py:1665``), dense: ds = p·(dp̃
     − delta) summed over the bias's broadcast dims. ``delta`` (B·H, Sq)
     already holds any lse-cotangent shift."""
@@ -404,7 +416,7 @@ def _bias_grad(q, k, v, bias, o, lse, do, delta, scale, causal, seed, rate):
         p = torch.where(valid, p, 0.0)
     dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
     if rate > 0.0:
-        dp = torch.where(_keep(q, k, seed, rate, None),
+        dp = torch.where(_keep(q, k, seed, rate, None, blocks),
                          dp * _drop_scale(rate), 0.0)
     ds = p * (dp - delta.reshape(b, h, sq, 1))
     for axis in range(4):
@@ -418,15 +430,16 @@ class _FlashFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, causal, causal_off, seed, rate,
-                dbo):
+                dbo, blocks):
         opts = dict(bias=bias, causal=causal, causal_off=causal_off,
-                    seed=seed, rate=rate, dbo=dbo)
+                    seed=seed, rate=rate, dbo=dbo, blocks=blocks)
         fwd = flash_fwd_kernel if q.is_cuda else flash_fwd_plain
         o, lse = fwd(q, k, v, scale, **opts)
         b, sq, h, _ = q.shape
         lse = lse.view(b, h, sq)
         ctx.save_for_backward(q, k, v, o, lse, bias, causal_off, seed, dbo)
         ctx.scale, ctx.causal, ctx.rate = scale, causal, rate
+        ctx.blocks = blocks
         ctx.set_materialize_grads(False)
         return o, lse
 
@@ -444,12 +457,12 @@ class _FlashFn(torch.autograd.Function):
         bwd = flash_bwd_kernel if q.is_cuda else flash_bwd_plain
         dq, dk, dv = bwd(q, k, v, do, lse, delta, ctx.scale, bias=bias,
                          causal=ctx.causal, causal_off=causal_off, seed=seed,
-                         rate=ctx.rate, dbo=dbo)
+                         rate=ctx.rate, dbo=dbo, blocks=ctx.blocks)
         dbias = None
         if ctx.needs_input_grad[3]:
             dbias = _bias_grad(q, k, v, bias, o, lse, do, delta, ctx.scale,
-                               ctx.causal, seed, ctx.rate)
-        return dq, dk, dv, dbias, None, None, None, None, None, None
+                               ctx.causal, seed, ctx.rate, ctx.blocks)
+        return dq, dk, dv, dbias, None, None, None, None, None, None, None
 
 
 def _check_shapes(q, k, v):
@@ -460,8 +473,8 @@ def _check_shapes(q, k, v):
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
 
 
-def _attention(q, k, v, bias, scale, causal, dropout_rate, dropout_seed,
-               causal_offset, dropout_block_offset):
+def _attention(q, k, v, bias, scale, causal, block_q, block_k, dropout_rate,
+               dropout_seed, causal_offset, dropout_block_offset):
     """Checks in the JAX package's order (``_flash_attention_fwd_res``),
     then (o, lse (B, H, Sq)) through the autograd function."""
     _check_shapes(q, k, v)
@@ -477,8 +490,7 @@ def _attention(q, k, v, bias, scale, causal, dropout_rate, dropout_seed,
         if bias is not None or _native_g0(h, d) is None:
             raise ValueError("dropout_block_offset requires the "
                              "native attention path and no bias")
-        cq, ck = _block_cap(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K, False,
-                            dropout_rate)
+        cq, ck = _block_cap(block_q, block_k, False, dropout_rate)
         realized = (_choose_block(cq, sq), _choose_block(ck, sk, lane=True))
         if realized != (DROPOUT_TILE, DROPOUT_TILE):
             raise ValueError(
@@ -490,37 +502,50 @@ def _attention(q, k, v, bias, scale, causal, dropout_rate, dropout_seed,
     if bias is not None:
         _bias_mode(bias, b, h, sq, sk)
     return _FlashFn.apply(q, k, v, bias, scale, causal, off, seed,
-                          float(dropout_rate), dbo)
+                          float(dropout_rate), dbo,
+                          (int(block_q), int(block_k)))
 
 
 def flash_attention(q, k, v, bias=None, scale=None, causal=False,
+                    block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K,
                     dropout_rate=0.0, dropout_seed=None, causal_offset=None):
     """Blockwise softmax attention on q (B, Sq, H, D) and k, v (B, Sk, H, D);
-    returns (B, Sq, H, D) in q's dtype.
+    returns (B, Sq, H, D) in q's dtype. The arguments and their order are
+    the JAX package's.
 
     ``bias``: additive, (B|1, H|1, Sq|1, Sk|1), differentiable.
     ``causal``: query i attends key j iff ``i + causal_offset >= j``, with
     ``causal_offset`` an int32 (device) scalar or None for Sk − Sq.
+    ``block_q``, ``block_k``: the JAX kernels' tile preferences. Under
+    dropout they fix the mask's block coordinates (capped at 512, then
+    ``_choose_block``), as in the JAX package; otherwise they change only
+    the order of float sums there, and the CUDA kernels keep their own
+    tile. The JAX package swaps in tuned blocks only at the defaults and
+    never under dropout; the port keeps no tuning table, so the defaults
+    stay the defaults.
     ``dropout_rate > 0``: softmax dropout seeded by the int32
     ``dropout_seed``, the JAX package's mask bit for bit.
     """
-    return _attention(q, k, v, bias, scale, causal, dropout_rate,
-                      dropout_seed, causal_offset, None)[0]
+    return _attention(q, k, v, bias, scale, causal, block_q, block_k,
+                      dropout_rate, dropout_seed, causal_offset, None)[0]
 
 
-def flash_attention_lse(q, k, v, bias=None, scale=None, causal=False, *,
+def flash_attention_lse(q, k, v, bias=None, scale=None, causal=False,
+                        block_q=DEFAULT_BLOCK_Q, block_k=DEFAULT_BLOCK_K, *,
                         dropout_rate=0.0, dropout_seed=None,
                         causal_offset=None, dropout_block_offset=None):
     """Like :func:`flash_attention` but returns ``(out, lse)`` with lse
     (B, H, Sq) differentiable; ``dropout_block_offset`` ((2,) int32) shifts
     the dropout hash's (q-block, k-block) coordinates, so a sequence shard
-    draws the single-device mask."""
+    draws the single-device mask. ``block_q``/``block_k`` come by position
+    after ``causal``, the rest by keyword only, as in the JAX package."""
     if dropout_rate > 0.0 and _native_g0(q.shape[2], q.shape[3]) is None:
         raise NotImplementedError(
             "flash_attention_lse dropout requires the native attention "
             "path (lane-groupable heads)")
-    return _attention(q, k, v, bias, scale, causal, dropout_rate,
-                      dropout_seed, causal_offset, dropout_block_offset)
+    return _attention(q, k, v, bias, scale, causal, block_q, block_k,
+                      dropout_rate, dropout_seed, causal_offset,
+                      dropout_block_offset)
 
 
 def attention_reference(q, k, v, bias=None, scale=None, causal=False):
@@ -543,3 +568,38 @@ def _attention_reference(q, k, v, bias, scale, causal):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return o.to(q.dtype)
+
+
+def dropout(x, rate, generator):
+    """flax ``nn.Dropout``'s arithmetic: keep each element with probability
+    1 − ``rate`` and scale it by 1/(1 − ``rate``) in ``x``'s dtype, zero the
+    rest. The keep draws are ``torch.rand(x.shape, generator=generator) <
+    1 − rate`` on ``x``'s device (the JAX package draws them from its
+    ``'dropout'`` rng stream, whose bits the port cannot reproduce)."""
+    if rate <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("dropout needs a torch.Generator when "
+                         "deterministic=False")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < 1.0 - rate
+    return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
+def mask_softmax_dropout(scores, mask=None, dropout_rate=0.0, generator=None,
+                         deterministic=True):
+    """(Masked) softmax and dropout on explicit scores, the JAX package's
+    ``mask_softmax_dropout`` (the reference Apex's
+    ``fast_mask_softmax_dropout_func``), in plain PyTorch: the JAX function
+    is jnp and reaches no kernel. ``mask`` True keeps a score (False ones
+    become -1e30), the softmax runs in f32, dropout draws from the explicit
+    ``generator`` (JAX's ``rng``), and the result comes back in the scores'
+    dtype."""
+    s = scores.float()
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    if dropout_rate > 0.0 and not deterministic:
+        p = dropout(p, dropout_rate, generator)
+    return p.to(scores.dtype)

@@ -45,6 +45,25 @@ line for line: a generator and a discriminator, each under its own
 ``num_losses=2``), every model call under ``amp.auto_cast``, and three
 scaled backwards a step: D on the real batch (``loss_id=0``), D on the
 detached fake batch (``loss_id=1``), then G through D.
+
+``build_dcgan_example_step`` is the port of the ``step`` of the JAX
+package's ``examples/dcgan/main_amp.py`` (the reference Apex's DCGAN
+example), which differs from the bench's: no ``auto_cast`` (at the
+example's O2 the f32 inputs meet half weights and the layers compute in
+the promoted dtype, f32, as flax promotes), D's two gradients summed into
+one update under both finite flags, and G's one: two Adam updates a step.
+``scripts/torch_dcgan_main_amp.py`` is the example's entry point.
+
+``build_mha_perf_test`` is the reference Apex's multihead-attention
+benchmark (``perf_test_multihead_attn.py``): a stack of
+``SelfMultiheadAttn`` (or, ``encdec=True``, ``EncdecMultiheadAttn``)
+layers with the norm-add variant, cast to half as the script's
+``.half()``; ``impl="default"`` is its ``--ref``. ``build_mha_train_step``
+trains that stack through ``amp.initialize`` and ``FusedAdam`` on an MSE
+loss; ``build_transformer_step`` trains a stack of ``TransformerLayer``s
+(pre-LN) and ``build_rnn_step`` a ``models.rnn`` stack the same
+way. No JAX step builder trains these; each drives the port's modules
+through its user entry points.
 """
 
 from __future__ import annotations
@@ -341,3 +360,288 @@ def build_dcgan_step(batch: int, opt_level: str = "O1",
         return gstate, dstate, g_bs4, d_bs3, (loss_real, loss_fake, loss_g)
 
     return step, (gstate, dstate, g_bs, d_bs), (z, real), policy, (G, D)
+
+
+def build_dcgan_example_step(batch: int = 64, image_size: int = 64,
+                             nz: int = 100, ngf: int = 64, ndf: int = 64,
+                             lr: float = 2e-4, beta1: float = 0.5,
+                             opt_level: str = "O2",
+                             half_dtype=torch.bfloat16, device="cuda",
+                             seed: int = 0, nets=None):
+    """Returns ``(step, (dstate, gstate, d_bs, g_bs), draw, policy, (G,
+    D))``: the JAX package's DCGAN example.
+
+    ``draw() -> (real, z)`` gives the next batch from
+    ``np.random.RandomState(seed)`` as the example draws it: ``real``
+    (batch, image_size, image_size, 3) ~ U[-1, 1) and ``z`` (batch, 1, 1,
+    nz) ~ N(0, 1), both f32. ``step(dstate, gstate, d_bs, g_bs, real, z)
+    -> (dstate', gstate', d_bs', g_bs', loss_d, loss_g)`` runs one step:
+    ``loss_d`` is D's real plus fake loss. ``nets`` is ``(G, D)`` (e.g.
+    carried from the JAX package by ``convert.dcgan_variables_from_jax``),
+    else ``Generator(nz, ngf)`` and ``Discriminator(ndf)`` on ``device``
+    with weights from seeds 1 and 2 (the example's ``PRNGKey(1)``/``(2)``,
+    whose bits the port cannot draw). Optimizers: ``FusedAdam(lr, betas=
+    (beta1, 0.999))`` under ``amp.Amp(policy, ...)``, D's with
+    ``num_losses=2``.
+    """
+    device = _device(device, "build_dcgan_example_step")
+    policy = amp.Policy.from_opt_level(opt_level, half_dtype=half_dtype)
+    if nets is None:
+        nets = (models.Generator(nz=nz, ngf=ngf, device=device, seed=1),
+                models.Discriminator(ndf=ndf, device=device, seed=2))
+    G, D = nets
+
+    def adam():
+        return FusedAdam(lr=lr, betas=(beta1, 0.999))
+
+    ampD = amp.Amp(policy, adam(), num_losses=2)
+    ampG = amp.Amp(policy, adam())
+    dstate = ampD.init(dict(D.named_parameters()))
+    gstate = ampG.init(dict(G.named_parameters()))
+    d_bs = {k: b.detach().clone() for k, b in D.named_buffers()}
+    g_bs = {k: b.detach().clone() for k, b in G.named_buffers()}
+    rng = np.random.RandomState(seed)
+    train = {"train": True}
+
+    def draw():
+        real = rng.rand(batch, image_size, image_size, 3).astype(
+            np.float32) * 2 - 1
+        z = rng.randn(batch, 1, 1, nz).astype(np.float32)
+        return (torch.as_tensor(real, device=device),
+                torch.as_tensor(z, device=device))
+
+    def step(dstate, gstate, d_bs, g_bs, real, z):
+        def d_real(mp):
+            out, bs = functional_call(D, {**mp, **d_bs}, (real,), train)
+            return bce(out.float(), 1.0), bs
+
+        (loss_real, d_bs1), gr, dstate, fin_r = ampD.backward(
+            dstate, d_real, loss_id=0, has_aux=True)
+        with torch.no_grad():
+            fake = functional_call(G, {**ampG.model_params(gstate), **g_bs},
+                                   (z,), train)[0]
+
+        def d_fake(mp):
+            out, bs = functional_call(D, {**mp, **d_bs1}, (fake,), train)
+            return bce(out.float(), 0.0), bs
+
+        (loss_fake, d_bs2), gf, dstate, fin_f = ampD.backward(
+            dstate, d_fake, loss_id=1, has_aux=True)
+        grads = {k: gr[k] + gf[k] for k in gr}
+        finite = (fin_r and fin_f) if isinstance(fin_r, bool) \
+            else torch.logical_and(fin_r, fin_f)
+        dstate = ampD.apply_gradients(dstate, grads, finite)
+
+        def g_loss(mp):
+            img, bs = functional_call(G, {**mp, **g_bs}, (z,), train)
+            # D at its updated params; its new statistics are dropped, as
+            # the example drops them
+            out = functional_call(D, {**ampD.model_params(dstate), **d_bs2},
+                                  (img,), train)[0]
+            return bce(out.float(), 1.0), bs
+
+        (loss_g, g_bs1), gg, gstate, fin_g = ampG.backward(
+            gstate, g_loss, loss_id=0, has_aux=True)
+        gstate = ampG.apply_gradients(gstate, gg, fin_g)
+        return dstate, gstate, d_bs2, g_bs1, loss_real + loss_fake, loss_g
+
+    return step, (dstate, gstate, d_bs, g_bs), draw, policy, (G, D)
+
+
+class LayerStack(torch.nn.Module):
+    """``layers`` applied in turn, each called as ``layer(x, *args,
+    **kwargs)``; params ``layers.<i>.<name>``."""
+
+    def __init__(self, layers):
+        super().__init__()
+        self.layers = torch.nn.ModuleList(layers)
+
+    def forward(self, x, *args, **kwargs):
+        for layer in self.layers:
+            x = layer(x, *args, **kwargs)
+        return x
+
+
+@torch.no_grad()
+def seeded_init(module: torch.nn.Module, seed: int) -> None:
+    """Draw ``module``'s weights from ``seed`` at flax's scales: a norm's
+    scale (``*scale``) ones, biases zeros, every other (out, in, ...)
+    weight N(0, 1/in)."""
+    gen = None
+    for name, p in module.named_parameters():
+        if gen is None:
+            gen = torch.Generator(p.device).manual_seed(seed)
+        leaf = name.rpartition(".")[2]
+        if leaf.endswith("scale"):
+            p.fill_(1.0)
+        elif leaf.endswith("bias"):
+            p.zero_()
+        else:
+            p.normal_(0.0, p.shape[1] ** -0.5, generator=gen)
+
+
+def _mha_stack(layers, hidden, heads, dropout, impl, encdec, device, seed):
+    cls = ops.EncdecMultiheadAttn if encdec else ops.SelfMultiheadAttn
+    stack = LayerStack([cls(hidden, heads, dropout=dropout,
+                            include_norm_add=True, impl=impl, device=device)
+                        for _ in range(layers)])
+    seeded_init(stack, seed)
+    return stack
+
+
+def build_mha_perf_test(batch: int = 128, seq: int = 64, layers: int = 18,
+                        hidden: int = 1024, heads: int = 16,
+                        dropout: float = 0.1, impl: str = "fast",
+                        encdec: bool = False, half_dtype=torch.float16,
+                        device="cuda", seed: int = 0):
+    """Returns ``(run, params, inputs)``: the reference Apex's MHA
+    benchmark.
+
+    A stack of ``layers`` norm-add attention layers (weights from
+    ``seed``); ``params`` are its params cast to ``half_dtype`` by
+    ``fp16_utils.network_to_half`` (the script's ``.half()``), leaves that
+    require grad; ``inputs`` are the (batch, seq, hidden) half query (and,
+    ``encdec=True``, an encoder memory of the same length), requiring grad
+    as the script's. ``run(params, deterministic=False)`` is one forward of
+    the stack, its dropout seeds drawn from a generator seeded with
+    ``seed``.
+    """
+    from apex_tpu_torch.fp16_utils import network_to_half
+    device = _device(device, "build_mha_perf_test")
+    stack = _mha_stack(layers, hidden, heads, dropout, impl, encdec, device,
+                       seed)
+    params = {k: v.detach().requires_grad_(True) for k, v in
+              network_to_half(dict(stack.named_parameters()),
+                              half_dtype).items()}
+    rng = np.random.RandomState(seed)
+    inputs = tuple(torch.as_tensor(rng.randn(batch, seq, hidden).astype(
+        np.float32), device=device).to(half_dtype).requires_grad_(True)
+        for _ in range(2 if encdec else 1))
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def run(params, deterministic: bool = False):
+        return functional_call(stack, params, inputs, dict(
+            deterministic=deterministic, generator=gen))
+
+    return run, params, inputs
+
+
+def _mse(y, target):
+    return torch.mean(torch.square(y.float() - target))
+
+
+def build_mha_train_step(batch: int = 128, seq: int = 64, layers: int = 18,
+                         hidden: int = 1024, heads: int = 16,
+                         dropout: float = 0.1, opt_level: str = "O2",
+                         half_dtype=torch.float16, device="cuda",
+                         seed: int = 0):
+    """Returns ``(step, state, (x, target), policy, stack)``: the MHA
+    benchmark's norm-add stack trained through ``amp.initialize(params,
+    FusedAdam(lr=1e-4, strategy="arena"), opt_level, half_dtype=...)`` on
+    the f32 mean squared error of its output against a target drawn from
+    ``seed``, with its dropout on (seeds from a generator seeded with
+    ``seed``). ``step(state) -> (state', loss)``."""
+    device = _device(device, "build_mha_train_step")
+    stack = _mha_stack(layers, hidden, heads, dropout, "fast", False, device,
+                       seed)
+    amp_opt, state = amp.initialize(
+        dict(stack.named_parameters()),
+        FusedAdam(lr=1e-4, strategy="arena"), opt_level,
+        half_dtype=half_dtype, verbosity=0)
+    rng = np.random.RandomState(seed)
+    x = torch.as_tensor(rng.randn(batch, seq, hidden).astype(np.float32),
+                        device=device)
+    x = amp_opt.policy.cast_inputs(x)
+    target = torch.as_tensor(rng.randn(batch, seq, hidden).astype(
+        np.float32), device=device)
+    gen = torch.Generator(device).manual_seed(seed)
+    kwargs = dict(deterministic=dropout == 0.0, generator=gen)
+
+    def step(state):
+        def loss_fn(mp):
+            return _mse(functional_call(stack, mp, (x,), kwargs), target)
+        loss, grads, state, finite = amp_opt.backward(state, loss_fn)
+        return amp_opt.apply_gradients(state, grads, finite), loss
+
+    return step, state, (x, target), amp_opt.policy, stack
+
+
+def _train_step(model, inputs, target, kwargs, opt_level, half_dtype,
+                optimizer):
+    policy = amp.Policy.from_opt_level(opt_level, half_dtype=half_dtype)
+    amp_opt = amp.Amp(policy, optimizer)
+    state = amp_opt.init(dict(model.named_parameters()))
+
+    def step(state):
+        def loss_fn(mp):
+            with amp.auto_cast(policy):
+                y = functional_call(model, mp, inputs, kwargs)
+            return _mse(y, target)
+        loss, grads, state, finite = amp_opt.backward(state, loss_fn)
+        return amp_opt.apply_gradients(state, grads, finite), loss
+
+    return step, state, policy
+
+
+def build_transformer_step(batch: int = 16, seq: int = 512,
+                           layers: int = 24, hidden: int = 1024,
+                           heads: int = 16, ffn_hidden: int = 4096,
+                           dropout: float = 0.1, opt_level: str = "O1",
+                           half_dtype=torch.bfloat16, device="cuda",
+                           seed: int = 0):
+    """Returns ``(step, state, (x, mask, target), policy, model)``: a stack
+    of pre-LN ``TransformerLayer(hidden, heads, ffn_hidden, dropout)``
+    (BERT-Large's widths by default; weights from ``seed``) trained under
+    ``auto_cast`` of ``opt_level`` with ``FusedLAMB(lr=1e-3,
+    strategy="arena")`` on the f32 mean squared error of its output against
+    a target, both (batch, seq, hidden) f32 from
+    ``np.random.RandomState(seed)``. Each sequence's length is drawn from
+    [min(128, seq), seq] as ``build_bert_step`` draws it, and the padding
+    mask (B, 1, 1, S) is passed; dropout > 0 runs ``deterministic=False``
+    with seeds from a generator seeded with ``seed``. ``step(state) ->
+    (state', loss)``.
+    """
+    device = _device(device, "build_transformer_step")
+    model = LayerStack([models.TransformerLayer(
+        hidden, heads, ffn_hidden, dropout, pre_ln=True, device=device)
+        for _ in range(layers)])
+    seeded_init(model, seed)
+    rng = np.random.RandomState(seed)
+    x = torch.as_tensor(rng.randn(batch, seq, hidden).astype(np.float32),
+                        device=device)
+    target = torch.as_tensor(rng.randn(batch, seq, hidden).astype(
+        np.float32), device=device)
+    lengths = rng.randint(min(128, seq), seq + 1, batch)
+    mask = torch.as_tensor(np.arange(seq) < lengths[:, None],
+                           device=device)[:, None, None, :]
+    gen = torch.Generator(device).manual_seed(seed)
+    kwargs = dict(deterministic=dropout == 0.0, generator=gen)
+    step, state, policy = _train_step(
+        model, (x, mask), target, kwargs, opt_level, half_dtype,
+        FusedLAMB(lr=1e-3, strategy="arena"))
+    return step, state, (x, mask, target), policy, model
+
+
+def build_rnn_step(model, batch: int, seq: int, input_size: int,
+                   opt_level: str = "O1", half_dtype=torch.bfloat16,
+                   device="cuda", seed: int = 0):
+    """Returns ``(step, state, (x, target), policy, model)``: a
+    ``models.rnn`` stack trained under ``auto_cast`` of ``opt_level`` with
+    ``FusedAdam(lr=1e-3, strategy="arena")`` on the f32 mean squared error
+    of its (batch, seq, width) output against a target; input (batch, seq,
+    input_size) and target from ``np.random.RandomState(seed)``. A model
+    with dropout runs ``deterministic=False`` with keep masks from a
+    generator seeded with ``seed``. ``step(state) -> (state', loss)``."""
+    device = _device(device, "build_rnn_step")
+    rng = np.random.RandomState(seed)
+    width = model.hidden * (2 if model.bidirectional else 1)
+    x = torch.as_tensor(rng.randn(batch, seq, input_size).astype(
+        np.float32), device=device)
+    target = torch.as_tensor(rng.rand(batch, seq, width).astype(
+        np.float32) * 2 - 1, device=device)
+    gen = torch.Generator(device).manual_seed(seed)
+    kwargs = dict(deterministic=model.dropout == 0.0, generator=gen)
+    step, state, policy = _train_step(
+        model, (x,), target, kwargs, opt_level, half_dtype,
+        FusedAdam(lr=1e-3, strategy="arena"))
+    return step, state, (x, target), policy, model

@@ -114,6 +114,26 @@ plain PyTorch version on the card at the shapes its main path gives it
   the LayerNorm, flash and cross-entropy kernels in fp16 at BERT-Large's
   shapes against their plain versions, and the MLP kernel's half-operand
   mode bit for bit against its plain version (row ``mlp_fwd_o1``).
+- The attention and model-layer remainder, last: the reference Apex's MHA
+  benchmark (``perf_test_multihead_attn.py``: 18 norm-add
+  ``SelfMultiheadAttn(1024, 16, dropout=0.1)`` layers, B128 S64, fp16 by
+  ``network_to_half``; phase mha_perf_test: forward and backward ms, 5
+  warm-up trials then the median of 20, beside the ``impl="default"``
+  and the ``EncdecMultiheadAttn`` stacks; a flash and a LayerNorm launch
+  a layer each way; one deterministic pass against the plain versions);
+  that stack trained at O2 fp16 through ``amp.initialize`` and the arena
+  ``FusedAdam`` (mha_norm_add_train); 24 pre-LN ``TransformerLayer``s at
+  BERT-Large's widths, B16 S512 with padding and dropout, O1 bf16, the
+  arena LAMB (transformer_pre_ln, and a depth-2 step against the plain
+  versions); the byte mLSTM (4096 units, B128 T256) and the word-language
+  LSTM (2 x 1500, B20 T35) at O1 bf16 with the arena Adam (rnn_mlstm,
+  rnn_lstm), a bidirectional GRU's gradients against the CPU's
+  (rnn_gru_cpu_vs_card); weight norm at O2 fp16 on weights whose squares
+  underflow (weight_norm); and the DCGAN example's own step (B64, O2
+  bf16 without ``auto_cast``, two Adam launches a step; dcgan_example).
+  The kernel phase adds the flash rows at the benchmark's shape
+  (``flash_attn_{fwd,bwd}_s64``) and the mask probe at S = 64 and with
+  the caller's blocks of 128.
 
 Prints one line per phase (and each CUDA kernel's registers and spills
 from ``ptxas -v``), the card's name and power limit, a JSON line of
@@ -276,6 +296,47 @@ EXTRA_O1_ROWS = {
     "mlp_fwd_o1": ("mlp_fwd", "apex_tpu/ops/mlp.py:52",
                    "mlp_dlrm_bottom_o1"),
 }
+# the flash kernels at the reference Apex's MHA benchmark's shape (B128,
+# S64, H16, D64, fp16, dropout 0.1): {row: (kernel, TPU kernel replaced,
+# phase whose run gives this row's launches)}
+EXTRA_S64_ROWS = {
+    "flash_attn_fwd_s64": ("flash_attn_fwd", "apex_tpu/ops/attention.py:720",
+                           "mha_perf_test"),
+    "flash_attn_bwd_s64": ("flash_attn_bwd",
+                           "apex_tpu/ops/attention.py:1064",
+                           "mha_perf_test"),
+}
+# the reference Apex's MHA benchmark (perf_test_multihead_attn.py): seq-len
+# 64, 18 layers, hidden 1024, 16 heads, at B128 (8192 rows, BERT's row
+# count); 5 warm-up trials, then the median of 20, as the script times them
+MHA_B, MHA_S, MHA_LAYERS, MHA_HIDDEN, MHA_HEADS = 128, 64, 18, 1024, 16
+MHA_WARMUP, MHA_TRIALS = 5, 20
+# one pass of the norm-add stack: a flash and a LayerNorm kernel a layer
+# each way (the default path's attention is plain PyTorch: no flash)
+MHA_FWD = {"flash_attn_fwd": MHA_LAYERS, "layer_norm_fwd": MHA_LAYERS}
+MHA_BWD = {"flash_attn_bwd": MHA_LAYERS, "layer_norm_bwd": MHA_LAYERS}
+MHA_TRAIN_PER_STEP = dict(MHA_FWD, **MHA_BWD, adam=1)
+# 24 pre-LN layers at BERT-Large's widths: two LayerNorms and one attention
+# a layer, the arena LAMB once a step
+PRE_LN_LAYERS = 24
+PRE_LN_PER_STEP = dict({"layer_norm_fwd": 48, "layer_norm_bwd": 48,
+                        "flash_attn_fwd": 24, "flash_attn_bwd": 24},
+                       **ARENA_PER_STEP)
+# the depth-2 pre-LN stack's forward and backward through the kernels, and
+# its first-step loss against the plain versions' (relative)
+PRE_LN_DEPTH2 = {"layer_norm_fwd": 4, "layer_norm_bwd": 4,
+                 "flash_attn_fwd": 2, "flash_attn_bwd": 2}
+PRE_LN_LOSS_TOL = 5e-3
+# the RNN stacks: the arena Adam once a step, no other kernel of the port
+RNN_PER_STEP = {"adam": 1}
+RNN_STEPS = 3
+# the DCGAN example's step: D's one update on gR + gF and G's one
+DCGAN_EXAMPLE_PER_STEP = {"adam": 2}
+# a bidirectional 2-layer GRU on the card against the CPU (f32, TF32 off):
+# the relative L2 of the loss and of each param's gradient
+RNN_CPU_TOL = 1e-4
+# weight norm at O2 fp16: the f32 norm against float64
+WEIGHT_NORM_TOL = 1e-6
 # the ring's geometry on the card: BERT-Large's attention width (H16, D64),
 # B2, a global sequence of 8192 over two ranks (4096 a rank)
 RING_B, RING_S, RING_H, RING_D = 2, 8192, 16, 64
@@ -528,7 +589,8 @@ def bench_tools(rows):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = max(flops / peak, int_ops / F32_FLOPS) * 1e3
         kernel, replaces, _ = {**EXTRA_ROWS, **EXTRA_BN_ROWS,
-                               **EXTRA_ZERO_ROWS, **EXTRA_O1_ROWS}.get(
+                               **EXTRA_ZERO_ROWS, **EXTRA_O1_ROWS,
+                               **EXTRA_S64_ROWS}.get(
             name, (name, REPLACES.get(name), None))
         route, src = SOURCES[kernel]
         rows[name] = {
@@ -745,6 +807,62 @@ def check_flash(rnd, gen, flush, row):
     check_attention_options(rnd, gen, flush, row)
     mask_probe()
     check_flash_determinism(rnd, gen)
+    check_flash_s64(rnd, flush, row)
+
+
+def check_flash_s64(rnd, flush, row):
+    """The flash kernels at the reference Apex's MHA benchmark's shape,
+    (128, 64, 16, 64) fp16 with dropout 0.1: each against its plain
+    version, timed by events and by device time beside SDPA with the same
+    dropout (its mask differs, its work does not). At S = 64 each
+    persistent block's 128-row tile holds 64 real rows."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as A
+
+    b, s, h, d = MHA_B, MHA_S, MHA_HEADS, MHA_HIDDEN // MHA_HEADS
+    rate = 0.1
+    opts = dict(rate=rate, seed=torch.tensor([2024], dtype=torch.int32,
+                                             device="cuda"))
+    q, k, v, do = (rnd(b, s, h, d, dtype=torch.float16) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    e1 = compare("flash_attn_fwd S64", A.flash_fwd_kernel(q, k, v, scale,
+                                                          **opts),
+                 A.flash_fwd_plain(q, k, v, scale, **opts))
+    o, lse = A.flash_fwd_plain(q, k, v, scale, **opts)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
+        b * h, s).contiguous()
+    e2 = compare("flash_attn_bwd S64",
+                 A.flash_bwd_kernel(q, k, v, do, lse, delta, scale, **opts),
+                 A.flash_bwd_plain(q, k, v, do, lse, delta, scale, **opts))
+    io = b * s * h * d * 2
+    hash_ops = HASH_OPS * b * h * s * s
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa(qt=qt, kt=kt, vt=vt):
+        return F.scaled_dot_product_attention(qt, kt, vt, dropout_p=rate)
+    fwd = lambda: A.flash_fwd_kernel(q, k, v, scale, **opts)  # noqa: E731
+    row("flash_attn_fwd_s64", e1, timed(fwd, flush=flush),
+        timed(lambda: A.flash_fwd_plain(q, k, v, scale, **opts),
+              flush=flush), timed(sdpa, flush=flush),
+        nbytes=4 * io + b * h * s * 4, flops=4 * b * h * s * s * d,
+        int_ops=hash_ops, dev_ms=device_ms(fwd, flush=flush),
+        lib_dev_ms=device_ms(sdpa, flush=flush))
+    bwd = lambda: A.flash_bwd_kernel(  # noqa: E731
+        q, k, v, do, lse, delta, scale, **opts)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+    og = sdpa(qg, kg, vg)
+    dot = do.transpose(1, 2)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        og, (qg, kg, vg), dot, retain_graph=True)
+    row("flash_attn_bwd_s64", e2, timed(bwd, flush=flush),
+        timed(lambda: A.flash_bwd_plain(q, k, v, do, lse, delta, scale,
+                                        **opts), flush=flush),
+        timed(sdpa_bwd, flush=flush),
+        nbytes=7 * io + 2 * b * h * s * 4, flops=10 * b * h * s * s * d,
+        int_ops=hash_ops, dev_ms=device_ms(bwd, flush=flush),
+        lib_dev_ms=device_ms(sdpa_bwd, flush=flush))
+    del qg, kg, vg, og
 
 
 def _padding_bias(gen, b, s):
@@ -883,15 +1001,18 @@ def mask_probe():
     on keys [j0, j0 + 64) and -1e9 elsewhere, p is 1/64 on that window; v
     is the identity there, so o[r, d]·64·(1 − rate) is 1 where keep[r, j0 +
     d] and 0 where not (> 0.5 read as kept; o is bf16). j0 sweeps the keys,
-    at S = 512 (one JAX dropout block) and S = 600 (blocks of 128), B = H =
-    2."""
+    at S = 512 (one JAX dropout block), S = 600 (blocks of 128), S = 64 (the
+    MHA benchmark's length: one block of 64, half a CUDA tile of rows) and
+    S = 512 with the caller's ``block_q = block_k = 128`` (blocks of 128),
+    B = H = 2."""
     import torch
     from apex_tpu_torch.ops import attention as A
 
     dev = torch.device("cuda")
     b, h, d, rate = 2, 2, 64, 0.1
     seed = torch.tensor([-1234567], dtype=torch.int32, device=dev)
-    for s in (512, 600):
+    for s, blocks in ((512, ()), (600, ()), (64, ()), (512, (128, 128))):
+        kw = dict(zip(("block_q", "block_k"), blocks))
         qk = torch.zeros(b, s, h, d, dtype=torch.bfloat16, device=dev)
         got = torch.zeros(b * h, s, s, dtype=torch.bool, device=dev)
         starts = list(range(0, s - d + 1, d))
@@ -904,18 +1025,19 @@ def mask_probe():
             v = torch.zeros_like(qk)
             v[:, j0:j0 + d] = eye[None, :, None, :]
             o = A.flash_attention(qk, qk, v, bias=bias, dropout_rate=rate,
-                                  dropout_seed=seed)
+                                  dropout_seed=seed, **kw)
             bits = o.float() * d * (1 - rate) > 0.5          # (b, s, h, d)
             got[:, :, j0:j0 + d] = bits.transpose(1, 2).reshape(b * h, s, d)
-        want = A._keep_mask_dense(seed, b, h, s, s, *A._dropout_blocks(s, s),
-                                  rate)
+        drop = A._dropout_blocks(s, s, *blocks)
+        want = A._keep_mask_dense(seed, b, h, s, s, *drop, rate)
         wrong = int((got != want).sum())
         if wrong:
-            raise AssertionError(f"mask probe S={s}: {wrong} of "
+            raise AssertionError(f"mask probe S={s} {kw}: {wrong} of "
                                  f"{want.numel()} keep bits differ")
-        log(f"phase kernels: mask probe S={s}: {want.numel()} keep bits "
-            f"equal the plain mask bit for bit (kept "
-            f"{want.float().mean().item():.4f}, {len(starts)} windows)")
+        log(f"phase kernels: mask probe S={s} {kw or 'default blocks'} "
+            f"(dropout blocks {drop}): {want.numel()} keep bits equal the "
+            f"plain mask bit for bit (kept {want.float().mean().item():.4f}, "
+            f"{len(starts)} windows)")
 
 
 def check_flash_determinism(rnd, gen):
@@ -5007,6 +5129,434 @@ def amp_remainder_phases(rows):
     log(f"phase amp_remainder: all in {time.perf_counter() - t0:.1f} s")
 
 
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def mha_perf_test(rows):
+    """The reference Apex's MHA benchmark at its published width: 18 x
+    ``SelfMultiheadAttn(1024, 16, dropout=0.1, include_norm_add=True)``,
+    B128 x S64, cast to fp16 by ``fp16_utils.network_to_half``; forward and
+    backward ms by events (5 warm-up trials, then the median of 20), beside
+    the ``impl="default"`` stack (``--ref``) and the
+    ``EncdecMultiheadAttn(include_norm_add=True)`` stack (``--encdec-attn``,
+    a memory of the same length). Gates: a flash and a LayerNorm launch a
+    layer each way (no flash on the default path), and one pass of the
+    stack at ``deterministic=True`` through the kernels against the plain
+    versions (output within TOL16, each grad within 2e-2 of its max)."""
+    import torch
+    from apex_tpu_torch import ops, train
+
+    results = {}
+    for label, kw in (("fast", {}), ("default", dict(impl="default")),
+                      ("encdec", dict(encdec=True))):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        run, params, inputs = train.build_mha_perf_test(
+            MHA_B, MHA_S, MHA_LAYERS, MHA_HIDDEN, MHA_HEADS, **kw)
+        fwd = dict(MHA_FWD)
+        bwd = dict(MHA_BWD)
+        if label == "default":
+            fwd.pop("flash_attn_fwd")
+            bwd.pop("flash_attn_bwd")
+        grads = torch.randn(inputs[0].shape, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(3)
+                            ).to(inputs[0].dtype)
+        ops.reset_launch_counts()
+        out = run(params)
+        check_launches(f"mha_perf_test {label} forward",
+                       ops.launch_counts(), fwd, None, 1)
+        ops.reset_launch_counts()
+        out.backward(grads)
+        check_launches(f"mha_perf_test {label} backward",
+                       ops.launch_counts(), bwd, None, 1)
+        ops.reset_launch_counts()
+        f_ms, b_ms = [], []
+        for trial in range(MHA_WARMUP + MHA_TRIALS):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+            out = run(params)
+            ev[1].record()
+            out.backward(grads)
+            ev[2].record()
+            torch.cuda.synchronize()
+            if trial >= MHA_WARMUP:
+                f_ms.append(ev[0].elapsed_time(ev[1]))
+                b_ms.append(ev[1].elapsed_time(ev[2]))
+        counts = ops.launch_counts()
+        n = MHA_WARMUP + MHA_TRIALS
+        check_launches(f"mha_perf_test {label}", counts, {**fwd, **bwd},
+                       None, n)
+        if not torch.isfinite(out).all().item():
+            raise AssertionError(f"mha_perf_test {label}: output not finite")
+        results[label] = (_median(f_ms), _median(b_ms))
+        log(f"phase mha_perf_test: {label} stack ({MHA_LAYERS} layers, "
+            f"B{MHA_B} S{MHA_S}, fp16): forward {results[label][0]:.4f} ms, "
+            f"backward {results[label][1]:.4f} ms (median of {MHA_TRIALS} "
+            f"after {MHA_WARMUP} warm-up), launches a trial "
+            f"{ {k: v // n for k, v in counts.items() if v} }, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        if label == "fast":
+            for name in EXTRA_S64_ROWS:
+                rows[name]["launches"] = counts[EXTRA_S64_ROWS[name][0]]
+            mha_plain_vs_kernel(run, params, inputs, grads)
+        del run, params, inputs, out
+    f, d, e = (results[k] for k in ("fast", "default", "encdec"))
+    log(f"phase mha_perf_test: fast/default forward {f[0] / d[0]:.3f}, "
+        f"backward {f[1] / d[1]:.3f}; encdec/self forward "
+        f"{e[0] / f[0]:.3f}, backward {e[1] / f[1]:.3f}")
+    return results
+
+
+def grads_within(phase, names, gk, gp, tol=TOL16):
+    """Each gradient through the kernels within ``tol`` of its plain
+    version's max magnitude; returns the worst ratio."""
+    worst = 0.0
+    for name, a, b in zip(names, gk, gp):
+        e = (a.float() - b.float()).abs().max().item()
+        ref = b.float().abs().max().item()
+        if not e <= tol * max(ref, 1e-6):
+            raise AssertionError(f"{phase} grad {name}: {e:.3e} > {tol} x "
+                                 f"{ref:.3e}")
+        worst = max(worst, e / max(ref, 1e-6))
+    return worst
+
+
+def mha_plain_vs_kernel(run, params, inputs, grads):
+    """One pass of the stack at ``deterministic=True``, kernels against
+    plain versions: output within TOL16 of its max, each grad (params and
+    input) within 2e-2 of its tensor's max."""
+    import torch
+
+    leaves = [*params.values(), *inputs]
+    outs = {}
+    for mode in ("kernel", "plain"):
+        with (plain_versions() if mode == "plain"
+              else contextlib.nullcontext()):
+            y = run(params, deterministic=True)
+            outs[mode] = (y.detach(), torch.autograd.grad(y, leaves, grads))
+    (yk, gk), (yp, gp) = outs["kernel"], outs["plain"]
+    err = compare("mha_perf_test plain_vs_kernel output", [yk], [yp])
+    worst = grads_within("mha_perf_test plain_vs_kernel", [*params, "input"],
+                         gk, gp)
+    log(f"phase mha_perf_test: deterministic pass kernel vs plain: output "
+        f"max_abs_err {err:.3e}, grads within {worst:.3e} of their max")
+
+
+def _train_phase(phase, step, state, per_step, items, steps, unit):
+    """``steps`` steps of ``step(state) -> (state, loss)``: the launches of
+    each kernel a step, finite losses; logs the median step ms (after the
+    first), items/s and peak memory. Returns (losses, state, step ms)."""
+    import torch
+    from apex_tpu_torch import ops
+
+    ops.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = ops.launch_counts()
+    for i, (l, t) in enumerate(zip(losses, times)):
+        log(f"{phase} step {i}: loss {l:.6f}  {t:.2f} ms")
+        if not math.isfinite(l):
+            raise AssertionError(f"{phase} step {i} loss is not finite: {l}")
+    check_launches(phase, counts, per_step, None, steps)
+    step_ms = _median(times[1:])
+    log(f"phase {phase}: launches per step "
+        f"{ {k: v // steps for k, v in counts.items() if v} }")
+    log(f"phase {phase}: median step {step_ms:.2f} ms (steps 1-{steps - 1}), "
+        f"{items / step_ms * 1e3:.2f} {unit}/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    return losses, state, step_ms
+
+
+def mha_norm_add_train():
+    """The MHA benchmark's norm-add stack trained through
+    ``amp.initialize(..., "O2", half_dtype=torch.float16)`` and
+    ``FusedAdam`` on the arena, MSE against a seeded target, dropout on: 5
+    steps, one ``adam`` launch a step."""
+    import torch
+    from apex_tpu_torch import train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, state, _, _, _ = train.build_mha_train_step(
+        MHA_B, MHA_S, MHA_LAYERS, MHA_HIDDEN, MHA_HEADS)
+    _, state, _ = _train_phase("mha_norm_add_train", step, state,
+                               MHA_TRAIN_PER_STEP, MHA_B, 5, "seq")
+    log(f"phase mha_norm_add_train: {int(state.step)} of 5 steps applied, "
+        f"loss scale {state.scalers[0].loss_scale.item():.0f}")
+
+
+def transformer_pre_ln():
+    """24 x ``TransformerLayer(1024, 16, 4096, dropout=0.1, pre_ln=True)``,
+    B16 x S512 with ``bert_large_dropout``'s padding masks, O1 bf16, the
+    arena ``FusedLAMB``, MSE against a seeded target: 5 steps (48 LN and 24
+    flash launches each way a step, the arena LAMB once). Then
+    :func:`pre_ln_plain_vs_kernel`."""
+    import torch
+    from apex_tpu_torch import train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, state, (_, mask, _), _, model = train.build_transformer_step(
+        16, 512, PRE_LN_LAYERS)
+    log(f"phase transformer_pre_ln: built, "
+        f"{sum(p.numel() for p in model.parameters())} params, "
+        f"{int(mask.sum())} of {mask.numel()} tokens real")
+    _train_phase("transformer_pre_ln", step, state, PRE_LN_PER_STEP, 16, 5,
+                 "seq")
+    del step, state, model
+    torch.cuda.empty_cache()
+    pre_ln_plain_vs_kernel()
+
+
+def pre_ln_plain_vs_kernel():
+    """A depth-2 pre-LN stack (B16 S512, padded, O1 bf16), without and with
+    dropout, through the kernels and through ``plain_versions()``: the
+    first step's loss within PRE_LN_LOSS_TOL relative, the output (f32:
+    bf16 sublayers on the f32 residual) within TOL16 of its max, and each
+    param's gradient within TOL16 of its tensor's max (``grads_within``).
+    Both modes draw dropout from the same seed; the kernel pass launches
+    every LN and flash kernel of the stack, the plain pass none."""
+    import torch
+    from apex_tpu_torch import amp, ops, train
+
+    for dropout in (0.0, 0.1):
+        outs = {}
+        for mode in ("kernel", "plain"):
+            _, _, (x, mask, target), policy, model = \
+                train.build_transformer_step(16, 512, 2, dropout=dropout)
+            names, params = zip(*model.named_parameters())
+            gen = torch.Generator("cuda").manual_seed(0)
+            ops.reset_launch_counts()
+            with (plain_versions() if mode == "plain"
+                  else contextlib.nullcontext()):
+                with amp.auto_cast(policy):
+                    y = model(x, mask, deterministic=dropout == 0.0,
+                              generator=gen)
+                loss = torch.mean(torch.square(y.float() - target))
+                grads = torch.autograd.grad(loss, params)
+            check_launches(f"pre_ln_plain_vs_kernel {mode}",
+                           ops.launch_counts(),
+                           {} if mode == "plain" else PRE_LN_DEPTH2, None, 1)
+            outs[mode] = (loss.item(), y.detach(), grads)
+            del model, y, grads
+        (lk, yk, gk), (lp, yp, gp) = outs["kernel"], outs["plain"]
+        rel = abs(lk - lp) / abs(lp)
+        if not rel <= PRE_LN_LOSS_TOL:
+            raise AssertionError(f"pre-LN kernel/plain loss differ by "
+                                 f"{rel:.2e} > {PRE_LN_LOSS_TOL} (dropout "
+                                 f"{dropout})")
+        err = compare(f"pre_ln_plain_vs_kernel dropout {dropout} output",
+                      [yk], [yp], tol32=TOL16)
+        worst = grads_within(f"pre_ln_plain_vs_kernel dropout {dropout}",
+                             names, gk, gp)
+        log(f"phase transformer_pre_ln: depth-2 dropout {dropout} kernel vs "
+            f"plain: first-step loss {lk:.6f} / {lp:.6f} (rel {rel:.2e}), "
+            f"output max_abs_err {err:.3e}, {len(gk)} params' grads within "
+            f"{worst:.3e} of their max")
+        del outs
+
+
+def _step_kernels(step, state):
+    """(device kernels, device busy ms, wall ms) of one more step, from
+    ``torch.profiler``; the launch counts are reset after it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from apex_tpu_torch import ops
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(state)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    ks = [e for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA]
+    ops.reset_launch_counts()
+    return len(ks), sum(e.time_range.elapsed_us() for e in ks) / 1e3, wall
+
+
+def train_rnn(phase, make, batch, seq, input_size):
+    """RNN_STEPS steps of ``make()`` under O1 bf16 with the arena
+    ``FusedAdam``, MSE against a seeded target: one ``adam`` launch a step,
+    finite losses; then one profiled step (device kernels a step, busy
+    share)."""
+    import torch
+    from apex_tpu_torch import train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = make()
+    step, state, (x, _), _, _ = train.build_rnn_step(model, batch, seq,
+                                                     input_size)
+    log(f"phase {phase}: built, {sum(p.numel() for p in model.parameters())}"
+        f" params, input {tuple(x.shape)}, dropout {model.dropout}")
+    _, state, step_ms = _train_phase(phase, step, state, RNN_PER_STEP, batch,
+                                     RNN_STEPS, "seq")
+    n, busy, wall = _step_kernels(step, state)
+    log(f"phase {phase}: profiled step: {n} device kernels, busy "
+        f"{busy:.2f} ms of {wall:.2f} ms (idle share "
+        f"{max(0.0, 1 - busy / wall):.3f})")
+    return step_ms
+
+
+def rnn_gru_cpu_vs_card():
+    """A bidirectional 2-layer GRU (32 -> 64, B4, T12) in f32 (no
+    ``auto_cast``: an enabled policy casts the Dense layers to bf16, O0
+    too): the MSE loss of one forward and every param's gradient on the
+    card against the CPU, within RNN_CPU_TOL relative L2 (TF32 off). The
+    gradients, not the updated params: a param's update (p1 − p0) carries
+    p's rounding, an ulp of p against an update of lr·g."""
+    import numpy as np
+    import torch
+    from apex_tpu_torch import models
+
+    rng = np.random.RandomState(0)
+    x = rng.randn(4, 12, 32).astype(np.float32)
+    target = rng.rand(4, 12, 128).astype(np.float32) * 2 - 1
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = models.GRU(32, 64, num_layers=2, bidirectional=True,
+                           device="cpu", seed=5).to(dev)
+        y = model(torch.tensor(x, device=dev))
+        loss = torch.mean(torch.square(y - torch.tensor(target, device=dev)))
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        out[dev] = {"loss": loss.detach().cpu().double().reshape(1),
+                    **{n: g.cpu().double() for n, g in zip(names, grads)}}
+    worst = 0.0
+    for name, want in out["cpu"].items():
+        got = out["cuda"][name]
+        rel = ((got - want).norm() / want.norm().clamp_min(1e-30)).item()
+        if not rel <= RNN_CPU_TOL:
+            raise AssertionError(f"rnn GRU card vs CPU {name}: rel L2 "
+                                 f"{rel:.3e} > {RNN_CPU_TOL}")
+        worst = max(worst, rel)
+    log(f"phase rnn_gru_cpu_vs_card: bidirectional 2-layer GRU, card vs "
+        f"CPU: the loss and {len(out['cpu']) - 1} params' gradients within "
+        f"rel L2 {worst:.3e}")
+
+
+def weight_norm_phase():
+    """``apply_weight_norm(Dense(1024, 4096))`` at O2 fp16 with weights near
+    1e-4, whose squares underflow fp16: the f32 normalized weight against
+    float64 within WEIGHT_NORM_TOL relative, the fp16 weight that value
+    rounded, and ``remove_weight_norm`` giving the same forward within
+    TOL16."""
+    import torch
+    from torch.func import functional_call
+    from apex_tpu_torch import amp, models, reparam
+    from apex_tpu_torch.reparam import weight_norm as WN
+
+    gen = torch.Generator("cuda").manual_seed(7)
+    layer = models.Dense(1024, 4096)
+    with torch.no_grad():
+        layer.weight.normal_(0.0, 1e-4, generator=gen)
+        layer.bias.normal_(0.0, 1e-2, generator=gen)
+    wn = reparam.apply_weight_norm(layer)
+    with torch.no_grad():
+        wn.scale.normal_(1.0, 0.1, generator=gen)
+    policy = amp.Policy.from_opt_level("O2", half_dtype=torch.float16)
+    hp = policy.cast_params(dict(wn.named_parameters()))
+    v16, g16 = hp["layer.weight"], hp["scale"]
+    under = int(((v16 * v16).sum(dim=1).double()
+                 < 0.5 * (v16.double() ** 2).sum(dim=1)).sum())
+    v64, g64 = v16.double(), g16.double()
+    ref = g64[:, None] * v64 / v64.norm(dim=1, keepdim=True)
+    w32 = WN.normalized_weight(v16, g16, torch.float32)
+    rel = ((w32.double() - ref).abs().max() / ref.abs().max()).item()
+    if not rel <= WEIGHT_NORM_TOL:
+        raise AssertionError(f"weight_norm: f32 norm {rel:.3e} from float64")
+    if not torch.equal(WN.normalized_weight(v16, g16), w32.half()):
+        raise AssertionError("weight_norm: the fp16 weight is not the f32 "
+                             "normalized weight rounded")
+    naive = v16 * torch.rsqrt((v16 * v16).sum(dim=1, keepdim=True)
+                              + WN.EPS) * g16[:, None]
+    bad = int((~torch.isfinite(naive)).sum())
+    naive_err = (naive.double() - ref).nan_to_num(float("inf")).abs().max()
+    x = torch.randn(8192, layer.in_features, generator=gen,
+                    device="cuda").half()
+    folded = reparam.remove_weight_norm(dict(wn.named_parameters()))
+    with torch.no_grad():
+        y = functional_call(wn, hp, (x,))
+        y2 = functional_call(layer, {
+            k[len("layer."):]: v for k, v in
+            policy.cast_params(folded).items()}, (x,))
+    err = compare("weight_norm remove_weight_norm forward", [y2], [y])
+    log(f"phase weight_norm: {under} of {v16.shape[0]} rows' fp16 sums of "
+        f"squares "
+        f"under half their float64 value; f32 norm within {rel:.3e} of "
+        f"float64, fp16 weight its rounding; the weight's-dtype arithmetic "
+        f"(flax's) off by {naive_err.item():.3e} with {bad} non-finite; "
+        f"remove_weight_norm forward max_abs_err {err:.3e}")
+
+
+def dcgan_example():
+    """The DCGAN example's step (``examples/dcgan/main_amp.py``'s defaults:
+    B64, 64x64, O2 bf16, ngf = ndf = 64, no ``auto_cast``): 20 steps, two
+    ``adam`` launches a step (D's one update on gR + gF, G's one), finite
+    losses; data drawn before each step's clock."""
+    import torch
+    from apex_tpu_torch import ops, train
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    step, (sd, sg, bsd, bsg), draw, _, _ = train.build_dcgan_example_step(64)
+    ops.reset_launch_counts()
+    times, losses = [], []
+    for _ in range(DCGAN_STEPS):
+        real, z = draw()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sd, sg, bsd, bsg, err_d, err_g = step(sd, sg, bsd, bsg, real, z)
+        losses.append((err_d.item(), err_g.item()))
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    for i in (0, 1, DCGAN_STEPS - 1):
+        log(f"dcgan_example step {i}: Loss_D {losses[i][0]:.4f} Loss_G "
+            f"{losses[i][1]:.4f}  {times[i]:.2f} ms")
+    if not all(math.isfinite(v) for l in losses for v in l):
+        raise AssertionError("dcgan_example: a loss is not finite")
+    check_launches("dcgan_example", ops.launch_counts(),
+                   DCGAN_EXAMPLE_PER_STEP, None, DCGAN_STEPS)
+    if (int(sd.step), int(sg.step)) != (DCGAN_STEPS, DCGAN_STEPS):
+        raise AssertionError(f"dcgan_example: D/G steps {int(sd.step)}, "
+                             f"{int(sg.step)}")
+    step_ms = _median(times[1:])
+    log(f"phase dcgan_example: median step {step_ms:.2f} ms (steps "
+        f"1-{DCGAN_STEPS - 1}), {64 / step_ms * 1e3:.2f} img/s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+
+def attention_remainder_phases(rows):
+    """This slice's phases, in order; each logs its time."""
+    import torch
+    from apex_tpu_torch import models
+
+    for name, fn in (
+            ("mha_perf_test", lambda: mha_perf_test(rows)),
+            ("mha_norm_add_train", mha_norm_add_train),
+            ("transformer_pre_ln", transformer_pre_ln),
+            ("rnn_mlstm", lambda: train_rnn(
+                "rnn_mlstm", lambda: models.mLSTM(64, 4096), 128, 256, 64)),
+            ("rnn_lstm", lambda: train_rnn(
+                "rnn_lstm", lambda: models.LSTM(1500, 1500, num_layers=2,
+                                                dropout=0.65), 20, 35, 1500)),
+            ("rnn_gru_cpu_vs_card", rnn_gru_cpu_vs_card),
+            ("weight_norm", weight_norm_phase),
+            ("dcgan_example", dcgan_example)):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.empty_cache()
+        log(f"phase {name}: took {time.perf_counter() - t0:.1f} s")
+
+
 def _instance_name(mangled):
     """A readable name for an instance of the port's CUDA kernels:
     ``flash_fwd<bf16, D=64, opts=0>``, ``ln_fwd_warp<bf16, CH=8, NC=4>``,
@@ -5165,11 +5715,13 @@ def main() -> int:
     dcgan_fp16_overflow()
     torch.cuda.empty_cache()
     amp_remainder_phases(rows)
+    torch.cuda.empty_cache()
+    attention_remainder_phases(rows)
 
     from apex_tpu_torch import ops
     print(json.dumps({"kernels": [rows[n] for n in (
         *ops.KERNELS, *EXTRA_ROWS, *EXTRA_BN_ROWS, *EXTRA_ZERO_ROWS,
-        *EXTRA_O1_ROWS)]}))
+        *EXTRA_O1_ROWS, *EXTRA_S64_ROWS)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

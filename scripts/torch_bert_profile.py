@@ -3,7 +3,8 @@
 
     python3 scripts/torch_bert_profile.py [--model bert_large|
         bert_large_dropout|bert_large_zero|resnet50|resnet50_syncbn|dcgan|
-        mlp_dlrm_bottom] [--steps 2] [--strategy auto] [--out PATH]
+        mlp_dlrm_bottom|mha_perf_test|transformer_pre_ln] [--steps 2]
+        [--strategy auto] [--out PATH]
 
 Builds the port's BERT-Large MLM step (B16, S512, amp O1 bf16, FusedLAMB;
 ``bert_large_dropout``: as published, with padding masks and attention
@@ -20,7 +21,13 @@ through ``DistributedDataParallel(delay_allreduce=True)``), its DCGAN
 step (B128, 64x64, amp O1 bf16, two FusedAdam(lr=2e-4, betas=(0.5,
 0.999)) bundles, three backwards) or its
 fused-MLP step (DLRM's bottom MLP [13, 512, 256, 128] at B2048, amp O2
-bf16, 2:4 ASP around FusedAdam(lr=1e-3)) with
+bf16, 2:4 ASP around FusedAdam(lr=1e-3)), the reference Apex's
+multihead-attention benchmark (``mha_perf_test``: one forward and
+backward, a "step", of 18 norm-add ``SelfMultiheadAttn(1024, 16,
+dropout=0.1)`` layers at B128 S64 in fp16) or a pre-LN transformer stack
+(``transformer_pre_ln``: 24 ``TransformerLayer(1024, 16, 4096,
+dropout=0.1, pre_ln=True)``, B16 S512 with padding masks, amp O1 bf16, the
+arena FusedLAMB) with
 the given optimizer strategy ("auto" takes the tree update for BERT-Large
 and ResNet-50 and the arena for DCGAN and the MLP, "arena" the
 flat-arena kernels)
@@ -220,6 +227,26 @@ def _builder(model, strategy, rank=None):
                 carry[0], loss = step(carry[0], toks, labels)
             return loss
         return one_step, 16
+    if model == "mha_perf_test":
+        import torch
+        run, params, inputs = train.build_mha_perf_test()
+        grads = torch.randn(inputs[0].shape, device="cuda",
+                            generator=torch.Generator("cuda").manual_seed(3)
+                            ).to(inputs[0].dtype)
+
+        def one_step():
+            out = run(params)
+            out.backward(grads)
+            return out.detach().float().abs().mean()
+        return one_step, inputs[0].shape[0]
+    if model == "transformer_pre_ln":
+        step, state, (x, _, _), _, _ = train.build_transformer_step()
+        carry = [state]
+
+        def one_step():
+            carry[0], loss = step(carry[0])
+            return loss
+        return one_step, x.shape[0]
     if model == "mlp_dlrm_bottom":
         step, state, (x, t), _, _ = train.build_mlp_step(
             2048, strategy=strategy)
@@ -267,7 +294,8 @@ def main() -> int:
     ap.add_argument("--model", default="bert_large",
                     choices=("bert_large", "bert_large_dropout",
                              "bert_large_zero", "ring_two_ranks", "resnet50",
-                             "resnet50_syncbn", "dcgan", "mlp_dlrm_bottom"))
+                             "resnet50_syncbn", "dcgan", "mlp_dlrm_bottom",
+                             "mha_perf_test", "transformer_pre_ln"))
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--strategy", default="auto",
                     choices=("auto", "tree", "arena"))

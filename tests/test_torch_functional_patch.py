@@ -9,7 +9,8 @@
   innermost of nested scopes wins; a thread that never entered
   ``auto_cast`` sees no cast; an explicit module dtype and the f32
   attention oracle are not reached.
-- The reach: each public op of ``apex_tpu_torch.ops`` and the BERT,
+- The reach: each public op of ``apex_tpu_torch.ops`` (and the MHA
+  modules' ``impl="default"`` attention) and the BERT,
   ResNet and DCGAN forwards run inside and outside ``auto_cast(O1)``, and
   under O1 with and without the patch, beside their JAX counterparts; an
   output changes in the port exactly when it changes in the JAX package.
@@ -35,12 +36,14 @@ from apex_tpu import amp as jamp
 from apex_tpu import models as jmodels
 from apex_tpu import ops as jops
 from apex_tpu.ops import mlp as JM
+from apex_tpu.ops import multihead_attn as JMHA
 from apex_tpu_torch import amp as tamp
 from apex_tpu_torch import models as tmodels
 from apex_tpu_torch import ops as tops
 from apex_tpu_torch.amp import functional_patch as fp
 from apex_tpu_torch.convert import params_from_jax, resnet_variables_from_jax
 from apex_tpu_torch.ops import mlp as TM
+from apex_tpu_torch.ops import multihead_attn as TMHA
 
 O1 = tamp.Policy.from_opt_level("O1")
 JO1 = jamp.Policy.from_opt_level("O1")
@@ -262,6 +265,15 @@ def _op_cases():
     return {
         "attention_reference": (jops.attention_reference,
                                 tops.attention_reference, (q, k, v)),
+        # impl="default" of the MHA modules: not suspended in the JAX
+        # package, so its einsums are reached
+        "dropout_attention": (
+            lambda *a: JMHA._dropout_attention(None, *a, None, False, 0.0,
+                                               True),
+            lambda *a: TMHA._dropout_attention(*a, None, False, 0.0, True,
+                                               None), (q, k, v)),
+        "mask_softmax_dropout": (jops.mask_softmax_dropout,
+                                 tops.mask_softmax_dropout, (x2,)),
         "flash_attention": (jops.flash_attention, tops.flash_attention,
                             (q, k, v)),
         "flash_attention_lse": (jops.attention.flash_attention_lse,
@@ -330,8 +342,9 @@ def _op_cases():
 
 
 #: the ops whose output the JAX package's patch reaches: the MLP's kernel
-#: body and its chain call the patched ``jnp.dot``
-_REACHED = {"fused_mlp", "mlp_reference"}
+#: body and its chain call the patched ``jnp.dot``, the MHA modules'
+#: default path the patched ``jnp.einsum``
+_REACHED = {"fused_mlp", "mlp_reference", "dropout_attention"}
 
 
 def _leaves_np(out):

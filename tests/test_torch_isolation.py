@@ -267,3 +267,26 @@ def test_zero_main_path_defaults_to_cuda(monkeypatch):
     with pytest.raises(NameError, match="unbound axis name"):
         train.build_bert_step(2, 8, encoder=enc, device="cpu",
                               optimizer=optim.DistributedFusedLAMB())
+
+
+def test_remainder_modules_are_scanned_and_default_to_cuda(monkeypatch):
+    """The RNN stacks, weight norm and the DCGAN example's step and script
+    are among the scanned sources; their entry points ask for cuda when no
+    device is given."""
+    import inspect
+
+    from apex_tpu_torch import models, train
+    from apex_tpu_torch.models import rnn
+
+    scanned = {m for _, m in _sources()}
+    assert {"apex_tpu_torch.models.rnn", "apex_tpu_torch.reparam",
+            "apex_tpu_torch.reparam.weight_norm",
+            "scripts/torch_dcgan_main_amp.py"} <= scanned
+    for fn in (train.build_dcgan_example_step, rnn.StackedRNN, rnn.LSTM,
+               rnn.GRU, rnn.Tanh, rnn.ReLU, rnn.mLSTM, rnn.LSTMCell):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.build_dcgan_example_step(2)
+    with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
+        models.LSTM(4, 4)
