@@ -22,8 +22,15 @@ It imports ``torch`` and never ``jax`` nor anything of ``apex_tpu``.
                               DCGAN, and the flax-style layers they share.
 - ``apex_tpu_torch.train``  — the BERT MLM, ResNet, MLP and DCGAN
                               training steps.
+- ``apex_tpu_torch.ckpt``   — async, crash-safe, elastic checkpoints in
+                              the JAX package's on-disk format, and the
+                              exit-75 escalation.
+- ``apex_tpu_torch.guard``  — in-step anomaly detection (``Amp.step(
+                              guard=)``), integrity fingerprints, the
+                              skip/repair/rewind/escalate policy, chaos.
 - ``apex_tpu_torch.convert`` — weights, statistics, optimizer and ASP
-                              state carried over from the JAX package.
+                              state carried over from the JAX package, in
+                              memory or from its checkpoints.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on the CPU every op runs its plain version.

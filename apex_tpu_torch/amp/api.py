@@ -41,7 +41,7 @@ from apex_tpu_torch.amp.scaler import (
 from apex_tpu_torch.utils import tree_cast, tree_leaves, tree_map, tree_select
 
 _UNPORTED_HOOK = ("the {} hook of Amp is not ported yet (ROADMAP.md queue A "
-                  "item 11, observability; item 10 for guard=)")
+                  "item 11, observability)")
 
 
 class AmpState(NamedTuple):
@@ -173,15 +173,51 @@ class Amp:
     def step(self, state: AmpState, loss_fn: Callable, *args,
              loss_id: int = 0, has_aux: bool = False, guard=None,
              numerics=None, dynamics=None, **kwargs):
-        """backward + apply in one call. Returns (state', out, finite)."""
-        for name, hook in (("guard=", guard), ("numerics=", numerics),
-                           ("dynamics=", dynamics)):
+        """backward + apply in one call. Returns (state', out, finite).
+
+        ``guard=(guard_state, guard_config)`` (or ``(gs, gcfg,
+        replica_ok)`` with an integrity verdict) threads the in-step
+        anomaly guard (:mod:`apex_tpu_torch.guard`), as the JAX package's
+        ``Amp.step`` does: ``guard_observe`` on the loss, the true global
+        norm of the unscaled f32 grads and the committed params; the grads
+        scaled by ``lr_scale``; the update committed where the grads were
+        finite and no skip-class anomaly fired. Returns ``(state', out,
+        committed, guard_state')``; nothing is read back to the host.
+
+        Without a loss scaler (bf16) amp has no finiteness flag, and the
+        guard takes it from the true norm: the JAX package passes its
+        Python ``True`` on, which lets a NaN gradient commit there.
+        """
+        for name, hook in (("numerics=", numerics), ("dynamics=", dynamics)):
             if hook is not None:
                 raise NotImplementedError(_UNPORTED_HOOK.format(name))
         out, grads, state, finite = self.backward(
             state, loss_fn, *args, loss_id=loss_id, has_aux=has_aux,
             **kwargs)
-        return self.apply_gradients(state, grads, finite), out, finite
+        if guard is None:
+            return self.apply_gradients(state, grads, finite), out, finite
+        from apex_tpu_torch.guard import guard_observe, guard_ok
+        if len(guard) == 3:
+            gs, gcfg, replica_ok = guard
+        else:
+            (gs, gcfg), replica_ok = guard, None
+        loss_val = out[0] if has_aux else out
+        floats = [g for g in tree_leaves(grads) if g.is_floating_point()]
+        true_norm = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm([g.float() for g in floats])))
+        gs = guard_observe(gs, gcfg, loss=loss_val, grad_norm=true_norm,
+                           params=state.params,
+                           grads_finite=None if finite is True else finite,
+                           replica_ok=replica_ok)
+        scaled = dict(zip(map(id, floats), torch._foreach_mul(
+            floats, gs.lr_scale)))
+        grads = tree_map(lambda g: scaled.get(id(g), g), grads)
+        committed = guard_ok(gs, gcfg)
+        if finite is not True:
+            committed = committed & torch.as_tensor(finite).to(
+                committed.device)
+        return (self.apply_gradients(state, grads, committed), out,
+                committed, gs)
 
     # -- memory accounting ---------------------------------------------------
 

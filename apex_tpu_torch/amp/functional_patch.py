@@ -19,7 +19,20 @@ The attribute patches are process-wide and reference-counted: installed by
 the outermost ``auto_cast``, restored (every attribute, the same function
 object) when it exits. The policy stack is thread-local, so a thread that
 never entered ``auto_cast`` sees no cast, and nested scopes apply the
-innermost policy's half dtype. Users may register their own ``(module,
+innermost policy's half dtype.
+
+A ``backward()`` called inside the scope runs a custom ``autograd.Function``'s
+backward on the caller's thread for CPU tensors and on autograd's own
+device thread for CUDA tensors. PyTorch carries the caller's
+``at::ThreadLocalState`` (grad mode, autocast, the torch-function mode
+stack) into that thread, not Python's ``threading.local``. So while the
+patch is in, ``torch.Tensor.backward``, ``torch.autograd.backward`` and
+``torch.autograd.grad`` are wrapped too: called inside a scope, each runs
+with a pass-through torch-function mode (:class:`_PolicyMode`) holding the
+caller's half dtype on the mode stack, and :func:`half_operand_dtype`
+falls back to it when the thread's own stack is empty. The backward sees
+the policy of the thread that called ``backward()``, on the card as on the
+CPU; the forward runs with no mode. Users may register their own ``(module,
 attr)`` functions (``amp.register_half_op((mod, "f"))``); a user
 registration wins over the built-in treatment of the same attribute.
 
@@ -67,6 +80,32 @@ _originals: list = []        # (module, attr, original) in install order
 _tls = threading.local()     # per thread: suspend depth, policy stack
 
 
+class _PolicyMode(torch.overrides.TorchFunctionMode):
+    """A pass-through torch-function mode carrying a scope's half dtype into
+    the thread autograd runs a backward on (see the module docstring)."""
+
+    def __init__(self, half_dtype):
+        super().__init__()
+        self.half_dtype = half_dtype
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        return func(*args, **(kwargs or {}))
+
+
+#: the calls that start autograd's engine, wrapped by :func:`_wrap_autograd`
+_AUTOGRAD_TARGETS = ((torch.Tensor, "backward"), (torch.autograd, "backward"),
+                     (torch.autograd, "grad"))
+
+
+def _carried_dtype() -> Optional[torch.dtype]:
+    """The innermost :class:`_PolicyMode`'s half dtype in this thread's
+    torch-function mode stack, else None."""
+    for mode in reversed(torch.overrides._get_current_function_mode_stack()):
+        if isinstance(mode, _PolicyMode):
+            return mode.half_dtype
+    return None
+
+
 def _stack() -> list:
     s = getattr(_tls, "stack", None)
     if s is None:
@@ -102,11 +141,18 @@ def unpatched(fn):
 def half_operand_dtype() -> Optional[torch.dtype]:
     """The innermost policy's half dtype while the patch is installed on
     this thread and not suspended, else None: the dtype a patched
-    ``jnp.dot`` would cast its operands to in the JAX package."""
-    stack = _stack()
-    if _suspended() or not stack:
+    ``jnp.dot`` would cast its operands to in the JAX package. A thread
+    with no stack of its own (autograd's device thread running a backward
+    that ``backward()`` started inside a scope) takes the dtype carried
+    by the scope's :class:`_PolicyMode`."""
+    if _suspended():
         return None
-    return stack[-1]
+    stack = _stack()
+    if stack:
+        return stack[-1]
+    if _patch_count == 0:
+        return None
+    return _carried_dtype()
 
 
 def _wrap_half(fn):
@@ -127,6 +173,23 @@ def _wrap_float(fn):
             return fn(*args, **kwargs)
         return fn(*tree_cast(args, torch.float32),
                   **tree_cast(kwargs, torch.float32))
+    wrapped.__wrapped_by_apex_tpu__ = True
+    return wrapped
+
+
+def _wrap_autograd(fn):
+    """Start the engine with the caller's half dtype on the mode stack,
+    which the engine hands to its device threads. Torch-function dispatch
+    is off for the call: PyTorch pops a mode while its handler runs, so a
+    call dispatched through the mode would start the engine without it.
+    ``Tensor.backward`` calls ``autograd.backward``: one mode is pushed."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        dt = half_operand_dtype()
+        if dt is None or _carried_dtype() == dt:
+            return fn(*args, **kwargs)
+        with _PolicyMode(dt), torch._C.DisableTorchFunction():
+            return fn(*args, **kwargs)
     wrapped.__wrapped_by_apex_tpu__ = True
     return wrapped
 
@@ -205,7 +268,8 @@ def patch_functional(policy) -> None:
         for targets, wrap in ((_USER_HALF_TARGETS, _wrap_half),
                               (_USER_FLOAT_TARGETS, _wrap_float),
                               (_HALF_TARGETS, _wrap_half),
-                              (_FLOAT_TARGETS, _wrap_float)):
+                              (_FLOAT_TARGETS, _wrap_float),
+                              (_AUTOGRAD_TARGETS, _wrap_autograd)):
             for mod, name in targets:
                 if (id(mod), name) in seen:
                     continue

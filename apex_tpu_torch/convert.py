@@ -18,12 +18,17 @@ params, and its arena slots are flat buffers in its own layout (leaves in
 leaf, as the sparsity masks need. A flax ``WeightNorm``'s
 ``"<layer>/kernel/scale"`` leaf becomes the port module's ``scale``;
 ``asp_state_from_jax`` carries masks and the wrapped optimizer's state, and ``zero_state_from_jax`` ZeRO's
-per-rank shards.
+per-rank shards. ``amp_state_from_jax_checkpoint`` reads a training state
+that the JAX package's ``ckpt.CheckpointManager`` wrote to disk (the two
+packages share the format) and maps it as ``amp_state_from_jax`` maps one
+in memory.
 """
 
 from __future__ import annotations
 
+import ast
 import re
+import types
 from typing import Dict
 
 import numpy as np
@@ -291,9 +296,16 @@ def _params_like(tree, port_params, device):
     its own float dtype (bf16 and fp16 pass through f32, exactly)."""
     mapped = {}
     for name, leaf in _flatten(tree):
-        arr = np.asarray(leaf)
-        dtype = {"bfloat16": torch.bfloat16, "float16": torch.float16}.get(
-            str(arr.dtype), torch.float32)
+        if isinstance(leaf, torch.Tensor):      # read from a checkpoint
+            dtype = leaf.dtype if leaf.dtype in (torch.bfloat16,
+                                                 torch.float16) \
+                else torch.float32
+            arr = leaf.float().numpy()
+        else:
+            arr = np.asarray(leaf)
+            dtype = {"bfloat16": torch.bfloat16,
+                     "float16": torch.float16}.get(str(arr.dtype),
+                                                   torch.float32)
         pname, a = _port_leaf(name, np.asarray(arr, dtype=np.float32))
         mapped[pname] = _tensor(a, device).to(dtype)
     return {k: mapped[k] for k in port_params}
@@ -348,3 +360,69 @@ def scale_history_from_jax(state, device="cuda"):
         growth_tracker=t(state.growth_tracker, torch.int32),
         overflow_count=t(state.overflow_count, torch.int32),
         step=t(state.step, torch.int32))
+
+
+#: one step of a ``jax.tree_util.keystr`` path: ``.field``, ``['key']`` or
+#: ``[index]``
+_KEYSTR = re.compile(r"\.([A-Za-z_]\w*)|\[('(?:[^'\\]|\\.)*'|-?\d+)\]")
+
+
+def _keystr_parts(path: str):
+    parts, pos = [], 0
+    for m in _KEYSTR.finditer(path):
+        if m.start() != pos:
+            raise ValueError(f"cannot parse checkpoint path {path!r}")
+        pos = m.end()
+        parts.append(("attr", m.group(1)) if m.group(1) is not None
+                     else ("key", ast.literal_eval(m.group(2))))
+    if pos != len(path):
+        raise ValueError(f"cannot parse checkpoint path {path!r}")
+    return parts
+
+
+def _tree_from_paths(arrays: Dict[str, torch.Tensor], prefix: str = ""):
+    """The JAX tree a checkpoint's ``keystr`` paths describe: NamedTuple
+    fields as attributes, dict keys as dicts, indices as tuples."""
+    root: dict = {}
+    for path, leaf in arrays.items():
+        if not path.startswith(prefix):
+            continue
+        node, parts = root, _keystr_parts(path[len(prefix):])
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = leaf
+
+    def build(node):
+        if not isinstance(node, dict):
+            return node
+        kinds = {k for k, _ in node}
+        if kinds == {"attr"}:
+            return types.SimpleNamespace(**{n: build(v)
+                                            for (_, n), v in node.items()})
+        if all(isinstance(n, int) for _, n in node):
+            return tuple(build(node[("key", i)])
+                         if ("key", i) in node else None
+                         for i in range(max(n for _, n in node) + 1))
+        return {n: build(v) for (_, n), v in node.items()}
+
+    return build(root)
+
+
+def amp_state_from_jax_checkpoint(ckpt_dir, port_params, device="cuda", *,
+                                  prefix: str = ""):
+    """The port's ``amp.AmpState`` from a checkpoint directory the JAX
+    package's ``ckpt.CheckpointManager`` committed, and its manifest.
+
+    ``prefix`` is the saved AmpState's path in the checkpointed tree (e.g.
+    ``"['amp']"`` for a saved ``{"amp": state, ...}``; "" when the state
+    itself was saved). The manifest's JAX key paths are rebuilt into the
+    JAX tree (sorted-key param dicts, arena slot buffers in the JAX
+    layout) and mapped by :func:`amp_state_from_jax`: port names, port
+    layouts, the arena relaid out for ``port_params``. A state whose
+    scalers hold no leaves (bf16: ``(None,)``) gets one ``None`` scaler."""
+    from apex_tpu_torch.ckpt import format as _format
+    manifest = _format.read_manifest(ckpt_dir)
+    arrays = _format.assemble_arrays(ckpt_dir, manifest)
+    tree = _tree_from_paths(arrays, prefix)
+    tree.scalers = tuple(getattr(tree, "scalers", ()) or ()) or (None,)
+    return amp_state_from_jax(tree, port_params, device), manifest

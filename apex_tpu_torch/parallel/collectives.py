@@ -71,9 +71,11 @@ def _issue(scope, call, fn, outs, ins=(), group=None, **kwargs):
         staged[call] += 1
 
 
-def all_reduce(t: torch.Tensor, group, scope: str) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place; returns ``t``."""
-    _issue(scope, "all_reduce", dist.all_reduce, (t,), group=group)
+def all_reduce(t: torch.Tensor, group, scope: str,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """Reduce ``t`` over ``group`` in place (a sum, or ``op``: the integrity
+    compare's MIN and MAX); returns ``t``."""
+    _issue(scope, "all_reduce", dist.all_reduce, (t,), group=group, op=op)
     return t
 
 

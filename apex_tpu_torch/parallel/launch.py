@@ -8,8 +8,9 @@ environment conventions (``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE``,
 as a reference script run without the launcher.
 
 ``enable_crash_dumps`` needs the JAX package's ``trace`` and ``cluster``
-and ``elastic_run`` its ``ckpt``, ``cluster`` and ``utils.backoff``; they
-raise until those are ported (ROADMAP.md queue A, items 10 and 11).
+and ``elastic_run`` its ``cluster`` (the port has ``ckpt`` and
+``utils.backoff``); they raise until those are ported (ROADMAP.md queue
+A, items 10b and 11).
 """
 
 from __future__ import annotations
@@ -84,8 +85,8 @@ def enable_crash_dumps(*args, **kwargs):
 
 def elastic_run(*args, **kwargs):
     raise NotImplementedError(
-        "elastic_run needs ckpt/, cluster/ and utils.backoff, not ported yet "
-        "(ROADMAP.md queue A, item 10)")
+        "elastic_run needs cluster/, not ported yet (ROADMAP.md queue A, "
+        "item 10b: data/, cluster/, elastic_run and the ImageNet example)")
 
 
 def shrink_schedule(world: int, *, min_world: int = 1,

@@ -101,6 +101,8 @@ def build_bert_step(batch: int, seq: int, encoder=None, opt_level="O1",
     strategy, so passing ``strategy`` with it raises.
 
     ``step(state, toks, labels) -> (state', loss)`` runs one training step.
+    ``step.amp_opt`` is the ``amp.Amp`` bundle and
+    ``step.make_loss(toks, labels)`` the loss function of one batch.
     ``encoder=None`` builds BERT-Large on ``device`` (with attention dropout
     ``dropout``; a given encoder brings its own); tokens and labels are
     drawn below ``vocab`` (default: 30000, as ``bench.py`` draws them, or
@@ -140,15 +142,20 @@ def build_bert_step(batch: int, seq: int, encoder=None, opt_level="O1",
     gen = torch.Generator(device).manual_seed(seed)
     kwargs = {"deterministic": enc.dropout == 0.0, "generator": gen}
 
-    def step(state, toks, labels):
+    def make_loss(toks, labels):
         def loss_fn(mp):
             with amp.auto_cast(policy):
                 hidden = functional_call(enc, mp, (toks, attn_mask), kwargs)
                 return _mlm_head(hidden, mp["tok_emb.weight"], labels)
-        loss, grads, state, finite = amp_opt.backward(state, loss_fn)
+        return loss_fn
+
+    def step(state, toks, labels):
+        loss, grads, state, finite = amp_opt.backward(
+            state, make_loss(toks, labels))
         return amp_opt.apply_gradients(state, grads, finite), loss
 
     step.attn_mask, step.generator = attn_mask, gen
+    step.amp_opt, step.make_loss = amp_opt, make_loss
     return step, state, (toks, labels), policy, enc
 
 

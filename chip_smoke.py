@@ -135,6 +135,23 @@ plain PyTorch version on the card at the shapes its main path gives it
   (``flash_attn_{fwd,bwd}_s64``) and the mask probe at S = 64 and with
   the caller's blocks of 128.
 
+- The robustness slice: right after the MLP phases, an MLP's gradients
+  at O1 bf16 with ``backward()`` inside ``auto_cast`` on the card against
+  the CPU (phase o1_backward_thread: autograd's device thread must see
+  the policy); after bert_large_dropout, the published BERT-Large arena
+  step resumed from an async checkpoint of the state and its dropout
+  generator bit for bit (bert_large_ckpt_resume) and trained under
+  ``Amp.step(guard=...)`` with NaN grads, a spiked batch and NaN params
+  injected (bert_large_guard: skips hold the state, the rewind equals a
+  run that never saw the skipped batches, launches unchanged, no host
+  sync, the guard's cost, the fingerprint card vs CPU); the same resume
+  through ``DistributedFusedLAMB`` at NCCL world 1
+  (bert_large_zero_ckpt_resume); two gloo ranks' ZeRO checkpoint
+  restored by one process (zero_elastic_two_to_one); three gloo ranks
+  that fingerprint, vote and repair a flipped bit (integrity_three_ranks);
+  and, last, saves killed at both crash points and an exit-75 escalation
+  in subprocesses (ckpt_crash_and_escalate).
+
 Prints one line per phase (and each CUDA kernel's registers and spills
 from ``ptxas -v``), the card's name and power limit, a JSON line of
 per-kernel numbers, and as its last line
@@ -144,6 +161,7 @@ Exits non-zero on any failure, or when no CUDA device is available.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -349,6 +367,19 @@ PLAN_LINKS = {"ici": 1.0e11, "dcn": 1.0e10}
 # integer operations of the dropout hash per score element (mix, avalanche,
 # compare, select and scale), counted at the f32 rate of the CUDA cores
 HASH_OPS = 20
+# the robustness phases: a resume from an async save at step RESUME_AT of
+# RESUME_STEPS; the guard's config (armed early), its faults (NaN grads, a
+# batch scaled by 1000, NaN params after a step), its one save and the
+# steps compared after the rewind; three ranks, the flip seen at step
+# INTEGRITY_FLIP of INTEGRITY_STEPS
+RESUME_STEPS, RESUME_AT = 4, 2
+# where the robustness phases put their tensors (their rank bodies too)
+DEVICE = "cuda"
+GUARD_CFG = dict(window=8, min_history=4)
+GUARD_SAVE, GUARD_NAN_GRAD, GUARD_SPIKE, GUARD_NAN_PARAM = 5, 7, 8, 10
+GUARD_AFTER = 3
+GUARD_COST_TURNS = 4           # (plain, guarded, guarded, plain) rounds
+INTEGRITY_STEPS, INTEGRITY_FLIP = 5, 2
 SOURCES = {
     "layer_norm_fwd": ("cuda", "apex_tpu_torch/csrc/layer_norm_fwd.cu"),
     "layer_norm_bwd": ("cuda", "apex_tpu_torch/csrc/layer_norm_bwd.cu"),
@@ -4240,6 +4271,86 @@ def _check_two_four(phase, i, state):
                                  f"its mask")
 
 
+def _o1_grads(model, x, t, device, inside):
+    """Each param's gradient of the MLP's loss at O1 bf16 with the
+    forward under ``amp.auto_cast``, the backward run inside that block or
+    after it; f64 CPU copies. ``t`` None: the loss of the JAX test,
+    ``sum(y * y)``; else the DLRM phases' MSE to ``t``."""
+    import torch
+    from torch.func import functional_call
+    from apex_tpu_torch import amp
+
+    policy = amp.Policy.from_opt_level("O1")
+    mp = {k: v.detach().to(device).requires_grad_(True)
+          for k, v in model.named_parameters()}
+    xt = torch.as_tensor(x, device=device)
+    with amp.auto_cast(policy):
+        y = functional_call(model, mp, (xt,)).float()
+        loss = (y * y).sum() if t is None else torch.mean(torch.square(
+            y - torch.as_tensor(t, device=device)))
+        if inside:
+            loss.backward()
+    if not inside:
+        loss.backward()
+    return {k: v.grad.detach().cpu().double() for k, v in mp.items()}
+
+
+def o1_backward_thread():
+    """Phase o1_backward_thread (ROADMAP queue C): an MLP's gradients at O1
+    bf16 with ``backward()`` called inside ``auto_cast`` and after it, on
+    the card and in this process on the CPU. On the CPU autograd runs a
+    custom Function's backward on the calling thread, which sees the
+    policy (the MLP's backward then rounds its products' operands to bf16,
+    as a backward inside the block does); for CUDA tensors it runs on
+    autograd's device thread, which reaches the policy only through the
+    torch-function mode that the patched ``backward()`` pushes. For each
+    ``inside``, every param's gradient on the card must lie within a tenth
+    of the CPU's inside-vs-outside gap of the CPU's, in L2 over the tensor
+    (the largest single difference is set by the operands whose bf16
+    rounding flips between two f32 sum orders, a few of a million on
+    DLRM's layers; both are logged). Inputs: the JAX test's MLP [13, 64,
+    32, 8] on 16 rows of ``RandomState(1)``, then DLRM's bottom MLP
+    (B2048, [13, 512, 256, 128]) on the MSE loss of mlp_dlrm_bottom_o1."""
+    import numpy as np
+    from apex_tpu_torch import ops
+
+    worst = {}
+    for name, dims, n in (("test_mlp", (13, 64, 32, 8), 16),
+                          ("dlrm_bottom", MLP_BOTTOM, 2048)):
+        rng = np.random.RandomState(1)
+        x = rng.randn(n, dims[0]).astype(np.float32)
+        t = None if name == "test_mlp" else rng.rand(
+            n, dims[-1]).astype(np.float32)
+        model = ops.MLP(dims, device="cpu", seed=1)
+        cpu = {inside: _o1_grads(model, x, t, "cpu", inside)
+               for inside in (False, True)}
+        card = {inside: _o1_grads(model, x, t, "cuda", inside)
+                for inside in (False, True)}
+        for k in cpu[False]:
+            gap = cpu[True][k] - cpu[False][k]
+            if not gap.abs().max().item() > 0.0:
+                raise AssertionError(f"o1_backward_thread {name} {k}: the "
+                                     f"CPU's inside and outside grads agree")
+            for inside in (False, True):
+                err = card[inside][k] - cpu[inside][k]
+                ratio = (err.norm() / gap.norm()).item()
+                peak = (err.abs().max() / gap.abs().max()).item()
+                key = (name, inside)
+                w = worst.get(key, (0.0, 0.0))
+                worst[key] = (max(w[0], ratio), max(w[1], peak))
+                if not ratio <= 0.1:
+                    raise AssertionError(
+                        f"o1_backward_thread {name} {k} inside={inside}: "
+                        f"card vs CPU {err.norm().item():.3e} > 0.1 x the "
+                        f"CPU's inside-outside gap {gap.norm().item():.3e} "
+                        f"(L2)")
+    log("phase o1_backward_thread: card vs CPU grads, worst over params as "
+        "a share of the CPU's inside-vs-outside gap, L2 (limit 0.1) / "
+        "largest element: "
+        + ", ".join(f"{n} inside={i}: {r:.3e} / {p:.3e}"
+                    for (n, i), (r, p) in worst.items()))
+
+
 def mlp_dlrm_bottom(rows):
     """MLP_STEPS steps of DLRM's bottom MLP (``--arch-mlp-bot=13-512-256-128``
     at ``--mini-batch-size=2048``) under amp O2 bf16 with
@@ -5557,6 +5668,792 @@ def attention_remainder_phases(rows):
         log(f"phase {name}: took {time.perf_counter() - t0:.1f} s")
 
 
+# --- robustness: checkpoints and the guard ------------------------------------
+
+def _leaves_equal(a, b):
+    """Every leaf of two state trees bit for bit (generators by state);
+    returns the paths that differ."""
+    import torch
+    from apex_tpu_torch.ckpt import tree_paths
+    pa, pb = tree_paths(a), tree_paths(b)
+    if [p for p, _ in pa] != [p for p, _ in pb]:
+        return ["<structure>"]
+    bad = []
+    for (p, x), (_, y) in zip(pa, pb):
+        if isinstance(x, torch.Generator):
+            x, y = x.get_state(), y.get_state()
+        if not (x.dtype == y.dtype and x.shape == y.shape
+                and torch.equal(x.view(-1).view(torch.uint8)
+                                if x.is_floating_point() else x,
+                                y.view(-1).view(torch.uint8)
+                                if y.is_floating_point() else y)):
+            bad.append(p)
+    return bad
+
+
+def _dir_bytes(d):
+    return sum(os.path.getsize(os.path.join(d, n)) for n in os.listdir(d))
+
+
+class _Clock:
+    """Seconds a phase spends in each named part (``with clock("build"):``)
+    and in the rest; ``line(phase)`` is the phase's breakdown."""
+
+    def __init__(self):
+        self.t0, self.parts = time.perf_counter(), {}
+
+    @contextlib.contextmanager
+    def __call__(self, part):
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.parts[part] = (self.parts.get(part, 0.0)
+                                + time.perf_counter() - t)
+
+    def line(self, phase):
+        total = time.perf_counter() - self.t0
+        rest = total - sum(self.parts.values())
+        return (f"phase {phase}: took {total:.1f} s: "
+                + ", ".join(f"{k} {v:.1f}" for k, v in self.parts.items())
+                + f", other {rest:.1f}")
+
+
+def _ckpt_resume(phase, build, bound=contextlib.nullcontext, params=False):
+    """Run A: RESUME_STEPS steps; run B: RESUME_AT steps, an async ``save``
+    at step RESUME_AT while the rest run; then a restore into a freshly
+    built state and generator, and the rest again. Gates: B's and the resumed
+    run's losses and every leaf of the resumed state (the generator's
+    state too) equal run A's bit for bit. Returns the manifest."""
+    import tempfile
+    import torch
+    from apex_tpu_torch import ckpt
+
+    clock = _Clock()
+
+    def run(step, state, toks, labels, steps):
+        losses = []
+        with clock("steps"):
+            for _ in range(steps):
+                with bound():
+                    state, loss = step(state, toks, labels)
+                losses.append(loss.item())
+        return state, losses
+
+    with clock("build"):
+        step, sa, toks, labels = build()
+    sa, la = run(step, sa, toks, labels, RESUME_STEPS)
+    want = {"amp": sa, "gen": step.generator}
+    root = tempfile.mkdtemp(prefix=f"chip_smoke_{phase}_")
+    try:
+        with clock("build"):
+            step, sb, toks, labels = build()
+        sb, lb = run(step, sb, toks, labels, RESUME_AT)
+        events = []
+        mgr = ckpt.CheckpointManager(root, keep=1, event_sink=events.append)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        segs = torch.cuda.memory_stats().get("segment.all.allocated", 0)
+        torch.cuda.reset_peak_memory_stats()
+        t_save = time.time()
+        with clock("save"):
+            stall = mgr.save(RESUME_AT, {"amp": sb, "gen": step.generator},
+                             params=sb.params if params else None,
+                             extra={"cursor": {"epoch": 0,
+                                               "batch": RESUME_AT}})
+        new_segs = torch.cuda.memory_stats().get(
+            "segment.all.allocated", 0) - segs
+        sb, rest = run(step, sb, toks, labels, RESUME_STEPS - RESUME_AT)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        with clock("commit wait"):
+            mgr.wait()
+        saved = [e for e in events if e["kind"] == "ckpt_save"][0]
+        commit_s = saved["wall_time"] - t_save
+        d = mgr.latest()
+        nbytes = _dir_bytes(d)
+        lb += rest
+        del sb, step
+        torch.cuda.empty_cache()
+        with clock("build"):
+            step, sc, toks, labels = build()
+        with clock("restore"):
+            tree, manifest = mgr.restore({"amp": sc, "gen": step.generator})
+        restore_s = clock.parts["restore"]
+        sc, lc = run(step, tree["amp"], toks, labels,
+                     RESUME_STEPS - RESUME_AT)
+        got = {"amp": sc, "gen": step.generator}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if lb != la or lc != la[RESUME_AT:]:
+        raise AssertionError(f"{phase}: losses uninterrupted {la}, with the "
+                             f"async save {lb}, resumed {lc}")
+    with clock("compare"):
+        bad = _leaves_equal(got, want)
+    if bad:
+        raise AssertionError(f"{phase}: resumed state differs at {bad[:5]}")
+    log(f"phase {phase}: losses {la} bit for bit with the async save at "
+        f"step {RESUME_AT} and after the restore; every leaf of the resumed "
+        f"state (and the generator's) equal the uninterrupted run's")
+    log(f"phase {phase}: save() step-path stall {stall:.3f} ms ({new_segs} "
+        f"new device segments allocated in it), snapshot-to-commit "
+        f"{commit_s:.3f} s (write {saved['dur_ms']:.1f} ms), {nbytes} bytes "
+        f"on disk ({saved['n_arrays']} arrays), peak {peak:.3f} GiB over "
+        f"the state with the snapshot in HBM, restore {restore_s:.3f} s")
+    log(clock.line(phase))
+    return manifest
+
+
+def bert_large_ckpt_resume():
+    """Phase bert_large_ckpt_resume: the published BERT-Large step
+    (``build_bert_step(16, 512, strategy="arena", dropout=0.1,
+    padded=True)``, O1 bf16) resumed from an async checkpoint of the
+    amp state and ``step.generator`` (the dropout seeds' source) bit for
+    bit (``_ckpt_resume``)."""
+    from apex_tpu_torch import train
+
+    def build():
+        step, state, (toks, labels), _, _ = train.build_bert_step(
+            16, 512, strategy="arena", dropout=0.1, padded=True)
+        return step, state, toks, labels
+
+    _ckpt_resume("bert_large_ckpt_resume", build)
+
+
+def bert_large_zero_ckpt_resume(mesh):
+    """Phase bert_large_zero_ckpt_resume: the same through
+    ``DistributedFusedLAMB`` at NCCL world 1 (the mesh bound for the build,
+    the steps and the save), the manifest's ``zero`` map naming every slot
+    shard with its logical length."""
+    from apex_tpu_torch import arena, parallel, train
+    from apex_tpu_torch.optim import DistributedFusedLAMB
+
+    def build():
+        with parallel.use_mesh(mesh):
+            step, state, (toks, labels), _, _ = train.build_bert_step(
+                16, 512, optimizer=DistributedFusedLAMB(lr=1e-3),
+                dropout=0.1, padded=True)
+        return step, state, toks, labels
+
+    manifest = _ckpt_resume("bert_large_zero_ckpt_resume", build,
+                            bound=lambda: parallel.use_mesh(mesh),
+                            params=True)
+    zero = manifest["zero"]
+    slots = {f".opt_state.slots['{s}']['float32']" for s in
+             ("master", "m", "v")}
+    want = {f"['amp']{p}" for p in slots}
+    if set(zero) != want or len(set(zero.values())) != 1:
+        raise AssertionError(f"bert_large_zero_ckpt_resume: zero map {zero}")
+    log(f"phase bert_large_zero_ckpt_resume: zero map {zero}")
+
+
+def zero_ckpt_rank(rank, world):
+    """One rank of zero_elastic_two_to_one: a depth-2 encoder at BERT-Large
+    widths (O1 bf16) with ``DistributedFusedLAMB`` takes one step on this
+    rank's rows of the seeded batch and saves its shards (rank 0 commits
+    the manifest); returns the slots' logical buffers gathered from both
+    ranks."""
+    from apex_tpu_torch import arena, ckpt, parallel, train
+    from apex_tpu_torch.optim import DistributedFusedLAMB
+    from apex_tpu_torch.parallel import collectives
+
+    mesh = parallel.data_parallel_mesh(DEVICE)
+    with parallel.use_mesh(mesh):
+        step, state, (toks, labels), _, _ = train.build_bert_step(
+            ZERO_RANK_BATCH * world, 512, encoder=depth2_encoder(),
+            optimizer=DistributedFusedLAMB(lr=1e-3))
+        n = ZERO_RANK_BATCH
+        state, _ = step(state, toks[rank * n:(rank + 1) * n],
+                        labels[rank * n:(rank + 1) * n])
+    mgr = ckpt.CheckpointManager(os.environ["CHIP_SMOKE_CKPT_ROOT"],
+                                 rank=rank, process_count=world)
+    mgr.save(1, {"amp": state}, params=state.params, block=True)
+    n_logical = {p.dtype: p.buffer_len
+                 for p in arena.plan(state.params).partitions}
+    logical = {s: {dt: collectives.all_gather(b, None, "check", tiled=True)
+                   [:n_logical[dt]].cpu()
+                   for dt, b in d.items()}
+               for s, d in state.opt_state.slots.items()}
+    return {"logical": logical, "count": int(state.opt_state.count)}
+
+
+def zero_ckpt_body(rank, world, tmp):
+    _run_rank(zero_ckpt_rank, rank, world, tmp)
+
+
+def zero_restore(mesh, root, logical):
+    """The world-1 half of zero_elastic_two_to_one, in this process on its
+    NCCL world-1 ``mesh``: restore the two ranks' checkpoint under
+    ``root`` into a freshly built world-1 state, then one step from it and
+    one from a world-1 state made directly from the gathered ``logical``
+    buffers."""
+    import torch
+    from apex_tpu_torch import ckpt, parallel, train
+    from apex_tpu_torch.optim import DistributedFusedLAMB, ShardedOptState
+    from apex_tpu_torch.optim.distributed import _padded_len
+
+    with parallel.use_mesh(mesh):
+        step, like, (toks, labels), _, _ = train.build_bert_step(
+            ZERO_RANK_BATCH, 512, encoder=depth2_encoder(),
+            optimizer=DistributedFusedLAMB(lr=1e-3))
+    mgr = ckpt.CheckpointManager(root, rank=0, process_count=1)
+    tree, manifest = mgr.restore({"amp": like})
+    got = tree["amp"]
+    slots_equal = all(
+        torch.equal(got.opt_state.slots[s][dt][:len(b)].cpu(), b)
+        and not got.opt_state.slots[s][dt][len(b):].any()
+        for s, d in logical.items() for dt, b in d.items())
+    direct = got._replace(opt_state=ShardedOptState(
+        count=got.opt_state.count.clone(),
+        slots={s: {dt: torch.nn.functional.pad(
+            b.to(DEVICE), (0, _padded_len(len(b), 1) - len(b)))
+            for dt, b in d.items()} for s, d in logical.items()}))
+    with parallel.use_mesh(mesh):
+        a, la = step(got, toks, labels)
+        b, lb = step(direct, toks, labels)
+    next_equal = not _leaves_equal(a, b) and la.item() == lb.item()
+    return {"slots_equal": slots_equal, "next_equal": next_equal,
+            "resharded_from": manifest["process_count"],
+            "zero": manifest["zero"], "loss": la.item(),
+            "count": int(got.opt_state.count)}
+
+
+def zero_elastic_two_to_one(mesh):
+    """Phase zero_elastic_two_to_one: two gloo processes on the card save a
+    ZeRO state (the model of zero_two_ranks); this process restores it at
+    world 1 (``mesh``): the slot buffers equal the saved logical buffers
+    bit for bit (zero past them), and the next step equals a world-1 step
+    from a state made directly from the gathered buffers, bit for bit."""
+    import tempfile
+    import torch
+
+    clock = _Clock()
+    root = tempfile.mkdtemp(prefix="chip_smoke_zero_elastic_")
+    os.environ["CHIP_SMOKE_CKPT_ROOT"] = root
+    try:
+        with clock("two ranks save"):
+            saved = _spawn("zero_elastic_two_to_one (save)", zero_ckpt_body,
+                           2)
+        for s, d in saved[0]["logical"].items():
+            for dt, b in d.items():
+                if not torch.equal(b, saved[1]["logical"][s][dt]):
+                    raise AssertionError("zero_elastic_two_to_one: the "
+                                         "ranks gathered different buffers")
+        with clock("world-1 restore and steps"):
+            out = zero_restore(mesh, root, saved[0]["logical"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        os.environ.pop("CHIP_SMOKE_CKPT_ROOT", None)
+    if not (out["slots_equal"] and out["next_equal"]
+            and out["resharded_from"] == 2 and out["count"] == 1):
+        raise AssertionError(f"zero_elastic_two_to_one: {out}")
+    log(f"phase zero_elastic_two_to_one: 2 ranks saved, 1 restored: slots "
+        f"= the gathered logical buffers bit for bit; next step (loss "
+        f"{out['loss']:.6f}) = a world-1 step from the gathered state; zero "
+        f"map {out['zero']}")
+    log(clock.line("zero_elastic_two_to_one"))
+
+
+class _TokenSource:
+    """A seeded, cursor-bearing source of BERT batches (the duck type
+    ``GuardPolicy.rewind`` takes): batch ``i`` is drawn from
+    ``RandomState(seed + i)``, labels -1 where ``mask`` pads; each batch is
+    ``(weights, toks, labels)``, ``weights`` a float per sequence (ones)
+    that scales the loss — the batch site a corrupted batch poisons."""
+
+    def __init__(self, mask, seed=1, vocab=30000, per_epoch=1000):
+        self.mask, self.seed, self.vocab, self.per = mask, seed, vocab, \
+            per_epoch
+        self.i = 0
+
+    def state(self):
+        return {"epoch": self.i // self.per, "batch": self.i % self.per}
+
+    def load_state(self, c):
+        self.i = int(c["epoch"]) * self.per + int(c["batch"])
+
+    def cursor_index(self):
+        return self.i
+
+    def skip_batches(self, n):
+        self.i += int(n)
+
+    def next(self):
+        import numpy as np
+        import torch
+        rng = np.random.RandomState(self.seed + self.i)
+        self.i += 1
+        b, s = self.mask.shape
+        toks = torch.as_tensor(rng.randint(0, self.vocab, (b, s)),
+                               device=DEVICE)
+        labels = torch.as_tensor(rng.randint(0, self.vocab, (b, s)),
+                                 device=DEVICE)
+        labels = torch.where(self.mask, labels, -1)
+        return torch.ones(b, device=DEVICE), toks, labels
+
+
+def _nan_grad():
+    """An identity on the loss whose backward multiplies its gradient by a
+    device scalar: NaN poisons every gradient, the loss stays finite (the
+    ``grads:nan`` fault of the plan's ``fault_code``)."""
+    import torch
+
+    class NanGrad(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, factor):
+            ctx.save_for_backward(factor)
+            return x.clone()
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * ctx.saved_tensors[0], None
+
+    return NanGrad.apply
+
+
+def _guarded_bert(step, state, gs, gcfg, batch, code, poison):
+    """One guarded step of the BERT-Large arena step on ``batch``:
+    ``(state', loss, committed, gs')``; ``code`` the plan's fault code."""
+    import torch
+    from apex_tpu_torch.guard import chaos
+
+    weights, toks, labels = batch
+    w = weights.mean()
+    factor = torch.full((), float("nan") if code & chaos.C_GRAD_NAN
+                        else 1.0, device=DEVICE)
+    inner = step.make_loss(toks, labels)
+
+    def loss_fn(mp):
+        return poison(inner(mp) * w, factor)
+    return step.amp_opt.step(state, loss_fn, guard=(gs, gcfg))
+
+
+def bert_large_guard(rows):
+    """Phase bert_large_guard: the published BERT-Large arena step under
+    ``Amp.step(guard=...)`` with ``GuardConfig(window=8, min_history=4)``,
+    a ``FaultPlan`` (NaN grads at GUARD_NAN_GRAD, a batch scaled by 1000 at
+    GUARD_SPIKE, NaN params after GUARD_NAN_PARAM), a ``_TokenSource``
+    and a ``GuardPolicy`` over a ``CheckpointManager`` (one save at
+    GUARD_SAVE). Gates: each skipped step leaves params, optimizer state
+    and ``step`` bit for bit; the nonfinite params make the policy rewind
+    to the saved step with the cursor fast-forwarded, and the steps after
+    it equal bit for bit a run of the plain (unguarded) step that never
+    saw the skipped batches; every guarded step launches the hand kernels
+    the unguarded step does, skipped or committed; one guarded step runs
+    under ``set_sync_debug_mode("error")``; the guard's finite probe sees
+    one NaN or inf anywhere in a param-sized tensor of each dtype. Then
+    the guard's cost a step (device ms and device kernels from the
+    profiler, host ms in turns) and the integrity fingerprint of
+    BERT-Large's params on the card against the same tensors' on the
+    CPU."""
+    import tempfile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from apex_tpu_torch import ckpt, guard, ops, train
+
+    phase = "bert_large_guard"
+    clock = _Clock()
+    per_step = dict(EXPECTED_PER_STEP, **ARENA_PER_STEP)
+    gcfg = guard.GuardConfig(**GUARD_CFG)
+    with clock("build"):
+        step, state, _, _, _ = train.build_bert_step(
+            16, 512, strategy="arena", dropout=0.1, padded=True)
+    gs = guard.guard_init(gcfg, device=DEVICE)
+    src = _TokenSource(step.attn_mask)
+    plan = guard.FaultPlan([
+        guard.Fault(GUARD_NAN_GRAD, "grads", "nan"),
+        guard.Fault(GUARD_SPIKE, "batch", "overflow", arg=1000.0),
+        guard.Fault(GUARD_NAN_PARAM, "params", "nan")], seed=0)
+    harness = guard.ChaosHarness(plan)
+    poison = _nan_grad()
+    root = tempfile.mkdtemp(prefix="chip_smoke_guard_")
+    mgr = ckpt.CheckpointManager(root, keep=1)
+    events = []
+    policy = guard.GuardPolicy(manager=mgr, event_sink=events.append)
+    losses, actions, skipped, after, rewound = {}, {}, [], [], None
+    try:
+        i = 0
+        while len(after) < GUARD_AFTER:
+            batch = harness.filter_batch(i, src.next())
+            code = harness.fault_code(i)
+            prev = state
+            ops.reset_launch_counts()
+            with clock("guarded steps"):
+                state, loss, committed, gs = _guarded_bert(
+                    step, state, gs, gcfg, batch, code, poison)
+                counts = {k: v for k, v in ops.launch_counts().items() if v}
+                losses[i] = loss.item()
+                act = policy.update(i, gs)
+            if counts != per_step:
+                raise AssertionError(f"{phase} step {i}: launches {counts}")
+            actions[i] = (act.kind, act.classes)
+            if not bool(committed):
+                with clock("compare"):
+                    bad = _leaves_equal(state, prev)
+                if bad:
+                    raise AssertionError(f"{phase}: skipped step {i} moved "
+                                         f"{bad[:5]}")
+                skipped.append(i)
+            if act.kind == "rewind":
+                with clock("rewind (restore)"):
+                    tree, manifest = policy.rewind(
+                        i, {"amp": state, "gs": gs, "gen": step.generator},
+                        src, reason=act.reason)
+                state, gs = tree["amp"], tree["gs"]
+                rewound = (i, int(manifest["step"]), src.cursor_index())
+            elif rewound is not None and act.kind == "none":
+                after.append((i, losses[i]))
+            state = harness.post_step(i, state)
+            if i == GUARD_SAVE:
+                with clock("save (blocking)"):
+                    mgr.save(i, {"amp": state, "gs": gs,
+                                 "gen": step.generator},
+                             extra={"cursor": src.state()}, block=True)
+            i += 1
+        final = state
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    want_skips = [GUARD_NAN_GRAD, GUARD_SPIKE, GUARD_NAN_PARAM + 1]
+    if skipped != want_skips or rewound[:2] != (GUARD_NAN_PARAM + 1,
+                                                GUARD_SAVE):
+        raise AssertionError(f"{phase}: skipped {skipped}, rewound "
+                             f"{rewound}, actions {actions}")
+    log(f"phase {phase}: actions "
+        f"{ {k: v for k, v in actions.items() if v[0] != 'none'} }; skipped "
+        f"steps {skipped} left params, optimizer state and step bit for "
+        f"bit; rewound at step {rewound[0]} to step {rewound[1]}, cursor at "
+        f"{rewound[2]}; {len(losses)} guarded steps, each with the "
+        f"unguarded step's hand-kernel launches {per_step}")
+
+    # the oracle: the unguarded step, fresh, on batches 0..GUARD_SAVE and
+    # then from the rewound cursor on
+    del state, prev, gs
+    torch.cuda.empty_cache()
+    with clock("build"):
+        ostep, ostate, _, _, _ = train.build_bert_step(
+            16, 512, strategy="arena", dropout=0.1, padded=True)
+    osrc = _TokenSource(ostep.attn_mask)
+    olosses = []
+    with clock("oracle steps"):
+        for _ in range(GUARD_SAVE + 1):
+            _, toks, labels = osrc.next()
+            ostate, _ = ostep(ostate, toks, labels)
+        osrc.skip_batches(rewound[2] - osrc.cursor_index())
+        for _ in range(GUARD_AFTER):
+            _, toks, labels = osrc.next()
+            ostate, loss = ostep(ostate, toks, labels)
+            olosses.append(loss.item())
+    with clock("compare"):
+        bad = _leaves_equal(final, ostate)
+    if [l for _, l in after] != olosses or bad or not torch.equal(
+            step.generator.get_state(), ostep.generator.get_state()):
+        raise AssertionError(f"{phase}: after the rewind {after} vs a run "
+                             f"that never saw the skipped batches "
+                             f"{olosses}; differing leaves {bad[:5]}")
+    log(f"phase {phase}: the {GUARD_AFTER} steps after the rewind equal a "
+        f"run that never saw batches {GUARD_SAVE + 1}-{rewound[2] - 1} bit "
+        f"for bit (losses {olosses}, every leaf, the generator)")
+
+    # no host sync in a guarded step
+    gs = guard.guard_init(gcfg, device=DEVICE)
+    batch = src.next()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ostate, _, _, gs = _guarded_bert(ostep, ostate, gs, gcfg, batch, 0,
+                                         poison)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    # the finite probe on the card: one NaN or inf anywhere in a
+    # param-sized tensor of each dtype, among clean ones
+    from apex_tpu_torch.guard.detect import _all_finite
+    big = {"clean": torch.ones(1024, 1024, device=DEVICE)}
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        for at in (0, 777_777, 4 * 1024 * 1024 - 1):
+            for bad_v in (float("nan"), float("-inf")):
+                x = torch.ones(4 * 1024 * 1024, dtype=dt, device=DEVICE)
+                x[at] = bad_v
+                if bool(_all_finite(dict(big, x=x))):
+                    raise AssertionError(f"{phase}: the finite probe "
+                                         f"missed {bad_v} at {at} in {dt}")
+        x = torch.full((4 * 1024 * 1024,), torch.finfo(dt).max, dtype=dt,
+                       device=DEVICE)
+        if not bool(_all_finite(dict(big, x=x))):
+            raise AssertionError(f"{phase}: the finite probe flagged "
+                                 f"{dt}'s largest value")
+    del big, x
+
+    # the guard's cost: guarded and plain steps in turns
+    def plain():
+        nonlocal ostate
+        ostate, _ = ostep(ostate, batch[1], batch[2])
+
+    def guarded():
+        nonlocal ostate, gs
+        ostate, _, _, gs = _guarded_bert(ostep, ostate, gs, gcfg, batch, 0,
+                                         poison)
+
+    times = {"plain": [], "guarded": []}
+    with clock("cost: host-timed steps"):
+        for fn in (plain, guarded, guarded, plain) * GUARD_COST_TURNS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times["plain" if fn is plain else "guarded"].append(
+                (time.perf_counter() - t0) * 1e3)
+    kernels, dev = {}, {"plain": [], "guarded": []}
+    with clock("cost: profiled steps"):
+        for name, fn in (("plain", plain), ("guarded", guarded),
+                         ("guarded", guarded), ("plain", plain)):
+            # the session opens with short spins for the profiler to drop
+            # (device_ms); they are left out by name, and a session that
+            # kept none of them is taken again
+            while True:
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for _ in range(_LEAD[0]):
+                        torch.cuda._sleep(SHORT_CYCLES)
+                    fn()
+                    torch.cuda.synchronize()
+                ks = [e for e in prof.events()
+                      if e.device_type == torch.autograd.DeviceType.CUDA]
+                if not _SPIN_NAMES or any(e.name in _SPIN_NAMES for e in ks):
+                    break
+                if _LEAD[0] >= MAX_LEAD:
+                    raise AssertionError(f"{phase}: profiler sessions lost "
+                                         f"records after a {_LEAD[0]}-kernel "
+                                         f"lead")
+                _LEAD[0] *= 2
+            ks = [e for e in ks if e.name not in _SPIN_NAMES]
+            kernels.setdefault(name, collections.Counter(e.name for e in ks))
+            dev[name].append(sum(e.time_range.elapsed_us() for e in ks)
+                             / 1e3)
+    pm, gm = (_median(times["plain"]), _median(times["guarded"]))
+    pd, gd = (_median(dev["plain"]), _median(dev["guarded"]))
+    extra = kernels["guarded"] - kernels["plain"]
+    n_g, n_p = (sum(kernels[k].values()) for k in ("guarded", "plain"))
+    log(f"phase {phase}: guard cost on the device {gd - pd:.3f} ms a step "
+        f"(kernel time guarded {dev['guarded']}, plain {dev['plain']} ms, "
+        f"profiled in turns); on the host clock {gm - pm:.3f} ms (guarded "
+        f"{gm:.3f} ms, plain {pm:.3f} ms, medians of "
+        f"{2 * GUARD_COST_TURNS} in turns; guarded {times['guarded']}, "
+        f"plain {times['plain']}); device kernels a step {n_g} guarded, "
+        f"{n_p} plain ({n_g - n_p} extra; most: "
+        f"{[(k[:40], v) for k, v in extra.most_common(5)]})")
+
+    # the fingerprint of BERT-Large's params, card against CPU
+    params = ostate.params
+    n = sum(p.numel() for p in params.values())
+    guard.fingerprint_tree(params)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fp_card = int(guard.fingerprint_tree(params))
+    fp_ms = (time.perf_counter() - t0) * 1e3
+    extra = (torch.cuda.max_memory_allocated() - base) / 2**30
+    with clock("fingerprint on the CPU"):
+        t0 = time.perf_counter()
+        fp_cpu = int(guard.fingerprint_tree({k: v.cpu()
+                                             for k, v in params.items()}))
+        cpu_s = time.perf_counter() - t0
+    if fp_card != fp_cpu:
+        raise AssertionError(f"{phase}: fingerprint card {fp_card:#010x} "
+                             f"vs CPU {fp_cpu:#010x}")
+    log(f"phase {phase}: fingerprint of {len(params)} tensors, {n} params: "
+        f"{fp_card:#010x} on the card = on the CPU; {fp_ms:.2f} ms on the "
+        f"card (extra peak {extra:.3f} GiB), {cpu_s:.1f} s on the CPU")
+    log(clock.line(phase))
+
+
+def integrity_rank(rank, world):
+    """One rank of integrity_three_ranks: a depth-2 encoder at BERT-Large
+    widths, O1 bf16, arena FusedLAMB replicated, this rank's rows of the
+    seeded batch, gradients averaged by ``sync_gradients``; every step
+    fingerprints the params and compares (``integrity_check``), and the
+    guard (``replica_ok``) vetoes a divergent step; after step
+    INTEGRITY_FLIP - 1 chaos flips a mantissa bit of rank 2's params; the
+    policy votes, repairs and re-verifies."""
+    import torch
+    from apex_tpu_torch import guard, parallel, train
+
+    mesh = parallel.data_parallel_mesh(DEVICE)
+    n = ZERO_RANK_BATCH
+    step, state, (toks, labels), _, _ = train.build_bert_step(
+        n * world, 512, encoder=depth2_encoder(), strategy="arena")
+    toks, labels = toks[rank * n:(rank + 1) * n], labels[rank * n:
+                                                         (rank + 1) * n]
+    amp_opt, loss_fn = step.amp_opt, step.make_loss(toks, labels)
+    icfg, gcfg = guard.IntegrityConfig(), guard.GuardConfig(**GUARD_CFG)
+    ist = guard.integrity_init(icfg, world=world, device=DEVICE)
+    gs = guard.guard_init(gcfg, device=DEVICE)
+    harness = guard.ChaosHarness(guard.FaultPlan([guard.Fault(
+        INTEGRITY_FLIP - 1, "params", "bitflip_mantissa", rank=2,
+        arg=3)]), rank=rank)
+    pol = guard.GuardPolicy()
+    out = {"divergent": [], "committed": [], "losses": []}
+    with parallel.use_mesh(mesh):
+        for i in range(INTEGRITY_STEPS):
+            ist = guard.integrity_check(ist, icfg, state.params)
+            loss, grads, after, _ = amp_opt.backward(state, loss_fn)
+            grads = parallel.sync_gradients(grads)
+            gs = guard.guard_observe(
+                gs, gcfg, loss=loss, grad_norm=torch.linalg.vector_norm(
+                    torch.stack(torch._foreach_norm(list(grads.values())))),
+                params=state.params, replica_ok=guard.integrity_ok(ist))
+            committed = guard.guard_ok(gs, gcfg)
+            state = amp_opt.apply_gradients(after, grads, committed)
+            out["divergent"].append(bool(ist.divergent))
+            out["committed"].append(bool(committed))
+            out["losses"].append(loss.item())
+            act = pol.update_integrity(i, ist)
+            if act.kind == "repair":
+                out["minority"] = list(pol.last_vote.minority)
+                params, ok = pol.repair(i, state.params,
+                                        repair_fn=guard.make_repair_fn(),
+                                        verify_fn=guard.make_verify_fn())
+                state = state._replace(params=params)
+                ist = guard.absorb_verify(ist, *pol.last_verify)
+                out["verified"] = ok
+            state = harness.post_step(i, state)
+        fp = guard.fingerprint_tree(state.params)
+        everyone = parallel.collectives.all_gather(fp.reshape(1), None,
+                                                   "check", tiled=True)
+    out["fps"] = everyone.cpu().tolist()
+    out["mismatch_count"] = int(ist.mismatch_count)
+    return out
+
+
+def integrity_body(rank, world, tmp):
+    _run_rank(integrity_rank, rank, world, tmp)
+
+
+def integrity_three_ranks():
+    """Phase integrity_three_ranks: three gloo processes on the card (a
+    vote needs three replicas to name a minority). Gates: every rank flags
+    the divergence at step INTEGRITY_FLIP and no other; that step is
+    skipped on every rank; the vote names rank 2; the repair's re-verify
+    passes; every rank's params end bit-equal to the others' (their
+    fingerprints, gathered on every rank)."""
+    ranks = _spawn("integrity_three_ranks", integrity_body, 3)
+    want_div = [i == INTEGRITY_FLIP for i in range(INTEGRITY_STEPS)]
+    for r, out in enumerate(ranks):
+        if (out["divergent"] != want_div
+                or out["committed"] != [not d for d in want_div]
+                or out.get("minority") != [2] or not out.get("verified")
+                or len(set(out["fps"])) != 1 or out["mismatch_count"] != 1
+                or out["fps"] != ranks[0]["fps"]
+                or not all(math.isfinite(v) for v in out["losses"])):
+            raise AssertionError(f"integrity_three_ranks rank {r}: {out}")
+    log(f"phase integrity_three_ranks: every rank flagged step "
+        f"{INTEGRITY_FLIP} and skipped it, the vote named rank 2, the repair "
+        f"re-verified; all 3 ranks end on fingerprint "
+        f"{ranks[0]['fps'][0]:#010x}; rank 0's losses {ranks[0]['losses']}")
+
+
+_CRASH_CHILD = r"""
+import os, sys, torch
+sys.path.insert(0, os.getcwd())
+import chip_smoke as C
+from apex_tpu_torch import ckpt, train
+root, mode = sys.argv[1], sys.argv[2]
+step, state, (toks, labels), _, _ = train.build_bert_step(
+    4, 512, encoder=C.depth2_encoder(), strategy="arena")
+mgr = ckpt.CheckpointManager(root, keep=3)
+for i in range(1, 3):
+    state, loss = step(state, toks, labels)
+    if mode == "escalate":
+        mgr.snapshot(i, {"amp": state}, extra={"loss": loss.item()})
+    else:
+        if i == 2:
+            os.environ[ckpt.format._CRASH_ENV] = mode
+        mgr.save(i, {"amp": state}, extra={"loss": loss.item()}, block=True)
+mgr.wait()
+ckpt.EscalationPolicy(mgr).trip("stall")
+"""
+
+
+def ckpt_crash_and_escalate():
+    """Phase ckpt_crash_and_escalate: the depth-2 encoder at BERT-Large
+    widths (B4, O1 bf16, arena LAMB) in three processes on the card at
+    once. Two save step 1, then are SIGKILLed inside step 2's save (before
+    the data rename; before the manifest): step 1 stays the latest
+    checkpoint and loads. The third keeps host snapshots and trips
+    ``EscalationPolicy`` (exit mode): it exits 75 with a committed
+    checkpoint of its last snapshot, which resumes to the uninterrupted
+    run's next loss bit for bit (this process runs that run)."""
+    import signal
+    import tempfile
+    from apex_tpu_torch import ckpt, train
+
+    phase = "ckpt_crash_and_escalate"
+    roots = {m: tempfile.mkdtemp(prefix=f"chip_smoke_crash_{m}_")
+             for m in ("before_data_rename", "before_manifest", "escalate")}
+    t0 = time.perf_counter()
+    try:
+        procs = {m: subprocess.Popen([sys.executable, "-c", _CRASH_CHILD, r,
+                                      m], stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True)
+                 for m, r in roots.items()}
+        step, state, (toks, labels), _, _ = train.build_bert_step(
+            4, 512, encoder=depth2_encoder(), strategy="arena")
+        losses = []
+        for _ in range(3):
+            state, loss = step(state, toks, labels)
+            losses.append(loss.item())
+        codes = {}
+        for m, p in procs.items():
+            try:
+                _, err = p.communicate(timeout=300)
+            finally:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            codes[m] = p.returncode
+            if codes[m] not in (-signal.SIGKILL, ckpt.ESCALATION_EXIT_CODE):
+                raise AssertionError(f"{phase} {m}: exit {codes[m]}\n"
+                                     f"{err[-3000:]}")
+        want = {"before_data_rename": -signal.SIGKILL,
+                "before_manifest": -signal.SIGKILL,
+                "escalate": ckpt.ESCALATION_EXIT_CODE}
+        if codes != want:
+            raise AssertionError(f"{phase}: exit codes {codes}")
+        for m in ("before_data_rename", "before_manifest"):
+            mgr = ckpt.CheckpointManager(roots[m])
+            if mgr.all_steps() != [1] or not os.path.isdir(
+                    ckpt.step_dir(roots[m], 2)):
+                raise AssertionError(f"{phase} {m}: committed "
+                                     f"{mgr.all_steps()}")
+            fresh = train.build_bert_step(
+                4, 512, encoder=depth2_encoder(), strategy="arena")[1]
+            tree, manifest = mgr.restore({"amp": fresh})
+            if manifest["extra"]["loss"] != losses[0] or int(
+                    tree["amp"].step) != 1:
+                raise AssertionError(f"{phase} {m}: step 1 did not load")
+        mgr = ckpt.CheckpointManager(roots["escalate"])
+        fresh = train.build_bert_step(
+            4, 512, encoder=depth2_encoder(), strategy="arena")[1]
+        tree, manifest = mgr.restore({"amp": fresh})
+        resumed, loss = step(tree["amp"], toks, labels)
+        if (manifest["step"] != 2 or manifest["meta"]["reason"] != "stall"
+                or manifest["extra"]["loss"] != losses[1]
+                or loss.item() != losses[2]
+                or _leaves_equal(resumed, state)):
+            raise AssertionError(f"{phase}: escalation checkpoint step "
+                                 f"{manifest['step']}, resumed loss "
+                                 f"{loss.item()} vs {losses[2]}")
+    finally:
+        for r in roots.values():
+            shutil.rmtree(r, ignore_errors=True)
+    log(f"phase {phase}: SIGKILL before the data rename and before the "
+        f"manifest left step 1 the latest checkpoint, loadable; the "
+        f"escalation exited {ckpt.ESCALATION_EXIT_CODE} with step 2 "
+        f"committed from the host snapshot, which resumed to loss "
+        f"{losses[2]:.6f} bit for bit; {time.perf_counter() - t0:.1f} s")
+
+
 def _instance_name(mangled):
     """A readable name for an instance of the port's CUDA kernels:
     ``flash_fwd<bf16, D=64, opts=0>``, ``ln_fwd_warp<bf16, CH=8, NC=4>``,
@@ -5659,9 +6556,15 @@ def main() -> int:
     rows = {}
     check_kernels(rows)
     mlp_phases(rows)
+    o1_backward_thread()
     tree_losses = bert_large_steps(rows)
     arena_losses = bert_large_arena(rows, tree_losses)
     bert_large_dropout(rows)
+    torch.cuda.empty_cache()
+    bert_large_ckpt_resume()
+    torch.cuda.empty_cache()
+    bert_large_guard(rows)
+    torch.cuda.empty_cache()
     state = bert_large_remainder(rows, "bert_large_novograd", novograd,
                                  NOVOGRAD_PER_STEP, TOL_NOVOGRAD_UPDATE)
     multi_tensor_ops(rows, state)
@@ -5700,6 +6603,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     bert_large_zero(rows, arena_losses, mesh)
     torch.cuda.empty_cache()
+    bert_large_zero_ckpt_resume(mesh)
+    torch.cuda.empty_cache()
+    zero_elastic_two_to_one(mesh)
+    torch.cuda.empty_cache()
     zero_adam_update(rows, mesh)
     torch.cuda.empty_cache()
     hierarchical_sync_world1()
@@ -5710,6 +6617,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     hierarchy_four_ranks()
     torch.cuda.empty_cache()
+    integrity_three_ranks()
+    torch.cuda.empty_cache()
     dcgan_tree(rows, train_dcgan("dcgan", rows)[0])
     dcgan_plain_vs_kernel()
     dcgan_fp16_overflow()
@@ -5717,6 +6626,8 @@ def main() -> int:
     amp_remainder_phases(rows)
     torch.cuda.empty_cache()
     attention_remainder_phases(rows)
+    torch.cuda.empty_cache()
+    ckpt_crash_and_escalate()
 
     from apex_tpu_torch import ops
     print(json.dumps({"kernels": [rows[n] for n in (

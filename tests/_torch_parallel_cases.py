@@ -1092,3 +1092,61 @@ def ring_dtypes_and_refusals(rank, world, mesh, inputs):
             except ValueError as e:
                 out[f"unaligned/{w}"] = str(e)
     return out
+
+
+# --- integrity: fingerprint, vote, repair ----------------------------------------
+
+def integrity_inputs(seed=0):
+    """A small mixed tree: f32, bf16 (as f32 values) and an int leaf."""
+    rng = np.random.RandomState(seed)
+    return {"a": rng.randn(33, 5).astype(np.float32),
+            "b": rng.randn(7).astype(np.float32),
+            "c": rng.randint(-4, 4, (3,)).astype(np.int32)}
+
+
+@case
+def integrity_flip_repair(rank, world, mesh, inputs):
+    """Every step fingerprints and compares; after step 1 chaos flips a
+    mantissa bit of rank 2's first leaf; step 2's check flags it on every
+    rank, the guard skips, the vote names rank 2, ``repair`` broadcasts the
+    majority's bits and the re-verify agrees; step 3's check is clean."""
+    from apex_tpu_torch import guard, parallel
+    params = {k: torch.tensor(v) for k, v in inputs["params"].items()}
+    params["b"] = params["b"].to(torch.bfloat16)
+    icfg = guard.IntegrityConfig()
+    ist = guard.integrity_init(icfg, world=world, device="cpu")
+    gcfg = guard.GuardConfig(window=4, min_history=2)
+    gs = guard.guard_init(gcfg, device="cpu")
+    plan = guard.FaultPlan([guard.Fault(1, "params", "bitflip_mantissa",
+                                        rank=2, arg=3)])
+    harness = guard.ChaosHarness(plan, rank=rank)
+    pol = guard.GuardPolicy()
+    parallel.reset_collective_counts()
+    out = {"fps": [], "divergent": [], "skipped": []}
+    for step in range(4):
+        ist = guard.integrity_check(ist, icfg, params)
+        gs = guard.guard_observe(gs, gcfg, loss=1.0, grad_norm=1.0,
+                                 params=params,
+                                 replica_ok=guard.integrity_ok(ist))
+        out["fps"].append(ist.rank_fps.clone())
+        out["divergent"].append(bool(ist.divergent))
+        out["skipped"].append(not bool(guard.guard_ok(gs, gcfg)))
+        act = pol.update_integrity(step, ist)
+        if act.kind == "repair":
+            out["flipped"] = {k: v.clone() for k, v in params.items()}
+            out["minority"] = list(pol.last_vote.minority)
+            params, ok = pol.repair(step, params,
+                                    repair_fn=guard.make_repair_fn(),
+                                    verify_fn=guard.make_verify_fn())
+            out["verified"] = ok
+            ist = guard.absorb_verify(ist, *pol.last_verify)
+            out["absorbed"] = ist.rank_fps.clone()
+        params = harness.post_step(step, params)
+    out["params"] = {k: v.view(torch.int16) if v.dtype == torch.bfloat16
+                     else v for k, v in params.items()}
+    out["flipped"] = {k: v.view(torch.int16) if v.dtype == torch.bfloat16
+                      else v for k, v in out["flipped"].items()}
+    out["check_count"] = int(ist.check_count)
+    out["mismatch_count"] = int(ist.mismatch_count)
+    out["collectives"] = dict(parallel.collective_counts)
+    return out

@@ -1,7 +1,8 @@
 """apex_tpu_torch stands alone: no JAX and nothing of apex_tpu.
 
-Importing the port (every module of it) in a fresh interpreter leaves no
-``jax`` and no ``apex_tpu`` module in ``sys.modules``; an AST scan of its
+Importing the port (every module of it, the checkpoint, guard and utils
+modules named) in a fresh interpreter leaves no ``jax``, ``ml_dtypes`` or
+``apex_tpu`` module in ``sys.modules``; an AST scan of its
 sources, of ``chip_smoke.py``, of its scripts (``scripts/torch_*.py``) and
 of the rank bodies its multi-process tests spawn
 (``tests/_torch_parallel_cases.py``) and of the L1 grid's runner that
@@ -32,7 +33,7 @@ def _modules():
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "optax", "apex_tpu")
+    return top in ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "apex_tpu")
 
 
 def test_import_leaves_no_jax_or_apex_tpu():
@@ -46,6 +47,11 @@ def test_import_leaves_no_jax_or_apex_tpu():
                          cwd=str(PKG.parent)).stdout
     loaded = json.loads(out.strip().splitlines()[-1])
     assert "apex_tpu_torch.train" in loaded
+    for pkg in ("ckpt.format", "ckpt.snapshot", "ckpt.elastic",
+                "ckpt.manager", "ckpt.escalate", "guard.detect",
+                "guard.integrity", "guard.chaos", "guard.policy",
+                "utils.fsio", "utils.backoff", "utils.bits"):
+        assert f"apex_tpu_torch.{pkg}" in loaded
     assert [m for m in loaded if _forbidden(m)] == []
 
 
