@@ -28,6 +28,16 @@ It imports ``torch`` and never ``jax`` nor anything of ``apex_tpu``.
 - ``apex_tpu_torch.guard``  — in-step anomaly detection (``Amp.step(
                               guard=)``), integrity fingerprints, the
                               skip/repair/rewind/escalate policy, chaos.
+- ``apex_tpu_torch.data``   — the ImageFolder loader, the packed uint8
+                              cache and the pinned side-stream
+                              prefetcher, decoding with the port's own
+                              JPEG codec and PIL-exact resampler (C++
+                              host stages built at first use).
+- ``apex_tpu_torch.cluster`` — generation-fenced membership and
+                              coordinated recovery over a shared
+                              directory (``ckpt``'s ``fence=``), and
+                              ``parallel.elastic_run``'s relaunch.
+- ``apex_tpu_torch.trace``  — the straggler tier's heartbeat file helpers.
 - ``apex_tpu_torch.convert`` — weights, statistics, optimizer and ASP
                               state carried over from the JAX package, in
                               memory or from its checkpoints.

@@ -50,22 +50,9 @@ from apex_tpu_torch.ckpt.format import CheckpointError
 from apex_tpu_torch.ckpt.snapshot import (GENERATOR_IMPL, HostSnapshot,
                                           ShardChunks, Snapshotter,
                                           map_with_paths, tree_paths)
+from apex_tpu_torch.utils.ranks import rank_default, world_default
 
 __all__ = ["CheckpointManager"]
-
-
-def _rank() -> int:
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank()
-    return int(os.environ.get("RANK", "0"))
-
-
-def _process_count() -> int:
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return int(os.environ.get("WORLD_SIZE", "1"))
 
 
 class CheckpointManager:
@@ -98,8 +85,8 @@ class CheckpointManager:
         self.meta = dict(meta or {})
         self.barrier_timeout_s = float(barrier_timeout_s)
         self.fence = fence
-        self.rank = _rank() if rank is None else int(rank)
-        self.process_count = (_process_count() if process_count is None
+        self.rank = rank_default() if rank is None else int(rank)
+        self.process_count = (world_default() if process_count is None
                               else int(process_count))
         self._snap = Snapshotter(on_ready=self._write_snapshot)
         self._pending_zero: Dict[str, int] = {}

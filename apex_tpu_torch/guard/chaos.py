@@ -411,7 +411,9 @@ class ChaosHarness:
                 return leaf
             done[0] = True
             new = leaf.detach().clone()
-            flat = new.view(-1)
+            # a one-element view of element 0 (a conv weight kept in a
+            # permuted layout has no flat view)
+            flat = new[(0,) * new.dim()].view(1)
             if f.kind == "nan":
                 flat[:1] = float("nan")
             elif f.kind == "bitflip_mantissa":

@@ -64,6 +64,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch.guard.detect import GuardState
+from apex_tpu_torch.utils.ranks import rank_default
 
 __all__ = ["GuardPolicy", "GuardAction", "GuardEscalation"]
 
@@ -83,11 +84,6 @@ class GuardEscalation(RuntimeError):
     """Raised by `escalate` when no
     :class:`~apex_tpu_torch.ckpt.EscalationPolicy` is wired — the guard
     refuses to train on irrecoverable state."""
-
-
-def _rank() -> int:
-    from apex_tpu_torch.ckpt.manager import _rank as rank
-    return rank()
 
 
 def _host_ints(values) -> list:
@@ -148,7 +144,7 @@ class GuardPolicy:
         self.skip_window = int(skip_window)
         self.cooldown_steps = int(cooldown_steps)
         self.poll_every = max(int(poll_every), 1)
-        self.rank = _rank()
+        self.rank = rank_default()
         #: rewinds performed so far (the budget's odometer)
         self.rewinds_done = 0
         #: loop step below which skip-budget accounting is suspended

@@ -9,6 +9,12 @@ shared headers and the flags, so an edited source is rebuilt and a stale
 build is never loaded. ``ptxas -v`` output (registers, shared memory,
 spills) is kept beside each library as ``<name>.ptxas.txt``.
 
+Host C++: every ``*.cpp`` under ``csrc/`` (the JPEG codec's library) is
+compiled by the host compiler (``$CXX``, else ``g++``) with
+``-O3 -ffp-contract=off -shared -fPIC`` into the same directory under the same digest rule,
+at first use and on the CPU too (:func:`load_host`); ``build_all`` does
+not build these.
+
 Triton: kernels are plain functions in their op modules; :func:`triton_jit`
 imports Triton and compiles them at their first launch, so importing the
 port never needs Triton or a card.
@@ -22,6 +28,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict
 
@@ -30,7 +37,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "apex_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+HOST_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
+
 _LIBS: Dict[str, ctypes.CDLL] = {}   # loaded libraries, by source stem
+_HOST_LOCK = threading.Lock()        # one build per process (decode threads)
 
 
 def _nvcc() -> str:
@@ -82,6 +92,47 @@ def load(name: str) -> ctypes.CDLL:
     if name not in _LIBS:
         _LIBS[name] = ctypes.CDLL(str(build_all()[name]))
     return _LIBS[name]
+
+
+def _cxx() -> str:
+    for cand in (os.environ.get("CXX", ""), shutil.which("g++") or "",
+                 shutil.which("c++") or ""):
+        if cand and shutil.which(cand):
+            return shutil.which(cand)
+    raise RuntimeError("no C++ compiler found: set CXX or put g++ on PATH "
+                       "to build apex_tpu_torch's host libraries")
+
+
+def build_host(name: str) -> Path:
+    """Compile ``csrc/<name>.cpp`` for the host unless a current build
+    exists; return the library's path. Raises with the compiler's output
+    if it fails."""
+    src = CSRC / f"{name}.cpp"
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(src.read_bytes())
+    lib = BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+    if lib.exists():
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run([_cxx(), *HOST_FLAGS, "-o", str(tmp), str(src)],
+                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the host compiler failed on {src.name}:\n"
+                           f"{proc.stdout}")
+    os.replace(tmp, lib)
+    return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded host library built from ``csrc/<name>.cpp``."""
+    key = f"host:{name}"
+    if key not in _LIBS:
+        with _HOST_LOCK:
+            if key not in _LIBS:
+                _LIBS[key] = ctypes.CDLL(str(build_host(name)))
+    return _LIBS[key]
 
 
 def check(err: int, what: str) -> None:

@@ -7,10 +7,11 @@ environment conventions (``MASTER_ADDR``/``MASTER_PORT``, ``WORLD_SIZE``,
 ``device="cpu"``. With no environment and no arguments it does nothing,
 as a reference script run without the launcher.
 
-``enable_crash_dumps`` needs the JAX package's ``trace`` and ``cluster``
-and ``elastic_run`` its ``cluster`` (the port has ``ckpt`` and
-``utils.backoff``); they raise until those are ported (ROADMAP.md queue
-A, items 10b and 11).
+:func:`elastic_run` is the restart-on-smaller-world loop, fenced through
+:mod:`apex_tpu_torch.cluster` when given a cluster directory.
+``enable_crash_dumps`` needs the JAX package's ``trace`` (the tracer,
+flight recorder and hang watchdog) and raises until it is ported
+(ROADMAP.md queue A, item 11).
 """
 
 from __future__ import annotations
@@ -79,14 +80,93 @@ def distributed_init(coordinator_address: Optional[str] = None,
 
 def enable_crash_dumps(*args, **kwargs):
     raise NotImplementedError(
-        "enable_crash_dumps needs trace/ and cluster/, not ported yet "
-        "(ROADMAP.md queue A, items 10 and 11)")
+        "enable_crash_dumps needs trace/ (the tracer, flight recorder and "
+        "hang watchdog), not ported yet (ROADMAP.md queue A, item 11)")
 
 
-def elastic_run(*args, **kwargs):
-    raise NotImplementedError(
-        "elastic_run needs cluster/, not ported yet (ROADMAP.md queue A, "
-        "item 10b: data/, cluster/, elastic_run and the ImageNet example)")
+def elastic_run(train_fn, *, world_sizes, max_restarts: Optional[int] = None,
+                escalation_exit_codes=(75,),
+                restart_backoff_s: float = 0.0,
+                restart_backoff_cap_s: float = 60.0,
+                cluster_dir: Optional[str] = None,
+                heartbeat_dir: Optional[str] = None,
+                event_sink=None):
+    """Restart-on-smaller-world: the single-controller recovery loop (the
+    port of ``apex_tpu.parallel.launch.elastic_run``).
+
+    ``train_fn(world, attempt)`` runs the job on ``world`` processes or
+    cards (restoring from the latest committed checkpoint itself —
+    ``ckpt.CheckpointManager.restore`` re-partitions ZeRO state to any
+    world). A completed call returns its result; an escalation —
+    :class:`apex_tpu_torch.ckpt.PreemptionError`, or ``SystemExit`` with a
+    code in ``escalation_exit_codes`` (a ``train_fn`` that runs ranks as
+    subprocesses raises ``SystemExit(75)`` when one exits with
+    :data:`apex_tpu_torch.ckpt.ESCALATION_EXIT_CODE`) — shrinks to the next
+    size and continues. Any other exception propagates. ``max_restarts``
+    bounds the restarts.
+
+    ``restart_backoff_s`` > 0 sleeps a jittered exponential delay
+    (``backoff · 2^(attempt-1)``, capped at ``restart_backoff_cap_s``,
+    x[0.5, 1.5) jitter) before each relaunch, so controllers escalating at
+    once do not re-attach in lockstep.
+
+    ``cluster_dir`` fences every restart: before it, the loop reports the
+    lease-expired (dead) ranks, and :func:`apex_tpu_torch.cluster.relaunch`
+    commits the next generation (every straggler of the failed attempt is
+    then refused by the checkpoint fence) and garbage-collects stale
+    leases, intents and, with ``heartbeat_dir``, heartbeat files.
+    ``event_sink`` receives the hygiene pass's events.
+    """
+    from apex_tpu_torch.ckpt import PreemptionError
+    from apex_tpu_torch.utils.backoff import backoff_sleep
+    sizes = list(world_sizes)
+    if not sizes:
+        raise ValueError("world_sizes must name at least one mesh size")
+    i, attempt = 0, 0
+    while True:
+        world = sizes[i]
+        try:
+            return train_fn(world, attempt)
+        except PreemptionError as e:
+            maybe_print(f"apex_tpu_torch.elastic: escalated on world={world} "
+                        f"({e.reason}); shrinking", rank0=True)
+        except SystemExit as e:
+            if e.code not in escalation_exit_codes:
+                raise
+            maybe_print(f"apex_tpu_torch.elastic: exit code {e.code} on "
+                        f"world={world}; shrinking", rank0=True)
+        attempt += 1
+        if max_restarts is not None and attempt > max_restarts:
+            raise RuntimeError(
+                f"elastic_run: {attempt} restarts exhausted "
+                f"max_restarts={max_restarts}")
+        if i + 1 < len(sizes):
+            i += 1
+        else:
+            raise RuntimeError(
+                f"elastic_run: escalated at the smallest mesh size "
+                f"{sizes[-1]} — no capacity left to shrink to")
+        # back off only before an actual relaunch
+        if restart_backoff_s > 0:
+            backoff_sleep(attempt - 1, base_s=restart_backoff_s,
+                          cap_s=restart_backoff_cap_s)
+        if cluster_dir is not None:
+            # fence + clean BEFORE the relaunch. The controller only
+            # observes the lease table: join() would overwrite a dead
+            # rank's lease with its own and drop it from the report
+            from apex_tpu_torch import cluster as _cluster
+            member = _cluster.ClusterMembership(cluster_dir,
+                                                event_sink=event_sink)
+            dead = member.expired_ranks()
+            if dead:
+                maybe_print(f"apex_tpu_torch.elastic: lease-expired ranks "
+                            f"{dead} (dead members of the failed attempt)",
+                            rank0=True)
+            gen = _cluster.relaunch(
+                cluster_dir, reason=f"elastic_restart:{attempt}",
+                heartbeat_dir=heartbeat_dir, event_sink=event_sink)
+            maybe_print(f"apex_tpu_torch.elastic: relaunching under "
+                        f"generation {gen}", rank0=True)
 
 
 def shrink_schedule(world: int, *, min_world: int = 1,

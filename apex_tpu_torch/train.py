@@ -162,7 +162,8 @@ def build_bert_step(batch: int, seq: int, encoder=None, opt_level="O1",
 def build_resnet_step(batch: int, size: int, opt_level: str = "O2",
                       half_dtype=torch.bfloat16, device="cuda", seed: int = 0,
                       model=None, strategy: str = "auto", optimizer=None,
-                      bn_axis_name=None, ddp=None):
+                      bn_axis_name=None, ddp=None, policy=None,
+                      with_accuracy: bool = False):
     """Returns ``(step, (state, batch_stats), (x, y), policy, model)``.
 
     ``step(state, batch_stats, x, y) -> (state', batch_stats', loss)`` runs
@@ -181,6 +182,12 @@ def build_resnet_step(batch: int, size: int, opt_level: str = "O2",
     amp backward: by ``parallel.sync_gradients`` or by ``ddp.sync``. As in
     the JAX bench, the update applies with this rank's own finite flag
     (taken before the sync) and ``loss`` is this rank's.
+
+    ``policy`` (an ``amp.Policy``) replaces the preset of ``opt_level`` and
+    ``half_dtype`` (the ImageNet example's ``--keep-batchnorm-fp32`` and
+    ``--loss-scale`` overrides); ``with_accuracy`` makes the step also
+    return the batch's top-1 accuracy (f32, this rank's).
+    ``step.amp_opt`` is the ``amp.Amp`` bundle.
     """
     device = _device(device, "build_resnet_step")
     dp = bn_axis_name is not None or ddp is not None
@@ -192,7 +199,8 @@ def build_resnet_step(batch: int, size: int, opt_level: str = "O2",
     elif strategy != "auto":
         raise ValueError("build_resnet_step takes strategy= for its default "
                          "FusedSGD only; set it on the optimizer given")
-    policy = amp.Policy.from_opt_level(opt_level, half_dtype=half_dtype)
+    if policy is None:
+        policy = amp.Policy.from_opt_level(opt_level, half_dtype=half_dtype)
     if model is None:
         model = models.ResNet50(num_classes=1000, dtype=policy.compute_dtype,
                                 device=device, seed=seed,
@@ -218,15 +226,21 @@ def build_resnet_step(batch: int, size: int, opt_level: str = "O2",
             logits, new_bs = functional_call(
                 model, {**mp, **batch_stats}, (xb,), {"train": True})
             loss = torch.mean(ops.softmax_cross_entropy_loss(logits, yb))
+            if with_accuracy:
+                acc = torch.mean((torch.argmax(logits, -1) == yb).float())
+                return loss, (new_bs, acc)
             return loss, new_bs
 
-        (loss, new_bs), grads, state, finite = amp_opt.backward(
+        (loss, aux), grads, state, finite = amp_opt.backward(
             state, loss_fn, has_aux=True)
         if ddp is not None:
             grads = ddp.sync(grads)
         elif dp:
             grads = parallel.sync_gradients(grads, parallel.DATA_AXIS)
-        return amp_opt.apply_gradients(state, grads, finite), new_bs, loss
+        state = amp_opt.apply_gradients(state, grads, finite)
+        if with_accuracy:
+            return state, aux[0], loss, aux[1]
+        return state, aux, loss
 
     if dp:
         local_step = step
@@ -235,6 +249,7 @@ def build_resnet_step(batch: int, size: int, opt_level: str = "O2",
             with parallel.use_mesh(mesh):
                 return local_step(state, batch_stats, xb, yb)
 
+    step.amp_opt = amp_opt
     return step, (state, batch_stats), (x, y), policy, model
 
 

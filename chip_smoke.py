@@ -151,6 +151,25 @@ plain PyTorch version on the card at the shapes its main path gives it
   that fingerprint, vote and repair a flipped bit (integrity_three_ranks);
   and, last, saves killed at both crash points and an exit-75 escalation
   in subprocesses (ckpt_crash_and_escalate).
+- Data, cluster and ``elastic_run``, after the ResNet phases, on a JPEG
+  tree the port's encoder writes in the background from the start (512
+  images, 256^2, 8 classes) and its packed cache: the codec (phase
+  jpeg_codec: the encoder's coefficients back bit for bit, the IDCT
+  within ±1 of a float64 IDCT, PIL's pixels if PIL imports; encode and
+  decode ms by stage, decode and loader img/s beside the host CPU); the
+  ImageNet example (``scripts/torch_imagenet_main_amp.py``, ResNet-50 B256
+  224^2 O2) from the cache, from live decode and from synthetic data, and
+  with ``--deterministic`` (imagenet_example_resnet50: step ms, img/s,
+  loader img/s, peak GiB, launches; the prefetcher's batches bit for bit;
+  the uint8 normalise card vs CPU); a ResNet-50 resume from an
+  ``ImageFolderSource`` cursor bit for bit and ``skip_batches`` decoding
+  nothing (data_cursor_resume); JAX's coordinated-rewind acceptance on
+  ResNet-18 in four processes (cluster_coordinated_rewind); and
+  ``elastic_run`` 2 -> 1 around a SIGSTOPped ZeRO rank whose late save and
+  delete the fence refuses (cluster_zombie_elastic). After
+  hierarchical_sync_world1, the example with ``--sync_bn --opt-level O1``
+  at NCCL world 1 (imagenet_example_syncbn: 106 sync_batchnorm
+  collectives a step).
 
 Prints one line per phase (and each CUDA kernel's registers and spills
 from ``ptxas -v``), the card's name and power limit, a JSON line of
@@ -3616,18 +3635,15 @@ def _gloo_rank(rank, world, tmp):
 
 
 def _run_rank(body, rank, world, tmp):
-    import traceback
-    import torch
+    """``body(rank, world)`` in a gloo group of the spawned processes."""
     import torch.distributed as dist
-    try:
+
+    def grouped(rank, world):
         _gloo_rank(rank, world, tmp)
         out = body(rank, world)
-        torch.save(out, f"{tmp}/rank{rank}.pt")
         dist.destroy_process_group()
-    except BaseException:
-        with open(f"{tmp}/rank{rank}.err", "w") as f:
-            f.write(traceback.format_exc())
-        raise
+        return out
+    _run_solo(grouped, rank, world, tmp)
 
 
 def _flat(tree):
@@ -5683,9 +5699,9 @@ def _leaves_equal(a, b):
         if isinstance(x, torch.Generator):
             x, y = x.get_state(), y.get_state()
         if not (x.dtype == y.dtype and x.shape == y.shape
-                and torch.equal(x.view(-1).view(torch.uint8)
+                and torch.equal(x.reshape(-1).view(torch.uint8)
                                 if x.is_floating_point() else x,
-                                y.view(-1).view(torch.uint8)
+                                y.reshape(-1).view(torch.uint8)
                                 if y.is_floating_point() else y)):
             bad.append(p)
     return bad
@@ -6454,6 +6470,974 @@ def ckpt_crash_and_escalate():
         f"{losses[2]:.6f} bit for bit; {time.perf_counter() - t0:.1f} s")
 
 
+# --- data, cluster, elastic_run and the ImageNet example ----------------------
+
+#: the JPEG ImageFolder tree the data phases share: 512 images at 256^2
+#: (8 classes) written by the port's encoder, and its packed cache
+DATA_CLASSES, DATA_PER_CLASS, DATA_SIZE = 8, 64, 256
+DATA_SAMPLE = 32              # images encoded again / stage-timed
+IMAGENET_BATCH, IMAGENET_SIZE, IMAGENET_STEPS = 256, 224, 10
+#: steps the prefetcher (depth 2, one more in staging) can have ready when
+#: the first step's warm-up ends: the steady state starts after them
+IMAGENET_FILL = 4
+SYNCBN_STEPS = 3
+SYNCBN_EXAMPLE = {"sync_batchnorm": 106}
+CURSOR_STEPS, CURSOR_AT, CURSOR_SKIP = 4, 2, 3
+#: the coordinated rewind: ResNet-18 B32 128^2, chaos NaNs rank 1's params
+#: after REWIND_POISON; the oracle skips the poison window by the cursor
+REWIND_BATCH, REWIND_SIZE, REWIND_STEPS, REWIND_POISON = 32, 128, 14, 7
+REWIND_GUARD = dict(window=16, min_history=4, z_threshold=1e4,
+                    grad_factor=1e6)
+#: the zombie: two gloo ranks (depth-2 ResNet, DistributedFusedAdam), saves
+#: at ZOMBIE_SAVES, rank 1 SIGSTOPs after ZOMBIE_STOP, rank 0 trips after
+#: ZOMBIE_DEADLINE_S without its beat; world 1 resumes for ZOMBIE_RESUMED
+ZOMBIE_BATCH, ZOMBIE_SIZE, ZOMBIE_STOP, ZOMBIE_SAVES = 16, 64, 4, (1, 3)
+ZOMBIE_DEADLINE_S, ZOMBIE_TTL_S, ZOMBIE_RESUMED = 4.0, 2.0, 3
+_DATA = {}
+
+
+def _data_tree_code():
+    return ("import sys, time\n"
+            "sys.path.insert(0, sys.argv[2])\n"
+            "from apex_tpu_torch.data import make_fake_imagefolder\n"
+            "t = time.perf_counter()\n"
+            f"make_fake_imagefolder(sys.argv[1], n_classes={DATA_CLASSES}, "
+            f"per_class={DATA_PER_CLASS}, size={DATA_SIZE}, seed=0)\n"
+            "print(time.perf_counter() - t)\n")
+
+
+def start_data_tree():
+    """Write the shared JPEG tree in a background process while the
+    kernels build and the earlier phases run (the encoder is host numpy);
+    ``jpeg_codec`` waits for it."""
+    import atexit
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    tree = os.path.join(root, "tree")
+    proc = subprocess.Popen(
+        [sys.executable, "-c", _data_tree_code(), tree, os.getcwd()],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    _DATA.update(root=root, tree=tree, cache=os.path.join(root, "cache"),
+                 proc=proc)
+
+    def cleanup():
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    atexit.register(cleanup)
+
+
+def _host_cpu():
+    """The host CPU's model and thread count, as ``lscpu`` gives them."""
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=10).stdout
+        info = dict(line.split(":", 1) for line in out.splitlines()
+                    if ":" in line)
+        return (f"{info.get('Model name', '?').strip()}, "
+                f"{info.get('CPU(s)', '?').strip()} threads")
+    except (OSError, subprocess.SubprocessError):
+        return f"unknown model, {os.cpu_count()} threads"
+
+
+def _float_idct(c):
+    """A float64 IDCT of a component's dequantised coefficients."""
+    import numpy as np
+    k = np.arange(8)
+    m = np.cos((2 * k[None, :] + 1) * k[:, None] * np.pi / 16) / 2
+    m[0] /= np.sqrt(2)
+    rows, cols = c.coefs.shape[:2]
+    deq = (c.coefs.astype(np.float64) * c.qtable).reshape(rows, cols, 8, 8)
+    ref = np.einsum("ui,abuv,vj->abij", m, deq, m) + 128
+    return np.clip(np.round(ref), 0, 255).transpose(0, 2, 1, 3).reshape(
+        rows * 8, cols * 8)
+
+
+def jpeg_codec():
+    """Phase jpeg_codec: the port's codec on the shared tree (written by
+    its encoder: 512 images, 256^2, 8 classes, quality 85, 4:2:0). Gates:
+    the files are the encoder's bytes; decoding gives back the encoder's
+    quantised coefficients bit for bit; the IDCT stage is within ±1 of a
+    float64 IDCT of the same coefficients (IEEE 1180's peak error); if PIL
+    imports here, the pixels equal PIL's bit for bit. Reports encode and
+    decode ms an image (decode by stage), decode img/s at 1 thread and at
+    the default thread count, and ``measure_source`` img/s for live decode
+    and for the packed cache at B256 224: host numbers, beside the host
+    CPU."""
+    import concurrent.futures
+    import numpy as np
+    from apex_tpu_torch.data import (ImageFolderSource, PackedSource,
+                                     build_cache, jpeg, measure_source)
+    from apex_tpu_torch.data.pipeline import (_list_imagefolder,
+                                              _random_resized_crop)
+
+    phase = "jpeg_codec"
+    proc = _DATA["proc"]
+    out, err = proc.communicate(timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{phase}: writing the tree failed:\n{err}")
+    tree_s = float(out.strip().splitlines()[-1])
+    paths, labels, classes = _list_imagefolder(_DATA["tree"])
+    if len(paths) != DATA_CLASSES * DATA_PER_CLASS or \
+            len(classes) != DATA_CLASSES:
+        raise AssertionError(f"{phase}: {len(paths)} files, {classes}")
+    rng = np.random.RandomState(0)          # make_fake_imagefolder's draws
+    enc_s, idct_err = 0.0, 0
+    for i in range(DATA_SAMPLE):
+        arr = rng.randint(0, 256, (DATA_SIZE, DATA_SIZE, 3), np.uint8)
+        t = time.perf_counter()
+        data, coefs = jpeg.encode(arr, quality=85, return_coefficients=True)
+        enc_s += time.perf_counter() - t
+        with open(paths[i], "rb") as f:
+            if f.read() != data:
+                raise AssertionError(f"{phase}: {paths[i]} is not the "
+                                     f"encoder's output")
+        frame = jpeg.read_coefficients(data, paths[i])
+        for c, want in zip(frame.components, coefs):
+            if not np.array_equal(c.coefs, want):
+                raise AssertionError(f"{phase}: {paths[i]}: decoded "
+                                     f"coefficients differ")
+            idct_err = max(idct_err, int(np.abs(
+                jpeg.idct(c).astype(np.int64) - _float_idct(c)).max()))
+    if idct_err > 1:
+        raise AssertionError(f"{phase}: IDCT off the float64 IDCT by "
+                             f"{idct_err}")
+    blobs = []
+    for p in paths:
+        with open(p, "rb") as f:
+            blobs.append(f.read())
+    try:
+        from PIL import Image
+    except ImportError:
+        Image = None
+    if Image is not None:
+        import io
+        for p, b in zip(paths, blobs):
+            want = np.asarray(Image.open(io.BytesIO(b)).convert("RGB"))
+            if not np.array_equal(jpeg.decode(b, p), want):
+                raise AssertionError(f"{phase}: {p} differs from PIL")
+        pil = f"PIL {Image.__version__} imports here: all " \
+              f"{len(paths)} files decode to PIL's pixels bit for bit"
+    else:
+        pil = "PIL does not import here (no pixel check against it)"
+    parts = dict(entropy=0.0, idct=0.0, upsample_colour=0.0, resize=0.0)
+    for i, b in enumerate(blobs[:DATA_SAMPLE]):
+        t0 = time.perf_counter()
+        frame = jpeg.read_coefficients(b)
+        t1 = time.perf_counter()
+        planes = [jpeg.idct(c) for c in frame.components]
+        t2 = time.perf_counter()
+        rgb = jpeg.to_rgb(frame, planes)
+        t3 = time.perf_counter()
+        _random_resized_crop(rgb, IMAGENET_SIZE, np.random.RandomState(i))
+        t4 = time.perf_counter()
+        for k, dt in zip(parts, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
+            parts[k] += dt * 1e3 / DATA_SAMPLE
+
+    def decode_all(workers):
+        with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+            t = time.perf_counter()
+            list(pool.map(jpeg.decode, blobs))
+            return len(blobs) / (time.perf_counter() - t)
+    default = ImageFolderSource(_DATA["tree"], IMAGENET_BATCH,
+                                IMAGENET_SIZE)
+    decode_1, decode_n = decode_all(1), decode_all(default.workers)
+    with default as src:
+        live = measure_source(src.batches(5), steps=4)
+    t = time.perf_counter()
+    build_cache(_DATA["tree"], _DATA["cache"], store_size=DATA_SIZE)
+    cache_s = time.perf_counter() - t
+    with PackedSource(_DATA["cache"], IMAGENET_BATCH, IMAGENET_SIZE,
+                      dtype=np.uint8) as src:
+        cached = measure_source(src.batches(9), steps=8)
+        cache_workers = src.workers
+    host = _host_cpu()
+    log(f"phase jpeg_codec: {len(paths)} files written in {tree_s:.1f} s in "
+        f"the background; encoder bytes and coefficients bit for bit on "
+        f"{DATA_SAMPLE}, IDCT within {idct_err} of a float64 IDCT; {pil}")
+    log("phase jpeg_codec: " + json.dumps({
+        "host_cpu": host, "encode_ms": round(enc_s * 1e3 / DATA_SAMPLE, 3),
+        "decode_ms_by_stage": {k: round(v, 4) for k, v in parts.items()},
+        "decode_ms": round(sum(list(parts.values())[:3]), 4),
+        "decode_img_s_1_thread": round(decode_1, 1),
+        f"decode_img_s_{default.workers}_threads": round(decode_n, 1),
+        "loader_live_img_s_b256_224": round(live, 1),
+        "cache_build_s": round(cache_s, 2),
+        f"loader_cache_img_s_b256_224_{cache_workers}_threads":
+            round(cached, 1)}))
+
+
+def _imagenet_script():
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "torch_imagenet_main_amp",
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                     "torch_imagenet_main_amp.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _checksum(t):
+    """A position-weighted sum of a tensor's bytes, on its device (int64)."""
+    import torch
+    b = t.contiguous().view(-1).view(torch.uint8).to(torch.int64)
+    w = torch.arange(b.numel(), device=b.device, dtype=torch.int64) \
+        % 65521 + 1
+    return (b * w).sum()
+
+
+def _hashing_prefetcher(base, seen):
+    """A ``DevicePrefetcher`` that records each batch's checksums on the
+    host before staging (of the bytes it will copy: the cast ones) and on
+    the device after the consumer's stream waited (no host sync)."""
+    import numpy as np
+    import torch
+
+    class Hashing(base):
+        def __init__(self, it, device="cuda", cast_dtype=None, depth=2):
+            def tap(it):
+                for batch in it:
+                    host = []
+                    for j, a in enumerate(batch):
+                        t = torch.from_numpy(np.ascontiguousarray(a))
+                        if j == 0 and cast_dtype is not None:
+                            t = t.to(cast_dtype)
+                        host.append(int(_checksum(t)))
+                    seen["host"].append(host)
+                    yield batch
+            super().__init__(tap(it), device, cast_dtype, depth)
+
+        def __iter__(self):
+            for tensors in super().__iter__():
+                seen["device"].append([_checksum(t) for t in tensors])
+                yield tensors
+    return Hashing
+
+
+def _run_example(mod, phase, argv, per_step, steps, hashed=False):
+    """One ``run`` of the ImageNet script with the launches counted
+    (``per_step``: checked; None: not), the peak memory read and, with
+    ``hashed``, the prefetcher's batches checksummed (which costs the
+    producer host time, so timed runs go without it)."""
+    import math
+    import torch
+    from apex_tpu_torch import ops
+
+    seen = {"host": [], "device": []}
+    base = mod.DevicePrefetcher
+    if hashed:
+        mod.DevicePrefetcher = _hashing_prefetcher(base, seen)
+    printed = []
+    try:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        result = mod.run(argv, emit=printed.append)
+        counts = ops.launch_counts()
+    finally:
+        mod.DevicePrefetcher = base
+    if per_step is not None:
+        check_launches(phase, counts, per_step, None, steps=steps)
+    device = [[int(h) for h in hs] for hs in seen["device"]]
+    if hashed and (len(device) != steps or device != seen["host"]):
+        raise AssertionError(f"{phase}: the prefetcher's batches differ "
+                             f"from the host's (or their order): host "
+                             f"{seen['host']}, device {device}")
+    if not all(math.isfinite(v) for v in result["losses"]):
+        raise AssertionError(f"{phase}: losses {result['losses']}")
+    times = sorted(result["step_times"][min(IMAGENET_FILL,
+                                               len(result["step_times"]) - 1):])
+    step_ms = times[len(times) // 2] * 1e3
+    return dict(result, printed=printed, step_ms=step_ms,
+                peak=torch.cuda.max_memory_allocated() / 2**30,
+                launches={k: v // steps for k, v in counts.items() if v})
+
+
+def imagenet_example_resnet50():
+    """Phase imagenet_example_resnet50: ``scripts/torch_imagenet_main_amp.py``
+    at ``--arch resnet50 -b 256 --image-size 224 --opt-level O2`` from the
+    packed cache (uint8, normalised on the card), from live decode and from
+    synthetic data (the JAX example's host ``rand``, an input of its own),
+    and the cache run again with ``--deterministic`` (what deterministic cuDNN
+    costs the step). Each reports step ms (median of the steady steps:
+    after the IMAGENET_FILL the prefetcher may have had ready when the
+    first step's warm-up ended), img/s, the loader's printed img/s, the
+    example's own last img/s (from its start), peak GiB and hand-kernel
+    launches a step.
+    Gates: the ResNet launches each step; finite losses; in a further
+    3-step live-decode run the prefetcher hands over every batch in order
+    and bit for bit (checksums on the host before staging and on the
+    device after); the uint8 normalise on the card equals its CPU value for
+    all 256 values in bf16, fp16 and f32."""
+    import torch
+    from apex_tpu_torch.data import normalize_uint8
+
+    phase = "imagenet_example_resnet50"
+    mod = _imagenet_script()
+    base = ["--arch", "resnet50", "-b", str(IMAGENET_BATCH), "--image-size",
+            str(IMAGENET_SIZE), "--opt-level", "O2", "--device", DEVICE,
+            "--steps-per-epoch", str(IMAGENET_STEPS), "--print-freq", "1"]
+    cache = ["--data", _DATA["tree"], "--cache", _DATA["cache"]]
+    modes = {"cache": cache, "cache_deterministic": cache + [
+        "--deterministic"], "live": ["--data", _DATA["tree"]],
+        "synthetic": []}
+    flags = (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark)
+    out = {}
+    for mode, extra in modes.items():
+        try:
+            r = _run_example(mod, f"{phase} ({mode})", base + extra,
+                             RESNET_PER_STEP, IMAGENET_STEPS)
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = flags
+        out[mode] = r
+        log(f"phase {phase} ({mode}): " + json.dumps({
+            "step_ms": round(r["step_ms"], 3),
+            "img_s": round(IMAGENET_BATCH / r["step_ms"] * 1e3, 1),
+            "loader_img_s": None if r["loader"] is None
+            else round(r["loader"], 1),
+            "example_img_s": r["printed"][-2].split("  ")[-1],
+            "peak_gib": round(r["peak"], 3),
+            "launches_per_step": r["launches"],
+            "losses": [round(v, 6) for v in r["losses"]]}))
+    # the prefetcher's hand-over, bit for bit and in order: live decode,
+    # the bf16 cast staged on the host (the uint8 path: imagenet_example_
+    # syncbn)
+    _run_example(mod, f"{phase} (prefetcher check)", base[:-4] + [
+        "--steps-per-epoch", "3", "--print-freq", "1", "--data",
+        _DATA["tree"]], RESNET_PER_STEP, 3, hashed=True)
+    for dt in (torch.bfloat16, torch.float16, torch.float32):
+        x = torch.arange(256, dtype=torch.int64).to(torch.uint8)
+        cpu = normalize_uint8(x, dt)
+        card = normalize_uint8(x.to(DEVICE), dt).cpu()
+        if not torch.equal(cpu.view(-1).view(torch.uint8),
+                           card.view(-1).view(torch.uint8)):
+            raise AssertionError(f"{phase}: uint8 normalise in {dt} differs "
+                                 f"between the card and the CPU")
+    det = out["cache_deterministic"]["step_ms"]
+    syn = out["cache"]["step_ms"]
+    log(f"phase {phase}: the prefetcher handed over 3 live-decode batches "
+        f"(bf16 cast on the host) in order and bit for bit; uint8 "
+        f"normalise equal on the card and the CPU for "
+        f"all 256 values (bf16, fp16, f32); deterministic cuDNN costs "
+        f"{det - syn:.3f} ms a step ({syn:.3f} -> {det:.3f} ms)")
+
+
+def imagenet_example_syncbn():
+    """Phase imagenet_example_syncbn: the script with ``--sync_bn
+    --opt-level O1`` from the packed cache at NCCL world 1 (the process
+    group ``dist_init`` started) for SYNCBN_STEPS steps: 106
+    ``sync_batchnorm`` collectives a step, finite losses, and the
+    prefetcher's uint8 batches handed over in order and bit for bit."""
+    import math
+    from apex_tpu_torch import parallel
+
+    phase = "imagenet_example_syncbn"
+    mod = _imagenet_script()
+    parallel.reset_collective_counts()
+    r = _run_example(mod, phase, [
+        "--arch", "resnet50", "-b", str(IMAGENET_BATCH), "--image-size",
+        str(IMAGENET_SIZE), "--opt-level", "O1", "--sync_bn", "--device",
+        DEVICE, "--steps-per-epoch", str(SYNCBN_STEPS), "--print-freq", "1",
+        "--data", _DATA["tree"], "--cache", _DATA["cache"]], None,
+        SYNCBN_STEPS, hashed=True)
+    issued = dict(parallel.collective_counts)
+    for k, v in SYNCBN_EXAMPLE.items():
+        if issued.get(k) != SYNCBN_STEPS * v:
+            raise AssertionError(f"{phase}: collectives in {SYNCBN_STEPS} "
+                                 f"steps {issued}")
+    if not all(math.isfinite(v) for v in r["losses"]):
+        raise AssertionError(f"{phase}: losses {r['losses']}")
+    times = sorted(r["step_times"][1:])
+    log(f"phase {phase}: uint8 batches bit for bit; collectives a step "
+        f"{ {k: v // SYNCBN_STEPS for k, v in issued.items()} }, losses "
+        f"{[round(v, 6) for v in r['losses']]}, median step "
+        f"{times[len(times) // 2] * 1e3:.3f} ms")
+
+
+def _deterministic():
+    """cuDNN deterministic, no benchmark (restored on exit)."""
+    import torch
+
+    @contextlib.contextmanager
+    def scope():
+        flags = (torch.backends.cudnn.deterministic,
+                 torch.backends.cudnn.benchmark)
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        try:
+            yield
+        finally:
+            (torch.backends.cudnn.deterministic,
+             torch.backends.cudnn.benchmark) = flags
+    return scope()
+
+
+def _folder_batches(src):
+    """Host batches of a cursor-bearing source, re-entering epochs."""
+    while True:
+        yield from src.epoch()
+
+
+def _to_card(xb, yb):
+    import torch
+    return (torch.from_numpy(xb).to(torch.bfloat16).to(DEVICE),
+            torch.from_numpy(yb).to(torch.int64).to(DEVICE))
+
+
+def data_cursor_resume():
+    """Phase data_cursor_resume: the ResNet-50 step (B256, 224^2, O2 bf16,
+    FusedSGD) from ``ImageFolderSource`` on the shared tree. Run A: 4
+    steps. Run B: 2 steps, an async ``CheckpointManager.save(...,
+    extra={"cursor": src.state()})`` at step 2 while steps 3-4 run, then a
+    restore into a fresh state and a fresh source (``load_state`` of the
+    saved cursor) and steps 3-4 again. Gates: the losses and every leaf of
+    the resumed run equal run A's bit for bit; ``skip_batches(k)`` then
+    iteration equals the stream of a run that read those k batches, and
+    decodes no image for them. cuDNN deterministic."""
+    import tempfile
+    import numpy as np
+    from apex_tpu_torch import ckpt, train
+    from apex_tpu_torch.data import ImageFolderSource
+
+    phase = "data_cursor_resume"
+    clock = _Clock()
+
+    def build():
+        step, (state, bs), _, _, _ = train.build_resnet_step(
+            IMAGENET_BATCH, IMAGENET_SIZE, device=DEVICE)
+        return step, state, bs, ImageFolderSource(
+            _DATA["tree"], IMAGENET_BATCH, IMAGENET_SIZE, seed=1)
+
+    def run(step, state, bs, it, n):
+        losses = []
+        with clock("steps"):
+            for _ in range(n):
+                state, bs, loss = step(state, bs, *_to_card(*next(it)))
+                losses.append(loss.item())
+        return state, bs, losses
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_cursor_")
+    try:
+        with _deterministic():
+            with clock("build"):
+                step, sa, ba, src = build()
+            sa, ba, la = run(step, sa, ba, _folder_batches(src),
+                             CURSOR_STEPS)
+            want = {"amp": sa, "bstats": ba}
+            src.close()
+            with clock("build"):
+                step, sb, bb, src = build()
+            it = _folder_batches(src)
+            sb, bb, lb = run(step, sb, bb, it, CURSOR_AT)
+            mgr = ckpt.CheckpointManager(root, keep=1)
+            with clock("save"):
+                mgr.save(CURSOR_AT, {"amp": sb, "bstats": bb},
+                         extra={"cursor": src.state()})
+            sb, bb, rest = run(step, sb, bb, it, CURSOR_STEPS - CURSOR_AT)
+            mgr.wait()
+            lb += rest
+            src.close()
+            del sb, bb, step
+            with clock("build"):
+                step, sc, bc, src = build()
+            with clock("restore"):
+                tree, manifest = mgr.restore({"amp": sc, "bstats": bc})
+                src.load_state(manifest["extra"]["cursor"])
+            sc, bc, lc = run(step, tree["amp"], tree["bstats"],
+                             _folder_batches(src), CURSOR_STEPS - CURSOR_AT)
+            src.close()
+            got = {"amp": sc, "bstats": bc}
+        if lb != la or lc != la[CURSOR_AT:]:
+            raise AssertionError(f"{phase}: losses {la}, with the save "
+                                 f"{lb}, resumed {lc}")
+        bad = _leaves_equal(got, want)
+        if bad:
+            raise AssertionError(f"{phase}: resumed state differs at "
+                                 f"{bad[:5]}")
+        with clock("skip"):
+            read = ImageFolderSource(_DATA["tree"], IMAGENET_BATCH,
+                                     IMAGENET_SIZE, seed=1)
+            it = _folder_batches(read)
+            for _ in range(CURSOR_SKIP):
+                next(it)
+            want_x, want_y = next(it)
+            skip = ImageFolderSource(_DATA["tree"], IMAGENET_BATCH,
+                                     IMAGENET_SIZE, seed=1)
+            skip.skip_batches(CURSOR_SKIP)
+            decoded = skip.n_decoded
+            x, y = next(_folder_batches(skip))
+            read.close()
+            skip.close()
+        if decoded != 0 or not (np.array_equal(x, want_x)
+                                and np.array_equal(y, want_y)):
+            raise AssertionError(f"{phase}: skip_batches({CURSOR_SKIP}) "
+                                 f"decoded {decoded} images or gave another "
+                                 f"batch")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase {phase}: losses {[round(v, 6) for v in la]} bit for bit "
+        f"with the async save at step {CURSOR_AT} (cursor "
+        f"{manifest['extra']['cursor']}) and after the restore; every leaf "
+        f"equal; skip_batches({CURSOR_SKIP}) decoded 0 images and gave the "
+        f"read run's next batch bit for bit")
+    log(clock.line(phase))
+
+
+def _run_solo(body, rank, world, tmp):
+    """``body(rank, world)`` in a spawned process; its result saved to
+    ``tmp/rank{r}.pt`` for ``_spawn``, its traceback to ``.err``."""
+    import traceback
+    import torch
+    try:
+        torch.cuda.set_device(0)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.save(body(rank, world), f"{tmp}/rank{rank}.pt")
+    except BaseException:
+        with open(f"{tmp}/rank{rank}.err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def _wait_file(path, deadline_s=None):
+    """Wait for ``path`` to exist; False after ``deadline_s``."""
+    t0 = time.monotonic()
+    while not os.path.exists(path):
+        if deadline_s is not None and time.monotonic() - t0 > deadline_s:
+            return False
+        time.sleep(0.02)
+    return True
+
+
+def rewind_rank(rank, world):
+    """One process of cluster_coordinated_rewind: processes 0-1 are the
+    faulted pair, 2-3 the oracle pair. Each trains its own ResNet-18 (O2
+    bf16, FusedSGD, ``Amp.step(guard=)``) on its file shard of the tree
+    (B32, 128^2), saves every 2 steps with the cursor, and meets its peer
+    only through the pair's cluster directory and beat files. The faulted
+    pair's rank 1 gets NaN params after REWIND_POISON; its guard asks for a
+    rewind, both resolve one round. The oracle pair never sees the poison
+    and skips the window through the cursor."""
+    import numpy as np
+    import torch
+    from torch.func import functional_call
+    from apex_tpu_torch import ckpt, cluster, guard, models, ops, train
+    from apex_tpu_torch.data import ImageFolderSource
+    from apex_tpu_torch.utils import tree_select
+
+    pair, r = divmod(rank, 2)
+    faulted = pair == 0
+    work = os.path.join(os.environ["CHIP_SMOKE_REWIND_DIR"], f"pair{pair}")
+    barrier = os.path.join(work, "barrier")
+    os.makedirs(barrier, exist_ok=True)
+    n_steps = REWIND_STEPS if faulted else REWIND_STEPS - 2
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    model = models.ResNet18(num_classes=1000, dtype=torch.bfloat16,
+                            device=DEVICE, seed=0)
+    step, (state, bs), _, _, _ = train.build_resnet_step(
+        REWIND_BATCH, REWIND_SIZE, model=model, device=DEVICE)
+    amp_opt = step.amp_opt
+    gcfg = guard.GuardConfig(**REWIND_GUARD)
+    gs = guard.guard_init(gcfg, device=DEVICE)
+    events = []
+    member = cluster.ClusterMembership(os.path.join(work, "cluster"),
+                                       rank=r, ttl_s=60.0,
+                                       event_sink=events.append)
+    member.join()
+    coord = cluster.RecoveryCoordinator(member, barrier_timeout_s=120.0)
+    mgr = ckpt.CheckpointManager(os.path.join(work, f"ck_r{r}"),
+                                 fence=member, rank=0, process_count=1,
+                                 keep=3)
+    policy = guard.GuardPolicy(manager=mgr, rewind_budget=2)
+    src = ImageFolderSource(os.environ["CHIP_SMOKE_DATA_TREE"],
+                            REWIND_BATCH, REWIND_SIZE, seed=3, workers=4,
+                            process_index=r, process_count=2)
+    harness = None
+    if faulted:
+        harness = guard.ChaosHarness(guard.FaultPlan(seed=1).add(
+            REWIND_POISON, "params", "nan", rank=1), rank=r)
+    it_box = [None]
+
+    def pull():
+        while True:
+            if it_box[0] is None:
+                it_box[0] = src.epoch()
+            try:
+                return next(it_box[0])
+            except StopIteration:
+                it_box[0] = None
+
+    def guarded(state, bs, gs, x, y):
+        def loss_fn(mp):
+            logits, new_bs = functional_call(model, {**mp, **bs}, (x,),
+                                             {"train": True})
+            return torch.mean(ops.softmax_cross_entropy_loss(
+                logits, y)), new_bs
+        state, (loss, new_bs), committed, gs = amp_opt.step(
+            state, loss_fn, has_aux=True, guard=(gs, gcfg))
+        return state, tree_select(committed, new_bs, bs), gs, loss
+
+    losses, rewound = [], []
+    for i in range(n_steps):
+        if not faulted and src.cursor_index() == REWIND_POISON:
+            src.skip_batches(2)
+            it_box[0] = None
+        state, bs, gs, loss = guarded(state, bs, gs, *_to_card(*pull()))
+        losses.append(loss.item())
+        if i % 2 == 0:
+            mgr.save(i, {"amp": state, "bstats": bs, "gs": gs},
+                     extra={"cursor": src.state()})
+            mgr.wait()
+        member.heartbeat()
+        if harness is not None:
+            state = harness.post_step(i, state)
+        act = policy.update(i, gs)
+        if act.kind == "escalate":
+            raise AssertionError(f"rank {rank} escalated at {i}: {act}")
+        need = act.kind == "rewind"
+        like = {"amp": state, "bstats": bs, "gs": gs}
+        if need:
+            coord.propose(action="rewind", step=i,
+                          good_step=policy.probe_good_step(like))
+        open(os.path.join(barrier, f"beat_{r}_{i}"), "w").close()
+        _wait_file(os.path.join(barrier, f"beat_{1 - r}_{i}"))
+        if need or coord.peer_requested():
+            dec, restored = coord.run_round(
+                policy, i, like, src, expect_ranks=[0, 1],
+                reason=act.reason if need else "peer request")
+            tree = restored[0]
+            state, bs, gs = tree["amp"], tree["bstats"], tree["gs"]
+            it_box[0] = None
+            rewound.append((i, dec.target_step, dec.generation,
+                            dec.new_generation))
+    src.close()
+    return {"losses": losses, "rewound": rewound,
+            "params": {k: v.cpu() for k, v in state.params.items()},
+            "bstats": {k: v.cpu() for k, v in bs.items()},
+            "generation": member.refresh(),
+            "cursor": src.cursor_index(),
+            "bumps": sum(1 for e in events
+                         if e["kind"] == "cluster_generation"
+                         and e["action"] == "bump")}
+
+
+def rewind_body(rank, world, tmp):
+    _run_solo(rewind_rank, rank, world, tmp)
+
+
+def cluster_coordinated_rewind():
+    """Phase cluster_coordinated_rewind: JAX's
+    ``TestCoordinatedRewindAcceptance`` at ResNet-18 size on the card:
+    four processes at once (the faulted pair and its fault-free oracle
+    pair, ``rewind_rank``). Gates: both faulted ranks resolve to the same
+    target, rank 1's last good step (REWIND_POISON - 1), at the step after
+    the poison; the generation rises exactly once (one bump event, the
+    directory at 1); both ranks' losses after the rewind and their final
+    params and statistics equal the oracle's bit for bit, at the same
+    cursor."""
+    import tempfile
+    import torch
+
+    phase = "cluster_coordinated_rewind"
+    work = tempfile.mkdtemp(prefix="chip_smoke_rewind_")
+    os.environ["CHIP_SMOKE_REWIND_DIR"] = work
+    os.environ["CHIP_SMOKE_DATA_TREE"] = _DATA["tree"]
+    try:
+        out = _spawn(phase, rewind_body, 4)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        os.environ.pop("CHIP_SMOKE_REWIND_DIR", None)
+    target = REWIND_POISON - 1
+    at = REWIND_POISON + 1
+    for r in (0, 1):
+        f, o = out[r], out[2 + r]
+        if f["rewound"] != [(at, target, 0, 1)] or o["rewound"]:
+            raise AssertionError(f"{phase} rank {r}: rounds {f['rewound']}, "
+                                 f"oracle {o['rewound']}")
+        if f["losses"][at + 1:] != o["losses"][at - 1:] or \
+                f["cursor"] != o["cursor"]:
+            raise AssertionError(f"{phase} rank {r}: losses after the "
+                                 f"rewind {f['losses'][at + 1:]} vs the "
+                                 f"oracle's {o['losses'][at - 1:]}")
+        for k in ("params", "bstats"):
+            bad = [n for n, v in f[k].items()
+                   if not torch.equal(v.reshape(-1).view(torch.uint8),
+                                      o[k][n].reshape(-1).view(torch.uint8))]
+            if bad:
+                raise AssertionError(f"{phase} rank {r}: final {k} differ "
+                                     f"from the oracle's at {bad[:5]}")
+    if [f["generation"] for f in out[:2]] != [1, 1] or \
+            sum(f["bumps"] for f in out[:2]) != 1:
+        raise AssertionError(f"{phase}: generations "
+                             f"{[f['generation'] for f in out[:2]]}, bumps "
+                             f"{[f['bumps'] for f in out[:2]]}")
+    log(f"phase {phase}: both ranks resolved the round at step {at} to step "
+        f"{target} (rank 1's last good), generation 0 -> 1 with one bump; "
+        f"losses after it ({len(out[0]['losses']) - at - 1} a rank) and "
+        f"final params and statistics bit for bit the oracle's; rank 0 "
+        f"losses {[round(v, 5) for v in out[0]['losses']]}")
+
+
+_ZOMBIE_CHILD = r"""
+import os, sys
+sys.path.insert(0, os.getcwd())
+import chip_smoke as C
+C.zombie_child(sys.argv[1:])
+"""
+
+
+def _zombie_batch(rank, i):
+    import numpy as np
+    import torch
+    rng = np.random.RandomState(1000 * rank + i)
+    x = rng.rand(ZOMBIE_BATCH, ZOMBIE_SIZE, ZOMBIE_SIZE, 3).astype(
+        np.float32)
+    y = rng.randint(0, 1000, ZOMBIE_BATCH)
+    return (torch.from_numpy(x).to(torch.bfloat16).to(DEVICE),
+            torch.from_numpy(y).to(DEVICE))
+
+
+def zombie_child(argv):
+    """A rank of cluster_zombie_elastic (``mode`` world2, world1 or
+    oracle): a depth-2 ResNet (two bottleneck stages, O2 bf16) through
+    ``DistributedFusedAdam`` over a gloo group on the card, checkpoints
+    fenced by the cluster membership. Writes its report to ``out``."""
+    import datetime
+    import hashlib
+    import signal
+    import torch
+    import torch.distributed as dist
+    from apex_tpu_torch import ckpt, cluster, models, parallel, train
+    from apex_tpu_torch.optim import DistributedFusedAdam
+
+    mode, rank, world, root, cdir, barrier, store, out = argv
+    rank, world = int(rank), int(world)
+    torch.cuda.set_device(0)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    report = {"mode": mode, "rank": rank, "losses": [], "events": []}
+
+    def dump():
+        with open(out, "w") as f:
+            json.dump(report, f)
+
+    def sink(e):
+        report["events"].append(e)
+        dump()
+
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=120))
+    mesh = parallel.data_parallel_mesh(DEVICE)
+    model = models.ResNet(stage_sizes=[1, 1], num_classes=1000,
+                          dtype=torch.bfloat16, device=DEVICE, seed=0)
+    with parallel.use_mesh(mesh):
+        step, (state, bs), _, _, _ = train.build_resnet_step(
+            ZOMBIE_BATCH, ZOMBIE_SIZE, model=model, device=DEVICE,
+            optimizer=DistributedFusedAdam(lr=1e-3))
+    member = None
+    if mode != "oracle":
+        member = cluster.ClusterMembership(cdir, rank=rank,
+                                           ttl_s=ZOMBIE_TTL_S,
+                                           event_sink=sink)
+        report["joined"] = member.join()
+    mgr = ckpt.CheckpointManager(root, fence=member, rank=rank,
+                                 process_count=world, keep=0,
+                                 barrier_timeout_s=60)
+
+    def train_step(i):
+        nonlocal state, bs
+        with parallel.use_mesh(mesh):
+            state, bs, loss = step(state, bs, *_zombie_batch(rank, i))
+        report["losses"].append(loss.item())
+        dump()
+
+    if mode == "world2":
+        policy = ckpt.EscalationPolicy(mgr)          # exit mode, code 75
+        for i in range(1, ZOMBIE_STOP + 3):
+            train_step(i)
+            member.heartbeat()
+            if rank == 1 and i == ZOMBIE_STOP:
+                os.kill(os.getpid(), signal.SIGSTOP)
+                # resumed: a zombie of the generation it joined
+                refused = 0
+                try:
+                    mgr.save(99, {"amp": state, "bstats": bs},
+                             params=state.params, block=True)
+                    mgr.wait()
+                except cluster.StaleGenerationError:
+                    refused += 1
+                try:
+                    ckpt.gc_checkpoints(root, keep=1, fence=member)
+                except cluster.StaleGenerationError:
+                    refused += 1
+                report["refused"] = refused
+                dump()
+                os._exit(88 if refused == 2 else 1)
+            open(os.path.join(barrier, f"beat_{rank}_{i}"), "w").close()
+            if not _wait_file(os.path.join(barrier, f"beat_{1 - rank}_{i}"),
+                              ZOMBIE_DEADLINE_S):
+                report["tripped_at"] = i
+                dump()
+                policy.trip(f"rank {1 - rank} silent after step {i}")
+            if i in ZOMBIE_SAVES:
+                mgr.save(i, {"amp": state, "bstats": bs},
+                         params=state.params, block=True)
+                mgr.wait()
+        os._exit(1)                    # the peer never went silent
+    with parallel.use_mesh(mesh):
+        like = {"amp": state, "bstats": bs}
+        d = ckpt.step_dir(root, ZOMBIE_SAVES[-1])
+        tree, manifest = mgr.restore(like, ckpt_dir=d)
+    state, bs = tree["amp"], tree["bstats"]
+    report.update(restored=manifest["step"],
+                  from_processes=manifest["process_count"],
+                  latest=os.path.basename(ckpt.latest_checkpoint(root)))
+    for i in range(ZOMBIE_SAVES[-1] + 1,
+                   ZOMBIE_SAVES[-1] + 1 + ZOMBIE_RESUMED):
+        train_step(i)
+        if member is not None:
+            member.heartbeat()
+    if mode == "world1":
+        mgr.save(100, {"amp": state, "bstats": bs}, params=state.params,
+                 block=True)
+        mgr.wait()
+        report["committed"] = ckpt.read_manifest(
+            ckpt.latest_checkpoint(root))["generation"]
+    report["param_bytes"] = {
+        k: hashlib.sha256(v.reshape(-1).view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
+        for k, v in state.params.items()}
+    dump()
+    dist.destroy_process_group()
+
+
+def cluster_zombie_elastic():
+    """Phase cluster_zombie_elastic: ``elastic_run(train_fn, world_sizes=
+    [2, 1], cluster_dir=...)``. World 2: two gloo ranks on the card
+    (``zombie_child``) save at steps 1 and 3 (process_count 2, ZeRO
+    shards); rank 1 SIGSTOPs itself after step 4; rank 0, its peer's beat
+    overdue, trips ``EscalationPolicy`` itself and exits 75. ``elastic_run``
+    reports the expired lease, relaunches at world 1 under generation 1:
+    that run restores step 3 re-partitioned 2 -> 1 and takes 3 steps; an
+    oracle run (no fence) from the same checkpoint runs beside it. Then the
+    zombie is continued. Gates: rank 0 exited 75; the dead rank was
+    reported; the world-1 run joined and committed generation 1 and its
+    losses and params equal the oracle's bit for bit; the zombie's save and
+    its ``gc_checkpoints`` both raised ``StaleGenerationError``, each with
+    a ``cluster_fence`` event; no process of the phase outlives it."""
+    import signal
+    import tempfile
+    from apex_tpu_torch import parallel
+
+    phase = "cluster_zombie_elastic"
+    work = tempfile.mkdtemp(prefix="chip_smoke_zombie_")
+    root, cdir = os.path.join(work, "ck"), os.path.join(work, "cluster")
+    os.makedirs(os.path.join(work, "barrier"))
+    procs, events, seen = {}, [], []
+    t0 = time.perf_counter()
+
+    def launch(name, mode, rank, world, store):
+        out = os.path.join(work, f"{name}.json")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, "-c", _ZOMBIE_CHILD, mode, str(rank),
+             str(world), root, cdir, os.path.join(work, "barrier"),
+             os.path.join(work, store), out],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out)
+
+    def result(name, timeout=300):
+        p, out = procs[name]
+        _, err = p.communicate(timeout=timeout)
+        with open(out) as f:
+            return p.returncode, json.load(f), err
+
+    def train_fn(world, attempt):
+        seen.append((world, attempt))
+        if world == 2:
+            for r in (0, 1):
+                launch(f"w2_rank{r}", "world2", r, 2, "store2")
+            code, rep, err = result("w2_rank0")
+            if code != 75:
+                raise AssertionError(f"{phase}: rank 0 exited {code}, not "
+                                     f"75\n{err[-3000:]}")
+            seen.append(rep)
+            raise SystemExit(code)
+        launch("world1", "world1", 0, 1, "store1")
+        launch("oracle", "oracle", 0, 1, "store_oracle")
+        return {n: result(n) for n in ("world1", "oracle")}
+
+    try:
+        got = parallel.elastic_run(train_fn, world_sizes=[2, 1],
+                                   cluster_dir=cdir,
+                                   event_sink=events.append)
+        zp = procs["w2_rank1"][0]
+        os.kill(zp.pid, signal.SIGCONT)
+        zcode, zombie, zerr = result("w2_rank1", timeout=120)
+    finally:
+        for p, _ in procs.values():
+            if p.poll() is None:
+                try:
+                    os.kill(p.pid, signal.SIGCONT)
+                except OSError:
+                    pass
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    alive = [n for n, (p, _) in procs.items() if p.poll() is None]
+    (c1, w1, e1), (co, orc, eo) = got["world1"], got["oracle"]
+    fences = [e["action"] for e in zombie["events"]
+              if e["kind"] == "cluster_fence"]
+    dead = [e["expired_rank"] for e in events
+            if e["kind"] == "cluster_lease" and e["action"] == "expire"]
+    checks = {
+        "attempts": [s for s in seen if isinstance(s, tuple)]
+        == [(2, 0), (1, 1)],
+        "tripped": seen[1].get("tripped_at") == ZOMBIE_STOP,
+        "dead reported": 1 in dead,
+        "world1 ran": c1 == 0 and co == 0,
+        "generation 1": w1.get("joined") == 1 and w1.get("committed") == 1,
+        "restored 2 -> 1": (w1.get("restored"), w1.get("from_processes"))
+        == (ZOMBIE_SAVES[-1], 2) and orc.get("restored") == w1.get(
+            "restored"),
+        "losses = oracle": w1["losses"] == orc["losses"]
+        and len(w1["losses"]) == ZOMBIE_RESUMED,
+        "params = oracle": w1.get("param_bytes") == orc.get("param_bytes"),
+        "zombie refused": zcode == 88 and zombie.get("refused") == 2,
+        "fence events": fences == ["refused_write", "refused_delete"],
+        "no process left": not alive}
+    if not all(checks.values()):
+        raise AssertionError(f"{phase}: {checks}\nworld1 {e1[-2000:]}\n"
+                             f"oracle {eo[-2000:]}\nzombie {zerr[-2000:]}")
+    log(f"phase {phase}: world 2 -> rank 1 stopped after step {ZOMBIE_STOP}, "
+        f"rank 0 tripped and exited 75; elastic_run reported dead ranks "
+        f"{sorted(set(dead))} and relaunched at world 1 under generation 1: "
+        f"restored step {w1['restored']} from {w1['from_processes']} "
+        f"processes, losses {[round(v, 6) for v in w1['losses']]} = the "
+        f"oracle's bit for bit, params too; the zombie's save and gc "
+        f"refused ({fences}); {time.perf_counter() - t0:.1f} s")
+
+
+def data_cluster_phases():
+    """This slice's phases, after the ResNet phases: the codec, the
+    ImageNet example from JPEGs, the data-cursor resume, the coordinated
+    rewind and the elastic zombie."""
+    import torch
+    for fn in (jpeg_codec, imagenet_example_resnet50, data_cursor_resume,
+               cluster_coordinated_rewind, cluster_zombie_elastic):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.empty_cache()
+        log(f"phase {fn.__name__}: {time.perf_counter() - t:.1f} s")
+
+
 def _instance_name(mangled):
     """A readable name for an instance of the port's CUDA kernels:
     ``flash_fwd<bf16, D=64, opts=0>``, ``ln_fwd_warp<bf16, CH=8, NC=4>``,
@@ -6537,6 +7521,8 @@ def main() -> int:
         return 2
     from apex_tpu_torch.ops import _build
 
+    start_data_tree()
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -6592,6 +7578,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     resnet_unfused(rows)
     torch.cuda.empty_cache()
+    data_cluster_phases()
     mesh, store = dist_init()
     syncbn_losses = resnet50_syncbn(rows, resnet_losses)
     torch.cuda.empty_cache()
@@ -6610,6 +7597,8 @@ def main() -> int:
     zero_adam_update(rows, mesh)
     torch.cuda.empty_cache()
     hierarchical_sync_world1()
+    torch.cuda.empty_cache()
+    imagenet_example_syncbn()
     torch.cuda.empty_cache()
     torch.distributed.destroy_process_group()
     shutil.rmtree(store, ignore_errors=True)

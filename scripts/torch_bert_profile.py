@@ -3,7 +3,8 @@
 
     python3 scripts/torch_bert_profile.py [--model bert_large|
         bert_large_dropout|bert_large_zero|resnet50|resnet50_syncbn|dcgan|
-        mlp_dlrm_bottom|mha_perf_test|transformer_pre_ln] [--steps 2]
+        mlp_dlrm_bottom|mha_perf_test|transformer_pre_ln|imagenet_cache|
+        imagenet_live] [--steps 2]
         [--strategy auto] [--out PATH]
 
 Builds the port's BERT-Large MLM step (B16, S512, amp O1 bf16, FusedLAMB;
@@ -27,7 +28,11 @@ backward, a "step", of 18 norm-add ``SelfMultiheadAttn(1024, 16,
 dropout=0.1)`` layers at B128 S64 in fp16) or a pre-LN transformer stack
 (``transformer_pre_ln``: 24 ``TransformerLayer(1024, 16, 4096,
 dropout=0.1, pre_ln=True)``, B16 S512 with padding masks, amp O1 bf16, the
-arena FusedLAMB) with
+arena FusedLAMB), or the ImageNet example's ResNet-50 step fed from
+files (``imagenet_cache``: the packed uint8 cache, normalised on the
+card; ``imagenet_live``: live JPEG decode, the bf16 cast on the host;
+both through ``data.DevicePrefetcher`` from a 512-image 256² tree the
+port's encoder writes first, as ``chip_smoke.py``'s data phases do) with
 the given optimizer strategy ("auto" takes the tree update for BERT-Large
 and ResNet-50 and the arena for DCGAN and the MLP, "arena" the
 flat-arena kernels)
@@ -192,6 +197,37 @@ def _ring_ranks(argv):
     return max(codes, key=abs)
 
 
+def _imagenet_step(model):
+    """The example's step fed through the prefetcher, as
+    ``scripts/torch_imagenet_main_amp.py`` feeds it (no sync a step)."""
+    import tempfile
+    import numpy as np
+    import torch
+    from apex_tpu_torch import data, train
+    root = tempfile.mkdtemp(prefix="torch_profile_imagenet_")
+    tree = data.make_fake_imagefolder(os.path.join(root, "tree"),
+                                      n_classes=8, per_class=64, size=256)
+    if model == "imagenet_cache":
+        src = data.PackedSource(data.build_cache(
+            tree, os.path.join(root, "cache")), 256, 224, dtype=np.uint8)
+        cast = None
+    else:
+        src = data.ImageFolderSource(tree, 256, 224)
+        cast = torch.bfloat16
+    batches = iter(data.DevicePrefetcher(src.batches(1 << 30),
+                                         cast_dtype=cast))
+    step, (state, bstats), _, policy, _ = train.build_resnet_step(256, 224)
+    carry = [state, bstats]
+
+    def one_step():
+        xb, yb = next(batches)
+        if xb.dtype == torch.uint8:
+            xb = data.normalize_uint8(xb, policy.compute_dtype)
+        carry[0], carry[1], loss = step(carry[0], carry[1], xb, yb.long())
+        return loss
+    return one_step, 256
+
+
 def _builder(model, strategy, rank=None):
     """``(one_step, batch)``: ``one_step()`` runs a step and returns its
     loss."""
@@ -266,6 +302,8 @@ def _builder(model, strategy, rank=None):
             carry[:] = out[:4]
             return out[4][2]           # the generator's loss
         return one_step, 128
+    if model in ("imagenet_cache", "imagenet_live"):
+        return _imagenet_step(model)
     kw = dict(strategy=strategy)
     if model == "resnet50_syncbn":
         import tempfile
@@ -295,7 +333,8 @@ def main() -> int:
                     choices=("bert_large", "bert_large_dropout",
                              "bert_large_zero", "ring_two_ranks", "resnet50",
                              "resnet50_syncbn", "dcgan", "mlp_dlrm_bottom",
-                             "mha_perf_test", "transformer_pre_ln"))
+                             "mha_perf_test", "transformer_pre_ln",
+                             "imagenet_cache", "imagenet_live"))
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--strategy", default="auto",
                     choices=("auto", "tree", "arena"))
@@ -360,6 +399,8 @@ def main() -> int:
     busy_ms = sum(by_cat.values()) / 1e3
     by_cat = {k: v / 1e3 for k, v in by_cat.items()}
     region, backward = {"resnet50": (BN_FWD, False),
+                        "imagenet_cache": (BN_FWD, False),
+                        "imagenet_live": (BN_FWD, False),
                         "resnet50_syncbn": (BN_FWD, False),
                         "dcgan": (BATCH_NORM, True)}.get(args.model,
                                                          (None, False))

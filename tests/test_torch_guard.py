@@ -436,3 +436,24 @@ def test_param_faults_match_jax(kind, arg):
         1, {"a": jnp.asarray(w), "b": jnp.asarray(w)})
     for k in ("a", "b"):
         assert got[k].numpy().tobytes() == np.asarray(want[k]).tobytes(), k
+
+
+@pytest.mark.parametrize("kind", ["nan", "bitflip", "bitflip_mantissa"])
+def test_param_faults_on_a_permuted_leaf(kind):
+    """A params fault on a leaf kept in a permuted (non-contiguous) layout,
+    as a conv weight is: element 0 is poisoned, the rest and the layout
+    are kept."""
+    leaf = torch.arange(24, dtype=torch.float32).reshape(2, 3, 4) + 1
+    leaf = leaf.permute(2, 0, 1)
+    assert not leaf.is_contiguous()
+    f = tguard.Fault(3, "params", kind, arg=5)
+    out = tguard.ChaosHarness(tguard.FaultPlan([f]))._corrupt_params(
+        {"w": leaf}, f)["w"]
+    assert out.stride() == leaf.stride()
+    assert torch.equal(out.reshape(-1)[1:], leaf.reshape(-1)[1:])
+    if kind == "nan":
+        assert torch.isnan(out[0, 0, 0])
+    else:
+        bit = 5 if kind == "bitflip" else 5 % 23
+        want = leaf[0, 0, 0].view(torch.int32) ^ (1 << bit)
+        assert out[0, 0, 0].view(torch.int32) == want

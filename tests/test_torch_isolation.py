@@ -1,8 +1,9 @@
 """apex_tpu_torch stands alone: no JAX and nothing of apex_tpu.
 
-Importing the port (every module of it, the checkpoint, guard and utils
-modules named) in a fresh interpreter leaves no ``jax``, ``ml_dtypes`` or
-``apex_tpu`` module in ``sys.modules``; an AST scan of its
+Importing the port (every module of it, the checkpoint, guard, utils,
+data, cluster and trace modules named) in a fresh interpreter leaves no
+``jax``, ``ml_dtypes``, ``apex_tpu`` or ``PIL`` module in ``sys.modules``
+(the port decodes JPEGs with its own codec); an AST scan of its
 sources, of ``chip_smoke.py``, of its scripts (``scripts/torch_*.py``) and
 of the rank bodies its multi-process tests spawn
 (``tests/_torch_parallel_cases.py``) and of the L1 grid's runner that
@@ -31,9 +32,11 @@ def _modules():
         yield path, ".".join(parts)
 
 
-def _forbidden(name: str) -> bool:
+def _forbidden(name: str, package: bool = False) -> bool:
+    """``package``: the port's own modules, which import no PIL either."""
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "optax", "ml_dtypes", "apex_tpu")
+    return top in ("jax", "jaxlib", "flax", "optax", "ml_dtypes",
+                   "apex_tpu") or (package and top == "PIL")
 
 
 def test_import_leaves_no_jax_or_apex_tpu():
@@ -50,9 +53,13 @@ def test_import_leaves_no_jax_or_apex_tpu():
     for pkg in ("ckpt.format", "ckpt.snapshot", "ckpt.elastic",
                 "ckpt.manager", "ckpt.escalate", "guard.detect",
                 "guard.integrity", "guard.chaos", "guard.policy",
-                "utils.fsio", "utils.backoff", "utils.bits"):
+                "utils.fsio", "utils.backoff", "utils.bits", "utils.ranks",
+                "data", "data.jpeg", "data.resample", "data.pipeline",
+                "data.packed", "data.__main__", "cluster",
+                "cluster.membership", "cluster.coordinator", "trace",
+                "trace.straggler"):
         assert f"apex_tpu_torch.{pkg}" in loaded
-    assert [m for m in loaded if _forbidden(m)] == []
+    assert [m for m in loaded if _forbidden(m, package=True)] == []
 
 
 def _sources():
@@ -68,12 +75,14 @@ def _sources():
                          ids=[m for _, m in _sources()])
 def test_sources_import_no_jax_or_apex_tpu(path):
     tree = ast.parse(path.read_text())
+    package = PKG in path.parents
     bad = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            bad += [a.name for a in node.names if _forbidden(a.name)]
+            bad += [a.name for a in node.names
+                    if _forbidden(a.name, package)]
         elif isinstance(node, ast.ImportFrom) and node.module:
-            if node.level == 0 and _forbidden(node.module):
+            if node.level == 0 and _forbidden(node.module, package):
                 bad.append(node.module)
     assert bad == []
 
@@ -296,3 +305,33 @@ def test_remainder_modules_are_scanned_and_default_to_cuda(monkeypatch):
         train.build_dcgan_example_step(2)
     with pytest.raises((RuntimeError, AssertionError), match="(?i)cuda"):
         models.LSTM(4, 4)
+
+
+def test_data_cluster_trace_and_the_imagenet_script_are_covered(monkeypatch):
+    """The input pipeline, the cluster control plane, the heartbeat
+    helpers and the ImageNet script are scanned; the prefetcher, the
+    ImageNet step and the script ask for cuda unless given a device."""
+    import importlib.util
+    import inspect
+
+    from apex_tpu_torch import data, train
+
+    scanned = {m for _, m in _sources()}
+    assert {"apex_tpu_torch.data.jpeg", "apex_tpu_torch.data.pipeline",
+            "apex_tpu_torch.cluster.membership",
+            "apex_tpu_torch.trace.straggler",
+            "scripts/torch_imagenet_main_amp.py"} <= scanned
+    assert inspect.signature(
+        data.DevicePrefetcher).parameters["device"].default == "cuda"
+    spec = importlib.util.spec_from_file_location(
+        "torch_imagenet_main_amp",
+        ROOT / "scripts" / "torch_imagenet_main_amp.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.run(["-b", "2", "--steps-per-epoch", "1", "--image-size", "16",
+                 "--arch", "resnet18"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.build_resnet_step(2, 16, with_accuracy=True)

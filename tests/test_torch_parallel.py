@@ -301,7 +301,8 @@ def test_launch_helpers_without_a_process_group(monkeypatch, capsys):
     assert capsys.readouterr().out == "hello\n"
     with pytest.raises(ValueError):
         tpar.shrink_schedule(8, factor=1)
-    for fn, item in ((tpar.enable_crash_dumps, "items 10 and 11"),
-                     (tpar.elastic_run, "item 10")):
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        tpar.enable_crash_dumps()
+    # elastic_run is ported: a run that completes returns its result
+    assert tpar.elastic_run(lambda world, attempt: (world, attempt),
+                            world_sizes=[4, 2]) == (4, 0)
