@@ -37,7 +37,13 @@ It imports ``torch`` and never ``jax`` nor anything of ``apex_tpu``.
                               coordinated recovery over a shared
                               directory (``ckpt``'s ``fence=``), and
                               ``parallel.elastic_run``'s relaunch.
-- ``apex_tpu_torch.trace``  — the straggler tier's heartbeat file helpers.
+- ``apex_tpu_torch.trace``  — spans and the per-step timeline, the
+                              flight recorder, the hang watchdog, NaN
+                              provenance, the straggler tier and the pod
+                              view (``parallel.enable_crash_dumps``).
+- ``apex_tpu_torch.monitor`` — the ``Metrics`` tuple on the amp state,
+                              ``MetricsLogger`` with its sinks and event
+                              channels, and the goodput ledger.
 - ``apex_tpu_torch.convert`` — weights, statistics, optimizer and ASP
                               state carried over from the JAX package, in
                               memory or from its checkpoints.

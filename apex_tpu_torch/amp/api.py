@@ -22,6 +22,15 @@ scalers (also from the dict the JAX package's ``Amp.state_dict`` gives, as
 numpy arrays); ``memory_footprint`` is the analytic byte count of the
 state; ``half_function``/``float_function``/``promote_function`` are the
 decorators of the reference Apex.
+
+``monitor=True`` carries an :class:`apex_tpu_torch.monitor.Metrics` tuple
+on the state (``AmpState.metrics``): the backward records the loss and
+the scaler's events, ``apply_gradients`` the grad/param norms and the
+step/skip counts — device arithmetic queued with the step, no host sync.
+The forensic spans (``amp/fwd``, ``amp/unscale``, ``amp/update``) and the
+NaN-provenance probes (``amp/fwd``, ``amp/bwd``, ``amp/unscale``,
+``amp/update``) sit where the JAX package's do; both are passive without
+a ``trace.Tracer`` and the ``trace.debug_nans`` mode.
 """
 
 from __future__ import annotations
@@ -38,34 +47,45 @@ from apex_tpu_torch.amp.scaler import (
     loss_scale_update, scaled_backward, tx_step, unscale_grads,
     unscale_grads_with_stashed,
 )
+from apex_tpu_torch.monitor.metrics import (Metrics, metrics_init,
+                                            record_update)
+from apex_tpu_torch.trace.debug_nans import nan_probe
+from apex_tpu_torch.trace.spans import span as trace_span
 from apex_tpu_torch.utils import tree_cast, tree_leaves, tree_map, tree_select
 
 _UNPORTED_HOOK = ("the {} hook of Amp is not ported yet (ROADMAP.md queue A "
-                  "item 11, observability)")
+                  "item 11 part 2, the rest of monitor/)")
 
 
 class AmpState(NamedTuple):
     """The complete mixed-precision training state.
 
     ``params`` are the optimizer-facing params: fp32 masters under a
-    master-weights policy (O1/O2), model-dtype otherwise (O3).
+    master-weights policy (O1/O2), model-dtype otherwise (O3). ``metrics``
+    is the opt-in telemetry tuple (``Amp(..., monitor=True)``), ``None``
+    when monitoring is off, so existing states and checkpoints keep their
+    leaves.
     """
     step: torch.Tensor
     params: Any
     opt_state: Any
     scalers: Tuple[Optional[LossScaleState], ...]
+    metrics: Optional[Metrics] = None
 
 
 class Amp:
-    """Bundles a precision policy, an optimizer and loss scaling."""
+    """Bundles a precision policy, an optimizer and loss scaling.
+
+    ``monitor=True`` carries a :class:`apex_tpu_torch.monitor.Metrics`
+    tuple on the state (see the module docstring); hand ``state.metrics``
+    to a :class:`apex_tpu_torch.monitor.MetricsLogger`."""
 
     def __init__(self, policy: Policy, tx, *, num_losses: int = 1,
                  monitor: bool = False):
-        if monitor:
-            raise NotImplementedError(_UNPORTED_HOOK.format("monitor="))
         self.policy = policy
         self.tx = tx
         self.num_losses = num_losses
+        self.monitor = monitor
         self.scale_cfg = LossScaleConfig.from_policy_field(policy.loss_scale)
 
     def init(self, params) -> AmpState:
@@ -81,7 +101,8 @@ class Amp:
             params=master,
             opt_state=self.tx.init(master),
             scalers=tuple(loss_scale_init(self.scale_cfg, device)
-                          for _ in range(self.num_losses)))
+                          for _ in range(self.num_losses)),
+            metrics=metrics_init(device) if self.monitor else None)
 
     def model_params(self, state: AmpState):
         """Model-dtype view of the params for the forward pass."""
@@ -125,25 +146,47 @@ class Amp:
         """
         sstate = state.scalers[loss_id]
 
+        # the forensic span and probes of the JAX package's backward:
+        # "amp/fwd" names the forward in traces and anchors the NaN
+        # provenance; the probes return their argument unless
+        # trace.debug_nans is on
         def run(masters):
+            mp = self.policy.cast_params(masters)
             with policy_scope(self.policy):
-                return loss_fn(self.policy.cast_params(masters), *args,
-                               **kwargs)
+                with trace_span("amp/fwd"):
+                    out = loss_fn(mp, *args, **kwargs)
+            nan_probe("amp/fwd", out[0] if has_aux else out)
+            return out
 
         out, grads = scaled_backward(run, state.params, sstate,
                                      has_aux=has_aux)
+        grads = nan_probe("amp/bwd", grads)
+        loss_val = out[0] if has_aux else out
         if self.scale_cfg is None:
             grads = tree_cast(grads, torch.float32)
             if stashed is not None:
                 grads = tree_map(lambda s, g: s + g if g.is_floating_point()
                                  else g, stashed, grads)
+            if state.metrics is not None:
+                m = state.metrics.record_loss(loss_val)
+                state = state._replace(metrics=m._replace(
+                    loss_scale=torch.ones_like(m.loss_scale)))
             return out, grads, state, finite
-        if stashed is None:
-            acc, this_finite = unscale_grads(grads, sstate)
+        with trace_span("amp/unscale"):
+            if stashed is None:
+                acc, this_finite = unscale_grads(grads, sstate)
+            else:
+                acc, this_finite = unscale_grads_with_stashed(grads, stashed,
+                                                              sstate)
+        acc = nan_probe("amp/unscale", acc)
+        if state.metrics is not None:
+            new_sstate, metrics = loss_scale_update(
+                sstate, this_finite, self.scale_cfg, metrics=state.metrics)
+            metrics = metrics.record_loss(loss_val)
         else:
-            acc, this_finite = unscale_grads_with_stashed(grads, stashed,
-                                                          sstate)
-        new_sstate = loss_scale_update(sstate, this_finite, self.scale_cfg)
+            new_sstate = loss_scale_update(sstate, this_finite,
+                                           self.scale_cfg)
+            metrics = None
         scalers = tuple(new_sstate if i == loss_id else s
                         for i, s in enumerate(state.scalers))
         if isinstance(finite, bool):
@@ -151,24 +194,37 @@ class Amp:
                           else torch.zeros_like(this_finite))
         else:
             new_finite = torch.logical_and(finite, this_finite)
-        return out, acc, state._replace(scalers=scalers), new_finite
+        return out, acc, state._replace(scalers=scalers,
+                                        metrics=metrics), new_finite
 
-    def apply_gradients(self, state: AmpState, grads,
-                        grads_finite) -> AmpState:
+    def apply_gradients(self, state: AmpState, grads, grads_finite, *,
+                        metrics_grad_norm=None) -> AmpState:
         """Optimizer update committed only where grads were finite.
 
         A fused optimizer's ``step`` gives the new params at once; an
         optax-style ``tx`` with ``update`` and no ``step`` gives updates,
-        added to the params in their dtype."""
-        new_params, new_opt_state = tx_step(self.tx, grads, state.opt_state,
-                                            state.params)
-        params = tree_select(grads_finite, new_params, state.params)
+        added to the params in their dtype. Under ``monitor=True`` the
+        counters advance on a skipped step too (they are telemetry, not
+        training state); the grad-norm gauge holds its last finite value
+        across overflows, and ``metrics_grad_norm`` (the guard's true
+        norm, when the caller scaled ``grads``) replaces the norm of
+        ``grads``."""
+        with trace_span("amp/update"):
+            new_params, new_opt_state = tx_step(self.tx, grads,
+                                                state.opt_state, state.params)
+        params = nan_probe("amp/update", tree_select(
+            grads_finite, new_params, state.params))
         opt_state = tree_select(grads_finite, new_opt_state, state.opt_state)
         if isinstance(grads_finite, bool):
             step = state.step + (1 if grads_finite else 0)
         else:
             step = state.step + grads_finite.to(torch.int32)
-        return state._replace(step=step, params=params, opt_state=opt_state)
+        metrics = state.metrics
+        if metrics is not None:
+            metrics = record_update(metrics, grads_finite, grads, params,
+                                    grad_norm=metrics_grad_norm)
+        return state._replace(step=step, params=params, opt_state=opt_state,
+                              metrics=metrics)
 
     def step(self, state: AmpState, loss_fn: Callable, *args,
              loss_id: int = 0, has_aux: bool = False, guard=None,
@@ -216,7 +272,8 @@ class Amp:
         if finite is not True:
             committed = committed & torch.as_tensor(finite).to(
                 committed.device)
-        return (self.apply_gradients(state, grads, committed), out,
+        return (self.apply_gradients(state, grads, committed,
+                                     metrics_grad_norm=true_norm), out,
                 committed, gs)
 
     # -- memory accounting ---------------------------------------------------
@@ -241,13 +298,15 @@ class Amp:
                           and master_dt != model_dt) else 0)
         scaler_bytes = 8 * self.num_losses if self.scale_cfg is not None \
             else 0
+        metrics_bytes = 9 * 4 if self.monitor else 0
         return {
             "n_params": n,
             "master_bytes": master_bytes,
             "model_copy_bytes": model_copy,
             "scaler_bytes": scaler_bytes,
-            "metrics_bytes": 0,
-            "total_bytes": master_bytes + model_copy + scaler_bytes,
+            "metrics_bytes": metrics_bytes,
+            "total_bytes": (master_bytes + model_copy + scaler_bytes
+                            + metrics_bytes),
             "master_dtype": _dtype_name(master_dt),
             "model_dtype": _dtype_name(model_dt),
         }
@@ -292,9 +351,8 @@ def initialize(params, tx, opt_level: str = "O1", *,
     Builds the opt level's policy (keyword overrides win), the ``Amp``
     bundle and its initial state from ``params`` (a ``{name: tensor}``
     dict). ``verbosity=1`` prints the settings on rank 0 through
-    ``parallel.launch.maybe_print``; 0 is silent."""
-    if monitor:
-        raise NotImplementedError(_UNPORTED_HOOK.format("monitor="))
+    ``parallel.launch.maybe_print``; 0 is silent. ``monitor=True`` carries
+    the :class:`apex_tpu_torch.monitor.Metrics` tuple on the state."""
     policy = Policy.from_opt_level(opt_level, half_dtype=half_dtype,
                                    **policy_overrides)
     if verbosity > 0:
@@ -310,7 +368,7 @@ def initialize(params, tx, opt_level: str = "O1", *,
             if isinstance(value, torch.dtype):
                 value = _dtype_name(value)
             maybe_print(f"{field:<24}: {value}", rank0=True)
-    amp_opt = Amp(policy, tx, num_losses=num_losses)
+    amp_opt = Amp(policy, tx, num_losses=num_losses, monitor=monitor)
     return amp_opt, amp_opt.init(params)
 
 

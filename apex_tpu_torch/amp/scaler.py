@@ -106,15 +106,31 @@ def unscale_grads_with_stashed(grads, stashed,
 
 
 def loss_scale_update(state: Optional[LossScaleState], grads_finite,
-                      cfg: Optional[LossScaleConfig]):
+                      cfg: Optional[LossScaleConfig], *, metrics=None):
     """Advance the scale schedule on the device.
 
     Overflow: scale *= backoff (clamped below by ``min_loss_scale``),
     tracker reset. Else tracker += 1, and at ``growth_interval`` scale *=
     growth (clamped above by ``max_loss_scale``), tracker reset.
+
+    With an :class:`apex_tpu_torch.monitor.Metrics` tuple passed as
+    ``metrics=``, the schedule's events are counted on the device
+    (overflow / backoff / growth, plus the resulting scale gauge) and
+    ``(new_state, metrics')`` is returned instead of just the state.
     """
     if state is None or cfg is None or not cfg.dynamic:
-        return state
+        if metrics is None:
+            return state
+        dev = metrics.overflow_count.device
+        if isinstance(grads_finite, bool):
+            overflow = 0 if grads_finite else 1
+        else:
+            overflow = torch.logical_not(grads_finite.to(dev)).to(
+                torch.int32)
+        return state, metrics._replace(
+            loss_scale=(torch.ones_like(metrics.loss_scale) if state is None
+                        else state.loss_scale),
+            overflow_count=metrics.overflow_count + overflow)
     scale = state.loss_scale
     tracker = state.growth_tracker
     finite = torch.as_tensor(grads_finite, device=scale.device)
@@ -132,7 +148,17 @@ def loss_scale_update(state: Optional[LossScaleState], grads_finite,
     new_tracker = torch.where(finite,
                               torch.where(should_grow, zero, grown_tracker),
                               zero).to(torch.int32)
-    return LossScaleState(loss_scale=new_scale, growth_tracker=new_tracker)
+    new_state = LossScaleState(loss_scale=new_scale,
+                               growth_tracker=new_tracker)
+    if metrics is None:
+        return new_state
+    overflow = torch.logical_not(finite).to(torch.int32)
+    grew = torch.logical_and(finite, should_grow).to(torch.int32)
+    return new_state, metrics._replace(
+        loss_scale=new_scale,
+        overflow_count=metrics.overflow_count + overflow,
+        backoff_count=metrics.backoff_count + overflow,
+        growth_count=metrics.growth_count + grew)
 
 
 def select_if_finite(grads_finite, new_tree, old_tree):

@@ -10,8 +10,10 @@ into recovery:
 1. **checkpoint**: durably commit the newest already-fetched host
    snapshot (``CheckpointManager.save_last_snapshot`` — zero device
    interaction, so the wedged runtime cannot block it);
-2. **crash dump**: ``recorder.dump(reason=...)`` of any duck-typed
-   flight recorder passed as ``recorder=``;
+2. **crash dump**: ``recorder.dump(reason=...)`` of the
+   :class:`apex_tpu_torch.trace.FlightRecorder` (or any object with
+   ``dump``) passed as ``recorder=`` — ``parallel.enable_crash_dumps(
+   escalation=)`` wires its own;
 3. **exit nonzero**: ``os._exit(exit_code)`` — deliberately not
    ``sys.exit``: a normal interpreter teardown would block on the
    wedged runtime's atexit hooks, which is exactly the hang being

@@ -2,9 +2,10 @@
 
 The port of ``apex_tpu/cluster/coordinator.py``: the same signed intent
 files, so ranks of either package meet in one round and resolve the same
-decision. :class:`CollectiveDeadline` polls any tracer offering
-``in_flight_collective_age()`` (the port's tracer is ROADMAP.md queue A,
-item 11).
+decision. :class:`CollectiveDeadline` polls an
+:class:`apex_tpu_torch.trace.Tracer` (any object offering
+``in_flight_collective_age()``); ``parallel.enable_crash_dumps(
+collective_deadline_s=)`` starts one over its tracer.
 
 :class:`apex_tpu_torch.guard.GuardPolicy` decides *locally* — rank 3's
 nonfinite-param probe says "rewind to my newest good checkpoint". At

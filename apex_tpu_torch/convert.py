@@ -311,13 +311,33 @@ def _params_like(tree, port_params, device):
     return {k: mapped[k] for k in port_params}
 
 
+def metrics_from_jax(metrics, device="cuda"):
+    """The port's ``monitor.Metrics`` from the JAX package's (device
+    arrays, numpy values, or a checkpoint's tensors), or None for None:
+    the counters int32, the gauges f32, bit for bit."""
+    from apex_tpu_torch.monitor.metrics import Metrics
+    if metrics is None:
+        return None
+    out = {}
+    for name in Metrics._fields:
+        v = getattr(metrics, name)
+        if isinstance(v, torch.Tensor):
+            v = v.numpy()
+        arr = np.asarray(v)
+        out[name] = torch.tensor(arr.item(), device=device, dtype=(
+            torch.int32 if np.issubdtype(arr.dtype, np.integer)
+            else torch.float32))
+    return Metrics(**out)
+
+
 def amp_state_from_jax(state, port_params, device="cuda"):
     """The port's ``amp.AmpState`` from the JAX package's: ``step``, the
     optimizer-facing params (f32 masters, or O3's half params) by port
     name in the order of ``port_params`` (the port's ``{name: tensor}``
     params, e.g. ``dict(model.named_parameters())``), the optimizer state
     (:func:`fused_state_from_jax` or :func:`asp_state_from_jax`, laid out
-    as the state's own params) and the loss scalers."""
+    as the state's own params), the loss scalers and the telemetry
+    ``metrics`` (:func:`metrics_from_jax`; None when monitoring was off)."""
     from apex_tpu_torch.amp.api import AmpState
     params = _params_like(state.params, port_params, device)
     return AmpState(
@@ -326,13 +346,15 @@ def amp_state_from_jax(state, port_params, device="cuda"):
         params=params,
         opt_state=_opt_state_from_jax(state.opt_state, state.params, params,
                                       device),
-        scalers=_scalers_from_jax(state.scalers, device))
+        scalers=_scalers_from_jax(state.scalers, device),
+        metrics=metrics_from_jax(getattr(state, "metrics", None), device))
 
 
 def fp16_state_from_jax(state, port_params, device="cuda"):
     """The port's ``fp16_utils.FP16OptState`` from the JAX package's: step,
     the f32 masters by port name (in ``port_params``' order), the inner
-    optimizer's state (laid out as the masters) and the scaler."""
+    optimizer's state (laid out as the masters), the scaler and the
+    telemetry ``metrics``."""
     from apex_tpu_torch.fp16_utils import FP16OptState
     masters = _params_like(state.masters, port_params, device)
     scaler = None if state.scaler is None else \
@@ -343,7 +365,8 @@ def fp16_state_from_jax(state, port_params, device="cuda"):
         masters=masters,
         inner_state=_opt_state_from_jax(state.inner_state, state.masters,
                                         masters, device),
-        scaler=scaler)
+        scaler=scaler,
+        metrics=metrics_from_jax(getattr(state, "metrics", None), device))
 
 
 def scale_history_from_jax(state, device="cuda"):
@@ -419,7 +442,8 @@ def amp_state_from_jax_checkpoint(ckpt_dir, port_params, device="cuda", *,
     JAX tree (sorted-key param dicts, arena slot buffers in the JAX
     layout) and mapped by :func:`amp_state_from_jax`: port names, port
     layouts, the arena relaid out for ``port_params``. A state whose
-    scalers hold no leaves (bf16: ``(None,)``) gets one ``None`` scaler."""
+    scalers hold no leaves (bf16: ``(None,)``) gets one ``None`` scaler;
+    a saved ``metrics`` tuple (``Amp(monitor=True)``) comes across too."""
     from apex_tpu_torch.ckpt import format as _format
     manifest = _format.read_manifest(ckpt_dir)
     arrays = _format.assemble_arrays(ckpt_dir, manifest)

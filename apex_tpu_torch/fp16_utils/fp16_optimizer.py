@@ -16,6 +16,12 @@ optimizer's update only where the grads were finite (masters, optimizer
 state and ``step`` hold on an overflow). The legacy dynamic schedule
 starts at 2**32 and never grows past its start (``max_loss_scale =
 init_scale``), as the reference's.
+
+``monitor=True`` carries an :class:`apex_tpu_torch.monitor.Metrics` tuple
+on the state, updated as ``amp.Amp``'s is; the forensic spans
+(``fp16/fwd``, ``fp16/unscale``, ``fp16/update``) and NaN probes
+(``fp16/fwd``, ``fp16/bwd``, ``fp16/unscale``, ``fp16/update``) sit where
+the JAX package's do.
 """
 
 from __future__ import annotations
@@ -24,22 +30,27 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
-from apex_tpu_torch.amp.api import _UNPORTED_HOOK
 from apex_tpu_torch.amp.scaler import (
     LossScaleConfig, LossScaleState, device_scalar, loss_scale_init,
     loss_scale_update, scaled_backward, tx_step, unscale_grads,
 )
 from apex_tpu_torch.fp16_utils.fp16util import _clip_factor
+from apex_tpu_torch.monitor.metrics import (Metrics, metrics_init,
+                                            record_update)
+from apex_tpu_torch.trace.debug_nans import nan_probe
+from apex_tpu_torch.trace.spans import span as trace_span
 from apex_tpu_torch.utils import global_norm, tree_cast, tree_map, tree_select
 
 
 class FP16OptState(NamedTuple):
     """Step count, f32 masters, the inner optimizer's state and the
-    scaler: what the reference's ``state_dict`` saves."""
+    scaler: what the reference's ``state_dict`` saves. ``metrics`` is the
+    opt-in telemetry tuple (``FP16_Optimizer(..., monitor=True)``)."""
     step: torch.Tensor
     masters: Any
     inner_state: Any
     scaler: Optional[LossScaleState]
+    metrics: Optional[Metrics] = None
 
 
 class FP16_Optimizer:
@@ -48,9 +59,8 @@ class FP16_Optimizer:
                  dynamic_loss_args: Optional[dict] = None,
                  half_dtype=torch.float16, verbose: bool = False,
                  monitor: bool = False):
-        if monitor:
-            raise NotImplementedError(_UNPORTED_HOOK.format("monitor="))
         self.tx = init_optimizer
+        self.monitor = monitor
         self.half_dtype = half_dtype
         if dynamic_loss_scale:
             args = dynamic_loss_args or {}
@@ -74,7 +84,8 @@ class FP16_Optimizer:
         return FP16OptState(
             step=torch.tensor(0, dtype=torch.int32, device=device),
             masters=masters, inner_state=self.tx.init(masters),
-            scaler=loss_scale_init(self.cfg, device))
+            scaler=loss_scale_init(self.cfg, device),
+            metrics=metrics_init(device) if self.monitor else None)
 
     def model_params(self, state: FP16OptState, like=None):
         """The masters in the half dtype for the forward; ``like`` (a
@@ -88,13 +99,29 @@ class FP16_Optimizer:
         """Scaled backward at the half view of the masters. Returns ``(out,
         master_grads, finite, state')`` with the schedule advanced."""
         sstate = state.scaler
-        out, grads = scaled_backward(
-            lambda masters: loss_fn(tree_cast(masters, self.half_dtype),
-                                    *args, **kwargs),
-            state.masters, sstate, has_aux=has_aux)
-        grads, finite = unscale_grads(grads, sstate)
-        return out, grads, finite, state._replace(
-            scaler=loss_scale_update(sstate, finite, self.cfg))
+
+        def run(masters):
+            mp = tree_cast(masters, self.half_dtype)
+            with trace_span("fp16/fwd"):
+                out = loss_fn(mp, *args, **kwargs)
+            nan_probe("fp16/fwd", out[0] if has_aux else out)
+            return out
+
+        out, grads = scaled_backward(run, state.masters, sstate,
+                                     has_aux=has_aux)
+        grads = nan_probe("fp16/bwd", grads)
+        with trace_span("fp16/unscale"):
+            grads, finite = unscale_grads(grads, sstate)
+        grads = nan_probe("fp16/unscale", grads)
+        if state.metrics is not None:
+            new_scaler, metrics = loss_scale_update(
+                sstate, finite, self.cfg, metrics=state.metrics)
+            metrics = metrics.record_loss(out[0] if has_aux else out)
+        else:
+            new_scaler = loss_scale_update(sstate, finite, self.cfg)
+            metrics = None
+        return out, grads, finite, state._replace(scaler=new_scaler,
+                                                  metrics=metrics)
 
     def clip_master_grads(self, grads, max_norm, norm_type=2):
         """Clip the f32 master grads by their global norm: ``(grads,
@@ -108,17 +135,24 @@ class FP16_Optimizer:
 
     def step(self, state: FP16OptState, master_grads,
              finite) -> FP16OptState:
-        """The inner optimizer's step on the masters, skipped on overflow."""
-        new_masters, new_inner = tx_step(self.tx, master_grads,
-                                         state.inner_state, state.masters)
-        masters = tree_select(finite, new_masters, state.masters)
+        """The inner optimizer's step on the masters, skipped on overflow
+        (the telemetry counters advance either way; the grad-norm gauge
+        holds its last finite value)."""
+        with trace_span("fp16/update"):
+            new_masters, new_inner = tx_step(self.tx, master_grads,
+                                             state.inner_state, state.masters)
+        masters = nan_probe("fp16/update", tree_select(
+            finite, new_masters, state.masters))
         inner = tree_select(finite, new_inner, state.inner_state)
         if isinstance(finite, bool):
             new_step = state.step + (1 if finite else 0)
         else:
             new_step = state.step + finite.to(torch.int32)
+        metrics = state.metrics
+        if metrics is not None:
+            metrics = record_update(metrics, finite, master_grads, masters)
         return state._replace(step=new_step, masters=masters,
-                              inner_state=inner)
+                              inner_state=inner, metrics=metrics)
 
     def state_dict(self, state: FP16OptState) -> dict:
         """What the reference's ``FP16_Optimizer.state_dict`` saves."""

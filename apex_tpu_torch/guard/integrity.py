@@ -242,13 +242,16 @@ def integrity_check(ist: IntegrityState, cfg: IntegrityConfig, params, *,
     With ``check_every > 1`` the cadence is decided on the host, from
     ``ist.step`` read back (a host sync a step): an off-step issues no
     fold and no collective, as the JAX package's empty ``lax.cond`` branch
-    does."""
+    does. The fold and compare run under the ``guard/integrity_check``
+    trace span (``kind="collective"``)."""
+    from apex_tpu_torch.trace.spans import span
     world = ist.rank_fps.shape[0]
     subject = params if grads is None else (params, grads)
     every = int(cfg.check_every)
     if every <= 1 or int(ist.step) % every == 0:
-        fp = fingerprint_tree(subject)
-        mn, mx, fps = _compare(fp, world, axis_name)
+        with span(CHECK_SCOPE, kind="collective"):
+            fp = fingerprint_tree(subject)
+            mn, mx, fps = _compare(fp, world, axis_name)
         div = mn != mx
         new = ist._replace(
             fingerprint=fp, fp_min=mn, fp_max=mx, rank_fps=fps,
@@ -313,12 +316,15 @@ def vote(rank_fps) -> IntegrityVote:
 def make_verify_fn(axis_name="data"):
     """``tree -> (fp_min, fp_max, rank_fps)`` over the data axis of the
     bound mesh — the host's standalone compare (repair re-verification,
-    post-restore hygiene)."""
+    post-restore hygiene), under the ``guard/integrity_check`` trace
+    span."""
     from apex_tpu_torch.parallel.mesh import axes_size
+    from apex_tpu_torch.trace.spans import span
 
     def _verify(tree):
-        fp = fingerprint_tree(tree)
-        return _compare(fp, axes_size(axis_name), axis_name)
+        with span(CHECK_SCOPE, kind="collective"):
+            fp = fingerprint_tree(tree)
+            return _compare(fp, axes_size(axis_name), axis_name)
 
     return _verify
 
@@ -364,10 +370,12 @@ def make_repair_fn(axis_name="data"):
     mesh — the in-place repair: every replica's leaves are overwritten
     with the ``source_rank`` replica's exact bits by
     :func:`apex_tpu_torch.parallel.replica_broadcast` (under the registered
-    ``guard/integrity_repair`` scope). The data cursor is untouched: repair
-    is state surgery, not time travel."""
+    ``guard/integrity_repair`` scope and trace span). The data cursor is
+    untouched: repair is state surgery, not time travel."""
     def _repair(tree, src):
         from apex_tpu_torch.parallel.distributed import replica_broadcast
-        return replica_broadcast(tree, axis_name, source=int(src))
+        from apex_tpu_torch.trace.spans import span
+        with span("guard/integrity_repair", kind="collective"):
+            return replica_broadcast(tree, axis_name, source=int(src))
 
     return _repair

@@ -41,8 +41,9 @@ must not chain-rewind; rewind-class (state-corruption) anomalies are
 exempt, because waiting cannot un-corrupt params.
 
 Every decision is a ``guard`` event dict delivered to ``event_sink`` (the
-JAX package's schema); a duck-typed flight recorder passed as
-``recorder=`` gets each through ``note_guard`` so crash dumps carry the
+JAX package's schema); an :class:`apex_tpu_torch.trace.FlightRecorder`
+(or any object with ``note_guard``) passed as ``recorder=`` gets each
+through ``note_guard`` so crash dumps carry the
 recent interventions.
 
 The per-step host poll (`update`) fetches a handful of scalars from the

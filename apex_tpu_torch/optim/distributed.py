@@ -91,11 +91,14 @@ def _reduce_scatter_mean(buf, axis_name: Axis, world: int, wire_dtype=None):
     """Mean-reducing scatter over (possibly nested) axes, each in order, so
     rank (i0, i1, ...) ends with tile i0·n1·… + i1·…. ``wire_dtype``
     compresses the scatter; the result comes back in ``buf``'s dtype
-    before the division."""
+    before the division. Runs under the ``zero/grad_scatter`` trace span
+    (``kind="collective"``), as the JAX package's does."""
+    from apex_tpu_torch.trace.spans import span
     out = buf if wire_dtype is None else buf.to(wire_dtype)
-    for a in axes_of(axis_name):
-        out = collectives.reduce_scatter(out, resolve_group(a),
-                                         SCATTER_SCOPE)
+    with span(SCATTER_SCOPE, kind="collective"):
+        for a in axes_of(axis_name):
+            out = collectives.reduce_scatter(out, resolve_group(a),
+                                             SCATTER_SCOPE)
     if wire_dtype is not None:
         out = out.to(buf.dtype)
     return out / world
@@ -104,14 +107,17 @@ def _reduce_scatter_mean(buf, axis_name: Axis, world: int, wire_dtype=None):
 def _all_gather_shard(shard, axis_name: Axis):
     """Inverse of :func:`_reduce_scatter_mean`'s tiling: the axes gathered
     in reverse order. A one-byte float (fp8) travels as its bytes, which
-    neither NCCL nor gloo takes as a float type."""
+    neither NCCL nor gloo takes as a float type. Runs under the
+    ``zero/param_gather`` trace span (``kind="collective"``)."""
+    from apex_tpu_torch.trace.spans import span
     out = shard
     as_bytes = shard.dtype.is_floating_point and shard.dtype.itemsize == 1
     if as_bytes:
         out = out.view(torch.uint8)
-    for a in reversed(axes_of(axis_name)):
-        out = collectives.all_gather(out, resolve_group(a), GATHER_SCOPE,
-                                     tiled=True)
+    with span(GATHER_SCOPE, kind="collective"):
+        for a in reversed(axes_of(axis_name)):
+            out = collectives.all_gather(out, resolve_group(a),
+                                         GATHER_SCOPE, tiled=True)
     return out.view(shard.dtype) if as_bytes else out
 
 

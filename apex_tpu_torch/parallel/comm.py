@@ -239,53 +239,56 @@ def bucketed_all_reduce(grads, axis_name: str = DATA_AXIS, *,
                 f"residual has {len(r_leaves)} leaves, grads have "
                 f"{len(leaves)}: build it with init_residual(grads)")
 
+    from apex_tpu_torch.trace.spans import span
     out = list(leaves)
     for bi, bkt in enumerate(bucket_plan(leaves, message_size)):
         scope = f"bucket{bi:02d}"
-        flat = torch.cat([leaves[i].reshape(-1) for i in bkt.leaf_idx])
-        if compress is not None or allreduce_always_fp32:
-            flat = flat.float()
-        if pre != 1.0:
-            flat = flat / pre
-        if compress is not None and r_leaves is not None:
-            flat = flat + torch.cat([r_leaves[i].reshape(-1)
-                                     for i in bkt.leaf_idx])
-        err = None
-        if compress == "bf16":
-            wire = flat.to(torch.bfloat16)
-            if r_leaves is not None:
-                err = flat - wire.float()
-            red = collectives.all_reduce(wire, group, scope).float()
-        elif compress == "int8":
-            n0 = flat.shape[0]
-            mult = world * compress_block
-            npad = -(-n0 // mult) * mult - n0
-            fpad = torch.nn.functional.pad(flat, (0, npad)) if npad else flat
-            red, err_local, err_shard = _int8_all_reduce(
-                fpad, group, compress_block, scope)
-            red = red[:n0]
-            if r_leaves is not None:
-                # the phase-2 error belongs to this rank's shard: its owner
-                # re-injects it so it enters the next step's sum
-                per = fpad.shape[0] // world
-                err = err_local.clone()
-                err[rank * per:(rank + 1) * per] += err_shard
-                err = err[:n0]
-        else:
-            # flat is a new tensor (cat copies): reduced in place
-            red = collectives.all_reduce(flat, group, scope)
-        if gradient_average:
-            post = world / pre
-            if post != 1.0:
-                red = red / post
-        off = 0
-        for i in bkt.leaf_idx:
-            n = leaves[i].numel()
-            out[i] = red[off:off + n].view(leaves[i].shape).to(
-                leaves[i].dtype)
-            if err is not None:
-                r_leaves[i] = err[off:off + n].view(leaves[i].shape)
-            off += n
+        with span(scope, kind="collective"):
+            flat = torch.cat([leaves[i].reshape(-1) for i in bkt.leaf_idx])
+            if compress is not None or allreduce_always_fp32:
+                flat = flat.float()
+            if pre != 1.0:
+                flat = flat / pre
+            if compress is not None and r_leaves is not None:
+                flat = flat + torch.cat([r_leaves[i].reshape(-1)
+                                         for i in bkt.leaf_idx])
+            err = None
+            if compress == "bf16":
+                wire = flat.to(torch.bfloat16)
+                if r_leaves is not None:
+                    err = flat - wire.float()
+                red = collectives.all_reduce(wire, group, scope).float()
+            elif compress == "int8":
+                n0 = flat.shape[0]
+                mult = world * compress_block
+                npad = -(-n0 // mult) * mult - n0
+                fpad = (torch.nn.functional.pad(flat, (0, npad)) if npad
+                        else flat)
+                red, err_local, err_shard = _int8_all_reduce(
+                    fpad, group, compress_block, scope)
+                red = red[:n0]
+                if r_leaves is not None:
+                    # the phase-2 error belongs to this rank's shard: its
+                    # owner re-injects it so it enters the next step's sum
+                    per = fpad.shape[0] // world
+                    err = err_local.clone()
+                    err[rank * per:(rank + 1) * per] += err_shard
+                    err = err[:n0]
+            else:
+                # flat is a new tensor (cat copies): reduced in place
+                red = collectives.all_reduce(flat, group, scope)
+            if gradient_average:
+                post = world / pre
+                if post != 1.0:
+                    red = red / post
+            off = 0
+            for i in bkt.leaf_idx:
+                n = leaves[i].numel()
+                out[i] = red[off:off + n].view(leaves[i].shape).to(
+                    leaves[i].dtype)
+                if err is not None:
+                    r_leaves[i] = err[off:off + n].view(leaves[i].shape)
+                off += n
 
     it = iter(out)
     synced = tree_map(lambda _: next(it), grads)

@@ -132,7 +132,7 @@ def flat_tree_all_reduce(grads, axis_name: str = DATA_AXIS, *,
 def dynamics_probe(local_grads, synced_grads, axis_name: str = DATA_AXIS):
     raise NotImplementedError(
         "dynamics_probe feeds monitor.dynamics, not ported yet (ROADMAP.md "
-        "queue A, item 11)")
+        "queue A, item 11 part 2)")
 
 
 class Reducer:
@@ -253,21 +253,22 @@ class DistributedDataParallel:
         ``comm.bucketed_all_reduce``, a ``comm_plan`` through its schedule.
         With ``residual`` (seed it with :meth:`init_residual`) the return is
         ``(synced, new_residual)``; the exact modes pass the residual
-        through."""
+        through. Every mode runs under the ``ddp/sync_gradients`` trace span
+        (``kind="collective"``), as the JAX package's does."""
         if not self._sync_enabled:
             return grads if residual is None else (grads, residual)
+        from apex_tpu_torch.trace.spans import span
         # unbucketed compression (and a plan): one bucket per dtype
         msg = self.message_size if self.message_size else (
             comm.DEFAULT_MESSAGE_SIZE if self.bucket_allreduce else None)
-        with use_mesh(self.mesh):
+        with use_mesh(self.mesh), span(SYNC_SCOPE, kind="collective"):
             if self.comm_plan is not None:
                 return self._plan_sync(grads, residual, msg)
             if self.bucket_allreduce or self.compress is not None:
-                with torch.profiler.record_function(SYNC_SCOPE):
-                    return comm.bucketed_all_reduce(
-                        grads, self.axis_name, message_size=msg,
-                        residual=residual, compress=self.compress,
-                        compress_block=self.compress_block, **self._knobs())
+                return comm.bucketed_all_reduce(
+                    grads, self.axis_name, message_size=msg,
+                    residual=residual, compress=self.compress,
+                    compress_block=self.compress_block, **self._knobs())
             fn = (flat_tree_all_reduce if self.delay_allreduce
                   else sync_gradients)
             synced = fn(grads, self.axis_name, **self._knobs())
@@ -277,16 +278,14 @@ class DistributedDataParallel:
         plan = self.comm_plan
         knobs = dict(gradient_average=self.gradient_average,
                      gradient_predivide_factor=self.gradient_predivide_factor)
-        with torch.profiler.record_function(SYNC_SCOPE):
-            if plan.is_hierarchical:
-                return hierarchy.hierarchical_sync(
-                    grads, plan, message_size=msg, residual=residual,
-                    **knobs)
-            # a flat plan is the planner-chosen compress mode on one axis
-            return comm.bucketed_all_reduce(
-                grads, self.axis_name, message_size=msg,
-                compress=plan.hops[0].dtype, residual=residual,
-                compress_block=plan.compress_block, **knobs)
+        if plan.is_hierarchical:
+            return hierarchy.hierarchical_sync(
+                grads, plan, message_size=msg, residual=residual, **knobs)
+        # a flat plan is the planner-chosen compress mode on one axis
+        return comm.bucketed_all_reduce(
+            grads, self.axis_name, message_size=msg,
+            compress=plan.hops[0].dtype, residual=residual,
+            compress_block=plan.compress_block, **knobs)
 
     def init_residual(self, grads):
         """Zeroed error-feedback residual (``comm.init_residual``)."""
@@ -349,9 +348,9 @@ class DistributedDataParallel:
     def collective_bytes(self, *args, **kwargs):
         raise NotImplementedError(
             "collective_bytes reads compiled HLO in the JAX package; its "
-            "port belongs to monitor/ (ROADMAP.md queue A, item 11)")
+            "port belongs to monitor/ (ROADMAP.md queue A, item 11 part 2)")
 
     def memory_report(self, *args, **kwargs):
         raise NotImplementedError(
             "memory_report reads compiled HLO in the JAX package; its port "
-            "belongs to prof/ (ROADMAP.md queue A, item 11)")
+            "belongs to prof/ (ROADMAP.md queue A, item 11 part 3)")

@@ -349,7 +349,10 @@ def hierarchical_sync(grads, plan: CommPlan, *,
     ``comm.bucketed_all_reduce``; with ``residual`` the return is
     ``(synced, new_residual)`` and every hop's compression error is fed
     into the next step (module docstring). ``chain`` is kept for the JAX
-    package's signature: eager buckets are already issued in order."""
+    package's signature: eager buckets are already issued in order. Each
+    bucket runs under a ``bucketNN`` trace span and each hop under an
+    ``ici`` or ``dcn`` one (``kind="collective"``), as the JAX package's
+    do."""
     del chain
     if not plan.is_hierarchical:
         raise ValueError("flat CommPlan: use bucketed_all_reduce with "
@@ -376,55 +379,61 @@ def hierarchical_sync(grads, plan: CommPlan, *,
                 f"{len(leaves)}: build it with init_residual(grads)")
     want_err = r_leaves is not None
 
+    from apex_tpu_torch.trace.spans import span
     out = list(leaves)
     for bi, bkt in enumerate(_comm.bucket_plan(leaves, message_size)):
         ici, dcn = f"bucket{bi:02d}/ici", f"bucket{bi:02d}/dcn"
-        flat = torch.cat([leaves[i].reshape(-1)
-                          for i in bkt.leaf_idx]).float()
-        n0 = flat.shape[0]
-        if pre != 1.0:
-            flat = flat / pre
-        if want_err:
-            flat = flat + torch.cat([r_leaves[i].reshape(-1)
-                                     for i in bkt.leaf_idx])
-        # pad so every hop tiles: the scatter needs world_i | n, the int8
-        # cross-node hop (world_x * block) | shard (zeros quantize exactly)
-        mult = world * block
-        npad = -(-n0 // mult) * mult - n0
-        fpad = torch.nn.functional.pad(flat, (0, npad)) if npad else flat
+        with span(f"bucket{bi:02d}", kind="collective"):
+            flat = torch.cat([leaves[i].reshape(-1)
+                              for i in bkt.leaf_idx]).float()
+            n0 = flat.shape[0]
+            if pre != 1.0:
+                flat = flat / pre
+            if want_err:
+                flat = flat + torch.cat([r_leaves[i].reshape(-1)
+                                         for i in bkt.leaf_idx])
+            # pad so every hop tiles: the scatter needs world_i | n, the int8
+            # cross-node hop (world_x * block) | shard (zeros quantize exactly)
+            mult = world * block
+            npad = -(-n0 // mult) * mult - n0
+            fpad = torch.nn.functional.pad(flat, (0, npad)) if npad else flat
 
-        per = fpad.shape[0] // world_i
-        shard, err_a = _reduce_scatter_hop(fpad, rs_hop, block, want_err,
-                                           ici)
-        shard, err_b = _all_reduce_hop(shard, ar_hop, block, want_err, dcn)
-        full, err_c = _all_gather_hop(shard, ag_hop, block, want_err,
-                                      ar_hop.axis, ici)
-        if gradient_average:
-            post = world / pre
-            if post != 1.0:
-                full = full / post
+            per = fpad.shape[0] // world_i
+            with span("ici", kind="collective"):
+                shard, err_a = _reduce_scatter_hop(fpad, rs_hop, block,
+                                                   want_err, ici)
+            with span("dcn", kind="collective"):
+                shard, err_b = _all_reduce_hop(shard, ar_hop, block,
+                                               want_err, dcn)
+            with span("ici", kind="collective"):
+                full, err_c = _all_gather_hop(shard, ag_hop, block, want_err,
+                                              ar_hop.axis, ici)
+            if gradient_average:
+                post = world / pre
+                if post != 1.0:
+                    full = full / post
 
-        err = None
-        if want_err:
-            err = err_a if err_a is not None else torch.zeros_like(fpad)
-            shard_err = None
-            for e in (err_b, err_c):
-                if e is not None:
-                    shard_err = e if shard_err is None else shard_err + e
-            if shard_err is not None:
-                off = dist.get_rank(resolve_group(rs_hop.axis)) * per
-                err[off:off + per] += shard_err
-            err = err[:n0]
+            err = None
+            if want_err:
+                err = err_a if err_a is not None else torch.zeros_like(fpad)
+                shard_err = None
+                for e in (err_b, err_c):
+                    if e is not None:
+                        shard_err = e if shard_err is None else shard_err + e
+                if shard_err is not None:
+                    off = dist.get_rank(resolve_group(rs_hop.axis)) * per
+                    err[off:off + per] += shard_err
+                err = err[:n0]
 
-        red = full[:n0]
-        off = 0
-        for i in bkt.leaf_idx:
-            n = leaves[i].numel()
-            out[i] = red[off:off + n].view(leaves[i].shape).to(
-                leaves[i].dtype)
-            if err is not None:
-                r_leaves[i] = err[off:off + n].view(leaves[i].shape)
-            off += n
+            red = full[:n0]
+            off = 0
+            for i in bkt.leaf_idx:
+                n = leaves[i].numel()
+                out[i] = red[off:off + n].view(leaves[i].shape).to(
+                    leaves[i].dtype)
+                if err is not None:
+                    r_leaves[i] = err[off:off + n].view(leaves[i].shape)
+                off += n
 
     it = iter(out)
     synced = tree_map(lambda _: next(it), grads)

@@ -9,9 +9,9 @@ as a reference script run without the launcher.
 
 :func:`elastic_run` is the restart-on-smaller-world loop, fenced through
 :mod:`apex_tpu_torch.cluster` when given a cluster directory.
-``enable_crash_dumps`` needs the JAX package's ``trace`` (the tracer,
-flight recorder and hang watchdog) and raises until it is ported
-(ROADMAP.md queue A, item 11).
+:func:`enable_crash_dumps` is the one-call forensics bring-up: a tracer,
+a per-rank flight recorder with its handlers installed, and optionally a
+hang watchdog and a collective deadline.
 """
 
 from __future__ import annotations
@@ -78,10 +78,63 @@ def distributed_init(coordinator_address: Optional[str] = None,
         rank=rank, **kwargs)
 
 
-def enable_crash_dumps(*args, **kwargs):
-    raise NotImplementedError(
-        "enable_crash_dumps needs trace/ (the tracer, flight recorder and "
-        "hang watchdog), not ported yet (ROADMAP.md queue A, item 11)")
+def enable_crash_dumps(path: str = "apex_tpu_crash.jsonl", *,
+                       capacity: int = 64,
+                       hang_deadline_s: Optional[float] = None,
+                       escalation=None,
+                       collective_deadline_s: Optional[float] = None,
+                       membership=None):
+    """One-call forensics bring-up for (multi-process) launches.
+
+    Builds a :class:`apex_tpu_torch.trace.Tracer`, a per-rank
+    :class:`~apex_tpu_torch.trace.FlightRecorder` (``path`` gets
+    ``trace.rank_path`` applied on multi-process runs) with the
+    excepthook/SIGTERM/atexit handlers installed — so call it from the
+    main thread — and, when ``hang_deadline_s`` is set, a started
+    :class:`~apex_tpu_torch.trace.HangWatchdog`. Call after
+    :func:`distributed_init` so the rank is the process group's.
+
+    ``escalation`` (an :class:`apex_tpu_torch.ckpt.EscalationPolicy`)
+    wires recovery on top of the forensics: SIGTERM saves the last host
+    checkpoint snapshot before the dump, a watchdog stall escalates to
+    checkpoint-save → crash-dump → exit 75, and the policy's own dump
+    goes to this recorder (``escalation.recorder``, unless it has one).
+
+    ``collective_deadline_s`` adds a started
+    :class:`apex_tpu_torch.cluster.CollectiveDeadline` polling the
+    tracer's open ``kind="collective"`` spans: one still open past the
+    deadline is *hung*, not slow, and trips
+    ``escalation.trip("collective:<span>")``. ``membership`` (a
+    :class:`apex_tpu_torch.cluster.ClusterMembership`) tags its events
+    with the current generation.
+
+    Returns ``(tracer, recorder, watchdog-or-None,
+    collective-deadline-or-None)`` — a fixed shape whichever tiers are
+    on; enter the tracer around the train loop and wrap steps in
+    ``trace.step()`` / ``trace.span`` so dumps carry span timelines.
+    """
+    from apex_tpu_torch import trace
+    tracer = trace.Tracer()
+    recorder = trace.FlightRecorder(path, capacity=capacity, tracer=tracer,
+                                    escalation=escalation).install()
+    if escalation is not None and getattr(escalation, "recorder",
+                                          None) is None:
+        escalation.recorder = recorder
+    watchdog = None
+    if hang_deadline_s:
+        watchdog = trace.HangWatchdog(
+            hang_deadline_s, recorder=recorder, tracer=tracer,
+            on_stall=escalation).start()
+    deadline = None
+    if collective_deadline_s:
+        from apex_tpu_torch.cluster import CollectiveDeadline
+        deadline = CollectiveDeadline(
+            tracer, deadline_s=collective_deadline_s,
+            escalation=escalation,
+            event_sink=getattr(membership, "event_sink", None),
+            generation=(membership.refresh if membership is not None
+                        else None)).start()
+    return tracer, recorder, watchdog, deadline
 
 
 def elastic_run(train_fn, *, world_sizes, max_restarts: Optional[int] = None,

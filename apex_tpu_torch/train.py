@@ -92,7 +92,7 @@ def build_bert_step(batch: int, seq: int, encoder=None, opt_level="O1",
                     half_dtype=torch.bfloat16, device="cuda", seed: int = 0,
                     vocab: Optional[int] = None, strategy: str = "auto",
                     dropout: float = 0.0, padded: bool = False,
-                    optimizer=None):
+                    optimizer=None, monitor: bool = False):
     """Returns ``(step, state, (toks, labels), policy, enc)``.
 
     ``optimizer=None`` trains with ``FusedLAMB(lr=1e-3, strategy=
@@ -114,7 +114,8 @@ def build_bert_step(batch: int, seq: int, encoder=None, opt_level="O1",
     padded positions are -1, which the loss ignores; an encoder with
     dropout > 0 runs ``deterministic=False`` and draws its dropout seeds
     from ``step.generator`` (a ``torch.Generator`` on ``device`` seeded with
-    ``seed``).
+    ``seed``). ``monitor=True`` carries the ``monitor.Metrics`` tuple on the
+    state (``state.metrics``).
     """
     device = _device(device, "build_bert_step")
     if optimizer is None:
@@ -137,7 +138,7 @@ def build_bert_step(batch: int, seq: int, encoder=None, opt_level="O1",
         labels = np.where(mask, labels, -1)
         attn_mask = torch.as_tensor(mask, device=device)
     labels = torch.as_tensor(labels, dtype=torch.int64, device=device)
-    amp_opt = amp.Amp(policy, optimizer)
+    amp_opt = amp.Amp(policy, optimizer, monitor=monitor)
     state = amp_opt.init(dict(enc.named_parameters()))
     gen = torch.Generator(device).manual_seed(seed)
     kwargs = {"deterministic": enc.dropout == 0.0, "generator": gen}
@@ -163,7 +164,7 @@ def build_resnet_step(batch: int, size: int, opt_level: str = "O2",
                       half_dtype=torch.bfloat16, device="cuda", seed: int = 0,
                       model=None, strategy: str = "auto", optimizer=None,
                       bn_axis_name=None, ddp=None, policy=None,
-                      with_accuracy: bool = False):
+                      with_accuracy: bool = False, monitor: bool = False):
     """Returns ``(step, (state, batch_stats), (x, y), policy, model)``.
 
     ``step(state, batch_stats, x, y) -> (state', batch_stats', loss)`` runs
@@ -186,7 +187,9 @@ def build_resnet_step(batch: int, size: int, opt_level: str = "O2",
     ``policy`` (an ``amp.Policy``) replaces the preset of ``opt_level`` and
     ``half_dtype`` (the ImageNet example's ``--keep-batchnorm-fp32`` and
     ``--loss-scale`` overrides); ``with_accuracy`` makes the step also
-    return the batch's top-1 accuracy (f32, this rank's).
+    return the batch's top-1 accuracy (f32, this rank's). ``monitor=True``
+    carries the ``monitor.Metrics`` tuple on the state (``state.metrics``),
+    as the JAX bench's ``_resnet_step_builder(monitor=)``.
     ``step.amp_opt`` is the ``amp.Amp`` bundle.
     """
     device = _device(device, "build_resnet_step")
@@ -217,7 +220,7 @@ def build_resnet_step(batch: int, size: int, opt_level: str = "O2",
     if policy.cast_model_type is not None:
         x = x.to(policy.compute_dtype)
     y = torch.as_tensor(y, dtype=torch.int64, device=device)
-    amp_opt = amp.Amp(policy, optimizer)
+    amp_opt = amp.Amp(policy, optimizer, monitor=monitor)
     state = amp_opt.init(dict(model.named_parameters()))
     batch_stats = {k: b.detach().clone() for k, b in model.named_buffers()}
 

@@ -151,6 +151,22 @@ plain PyTorch version on the card at the shapes its main path gives it
   that fingerprint, vote and repair a flipped bit (integrity_three_ranks);
   and, last, saves killed at both crash points and an exit-75 escalation
   in subprocesses (ckpt_crash_and_escalate).
+- Tracing and telemetry, right after resnet50_arena: ResNet-50 (B256,
+  224^2, O2 bf16, arena FusedSGD) through ``scripts/torch_trace_resnet.py``'s
+  loop under ``enable_crash_dumps``, ``Amp(monitor=True)``, a
+  ``MetricsLogger`` and a ``GoodputLedger`` (resnet50_traced: launches as
+  the arena run's, the Metrics, one step of the whole stack under
+  ``set_sync_debug_mode("error")``, the goodput closure, every stream
+  through the schema script; host ms, device kernels and ms, the
+  monitor's extra kernels and host µs a span, in turns with the untraced
+  step); NaN provenance on that step (debug_nans_card: off adds no
+  kernel, on names ``amp/fwd`` and ``amp/bwd``, no sync); a depth-2 BERT
+  child dumping on an exception, on SIGTERM after ``on_preempt()``
+  (resumed bit for bit) and, through the hang watchdog, on a device-side
+  hang (exit 75) (crash_dumps_card); two gloo ranks under DDP with rank 1
+  late in ``data/load``, blamed by the pod view (straggler_podview_two_ranks).
+  cluster_zombie_elastic's rank 0 now notices its stopped peer through
+  ``HangWatchdog``.
 - Data, cluster and ``elastic_run``, after the ResNet phases, on a JPEG
   tree the port's encoder writes in the background from the start (512
   images, 256^2, 8 classes) and its packed cache: the codec (phase
@@ -457,6 +473,18 @@ def log(msg):
     print(msg, flush=True)
 
 
+def device_kernels(prof):
+    """The CUDA kernel (and memcpy/memset) events of a profiler session,
+    less the device-side spans of ``record_function`` ranges (user
+    annotations): since the trace spans open one under a profiler (amp's
+    ``amp/fwd`` and ``amp/update`` too), counting those would add a
+    range's whole extent to the device time."""
+    import torch
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)]
+
+
 def timed(fn, iters=10, flush=None):
     """Mean ms of one ``fn()`` call on the card, each call timed alone by
     CUDA events after ``flush()`` (an L2 sweep), after 2 warm-up calls."""
@@ -508,8 +536,7 @@ def device_ms(fn, iters=10, flush=None):
             run()
             torch.cuda._sleep(SHORT_CYCLES)
             torch.cuda.synchronize()
-        return [e for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
+        return device_kernels(prof)
 
     def whole(run, kept):
         """The first session of ``run`` whose kernels pass ``kept``; the
@@ -2358,8 +2385,7 @@ def arena_vs_tree_update(params, opt_state, make_tx, tols):
                                  ProfilerActivity.CUDA]) as prof:
             update(name)
             torch.cuda.synchronize()
-        kernels[name] = sum(1 for e in prof.events() if e.device_type
-                            == torch.autograd.DeviceType.CUDA)
+        kernels[name] = len(device_kernels(prof))
     seen = kernels["arena"] > 0 and kernels["tree"] > 0
     log(f"phase arena_vs_tree: device kernels in one update (torch.profiler):"
         f" arena {kernels['arena']}, tree {kernels['tree']}, "
@@ -5503,8 +5529,7 @@ def _step_kernels(step, state):
         step(state)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    ks = [e for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA]
+    ks = device_kernels(prof)
     ops.reset_launch_counts()
     return len(ks), sum(e.time_range.elapsed_us() for e in ks) / 1e3, wall
 
@@ -6233,8 +6258,7 @@ def bert_large_guard(rows):
                         torch.cuda._sleep(SHORT_CYCLES)
                     fn()
                     torch.cuda.synchronize()
-                ks = [e for e in prof.events()
-                      if e.device_type == torch.autograd.DeviceType.CUDA]
+                ks = device_kernels(prof)
                 if not _SPIN_NAMES or any(e.name in _SPIN_NAMES for e in ks):
                     break
                 if _LEAD[0] >= MAX_LEAD:
@@ -7213,7 +7237,7 @@ def zombie_child(argv):
     import signal
     import torch
     import torch.distributed as dist
-    from apex_tpu_torch import ckpt, cluster, models, parallel, train
+    from apex_tpu_torch import ckpt, cluster, models, parallel, trace, train
     from apex_tpu_torch.optim import DistributedFusedAdam
 
     mode, rank, world, root, cdir, barrier, store, out = argv
@@ -7262,9 +7286,28 @@ def zombie_child(argv):
 
     if mode == "world2":
         policy = ckpt.EscalationPolicy(mgr)          # exit mode, code 75
+        tracer = contextlib.nullcontext()
+
+        def fired(event):
+            if event.get("reason") == "hang":
+                report["tripped_at"] = event["last_step"]
+                report["tripped_after_s"] = event["seconds_since_last_step"]
+                dump()
+
         for i in range(1, ZOMBIE_STOP + 3):
-            train_step(i)
+            with tracer, trace.step(i), trace.span("dispatch"):
+                train_step(i)
             member.heartbeat()
+            if rank == 0 and i == 1:
+                # from step 2 on (step 1 loads the kernels), rank 0
+                # notices a stall through the hang watchdog: the step
+                # after the peer stopped waits in its collective, no
+                # step completes within the deadline, the watchdog dumps
+                # and its on_stall (the policy) commits and exits 75
+                tracer, _, wd, _ = parallel.enable_crash_dumps(
+                    os.path.join(os.path.dirname(out), "zombie_crash.jsonl"),
+                    hang_deadline_s=ZOMBIE_DEADLINE_S, escalation=policy)
+                wd.on_fire = fired
             if rank == 1 and i == ZOMBIE_STOP:
                 os.kill(os.getpid(), signal.SIGSTOP)
                 # resumed: a zombie of the generation it joined
@@ -7283,8 +7326,9 @@ def zombie_child(argv):
                 dump()
                 os._exit(88 if refused == 2 else 1)
             open(os.path.join(barrier, f"beat_{rank}_{i}"), "w").close()
-            if not _wait_file(os.path.join(barrier, f"beat_{1 - rank}_{i}"),
-                              ZOMBIE_DEADLINE_S):
+            if rank == 1 and not _wait_file(
+                    os.path.join(barrier, f"beat_{1 - rank}_{i}"),
+                    ZOMBIE_DEADLINE_S):
                 report["tripped_at"] = i
                 dump()
                 policy.trip(f"rank {1 - rank} silent after step {i}")
@@ -7324,8 +7368,10 @@ def cluster_zombie_elastic():
     """Phase cluster_zombie_elastic: ``elastic_run(train_fn, world_sizes=
     [2, 1], cluster_dir=...)``. World 2: two gloo ranks on the card
     (``zombie_child``) save at steps 1 and 3 (process_count 2, ZeRO
-    shards); rank 1 SIGSTOPs itself after step 4; rank 0, its peer's beat
-    overdue, trips ``EscalationPolicy`` itself and exits 75. ``elastic_run``
+    shards); rank 1 SIGSTOPs itself after step 4; rank 0, under
+    ``enable_crash_dumps(hang_deadline_s=ZOMBIE_DEADLINE_S,
+    escalation=EscalationPolicy(mgr))``, waits in step 5's collective
+    until its ``HangWatchdog`` fires and the policy exits 75. ``elastic_run``
     reports the expired lease, relaunches at world 1 under generation 1:
     that run restores step 3 re-partitioned 2 -> 1 and takes 3 steps; an
     oracle run (no fence) from the same checkpoint runs beside it. Then the
@@ -7417,12 +7463,674 @@ def cluster_zombie_elastic():
         raise AssertionError(f"{phase}: {checks}\nworld1 {e1[-2000:]}\n"
                              f"oracle {eo[-2000:]}\nzombie {zerr[-2000:]}")
     log(f"phase {phase}: world 2 -> rank 1 stopped after step {ZOMBIE_STOP}, "
-        f"rank 0 tripped and exited 75; elastic_run reported dead ranks "
+        f"rank 0 waited in step {ZOMBIE_STOP + 1}'s collective until its "
+        f"HangWatchdog fired {seen[1].get('tripped_after_s', 0.0):.2f} s "
+        f"after step {ZOMBIE_STOP} (deadline {ZOMBIE_DEADLINE_S:g} s), "
+        f"dumped and exited 75; elastic_run reported dead ranks "
         f"{sorted(set(dead))} and relaunched at world 1 under generation 1: "
         f"restored step {w1['restored']} from {w1['from_processes']} "
         f"processes, losses {[round(v, 6) for v in w1['losses']]} = the "
         f"oracle's bit for bit, params too; the zombie's save and gc "
         f"refused ({fences}); {time.perf_counter() - t0:.1f} s")
+
+
+# --- observability: trace/, monitor/ and enable_crash_dumps --------------------
+
+TRACED_STEPS = 8
+TRACED_TURNS = 3              # rounds of (plain, traced, traced, plain)
+TRACED_TURN_STEPS = 3         # steps a turn, host-timed one by one
+SPAN_PROBES = 20000           # spans in the host-cost probe
+CRASH_HANG_S = 8.0            # the hang child's deadline (> a first step)
+CRASH_SLEEP_S = 30.0          # device time the hung fetch waits on
+STRAGGLER_STEPS, STRAGGLER_SLOW = 12, range(4, 12)
+STRAGGLER_DELAY_S = 0.05      # rank 1's extra data/load a slow step
+STRAGGLER_BATCH, STRAGGLER_SIZE, STRAGGLER_WARMUP = 32, 64, 2
+
+
+def _trace_script():
+    """``scripts/torch_trace_resnet.py`` as a module (its loop and wiring
+    are what the traced phases drive)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "torch_trace_resnet.py")
+    spec = importlib.util.spec_from_file_location("torch_trace_resnet", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _schema(path, kind):
+    """``scripts/check_metrics_schema.py --kind kind path`` (it imports
+    no JAX); raises with its report on a violation."""
+    r = subprocess.run(
+        [sys.executable, os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "scripts", "check_metrics_schema.py"), "--kind",
+         kind, path], capture_output=True, text=True)
+    if r.returncode != 0:
+        raise AssertionError(f"{path} fails --kind {kind}:\n"
+                             f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+
+
+def _kernel_census(fn, iters=2):
+    """(device kernels, device ms) of one ``fn()`` call, from a profiler
+    session opened with ``device_ms``'s lead of short spins and closed by
+    one (left out by name); retaken with a longer lead when the session
+    lost the opening or closing spin."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    while not _SPIN_NAMES:                 # a session of spins names them
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(_LEAD[0]):
+                torch.cuda._sleep(SHORT_CYCLES)
+            torch.cuda.synchronize()
+        _SPIN_NAMES.update(e.name for e in device_kernels(prof))
+    while True:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(_LEAD[0]):
+                torch.cuda._sleep(SHORT_CYCLES)
+            torch.cuda._sleep(PAD_CYCLES)
+            for _ in range(iters):
+                fn()
+            torch.cuda._sleep(SHORT_CYCLES)
+            torch.cuda.synchronize()
+        ks = device_kernels(prof)
+        if sum(e.name in _SPIN_NAMES for e in ks) >= 3:
+            break
+        if _LEAD[0] >= MAX_LEAD:
+            raise AssertionError("kernel census: sessions lost records")
+        _LEAD[0] *= 2
+    ks = [e for e in ks if e.name not in _SPIN_NAMES]
+    return (len(ks) / iters,
+            sum(e.time_range.elapsed_us() for e in ks) / 1e3 / iters)
+
+
+def resnet50_traced(smi):
+    """Phase resnet50_traced: ResNet-50 (B256, 224², O2 bf16, arena
+    FusedSGD) through ``scripts/torch_trace_resnet.py``'s loop for
+    TRACED_STEPS steps under ``enable_crash_dumps``, ``Amp(monitor=True)``,
+    a ``MetricsLogger`` (JSONL metrics, trace and goodput channels) and a
+    ``GoodputLedger``. Gates: the hand kernels' launches a step equal
+    resnet50_arena's; the Metrics after the steps read ``step`` 8,
+    ``skip_count`` 0 and the last step's loss; one more step with the whole
+    stack (spans, monitor, ``recorder.record_metrics``, ``logger.record``,
+    no flush) runs under ``torch.cuda.set_sync_debug_mode("error")``; the
+    goodput closure within 5%; the Chrome trace's structure and the event,
+    goodput, metrics and crash-dump streams pass the schema script. Then,
+    in turns with the untraced arena step (the same step with
+    ``state.metrics`` None and no tracer): host ms a step, device ms and
+    kernels a step (profiler), the kernels and device ms ``monitor=True``
+    adds, and host µs a span (entered, and passive). Returns the traced
+    step, its state and inputs for debug_nans_card."""
+    import tempfile
+    import torch
+    from apex_tpu_torch import ops, trace
+
+    phase = "resnet50_traced"
+    clock = _Clock()
+    tr = _trace_script()
+    out = tempfile.mkdtemp(prefix="chip_smoke_traced_")
+    with clock("build"):
+        args = tr.parse_args(["--out", out])
+        step, state, bs, x, y, model = tr.build(args)
+        tracer, recorder, logger, ledger = tr.wire(out, TRACED_STEPS)
+    try:
+        ops.reset_launch_counts()
+        with clock("steps"):
+            state, bs, losses = tr.loop(TRACED_STEPS, step, state, bs, x, y,
+                                        tracer, logger, recorder)
+        check_launches(phase, ops.launch_counts(), dict(
+            RESNET_PER_STEP, **SGD_PER_STEP), None, steps=TRACED_STEPS)
+        m = state.metrics
+        got = (int(m.step), int(m.skip_count), m.loss.item())
+        if got != (TRACED_STEPS, 0, losses[-1]) or not all(
+                math.isfinite(v) for v in losses):
+            raise AssertionError(f"{phase}: metrics (step, skip, loss) "
+                                 f"{got}, losses {losses}")
+        # one step with the whole stack and no read-back: no host sync
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with tracer:
+                state, bs, loss, _ = tr.traced_step(
+                    TRACED_STEPS, step, state, bs, x, y, logger, recorder,
+                    read_loss=False)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        logger.flush()
+        ok, worst = ledger.check_closure(0.05)
+        if not ok:
+            raise AssertionError(f"{phase}: goodput closure {worst:.4f}")
+        steady = ledger.steps[1:TRACED_STEPS]
+        frac = sum(r.goodput_frac for r in steady) / len(steady)
+        buckets = {b: sum(r.buckets[b] for r in steady) / len(steady)
+                   for b in steady[0].buckets}
+        ct = tracer.chrome_trace()
+        tr.check_chrome_trace(ct)
+        dump = recorder.dump(reason="manual")
+        for path, kind in ((f"{out}/events.jsonl", "trace"), (dump, "trace"),
+                           (f"{out}/goodput.jsonl", "goodput"),
+                           (f"{out}/metrics.jsonl", "metrics")):
+            _schema(path, kind)
+        ops.reset_launch_counts()
+
+        # the cost, in turns with the untraced step
+        plain_state = state._replace(metrics=None)
+
+        def plain():
+            nonlocal plain_state, bs
+            plain_state, bs, loss = step(plain_state, bs, x, y)
+            return loss
+
+        def traced(i=[TRACED_STEPS + 1], read=True):
+            nonlocal state, bs
+            with tracer:
+                state, bs, loss, _ = tr.traced_step(
+                    i[0], step, state, bs, x, y, logger, recorder,
+                    read_loss=read)
+            i[0] += 1
+            return loss
+
+        logger.flush_every = 10 ** 9            # flushes stay out of it
+        host = {"plain": [], "traced": []}
+        with clock("turns"):
+            for _ in range(TRACED_TURNS):
+                for name in ("plain", "traced", "traced", "plain"):
+                    fn = plain if name == "plain" else traced
+                    for _ in range(TRACED_TURN_STEPS):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        fn().item()
+                        host[name].append((time.perf_counter() - t0) * 1e3)
+        with clock("profiles"):
+            census = {}
+            for name in ("plain", "traced", "traced", "plain"):
+                fn = plain if name == "plain" else (
+                    lambda: traced(read=False))
+                census.setdefault(name, []).append(_kernel_census(fn))
+            monitored = state
+
+            def monitor_only():
+                nonlocal monitored, bs
+                monitored, bs, loss = step(monitored, bs, x, y)
+                return loss
+            mon = _kernel_census(monitor_only)
+        logger.close()
+        recorder.uninstall()
+        with clock("span probe"):
+            probe = trace.Tracer()
+            with probe:
+                with trace.step(0):
+                    t0 = time.perf_counter()
+                    for _ in range(SPAN_PROBES):
+                        with trace.span("probe"):
+                            pass
+                    entered = (time.perf_counter() - t0) / SPAN_PROBES * 1e6
+            t0 = time.perf_counter()
+            for _ in range(SPAN_PROBES):
+                with trace.span("probe"):
+                    pass
+            passive = (time.perf_counter() - t0) / SPAN_PROBES * 1e6
+    finally:
+        recorder.uninstall()
+        shutil.rmtree(out, ignore_errors=True)
+    ops.reset_launch_counts()
+    med = {k: _median(v) for k, v in host.items()}
+    ck = {k: (_median([c for c, _ in v]), _median([d for _, d in v]))
+          for k, v in census.items()}
+    log(f"phase {phase}: {TRACED_STEPS} traced steps, losses "
+        f"{[round(v, 6) for v in losses]}; launches a step as "
+        f"resnet50_arena's; Metrics step {got[0]}, skip {got[1]}, loss = "
+        f"the step's; one step of the whole stack under "
+        f"set_sync_debug_mode('error'); goodput closure worst {worst:.2e}; "
+        f"Chrome trace, events, goodput, metrics and dump streams valid")
+    log(f"phase {phase}: steady goodput {frac:.4f} (steps 1-"
+        f"{TRACED_STEPS - 1}), buckets ms a step "
+        + ", ".join(f"{b} {v:.3f}" for b, v in buckets.items() if v))
+    log(f"phase {phase}: in turns ({smi}): host ms a step plain "
+        f"{med['plain']:.3f}, traced {med['traced']:.3f} "
+        f"({100 * (med['traced'] / med['plain'] - 1):+.2f}%); device "
+        f"kernels a step plain {ck['plain'][0]:g}, traced "
+        f"{ck['traced'][0]:g}; device ms a step plain {ck['plain'][1]:.3f}, "
+        f"traced {ck['traced'][1]:.3f}; monitor=True alone "
+        f"{mon[0] - ck['plain'][0]:+g} kernels, "
+        f"{mon[1] - ck['plain'][1]:+.4f} device ms; host us a span "
+        f"{entered:.2f} under a Tracer, {passive:.2f} passive")
+    log(clock.line(phase))
+    return step, state, bs, x, y, model
+
+
+def debug_nans_card(smi, traced):
+    """Phase debug_nans_card: the traced ResNet-50 step with NaN
+    provenance. Mode off: ``nan_probe`` returns its argument and a step
+    launches as many device kernels as the step with the probes taken out
+    of amp. Mode on: a step runs under ``set_sync_debug_mode("error")``
+    (the probes fold on the card, no sync), its extra kernels counted;
+    ``first_nan()`` is None after a clean step, names ``amp/fwd`` after a
+    NaN written into one conv weight and ``amp/bwd`` after a NaN put into
+    the gradient behind the forward (a hook on the head's output)."""
+    import torch
+    from apex_tpu_torch import trace
+    from apex_tpu_torch.amp import api as amp_api
+
+    phase = "debug_nans_card"
+    step, state, bs, x, y, model = traced
+    state = state._replace(metrics=None)
+    t0 = time.perf_counter()
+
+    def run(s=None):
+        nonlocal state, bs
+        out, bs_new, loss = step(state if s is None else s, bs, x, y)
+        if s is None:
+            state, bs = out, bs_new
+        return loss
+
+    probe = torch.ones(3, device="cuda")
+    if trace.nan_probe("p", probe) is not probe or \
+            trace.debug_nans_enabled():
+        raise AssertionError(f"{phase}: the off probe is not the identity")
+    off = _kernel_census(run)
+    saved = amp_api.nan_probe
+    amp_api.nan_probe = lambda name, tree: tree
+    try:
+        unprobed = _kernel_census(run)
+    finally:
+        amp_api.nan_probe = saved
+    trace.reset_nan_state()
+    with trace.debug_nans():
+        on = _kernel_census(run)
+        trace.reset_nan_state()
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        clean = trace.first_nan()
+        name = next(k for k, v in state.params.items()
+                    if v.dim() == 4)
+        bad = dict(state.params)
+        bad[name] = bad[name].clone()
+        bad[name].view(-1)[0] = float("nan")
+        trace.reset_nan_state()
+        run(state._replace(params=bad))
+        fwd = trace.first_nan()
+        trace.reset_nan_state()
+        hooks = []
+
+        def poison(mod, inp, out):
+            if out.requires_grad:
+                out.register_hook(lambda g: torch.full_like(g, float("nan")))
+
+        hooks.append(model.Dense_0.register_forward_hook(poison))
+        try:
+            loss = run(state)
+        finally:
+            for h in hooks:
+                h.remove()
+        bwd = trace.first_nan()
+        trace.reset_nan_state()
+    checks = {"off = unprobed": off[0] == unprobed[0],
+              "clean": clean is None,
+              "fwd": fwd is not None and fwd["span"] == "amp/fwd",
+              "bwd": (bwd is not None and bwd["span"] == "amp/bwd"
+                      and math.isfinite(loss.item()))}
+    if not all(checks.values()):
+        raise AssertionError(f"{phase}: {checks}; off {off}, unprobed "
+                             f"{unprobed}, on {on}, first_nan {clean}, "
+                             f"{fwd}, {bwd}")
+    log(f"phase {phase}: off: nan_probe is the identity, {off[0]:g} device "
+        f"kernels a step = the unprobed step's; on: {on[0] - off[0]:+g} "
+        f"kernels, {on[1] - off[1]:+.4f} device ms a step ({smi}), no host "
+        f"sync; first_nan None on a clean step, {fwd['span']!r} after a NaN "
+        f"in {name}, {bwd['span']!r} after a NaN gradient behind the "
+        f"forward; {time.perf_counter() - t0:.1f} s")
+
+
+
+_DUMP_CHILD = r"""
+import os, sys
+sys.path.insert(0, os.getcwd())
+import chip_smoke as C
+C.crash_dump_child(sys.argv[1:])
+"""
+
+
+def crash_dump_child(argv):
+    """A child of crash_dumps_card (``mode`` exception, sigterm or hang):
+    the depth-2 encoder at BERT-Large widths (B4, O1 bf16, arena LAMB,
+    ``monitor=True``) under ``enable_crash_dumps(escalation=
+    EscalationPolicy(mgr))`` with a host snapshot after each step; step 3
+    raises in ``dispatch`` (exception), waits in ``fetch`` for the
+    parent's SIGTERM (sigterm), or reads the loss back behind
+    CRASH_SLEEP_S of ``torch.cuda._sleep`` past the hang deadline (hang)."""
+    import torch
+    from apex_tpu_torch import ckpt, parallel, trace, train
+
+    root, dump, mode = argv
+    torch.cuda.set_device(0)
+    step, state, (toks, labels), _, _ = train.build_bert_step(
+        4, 512, encoder=depth2_encoder(), strategy="arena", monitor=True)
+    mgr = ckpt.CheckpointManager(root, keep=3)
+    tracer, rec, _, _ = parallel.enable_crash_dumps(
+        dump, hang_deadline_s=CRASH_HANG_S if mode == "hang" else None,
+        escalation=ckpt.EscalationPolicy(mgr))
+    cycles = 0
+    if mode == "hang":
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        torch.cuda._sleep(100_000_000)
+        b.record()
+        b.synchronize()
+        cycles = int(100_000_000 / a.elapsed_time(b) * CRASH_SLEEP_S * 1e3)
+    with tracer:
+        for i in range(1, 4):
+            with trace.step(i):
+                with trace.span("dispatch"):
+                    state, loss = step(state, toks, labels)
+                    if i == 3 and mode == "exception":
+                        raise RuntimeError("forced mid-step exception")
+                with trace.span("fetch"):
+                    if i == 3 and mode == "sigterm":
+                        print("MIDSTEP", flush=True)
+                        while True:
+                            time.sleep(0.01)
+                    if i == 3 and mode == "hang":
+                        torch.cuda._sleep(cycles)
+                        print("MIDSTEP", flush=True)
+                    value = loss.item()
+                rec.record_metrics(state.metrics)
+            mgr.snapshot(i, {"amp": state}, extra={"loss": value})
+            mgr.wait()
+    os._exit(1)                       # step 3 never completes
+
+
+def _dump_lines(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()]
+
+
+def crash_dumps_card():
+    """Phase crash_dumps_card: three ``crash_dump_child`` processes on the
+    card at once, beside this process's uninterrupted run of the same
+    three steps. (a) exception: exit 1 and an excepthook dump naming the
+    exception, its traceback, ``dispatch`` in flight and two steps with
+    their Metrics before the aborted one. (b) SIGTERM mid-step (in
+    ``fetch``): ``on_preempt()`` commits step 2's snapshot, then the dump
+    is written (reason ``signal:SIGTERM``), the child dies by the signal,
+    and the checkpoint resumes to the uninterrupted run's step-3 loss and
+    state bit for bit. (c) a device-side hang in ``fetch``: the watchdog
+    fires within the deadline and a second while the main thread waits on
+    the card (so the wait releases the GIL), its dump names ``fetch`` in
+    flight, holds the main thread's stack and no metrics; the escalation
+    commits step 2 and exits 75. Every dump passes ``--kind trace``; no
+    child outlives the phase."""
+    import signal
+    import tempfile
+    from apex_tpu_torch import ckpt, train
+
+    phase = "crash_dumps_card"
+    work = tempfile.mkdtemp(prefix="chip_smoke_dumps_")
+    modes = ("exception", "sigterm", "hang")
+    procs, errs, codes = {}, {}, {}
+    t0 = time.perf_counter()
+    try:
+        for m in modes:
+            os.makedirs(f"{work}/{m}")
+            procs[m] = subprocess.Popen(
+                [sys.executable, "-c", _DUMP_CHILD, f"{work}/{m}/ck",
+                 f"{work}/{m}/crash.jsonl", m], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True)
+        step, state, (toks, labels), _, _ = train.build_bert_step(
+            4, 512, encoder=depth2_encoder(), strategy="arena", monitor=True)
+        losses = []
+        for _ in range(3):
+            state, loss = step(state, toks, labels)
+            losses.append(loss.item())
+        line = procs["sigterm"].stdout.readline()
+        if line.strip() != "MIDSTEP":
+            raise AssertionError(f"{phase}: sigterm child said {line!r}")
+        procs["sigterm"].send_signal(signal.SIGTERM)
+        for m, p in procs.items():
+            try:
+                _, errs[m] = p.communicate(timeout=300)
+            finally:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+            codes[m] = p.returncode
+        want = {"exception": 1, "sigterm": -signal.SIGTERM,
+                "hang": ckpt.ESCALATION_EXIT_CODE}
+        if codes != want:
+            raise AssertionError(f"{phase}: exit codes {codes}\n" + "\n".join(
+                f"{m}: {e[-2000:]}" for m, e in errs.items()))
+        exc = _dump_lines(f"{work}/exception/crash.jsonl")
+        term = _dump_lines(f"{work}/sigterm/crash.jsonl")
+        hang = _dump_lines(f"{work}/hang/crash.hang.jsonl")
+        esc = _dump_lines(f"{work}/hang/crash.jsonl")
+        for path in (f"{work}/exception/crash.jsonl",
+                     f"{work}/sigterm/crash.jsonl",
+                     f"{work}/hang/crash.hang.jsonl",
+                     f"{work}/hang/crash.jsonl"):
+            _schema(path, "trace")
+        manifests = {m: ckpt.read_manifest(ckpt.latest_checkpoint(
+            f"{work}/{m}/ck")) for m in ("sigterm", "hang")}
+        mgr = ckpt.CheckpointManager(f"{work}/sigterm/ck")
+        fresh = train.build_bert_step(
+            4, 512, encoder=depth2_encoder(), strategy="arena",
+            monitor=True)[1]
+        tree, _ = mgr.restore({"amp": fresh})
+        resumed, loss3 = step(tree["amp"], toks, labels)
+        stacks = hang[0]["stacks"]
+        main_stack = next((v for k, v in stacks.items()
+                           if k.startswith("MainThread")), [])
+        hang_steps = [r for r in hang[1:] if r["kind"] == "step"]
+        ck_mtime = os.path.getmtime(os.path.join(
+            ckpt.latest_checkpoint(f"{work}/sigterm/ck"), "manifest.json"))
+        checks = {
+            "exception header": exc[0]["reason"] == "exception"
+            and "forced mid-step exception" in exc[0]["exception"]
+            and bool(exc[0]["traceback"])
+            and exc[0]["in_flight_spans"] == ["dispatch"],
+            "exception steps": [(r["step"], (r.get("metrics") or {}).get(
+                "step"), bool(r.get("aborted"))) for r in exc[1:]]
+            == [(1, 1, False), (2, 2, False), (3, None, True)],
+            "sigterm header": term[0]["reason"] == "signal:SIGTERM"
+            and term[0]["in_flight_spans"] == ["fetch"]
+            and term[0]["last_completed_span"] == "dispatch",
+            "preempt saved first": manifests["sigterm"]["step"] == 2
+            and manifests["sigterm"]["meta"]["reason"] == "preempt"
+            and ck_mtime <= os.path.getmtime(f"{work}/sigterm/crash.jsonl"),
+            "resumed bit for bit": loss3.item() == losses[2]
+            and not _leaves_equal(resumed, state),
+            "hang fired in time": hang[0]["kind"] == "watchdog"
+            and hang[0]["seconds_since_last_step"] < CRASH_HANG_S + 1.0,
+            "hang names fetch": hang[0]["in_flight_spans"] == ["fetch"]
+            and hang[0]["last_step"] == 2,
+            "main stack": any("fetch" in f or "item" in f
+                              for f in main_stack),
+            "no metrics fetch": bool(hang_steps) and all(
+                r["metrics"] is None and r.get("metrics_error")
+                for r in hang_steps),
+            "escalated": esc[0]["reason"] == "escalation:stall"
+            and manifests["hang"]["step"] == 2
+            and manifests["hang"]["meta"]["reason"] == "stall"}
+        if not all(checks.values()):
+            raise AssertionError(f"{phase}: {checks}\nhang {hang[0]}\n"
+                                 + "\n".join(f"{m}: {e[-2000:]}"
+                                             for m, e in errs.items()))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(work, ignore_errors=True)
+    alive = [m for m, p in procs.items() if p.poll() is None]
+    if alive:
+        raise AssertionError(f"{phase}: children alive: {alive}")
+    log(f"phase {phase}: exception -> exit 1, dump with its traceback and "
+        f"'dispatch' aborted; SIGTERM in 'fetch' -> step 2 committed "
+        f"(reason preempt) before the dump, resumed to loss {losses[2]:.6f} "
+        f"and the state bit for bit; a {CRASH_SLEEP_S:g} s device wait in "
+        f"'fetch' -> the watchdog fired after "
+        f"{hang[0]['seconds_since_last_step']:.2f} s (deadline "
+        f"{CRASH_HANG_S:g} s) while the main thread waited on the card, "
+        f"dump without metrics, escalation exit 75 with step 2 committed; "
+        f"all dumps valid; {time.perf_counter() - t0:.1f} s")
+
+
+class _LateLoad:
+    """A ``DistributedDataParallel`` stand-in for ``build_resnet_step``:
+    before each gradient sync, when ``slow`` is set, rank 1's input
+    pipeline hands over the next batch STRAGGLER_DELAY_S late (a
+    ``data/load`` span), so the wait the other rank sees in the sync's
+    collective is this load alone."""
+
+    def __init__(self, ddp):
+        self.ddp, self.mesh, self.slow = ddp, ddp.mesh, False
+
+    def sync(self, grads):
+        from apex_tpu_torch import trace
+        if self.slow:
+            with trace.span("data/load"):
+                time.sleep(STRAGGLER_DELAY_S)
+        return self.ddp.sync(grads)
+
+
+def straggler_rank(rank, world, hb_dir):
+    """One rank of straggler_podview_two_ranks: a small ResNet (two
+    bottleneck stages, O2 bf16, arena SGD) under
+    ``DistributedDataParallel(delay_allreduce=True)`` over the gloo group,
+    STRAGGLER_WARMUP untraced steps, then STRAGGLER_STEPS traced steps
+    with a ``HeartbeatWriter``; rank 1 spends
+    STRAGGLER_DELAY_S in a ``data/load`` span on the STRAGGLER_SLOW
+    steps, between its backward and the gradient sync (``_LateLoad``).
+    Rank 0 runs a ``StragglerWatch`` over the heartbeats into a
+    ``HangWatchdog``'s early warning (polled after every step) and
+    returns the flags, warnings and stall calls; both return their span
+    events and step durations."""
+    import torch
+    from apex_tpu_torch import models, parallel, trace, train
+
+    mesh = parallel.data_parallel_mesh()
+    model = models.ResNet(stage_sizes=[1, 1], num_classes=1000,
+                          dtype=torch.bfloat16, device="cuda", seed=0)
+    late = _LateLoad(parallel.DistributedDataParallel(
+        mesh, delay_allreduce=True))
+    step, (state, bs), (x, y), _, _ = train.build_resnet_step(
+        STRAGGLER_BATCH, STRAGGLER_SIZE, model=model, strategy="arena",
+        ddp=late)
+    for _ in range(STRAGGLER_WARMUP):   # kernels loaded before the trace
+        state, bs, loss = step(state, bs, x, y)
+        loss.item()
+    tracer = trace.Tracer()
+    hb = trace.HeartbeatWriter(hb_dir, rank=rank)
+    tracer.subscribe(hb.on_step)
+    out = {"flags": [], "warnings": [], "stalls": []}
+    if rank == 0:
+        wd = trace.HangWatchdog(600.0, tracer=tracer,
+                                on_fire=out["warnings"].append,
+                                on_stall=out["stalls"].append)
+        watch = trace.StragglerWatch(trace.StragglerDetector(hb_dir),
+                                     watchdog=wd, renotify_s=0.0)
+        wd.start()
+    with tracer:
+        for i in range(STRAGGLER_STEPS):
+            late.slow = rank == 1 and i in STRAGGLER_SLOW
+            with trace.step(i):
+                with trace.span("dispatch"):
+                    state, bs, loss = step(state, bs, x, y)
+                    loss.item()
+            if rank == 0:
+                out["flags"].append([r.rank for r in watch.poll_once()])
+    torch.distributed.barrier()
+    if rank == 0:
+        out["flags"].append([r.rank for r in watch.poll_once()])
+        wd.stop()
+    out["spans"] = tracer.span_events(rank)
+    out["durs"] = [st.dur_ms for st in tracer.steps]
+    return out
+
+
+def straggler_body(rank, world, tmp):
+    _run_rank(lambda r, w: straggler_rank(r, w, f"{tmp}/hb"), rank, world,
+              tmp)
+
+
+def straggler_podview_two_ranks():
+    """Phase straggler_podview_two_ranks: two gloo ranks on the card
+    (``straggler_rank``), rank 1 STRAGGLER_DELAY_S late in ``data/load``
+    before the gradient sync on steps 4-11. (A load at the top of the
+    step puts the slow rank's forward in the wait window, and the blame,
+    the deepest span there, goes to ``amp/fwd``: PERF.md §6, PR 18.)
+    ``PodTimeline.merge`` of both ranks' span events
+    blames rank 1's ``data/load`` for every ``ddp/sync_gradients`` skew of
+    steps 4-11, at 50 ± 15 ms; steps 0-3 blame no load, and steps 1-3
+    skew under 15 ms (step 0 is each rank's warm-up). The
+    heartbeat tier is held to what the heartbeats can show: the step
+    barrier of the gradient sync makes both ranks' step durations equal
+    (rank 0 waits in the collective what rank 1 spends loading), so the
+    detector's duration lag stays under its 1 ms floor plus the
+    ranks' jitter and it flags nobody at any step — and with two ranks
+    its robust z can never pass 1/1.4826 anyway (PERF.md §7) — and the
+    watchdog's early warning and its stall hook both stay silent."""
+    from apex_tpu_torch import trace
+
+    phase = "straggler_podview_two_ranks"
+    ranks = _spawn(phase, straggler_body, 2)
+    pod = trace.PodTimeline.merge({r: out["spans"]
+                                   for r, out in enumerate(ranks)})
+    skews = [c for c in pod.collective_skew()
+             if c.name == "ddp/sync_gradients"]
+    slow = [c for c in skews if c.step in STRAGGLER_SLOW]
+    fast = [c for c in skews if c.step not in STRAGGLER_SLOW]
+    lags = [d1 - d0 for d0, d1 in zip(ranks[0]["durs"], ranks[1]["durs"])]
+    want = STRAGGLER_DELAY_S * 1e3
+    checks = {
+        "matched": len(skews) == STRAGGLER_STEPS,
+        "blame": all(c.blamed_rank == 1 and c.blamed_span == "data/load"
+                     and abs(c.skew_ms - want) <= 15.0 for c in slow),
+        "steps 0-3": all(c.blamed_span != "data/load" for c in fast)
+        and all(c.skew_ms < 15.0 for c in fast if c.step > 0),
+        "no flag": not any(ranks[0]["flags"]),
+        "watchdog quiet": not ranks[0]["warnings"]
+        and not ranks[0]["stalls"]}
+    if not all(checks.values()):
+        raise AssertionError(
+            f"{phase}: {checks}; skews "
+            f"{[(c.step, round(c.skew_ms, 2), c.blamed_rank, c.blamed_span) for c in skews]}"
+            f", flags {ranks[0]['flags']}, lags {lags}")
+    log(f"phase {phase}: ddp/sync_gradients skew blamed on rank 1 "
+        f"'data/load' at steps 4-11: "
+        f"{[round(c.skew_ms, 2) for c in slow]} ms (want {want:g} ± 15), "
+        f"steps 0-3 {[round(c.skew_ms, 2) for c in fast]} ms; step "
+        f"duration lag rank 1 - rank 0 {[round(v, 2) for v in lags]} ms: "
+        f"the barrier evens the steps, the detector flagged nobody and the "
+        f"watchdog stayed silent")
+
+
+def observability_phases(smi):
+    """This slice's phases, after resnet50_arena: the traced ResNet-50
+    step, NaN provenance on it, the crash dumps and the straggler/pod
+    view; each logs its wall time."""
+    import torch
+    t = time.perf_counter()
+    traced = resnet50_traced(smi)
+    log(f"phase resnet50_traced: {time.perf_counter() - t:.1f} s")
+    t = time.perf_counter()
+    debug_nans_card(smi, traced)
+    del traced
+    torch.cuda.empty_cache()
+    log(f"phase debug_nans_card: {time.perf_counter() - t:.1f} s")
+    for fn in (crash_dumps_card, straggler_podview_two_ranks):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.empty_cache()
+        log(f"phase {fn.__name__}: {time.perf_counter() - t:.1f} s")
 
 
 def data_cluster_phases():
@@ -7563,6 +8271,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     resnet_losses, _, _, resnet_peak = train_resnet50("resnet50", rows)
     resnet50_arena(rows, resnet_losses)
+    torch.cuda.empty_cache()
+    observability_phases(smi)
     torch.cuda.empty_cache()
     resnet_plain_vs_kernel()
     torch.cuda.empty_cache()

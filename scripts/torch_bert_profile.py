@@ -381,9 +381,11 @@ def main() -> int:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
-    # device events, less the device-side spans of the annotations
+    # device events, less the device-side spans of the annotations (the
+    # script's own, and those of the trace spans and collective scopes)
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)
                and e.name not in (BN_FWD, BATCH_NORM)]
     by_cat, by_name, ln_parts = {}, {}, {}
     for e in kernels:

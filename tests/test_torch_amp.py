@@ -174,8 +174,9 @@ def test_unported_hooks_raise():
     from apex_tpu_torch.optim import FusedLAMB
 
     pol = tamp.Policy.from_opt_level("O1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tamp.Amp(pol, FusedLAMB(), monitor=True)
+    # monitor= is ported: the state carries the Metrics tuple
+    assert tamp.Amp(pol, FusedLAMB(), monitor=True).init(
+        {"w": torch.ones(3)}).metrics is not None
     amp_opt = tamp.Amp(pol, FusedLAMB())
     state = amp_opt.init({"w": torch.ones(3)})
     for hook in ("numerics", "dynamics"):      # guard= is ported

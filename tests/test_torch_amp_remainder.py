@@ -96,8 +96,10 @@ def test_initialize_prints_on_rank0_and_overrides_win(capsys):
     assert amp_opt.policy.loss_scale == 128.0
     tamp.initialize(_tparams(), SGDTx(0.1), "O1", verbosity=0)
     assert capsys.readouterr().out == ""
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tamp.initialize(_tparams(), SGDTx(0.1), "O1", monitor=True)
+    # monitor= is ported: the state carries the Metrics tuple
+    _, state = tamp.initialize(_tparams(), SGDTx(0.1), "O1", verbosity=0,
+                               monitor=True)
+    assert state.metrics is not None
 
 
 @pytest.mark.parametrize("level", ["O0", "O1", "O2", "O3"])

@@ -283,8 +283,9 @@ def test_legacy_schedule_never_grows_past_its_start():
         ts = topt.step(ts, g, fin)
         scales.append(float(topt.loss_scale(ts)))
     assert max(scales) <= 2.0 ** 32
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tfp.FP16_Optimizer(TSGD(lr=0.1), monitor=True)
+    # monitor= is ported: the state carries the Metrics tuple
+    assert tfp.FP16_Optimizer(TSGD(lr=0.1), monitor=True).init(
+        {"w": torch.ones(3)}).metrics is not None
 
 
 def test_clip_master_grads_matches_jax():

@@ -1,8 +1,9 @@
 """apex_tpu_torch stands alone: no JAX and nothing of apex_tpu.
 
 Importing the port (every module of it, the checkpoint, guard, utils,
-data, cluster and trace modules named) in a fresh interpreter leaves no
-``jax``, ``ml_dtypes``, ``apex_tpu`` or ``PIL`` module in ``sys.modules``
+data, cluster, trace and monitor modules named) in a fresh interpreter
+leaves no ``jax``, ``ml_dtypes``, ``apex_tpu`` or ``PIL`` module in
+``sys.modules``
 (the port decodes JPEGs with its own codec); an AST scan of its
 sources, of ``chip_smoke.py``, of its scripts (``scripts/torch_*.py``) and
 of the rank bodies its multi-process tests spawn
@@ -57,7 +58,11 @@ def test_import_leaves_no_jax_or_apex_tpu():
                 "data", "data.jpeg", "data.resample", "data.pipeline",
                 "data.packed", "data.__main__", "cluster",
                 "cluster.membership", "cluster.coordinator", "trace",
-                "trace.straggler"):
+                "trace.straggler", "trace.spans", "trace.debug_nans",
+                "trace.recorder", "trace.watchdog", "trace.podview",
+                "monitor", "monitor.metrics", "monitor.sinks",
+                "monitor.logger", "monitor.goodput",
+                "monitor.collectives"):
         assert f"apex_tpu_torch.{pkg}" in loaded
     assert [m for m in loaded if _forbidden(m, package=True)] == []
 
@@ -335,3 +340,30 @@ def test_data_cluster_trace_and_the_imagenet_script_are_covered(monkeypatch):
                  "--arch", "resnet18"])
     with pytest.raises(RuntimeError, match="cuda"):
         train.build_resnet_step(2, 16, with_accuracy=True)
+
+
+def test_trace_monitor_and_the_trace_script_are_covered(monkeypatch):
+    """trace/ and monitor/ are scanned and imported; the traced ResNet
+    script and ``build_bert_step(monitor=True)`` ask for cuda unless
+    given a device."""
+    import importlib.util
+
+    from apex_tpu_torch import train
+
+    scanned = {m for _, m in _sources()}
+    assert {"apex_tpu_torch.trace.spans", "apex_tpu_torch.trace.recorder",
+            "apex_tpu_torch.trace.watchdog", "apex_tpu_torch.trace.podview",
+            "apex_tpu_torch.trace.debug_nans", "apex_tpu_torch.monitor",
+            "apex_tpu_torch.monitor.logger", "apex_tpu_torch.monitor.goodput",
+            "scripts/torch_trace_resnet.py"} <= scanned
+    spec = importlib.util.spec_from_file_location(
+        "torch_trace_resnet", ROOT / "scripts" / "torch_trace_resnet.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert mod.parse_args([]).device == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        mod.main(["--steps", "1", "--batch", "2", "--size", "16",
+                  "--arch", "resnet18"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.build_bert_step(2, 16, monitor=True)

@@ -290,7 +290,8 @@ def test_shrink_schedule_matches_jax(world, kw):
         jpar.shrink_schedule(world, **kw)
 
 
-def test_launch_helpers_without_a_process_group(monkeypatch, capsys):
+def test_launch_helpers_without_a_process_group(monkeypatch, capsys,
+                                                 tmp_path):
     for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
         monkeypatch.delenv(var, raising=False)
     tpar.distributed_init()                      # single process: no-op
@@ -301,8 +302,12 @@ def test_launch_helpers_without_a_process_group(monkeypatch, capsys):
     assert capsys.readouterr().out == "hello\n"
     with pytest.raises(ValueError):
         tpar.shrink_schedule(8, factor=1)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tpar.enable_crash_dumps()
+    # enable_crash_dumps is ported: the fixed four-slot shape
+    tracer, rec, wd, cd = tpar.enable_crash_dumps(
+        str(tmp_path / "crash.jsonl"))
+    rec.uninstall()
+    assert (type(tracer).__name__, type(rec).__name__, wd, cd) == (
+        "Tracer", "FlightRecorder", None, None)
     # elastic_run is ported: a run that completes returns its result
     assert tpar.elastic_run(lambda world, attempt: (world, attempt),
                             world_sizes=[4, 2]) == (4, 0)
