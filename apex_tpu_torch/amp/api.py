@@ -30,7 +30,11 @@ step/skip counts — device arithmetic queued with the step, no host sync.
 The forensic spans (``amp/fwd``, ``amp/unscale``, ``amp/update``) and the
 NaN-provenance probes (``amp/fwd``, ``amp/bwd``, ``amp/unscale``,
 ``amp/update``) sit where the JAX package's do; both are passive without
-a ``trace.Tracer`` and the ``trace.debug_nans`` mode.
+a ``trace.Tracer`` and the ``trace.debug_nans`` mode. ``Amp.step``'s
+``numerics=`` and ``dynamics=`` hooks fold the numerics and
+training-dynamics monitors (:mod:`apex_tpu_torch.monitor.numerics`,
+:mod:`apex_tpu_torch.monitor.dynamics`) over the step's cast copy, grads
+and update, read-only and with no host sync.
 """
 
 from __future__ import annotations
@@ -53,8 +57,6 @@ from apex_tpu_torch.trace.debug_nans import nan_probe
 from apex_tpu_torch.trace.spans import span as trace_span
 from apex_tpu_torch.utils import tree_cast, tree_leaves, tree_map, tree_select
 
-_UNPORTED_HOOK = ("the {} hook of Amp is not ported yet (ROADMAP.md queue A "
-                  "item 11 part 2, the rest of monitor/)")
 
 
 class AmpState(NamedTuple):
@@ -226,6 +228,26 @@ class Amp:
         return state._replace(step=step, params=params, opt_state=opt_state,
                               metrics=metrics)
 
+    def numerics_sites(self, params) -> tuple:
+        """The site tuple :meth:`step`'s ``numerics=`` hook observes for
+        ``params``-shaped state: one site per leaf for each of ``amp/cast``
+        (the model-dtype forward copy), ``amp/grads`` (the unscaled f32
+        grads) and ``amp/update`` (the committed update, with the weight
+        as its update-to-weight companion), named as the JAX package names
+        them. Feed it to :func:`apex_tpu_torch.monitor.numerics.numerics_init`."""
+        from apex_tpu_torch.monitor.numerics import site_names
+        return site_names({"amp/cast": params, "amp/grads": params,
+                           "amp/update": params})
+
+    def dynamics_sites(self, params) -> tuple:
+        """The site tuple :meth:`step`'s ``dynamics=`` hook observes: one
+        ``dynamics/update`` site per leaf (the committed update, with the
+        unscaled f32 grad as the effective-LR companion and the weight as
+        the update-to-weight companion). Feed it to
+        :func:`apex_tpu_torch.monitor.dynamics.dynamics_init`."""
+        from apex_tpu_torch.monitor.dynamics import site_names
+        return site_names({"dynamics/update": params})
+
     def step(self, state: AmpState, loss_fn: Callable, *args,
              loss_id: int = 0, has_aux: bool = False, guard=None,
              numerics=None, dynamics=None, **kwargs):
@@ -243,15 +265,88 @@ class Amp:
         Without a loss scaler (bf16) amp has no finiteness flag, and the
         guard takes it from the true norm: the JAX package passes its
         Python ``True`` on, which lets a NaN gradient commit there.
+
+        ``numerics=(numerics_state, numerics_config)`` folds the numerics
+        monitor (:func:`apex_tpu_torch.monitor.numerics.numerics_observe`)
+        over the model-dtype cast copy of the old params (``amp/cast``),
+        the unscaled f32 grads (``amp/grads``, before any guard scaling)
+        and the committed update ``new - old`` in f32 with the old params
+        as companions (``amp/update``), under :meth:`numerics_sites`. The
+        return grows ``numerics_state'`` (after the guard state).
+        ``dynamics=(dynamics_state, dynamics_config)``, or ``(ds, dcfg,
+        probe)`` with a ``parallel.distributed.dynamics_probe`` result (or
+        a zero-arg callable returning one), folds the dynamics monitor
+        over the update (``dynamics/update``, :meth:`dynamics_sites`) with
+        the grads and the old params as companions; the return grows a
+        last element ``dynamics_state'``. The cast copy and the update are
+        built only on a fold step; the old params are kept until then (the
+        optimizer returns new tensors). Both hooks are read-only: losses
+        and params are bit for bit those of the step without them, and
+        neither reads anything back to the host.
         """
-        for name, hook in (("numerics=", numerics), ("dynamics=", dynamics)):
-            if hook is not None:
-                raise NotImplementedError(_UNPORTED_HOOK.format(name))
         out, grads, state, finite = self.backward(
             state, loss_fn, *args, loss_id=loss_id, has_aux=has_aux,
             **kwargs)
+        old_params = state.params
+        obs_grads = grads
         if guard is None:
-            return self.apply_gradients(state, grads, finite), out, finite
+            new_state = self.apply_gradients(state, grads, finite)
+            ret = (new_state, out, finite)
+        else:
+            new_state, committed, gs = self._guarded_apply(
+                state, grads, finite, out, has_aux, guard)
+            ret = (new_state, out, committed, gs)
+        if numerics is None and dynamics is None:
+            return ret
+        from apex_tpu_torch.monitor.numerics import Flat, _leaves, flat_cat
+        memo = {}
+
+        def flats():
+            # the old params, the grads and the update new - old as flat
+            # f32 buffers, once, shared by both hooks
+            if not memo:
+                old, new = _leaves(old_params), _leaves(new_state.params)
+                lengths = tuple(x.numel() for x in old)
+                old_flat = flat_cat(old)
+                if all(x.is_floating_point() for x in old):
+                    delta = flat_cat(new).sub_(old_flat)
+                else:
+                    delta = flat_cat([n.float() - o.float()
+                                      if o.is_floating_point() else n
+                                      for n, o in zip(new, old)])
+                memo.update(old=Flat(old_flat, lengths),
+                            delta=Flat(delta, lengths),
+                            grads=Flat(flat_cat(_leaves(obs_grads)),
+                                       lengths))
+            return memo
+
+        if numerics is not None:
+            from apex_tpu_torch.monitor.numerics import numerics_observe
+            ns, ncfg = numerics
+
+            def trees():
+                cast = self.policy.cast_params(old_params)
+                return {"amp/cast": (flats()["old"] if cast is old_params
+                                     else cast),
+                        "amp/grads": flats()["grads"],
+                        "amp/update": flats()["delta"]}
+
+            ret = ret + (numerics_observe(
+                ns, ncfg, trees,
+                weights={"amp/update": lambda: flats()["old"]}),)
+        if dynamics is not None:
+            from apex_tpu_torch.monitor.dynamics import dynamics_observe
+            ds, dcfg, *probe = dynamics
+            ret = ret + (dynamics_observe(
+                ds, dcfg, lambda: {"dynamics/update": flats()["delta"]},
+                probe=probe[0] if probe else None,
+                grads={"dynamics/update": lambda: flats()["grads"]},
+                weights={"dynamics/update": lambda: flats()["old"]}),)
+        return ret
+
+    def _guarded_apply(self, state, grads, finite, out, has_aux, guard):
+        """The guard's observe, LR scaling and commit (``step(guard=)``):
+        returns (state', committed, guard_state')."""
         from apex_tpu_torch.guard import guard_observe, guard_ok
         if len(guard) == 3:
             gs, gcfg, replica_ok = guard
@@ -273,7 +368,7 @@ class Amp:
             committed = committed & torch.as_tensor(finite).to(
                 committed.device)
         return (self.apply_gradients(state, grads, committed,
-                                     metrics_grad_norm=true_norm), out,
+                                     metrics_grad_norm=true_norm),
                 committed, gs)
 
     # -- memory accounting ---------------------------------------------------
@@ -340,6 +435,7 @@ class Amp:
 
 def _dtype_name(dtype) -> str:
     return str(dtype).replace("torch.", "")
+
 
 
 def initialize(params, tx, opt_level: str = "O1", *,

@@ -385,6 +385,37 @@ def scale_history_from_jax(state, device="cuda"):
         step=t(state.step, torch.int32))
 
 
+def _monitor_state(cls, state, device):
+    """A port monitor state of ``cls`` from the JAX package's (numpy or
+    device arrays): every field bit for bit, int32 counters and f32
+    tensors, with the step's host mirror registered for the cadence."""
+    from apex_tpu_torch.monitor.numerics import register_step
+    out = {}
+    for name in cls._fields:
+        arr = np.asarray(getattr(state, name))
+        dtype = (torch.int32 if np.issubdtype(arr.dtype, np.integer)
+                 else torch.float32)
+        out[name] = torch.as_tensor(arr.astype(
+            np.int32 if dtype == torch.int32 else np.float32)).to(
+                device=device, dtype=dtype)
+    register_step(out["step"], int(np.asarray(state.step)))
+    return cls(**out)
+
+
+def numerics_state_from_jax(state, device="cuda"):
+    """The port's ``monitor.numerics.NumericsState`` from the JAX
+    package's, on ``device``."""
+    from apex_tpu_torch.monitor.numerics import NumericsState
+    return _monitor_state(NumericsState, state, device)
+
+
+def dynamics_state_from_jax(state, device="cuda"):
+    """The port's ``monitor.dynamics.DynamicsState`` from the JAX
+    package's, on ``device``."""
+    from apex_tpu_torch.monitor.dynamics import DynamicsState
+    return _monitor_state(DynamicsState, state, device)
+
+
 #: one step of a ``jax.tree_util.keystr`` path: ``.field``, ``['key']`` or
 #: ``[index]``
 _KEYSTR = re.compile(r"\.([A-Za-z_]\w*)|\[('(?:[^'\\]|\\.)*'|-?\d+)\]")

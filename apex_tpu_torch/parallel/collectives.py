@@ -11,6 +11,12 @@ the CPU; they are not kernels of the port.
 Every rank must issue the same collectives in the same order, so no
 caller skips one at world size 1 or for an empty shard.
 
+Bytes. ``bytes_by`` adds up each call's result bytes by (opcode, dtype,
+scope), the opcode and dtype spelled as XLA's HLO spells them
+(``all-reduce``, ``bf16``), so that ``monitor.collectives`` can account
+a step's traffic as the JAX package does from its compiled program. An
+all-gather counts its gathered output, a reduce-scatter its shard.
+
 Staging on gloo. A gloo group carries some calls for CUDA tensors and ends
 the process on others (``scripts/torch_gloo_probe.py`` tries each on the
 card). The calls in ``GLOO_HOST_STAGED`` are therefore staged through host
@@ -34,6 +40,25 @@ counts = collections.Counter()
 #: calls staged through host memory, by call, since ``reset_counts()``
 staged = collections.Counter()
 
+#: result bytes, by (opcode, dtype, scope), since ``reset_counts()``
+bytes_by = collections.Counter()
+
+#: the HLO opcode of each call
+OPCODES = {"all_reduce": "all-reduce", "all_gather": "all-gather",
+           "reduce_scatter": "reduce-scatter", "all_to_all": "all-to-all",
+           "send_recv": "collective-permute",
+           "broadcast": "collective-broadcast"}
+
+_HLO_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16",
+               torch.float16: "f16", torch.float64: "f64",
+               torch.int8: "s8", torch.uint8: "u8", torch.int16: "s16",
+               torch.int32: "s32", torch.int64: "s64", torch.bool: "pred"}
+
+
+def hlo_dtype(dtype: torch.dtype) -> str:
+    """A dtype as XLA's HLO spells it (``f32``, ``bf16``, ``s8``)."""
+    return _HLO_DTYPES.get(dtype, str(dtype).replace("torch.", ""))
+
 #: calls a gloo group cannot carry for CUDA tensors: on torch 2.11 + CUDA
 #: 12.8 on an H100, ``scripts/torch_gloo_probe.py`` finds send/recv ends
 #: the process (gloo writes from the device pointer), while all_reduce,
@@ -45,6 +70,7 @@ GLOO_HOST_STAGED = frozenset({"send_recv"})
 def reset_counts() -> None:
     counts.clear()
     staged.clear()
+    bytes_by.clear()
 
 
 def _host_staged(call, group, tensors) -> bool:
@@ -67,6 +93,9 @@ def _issue(scope, call, fn, outs, ins=(), group=None, **kwargs):
         else:
             fn(*outs, *ins, group=group, **kwargs)
     counts[scope] += 1
+    for t in outs:
+        bytes_by[(OPCODES[call], hlo_dtype(t.dtype), scope)] += (
+            t.numel() * t.element_size())
     if host:
         staged[call] += 1
 

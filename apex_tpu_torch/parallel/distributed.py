@@ -21,9 +21,11 @@ counterpart: eager PyTorch issues each all-reduce as it is called.
 compression: a hierarchical plan syncs through
 ``hierarchy.hierarchical_sync`` over its (``data_inter``, ``data_intra``)
 axes, a flat one through ``comm.bucketed_all_reduce`` with the plan's
-dtype. ``collective_bytes`` and ``memory_report`` read the compiled HLO in
-JAX and raise here (ROADMAP.md queue A, item 11), as does
-``dynamics_probe`` (the monitor).
+dtype. ``collective_bytes`` runs a step once and reads the port's
+collective ledger (``monitor.collectives``), where the JAX package reads
+the compiled HLO; ``memory_report`` reads compiled HLO in JAX and raises
+here (ROADMAP.md queue A, item 11 part 3). ``dynamics_probe`` feeds the
+training-dynamics monitor.
 
 Every collective runs inside a ``torch.profiler.record_function`` named by
 the registry (``ddp/sync_gradients``, ``bucketNN``, ``ddp/loss_pmean``)
@@ -130,9 +132,48 @@ def flat_tree_all_reduce(grads, axis_name: str = DATA_AXIS, *,
 
 
 def dynamics_probe(local_grads, synced_grads, axis_name: str = DATA_AXIS):
-    raise NotImplementedError(
-        "dynamics_probe feeds monitor.dynamics, not ported yet (ROADMAP.md "
-        "queue A, item 11 part 2)")
+    """The training-dynamics monitor's per-step gradient scalars
+    (:class:`apex_tpu_torch.monitor.dynamics.DynamicsProbe`): call between
+    the sync and ``apply_gradients`` with this replica's LOCAL gradient
+    tree and the synced (averaged) tree, and feed the result to
+    ``Amp.step(dynamics=(ds, dcfg, probe))`` or ``dynamics_observe``.
+
+    Two collectives, each under its registered scope and trace span
+    (``kind="collective"``), run by every rank at every world size:
+
+    - ``ddp/dynamics_gns``: one f32 scalar all-reduce (a mean) of the
+      per-replica squared grad norm: the mean ``|G_local|²`` the GNS
+      estimator pairs against the pooled ``|G_big|²`` (computed locally:
+      the synced tree is the same on every replica);
+    - ``ddp/dynamics_geom``: one all-gather of the per-replica
+      ``[|g_i|², g_i·ḡ]`` f32 pair: the cosine spectrum and the Adasum
+      projection coefficients, ``8·world`` bytes of result.
+
+    ``synced_grads`` must be the averaged sync output. Non-float leaves
+    are ignored, as the sync ignores them. No host sync."""
+    from apex_tpu_torch.monitor.dynamics import DynamicsProbe
+    from apex_tpu_torch.monitor.numerics import flat_cat
+    from apex_tpu_torch.trace.spans import span
+    group = resolve_group(axis_name)
+    world = dist.get_world_size(group)
+    g, s = (flat_cat([x for x in tree_leaves(t) if _is_float(x)])
+            for t in (local_grads, synced_grads))
+    if g.numel() != s.numel():
+        raise ValueError("dynamics_probe: local and synced trees differ")
+    local_sq = torch.dot(g, g)
+    pooled_sq = torch.dot(s, s)
+    dot = torch.dot(g, s)
+    with span("ddp/dynamics_gns", kind="collective"):
+        local_sq_mean = collectives.all_reduce(
+            local_sq.clone(), group, "ddp/dynamics_gns") / world
+    with span("ddp/dynamics_geom", kind="collective"):
+        pairs = collectives.all_gather(torch.stack([local_sq, dot]), group,
+                                       "ddp/dynamics_geom")
+    return DynamicsProbe(
+        local_sq_mean=local_sq_mean, pooled_sq=pooled_sq,
+        local_sqs=pairs[:, 0], dots=pairs[:, 1],
+        world=torch.full((), float(world), dtype=torch.float32,
+                         device=g.device))
 
 
 class Reducer:
@@ -345,10 +386,17 @@ class DistributedDataParallel:
             return value, self.sync(grads)
         return wrapped
 
-    def collective_bytes(self, *args, **kwargs):
-        raise NotImplementedError(
-            "collective_bytes reads compiled HLO in the JAX package; its "
-            "port belongs to monitor/ (ROADMAP.md queue A, item 11 part 2)")
+    def collective_bytes(self, step_fn: Callable, *args, **kwargs) -> dict:
+        """Per-step collective traffic of a (wrapped) step, by opcode:
+        ``{"all-reduce": bytes, ..., "total": bytes}``. Runs
+        ``step_fn(*args, **kwargs)`` once with the mesh bound and reads the
+        result bytes its collectives added to the ledger
+        (:func:`apex_tpu_torch.monitor.collectives.collective_bytes`; the
+        JAX package reads its compiled HLO). Feed it to
+        ``MetricsLogger(collective_bytes_per_step=...)``."""
+        from apex_tpu_torch.monitor.collectives import collective_bytes
+        with use_mesh(self.mesh):
+            return collective_bytes(step_fn, *args, **kwargs)
 
     def memory_report(self, *args, **kwargs):
         raise NotImplementedError(

@@ -6,10 +6,9 @@ communicates over and the subsystem that owns it. In the port the scope is
 the ``torch.profiler.record_function`` name around the collective
 (``parallel.collectives``), so a profiler trace attributes each
 collective to its row; ``distributed.KNOWN_COLLECTIVE_SCOPES`` is the flat
-view of the patterns. Rows of subsystems not ported yet (the guard, the
-monitor's probes) stay, as the JAX package's table has them. One row is
-the port's own (``PORT_ONLY_PATTERNS``): ``zero/grad_norm``, the ZeRO
-norm sums, which the JAX package issues unscoped.
+view of the patterns. One row is the port's own (``PORT_ONLY_PATTERNS``):
+``zero/grad_norm``, the ZeRO norm sums, which the JAX package runs
+unscoped.
 """
 
 from __future__ import annotations
@@ -57,7 +56,7 @@ COLLECTIVE_SCOPES: Tuple[CollectiveScope, ...] = (
     CollectiveScope(r"ddp/dynamics_gns", DATA_AXIS, "ddp",
                     "gradient-noise-scale probe: one scalar psum of "
                     "the per-replica squared grad norm "
-                    "(monitor.dynamics, not ported yet)"),
+                    "(apex_tpu_torch.monitor.dynamics)"),
     CollectiveScope(r"ddp/dynamics_geom", DATA_AXIS, "ddp",
                     "replica-gradient geometry probe: all-gather of "
                     "the per-replica [|g_i|^2, g_i.gbar] scalar pair "

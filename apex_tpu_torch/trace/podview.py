@@ -15,9 +15,8 @@ two questions a per-rank view structurally cannot:
   arriver and the host span it was running) versus *wire time*
   (last-entry → exit);
 - **is the link model stale** — the measured wire times are the join
-  key the JAX package's ``monitor.comm_drift`` compares against
-  ``CommPlan.hop_seconds`` (the port's ``comm_drift`` is ROADMAP.md
-  queue A, item 11 part 2).
+  key :func:`apex_tpu_torch.monitor.comm_drift.wire_from_pod` compares
+  against ``CommPlan.hop_seconds``.
 
 **Clock alignment contract.** Ranks share no clock; what they share is
 that a blocking collective's *exit* is simultaneous across its

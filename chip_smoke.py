@@ -167,6 +167,22 @@ plain PyTorch version on the card at the shapes its main path gives it
   late in ``data/load``, blamed by the pod view (straggler_podview_two_ranks).
   cluster_zombie_elastic's rank 0 now notices its stopped peer through
   ``HangWatchdog``.
+- The numerics and dynamics monitors, right after the tracing phases:
+  BERT-Large (B16 S512 O1 bf16, arena FusedLAMB) through
+  ``Amp.step(numerics=, dynamics=)`` in turns with the plain step
+  (bert_large_observed: losses and params bit for bit the arena run's,
+  hand-kernel launches unchanged, no host sync, no surprise and no
+  nonfinite site, events valid; device kernels and ms, wall ms and peak
+  GiB against the plain step; the fold's kernels at 292 and 49 leaves;
+  an off-step of each hook at ``check_every=10``; one NaN grad leaf named
+  by ``nonfinite_sites``); the fp8 flag of a tensor straddling 2^-6
+  (numerics_flag_card); two gloo ranks with a depth-2 BERT: the probe's
+  two collectives and bytes, cos = proj = 1 on replicated grads, the GNS
+  of injected noise within 25% (dynamics_two_ranks), and sweep → fit →
+  MeshModel → ``plan_comm`` → ``measure_hops`` → ``compare`` with the pod
+  join (linkbench_drift_two_ranks); and the convergence band of the DLRM
+  bottom MLP: the plain path passes, a x10 learning rate is flagged
+  (convergence_mlp).
 - Data, cluster and ``elastic_run``, after the ResNet phases, on a JPEG
   tree the port's encoder writes in the background from the start (512
   images, 256^2, 8 classes) and its packed cache: the codec (phase
@@ -7511,11 +7527,12 @@ def _schema(path, kind):
                              f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
 
 
-def _kernel_census(fn, iters=2):
+def _kernel_census(fn, iters=2, by_name=False):
     """(device kernels, device ms) of one ``fn()`` call, from a profiler
     session opened with ``device_ms``'s lead of short spins and closed by
     one (left out by name); retaken with a longer lead when the session
-    lost the opening or closing spin."""
+    lost the opening or closing spin. ``by_name`` adds a third element:
+    {kernel name: (launches, device ms)} of one call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -7545,8 +7562,16 @@ def _kernel_census(fn, iters=2):
             raise AssertionError("kernel census: sessions lost records")
         _LEAD[0] *= 2
     ks = [e for e in ks if e.name not in _SPIN_NAMES]
-    return (len(ks) / iters,
-            sum(e.time_range.elapsed_us() for e in ks) / 1e3 / iters)
+    out = (len(ks) / iters,
+           sum(e.time_range.elapsed_us() for e in ks) / 1e3 / iters)
+    if not by_name:
+        return out
+    names = {}
+    for e in ks:
+        n, ms = names.get(e.name, (0, 0.0))
+        names[e.name] = (n + 1 / iters,
+                         ms + e.time_range.elapsed_us() / 1e3 / iters)
+    return out + (names,)
 
 
 def resnet50_traced(smi):
@@ -8113,6 +8138,639 @@ def straggler_podview_two_ranks():
         f"watchdog stayed silent")
 
 
+# --- observability part 2: the numerics and dynamics monitors -----------------
+
+OBSERVED_STEPS = 5
+OBSERVED_TURNS = 2            # rounds of (plain, observed, observed, plain)
+OBSERVED_SPARSE = 10          # check_every of the off-step census
+FOLD_LEAVES = 49              # leaves of the short tree of the fold census
+PROBE_BATCH = 4               # per-rank batch of dynamics_two_ranks
+PROBE_STEPS = 3
+PLAN_BYTES = 1 << 24          # payload the two-rank link plan is made for
+CONV_STEPS, CONV_SEEDS = 40, (0, 1, 2)
+MONITOR_KEPT_BYTES = 32 << 20  # device memory the monitor phases may keep
+
+
+def _numerics_sites_of(name):
+    """The ``amp/grads`` site of one port parameter."""
+    import torch
+    from apex_tpu_torch.monitor import numerics as nx
+    return nx.site_names({"amp/grads": {name: torch.zeros(1)}})[0]
+
+
+def _poison_grad():
+    """An identity on one tensor whose backward returns NaN."""
+    import torch
+
+    class PoisonGrad(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * float("nan")
+
+    return PoisonGrad.apply
+
+
+def _write_events(events, name):
+    import tempfile
+    fd, path = tempfile.mkstemp(prefix=f"chip_smoke_{name}_",
+                                suffix=".jsonl")
+    with os.fdopen(fd, "w") as f:
+        for e in events:
+            f.write(json.dumps(e) + "\n")
+    return path
+
+
+def bert_large_observed(smi, arena_losses):
+    """Phase bert_large_observed: BERT-Large (B16, S512, O1 bf16,
+    FusedLAMB arena, ``train.build_bert_step``) stepped OBSERVED_STEPS
+    times through ``Amp.step(numerics=(ns, NumericsConfig()),
+    dynamics=(ds, DynamicsConfig(local_batch=16)))`` in turns with the
+    plain step from the same state. Gates: losses equal
+    bert_large_arena's and the plain run's, and every param the plain
+    run's, bit for bit; each observed step launches the hand kernels as
+    the arena step does; the hooks add no host sync (the port's
+    ``monitor.check.module_count_and_host_ops`` on a plain and an observed
+    step, which also counts their device kernels; the observed step then
+    runs under ``set_sync_debug_mode("error")`` when the plain one syncs
+    nowhere); ``precision_report`` finds no surprise at the sites'
+    current formats, ``nonfinite_sites`` is empty, and the numerics and
+    dynamics events pass the schema script. Cost in turns: device kernels
+    and device ms a step (profiler), wall ms a step, peak GiB; the fold's
+    kernels over all 292 leaves and over FOLD_LEAVES of them. With
+    ``check_every=OBSERVED_SPARSE`` an off-step of each hook adds at most
+    one kernel. Last, one grad leaf poisoned with NaN under
+    ``guard=``: ``nonfinite_sites`` names exactly its ``amp/grads`` site
+    and ``scale_amax`` is inf in that row."""
+    import torch
+    from apex_tpu_torch import guard, ops, train
+    from apex_tpu_torch.monitor import dynamics as dx
+    from apex_tpu_torch.monitor import numerics as nx
+    from apex_tpu_torch.monitor.check import module_count_and_host_ops
+
+    phase = "bert_large_observed"
+    clock = _Clock()
+    torch.cuda.empty_cache()
+    with clock("build"):
+        step, state0, (toks, labels), _policy, _enc = train.build_bert_step(
+            16, 512, strategy="arena")
+        app = step.amp_opt
+        loss_fn = step.make_loss(toks, labels)
+        sites = app.numerics_sites(state0.params)
+        dsites = app.dynamics_sites(state0.params)
+        ncfg, dcfg = nx.NumericsConfig(), dx.DynamicsConfig(local_batch=16)
+        ns = nx.numerics_init(ncfg, sites=sites, device=DEVICE)
+        ds = dx.dynamics_init(dcfg, sites=dsites, device=DEVICE)
+    per_step = dict(EXPECTED_PER_STEP, **ARENA_PER_STEP)
+    plain_state, obs_state = state0, state0
+    plain_losses, obs_losses = [], []
+
+    def plain():
+        nonlocal plain_state
+        plain_state, loss = step(plain_state, toks, labels)
+        return loss
+
+    def observed():
+        nonlocal obs_state, ns, ds
+        obs_state, loss, _fin, ns, ds = app.step(
+            obs_state, loss_fn, numerics=(ns, ncfg), dynamics=(ds, dcfg))
+        return loss
+
+    def counted(fn):
+        # (fn(), device kernels, host syncs) of one call
+        out = []
+        kernels, host = module_count_and_host_ops(lambda: out.append(fn()))
+        return out[0], kernels, host
+
+    with clock("steps"):
+        for i in range(OBSERVED_STEPS):
+            plain_losses.append(plain().item())
+            ops.reset_launch_counts()
+            if i == 0:
+                loss, obs_kernels, obs_syncs = counted(observed)
+            elif i == 1 and not plain_syncs:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    loss = observed()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            else:
+                loss = observed()
+            check_launches(phase, ops.launch_counts(), per_step, None,
+                           steps=1)
+            obs_losses.append(loss.item())
+            if i == 0:
+                _, plain_kernels, plain_syncs = counted(
+                    lambda: step(state0, toks, labels))
+    if not (obs_losses == plain_losses == list(arena_losses)):
+        raise AssertionError(f"{phase}: losses observed {obs_losses}, "
+                             f"plain {plain_losses}, arena {arena_losses}")
+    differ = [k for k in plain_state.params if not torch.equal(
+        plain_state.params[k], obs_state.params[k])]
+    if differ or len(obs_syncs) > len(plain_syncs):
+        raise AssertionError(f"{phase}: params differ at {differ[:5]}; "
+                             f"syncs observed {obs_syncs}, plain "
+                             f"{plain_syncs}")
+    if int(ns.check_count) != OBSERVED_STEPS or \
+            int(ds.check_count) != OBSERVED_STEPS:
+        raise AssertionError(f"{phase}: folds {int(ns.check_count)}, "
+                             f"{int(ds.check_count)}")
+    # the sites' formats today: the cast copy's dtypes, f32 grads and
+    # updates
+    cast = app.policy.cast_params(obs_state.params)
+    current = {s: (cast[k].dtype if s.startswith("amp/cast/")
+                   else torch.float32)
+               for s, k in zip(sites, _jax_ordered(cast) * 3)}
+    report = nx.precision_report(ns, sites, current_dtypes=current)
+    bad = nx.nonfinite_sites(ns, sites)
+    if report.surprises() or bad:
+        raise AssertionError(f"{phase}: surprises "
+                             f"{[r.site for r in report.surprises()][:5]}, "
+                             f"nonfinite {bad[:5]}")
+    drep = dx.dynamics_report(ds, dsites, local_batch=16)
+    if any(v is None or not v > 0 for v in drep.eff_lr + drep.uw_ratio):
+        raise AssertionError(f"{phase}: dynamics rows {drep.table()}")
+    with clock("schema"):
+        npath = _write_events(nx.check_events(ns, sites)
+                              + report.to_events(step=OBSERVED_STEPS),
+                              "numerics")
+        dpath = _write_events(dx.check_events(ds, dsites, local_batch=16),
+                              "dynamics")
+        try:
+            _schema(npath, "numerics")
+            _schema(dpath, "dynamics")
+        finally:
+            os.remove(npath)
+            os.remove(dpath)
+    with clock("cost"):
+        wall = {"plain": [], "observed": []}
+        for _ in range(OBSERVED_TURNS):
+            for name in ("plain", "observed", "observed", "plain"):
+                fn = plain if name == "plain" else observed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fn().item()
+                wall[name].append((time.perf_counter() - t0) * 1e3)
+        census = {}
+        for name in ("plain", "observed", "observed", "plain"):
+            census.setdefault(name, []).append(_kernel_census(
+                plain if name == "plain" else observed))
+        peak = {}
+        for name, fn in (("plain", plain), ("observed", observed)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            fn().item()
+            peak[name] = torch.cuda.max_memory_allocated() / 2**30
+        leaves = dict(obs_state.params)
+        short = dict(list(leaves.items())[:FOLD_LEAVES])
+        fold = {}
+        for tree in (leaves, short):
+            fsites = nx.site_names({"p": tree})
+            fns = [nx.numerics_init(ncfg, sites=fsites, device=DEVICE)]
+
+            def one(tree=tree, fns=fns):
+                fns[0] = nx.numerics_observe(fns[0], ncfg, {"p": tree})
+            fold[len(tree)] = _kernel_census(one, by_name=True)
+    with clock("sparse"):
+        sparse = nx.NumericsConfig(check_every=OBSERVED_SPARSE)
+        dsparse = dx.DynamicsConfig(check_every=OBSERVED_SPARSE,
+                                    local_batch=16)
+        hooks = {"numerics": nx.numerics_init(sparse, sites=sites,
+                                              device=DEVICE),
+                 "dynamics": dx.dynamics_init(dsparse, sites=dsites,
+                                              device=DEVICE)}
+
+        def sparse_step(which):
+            nonlocal obs_state
+            kw = ({"numerics": (hooks[which], sparse)}
+                  if which == "numerics"
+                  else {"dynamics": (hooks[which], dsparse)})
+            obs_state, loss, _fin, hooks[which] = app.step(
+                obs_state, loss_fn, **kw)
+            return loss
+
+        off = {}
+        for which in ("numerics", "dynamics"):
+            sparse_step(which).item()             # step 0 folds
+            off[which] = _kernel_census(lambda: sparse_step(which))
+        off_plain = _kernel_census(plain)
+        extra = {k: v[0] - off_plain[0] for k, v in off.items()}
+        if any(v > 1 for v in extra.values()) or \
+                int(hooks["numerics"].check_count) != 1:
+            raise AssertionError(f"{phase}: off-step kernels beyond the "
+                                 f"plain step's {extra}")
+    with clock("poison"):
+        victim = "TransformerLayer_0.FusedLayerNormModule_0.scale"
+
+        poison = _poison_grad()
+
+        def poisoned(mp):
+            return loss_fn(dict(mp, **{victim: poison(mp[victim])}))
+
+        gcfg = guard.GuardConfig(**GUARD_CFG)
+        gs = guard.guard_init(gcfg, device=DEVICE)
+        pns = nx.numerics_init(ncfg, sites=sites, device=DEVICE)
+        _s, ploss, committed, gs, pns = app.step(
+            obs_state, poisoned, guard=(gs, gcfg), numerics=(pns, ncfg))
+        bad = nx.nonfinite_sites(pns, sites)
+        want = _numerics_sites_of(victim)
+        amax = nx.scale_amax(pns).cpu()
+        row = sites.index(want)
+        if [s for s, _ in bad] != [want] or not math.isinf(
+                float(amax[row])) or bool(committed):
+            raise AssertionError(f"{phase}: poisoned {want}: nonfinite "
+                                 f"{bad}, scale_amax {float(amax[row])}, "
+                                 f"committed {bool(committed)}")
+    med = {k: _median(v) for k, v in wall.items()}
+    ck = {k: (_median([c for c, _ in v]), _median([d for _, d in v]))
+          for k, v in census.items()}
+    log(f"phase {phase}: {OBSERVED_STEPS} steps through Amp.step(numerics="
+        f", dynamics=): losses {[round(v, 6) for v in obs_losses]} = "
+        f"bert_large_arena's and the plain run's, every param bit for bit; "
+        f"hand-kernel launches a step {per_step}; {len(sites)} numerics "
+        f"sites, {len(dsites)} dynamics sites; module_count_and_host_ops "
+        f"of step 0: device kernels plain {plain_kernels}, observed "
+        f"{obs_kernels}, host syncs plain {len(plain_syncs)}, observed "
+        f"{len(obs_syncs)}"
+        + ("; step 1 under set_sync_debug_mode('error')" if not plain_syncs
+           else f" ({plain_syncs[:2]})")
+        + f"; 0 surprises, 0 nonfinite sites; events valid")
+    log(f"phase {phase}: in turns ({smi}): wall ms a step plain "
+        f"{med['plain']:.3f}, observed {med['observed']:.3f}; device "
+        f"kernels a step plain {ck['plain'][0]:g}, observed "
+        f"{ck['observed'][0]:g} (+{ck['observed'][0] - ck['plain'][0]:g}); "
+        f"device ms a step plain {ck['plain'][1]:.3f}, observed "
+        f"{ck['observed'][1]:.3f} "
+        f"(+{ck['observed'][1] - ck['plain'][1]:.3f}; each census "
+        f"{ {k: [round(d, 3) for _, d in v] for k, v in census.items()} }"
+        f"); peak GiB plain "
+        f"{peak['plain']:.2f}, observed {peak['observed']:.2f}")
+    top = sorted(fold[len(leaves)][2].items(), key=lambda kv: -kv[1][1])
+    log(f"phase {phase}: one numerics fold alone: "
+        + ", ".join(f"{n} leaves {k:g} kernels {d:.3f} device ms"
+                    for n, (k, d, _) in fold.items())
+        + f"; its costliest kernels at {len(leaves)} leaves: "
+        + "; ".join(f"{name[:60]} x{n:g} {ms:.3f} ms"
+                    for name, (n, ms) in top[:8]))
+    log(f"phase {phase}: at check_every={OBSERVED_SPARSE}"
+        + f": off-step kernels beyond the "
+        f"plain step's {extra}, device ms "
+        f"{ {k: round(v[1] - off_plain[1], 4) for k, v in off.items()} }")
+    log(f"phase {phase}: NaN in the grad of {victim!r}: nonfinite_sites "
+        f"{bad}, scale_amax inf in its row, the guard skipped the step")
+    log(clock.line(phase))
+
+
+def _jax_ordered(params):
+    """The parameter names in the sites' (the JAX package's) order."""
+    from apex_tpu_torch.monitor.numerics import _key_parts
+    return sorted(params, key=_key_parts)
+
+
+def numerics_flag_card():
+    """Phase numerics_flag_card: ``scripts/numerics_audit.py``'s claim (b)
+    on the card. A seeded log-uniform tensor over [2^-12, 2^-2] straddles
+    e4m3's smallest normal 2^-6: flagged at its own site (unscaled e4m3
+    underflow > 0.3), verdict ``fp8_e4m3`` with a recommended scale > 1;
+    its sibling over [2^-4, 2^4] stays clean; the tensor scaled by the
+    recommendation and measured again underflows under the threshold."""
+    import numpy as np
+    import torch
+    from apex_tpu_torch.monitor import numerics as nx
+
+    rng = np.random.RandomState(7)
+
+    def signed(lo, hi):
+        return torch.tensor((2.0 ** rng.uniform(lo, hi, (4096,))
+                             * np.where(rng.rand(4096) < 0.5, -1.0, 1.0)
+                             ).astype(np.float32), device=DEVICE)
+
+    tiny, normal = signed(-12, -2), signed(-4, 4)
+    cfg = nx.NumericsConfig()
+
+    def measure(t):
+        trees = {"probe": {"tiny": t, "normal": normal}}
+        sites = nx.site_names(trees)
+        ns = nx.numerics_observe(
+            nx.numerics_init(cfg, sites=sites, device=DEVICE), cfg, trees)
+        rep = nx.precision_report(ns, sites)
+        return rep, {r.site: r for r in rep.rows}
+
+    rep, by = measure(tiny)
+    t, n = by["probe/['tiny']"], by["probe/['normal']"]
+    t_u0 = t.by_format["fp8_e4m3"]["unscaled_underflow"]
+    n_u0 = n.by_format["fp8_e4m3"]["unscaled_underflow"]
+    rep2, by2 = measure(tiny * t.recommended_scale)
+    t2 = by2["probe/['tiny']"].by_format["fp8_e4m3"]
+    ok = (t_u0 > 0.3 and n_u0 <= rep.underflow_threshold
+          and t.required_dtype == "fp8_e4m3" and t.recommended_scale > 1
+          and t.predicted_underflow_frac <= rep.underflow_threshold
+          and t2["unscaled_underflow"] <= rep.underflow_threshold
+          and t2["unscaled_saturation"] <= rep.saturation_threshold)
+    if not ok:
+        raise AssertionError(f"numerics_flag_card: {t}, {n}, {t2}")
+    log(f"phase numerics_flag_card: probe/['tiny'] flagged (unscaled e4m3 "
+        f"underflow {t_u0:.4f}, sibling {n_u0:.4f}), verdict "
+        f"{t.required_dtype} with scale {t.recommended_scale:g}; scaled "
+        f"and measured again its underflow is "
+        f"{t2['unscaled_underflow']:.6f} (threshold "
+        f"{rep.underflow_threshold:g})")
+
+
+def observed_rank(rank, world):
+    """One rank of dynamics_two_ranks and linkbench_drift_two_ranks (gloo
+    on ``cuda:0``): a depth-2 BERT (B PROBE_BATCH a rank, S512, O1 bf16,
+    arena LAMB) stepped PROBE_STEPS times as backward, DDP sync,
+    ``dynamics_probe``, apply, ``dynamics_observe``, with the collectives
+    counted a step; the probe of replicated grads; ``collective_bytes`` of
+    sync + probe; dynamics_audit's claim (a) (``gns_fold`` of
+    ``tests/_torch_parallel_cases.py``: folds of mu + noise); then ``linkbench.calibrate`` → ``plan_comm`` →
+    ``measure_hops`` → ``compare`` for a PLAN_BYTES sync, and ``ici``
+    collective spans of that sync for the pod join."""
+    import numpy as np
+    import torch
+    from apex_tpu_torch import parallel, trace, train
+    from apex_tpu_torch.lint.mesh_model import parse_mesh_spec
+    from apex_tpu_torch.monitor import comm_drift, linkbench
+    from apex_tpu_torch.monitor import dynamics as dx
+    from apex_tpu_torch.parallel.distributed import dynamics_probe
+
+    mesh = parallel.data_parallel_mesh(DEVICE)
+    ddp = parallel.DistributedDataParallel(mesh)
+    out = {}
+    t0 = time.perf_counter()
+    with parallel.use_mesh(mesh):
+        step, state, (toks, labels), _, _ = train.build_bert_step(
+            PROBE_BATCH, 512, encoder=depth2_encoder(), strategy="arena",
+            seed=rank)
+        app, loss_fn = step.amp_opt, step.make_loss(toks, labels)
+        cfg = dx.DynamicsConfig(local_batch=PROBE_BATCH)
+        sites = app.dynamics_sites(state.params)
+        ds = dx.dynamics_init(cfg, sites=sites, world=world, device=DEVICE)
+        counts = []
+        for _ in range(PROBE_STEPS):
+            parallel.reset_collective_counts()
+            loss, grads, mid, finite = app.backward(state, loss_fn)
+            synced = ddp.sync(grads)
+            probe = dynamics_probe(grads, synced, "data")
+            new = app.apply_gradients(mid, synced, finite)
+            delta = {k: new.params[k] - state.params[k] for k in grads}
+            ds = dx.dynamics_observe(
+                ds, cfg, {"dynamics/update": delta}, probe=probe,
+                grads={"dynamics/update": synced},
+                weights={"dynamics/update": state.params})
+            state = new
+            counts.append(dict(parallel.collective_counts))
+        rep = dx.dynamics_report(ds, sites, local_batch=PROBE_BATCH)
+        same = dynamics_probe(synced, synced, "data")
+        grad_bytes = sum(g.numel() * g.element_size()
+                         for g in grads.values())
+        cb = ddp.collective_bytes(
+            lambda: dynamics_probe(grads, ddp.sync(grads), "data"))
+        out.update(counts=counts, gns=rep.gns, world=rep.world,
+                   cos=rep.cos_spectrum, eff_lr=rep.eff_lr,
+                   same_cos=(same.dots / torch.sqrt(
+                       same.local_sqs * same.pooled_sq)).tolist(),
+                   same_proj=(same.dots / same.local_sqs).tolist(),
+                   bytes=cb, grad_bytes=grad_bytes,
+                   bert_s=time.perf_counter() - t0)
+        del step, state, grads, synced, new, delta, mid
+        # dynamics_audit's claim (a): mu + per-replica noise, by the
+        # harness the CPU tests run
+        t0 = time.perf_counter()
+        sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests"))
+        import _torch_parallel_cases as cases
+        gns = cases.gns_fold(world, rank, device=DEVICE)
+        out.update(gns_fold=gns["gns"], gns_true=gns["true_gns"],
+                   gns_s=time.perf_counter() - t0)
+        # the link model: sweep, fit, plan, measure, compare
+        t0 = time.perf_counter()
+        template = parse_mesh_spec(f"ici{world}",
+                                   link_bytes_per_s={"ici": 1e9})
+        model, fits, samples = linkbench.calibrate(mesh, template)
+        plan = parallel.plan_comm(model, PLAN_BYTES)
+        measured = comm_drift.measure_hops(plan, mesh)
+        drift = comm_drift.compare(plan, measured)
+        tracer = trace.Tracer()
+        x = torch.ones(PLAN_BYTES // 4, device=DEVICE)
+        group = mesh.get_group("data")
+        with tracer:
+            for i in range(4):
+                with trace.step(i):
+                    with trace.span("ici", kind="collective"):
+                        parallel.collectives.all_reduce(
+                            x, group, "ddp/sync_gradients")
+                        torch.cuda.synchronize()
+        out.update(model=model.to_json(), plan=plan.to_json(),
+                   measured=measured, table=linkbench.fit_table(fits,
+                                                                 samples),
+                   drift=drift.to_events(), drift_table=drift.table(),
+                   spans=tracer.span_events(rank),
+                   link_s=time.perf_counter() - t0)
+    return out
+
+
+def observed_body(rank, world, tmp):
+    _run_rank(observed_rank, rank, world, tmp)
+
+
+def dynamics_and_links_two_ranks():
+    """Phases dynamics_two_ranks and linkbench_drift_two_ranks: two gloo
+    processes on the card (``observed_rank``).
+
+    dynamics_two_ranks: each of PROBE_STEPS steps runs exactly one
+    ``ddp/dynamics_gns`` and one ``ddp/dynamics_geom``; the probe of
+    replicated grads reads cosine and projection 1 to 1e-5; the synced
+    step's ``collective_bytes`` is the grad tree's bytes under
+    ``all-reduce`` plus the probe's 4 + 8·W; on injected noise
+    ``B_simple`` within 25% of the analytic ``d·σ²/|μ|²``.
+
+    linkbench_drift_two_ranks: ``calibrate`` gives a measured MeshModel
+    (finite α ≥ 0, bytes/s > 0, 9 samples) that ``plan_comm``,
+    ``measure_hops`` and ``compare`` take to a drift report with one row
+    a hop, and ``wire_from_pod`` joins the ``ici`` spans of both ranks'
+    ``PodTimeline`` to the plan's hop; α, bytes/s and the residual are
+    logged, which describe gloo through this host, not NVLink (the
+    linkbench caveat)."""
+    from apex_tpu_torch import parallel, trace
+    from apex_tpu_torch.lint.mesh_model import MeshModel
+    from apex_tpu_torch.monitor import comm_drift
+
+    ranks = _spawn("dynamics_two_ranks", observed_body, 2)
+    world = 2
+    r0 = ranks[0]
+    per_step = [{k: v for k, v in c.items() if "dynamics" in k}
+                for r in ranks for c in r["counts"]]
+    want_bytes = {"all-reduce": r0["grad_bytes"] + 4,
+                  "all-gather": 8 * world,
+                  "total": r0["grad_bytes"] + 4 + 8 * world}
+    checks = {
+        "one gns and one geom a step": all(
+            c == {"ddp/dynamics_gns": 1, "ddp/dynamics_geom": 1}
+            for c in per_step),
+        "replicated cos = proj = 1": all(
+            abs(v - 1.0) <= 1e-5 for r in ranks
+            for v in r["same_cos"] + r["same_proj"]),
+        "bytes": all(r["bytes"] == want_bytes for r in ranks),
+        "gns within 25%": all(
+            r["gns_fold"] is not None
+            and abs(r["gns_fold"] - r["gns_true"]) <= 0.25 * r["gns_true"]
+            for r in ranks),
+        "world 2": all(r["world"] == 2.0 for r in ranks)}
+    if not all(checks.values()):
+        raise AssertionError(f"dynamics_two_ranks: {checks}; counts "
+                             f"{per_step}, bytes {[r['bytes'] for r in ranks]}"
+                             f", gns {[r['gns_fold'] for r in ranks]} vs "
+                             f"{r0['gns_true']}")
+    log(f"phase dynamics_two_ranks: depth-2 BERT B{PROBE_BATCH}/rank: "
+        f"collectives a step {r0['counts'][-1]}; probe bytes "
+        f"{r0['bytes']} (grads {r0['grad_bytes']} + 4 + 8*{world}); "
+        f"replicated cos/proj 1 within 1e-5; step GNS {r0['gns']}, cos "
+        f"{[round(v, 6) for v in r0['cos']]}; injected-noise B_simple "
+        f"{[round(r['gns_fold'], 3) for r in ranks]} vs analytic "
+        f"{r0['gns_true']:.3f}; took {r0['bert_s']:.1f} + "
+        f"{r0['gns_s']:.1f} s in rank 0")
+    model = MeshModel.from_json(r0["model"])
+    plan = parallel.CommPlan(
+        hops=tuple(parallel.Hop(**h) for h in r0["plan"]["hops"]),
+        compress_block=r0["plan"]["compress_block"],
+        source=r0["plan"]["source"], mesh_name=r0["plan"]["mesh"],
+        grad_bytes=r0["plan"]["grad_bytes"])
+    cal = model.calibration["ici"]
+    pod = trace.PodTimeline.merge({r: out["spans"]
+                                   for r, out in enumerate(ranks)})
+    wires = comm_drift.wire_from_pod(pod, plan)
+    pod_drift = None if wires is None else comm_drift.compare(plan, wires)
+    checks = {
+        "measured model": model.measured and cal["n_samples"] == 9,
+        "finite fit": all(math.isfinite(cal[k]) for k in
+                          ("alpha_us", "bytes_per_s", "residual"))
+        and cal["alpha_us"] >= 0 and cal["bytes_per_s"] > 0,
+        "ranks agree": all(r["model"] == r0["model"]
+                           and r["measured"] == r0["measured"]
+                           for r in ranks),
+        "drift rows": len(r0["drift"]) == len(plan.hops)
+        and all(math.isfinite(e["measured_ms"]) and e["measured_ms"] > 0
+                for e in r0["drift"]),
+        "pod join": wires is not None and len(wires) == len(plan.hops)
+        and all(math.isfinite(w) and w > 0 for w in wires)}
+    if not all(checks.values()):
+        raise AssertionError(f"linkbench_drift_two_ranks: {checks}; "
+                             f"{r0['table']}\n{r0['drift_table']}")
+    log(f"phase linkbench_drift_two_ranks: gloo on this host, not NVLink: "
+        f"alpha {cal['alpha_us']} us, {cal['bytes_per_s']:.4g} bytes/s, "
+        f"residual {cal['residual']}; plan {plan.describe()}; measured "
+        f"{[round(v * 1e3, 4) for v in r0['measured']]} ms vs predicted "
+        f"{[round(v * 1e3, 4) for v in plan.hop_seconds()]} ms (drift "
+        f"{[e['ratio'] for e in r0['drift']]}); pod wire "
+        f"{[round(w * 1e3, 4) for w in wires]} ms (drift "
+        f"{[round(h.ratio, 4) for h in pod_drift.hops]}); took "
+        f"{r0['link_s']:.1f} s in rank 0")
+
+
+def _mlp_run(seed, steps, lr_scale=1.0):
+    """``steps`` losses of the DLRM bottom MLP step (B2048, O2 bf16, ASP
+    with arena FusedAdam) on seed 0's batch from weights drawn with
+    ``seed`` (paired seeds: the same data, another init), the Adam lr
+    scaled by ``lr_scale``; counts row 14's launches."""
+    from apex_tpu_torch import ops, train
+    from apex_tpu_torch.optim import FusedAdam
+
+    class Scaled(FusedAdam):
+        def __init__(self, lr=1e-3, **kw):
+            super().__init__(lr=lr * lr_scale, **kw)
+
+    saved, train.FusedAdam = train.FusedAdam, Scaled
+    try:
+        step, state, (x, t), _, _ = train.build_mlp_step(
+            2048, model=ops.MLP(MLP_BOTTOM, device=DEVICE, seed=seed))
+    finally:
+        train.FusedAdam = saved
+    ops.reset_launch_counts()
+    losses = []
+    for _ in range(steps):
+        state, loss = step(state, x, t)
+        losses.append(loss.item())
+    return losses, ops.launch_counts()
+
+
+def convergence_mlp():
+    """Phase convergence_mlp: the DLRM bottom MLP (B2048, O2 bf16,
+    ``ASP(FusedAdam(lr=1e-3), "m4n2_1d")``, row 14 launched once a step)
+    for CONV_STEPS steps on one batch from the weights of each of
+    CONV_SEEDS; ``calibrate_band`` of those runs (z=8); seed 0 through ``plain_versions()`` against seed 0
+    through the kernels passes (``convergence_report``, grace 5); seed 0
+    with the learning rate x10 is flagged, its ``first_flag_step``
+    logged; the verdicts pass the schema script."""
+    from apex_tpu_torch.monitor import convergence as cv
+
+    runs = []
+    for seed in CONV_SEEDS:
+        losses, counts = _mlp_run(seed, CONV_STEPS)
+        if counts.get("mlp_fwd") != CONV_STEPS:
+            raise AssertionError(f"convergence_mlp: seed {seed} launches "
+                                 f"{counts}")
+        runs.append(losses)
+    with plain_versions():
+        plain, counts = _mlp_run(0, CONV_STEPS)
+    if counts.get("mlp_fwd", 0):
+        raise AssertionError(f"convergence_mlp: plain run launched {counts}")
+    hot, _ = _mlp_run(0, CONV_STEPS, lr_scale=10.0)
+    band = cv.calibrate_band(runs, z=8)
+    same = cv.convergence_report(runs[0], plain, band=band, grace=5)
+    jolt = cv.convergence_report(runs[0], hot, band=band, grace=5)
+    if not same.ok or jolt.ok:
+        raise AssertionError(f"convergence_mlp: {same.summary()}; "
+                             f"{jolt.summary()}")
+    path = _write_events([same.to_event(), jolt.to_event()], "convergence")
+    try:
+        _schema(path, "dynamics")
+    finally:
+        os.remove(path)
+    log(f"phase convergence_mlp: band {band.threshold:.6g} (median gap "
+        f"{band.median_gap:.6g}, MAD {band.mad_gap:.6g}, z 8, "
+        f"{band.n_pairs} pairs x {band.n_steps} steps); plain vs kernels: "
+        f"{same.summary()}; lr x10: {jolt.summary()} (first_flag_step "
+        f"{jolt.first_flag_step})")
+
+
+def monitor_phases(smi, arena_losses):
+    """This slice's phases, after the observability phases: the observed
+    BERT-Large step, the fp8 flag on the card, the two-rank dynamics and
+    link model, and the convergence comparator; each logs its wall
+    time. Device memory allocated after them is back to its level before
+    (within MONITOR_KEPT_BYTES): nothing they build outlives them into the
+    peaks of later phases."""
+    import gc
+    import torch
+
+    def allocated():
+        gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated()
+
+    before = allocated()
+    for fn, args in ((bert_large_observed, (smi, arena_losses)),
+                     (numerics_flag_card, ()),
+                     (dynamics_and_links_two_ranks, ()),
+                     (convergence_mlp, ())):
+        t = time.perf_counter()
+        fn(*args)
+        torch.cuda.empty_cache()
+        log(f"phase {fn.__name__}: {time.perf_counter() - t:.1f} s")
+    kept = allocated() - before
+    log(f"phase monitor_phases: device memory allocated after them "
+        f"{kept:+d} bytes against before")
+    if kept > MONITOR_KEPT_BYTES:
+        raise AssertionError(f"monitor_phases keep {kept} bytes of device "
+                             f"memory alive past their end")
+
+
 def observability_phases(smi):
     """This slice's phases, after resnet50_arena: the traced ResNet-50
     step, NaN provenance on it, the crash dumps and the straggler/pod
@@ -8273,6 +8931,8 @@ def main() -> int:
     resnet50_arena(rows, resnet_losses)
     torch.cuda.empty_cache()
     observability_phases(smi)
+    torch.cuda.empty_cache()
+    monitor_phases(smi, arena_losses)
     torch.cuda.empty_cache()
     resnet_plain_vs_kernel()
     torch.cuda.empty_cache()

@@ -1150,3 +1150,158 @@ def integrity_flip_repair(rank, world, mesh, inputs):
     out["mismatch_count"] = int(ist.mismatch_count)
     out["collectives"] = dict(parallel.collective_counts)
     return out
+
+
+# --- collective bytes (tests/test_torch_collective_bytes.py: 4 ranks) ---------
+
+#: the data-parallel sync modes whose bytes the tests account, as
+#: DistributedDataParallel keywords
+BYTES_MODES = {"flat": {}, "delay": {"delay_allreduce": True},
+               "bucketed": {"bucket_allreduce": True, "message_size": 600},
+               "bf16": {"compress": "bf16"}, "int8": {"compress": "int8"}}
+
+
+def _wire(fn, *args):
+    from apex_tpu_torch.monitor import collectives as mc
+    counts = mc.ledger_counts(fn, *args)
+    return {"report": mc.wire_report(counts=counts),
+            "bytes": mc.collective_bytes(counts=counts)}
+
+
+@case
+def bytes_ddp(rank, world, mesh, inputs):
+    """Each sync mode's wire report, and ``collective_bytes`` of a step
+    that syncs through DistributedDataParallel."""
+    from apex_tpu_torch import parallel
+    g = _scaled_tree(rank)
+    out = {}
+    for name, kw in BYTES_MODES.items():
+        ddp = parallel.DistributedDataParallel(mesh, **kw)
+        out[name] = _wire(ddp.sync, g)
+        out[name]["ddp"] = ddp.collective_bytes(ddp.sync, g)
+    return out
+
+
+@case
+def bytes_hier(rank, world, mesh, inputs):
+    """The hierarchical plan's wire report per forced wire dtype."""
+    from apex_tpu_torch import parallel
+    g = _hier_tree(rank)
+    out = {}
+    for dt in (None, "bf16", "int8"):
+        ddp = parallel.DistributedDataParallel(mesh, comm_plan=hier_plan(dt))
+        out[str(dt)] = _wire(ddp.sync, g)
+    return out
+
+
+# --- the dynamics probe (tests/test_torch_dynamics.py: 2 ranks) --------------
+
+def probe_grads(world, seed=11):
+    """Per-replica gradient trees of the probe case: a shared signal plus
+    per-replica noise (numpy, both sides)."""
+    rng = np.random.RandomState(seed)
+    mu = {"w": rng.randn(64, 8).astype(np.float32),
+          "b": rng.randn(8).astype(np.float32)}
+    return [{k: (v + 0.5 * rng.randn(*v.shape)).astype(np.float32)
+             for k, v in mu.items()} for _ in range(world)]
+
+
+@case
+def dynamics_probe_case(rank, world, mesh, inputs):
+    """The probe of this rank's grads and their mean, the collectives it
+    runs, the bytes of a sync plus probe, and two folds of it."""
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.monitor import dynamics as dx
+    from apex_tpu_torch.parallel.distributed import dynamics_probe
+    local = {k: t(v) for k, v in probe_grads(world)[rank].items()}
+    ddp = parallel.DistributedDataParallel(mesh)
+    parallel.reset_collective_counts()
+    synced = ddp.sync(local)
+    sync_counts = dict(parallel.collective_counts)
+    parallel.reset_collective_counts()
+    pr = dynamics_probe(local, synced, "data")
+    counts = dict(parallel.collective_counts)
+
+    def step():
+        s = ddp.sync(local)
+        dynamics_probe(local, s, "data")
+
+    cb = ddp.collective_bytes(step)
+    cfg = dx.DynamicsConfig(local_batch=4)
+    sites = dx.site_names({"u": local})
+    ds = dx.dynamics_init(cfg, sites=sites, world=world, device="cpu")
+    for _ in range(2):
+        ds = dx.dynamics_observe(ds, cfg, {"u": synced}, probe=pr,
+                                 grads={"u": local})
+    return {"probe": dict(pr._asdict()), "counts": counts,
+            "sync_counts": sync_counts, "bytes": cb,
+            "state": dict(ds._asdict()),
+            "replicated": dict(dynamics_probe(synced, synced,
+                                              "data")._asdict())}
+
+
+#: dynamics_audit.py's claim (a) at two replicas: per-example noise
+#: N(0, sigma² I_d) averaged over b examples a replica
+GNS_DIM, GNS_B, GNS_SIGMA, GNS_FOLDS = 4096, 4, 0.3, 40
+
+
+def gns_mu():
+    return (np.random.RandomState(11).randn(GNS_DIM) * 0.05).astype(
+        np.float32)
+
+
+def gns_fold(world, rank, device="cpu"):
+    """GNS_FOLDS steps of sync, probe and fold on ``mu`` + this replica's
+    noise row; returns the dynamics report's estimates and the analytic
+    B_simple ``d·σ²/|μ|²``."""
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.monitor import dynamics as dx
+    from apex_tpu_torch.parallel.distributed import dynamics_probe
+    mu = torch.tensor(gns_mu(), device=device)
+    cfg = dx.DynamicsConfig(local_batch=GNS_B)
+    sites = dx.site_names({"dynamics/update": {"g": mu}})
+    ds = dx.dynamics_init(cfg, sites=sites, world=world, device=device)
+    rng = np.random.RandomState(0)
+    for _ in range(GNS_FOLDS):
+        noise = (rng.randn(world, GNS_DIM) * (GNS_SIGMA / np.sqrt(GNS_B))
+                 ).astype(np.float32)
+        g = {"g": mu + torch.tensor(noise[rank], device=device)}
+        g_bar = parallel.sync_gradients(g, "data")
+        ds = dx.dynamics_observe(
+            ds, cfg, {"dynamics/update": g_bar},
+            probe=dynamics_probe(g, g_bar, "data"),
+            grads={"dynamics/update": g_bar},
+            weights={"dynamics/update": {"g": mu}})
+    rep = dx.dynamics_report(ds, sites, local_batch=GNS_B)
+    true = GNS_DIM * GNS_SIGMA ** 2 / float(np.sum(gns_mu().astype(
+        np.float64) ** 2))
+    return {"gns": rep.gns, "g2": rep.g2_est, "s": rep.s_est,
+            "true_gns": true, "world": rep.world,
+            "eff_lr": rep.eff_lr, "uw": rep.uw_ratio}
+
+
+@case
+def dynamics_gns_case(rank, world, mesh, inputs):
+    return gns_fold(world, rank)
+
+
+# --- link calibration and drift (tests/test_torch_linkbench_drift.py) ---------
+
+@case
+def linkbench_pipeline(rank, world, mesh, inputs):
+    """sweep → fit → measured MeshModel → plan_comm → measure_hops →
+    compare, on the data axis of the bound mesh."""
+    import dataclasses
+    from apex_tpu_torch.lint.mesh_model import parse_mesh_spec
+    from apex_tpu_torch.monitor import comm_drift, linkbench
+    from apex_tpu_torch.parallel import hierarchy
+    template = parse_mesh_spec(f"ici{world}", link_bytes_per_s={"ici": 1e9})
+    model, fits, samples = linkbench.calibrate(
+        mesh, template, sizes=(1 << 12, 1 << 14, 1 << 16), iters=2)
+    plan = hierarchy.plan_comm(model, 1 << 16)
+    measured = comm_drift.measure_hops(plan, mesh, iters=2)
+    rep = comm_drift.compare(plan, measured)
+    return {"model": model.to_json(), "measured": measured,
+            "rows": [dataclasses.asdict(h) for h in rep.hops],
+            "plan": plan.to_json(), "table": linkbench.fit_table(fits,
+                                                                 samples)}

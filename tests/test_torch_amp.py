@@ -179,6 +179,15 @@ def test_unported_hooks_raise():
         {"w": torch.ones(3)}).metrics is not None
     amp_opt = tamp.Amp(pol, FusedLAMB())
     state = amp_opt.init({"w": torch.ones(3)})
-    for hook in ("numerics", "dynamics"):      # guard= is ported
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            amp_opt.step(state, lambda p: p["w"].sum(), **{hook: (1, 2)})
+    # guard=, numerics= and dynamics= are ported: the return grows the
+    # hooks' states, each having folded once
+    from apex_tpu_torch.monitor import dynamics as dx, numerics as nx
+    ncfg, dcfg = nx.NumericsConfig(), dx.DynamicsConfig()
+    ns = nx.numerics_init(ncfg, sites=amp_opt.numerics_sites(state.params),
+                          device="cpu")
+    ds = dx.dynamics_init(dcfg, sites=amp_opt.dynamics_sites(state.params),
+                          device="cpu")
+    ret = amp_opt.step(state, lambda p: p["w"].sum(), numerics=(ns, ncfg),
+                       dynamics=(ds, dcfg))
+    assert len(ret) == 5
+    assert int(ret[3].check_count) == 1 and int(ret[4].check_count) == 1
