@@ -39,8 +39,8 @@ and 2):
   plan's prediction.
 
 The JAX package's ``collective_bytes_from_text`` has no counterpart (the
-port compiles no HLO). Waiting for part 3 (ROADMAP.md queue A, item 11):
-what reads ``prof/`` (``MetricsLogger.attach``, MFU, memory samples).
+port compiles no HLO). ``MetricsLogger.attach``, the MFU column and
+``sample_memory`` read :mod:`apex_tpu_torch.prof`.
 """
 
 from apex_tpu_torch.monitor.check import module_count_and_host_ops

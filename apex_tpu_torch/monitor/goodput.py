@@ -22,10 +22,12 @@ bucket                  what lands in it
                         ``callback/*``) — the sync points
 ``ckpt_stall``          checkpoint capture stall joined from ``ckpt_save``
                         events (``note_ckpt``) plus ``ckpt/*`` spans
-``recompile``           ``kind="compile"`` spans. Nothing in the port emits
-                        them yet: the JAX package's come from
-                        ``prof/compile_watch``, which waits for ROADMAP.md
-                        queue A item 11 part 3, so the bucket stays empty
+``recompile``           ``kind="compile"`` spans, which
+                        :class:`apex_tpu_torch.prof.CompileWatcher` emits
+                        for a watched call that built a kernel (nvcc, the
+                        host compiler), JIT-compiled a Triton
+                        specialization or compiled a ``torch.compile``
+                        graph
 ``guard_rewind``        guard intervention wall time joined from guard
                         action/rewind events (``note_guard``) + ``guard/*``
 ``other``               wall time no span covered (the residual)

@@ -10,21 +10,29 @@ amortizes over N steps and the step loop never waits on telemetry.
 ``record()`` itself costs a list append and a clock read.
 
 On top of the device counters the logger derives host-side health:
-rolling **step time** (wall clock between ``record()`` calls) and
-**throughput** over a sliding window. What the JAX logger reads from
-``prof/`` — ``attach`` (XLA cost analysis: FLOPs and collective bytes
-of the compiled step), the **MFU** column, ``sample_memory`` and the
-``attach_{memory,shard,lint,roofline}_report`` emitters — waits for the
-port's ``prof/`` (ROADMAP.md queue A, item 11 part 3): each raises
-``NotImplementedError`` and ``mfu`` is always ``None``, never 0.
-``collective_bytes_per_step``/``logical_collective_bytes`` are statics
-the caller may give.
+
+- rolling **step time** (wall clock between ``record()`` calls) and
+  **throughput** over a sliding window;
+- **MFU**, when the per-step FLOPs are known: ``attach()`` **runs the
+  step once** and takes them from :mod:`apex_tpu_torch.prof.cost` (aten
+  ops by the formula registry, the hand kernels by the cost registry),
+  the peak from :func:`apex_tpu_torch.prof.device_peak_flops` (the CPU
+  and unknown cards report ``mfu=None``, never a misleading 0);
+- **collective bytes per step** from the same run, read off the port's
+  collective ledger (:mod:`apex_tpu_torch.monitor.collectives`, as
+  ``DistributedDataParallel.collective_bytes`` reads it).
+
+``sample_memory`` and ``attach_{memory,shard,roofline}_report`` emit the
+:mod:`apex_tpu_torch.prof` reports on their channels;
+``attach_lint_report`` waits for the port's ``lint/`` (ROADMAP.md queue
+A, item 12).
 
 Typical wiring::
 
     logger = monitor.MetricsLogger(
         sinks=[monitor.StdoutSink(), monitor.JSONLSink("metrics.jsonl")],
         flush_every=10)
+    logger.attach(train_step, scratch_state, batch)  # runs the step once
     for batch in data:
         state, loss = train_step(state, batch)  # state carries .metrics
         logger.record(state.metrics)
@@ -46,8 +54,14 @@ from apex_tpu_torch.monitor.sinks import Sink, StdoutSink
 
 __all__ = ["MetricsLogger", "ChannelSpec", "CHANNELS"]
 
-_PROF = ("{} reads prof/, which the port does not have yet (ROADMAP.md "
-         "queue A, item 11 part 3)")
+_LINT = ("{} reads lint/, which the port does not have yet (ROADMAP.md "
+         "queue A, item 12)")
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_available() and \
+        dist.is_initialized() else 0
 
 
 def _fetch(buf: List[Metrics]) -> List[List]:
@@ -231,12 +245,18 @@ class MetricsLogger:
                  logical_collective_bytes: Optional[int] = None,
                  donation_safe: bool = False,
                  **channel_sinks: Optional[Sink]):
-        if peak_flops is not None or flops_per_step is not None:
-            raise NotImplementedError(_PROF.format("the MFU column"))
         self.sinks: List[Sink] = (list(sinks) if sinks is not None
                                   else [StdoutSink()])
         self.flush_every = max(int(flush_every), 1)
+        self.flops_per_step = flops_per_step
         self.collective_bytes_per_step = collective_bytes_per_step
+        if peak_flops is None:
+            from apex_tpu_torch.prof.report import device_peak_flops
+            peak_flops = device_peak_flops() or None
+        self.peak_flops = peak_flops
+        self.memory_report = None      # last attached prof.MemoryReport
+        self.roofline_report = None    # last attached RooflineReport
+        self.shard_report = None       # last attached prof.ShardReport
         valid = {f"{c.name}_sink" for c in CHANNELS}
         unknown = set(channel_sinks) - valid
         if unknown:
@@ -264,11 +284,35 @@ class MetricsLogger:
         self._closed = False
         atexit.register(self._atexit_close)
 
-    # -- compile-time statics (prof/) ----------------------------------------
+    # -- per-step statics ----------------------------------------------------
 
     def attach(self, step_fn, *args, **kwargs) -> "MetricsLogger":
-        """Per-step FLOPs and collective bytes of the compiled step."""
-        raise NotImplementedError(_PROF.format("MetricsLogger.attach"))
+        """Per-step statics from ONE run of ``step_fn(*args, **kwargs)``
+        — it **runs the step** (give a throwaway state): model FLOPs
+        (:class:`apex_tpu_torch.prof.cost.CostCounter`) and collective
+        bytes with their per-dtype split (the collective ledger). Statics
+        the caller set in the constructor are kept; nothing runs when
+        both are set."""
+        if (self.flops_per_step is not None
+                and self.collective_bytes_per_step is not None):
+            return self
+        from apex_tpu_torch.monitor.collectives import (
+            collective_bytes, collective_bytes_by_dtype, ledger_counts)
+        from apex_tpu_torch.prof.cost import CostCounter
+        with CostCounter() as c:
+            counts = ledger_counts(step_fn, *args, **kwargs)
+        if self.flops_per_step is None:
+            self.flops_per_step = c.flops if c.flops > 0 else None
+        if self.collective_bytes_by_dtype is None:
+            per: Dict[str, int] = {}
+            for per_op in collective_bytes_by_dtype(counts=counts).values():
+                for dt, nbytes in per_op.items():
+                    per[dt] = per.get(dt, 0) + nbytes
+            self.collective_bytes_by_dtype = per
+        if self.collective_bytes_per_step is None:
+            self.collective_bytes_per_step = collective_bytes(
+                counts=counts)["total"]
+        return self
 
     # -- per-step path (cheap, never syncs) ----------------------------------
 
@@ -312,7 +356,9 @@ class MetricsLogger:
                 rec["step_time_ms"] = (t - self._last_time) * 1e3
             self._last_time = t
             rec["throughput_steps_per_s"] = thru
-            rec["mfu"] = None
+            rec["mfu"] = (self.flops_per_step * thru / self.peak_flops
+                          if thru and self.flops_per_step
+                          and self.peak_flops else None)
             rec["collective_bytes"] = self.collective_bytes_per_step
             rec["wire_by_dtype"] = self.collective_bytes_by_dtype
             rec["logical_bytes"] = self.logical_collective_bytes
@@ -346,28 +392,60 @@ class MetricsLogger:
 
     def sample_memory(self, step: Optional[int] = None, *,
                       device=None, **extra) -> Optional[Dict]:
-        """One ``kind="memory"`` allocator sample."""
-        raise NotImplementedError(_PROF.format("MetricsLogger.sample_memory"))
+        """Sample the caching allocator (``torch.cuda.memory_stats``, a
+        host-side read: no kernel, no sync) and emit one
+        ``kind="memory"`` event; on the CPU the values are null, so the
+        stream's shape is the same. Returns the record (None without a
+        memory sink)."""
+        from apex_tpu_torch.prof.memory import device_memory_sample
+        if self.memory_sink is None or self._closed:
+            return None
+        rec: Dict = {"kind": "memory", "step": step, "rank": _rank(),
+                     "wall_time": time.time()}
+        rec.update(device_memory_sample(device))
+        if extra:
+            rec.update(extra)
+        self.record_memory(rec)
+        return rec
 
     def attach_memory_report(self, report) -> "MetricsLogger":
-        raise NotImplementedError(_PROF.format(
-            "MetricsLogger.attach_memory_report"))
+        """Attach a :class:`apex_tpu_torch.prof.MemoryReport`: emits one
+        ``kind="memory_report"`` event and keeps the report (hand it to
+        ``FlightRecorder.attach_memory_report`` too, so a crash dump names
+        the biggest buffers)."""
+        self.memory_report = report
+        if report is not None:
+            self.record_memory(report.to_event(rank=_rank()))
+        return self
 
     def attach_shard_report(self, report, step: Optional[int] = None,
                             **to_events_kwargs) -> "MetricsLogger":
-        raise NotImplementedError(_PROF.format(
-            "MetricsLogger.attach_shard_report"))
+        """Attach a :class:`apex_tpu_torch.prof.ShardReport`: emits its
+        ``sharding_mesh`` header and one ``kind="sharding"`` row per axis
+        on the sharding channel (extra kwargs pass to
+        :meth:`~apex_tpu_torch.prof.ShardReport.to_events`)."""
+        self.shard_report = report
+        if report is not None:
+            for ev in report.to_events(rank=_rank(), step=step,
+                                       **to_events_kwargs):
+                self.record_sharding(ev)
+        return self
 
     def attach_lint_report(self, report,
                            step: Optional[int] = None) -> "MetricsLogger":
-        raise NotImplementedError(_PROF.format(
+        raise NotImplementedError(_LINT.format(
             "MetricsLogger.attach_lint_report"))
 
     def attach_roofline_report(self, report, step: Optional[int] = None,
                                top: Optional[int] = None
                                ) -> "MetricsLogger":
-        raise NotImplementedError(_PROF.format(
-            "MetricsLogger.attach_roofline_report"))
+        """Attach a :class:`apex_tpu_torch.prof.RooflineReport`: one
+        ``kind="roofline"`` event per row (``top`` bounds it)."""
+        self.roofline_report = report
+        if report is not None:
+            for ev in report.to_events(rank=_rank(), step=step, top=top):
+                self.record_roofline(ev)
+        return self
 
     def close(self) -> None:
         if self._closed:

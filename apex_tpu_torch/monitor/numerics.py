@@ -930,8 +930,9 @@ def placement_advisor(roofline_report, report: NumericsReport, *,
                       k: int = 5) -> List[Dict[str, Any]]:
     """Rank precision-placement candidates by measured perf headroom x
     numeric safety: the verdicts' narrower-format candidates joined with
-    ``roofline_report.what_if(plan)`` (any object with that method; the
-    port's roofline report is ROADMAP.md queue A, item 11 part 3). Sites
+    ``roofline_report.what_if(plan)`` (an
+    :class:`apex_tpu_torch.prof.RooflineReport`, whose rows carry the
+    measured kernels' dtypes). Sites
     join what-if rows by their ``site`` key."""
     plan = {}
     for r in report.rows:

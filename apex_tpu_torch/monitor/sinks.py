@@ -59,8 +59,7 @@ class StdoutSink(Sink):
     The ``wire`` column is the per-dtype collective wire breakdown
     (``MetricsLogger.collective_bytes_by_dtype``) and ``w/l`` the
     wire-to-logical ratio; both print ``n/a`` until a caller sets them
-    (the port's ``MetricsLogger.attach``, which reads them off the
-    compiled step, waits for ``prof/``)."""
+    (``MetricsLogger.attach`` reads them off one run of the step)."""
 
     _COLS = ("step", "loss", "loss_scale", "grad_norm", "skip_count",
              "step_time_ms", "throughput_steps_per_s", "mfu",

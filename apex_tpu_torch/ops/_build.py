@@ -29,6 +29,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -40,6 +41,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 HOST_FLAGS = ("-O3", "-std=c++17", "-ffp-contract=off", "-shared", "-fPIC")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}   # loaded libraries, by source stem
+#: builds run by this process (``prof.compile_watch`` reads them): nvcc
+#: and host-compiler runs, and the seconds they took
+BUILDS = {"nvcc": 0, "host": 0, "secs": 0.0}
+#: every Triton kernel ``triton_jit`` made, for the compile watcher
+JITTED: list = []
 _HOST_LOCK = threading.Lock()        # one build per process (decode threads)
 
 
@@ -75,6 +81,7 @@ def build_all() -> Dict[str, Path]:
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     errors = []
+    t0 = time.perf_counter()
     for src, lib, tmp, proc in procs:
         log, _ = proc.communicate()
         if proc.returncode != 0:
@@ -82,6 +89,9 @@ def build_all() -> Dict[str, Path]:
             continue
         lib.with_suffix(".ptxas.txt").write_text(log)
         os.replace(tmp, lib)
+    if procs:
+        BUILDS["nvcc"] += len(procs)
+        BUILDS["secs"] += time.perf_counter() - t0
     if errors:
         raise RuntimeError("\n".join(errors))
     return out
@@ -115,6 +125,7 @@ def build_host(name: str) -> Path:
         return lib
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    t0 = time.perf_counter()
     proc = subprocess.run([_cxx(), *HOST_FLAGS, "-o", str(tmp), str(src)],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
@@ -122,6 +133,8 @@ def build_host(name: str) -> Path:
         raise RuntimeError(f"the host compiler failed on {src.name}:\n"
                            f"{proc.stdout}")
     os.replace(tmp, lib)
+    BUILDS["host"] += 1
+    BUILDS["secs"] += time.perf_counter() - t0
     return lib
 
 
@@ -165,7 +178,9 @@ def triton_jit(fn):
     import triton.language as tl
 
     fn.__globals__["tl"] = tl
-    return triton.jit(fn)
+    jf = triton.jit(fn)
+    JITTED.append(jf)
+    return jf
 
 
 def workspace(cache, device, stream, n_part, n_counters):

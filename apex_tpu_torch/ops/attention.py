@@ -36,6 +36,7 @@ import torch
 
 from apex_tpu_torch.amp import functional_patch
 from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops._priced import priced
 
 NEG_INF = -1e30
 LANES = 128
@@ -270,6 +271,7 @@ def _lib(name):
     return fn
 
 
+@priced("flash_attn_fwd")
 def flash_fwd_kernel(q, k, v, scale, bias=None, causal=False, causal_off=None,
                      seed=None, rate=0.0, dbo=None,
                      blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
@@ -298,6 +300,7 @@ def flash_fwd_kernel(q, k, v, scale, bias=None, causal=False, causal_off=None,
 flash_fwd_kernel.launches = 0
 
 
+@priced("flash_attn_bwd")
 def flash_bwd_kernel(q, k, v, do, lse, delta, scale, bias=None, causal=False,
                      causal_off=None, seed=None, rate=0.0, dbo=None,
                      blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
@@ -358,6 +361,7 @@ def _keep(q, k, seed, rate, dbo, blocks):
 # the plain versions run with the O1 functional patch suspended: the JAX
 # package's flash kernels reach no patched entry point
 @functional_patch.unpatched
+@priced("flash_attn_fwd")
 def flash_fwd_plain(q, k, v, scale, bias=None, causal=False, causal_off=None,
                     seed=None, rate=0.0, dbo=None,
                     blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
@@ -382,6 +386,7 @@ def flash_fwd_plain(q, k, v, scale, bias=None, causal=False, causal_off=None,
 
 
 @functional_patch.unpatched
+@priced("flash_attn_bwd")
 def flash_bwd_plain(q, k, v, do, lse, delta, scale, bias=None, causal=False,
                     causal_off=None, seed=None, rate=0.0, dbo=None,
                     blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):

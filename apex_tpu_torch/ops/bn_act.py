@@ -73,6 +73,7 @@ from apex_tpu_torch.parallel import collectives
 from apex_tpu_torch.parallel.mesh import normalize_groups, resolve_group
 from apex_tpu_torch.parallel.sync_batchnorm import SCOPE as SYNC_SCOPE
 from apex_tpu_torch.parallel.sync_batchnorm import combine_moments
+from apex_tpu_torch.ops._priced import priced
 
 tl = None  # triton.language, bound by _build.triton_jit at the first launch
 
@@ -198,6 +199,7 @@ def _sums_lib():
     return fn
 
 
+@priced("bn_sums")
 def bn_sums_kernel(x2, g2, z2, scale, bias, mean, invstd, mode, r_dtype=None,
                    xhat=False):
     """CUDA channel sums over contiguous (M, C) CUDA rows. Returns (sums
@@ -248,6 +250,7 @@ def bn_sums_kernel(x2, g2, z2, scale, bias, mean, invstd, mode, r_dtype=None,
 bn_sums_kernel.launches = 0
 
 
+@priced("bn_dx")
 def bn_dx_kernel(x2, g2, scale, bias, mean, invstd, sums, count, relu,
                  dx_dtype, xhat=False):
     """Triton dx over contiguous (M, C) CUDA rows; ``sums`` is the (2, C)
@@ -292,6 +295,7 @@ def _relu_mask(xhat, scale, bias):
     return xhat * scale.float() + bias.float() > 0
 
 
+@priced("bn_sums")
 def bn_sums_plain(x2, g2, z2, scale, bias, mean, invstd, mode, r_dtype=None,
                   xhat=False):
     xhat = _xhat(x2, mean, invstd, xhat)
@@ -305,6 +309,7 @@ def bn_sums_plain(x2, g2, z2, scale, bias, mean, invstd, mode, r_dtype=None,
     return torch.stack([g.sum(dim=0), (g * xhat).sum(dim=0)]), dr
 
 
+@priced("bn_dx")
 def bn_dx_plain(x2, g2, scale, bias, mean, invstd, sums, count, relu,
                 dx_dtype, xhat=False):
     xhat = _xhat(x2, mean, invstd, xhat)

@@ -40,6 +40,7 @@ import torch
 import torch.nn as nn
 
 from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops._priced import priced
 
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -107,6 +108,7 @@ def _ln_fwd_lib():
     return fn
 
 
+@priced("layer_norm_fwd")
 def ln_fwd_kernel(x2, weight, bias, eps):
     """CUDA forward on a contiguous (N, H) CUDA tensor."""
     _check(x2, weight, bias)
@@ -175,6 +177,7 @@ def _ln_bwd_lib():
     return fn
 
 
+@priced("layer_norm_bwd")
 def ln_bwd_kernel(g2, x2, weight, eps):
     """CUDA backward: (dx, dγ, dβ) with dγ/dβ in f32 (None if no affine)."""
     _check(x2, weight)
@@ -221,6 +224,7 @@ def _moments(x):
     return mean, var
 
 
+@priced("layer_norm_fwd")
 def ln_fwd_plain(x2, weight, bias, eps):
     x = x2.float()
     mean, var = _moments(x)
@@ -230,6 +234,7 @@ def ln_fwd_plain(x2, weight, bias, eps):
     return y.to(x2.dtype)
 
 
+@priced("layer_norm_bwd")
 def ln_bwd_plain(g2, x2, weight, eps):
     x, g = x2.float(), g2.float()
     mean, var = _moments(x)

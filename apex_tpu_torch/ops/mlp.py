@@ -49,6 +49,7 @@ import torch.nn as nn
 
 from apex_tpu_torch.amp import functional_patch
 from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops._priced import priced
 
 #: bytes of f32 weights the kernel takes (``_VMEM_WEIGHT_BUDGET``)
 WEIGHT_BUDGET = 8 << 20
@@ -117,6 +118,7 @@ def mlp_reference(x, weights, biases=None, activation="relu"):
     return h
 
 
+@priced("mlp_fwd")
 def mlp_fused_reference(x, weights, biases=None, activation="relu",
                         operand_dtype=None):
     """The kernel's plain version (``_mlp_kernel``): f32 throughout, one
@@ -189,6 +191,7 @@ def _workspace_cols(dims) -> int:
     return 2 * max(dims[1:-1])
 
 
+@priced("mlp_fwd")
 def mlp_fwd_kernel(x, weights, biases=None, activation="relu",
                    operand_dtype=None):
     """CUDA forward of an (n, D₀) x through every layer: (n, D_L) in x's

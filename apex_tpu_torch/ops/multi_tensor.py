@@ -53,6 +53,7 @@ import numpy as np
 import torch
 
 from apex_tpu_torch.ops import _arena, _build
+from apex_tpu_torch.ops._priced import priced
 
 tl = None  # triton.language, bound by _build.triton_jit at the first launch
 
@@ -80,6 +81,7 @@ def _l2norm_finish_triton(PART, OUT, PROGRAMS: "tl.constexpr"):
     tl.store(OUT, tl.sqrt_rn(s))
 
 
+@priced("multi_tensor_l2norm")
 def l2norm_kernel(buf):
     """Triton ‖buf‖₂ (f32 0-d tensor) of a flat CUDA arena buffer."""
     n = _arena.check_buffers(buf, dtypes=_FLOATS)
@@ -97,6 +99,7 @@ def l2norm_kernel(buf):
 l2norm_kernel.launches = 0
 
 
+@priced("multi_tensor_l2norm")
 def l2norm_plain(buf):
     return torch.sqrt(torch.sum(torch.square(buf.float())))
 
@@ -133,6 +136,7 @@ def _maxnorm_finish_triton(PART, NANS, OUT, PROGRAMS: "tl.constexpr"):
     tl.store(OUT, tl.where(nan > 0, float("nan"), m))
 
 
+@priced("multi_tensor_maxnorm")
 def maxnorm_kernel(buf):
     """Triton max |buf| (f32 0-d tensor) of a flat CUDA arena buffer; NaN
     if any element is NaN (``tl.maximum`` drops NaN, so both stages count
@@ -153,6 +157,7 @@ def maxnorm_kernel(buf):
 maxnorm_kernel.launches = 0
 
 
+@priced("multi_tensor_maxnorm")
 def maxnorm_plain(buf):
     return torch.amax(torch.abs(buf.float()))
 
@@ -212,6 +217,7 @@ def _axpby_launch(x, y, scalars, out_dtype):
     return out, flag
 
 
+@priced("multi_tensor_scale")
 def scale_kernel(x, scalars, out_dtype):
     """Triton s·x on a flat CUDA buffer; ``scalars`` is the f32 device
     vector (s,). Returns (out in ``out_dtype``, all-finite 0-d bool)."""
@@ -223,6 +229,7 @@ def scale_kernel(x, scalars, out_dtype):
 scale_kernel.launches = 0
 
 
+@priced("multi_tensor_axpby")
 def axpby_kernel(x, y, scalars, out_dtype):
     """Triton a·x + b·y on flat CUDA buffers, without FMA contraction (the
     two products round as in the plain version); ``scalars`` is the f32
@@ -236,11 +243,13 @@ def axpby_kernel(x, y, scalars, out_dtype):
 axpby_kernel.launches = 0
 
 
+@priced("multi_tensor_scale")
 def scale_plain(x, scalars, out_dtype):
     r = scalars[0] * x.float()
     return r.to(out_dtype), torch.isfinite(r).all()
 
 
+@priced("multi_tensor_axpby")
 def axpby_plain(x, y, scalars, out_dtype):
     r = scalars[0] * x.float() + scalars[1] * y.float()
     return r.to(out_dtype), torch.isfinite(r).all()

@@ -56,6 +56,7 @@ from __future__ import annotations
 import torch
 
 from apex_tpu_torch.ops import _arena, _build
+from apex_tpu_torch.ops._priced import priced
 
 tl = None  # triton.language, bound by _build.triton_jit at the first launch
 
@@ -250,6 +251,7 @@ def _copy_operand(cp, p2):
     return cp.view(torch.uint8) if _is_e5m2(cp) else cp
 
 
+@priced("lamb_stage1")
 def lamb_stage1_kernel(p, g, m, v, scalars, adam_w):
     """Triton stage 1 on flat CUDA buffers; ``scalars`` is the f32 device
     vector (beta1, beta2, eps, wd, bc1, bc2, clip, b3). Returns
@@ -271,6 +273,7 @@ def lamb_stage1_kernel(p, g, m, v, scalars, adam_w):
 lamb_stage1_kernel.launches = 0
 
 
+@priced("lamb_stage2")
 def lamb_stage2_kernel(p, u, ratio, scalars, copy_dtype=None):
     """Triton stage 2 on flat CUDA buffers; ``scalars`` is the f32 device
     vector (lr,). Returns p' (and p' in ``copy_dtype`` if given)."""
@@ -293,6 +296,7 @@ def lamb_stage2_kernel(p, u, ratio, scalars, copy_dtype=None):
 lamb_stage2_kernel.launches = 0
 
 
+@priced("sgd")
 def sgd_kernel(p, g, m, scalars, nesterov, wd_after_momentum,
                copy_dtype=None):
     """Triton SGD on flat CUDA buffers; ``scalars`` is the f32 device
@@ -317,6 +321,7 @@ def sgd_kernel(p, g, m, scalars, nesterov, wd_after_momentum,
 sgd_kernel.launches = 0
 
 
+@priced("adam")
 def adam_kernel(p, g, m, v, scalars, adam_w, copy_dtype=None):
     """Triton Adam on flat CUDA buffers; ``scalars`` is the f32 device
     vector (lr, beta1, beta2, eps, wd, bc1, bc2, grad_scale). Returns
@@ -340,6 +345,7 @@ def adam_kernel(p, g, m, v, scalars, adam_w, copy_dtype=None):
 adam_kernel.launches = 0
 
 
+@priced("adagrad")
 def adagrad_kernel(p, g, h, scalars, adagrad_w):
     """Triton Adagrad on flat CUDA buffers; ``scalars`` is the f32 device
     vector (lr, eps, wd, grad_scale). Returns (p', h')."""
@@ -358,6 +364,7 @@ def adagrad_kernel(p, g, h, scalars, adagrad_w):
 adagrad_kernel.launches = 0
 
 
+@priced("novograd")
 def novograd_kernel(p, g, m, vpos, scalars, reg_inside_moment):
     """Triton NovoGrad stage on flat CUDA buffers; ``vpos`` is the f32 norm
     EMA per position, ``scalars`` the f32 device vector (lr, beta1, b3,
@@ -382,6 +389,7 @@ novograd_kernel.launches = 0
 
 # --- plain versions (the kernels' arithmetic, in PyTorch) --------------------
 
+@priced("lamb_stage1")
 def lamb_stage1_plain(p, g, m, v, scalars, adam_w):
     b1, b2, eps, wd, bc1, bc2, clip, b3 = scalars.unbind(0)
     p = p.float()
@@ -396,6 +404,7 @@ def lamb_stage1_plain(p, g, m, v, scalars, adam_w):
     return u, m2.to(m.dtype), v2.to(v.dtype)
 
 
+@priced("lamb_stage2")
 def lamb_stage2_plain(p, u, ratio, scalars, copy_dtype=None):
     p32 = p.float() - scalars[0] * ratio * u
     if copy_dtype is None:
@@ -403,6 +412,7 @@ def lamb_stage2_plain(p, u, ratio, scalars, copy_dtype=None):
     return p32.to(p.dtype), p32.to(copy_dtype)
 
 
+@priced("sgd")
 def sgd_plain(p, g, m, scalars, nesterov, wd_after_momentum,
               copy_dtype=None):
     lr, momentum, dampening, wd, gscale, first = scalars.unbind(0)
@@ -420,6 +430,7 @@ def sgd_plain(p, g, m, scalars, nesterov, wd_after_momentum,
     return out if copy_dtype is None else out + (p32.to(copy_dtype),)
 
 
+@priced("adam")
 def adam_plain(p, g, m, v, scalars, adam_w, copy_dtype=None):
     lr, b1, b2, eps, wd, bc1, bc2, gscale = scalars.unbind(0)
     p32 = p.float()
@@ -436,6 +447,7 @@ def adam_plain(p, g, m, v, scalars, adam_w, copy_dtype=None):
     return out if copy_dtype is None else out + (p32.to(copy_dtype),)
 
 
+@priced("adagrad")
 def adagrad_plain(p, g, h, scalars, adagrad_w):
     lr, eps, wd, gscale = scalars.unbind(0)
     p32 = p.float()
@@ -449,6 +461,7 @@ def adagrad_plain(p, g, h, scalars, adagrad_w):
     return (p32 - lr * upd).to(p.dtype), h2.to(h.dtype)
 
 
+@priced("novograd")
 def novograd_plain(p, g, m, vpos, scalars, reg_inside_moment):
     lr, b1, b3, eps, wd, bc1, bc2 = scalars.unbind(0)
     p32 = p.float()

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops._priced import priced
 
 tl = None  # triton.language, bound by _build.triton_jit at the first launch
 
@@ -101,6 +102,7 @@ def _check(x2, labels, *f32):
                          f"{labels.dtype}")
 
 
+@priced("xentropy_fwd")
 def xentropy_fwd_kernel(x2, labels, smoothing):
     """Triton forward on contiguous (N, V) logits and (N,) int labels:
     returns (loss f32 (N,), lse f32 (N,))."""
@@ -118,6 +120,7 @@ def xentropy_fwd_kernel(x2, labels, smoothing):
 xentropy_fwd_kernel.launches = 0
 
 
+@priced("xentropy_bwd")
 def xentropy_bwd_kernel(x2, labels, lse, g, smoothing):
     """Triton backward: dx in the logits dtype."""
     _check(x2, labels, lse, g)
@@ -140,6 +143,7 @@ def _hit(labels, v):
     return (labels >= 0) & (labels < v)
 
 
+@priced("xentropy_fwd")
 def xentropy_fwd_plain(x2, labels, smoothing):
     x = x2.float()
     v = x.shape[1]
@@ -154,6 +158,7 @@ def xentropy_fwd_plain(x2, labels, smoothing):
     return torch.where(valid, loss, 0.0), lse
 
 
+@priced("xentropy_bwd")
 def xentropy_bwd_plain(x2, labels, lse, g, smoothing):
     x = x2.float()
     v = x.shape[1]

@@ -23,8 +23,9 @@ compression: a hierarchical plan syncs through
 axes, a flat one through ``comm.bucketed_all_reduce`` with the plan's
 dtype. ``collective_bytes`` runs a step once and reads the port's
 collective ledger (``monitor.collectives``), where the JAX package reads
-the compiled HLO; ``memory_report`` reads compiled HLO in JAX and raises
-here (ROADMAP.md queue A, item 11 part 3). ``dynamics_probe`` feeds the
+the compiled HLO; ``memory_report`` runs a step once under
+``prof.memory_report``'s tracker, where the JAX package reads the compiled
+HLO too. ``dynamics_probe`` feeds the
 training-dynamics monitor.
 
 Every collective runs inside a ``torch.profiler.record_function`` named by
@@ -398,7 +399,25 @@ class DistributedDataParallel:
         with use_mesh(self.mesh):
             return collective_bytes(step_fn, *args, **kwargs)
 
-    def memory_report(self, *args, **kwargs):
-        raise NotImplementedError(
-            "memory_report reads compiled HLO in the JAX package; its port "
-            "belongs to prof/ (ROADMAP.md queue A, item 11 part 3)")
+    def memory_report(self, step_fn: Callable, *args,
+                      batch_size: Optional[int] = None, **kwargs):
+        """Per-rank device-memory footprint of a (wrapped) step — a
+        :class:`apex_tpu_torch.prof.MemoryReport` whose classes attribute
+        every byte to params / optimizer state / activations / **comm**
+        (the gradient buckets made under ``ddp/sync_gradients``). It
+        **runs the step once** with the mesh bound (the JAX package reads
+        its compiled HLO): give it a throwaway state. ``batch_size`` is
+        the per-rank batch; by default the one leading dimension of the
+        batch-side arguments (everything after the state) divisible by
+        the world size, divided by it — none, or more than one, leaves it
+        None (no forecast beats a wrong one)."""
+        from apex_tpu_torch.prof.memory import memory_report as _mr
+        if batch_size is None:
+            dims = {leaf.shape[0] for a in args[1:]
+                    for leaf in tree_leaves(a)
+                    if isinstance(leaf, torch.Tensor) and leaf.dim()}
+            cands = {d for d in dims if d % self.world_size == 0}
+            if len(cands) == 1:
+                batch_size = cands.pop() // self.world_size
+        with use_mesh(self.mesh):
+            return _mr(step_fn, *args, batch_size=batch_size, **kwargs)

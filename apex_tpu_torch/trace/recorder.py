@@ -169,10 +169,9 @@ class FlightRecorder:
             tracer.subscribe(self.on_step)
         self.collective_bytes = collective_bytes
         self.extra_statics: Dict[str, Any] = {}
-        # JSON-able digest of the step's memory footprint (a plain dict;
-        # the JAX package's prof.MemoryReport waits for the port's
-        # prof/) — embedded in the crash header so an OOM dump names the
-        # biggest buffers instead of just dying
+        # JSON-able digest of the step's memory footprint
+        # (prof.MemoryReport.summary()) — embedded in the crash header so
+        # an OOM dump names the biggest buffers instead of just dying
         self.memory_report: Optional[Dict[str, Any]] = None
         # bounded ring of recent guard interventions (note_guard) —
         # embedded in the crash header: a post-mortem must show whether
@@ -246,8 +245,8 @@ class FlightRecorder:
         self.record(metrics=metrics, **extra)
 
     def attach_memory_report(self, report) -> "FlightRecorder":
-        """Attach a memory report: a JSON-able ``summary()`` dict, or any
-        object with ``summary()``. Stored as a plain dict — no live
+        """Attach the step's :class:`apex_tpu_torch.prof.MemoryReport`
+        (or its ``summary()`` dict). Stored as a plain dict — no live
         references, so dumping never touches the (possibly wedged)
         device."""
         if report is None:

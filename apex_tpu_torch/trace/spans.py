@@ -59,7 +59,7 @@ from torch.profiler import record_function
 from apex_tpu_torch.utils.ranks import rank_default
 
 __all__ = ["span", "step", "Tracer", "SpanEvent", "StepTrace",
-           "StepTimeline", "current_tracer"]
+           "StepTimeline", "current_tracer", "current_scope"]
 
 # active Tracer stack (innermost last). Thread-local so a watchdog /
 # helper thread entering its own tracer never corrupts the train loop's.
@@ -71,6 +71,24 @@ def _stack() -> List["Tracer"]:
     if st is None:
         st = _tls.stack = []
     return st
+
+
+#: open scope watchers (``prof.memory_report``): while one is open, spans
+#: keep a thread-local stack of their names for :func:`current_scope`
+SCOPE_WATCH = [0]
+
+
+def _scopes() -> List[str]:
+    st = getattr(_tls, "scopes", None)
+    if st is None:
+        st = _tls.scopes = []
+    return st
+
+
+def current_scope() -> str:
+    """The names of the spans open on this thread, ``/``-joined (kept only
+    while a scope watcher is open; ``""`` otherwise)."""
+    return "/".join(_scopes())
 
 
 def current_tracer() -> Optional["Tracer"]:
@@ -409,15 +427,19 @@ class span:
     span's name (see :mod:`apex_tpu_torch.trace.debug_nans`).
     """
 
-    __slots__ = ("name", "kind", "_rf", "_tracer")
+    __slots__ = ("name", "kind", "_rf", "_tracer", "_scoped")
 
     def __init__(self, name: str, *, kind: str = "span"):
         self.name = name
         self.kind = kind
         self._rf = None
         self._tracer: Optional[Tracer] = None
+        self._scoped = False
 
     def __enter__(self) -> "span":
+        if SCOPE_WATCH[0]:
+            _scopes().append(self.name)
+            self._scoped = True
         self._tracer = current_tracer()
         if self._tracer is not None:
             self._tracer._span_begin(self.name, self.kind)
@@ -433,6 +455,9 @@ class span:
         if self._tracer is not None:
             self._tracer._span_end(aborted=bool(exc and exc[0]))
             self._tracer = None
+        if self._scoped:
+            _scopes().pop()
+            self._scoped = False
 
     def __call__(self, fn: Callable) -> Callable:
         from apex_tpu_torch.trace.debug_nans import nan_probe

@@ -183,6 +183,21 @@ plain PyTorch version on the card at the shapes its main path gives it
   join (linkbench_drift_two_ranks); and the convergence band of the DLRM
   bottom MLP: the plain path passes, a x10 learning rate is flagged
   (convergence_mlp).
+- The profiler (``apex_tpu_torch.prof``), right after the monitor phases:
+  ``profile_step`` and ``roofline_report`` on the arena BERT-Large step
+  (bert_large_profiled: launches as the arena step's, device ms within 3%
+  of ``device_ms``, closure within 5%, no row over 1.05 of its bound but
+  the L2-served memory-bound aten ones, each hand kernel's bound its
+  kernel row's, ``MetricsLogger.attach``'s FLOPs within 1% of the GEMMs'
+  and attention's, MFU on wall and device time, ``by_family``,
+  ``worst_gaps``, the CLI on the kept trace, the cost hook's host µs);
+  ``memory_report`` of that step (bert_large_memory: the peak-live
+  estimate and ``forecast(32)`` within 10% of the allocator's peaks, the
+  memory stream valid); a fresh process's Triton JIT and a new sequence
+  length seen by ``CompileWatcher`` with goodput's ``recompile`` bucket
+  (compile_watch_card); the port of ``examples/simple/distributed`` at
+  NCCL world 1 and on two gloo ranks (simple_distributed_example); and
+  the ZeRO state's ``shard_report`` inside zero_two_ranks.
 - Data, cluster and ``elastic_run``, after the ResNet phases, on a JPEG
   tree the port's encoder writes in the background from the start (512
   images, 256^2, 8 classes) and its packed cache: the codec (phase
@@ -222,9 +237,14 @@ import subprocess
 import sys
 import time
 
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet HBM3 bandwidth
-BF16_FLOPS = 989e12           # dense bf16/fp16 tensor-core peak
-F32_FLOPS = 67e12             # f32 outside the tensor cores
+# the H100 SXM data sheet's HBM3 bandwidth, dense bf16/fp16 tensor-core
+# and f32 peaks; the profiler session guard (its spin lead and counters);
+# the one bound formula, device-kernel filter and device_ms
+from apex_tpu_torch.prof.cost import HASH_OPS, bound_ms
+from apex_tpu_torch.prof.report import (  # noqa: F401
+    _LEAD, _LOST, _SPIN_NAMES, BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S,
+    MAX_LEAD, PAD_CYCLES, SHORT_CYCLES, device_ms)
+from apex_tpu_torch.prof.xplane import device_kernels
 EXPECTED_PER_STEP = {"layer_norm_fwd": 49, "layer_norm_bwd": 49,
                      "xentropy_fwd": 1, "xentropy_bwd": 1,
                      "flash_attn_fwd": 24, "flash_attn_bwd": 24}
@@ -415,9 +435,6 @@ ZERO_RANK_BATCH = 4
 # the link rates the hierarchical phases plan with: the wire dtype of
 # every hop is forced, so they only order candidates (not the card's)
 PLAN_LINKS = {"ici": 1.0e11, "dcn": 1.0e10}
-# integer operations of the dropout hash per score element (mix, avalanche,
-# compare, select and scale), counted at the f32 rate of the CUDA cores
-HASH_OPS = 20
 # the robustness phases: a resume from an async save at step RESUME_AT of
 # RESUME_STEPS; the guard's config (armed early), its faults (NaN grads, a
 # batch scaled by 1000, NaN params after a step), its one save and the
@@ -458,16 +475,6 @@ SOURCES = {
 # kernels' f32 outputs within 1e-5 of it (the same elementwise formulas,
 # and one f32 sum in another order for the norm)
 TOL16, TOL32, TOL_ARENA = 2e-2, 1e-3, 1e-5
-# clock cycles of the spin kernel that opens each device_ms profiler
-# session (~50 ms at the H100's 1.98 GHz) and of the short spins around it
-PAD_CYCLES, SHORT_CYCLES = 100_000_000, 1000
-# short spins each device_ms session launches first, doubled for the rest
-# of the run whenever a session loses records, up to MAX_LEAD
-_LEAD, MAX_LEAD = [64], 16384
-# the most leading records one accepted device_ms session lost
-_LOST = [0]
-# the spin kernel's name, as the profiler reports it
-_SPIN_NAMES = set()
 # arena against tree update on BERT-Large: p and m within 1e-5 of each
 # tensor's largest magnitude; v within 2e-5, because the kernels take
 # (1 - beta2) in f32 from the f32 beta2, as the JAX package's kernels do,
@@ -489,18 +496,6 @@ def log(msg):
     print(msg, flush=True)
 
 
-def device_kernels(prof):
-    """The CUDA kernel (and memcpy/memset) events of a profiler session,
-    less the device-side spans of ``record_function`` ranges (user
-    annotations): since the trace spans open one under a profiler (amp's
-    ``amp/fwd`` and ``amp/update`` too), counting those would add a
-    range's whole extent to the device time."""
-    import torch
-    return [e for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not getattr(e, "is_user_annotation", False)]
-
-
 def timed(fn, iters=10, flush=None):
     """Mean ms of one ``fn()`` call on the card, each call timed alone by
     CUDA events after ``flush()`` (an L2 sweep), after 2 warm-up calls."""
@@ -519,85 +514,6 @@ def timed(fn, iters=10, flush=None):
         b.synchronize()
         total += a.elapsed_time(b)
     return total / iters
-
-
-def device_ms(fn, iters=10, flush=None):
-    """Mean device time of one ``fn()`` call: the summed durations of the
-    CUDA kernels it launches, read from ``torch.profiler`` over ``iters``
-    calls, each after ``flush()`` (an L2 sweep, whose kernels are told
-    apart by name and left out), after 2 warm-up calls. Unlike
-    :func:`timed` it holds no host time: not the wrapper's, not the gaps
-    between a call's launches.
-
-    A session loses the records of its first few kernels on the card
-    (their launches' records stay), more the older the process: one to
-    four of twenty 40-100 s in, once ten at 9 s
-    (``scripts/torch_profiler_window.py``; neither a longer first kernel
-    nor a wait on the host before it keeps them). So every session first launches ``_LEAD[0]``
-    short spin kernels (``torch.cuda._sleep``, left out by name) for the
-    loss to take, then a ~50 ms spin, the measured work and a last short
-    spin; it counts only if it kept one of the first spins, the long one
-    and the last, and, with a flush, all ``iters`` flushes. A session that
-    did not is taken again with twice as many first spins, and the longer
-    lead stays for the rest of the run."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    def kernels(run):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(_LEAD[0]):
-                torch.cuda._sleep(SHORT_CYCLES)
-            torch.cuda._sleep(PAD_CYCLES)
-            run()
-            torch.cuda._sleep(SHORT_CYCLES)
-            torch.cuda.synchronize()
-        return device_kernels(prof)
-
-    def whole(run, kept):
-        """The first session of ``run`` whose kernels pass ``kept``; the
-        lead doubles after each that did not."""
-        while True:
-            ks = kernels(run)
-            if kept(ks):
-                if _SPIN_NAMES:
-                    spins = sum(e.name in _SPIN_NAMES for e in ks)
-                    _LOST[0] = max(_LOST[0], _LEAD[0] + 2 - spins)
-                return ks
-            if _LEAD[0] >= MAX_LEAD:
-                raise AssertionError("device_ms: profiler sessions lost "
-                                     f"records after a {_LEAD[0]}-kernel lead")
-            _LEAD[0] *= 2
-            log(f"device_ms: a profiler session lost records; sessions "
-                f"now open with {_LEAD[0]} short spins")
-
-    def bracketed(ks):
-        return sum(e.name in _SPIN_NAMES for e in ks) >= 3
-
-    def calls():
-        for _ in range(iters):
-            if flush is not None:
-                flush()
-            fn()
-
-    for _ in range(2):
-        fn()
-    if not _SPIN_NAMES:
-        # a session of spins alone names them
-        _SPIN_NAMES.update(e.name for e in
-                           whole(lambda: None, lambda ks: len(ks) >= 3))
-    flush_names = set()
-    if flush is not None:
-        flush_names = {e.name for e in whole(
-            flush, lambda ks: bracketed(ks)
-            and len({e.name for e in ks}) > 1)} - _SPIN_NAMES
-    skip = _SPIN_NAMES | flush_names
-    ks = whole(calls, lambda ks: bracketed(ks) and (
-        flush is None or sum(e.name in flush_names for e in ks) == iters))
-    ks = [e for e in ks if e.name not in skip]
-    if not ks:
-        raise AssertionError("device_ms: the call launched no kernel")
-    return sum(e.time_range.elapsed_us() for e in ks) / 1e3 / iters
 
 
 def compare(name, outs_k, outs_p, tol32=TOL32):
@@ -679,8 +595,8 @@ def bench_tools(rows):
 
     def row(name, err, ms, plain_ms, lib_ms, nbytes, flops, peak=BF16_FLOPS,
             int_ops=0, dev_ms=None, lib_dev_ms=None):
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = max(flops / peak, int_ops / F32_FLOPS) * 1e3
+        t_bytes = bound_ms(nbytes, 0, peak)
+        t_ops = bound_ms(0, flops, peak, int_ops)
         kernel, replaces, _ = {**EXTRA_ROWS, **EXTRA_BN_ROWS,
                                **EXTRA_ZERO_ROWS, **EXTRA_O1_ROWS,
                                **EXTRA_S64_ROWS}.get(
@@ -3762,6 +3678,7 @@ def zero_rank(rank, world):
                "held": held,
                "state_bytes": zopt.state_bytes(state.params, world=world),
                "collectives": issued, "count": int(new.opt_state.count)}
+        res["shard"] = zero_shard_report(app, new, g, zopt, mesh, world)
         if rank == 0:
             full = _flat(grads_of(toks, labels))
             res["full_vs_mean"] = ((full - mean).norm()
@@ -3771,6 +3688,29 @@ def zero_rank(rank, world):
         torch.cuda.empty_cache()
     dist.barrier()
     return out
+
+
+def zero_shard_report(app, state, grads, zopt, mesh, world):
+    """``prof.shard_report`` of this rank's ZeRO state on the ``data``
+    mesh, its classes from ``prof.memory_report`` of one more update:
+    the ratio of the optimizer state's local to global bytes, the
+    closure, and which classes' tensors are sharded by ``data``."""
+    from apex_tpu_torch import parallel, prof
+    from apex_tpu_torch.lint.mesh_model import MeshAxis, MeshModel
+    with parallel.use_mesh(mesh):
+        mem = prof.memory_report(
+            lambda s: app.apply_gradients(s, grads, True), state)
+    sr = prof.shard_report(state, MeshModel([MeshAxis("data", world)],
+                                            {"ici": 1.0}, name="data"),
+                           report=mem, optimizer=zopt)
+    sharded = {}
+    for r in sr.records:
+        sharded.setdefault(r.cls, set()).add(r.sharded_by("data"))
+    return {"ratio": sr.class_shard_ratio("optimizer_state"),
+            "closure": list(sr.closure()),
+            "sharded": {k: sorted(v) for k, v in sharded.items()},
+            "sources": sorted({r.source for r in sr.records}),
+            "axis": sr.axis_bytes("data")}
 
 
 def ring_rank(rank, world):
@@ -3878,7 +3818,11 @@ def zero_and_ring_two_ranks(rows):
     one process's arena update with the mean of the ranks' gradients, both
     ranks' params bit for bit equal, each rank's state what
     ``state_bytes`` says and half the replicated state (ratio <= 0.51),
-    and one scatter, one gather (and LAMB's three norm sums) issued.
+    and one scatter, one gather (and LAMB's three norm sums) issued;
+    ``prof.shard_report`` of each rank's state: the optimizer state's
+    local/global bytes 0.49-0.51, its slots sharded by ``data``, the
+    params replicated over it, rows from the shard plan (``layout``),
+    the per-axis table closing over ``memory_report``'s classes.
 
     ring_two_ranks: against single-process ``flash_attention_lse`` on the
     gathered sequence through the kernels, o and the q/k/v gradients within
@@ -3912,13 +3856,28 @@ def zero_and_ring_two_ranks(rows):
             if res["held"] != sb["sharded_bytes"] or not sb["ratio"] <= 0.51:
                 raise AssertionError(f"zero_two_ranks {name}: state "
                                      f"{res['held']} bytes, {sb}")
+            shard = res["shard"]
+            # the ZeRO slots are sharded by data (1/2 each; the step count
+            # rides along, replicated, and the shards' padding is slack),
+            # the params replicated over it; the table closes
+            if (not 0.49 <= shard["ratio"] <= 0.51
+                    or shard["sharded"].get("params") != [False]
+                    or True not in shard["sharded"].get("optimizer_state",
+                                                        [])
+                    or not shard["closure"][0]
+                    or shard["sources"] != ["layout"]):
+                raise AssertionError(f"zero_two_ranks {name} rank {r}: "
+                                     f"shard report {shard}")
         log(f"phase zero_two_ranks ({name}): params within "
             f"{max(p['err'] for p in per):.2e} of one process's arena "
             f"update on the mean gradient (limit {bound}), bit-equal on "
             f"both ranks; state {sb['sharded_bytes']} of "
             f"{sb['replicated_bytes']} bytes a rank (ratio "
             f"{sb['ratio']:.4f}); whole-batch gradient vs the ranks' mean: "
-            f"relative L2 {per[0]['full_vs_mean']:.2e}")
+            f"relative L2 {per[0]['full_vs_mean']:.2e}; shard report: "
+            f"optimizer state local/global {per[0]['shard']['ratio']:.5f}, "
+            f"closure error {per[0]['shard']['closure'][1]:.2e}, data axis "
+            f"{per[0]['shard']['axis']}")
 
     dev = torch.device("cuda")
     b, s, h, d = RING_B, RING_S, RING_H, RING_D
@@ -8013,13 +7972,22 @@ class _LateLoad:
     before each gradient sync, when ``slow`` is set, rank 1's input
     pipeline hands over the next batch STRAGGLER_DELAY_S late (a
     ``data/load`` span), so the wait the other rank sees in the sync's
-    collective is this load alone."""
+    collective is this load alone. A barrier just before the load lines
+    the ranks up there: the host's dispatch of the forward and backward
+    (≈ 13 ms a step, two processes on one card and 8 cores) varies by a
+    few ms a step and by up to 20 ms now and then, and would otherwise
+    add to or take from the load's skew (PERF.md §6;
+    ``scripts/torch_straggler_skew.py`` measures it with ``align=False``)."""
 
-    def __init__(self, ddp):
+    def __init__(self, ddp, align=True):
         self.ddp, self.mesh, self.slow = ddp, ddp.mesh, False
+        self.align = align
 
     def sync(self, grads):
+        import torch
         from apex_tpu_torch import trace
+        if self.align:
+            torch.distributed.barrier()
         if self.slow:
             with trace.span("data/load"):
                 time.sleep(STRAGGLER_DELAY_S)
@@ -8739,6 +8707,504 @@ def convergence_mlp():
         f"{jolt.first_flag_step})")
 
 
+# --- prof/: the profiled, memory, compile-watch and example phases ---------
+
+#: on-path hand kernels whose roofline bound must equal their kernel row's
+PROFILED_KERNELS = ("layer_norm_fwd", "layer_norm_bwd", "xentropy_fwd",
+                    "xentropy_bwd", "flash_attn_fwd", "flash_attn_bwd",
+                    "multi_tensor_l2norm", "lamb_stage1", "lamb_stage2")
+PROFILED_ITERS = 3            # profiled steps (after 2 warm-up steps)
+#: the H100 SXM's L2 cache (50 MB): an op whose operands fit may read them
+#: from L2, which its HBM bound does not price
+L2_BYTES = 50 << 20
+#: leading dimensions of BERT-Large's batch-scaled buffers at B16 S512:
+#: the batch, the token rows and the (batch * heads) rows of the lse
+BERT_BATCH_LEADS = (16, 16 * 512, 16 * 16)
+
+
+def bert_analytic_flops(enc, batch, seq, heads):
+    """FLOPs of one BERT training step's GEMMs and attention: 6 x tokens x
+    the matmul weights (every 2-D weight but the position embedding, plus
+    the token embedding once, as the tied decoder), and 14·B·H·S²·D a
+    layer of attention (4 forward, 10 backward)."""
+    weights = sum(p.numel() for n, p in enc.named_parameters()
+                  if p.dim() == 2 and "emb" not in n)
+    weights += enc.tok_emb.weight.numel()
+    d = enc.hidden // heads
+    attn = 14 * enc.layers * batch * heads * seq * seq * d
+    return 6 * batch * seq * weights + attn
+
+
+def hook_host_us(turns=4, n=2000):
+    """Host µs of one launch of the LayerNorm forward through its priced
+    wrapper and through the function it wraps (the wrapper without the
+    cost hook: the parent's code), off a profiler, medians of ``turns``
+    timings of ``n`` launches taken in turns (hooked, raw, raw, hooked,
+    ...) on a (64, 1024) bf16 input, each timing ended before the card
+    can fall behind."""
+    import statistics
+    import torch
+    from apex_tpu_torch.ops import layer_norm as L
+    dev = torch.device("cuda")
+    x = torch.randn(64, 1024, device=dev).to(torch.bfloat16)
+    w, b = torch.ones(1024, device=dev), torch.zeros(1024, device=dev)
+    fns = {"hooked": L.ln_fwd_kernel, "raw": L.ln_fwd_kernel.__wrapped__}
+    times = {k: [] for k in fns}
+    for t in range(turns):
+        order = ("hooked", "raw") if t % 2 == 0 else ("raw", "hooked")
+        for name in order:
+            fn = fns[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn(x, w, b, 1e-12)
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            times[name].append((t1 - t0) / n * 1e6)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def bert_large_profiled(smi, rows):
+    """Phase bert_large_profiled: ``prof.profile_step`` on the arena
+    BERT-Large step (B16, S512, O1 bf16, FusedLAMB arena; 2 warm-up and
+    PROFILED_ITERS profiled steps, on its own state). Gates: every hand
+    kernel of the path launched the arena step's count a step, in every
+    run profile_step made and in the profiled window; the report's device
+    ms within 3% of ``device_ms`` of the same step (over 2 steps);
+    ``roofline_report``'s closure within 5% of the window's kernel time;
+    no row's raw efficiency (attainable / measured) above 1.05, but for a
+    memory-bound aten op whose operands fit the L2 (L2_BYTES: the kernel
+    before it may have left them there, and the HBM bound does not price
+    an L2 read; logged); each hand kernel's attainable time its kernel
+    row's bound (within 1e-4 ms); the flops
+    ``MetricsLogger.attach`` takes from one run within 1% of the step's
+    GEMMs and attention (``bert_analytic_flops``); ``python -m
+    apex_tpu_torch.prof`` on the kept trace exits 0 with gemm and
+    flash_attn categories. Logged: MFU on wall and device time,
+    ``by_family``, ``worst_gaps(5)``."""
+    import tempfile
+    import torch
+    from apex_tpu_torch import monitor, ops, prof, train
+
+    phase = "bert_large_profiled"
+    clock = _Clock()
+    with clock("build"):
+        step, state, (toks, labels), _p, enc = train.build_bert_step(
+            16, 512, strategy="arena")
+    per_step = dict(EXPECTED_PER_STEP, **ARENA_PER_STEP)
+    holder = [state]
+    del state
+
+    def run():
+        holder[0], loss = step(holder[0], toks, labels)
+        return loss
+
+    with clock("device_ms"):
+        dev_ms = device_ms(run, iters=2)
+    logdir = tempfile.mkdtemp(prefix="chip_smoke_prof_")
+    try:
+        ops.reset_launch_counts()
+        with clock("profile_step"):
+            rep = prof.profile_step(run, iters=PROFILED_ITERS, warmup=2,
+                                    logdir=logdir)
+        counts = ops.launch_counts()
+        runs = {name: counts[name] / n for name, n in per_step.items()}
+        if (len(set(runs.values())) != 1
+                or any(r != int(r) or r < 1 for r in runs.values())
+                or any(v for k, v in counts.items() if k not in per_step)):
+            raise AssertionError(f"{phase}: launches {counts} are not a "
+                                 f"whole number of arena steps {per_step}")
+        with clock("roofline"):
+            roof = prof.roofline_report(rep)
+        ranges = {}
+        for r in roof.rows:
+            if r.opcode.startswith("apex_tpu_torch::"):
+                k = r.opcode.split("::", 1)[1]
+                ranges[k] = ranges.get(k, 0) + r.occurrences
+        want = {k: v * PROFILED_ITERS for k, v in per_step.items()}
+        if ranges != want:
+            raise AssertionError(f"{phase}: kernel calls in the profiled "
+                                 f"window {ranges}, expected {want}")
+        rep_ms = rep.device_us / 1e3
+        if not abs(rep_ms - dev_ms) <= 0.03 * dev_ms:
+            raise AssertionError(f"{phase}: profile_step device "
+                                 f"{rep_ms:.3f} ms vs device_ms "
+                                 f"{dev_ms:.3f} ms (limit 3%)")
+        ok, err = roof.check_closure(0.05)
+        if not ok:
+            raise AssertionError(f"{phase}: roofline closure error "
+                                 f"{err:.4f} > 0.05")
+        def l2_served(r):
+            est = rep.counter.ops.get(r.name)
+            return (r.bound == "memory" and est is not None
+                    and not r.opcode.startswith("apex_tpu_torch::")
+                    and est.in_bytes <= L2_BYTES)
+
+        above = sorted((r for r in roof.rows
+                        if (r.raw_efficiency or 0.0) > 1.05),
+                       key=lambda r: -r.raw_efficiency)
+        high = [r for r in above if not l2_served(r)]
+        for r in above[:10]:
+            log(f"{phase}: row above its bound"
+                f"{' (operands fit the L2)' if l2_served(r) else ''}: "
+                f"{r.name[:90]} "
+                f"({r.family}, {r.bound}) raw efficiency "
+                f"{r.raw_efficiency:.3f}: measured {r.measured_us:.2f} us, "
+                f"attainable {r.attainable_us:.2f} us, {r.bytes:.0f} B, "
+                f"{r.flops:.3g} flops, kernels {r.hlo[:80]}")
+        for name in PROFILED_KERNELS:
+            krows = [r for r in roof.rows
+                     if r.opcode == f"apex_tpu_torch::{name}"]
+            if len(krows) != 1:
+                raise AssertionError(f"{phase}: {len(krows)} roofline rows "
+                                     f"for {name}")
+            att = krows[0].attainable_us / 1e3
+            bound = rows[name]["bound_ms"]
+            if not abs(att - bound) <= 1e-4:
+                raise AssertionError(f"{phase}: {name} attainable "
+                                     f"{att:.6f} ms vs its kernel row's "
+                                     f"bound {bound:.6f} ms")
+            log(f"{phase}: {name}: {krows[0].occurrences} calls, measured "
+                f"{krows[0].measured_us / 1e3:.4f} ms a call, attainable "
+                f"{att:.4f} ms = kernel row bound {bound:.4f} ms")
+        with clock("attach"):
+            logger = monitor.MetricsLogger(sinks=[])
+            logger.attach(run)
+            logger.close()
+        analytic = bert_analytic_flops(enc, 16, 512, 16)
+        rel = abs(logger.flops_per_step - analytic) / analytic
+        if not rel <= 0.01:
+            raise AssertionError(f"{phase}: attach flops "
+                                 f"{logger.flops_per_step:.6g} vs analytic "
+                                 f"{analytic:.6g} (rel {rel:.2e} > 1%)")
+        with clock("cli"):
+            cli = subprocess.run(
+                [sys.executable, "-m", "apex_tpu_torch.prof", logdir,
+                 "--top", "15"], capture_output=True, text=True,
+                cwd=os.path.dirname(os.path.abspath(__file__)), timeout=300)
+        if cli.returncode != 0 or "gemm" not in cli.stdout \
+                or "flash_attn" not in cli.stdout:
+            raise AssertionError(f"{phase}: python -m apex_tpu_torch.prof "
+                                 f"rc {cli.returncode}: {cli.stdout[-800:]}"
+                                 f" {cli.stderr[-800:]}")
+    finally:
+        shutil.rmtree(logdir, ignore_errors=True)
+    if high:
+        raise AssertionError(f"{phase}: {len(high)} roofline rows above "
+                             f"1.05 of their bound")
+    fams = roof.by_family()
+    log(f"{phase}: {smi}: device {rep_ms:.3f} ms a step (device_ms "
+        f"{dev_ms:.3f}), wall {rep.wall_us / 1e3:.3f} ms; "
+        f"{len(rep.profile.kernels) // PROFILED_ITERS} kernels a step; "
+        f"closure error {err:.5f}; flops a step {rep.cost['flops']:.6g} "
+        f"counted, {logger.flops_per_step:.6g} by attach, analytic "
+        f"{analytic:.6g} (rel {rel:.2e}); MFU {rep.mfu(on='wall'):.4f} on "
+        f"wall time, {rep.mfu():.4f} on device time (peak "
+        f"{prof.device_peak_flops():.3g} FLOP/s)")
+    log(f"{phase}: by_family (ms a step, efficiency): " + ", ".join(
+        f"{k} {v['measured_us'] / 1e3 / PROFILED_ITERS:.3f}"
+        f"@{v['efficiency']}" for k, v in fams.items()))
+    log(f"{phase}: by_category (ms a step): " + ", ".join(
+        f"{k} {v / 1e3 / PROFILED_ITERS:.3f}"
+        for k, v in rep.by_category().items()))
+    for g in roof.worst_gaps(5):
+        log(f"{phase}: worst gap {g['gap_us'] / PROFILED_ITERS / 1e3:.3f} "
+            f"ms a step: {g['op'][:100]} ({g['family']}, {g['bound']}, "
+            f"x{g['occurrences'] // PROFILED_ITERS} a step, measured "
+            f"{g['measured_us']:.2f} us, attainable "
+            f"{g['attainable_us']:.2f} us, efficiency {g['efficiency']})")
+    with clock("hook_cost"):
+        hook = hook_host_us()
+    calls = sum(per_step.values())
+    extra_ms = (hook["hooked"] - hook["raw"]) * calls / 1e3
+    log(f"{phase}: {smi}: the cost hook off a profiler: "
+        f"{hook['hooked']:.3f} µs a LayerNorm-forward launch through the "
+        f"priced wrapper vs {hook['raw']:.3f} µs without it (medians of 4 "
+        f"turns of 2000 launches); {calls} priced calls a step -> "
+        f"{extra_ms:.4f} ms of host time a step, "
+        f"{100 * extra_ms / (rep.wall_us / 1e3):.3f}% of the "
+        f"{rep.wall_us / 1e3:.3f} ms step")
+    log(clock.line(phase))
+
+
+def _state_bytes(*trees):
+    """Bytes of the distinct storages under ``trees``."""
+    from apex_tpu_torch.ckpt.snapshot import tree_paths
+    seen, total = set(), 0
+    for tree in trees:
+        for _, leaf in tree_paths(tree):
+            if hasattr(leaf, "untyped_storage"):
+                st = leaf.untyped_storage()
+                if st.data_ptr() not in seen:
+                    seen.add(st.data_ptr())
+                    total += st.nbytes()
+    return total
+
+
+def _measured_peak(step, state, toks, labels):
+    """(new state, peak bytes the step held: the allocator's peak over the
+    step less what was allocated before it, plus the state and inputs)."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, loss = step(state, toks, labels)
+    loss.item()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    return state, peak - before
+
+
+def bert_large_memory(smi, rows):
+    """Phase bert_large_memory: ``prof.memory_report`` of the arena
+    BERT-Large step (B16, S512), after one warm-up step. Gates: the
+    classes (the footprint at the peak) sum exactly to the tracked total;
+    the tracked arguments are the state and inputs; the peak-live estimate
+    within
+    10% of what the step held by the allocator (its
+    ``max_memory_allocated`` after ``reset_peak_memory_stats``, less what
+    was allocated before the step, plus the state and inputs, which the
+    estimate counts); ``forecast(32)`` within 10% of a B32 step's measured
+    peak, the same way; ``sample_memory`` emits a ``kind="memory"`` event
+    with every value set, and the stream (with the report's event) passes
+    ``scripts/check_metrics_schema.py --kind memory``."""
+    import tempfile
+    import torch
+    from apex_tpu_torch import monitor, prof, train
+
+    phase = "bert_large_memory"
+    clock = _Clock()
+    with clock("build"):
+        step, state, (toks, labels), _p, _e = train.build_bert_step(
+            16, 512, strategy="arena")
+        state, _ = step(state, toks, labels)
+    with clock("measured"):
+        state, held = _measured_peak(step, state, toks, labels)
+    args_bytes = _state_bytes(state, toks, labels)
+    with clock("memory_report"):
+        rep = prof.memory_report(step, state, toks, labels, batch_size=16,
+                                 batch_leads=BERT_BATCH_LEADS)
+    if rep.attributed_total() != rep.total_bytes:
+        raise AssertionError(f"{phase}: classes {rep.attributed_total()} "
+                             f"!= total {rep.total_bytes}")
+    if rep.stats["argument"] != args_bytes:
+        raise AssertionError(f"{phase}: tracked arguments "
+                             f"{rep.stats['argument']} != state + inputs "
+                             f"{args_bytes}")
+    measured = held + args_bytes
+    err = abs(rep.peak_live_bytes - measured) / measured
+    log(rep.table(top=8))
+    if not err <= 0.10:
+        raise AssertionError(f"{phase}: peak-live estimate "
+                             f"{rep.peak_live_bytes} vs measured {measured} "
+                             f"bytes (rel {err:.3f} > 0.10)")
+    fc = rep.forecast(32)
+    del state, step, toks, labels
+    torch.cuda.empty_cache()
+    with clock("b32"):
+        step, state, (toks, labels), _p, _e = train.build_bert_step(
+            32, 512, strategy="arena")
+        state, _ = step(state, toks, labels)
+        state, held32 = _measured_peak(step, state, toks, labels)
+        measured32 = held32 + _state_bytes(state, toks, labels)
+    del state, step, toks, labels
+    torch.cuda.empty_cache()
+    err32 = abs(fc["peak_bytes"] - measured32) / measured32
+    if not err32 <= 0.10:
+        raise AssertionError(f"{phase}: forecast(32) {fc['peak_bytes']} vs "
+                             f"a B32 step's {measured32} bytes (rel "
+                             f"{err32:.3f} > 0.10)")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mem_")
+    try:
+        path = os.path.join(tmp, "memory.jsonl")
+        logger = monitor.MetricsLogger(sinks=[],
+                                       memory_sink=monitor.JSONLSink(path))
+        sample = logger.sample_memory(step=0)
+        logger.attach_memory_report(rep)
+        logger.close()
+        if any(sample[k] is None for k in ("bytes_in_use",
+                                           "peak_bytes_in_use",
+                                           "bytes_limit")):
+            raise AssertionError(f"{phase}: memory sample {sample}")
+        chk = subprocess.run(
+            [sys.executable, "scripts/check_metrics_schema.py", "--kind",
+             "memory", path], capture_output=True, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)), timeout=120)
+        if chk.returncode != 0:
+            raise AssertionError(f"{phase}: schema check rc "
+                                 f"{chk.returncode}: {chk.stdout[-600:]} "
+                                 f"{chk.stderr[-600:]}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    gib = 1 << 30
+    log(f"{phase}: {smi}: peak-live estimate {rep.peak_live_bytes / gib:.3f}"
+        f" GiB vs measured {measured / gib:.3f} GiB (rel {err:.4f}); "
+        f"classes at the peak (GiB): " + ", ".join(
+            f"{k} {v / gib:.3f}" for k, v in rep.classes.items())
+        + f"; {rep.stats['allocated'] / gib:.3f} GiB of temps allocated "
+        f"over the step; batch-scaled {rep.batch_bytes / gib:.3f} GiB; "
+        f"forecast(32) "
+        f"{fc['peak_bytes'] / gib:.3f} GiB vs a B32 step's "
+        f"{measured32 / gib:.3f} GiB (rel {err32:.4f}); max batch "
+        f"{rep.max_batch()} of {rep.hbm_limit / gib:.1f} GiB; sample "
+        f"{sample['bytes_in_use']} bytes in use")
+    log(clock.line(phase))
+
+
+def compile_watch_child():
+    """The compile_watch_card child (a fresh process, so Triton's JIT runs
+    here): a depth-2 BERT (B16, full width, arena) stepped at S 512, 512,
+    512, 384, 384 through ``CompileWatcher.watch`` under a Tracer and a
+    GoodputLedger. Prints one JSON line: the compiles of each call, the
+    retraces, each step's ``recompile`` bucket and the process counters."""
+    import torch
+    from apex_tpu_torch import monitor, prof, trace, train
+    torch.cuda.set_device(0)
+    step, state, (toks, labels), _p, _e = train.build_bert_step(
+        16, 512, encoder=depth2_encoder(), strategy="arena")
+    watcher = prof.CompileWatcher(warn_after=1)
+    wstep = watcher.watch(step, "bert_step")
+    tracer = trace.Tracer()
+    ledger = monitor.GoodputLedger(tracer)
+    seqs = (512, 512, 512, 384, 384)
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with tracer:
+            for i, s in enumerate(seqs):
+                with trace.step(i):
+                    with trace.span("dispatch"):
+                        state, loss = wstep(state, toks[:, :s].contiguous(),
+                                            labels[:, :s].contiguous())
+                        loss.item()
+    rec = watcher["bert_step"]
+    print(json.dumps({
+        "per_call": rec.per_call, "n_traces": rec.n_traces,
+        "retraces": rec.retraces,
+        "recompile_ms": [st.buckets["recompile"] for st in ledger.steps],
+        "closure": ledger.check_closure()[0],
+        "warned": [str(w.message) for w in caught
+                   if "compile_watch" in str(w.message)],
+        "process": prof.global_counters(), "report": watcher.report()}))
+
+
+def compile_watch_card(smi, rows):
+    """Phase compile_watch_card: ``compile_watch_child`` in a child
+    process. Gates: the first step JIT-compiles Triton specializations
+    (> 0 compiles) and the next two compile nothing; the S 512 -> 384 call
+    is a retrace whose report names the changed arguments (``[0][1]`` and
+    ``[0][2]``, the tokens and labels); the warning fires after it; the
+    goodput ``recompile`` bucket is > 0 on exactly the steps that compiled
+    and 0 on the others; the ledger closes."""
+    phase = "compile_watch_card"
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, '.'); "
+         "import chip_smoke; chip_smoke.compile_watch_child()"],
+        capture_output=True, text=True, cwd=root, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"{phase}: child rc {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    per_call, rc = res["per_call"], res["recompile_ms"]
+    if not (per_call[0] > 0 and per_call[1] == 0 and per_call[2] == 0):
+        raise AssertionError(f"{phase}: compiles a call {per_call}")
+    changed = res["retraces"][0]["changed"] if res["retraces"] else ""
+    if (res["n_traces"] != 2 or len(res["retraces"]) != 1
+            or res["retraces"][0]["call"] != 4
+            or "[0][1]: ((16, 512), 'int64') -> ((16, 384), 'int64')"
+            not in changed or "[0][2]" not in changed or not res["warned"]):
+        raise AssertionError(f"{phase}: retraces {res['retraces']}, "
+                             f"traces {res['n_traces']}, warned "
+                             f"{res['warned']}")
+    if any((ms > 0) != (n > 0) for ms, n in zip(rc, per_call)):
+        raise AssertionError(f"{phase}: recompile bucket {rc} vs compiles "
+                             f"{per_call}")
+    if not res["closure"]:
+        raise AssertionError(f"{phase}: goodput ledger does not close")
+    log(f"{phase}: {smi}: compiles a call {per_call} (S 512 x3, 384 x2); "
+        f"recompile bucket ms a step {[round(x, 1) for x in rc]}; retrace "
+        f"at call 4: {changed}; process {res['process']}")
+
+
+def simple_distributed_example(smi, rows):
+    """Phase simple_distributed_example: ``scripts/torch_simple_distributed
+    .py`` (amp O1 + DDP + FusedSGD, ``logger.attach``) 20 steps at NCCL
+    world 1 and as two gloo ranks on ``cuda:0``. Gates: each run exits 0;
+    the printed ``collective_bytes_per_step`` is the DDP gradient bytes
+    (65600: w 1024x16 and b 16, f32) plus the logged loss's mean (4);
+    the MFU column holds numbers (not n/a); both ranks end on the world-1
+    run's final loss within 2e-3 relative (the same global batch; the
+    O1 bf16 GEMMs over 64 and over 32 rows may round apart)."""
+    import tempfile
+    phase = "simple_distributed_example"
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_simple_")
+    script = os.path.join(root, "scripts", "torch_simple_distributed.py")
+    base = [sys.executable, script, "--steps", "20", "--log-every", "10"]
+    try:
+        procs = [subprocess.Popen(
+            base + ["--dist-url", f"file://{tmp}/s1", "--world-size", "1",
+                    "--rank", "0"], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True, cwd=root)]
+        procs += [subprocess.Popen(
+            base + ["--dist-url", f"file://{tmp}/s2", "--world-size", "2",
+                    "--rank", str(r), "--backend-device", "cpu"],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            cwd=root) for r in range(2)]
+        outs = []
+        for p in procs:
+            try:
+                out, errs = p.communicate(timeout=300)
+            except subprocess.TimeoutExpired:
+                for q in procs:
+                    q.kill()
+                raise
+            if p.returncode != 0:
+                raise AssertionError(f"{phase}: rc {p.returncode}: "
+                                     f"{errs[-1500:]}")
+            outs.append(out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    finals = []
+    for i, out in enumerate(outs):
+        lines = out.strip().splitlines()
+        cb = [l for l in lines if l.startswith("collective_bytes_per_step")]
+        if not cb or not cb[0].startswith(
+                "collective_bytes_per_step: 65604 (DDP gradient bytes 65600"):
+            raise AssertionError(f"{phase}: run {i}: {cb}")
+        head = [l for l in lines if l.split()[:1] == ["step"]]
+        table = lines[lines.index(head[0]) + 1:]
+        mfu_col = head[0].split().index("mfu")
+        vals = [l.split()[mfu_col] for l in table
+                if l.split() and l.split()[0].isdigit()]
+        if not vals or any(v == "n/a" for v in vals[1:]):
+            raise AssertionError(f"{phase}: run {i}: mfu column {vals}")
+        finals.append(float(lines[-1].split("=")[-1]))
+    for f in finals[1:]:
+        # bf16 GEMMs at 64 and 32 rows may round apart: 2e-3 relative
+        if not abs(f - finals[0]) <= 2e-3 * abs(finals[0]):
+            raise AssertionError(f"{phase}: final losses {finals}")
+    log(f"{phase}: {smi}: world 1 (NCCL) and 2 (gloo) runs print "
+        f"collective_bytes_per_step 65604 (65600 gradient + 4 loss), mfu "
+        f"column {vals[-1]} (rank 1 of 2, last step); final losses "
+        f"{finals}")
+
+
+def prof_phases(smi, rows):
+    """This slice's phases, after the monitor phases; each logs its wall
+    time."""
+    import torch
+    for fn in (bert_large_profiled, bert_large_memory, compile_watch_card,
+               simple_distributed_example):
+        t = time.perf_counter()
+        fn(smi, rows)
+        torch.cuda.empty_cache()
+        log(f"phase {fn.__name__}: {time.perf_counter() - t:.1f} s")
+
+
 def monitor_phases(smi, arena_losses):
     """This slice's phases, after the observability phases: the observed
     BERT-Large step, the fp8 flag on the card, the two-rank dynamics and
@@ -8933,6 +9399,8 @@ def main() -> int:
     observability_phases(smi)
     torch.cuda.empty_cache()
     monitor_phases(smi, arena_losses)
+    torch.cuda.empty_cache()
+    prof_phases(smi, rows)
     torch.cuda.empty_cache()
     resnet_plain_vs_kernel()
     torch.cuda.empty_cache()

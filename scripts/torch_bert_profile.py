@@ -58,37 +58,13 @@ import subprocess
 import sys
 import time
 
-_CATEGORIES = (
-    ("flash_attn", ("flash_fwd", "flash_bwd")),
-    ("layer_norm", ("ln_fwd_warp<", "ln_fwd_block<", "ln_bwd_warp<",
-                    "ln_bwd_block<")),
-    ("xentropy", ("_ce_fwd_triton", "_ce_bwd_triton")),
-    ("arena_lamb", ("_l2norm_partials_triton", "_l2norm_finish_triton",
-                    "_lamb_stage1_triton", "_lamb_stage2_triton")),
-    ("bn_sums", ("::bn_sums<",)),
-    ("bn_dx", ("_bn_dx_triton",)),
-    ("arena_sgd", ("_sgd_triton",)),
-    ("arena_adam", ("_adam_triton",)),
-    ("mlp_fwd", ("mlp_fused", "mlp_layer")),
-    ("conv", ("fprop", "dgrad", "wgrad", "cudnn", "convolve", "conv2d",
-              "nchwtonhwc", "nhwctonchw")),
-    ("gemm", ("gemm", "xmma", "cutlass", "nvjet", "sm90_", "cublas")),
-    ("cast", ("direct_copy_kernel",)),
-    ("elementwise", ("elementwise_kernel",)),
-    ("reduce", ("reduce_kernel",)),
-    ("nccl", ("nccl",)),
-)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+from apex_tpu_torch.prof.xplane import category as _category  # noqa: E402
+
 BN_FWD = "bn_fwd"       # the record_function around the plain BN forward
 BATCH_NORM = "batch_norm"   # ... around DCGAN's BatchNorm modules
 _BACKWARD = "autograd::engine::evaluate_function"
-
-
-def _category(name: str) -> str:
-    low = name.lower()
-    for cat, keys in _CATEGORIES:
-        if any(k.lower() in low for k in keys):
-            return cat
-    return "other"
 
 
 def _region_ms(prof, name, backward=False):

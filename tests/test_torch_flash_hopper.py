@@ -160,9 +160,16 @@ def test_device_ms_leaves_the_flush_out():
     """The flush's kernels (and the spins that open and close each
     session) are told apart by name and left out, and a session that lost
     its first spins, its last, or any of the measured calls' flushes is
-    taken again with more short spins ahead of the work."""
-    src = inspect.getsource(chip_smoke.device_ms)
-    assert "flush_names = {e.name for e in whole(" in src
+    taken again with more short spins ahead of the work. The smoke's
+    ``device_ms`` is ``apex_tpu_torch.prof``'s, whose guarded session
+    ``profile_step`` shares."""
+    from apex_tpu_torch.prof import report
+    assert chip_smoke.device_ms is report.device_ms
+    assert chip_smoke._LEAD is report._LEAD
+    src = "".join(inspect.getsource(f) for f in (
+        report.device_ms, report.guarded_session, report._session,
+        report.bracketed))
+    assert "flush_names = {e.name for e in guarded_session(" in src
     assert "} - _SPIN_NAMES" in src
     assert "for _ in range(_LEAD[0]):" in src
     assert "torch.cuda._sleep(PAD_CYCLES)" in src
@@ -170,7 +177,7 @@ def test_device_ms_leaves_the_flush_out():
     assert "skip = _SPIN_NAMES | flush_names" in src
     assert "e.name not in skip" in src
     assert "sum(e.name in flush_names for e in ks) == iters" in src
-    assert "sum(e.name in _SPIN_NAMES for e in ks) >= 3" in src
+    assert "sum(e.name in _SPIN_NAMES for e in kernels) >= 3" in src
     assert "_LEAD[0] *= 2" in src
     assert chip_smoke.MAX_LEAD > chip_smoke._LEAD[0] > 0
 

@@ -339,19 +339,23 @@ def test_channel_registry_matches_jax(tmp_path):
 
 
 def test_logger_waits_for_prof_and_nulls_nonfinite(tmp_path):
-    for kw in ({"peak_flops": 1e12}, {"flops_per_step": 1e9}):
-        with pytest.raises(NotImplementedError, match="item 11 part 3"):
-            tmon.MetricsLogger(sinks=[], **kw)
+    # prof/ is ported: the MFU statics are taken, attach runs the step
+    # once, and only the lint report still waits (queue A, item 12)
+    assert tmon.MetricsLogger(sinks=[], peak_flops=1e12).peak_flops == 1e12
+    assert tmon.MetricsLogger(
+        sinks=[], flops_per_step=1e9).flops_per_step == 1e9
     logger = tmon.MetricsLogger(sinks=[tmon.JSONLSink(str(
         tmp_path / "m.jsonl"))], flush_every=10)
-    for call in (lambda: logger.attach(lambda: None),
-                 lambda: logger.sample_memory(0),
-                 lambda: logger.attach_memory_report(None),
+    a, b = torch.ones(4, 3), torch.ones(3, 2)
+    assert logger.attach(torch.mm, a, b).flops_per_step == 2 * 4 * 3 * 2
+    assert logger.collective_bytes_per_step == 0
+    assert logger.sample_memory(0) is None          # no memory sink
+    for call in (lambda: logger.attach_memory_report(None),
                  lambda: logger.attach_shard_report(None),
-                 lambda: logger.attach_lint_report(None),
                  lambda: logger.attach_roofline_report(None)):
-        with pytest.raises(NotImplementedError, match="prof/"):
-            call()
+        assert call() is logger
+    with pytest.raises(NotImplementedError, match="item 12"):
+        logger.attach_lint_report(None)
     logger.record(tmon.metrics_init().record_loss(float("inf")))
     logger.close()
     rec = json.loads((tmp_path / "m.jsonl").read_text())

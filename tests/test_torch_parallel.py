@@ -162,9 +162,13 @@ def test_ddp_mode_validation_and_unported_parts():
     with pytest.raises(ValueError, match="hierarchical"):
         tpar.DistributedDataParallel(_fake_mesh(), comm_plan=plan)
     ddp = tpar.DistributedDataParallel(_fake_mesh())
-    # memory_report reads compiled HLO in JAX: part 3 of item 11
-    with pytest.raises(NotImplementedError, match="item 11 part 3"):
-        ddp.memory_report(lambda s: s)
+    # memory_report runs the step once under prof's tracker (the mesh
+    # bound needs a process group for the world size, so the per-rank
+    # batch is given here; tests/test_torch_prof_memory.py infers it)
+    rep = ddp.memory_report(lambda s: s * 2, torch.ones(8, 4),
+                            batch_size=8)
+    assert rep.classes["inputs"] == 8 * 4 * 4
+    assert rep.classes["outputs"] == 8 * 4 * 4
     # collective_bytes runs the step once and reads the collective ledger:
     # a step that calls no collective moves no bytes
     assert ddp.collective_bytes(lambda s: s, 1) == {"total": 0}
