@@ -35,7 +35,7 @@ import math
 import torch
 
 from apex_tpu_torch.amp import functional_patch
-from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops import _build, autotune
 from apex_tpu_torch.ops._priced import priced
 
 NEG_INF = -1e30
@@ -483,6 +483,9 @@ def _attention(q, k, v, bias, scale, causal, block_q, block_k, dropout_rate,
     """Checks in the JAX package's order (``_flash_attention_fwd_res``),
     then (o, lse (B, H, Sq)) through the autograd function."""
     _check_shapes(q, k, v)
+    block_q, block_k = autotune.tuned_qk(q, k, block_q, block_k,
+                                         dropout_rate, DEFAULT_BLOCK_Q,
+                                         DEFAULT_BLOCK_K)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     scale = scale if scale is not None else 1.0 / math.sqrt(d)
@@ -525,9 +528,9 @@ def flash_attention(q, k, v, bias=None, scale=None, causal=False,
     dropout they fix the mask's block coordinates (capped at 512, then
     ``_choose_block``), as in the JAX package; otherwise they change only
     the order of float sums there, and the CUDA kernels keep their own
-    tile. The JAX package swaps in tuned blocks only at the defaults and
-    never under dropout; the port keeps no tuning table, so the defaults
-    stay the defaults.
+    tile. A tuning-DB hit (``autotune.tuned_qk``, family ``attention``)
+    replaces them, as in the JAX package, only at the defaults and never
+    under dropout, so it changes no launch of the port.
     ``dropout_rate > 0``: softmax dropout seeded by the int32
     ``dropout_seed``, the JAX package's mask bit for bit.
     """

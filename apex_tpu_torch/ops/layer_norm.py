@@ -39,7 +39,7 @@ import struct
 import torch
 import torch.nn as nn
 
-from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops import _build, autotune
 from apex_tpu_torch.ops._priced import priced
 
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
@@ -92,6 +92,18 @@ def _ln_plan(h: int, itemsize: int, aligned: bool) -> tuple:
     return (_STAGED if h * itemsize <= _MAX_STAGED else _STREAMED), 0
 
 
+def _tuned_epl(knobs: dict, path: int, epl: int, itemsize: int) -> int:
+    """A tuning hit's ``epl`` where the plan's path is a warp path whose
+    instances take it (``autotune.legal_values`` has checked 32·epl >= h;
+    f32 rows one element a load stop at ``_SCALAR_F32_EPL``), else the
+    plan's own."""
+    e = knobs.get("epl")
+    if e is None or path not in (_SCALAR, _VECTOR) or (
+            path == _SCALAR and itemsize == 4 and e > _SCALAR_F32_EPL):
+        return epl
+    return e
+
+
 #: ``LnCall`` of ``csrc/layer_norm_fwd.cu``, field by field: every field 64
 #: bits, eps a double. One packed struct crosses ctypes in one argument.
 LN_CALL_FIELDS = ("x", "w", "b", "y", "n", "h", "x_dtype", "w_dtype",
@@ -118,6 +130,8 @@ def ln_fwd_kernel(x2, weight, bias, eps):
         return y
     xp = x2.data_ptr()
     path, epl = _ln_plan(h, x2.element_size(), xp % 16 == 0)
+    epl = _tuned_epl(autotune.launch_knobs("layer_norm", (n, h), x2.dtype),
+                     path, epl, x2.element_size())
     affine = weight is not None
     call = _LN_CALL.pack(
         xp, weight.data_ptr() if affine else 0,
@@ -133,26 +147,27 @@ def ln_fwd_kernel(x2, weight, bias, eps):
 ln_fwd_kernel.launches = 0
 
 
-#: most blocks of the backward's grid
-_BWD_BLOCKS = 256
+#: most blocks of the backward's grid, unless the tuning DB has the shape
+_BWD_BLOCKS = autotune.DEFAULTS["layer_norm"]["bwd_blocks"]
 #: widest x and g row, in bytes, the backward stages (``kMaxStagedBwd``)
 _BWD_MAX_STAGED = _MAX_STAGED - 8192
 
 
 @functools.lru_cache(maxsize=None)
-def _ln_bwd_plan(n: int, h: int, itemsize: int, aligned: bool) -> tuple:
+def _ln_bwd_plan(n: int, h: int, itemsize: int, aligned: bool,
+                 max_blocks: int = _BWD_BLOCKS) -> tuple:
     """``(path, elements a lane, rows a block, blocks)`` of ``apex_ln_bwd``
     over (n, h) rows: the forward's paths (:func:`_ln_plan`; a staged row
     holds x and g, up to ``_BWD_MAX_STAGED`` bytes of both), at
-    most ``_BWD_BLOCKS`` blocks of runs of ``rows`` rows (at least a row a
-    warp on the warp paths; the last block takes the rest), one dγ/dβ
-    partial each. A pure function of the shape, so the order of every sum
-    is fixed."""
+    most ``max_blocks`` (``_BWD_BLOCKS`` unless tuned) blocks of runs of
+    ``rows`` rows (at least a row a warp on the warp paths; the last block
+    takes the rest), one dγ/dβ partial each. A pure function of the shape
+    and the knob, so the order of every sum is fixed."""
     path, epl = _ln_plan(h, itemsize, aligned)
     if path == _STAGED and 2 * h * itemsize > _BWD_MAX_STAGED:
         path = _STREAMED
     per_block = _WARPS if path in (_SCALAR, _VECTOR) else 1
-    blocks = max(1, min(_BWD_BLOCKS, -(-n // per_block)))
+    blocks = max(1, min(max_blocks, -(-n // per_block)))
     rows = -(-n // blocks)
     blocks = -(-n // rows)
     return path, epl, rows, blocks
@@ -192,8 +207,11 @@ def ln_bwd_kernel(g2, x2, weight, eps):
     if dx.numel() == 0:
         return (dx, None, None) if not affine else (dx, *dwdb.zero_())
     gp, xp = g2.data_ptr(), x2.data_ptr()
-    path, epl, rows, blocks = _ln_bwd_plan(n, h, x2.element_size(),
-                                           (gp | xp) % 16 == 0)
+    knobs = autotune.launch_knobs("layer_norm", (n, h), x2.dtype)
+    path, epl, rows, blocks = _ln_bwd_plan(
+        n, h, x2.element_size(), (gp | xp) % 16 == 0,
+        knobs.get("bwd_blocks", _BWD_BLOCKS))
+    epl = _tuned_epl(knobs, path, epl, x2.element_size())
     stream = _build.stream_ptr(x2)
     part = counters = None
     if affine:

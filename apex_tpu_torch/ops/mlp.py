@@ -48,7 +48,7 @@ import torch
 import torch.nn as nn
 
 from apex_tpu_torch.amp import functional_patch
-from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops import _build, autotune
 from apex_tpu_torch.ops._priced import priced
 
 #: bytes of f32 weights the kernel takes (``_VMEM_WEIGHT_BUDGET``)
@@ -230,6 +230,9 @@ def mlp_fwd_kernel(x, weights, biases=None, activation="relu",
     y = torch.empty((n, dims[-1]), dtype=x.dtype, device=x.device)
     if n == 0:
         return y
+    # consulted and counted as the JAX package's seam is; the kernel takes
+    # its whole plan from the widths, so a hit has no knob to set
+    autotune.launch_knobs("mlp", (n, *dims), x.dtype)
     ws_cols = _workspace_cols(dims)
     ws = (torch.empty((n, ws_cols), dtype=torch.float32, device=x.device)
           if ws_cols else None)

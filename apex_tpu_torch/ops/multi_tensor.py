@@ -52,15 +52,27 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from apex_tpu_torch.ops import _arena, _build
+from apex_tpu_torch.ops import _arena, _build, autotune
 from apex_tpu_torch.ops._priced import priced
 
 tl = None  # triton.language, bound by _build.triton_jit at the first launch
 
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
 _PROGRAMS = 1024         # stage-1 programs: every SM holds several
-_BLOCK = 4096            # elements per program per step; divides 65536
+#: elements per program per step (divides 65536) and the warps of a
+#: stage-1 program, unless the tuning DB has the buffer
+_BLOCK = autotune.DEFAULTS["optimizer"]["NORM_BLOCK"]
+_WARPS = autotune.DEFAULTS["optimizer"]["norm_warps"]
 _ROW = 1024              # widest row the per-tensor reductions use
+
+
+def _knobs(n, x):
+    """(BLOCK, warps) of the stage-1 programs: the tuning DB's
+    ``NORM_BLOCK``/``norm_warps`` for this buffer (family ``optimizer``),
+    else the defaults. A tuned block divides every arena buffer, and only
+    moves the fixed order in which a program adds its blocks."""
+    k = autotune.launch_knobs("optimizer", (n,), x.dtype)
+    return k.get("NORM_BLOCK", _BLOCK), k.get("norm_warps", _WARPS)
 
 
 # --- multi_tensor_l2norm -------------------------------------------------------
@@ -87,9 +99,10 @@ def l2norm_kernel(buf):
     n = _arena.check_buffers(buf, dtypes=_FLOATS)
     part = torch.empty(_PROGRAMS, dtype=torch.float32, device=buf.device)
     out = torch.empty((), dtype=torch.float32, device=buf.device)
+    block, warps = _knobs(n, buf)
     _build.triton_jit(_l2norm_partials_triton)[(_PROGRAMS,)](
-        buf, part, n // _BLOCK, BLOCK=_BLOCK, PROGRAMS=_PROGRAMS,
-        num_warps=8)
+        buf, part, n // block, BLOCK=block, PROGRAMS=_PROGRAMS,
+        num_warps=warps)
     _build.triton_jit(_l2norm_finish_triton)[(1,)](
         part, out, PROGRAMS=_PROGRAMS, num_warps=4)
     l2norm_kernel.launches += 1
@@ -145,9 +158,10 @@ def maxnorm_kernel(buf):
     part = torch.empty(_PROGRAMS, dtype=torch.float32, device=buf.device)
     nans = torch.empty(_PROGRAMS, dtype=torch.int32, device=buf.device)
     out = torch.empty((), dtype=torch.float32, device=buf.device)
+    block, warps = _knobs(n, buf)
     _build.triton_jit(_maxnorm_partials_triton)[(_PROGRAMS,)](
-        buf, part, nans, n // _BLOCK, BLOCK=_BLOCK, PROGRAMS=_PROGRAMS,
-        num_warps=8)
+        buf, part, nans, n // block, BLOCK=block, PROGRAMS=_PROGRAMS,
+        num_warps=warps)
     _build.triton_jit(_maxnorm_finish_triton)[(1,)](
         part, nans, out, PROGRAMS=_PROGRAMS, num_warps=4)
     maxnorm_kernel.launches += 1
@@ -208,10 +222,11 @@ def _axpby_launch(x, y, scalars, out_dtype):
     out = torch.empty(n, dtype=out_dtype, device=x.device)
     bad = torch.empty(_PROGRAMS, dtype=torch.int32, device=x.device)
     flag = torch.empty((), dtype=torch.bool, device=x.device)
+    block, warps = _knobs(n, x)
     _build.triton_jit(_axpby_triton)[(_PROGRAMS,)](
-        x, x if y is None else y, scalars, out, bad, n // _BLOCK,
-        HAS_Y=y is not None, BLOCK=_BLOCK, PROGRAMS=_PROGRAMS, num_warps=8,
-        enable_fp_fusion=False)
+        x, x if y is None else y, scalars, out, bad, n // block,
+        HAS_Y=y is not None, BLOCK=block, PROGRAMS=_PROGRAMS,
+        num_warps=warps, enable_fp_fusion=False)
     _build.triton_jit(_flag_finish_triton)[(1,)](
         bad, flag, PROGRAMS=_PROGRAMS, num_warps=4)
     return out, flag

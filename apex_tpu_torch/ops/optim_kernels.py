@@ -55,13 +55,22 @@ from __future__ import annotations
 
 import torch
 
-from apex_tpu_torch.ops import _arena, _build
+from apex_tpu_torch.ops import _arena, _build, autotune
 from apex_tpu_torch.ops._priced import priced
 
 tl = None  # triton.language, bound by _build.triton_jit at the first launch
 
 _FLOATS = (torch.float32, torch.bfloat16, torch.float16)
-_BLOCK = 1024
+#: elements a program updates and its warps, unless the tuning DB has the
+#: buffer's (length, dtype) (``autotune``, family ``optimizer``: ``BLOCK``
+#: and ``num_warps``; a tuned ``BLOCK`` divides every arena buffer)
+_BLOCK = autotune.DEFAULTS["optimizer"]["BLOCK"]
+_WARPS = autotune.DEFAULTS["optimizer"]["num_warps"]
+
+
+def _knobs(n, p):
+    k = autotune.launch_knobs("optimizer", (n,), p.dtype)
+    return k.get("BLOCK", _BLOCK), k.get("num_warps", _WARPS)
 
 
 def _lamb_stage1_triton(P, G, M, V, S, U, MO, VO, ADAM_W: "tl.constexpr",
@@ -263,9 +272,10 @@ def lamb_stage1_kernel(p, g, m, v, scalars, adam_w):
         raise ValueError("stage 1 takes f32 grads and 8 f32 scalars")
     u = torch.empty(n, dtype=torch.float32, device=p.device)
     m2, v2 = torch.empty_like(m), torch.empty_like(v)
-    _build.triton_jit(_lamb_stage1_triton)[(n // _BLOCK,)](
-        p, g, m, v, scalars, u, m2, v2, ADAM_W=bool(adam_w), BLOCK=_BLOCK,
-        num_warps=4)
+    block, warps = _knobs(n, p)
+    _build.triton_jit(_lamb_stage1_triton)[(n // block,)](
+        p, g, m, v, scalars, u, m2, v2, ADAM_W=bool(adam_w), BLOCK=block,
+        num_warps=warps)
     lamb_stage1_kernel.launches += 1
     return u, m2, v2
 
@@ -285,10 +295,11 @@ def lamb_stage2_kernel(p, u, ratio, scalars, copy_dtype=None):
     p2 = torch.empty_like(p)
     cp = None if copy_dtype is None else torch.empty(n, dtype=copy_dtype,
                                                      device=p.device)
-    _build.triton_jit(_lamb_stage2_triton)[(n // _BLOCK,)](
+    block, warps = _knobs(n, p)
+    _build.triton_jit(_lamb_stage2_triton)[(n // block,)](
         p, u, ratio, scalars, p2, _copy_operand(cp, p2),
-        HAS_COPY=cp is not None, COPY_E5M2=_is_e5m2(cp), BLOCK=_BLOCK,
-        num_warps=4)
+        HAS_COPY=cp is not None, COPY_E5M2=_is_e5m2(cp), BLOCK=block,
+        num_warps=warps)
     lamb_stage2_kernel.launches += 1
     return p2 if cp is None else (p2, cp)
 
@@ -309,11 +320,12 @@ def sgd_kernel(p, g, m, scalars, nesterov, wd_after_momentum,
     p2, m2 = torch.empty_like(p), torch.empty_like(m)
     cp = None if copy_dtype is None else torch.empty(n, dtype=copy_dtype,
                                                      device=p.device)
-    _build.triton_jit(_sgd_triton)[(n // _BLOCK,)](
+    block, warps = _knobs(n, p)
+    _build.triton_jit(_sgd_triton)[(n // block,)](
         p, g, m, scalars, p2, m2, _copy_operand(cp, p2),
         NESTEROV=bool(nesterov), WD_AFTER_MOMENTUM=bool(wd_after_momentum),
-        HAS_COPY=cp is not None, COPY_E5M2=_is_e5m2(cp), BLOCK=_BLOCK,
-        num_warps=4)
+        HAS_COPY=cp is not None, COPY_E5M2=_is_e5m2(cp), BLOCK=block,
+        num_warps=warps)
     sgd_kernel.launches += 1
     return (p2, m2) if cp is None else (p2, m2, cp)
 
@@ -333,11 +345,12 @@ def adam_kernel(p, g, m, v, scalars, adam_w, copy_dtype=None):
     p2, m2, v2 = torch.empty_like(p), torch.empty_like(m), torch.empty_like(v)
     cp = None if copy_dtype is None else torch.empty(n, dtype=copy_dtype,
                                                      device=p.device)
-    _build.triton_jit(_adam_triton)[(n // _BLOCK,)](
+    block, warps = _knobs(n, p)
+    _build.triton_jit(_adam_triton)[(n // block,)](
         p, g, m, v, scalars, p2, m2, v2, _copy_operand(cp, p2),
         ADAM_W=bool(adam_w), HAS_COPY=cp is not None,
-        COPY_E5M2=_is_e5m2(cp), BLOCK=_BLOCK,
-        num_warps=4, enable_fp_fusion=False)
+        COPY_E5M2=_is_e5m2(cp), BLOCK=block,
+        num_warps=warps, enable_fp_fusion=False)
     adam_kernel.launches += 1
     return (p2, m2, v2) if cp is None else (p2, m2, v2, cp)
 
@@ -354,9 +367,10 @@ def adagrad_kernel(p, g, h, scalars, adagrad_w):
     if scalars.shape != (4,) or scalars.dtype != torch.float32:
         raise ValueError("Adagrad takes 4 f32 scalars")
     p2, h2 = torch.empty_like(p), torch.empty_like(h)
-    _build.triton_jit(_adagrad_triton)[(n // _BLOCK,)](
-        p, g, h, scalars, p2, h2, ADAGRAD_W=bool(adagrad_w), BLOCK=_BLOCK,
-        num_warps=4, enable_fp_fusion=False)
+    block, warps = _knobs(n, p)
+    _build.triton_jit(_adagrad_triton)[(n // block,)](
+        p, g, h, scalars, p2, h2, ADAGRAD_W=bool(adagrad_w), BLOCK=block,
+        num_warps=warps, enable_fp_fusion=False)
     adagrad_kernel.launches += 1
     return p2, h2
 
@@ -376,10 +390,11 @@ def novograd_kernel(p, g, m, vpos, scalars, reg_inside_moment):
         raise ValueError("NovoGrad takes an f32 norm buffer and 7 f32 "
                          "scalars")
     p2, m2 = torch.empty_like(p), torch.empty_like(m)
-    _build.triton_jit(_novograd_triton)[(n // _BLOCK,)](
+    block, warps = _knobs(n, p)
+    _build.triton_jit(_novograd_triton)[(n // block,)](
         p, g, m, vpos, scalars, p2, m2,
-        REG_INSIDE_MOMENT=bool(reg_inside_moment), BLOCK=_BLOCK,
-        num_warps=4, enable_fp_fusion=False)
+        REG_INSIDE_MOMENT=bool(reg_inside_moment), BLOCK=block,
+        num_warps=warps, enable_fp_fusion=False)
     novograd_kernel.launches += 1
     return p2, m2
 

@@ -26,12 +26,21 @@ from __future__ import annotations
 
 import torch
 
-from apex_tpu_torch.ops import _build
+from apex_tpu_torch.ops import _build, autotune
 from apex_tpu_torch.ops._priced import priced
 
 tl = None  # triton.language, bound by _build.triton_jit at the first launch
 
-_CHUNK = 4096
+#: the vocab chunk a program's loop takes (``BLOCK``) and the warps of a
+#: program, unless the tuning DB has the shape (``autotune``, family
+#: ``xentropy``)
+_CHUNK = autotune.DEFAULTS["xentropy"]["BLOCK"]
+_WARPS = autotune.DEFAULTS["xentropy"]["num_warps"]
+
+
+def _knobs(x2):
+    k = autotune.launch_knobs("xentropy", tuple(x2.shape), x2.dtype)
+    return k.get("BLOCK", _CHUNK), k.get("num_warps", _WARPS)
 
 
 def _ce_fwd_triton(X, LAB, LOSS, LSE, V, stride, smoothing,
@@ -110,9 +119,10 @@ def xentropy_fwd_kernel(x2, labels, smoothing):
     n, v = x2.shape
     loss = torch.empty(n, dtype=torch.float32, device=x2.device)
     lse = torch.empty(n, dtype=torch.float32, device=x2.device)
+    block, warps = _knobs(x2)
     _build.triton_jit(_ce_fwd_triton)[(n,)](
         x2, labels, loss, lse, v, v, float(smoothing),
-        SMOOTH=bool(smoothing), BLOCK=_CHUNK, num_warps=8)
+        SMOOTH=bool(smoothing), BLOCK=block, num_warps=warps)
     xentropy_fwd_kernel.launches += 1
     return loss, lse
 
@@ -126,9 +136,10 @@ def xentropy_bwd_kernel(x2, labels, lse, g, smoothing):
     _check(x2, labels, lse, g)
     n, v = x2.shape
     dx = torch.empty_like(x2)
+    block, warps = _knobs(x2)
     _build.triton_jit(_ce_bwd_triton)[(n,)](
         x2, labels, lse, g, dx, v, v, float(smoothing),
-        SMOOTH=bool(smoothing), BLOCK=_CHUNK, num_warps=8)
+        SMOOTH=bool(smoothing), BLOCK=block, num_warps=warps)
     xentropy_bwd_kernel.launches += 1
     return dx
 

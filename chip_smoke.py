@@ -218,6 +218,32 @@ plain PyTorch version on the card at the shapes its main path gives it
   at NCCL world 1 (imagenet_example_syncbn: 106 sync_batchnorm
   collectives a step).
 
+- The autotuner and its tooling. First (phase compile_check), every case
+  of ``python -m apex_tpu_torch.ops``'s compile check through
+  ``compile_check.run()``: the JAX package's kernel cases at its awkward
+  shapes, the kernel checks at the main paths' shapes (each kernel
+  against its plain version, the masks and copies bit for bit, two
+  launches bitwise equal; the kernels JSON line takes its max_abs_err
+  from them), each module's no-extra-dispatch census and the autotune
+  contract; and ``python -m apex_tpu_torch.ops -k autotune/`` as its own
+  process. The kernel phase then times every row. Every phase runs with
+  ``APEX_TPU_AUTOTUNE=off`` (the kernels' default launch knobs) but five,
+  which run the default ``db`` as users do: mlp_dlrm_bottom,
+  bert_large_zero and bert_large_zero_two_ranks (BERT-Large's ZeRO at
+  world size 2, its shard's key; their consults checked against the
+  committed DB), and
+  after bert_large_arena autotune_db (the committed
+  ``scripts/torch_kernel_tuning_db.json`` loads stale-free under this
+  card's name, at each entry's shape the kernels its sweep timed hit it,
+  match their plain versions and themselves bit for bit, its tuned device
+  time beside the default's) and bert_large_tuned (BERT-Large arena 5
+  steps with ``off`` and with the DB: the off losses bert_large_arena's
+  bit for bit, the tuned within 1e-3, launches unchanged, the DB's hits
+  counted, device ms a step and the consult's host cost). After the
+  monitor phases, link_probe runs
+  ``scripts/torch_link_probe.py`` (two gloo processes on the card) and
+  plans with its MeshModel.
+
 Prints one line per phase (and each CUDA kernel's registers and spills
 from ``ptxas -v``), the card's name and power limit, a JSON line of
 per-kernel numbers, and as its last line
@@ -243,8 +269,14 @@ import time
 from apex_tpu_torch.prof.cost import HASH_OPS, bound_ms
 from apex_tpu_torch.prof.report import (  # noqa: F401
     _LEAD, _LOST, _SPIN_NAMES, BF16_FLOPS, F32_FLOPS, HBM_BYTES_PER_S,
-    MAX_LEAD, PAD_CYCLES, SHORT_CYCLES, device_ms)
+    MAX_LEAD, PAD_CYCLES, SHORT_CYCLES, device_ms, guarded_session)
 from apex_tpu_torch.prof.xplane import device_kernels
+# the kernel-vs-plain checks, their tolerances and shapes: the compile
+# check's (``python -m apex_tpu_torch.ops``); this script keeps the timings
+from apex_tpu_torch.ops import compile_check
+from apex_tpu_torch.ops.compile_check import (  # noqa: F401
+    MLP_BOTTOM, RING_B, RING_D, RING_H, RING_S, SEQ_RANKS, TOL16, TOL32,
+    TOL_ARENA, check_flagged, compare, plain_versions)
 EXPECTED_PER_STEP = {"layer_norm_fwd": 49, "layer_norm_bwd": 49,
                      "xentropy_fwd": 1, "xentropy_bwd": 1,
                      "flash_attn_fwd": 24, "flash_attn_bwd": 24}
@@ -280,7 +312,6 @@ MULTI_TENSOR_OPS = {"multi_tensor_maxnorm": 1, "multi_tensor_scale": 1,
 # masters' one arena partition
 MLP_PER_STEP = {"mlp_fwd": 1, "adam": 1}
 MLP_STEPS = 20
-MLP_BOTTOM = (13, 512, 256, 128)
 # mlp_dlrm_bottom_o1: relative L2 of each param's one-step update, kernel
 # path against plain path (the forward is bitwise, and on an H100 the
 # whole update was too: 0.0); an update missing or wrong in a layer is O(1)
@@ -426,10 +457,6 @@ DCGAN_EXAMPLE_PER_STEP = {"adam": 2}
 RNN_CPU_TOL = 1e-4
 # weight norm at O2 fp16: the f32 norm against float64
 WEIGHT_NORM_TOL = 1e-6
-# the ring's geometry on the card: BERT-Large's attention width (H16, D64),
-# B2, a global sequence of 8192 over two ranks (4096 a rank)
-RING_B, RING_S, RING_H, RING_D = 2, 8192, 16, 64
-SEQ_RANKS = 2
 # ZeRO across two ranks: BERT at full width, depth 2, B4 a rank
 ZERO_RANK_BATCH = 4
 # the link rates the hierarchical phases plan with: the wire dtype of
@@ -443,6 +470,9 @@ PLAN_LINKS = {"ici": 1.0e11, "dcn": 1.0e10}
 RESUME_STEPS, RESUME_AT = 4, 2
 # where the robustness phases put their tensors (their rank bodies too)
 DEVICE = "cuda"
+# where the compile check's summary JSON goes (git-ignored)
+BUILD_OUT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "chip_smoke")
 GUARD_CFG = dict(window=8, min_history=4)
 GUARD_SAVE, GUARD_NAN_GRAD, GUARD_SPIKE, GUARD_NAN_PARAM = 5, 7, 8, 10
 GUARD_AFTER = 3
@@ -469,12 +499,6 @@ SOURCES = {
     "novograd": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
     "mlp_fwd": ("cuda", "apex_tpu_torch/csrc/mlp_fwd.cu"),
 }
-# tolerances: 16-bit outputs within 2% of the plain output's max magnitude
-# (a few bf16 ulps: the kernels sum in another order and round P per tile);
-# f32 outputs within 1e-3 of it (f32 sums in another order); the arena
-# kernels' f32 outputs within 1e-5 of it (the same elementwise formulas,
-# and one f32 sum in another order for the norm)
-TOL16, TOL32, TOL_ARENA = 2e-2, 1e-3, 1e-5
 # arena against tree update on BERT-Large: p and m within 1e-5 of each
 # tensor's largest magnitude; v within 2e-5, because the kernels take
 # (1 - beta2) in f32 from the f32 beta2, as the JAX package's kernels do,
@@ -516,72 +540,16 @@ def timed(fn, iters=10, flush=None):
     return total / iters
 
 
-def compare(name, outs_k, outs_p, tol32=TOL32):
-    """Max abs error over paired outputs; raise past the stated tolerance."""
-    import torch
-    worst = 0.0
-    for i, (k, p) in enumerate(zip(outs_k, outs_p)):
-        err = (k.float() - p.float()).abs().max().item()
-        ref = p.float().abs().max().item()
-        tol = (tol32 if p.dtype == torch.float32 else TOL16) * max(ref, 1e-6)
-        if not math.isfinite(err) or err > tol:
-            raise AssertionError(f"{name} output {i}: max|kernel-plain| "
-                                 f"{err:.3e} > tolerance {tol:.3e}")
-        worst = max(worst, err)
-    return worst
-
-
-@contextlib.contextmanager
-def plain_versions():
-    """Run the model through the plain versions on the card: rebind each
-    op module's kernel wrapper to its plain version (the wrappers counted
-    in ``ops.KERNELS`` are not called, so their counts stay put)."""
-    from apex_tpu_torch.ops import attention as A, bn_act as B
-    from apex_tpu_torch.ops import layer_norm as L, mlp as P
-    from apex_tpu_torch.ops import multi_tensor as M, optim_kernels as K
-    from apex_tpu_torch.ops import xentropy as X
-    swaps = [(L, "ln_fwd_kernel", L.ln_fwd_plain),
-             (L, "ln_bwd_kernel", L.ln_bwd_plain),
-             (X, "xentropy_fwd_kernel", X.xentropy_fwd_plain),
-             (X, "xentropy_bwd_kernel", X.xentropy_bwd_plain),
-             (A, "flash_fwd_kernel", A.flash_fwd_plain),
-             (A, "flash_bwd_kernel", A.flash_bwd_plain),
-             (M, "l2norm_kernel", M.l2norm_plain),
-             (K, "lamb_stage1_kernel", K.lamb_stage1_plain),
-             (K, "lamb_stage2_kernel", K.lamb_stage2_plain),
-             (B, "bn_sums_kernel", B.bn_sums_plain),
-             (B, "bn_dx_kernel", B.bn_dx_plain),
-             (K, "sgd_kernel", K.sgd_plain),
-             (K, "adam_kernel", K.adam_plain),
-             (M, "maxnorm_kernel", M.maxnorm_plain),
-             (M, "scale_kernel", M.scale_plain),
-             (M, "axpby_kernel", M.axpby_plain),
-             (K, "adagrad_kernel", K.adagrad_plain),
-             (K, "novograd_kernel", K.novograd_plain),
-             (P, "mlp_fwd_kernel", P.mlp_fused_reference)]
-    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
-    for m, n, f in swaps:
-        setattr(m, n, f)
-    try:
-        yield
-    finally:
-        for m, n, f in saved:
-            setattr(m, n, f)
-
-
-def bench_tools(rows):
-    """(rnd, gen, flush, row) for the kernel checks: seeded random tensors
+def bench_tools(rows, errs):
+    """(rnd, gen, flush, row) for the kernel timings: seeded random tensors
     on the card, an L2 sweep, and ``row(...)``, which records a kernel's
-    numbers in ``rows``."""
+    numbers in ``rows`` with its max_abs_err from ``errs`` (the compile
+    check's run)."""
     import torch
 
-    dev = torch.device("cuda")
-    gen = torch.Generator(dev).manual_seed(0)
-    sweep = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    rnd, gen = compile_check.seeded(0)
+    sweep = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
     flush = sweep.zero_
-
-    def rnd(*shape, dtype=torch.bfloat16, std=1.0):
-        return (torch.randn(*shape, generator=gen, device=dev) * std).to(dtype)
 
     # a second of GEMMs first, so the first timed kernel does not meet the
     # card's clocks still ramping up
@@ -593,8 +561,9 @@ def bench_tools(rows):
         torch.cuda.synchronize()
     del warm
 
-    def row(name, err, ms, plain_ms, lib_ms, nbytes, flops, peak=BF16_FLOPS,
+    def row(name, ms, plain_ms, lib_ms, nbytes, flops, peak=BF16_FLOPS,
             int_ops=0, dev_ms=None, lib_dev_ms=None):
+        err = errs[name]
         t_bytes = bound_ms(nbytes, 0, peak)
         t_ops = bound_ms(0, flops, peak, int_ops)
         kernel, replaces, _ = {**EXTRA_ROWS, **EXTRA_BN_ROWS,
@@ -621,33 +590,57 @@ def bench_tools(rows):
     return rnd, gen, flush, row
 
 
-def check_kernels(rows):
-    """Phase 3: every kernel against its plain version, with timings."""
+def compile_check_phase():
+    """Phase compile_check: every case of ``apex_tpu_torch.ops``'s compile
+    check (the JAX package's kernel cases at its awkward shapes, the
+    kernel checks at the main paths' shapes, each module's
+    no-extra-dispatch census, the autotune contract) through
+    ``compile_check.run()``, which the kernel phase's rows take their
+    max_abs_err from; and ``python -m apex_tpu_torch.ops`` itself on its
+    autotune case. Any failing case fails the run. Returns the errors by
+    row."""
+    os.makedirs(BUILD_OUT, exist_ok=True)
+    summary = compile_check.run(json_path=os.path.join(
+        BUILD_OUT, "compile_check.json"))
+    if not summary["ok"]:
+        raise AssertionError(
+            "compile_check: failing cases " + ", ".join(
+                r["case"] for r in summary["results"] if not r["ok"]))
+    slow = sorted(summary["results"], key=lambda r: -r["s"])[:5]
+    log(f"phase compile_check: {summary['n_cases']} cases ok on "
+        f"{summary['device']} in {summary['seconds']:.1f} s (slowest "
+        f"{[(r['case'], r['s']) for r in slow]})")
+    out = os.path.join(BUILD_OUT, "compile_check_cli.json")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "apex_tpu_torch.ops", "-k",
+                        "autotune/", "--json", out], capture_output=True,
+                       text=True, cwd=os.path.dirname(os.path.abspath(
+                           __file__)))
+    with open(out) as f:
+        cli = json.load(f)
+    if r.returncode != 0 or not cli["ok"] or cli["n_cases"] != 1:
+        raise AssertionError(f"compile_check: python -m apex_tpu_torch.ops "
+                             f"exited {r.returncode}: {cli}\n"
+                             f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    log(f"phase compile_check: python -m apex_tpu_torch.ops -k autotune/ "
+        f"exited 0 ({cli['n_cases']} case, backend {cli['backend']}, "
+        f"device {cli['device']}) in {time.perf_counter() - t0:.1f} s")
+    return summary["max_abs_err"]
+
+
+def check_kernels(rows, errs):
+    """Phase 3: every kernel's row: events-timed ms, device ms, the plain
+    version's and the library call's times and the bound, at the main
+    paths' shapes, with max_abs_err from the compile check (``errs``)."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import layer_norm as L
     from apex_tpu_torch.ops import xentropy as X
 
     dev = torch.device("cuda")
-    rnd, gen, flush, row = bench_tools(rows)
+    rnd, gen, flush, row = bench_tools(rows, errs)
 
-    # --- LayerNorm: (8192, 1024) bf16 at both BERT eps, ragged (300, 1000)
-    fwd_err = bwd_err = 0.0
-    for (n, h), eps in (((8192, 1024), 1e-12), ((8192, 1024), 1e-5),
-                        ((300, 1000), 1e-5)):
-        x = rnd(n, h, std=2.0) + 0.5
-        w = rnd(h, dtype=torch.float32, std=0.2) + 1.0
-        b = rnd(h, dtype=torch.float32, std=0.2)
-        g = rnd(n, h)
-        e1 = compare(f"layer_norm_fwd {n}x{h} eps={eps}",
-                     [L.ln_fwd_kernel(x, w, b, eps)],
-                     [L.ln_fwd_plain(x, w, b, eps)])
-        e2 = compare(f"layer_norm_bwd {n}x{h} eps={eps}",
-                     L.ln_bwd_kernel(g, x, w, eps),
-                     L.ln_bwd_plain(g, x, w, eps))
-        if n == 8192:
-            fwd_err, bwd_err = max(fwd_err, e1), max(bwd_err, e2)
-    log("phase kernels: layer_norm fwd/bwd agree with the plain versions")
+    # --- LayerNorm at BERT's (8192, 1024) bf16
     eps = 1e-5
     nh = 8192 * 1024
     x = rnd(8192, 1024, std=2.0)
@@ -661,7 +654,7 @@ def check_kernels(rows):
     library = lambda: F.layer_norm(x, (1024,), wl, bl, eps)  # noqa: E731
     lib = timed(library, flush=flush)
     dev_ms = device_ms(kernel, flush=flush)
-    row("layer_norm_fwd", fwd_err, ms, plain, lib,
+    row("layer_norm_fwd", ms, plain, lib,
         nbytes=2 * nh * 2 + 2 * 1024 * 4, flops=0,
         dev_ms=dev_ms, lib_dev_ms=device_ms(library, flush=flush))
     log(f"kernel layer_norm_fwd: the wrapper's host time (events - device) "
@@ -676,31 +669,19 @@ def check_kernels(rows):
     library = lambda: torch.autograd.grad(  # noqa: E731
         yl, (xg, wg, bg), g, retain_graph=True)
     lib = timed(library, flush=flush)
-    row("layer_norm_bwd", bwd_err, ms, plain, lib,
+    row("layer_norm_bwd", ms, plain, lib,
         nbytes=3 * nh * 2 + 3 * 1024 * 4, flops=0,
         dev_ms=device_ms(kernel, flush=flush),
         lib_dev_ms=device_ms(library, flush=flush))
     del xg, yl
-    check_ln_paths(rnd)
-    check_ln_bwd_paths(rnd)
 
-    # --- cross-entropy: (8192, 30522) bf16, labels with -1, eps 0 and 0.1
+    # --- cross-entropy: (8192, 30522) bf16, labels with -1
     n, v = 8192, 30522
     logits = rnd(n, v, std=3.0)
     labels = torch.randint(0, v, (n,), generator=gen, device=dev)
     labels[torch.rand(n, generator=gen, device=dev) < 0.15] = -1
     gl = torch.rand(n, generator=gen, device=dev)
-    fwd_err = bwd_err = 0.0
-    for sm in (0.0, 0.1):
-        fwd_err = max(fwd_err, compare(
-            f"xentropy_fwd eps={sm}", X.xentropy_fwd_kernel(logits, labels, sm),
-            X.xentropy_fwd_plain(logits, labels, sm)))
-        _, lse = X.xentropy_fwd_plain(logits, labels, sm)
-        bwd_err = max(bwd_err, compare(
-            f"xentropy_bwd eps={sm}",
-            [X.xentropy_bwd_kernel(logits, labels, lse, gl, sm)],
-            [X.xentropy_bwd_plain(logits, labels, lse, gl, sm)]))
-    log("phase kernels: xentropy fwd/bwd agree with the plain versions")
+    _, lse = X.xentropy_fwd_plain(logits, labels, 0.0)
     kernel = lambda: X.xentropy_fwd_kernel(logits, labels, 0.0)  # noqa: E731
     ms = timed(kernel, flush=flush)
     plain = timed(lambda: X.xentropy_fwd_plain(logits, labels, 0.0),
@@ -708,7 +689,7 @@ def check_kernels(rows):
     library = lambda: F.cross_entropy(  # noqa: E731
         logits, labels, ignore_index=-1, reduction="none")
     lib = timed(library, flush=flush)
-    row("xentropy_fwd", fwd_err, ms, plain, lib,
+    row("xentropy_fwd", ms, plain, lib,
         nbytes=n * v * 2 + n * 8 + 2 * n * 4, flops=0,
         dev_ms=device_ms(kernel, flush=flush),
         lib_dev_ms=device_ms(library, flush=flush))
@@ -723,367 +704,100 @@ def check_kernels(rows):
     library = lambda: torch.autograd.grad(  # noqa: E731
         ll, lg, glb, retain_graph=True)
     lib = timed(library, flush=flush)
-    row("xentropy_bwd", bwd_err, ms, plain, lib,
+    row("xentropy_bwd", ms, plain, lib,
         nbytes=2 * n * v * 2 + n * 8 + 2 * n * 4, flops=0,
         dev_ms=device_ms(kernel, flush=flush),
         lib_dev_ms=device_ms(library, flush=flush))
     del logits, lg, ll
-    check_xentropy_resnet(rnd, gen, flush)
-    check_xentropy_labels(rnd, gen)
+    time_xentropy_resnet(rnd, gen, flush)
 
-    check_flash(rnd, gen, flush, row)
-    check_arena_kernels(rnd, flush, row)
-    check_arena_remainder(rnd, flush, row)
-    check_bn_kernels(rnd, flush, row)
-    check_bn_f32_fp8(rnd, flush, row)
-    check_bn_dx_count(rnd, flush, row)
-    check_norm_determinism(rnd)
-    check_ln_bwd_determinism(rnd)
-    check_sgd_kernel(rnd, flush, row)
-    check_adam_kernel(rnd, flush, row)
-    check_zero_kernels(rnd, flush, row)
-    check_ring_hop_kernels(rnd, flush, row)
-    check_mlp_kernel(rnd, flush, row)
-    check_fp16_kernels(rnd, gen, flush, row)
+    time_flash(rnd, gen, flush, row)
+    time_arena_kernels(rnd, flush, row)
+    time_arena_remainder(rnd, flush, row)
+    time_bn_kernels(rnd, flush, row)
+    time_bn_f32_fp8(rnd, flush, row)
+    time_bn_dx_count(rnd, flush, row)
+    time_sgd_kernel(rnd, flush, row)
+    time_adam_kernel(rnd, flush, row)
+    time_zero_kernels(rnd, flush, row)
+    time_ring_hop_kernels(rnd, flush, row)
+    time_mlp_kernel(rnd, flush, row)
+    time_mlp_o1(rnd, flush, row)
     log(f"phase kernels: device_ms sessions lost at most {_LOST[0]} leading "
         f"kernel records (each opened with {_LEAD[0]} short spins)")
 
 
-def check_flash(rnd, gen, flush, row):
-    """The flash-attention kernels: BERT's (16, 512, 16, 64) bf16 and a
-    ragged (2, 200, 4, 64) in bf16 and fp16 against the plain versions,
-    timed at BERT's shape by events (``ms``) and by device time
-    (``device_ms``, beside SDPA's), every option (check_attention_options),
-    the dropout mask bit for bit (mask_probe), and two launches of each
-    kernel bitwise equal (check_flash_determinism)."""
+def _flash_rows(name, q, k, v, do, scale, opts, flush, row, extra=0):
+    """Rows ``flash_attn_fwd{name}`` and ``flash_attn_bwd{name}``: each
+    kernel beside its plain version and SDPA with the same mask and
+    dropout rate (its mask differs, its work does not)."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import attention as A
 
-    # --- attention: (16, 512, 16, 64) bf16, ragged (2, 200, 4, 64), fp16
-    fwd_err = bwd_err = 0.0
-    for shape, dt in (((16, 512, 16, 64), torch.bfloat16),
-                      ((2, 200, 4, 64), torch.bfloat16),
-                      ((2, 200, 4, 64), torch.float16)):
-        bsz, s, h, d = shape
-        q, k, vv = (rnd(*shape, dtype=dt) for _ in range(3))
-        do = rnd(*shape, dtype=dt)
-        scale = 1.0 / math.sqrt(d)
-        e1 = compare(f"flash_attn_fwd {shape} {dt}",
-                     A.flash_fwd_kernel(q, k, vv, scale),
-                     A.flash_fwd_plain(q, k, vv, scale))
-        o, lse = A.flash_fwd_plain(q, k, vv, scale)
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
-            bsz * h, s).contiguous()
-        e2 = compare(f"flash_attn_bwd {shape} {dt}",
-                     A.flash_bwd_kernel(q, k, vv, do, lse, delta, scale),
-                     A.flash_bwd_plain(q, k, vv, do, lse, delta, scale))
-        if s == 512:
-            fwd_err, bwd_err = e1, e2
-            main = (q, k, vv, do, lse, delta, scale)
-    log("phase kernels: flash attention fwd/bwd agree with the plain "
-        "versions")
-    q, k, vv, do, lse, delta, scale = main
-    bsz, s, h, d = q.shape
-    io = bsz * s * h * d * 2
-    ms = timed(lambda: A.flash_fwd_kernel(q, k, vv, scale), flush=flush)
-    plain = timed(lambda: A.flash_fwd_plain(q, k, vv, scale), flush=flush)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, vv))
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
-    lib = timed(sdpa, flush=flush)
-    row("flash_attn_fwd", fwd_err, ms, plain, lib,
-        nbytes=4 * io + bsz * h * s * 4, flops=4 * bsz * h * s * s * d,
-        dev_ms=device_ms(lambda: A.flash_fwd_kernel(q, k, vv, scale),
-                         flush=flush),
-        lib_dev_ms=device_ms(sdpa, flush=flush))
-    ms = timed(lambda: A.flash_bwd_kernel(q, k, vv, do, lse, delta, scale),
-               flush=flush)
-    plain = timed(lambda: A.flash_bwd_plain(q, k, vv, do, lse, delta, scale),
-                  flush=flush)
-    qg, kg, vg = (t.detach().transpose(1, 2).requires_grad_(True)
-                  for t in (q, k, vv))
-    og = F.scaled_dot_product_attention(qg, kg, vg)
-    dot = do.transpose(1, 2)
-    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
-        og, (qg, kg, vg), dot, retain_graph=True)
-    lib = timed(sdpa_bwd, flush=flush)
-    row("flash_attn_bwd", bwd_err, ms, plain, lib,
-        nbytes=7 * io + 2 * bsz * h * s * 4, flops=10 * bsz * h * s * s * d,
-        dev_ms=device_ms(lambda: A.flash_bwd_kernel(q, k, vv, do, lse, delta,
-                                                    scale), flush=flush),
-        lib_dev_ms=device_ms(sdpa_bwd, flush=flush))
-    del qg, kg, vg, og
-    check_attention_options(rnd, gen, flush, row)
-    mask_probe()
-    check_flash_determinism(rnd, gen)
-    check_flash_s64(rnd, flush, row)
-
-
-def check_flash_s64(rnd, flush, row):
-    """The flash kernels at the reference Apex's MHA benchmark's shape,
-    (128, 64, 16, 64) fp16 with dropout 0.1: each against its plain
-    version, timed by events and by device time beside SDPA with the same
-    dropout (its mask differs, its work does not). At S = 64 each
-    persistent block's 128-row tile holds 64 real rows."""
-    import torch
-    import torch.nn.functional as F
-    from apex_tpu_torch.ops import attention as A
-
-    b, s, h, d = MHA_B, MHA_S, MHA_HEADS, MHA_HIDDEN // MHA_HEADS
-    rate = 0.1
-    opts = dict(rate=rate, seed=torch.tensor([2024], dtype=torch.int32,
-                                             device="cuda"))
-    q, k, v, do = (rnd(b, s, h, d, dtype=torch.float16) for _ in range(4))
-    scale = 1.0 / math.sqrt(d)
-    e1 = compare("flash_attn_fwd S64", A.flash_fwd_kernel(q, k, v, scale,
-                                                          **opts),
-                 A.flash_fwd_plain(q, k, v, scale, **opts))
-    o, lse = A.flash_fwd_plain(q, k, v, scale, **opts)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
-        b * h, s).contiguous()
-    e2 = compare("flash_attn_bwd S64",
-                 A.flash_bwd_kernel(q, k, v, do, lse, delta, scale, **opts),
-                 A.flash_bwd_plain(q, k, v, do, lse, delta, scale, **opts))
+    b, s, h, d = q.shape
+    rate = opts.get("rate", 0.0)
+    bias = opts.get("bias")
     io = b * s * h * d * 2
-    hash_ops = HASH_OPS * b * h * s * s
+    hash_ops = HASH_OPS * b * h * s * s if rate else 0
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    mask = None if bias is None else bias.to(q.dtype)
 
     def sdpa(qt=qt, kt=kt, vt=vt):
-        return F.scaled_dot_product_attention(qt, kt, vt, dropout_p=rate)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              dropout_p=rate)
     fwd = lambda: A.flash_fwd_kernel(q, k, v, scale, **opts)  # noqa: E731
-    row("flash_attn_fwd_s64", e1, timed(fwd, flush=flush),
+    row(f"flash_attn_fwd{name}", timed(fwd, flush=flush),
         timed(lambda: A.flash_fwd_plain(q, k, v, scale, **opts),
               flush=flush), timed(sdpa, flush=flush),
-        nbytes=4 * io + b * h * s * 4, flops=4 * b * h * s * s * d,
-        int_ops=hash_ops, dev_ms=device_ms(fwd, flush=flush),
+        nbytes=4 * io + b * h * s * 4 + extra,
+        flops=4 * b * h * s * s * d, int_ops=hash_ops,
+        dev_ms=device_ms(fwd, flush=flush),
         lib_dev_ms=device_ms(sdpa, flush=flush))
+    o, lse = fwd()
+    delta = compile_check.delta_of(do, o)
     bwd = lambda: A.flash_bwd_kernel(  # noqa: E731
         q, k, v, do, lse, delta, scale, **opts)
+    plain = timed(lambda: A.flash_bwd_plain(q, k, v, do, lse, delta, scale,
+                                            **opts), flush=flush)
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
     og = sdpa(qg, kg, vg)
     dot = do.transpose(1, 2)
     sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
         og, (qg, kg, vg), dot, retain_graph=True)
-    row("flash_attn_bwd_s64", e2, timed(bwd, flush=flush),
-        timed(lambda: A.flash_bwd_plain(q, k, v, do, lse, delta, scale,
-                                        **opts), flush=flush),
+    row(f"flash_attn_bwd{name}", timed(bwd, flush=flush), plain,
         timed(sdpa_bwd, flush=flush),
-        nbytes=7 * io + 2 * b * h * s * 4, flops=10 * b * h * s * s * d,
-        int_ops=hash_ops, dev_ms=device_ms(bwd, flush=flush),
+        nbytes=7 * io + 2 * b * h * s * 4 + extra,
+        flops=10 * b * h * s * s * d, int_ops=hash_ops,
+        dev_ms=device_ms(bwd, flush=flush),
         lib_dev_ms=device_ms(sdpa_bwd, flush=flush))
     del qg, kg, vg, og
 
 
-def _padding_bias(gen, b, s):
-    """BERT's (B, 1, 1, S) f32 padding bias: lengths from [128, S], 0 on a
-    sequence's tokens and -1e9 past its end (the models' mask → bias)."""
+def time_flash(rnd, gen, flush, row):
+    """The flash rows: BERT's (16, 512, 16, 64) bf16 as it is, with the
+    padding bias and dropout 0.1, and at H = 15; the MHA benchmark's
+    (128, 64, 16, 64) fp16 with dropout 0.1."""
     import torch
-    dev = torch.device("cuda")
-    lengths = torch.randint(128, s + 1, (b,), generator=gen, device=dev)
-    keep = torch.arange(s, device=dev) < lengths[:, None]
-    return torch.where(keep, 0.0, -1e9).view(b, 1, 1, s)
+    i32 = torch.tensor([12345], dtype=torch.int32, device="cuda")
+    for name, (b, s, h, d), dt, opts in (
+            ("", (16, 512, 16, 64), torch.bfloat16, {}),
+            ("_mask_dropout", (16, 512, 16, 64), torch.bfloat16, dict(
+                bias=compile_check.padding_bias(gen, 16, 512), rate=0.1,
+                seed=i32)),
+            ("_h15", (16, 512, 15, 64), torch.bfloat16, {}),
+            ("_s64", (MHA_B, MHA_S, MHA_HEADS, MHA_HIDDEN // MHA_HEADS),
+             torch.float16, dict(rate=0.1, seed=i32))):
+        q, k, v, do = (rnd(b, s, h, d, dtype=dt) for _ in range(4))
+        extra = b * s * 4 if "bias" in opts else 0
+        _flash_rows(name, q, k, v, do, 1.0 / math.sqrt(d), opts, flush,
+                    row, extra)
+        del q, k, v, do
 
 
-def check_attention_options(rnd, gen, flush, row):
-    """The flash kernels' options against their plain versions (TOL16 for
-    16-bit outputs, TOL32 for lse): BERT's shape with the padding bias and
-    dropout 0.1; Sq 200 / Sk 328 at H = 3 in fp16, causal at the default
-    frontier, at a runtime offset and with dropout; D = 128 with a full
-    bias; D = 32 with a head bias and dropout; dropout block offsets; a
-    multi-block S = 600 (the JAX dropout blocks are 128 there) with padding
-    and dropout; Sq > Sk causal, whose first rows see no key (o = 0, lse =
-    -1e30, zero gradients). Then the two wrappers are timed at BERT's shape
-    with padding and dropout and at H = 15."""
-    import torch
-    import torch.nn.functional as F
-    from apex_tpu_torch.ops import attention as A
-
-    dev = torch.device("cuda")
-    bf16, fp16, f32 = torch.bfloat16, torch.float16, torch.float32
-
-    def i32(*vals):
-        return torch.tensor(vals, dtype=torch.int32, device=dev)
-
-    cases = [
-        ("BERT padding+dropout", (16, 512, 512, 16, 64), bf16,
-         dict(bias=_padding_bias(gen, 16, 512), rate=0.1, seed=i32(12345))),
-        ("causal", (2, 200, 328, 3, 64), fp16, dict(causal=True)),
-        ("causal offset 50", (2, 200, 328, 3, 64), fp16,
-         dict(causal=True, causal_off=i32(50))),
-        ("causal+dropout", (2, 200, 328, 3, 64), fp16,
-         dict(causal=True, rate=0.1, seed=i32(-77))),
-        ("D128 full bias", (2, 256, 192, 4, 128), bf16,
-         dict(bias=rnd(2, 4, 256, 192, dtype=f32))),
-        ("D32 head bias+dropout", (2, 300, 300, 5, 32), bf16,
-         dict(bias=rnd(1, 5, 300, 300, dtype=f32), rate=0.1, seed=i32(9))),
-        ("dropout block offset", (2, 512, 512, 2, 64), bf16,
-         dict(rate=0.1, seed=i32(31), dbo=i32(1, 2))),
-        ("S600 padding+dropout", (2, 600, 600, 4, 64), bf16,
-         dict(bias=_padding_bias(gen, 2, 600), rate=0.1, seed=i32(5))),
-        ("Sq>Sk causal", (2, 200, 128, 2, 64), bf16, dict(causal=True)),
-        ("H15", (16, 512, 512, 15, 64), bf16, {}),
-    ]
-    main = {}
-    for label, (b, sq, sk, h, d), dt, opts in cases:
-        q, do = rnd(b, sq, h, d, dtype=dt), rnd(b, sq, h, d, dtype=dt)
-        k, v = rnd(b, sk, h, d, dtype=dt), rnd(b, sk, h, d, dtype=dt)
-        scale = 1.0 / math.sqrt(d)
-        o_k, lse_k = A.flash_fwd_kernel(q, k, v, scale, **opts)
-        o_p, lse_p = A.flash_fwd_plain(q, k, v, scale, **opts)
-        blind = lse_p == A.NEG_INF            # rows that see no key
-        if not torch.equal(blind, lse_k == A.NEG_INF):
-            raise AssertionError(f"flash_attn_fwd {label}: rows without a "
-                                 f"key differ")
-        n_blind = int(blind.sum())
-        if n_blind:
-            rows_k = o_k.transpose(1, 2).reshape(b * h, sq, d)[blind]
-            if rows_k.abs().max().item() != 0.0:
-                raise AssertionError(f"flash_attn_fwd {label}: a row "
-                                     f"without a key has o != 0")
-        e1 = compare(f"flash_attn_fwd {label}", [o_k, lse_k.masked_fill(
-            blind, 0.0)], [o_p, lse_p.masked_fill(blind, 0.0)])
-        delta = (do.float() * o_p.float()).sum(-1).transpose(1, 2).reshape(
-            b * h, sq).contiguous()
-        e2 = compare(f"flash_attn_bwd {label}",
-                     A.flash_bwd_kernel(q, k, v, do, lse_p, delta, scale,
-                                        **opts),
-                     A.flash_bwd_plain(q, k, v, do, lse_p, delta, scale,
-                                       **opts))
-        log(f"kernel flash attention {label} {(b, sq, sk, h, d)} "
-            f"{str(dt)[6:]}: fwd max_abs_err {e1:.3e}, bwd {e2:.3e}"
-            + (f", {n_blind} rows see no key" if n_blind else ""))
-        if label in ("BERT padding+dropout", "H15"):
-            main[label] = (e1, e2, q, k, v, do, lse_p, delta, scale, opts)
-    log("phase kernels: flash attention options (bias modes, causal, "
-        "offsets, Sq != Sk, dropout, block offsets, D 32/64/128, odd H) "
-        "agree with the plain versions")
-
-    for label, suffix in (("BERT padding+dropout", "mask_dropout"),
-                          ("H15", "h15")):
-        e1, e2, q, k, v, do, lse, delta, scale, opts = main.pop(label)
-        b, s, h, d = q.shape
-        rate = opts.get("rate", 0.0)
-        bias = opts.get("bias")
-        io = b * s * h * d * 2
-        extra = b * s * 4 if bias is not None else 0
-        hash_ops = HASH_OPS * b * h * s * s if rate else 0
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        mask = None if bias is None else bias.to(q.dtype)
-
-        def sdpa(qt=qt, kt=kt, vt=vt):
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                  dropout_p=rate)
-        fwd = lambda: A.flash_fwd_kernel(q, k, v, scale, **opts)  # noqa
-        ms = timed(fwd, flush=flush)
-        plain = timed(lambda: A.flash_fwd_plain(q, k, v, scale, **opts),
-                      flush=flush)
-        lib = timed(sdpa, flush=flush)
-        row(f"flash_attn_fwd_{suffix}", e1, ms, plain, lib,
-            nbytes=4 * io + b * h * s * 4 + extra,
-            flops=4 * b * h * s * s * d, int_ops=hash_ops,
-            dev_ms=device_ms(fwd, flush=flush),
-            lib_dev_ms=device_ms(sdpa, flush=flush))
-        bwd = lambda: A.flash_bwd_kernel(  # noqa: E731
-            q, k, v, do, lse, delta, scale, **opts)
-        ms = timed(bwd, flush=flush)
-        plain = timed(lambda: A.flash_bwd_plain(q, k, v, do, lse, delta,
-                                                scale, **opts), flush=flush)
-        qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
-        og = sdpa(qg, kg, vg)
-        dot = do.transpose(1, 2)
-        sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
-            og, (qg, kg, vg), dot, retain_graph=True)
-        lib = timed(sdpa_bwd, flush=flush)
-        row(f"flash_attn_bwd_{suffix}", e2, ms, plain, lib,
-            nbytes=7 * io + 2 * b * h * s * 4 + extra,
-            flops=10 * b * h * s * s * d, int_ops=hash_ops,
-            dev_ms=device_ms(bwd, flush=flush),
-            lib_dev_ms=device_ms(sdpa_bwd, flush=flush))
-        del qg, kg, vg, og
-
-
-def mask_probe():
-    """The dropout keep mask read out of the forward kernel through
-    ``flash_attention``, bit for bit against the plain ``_keep_mask_dense``
-    (a tolerance alone can miss a wrong bit: at S = 512 one changed keep
-    bit moves o by about 1/512). With q = k = 0 and a (1, 1, 1, S) bias 0
-    on keys [j0, j0 + 64) and -1e9 elsewhere, p is 1/64 on that window; v
-    is the identity there, so o[r, d]·64·(1 − rate) is 1 where keep[r, j0 +
-    d] and 0 where not (> 0.5 read as kept; o is bf16). j0 sweeps the keys,
-    at S = 512 (one JAX dropout block), S = 600 (blocks of 128), S = 64 (the
-    MHA benchmark's length: one block of 64, half a CUDA tile of rows) and
-    S = 512 with the caller's ``block_q = block_k = 128`` (blocks of 128),
-    B = H = 2."""
-    import torch
-    from apex_tpu_torch.ops import attention as A
-
-    dev = torch.device("cuda")
-    b, h, d, rate = 2, 2, 64, 0.1
-    seed = torch.tensor([-1234567], dtype=torch.int32, device=dev)
-    for s, blocks in ((512, ()), (600, ()), (64, ()), (512, (128, 128))):
-        kw = dict(zip(("block_q", "block_k"), blocks))
-        qk = torch.zeros(b, s, h, d, dtype=torch.bfloat16, device=dev)
-        got = torch.zeros(b * h, s, s, dtype=torch.bool, device=dev)
-        starts = list(range(0, s - d + 1, d))
-        if starts[-1] + d < s:
-            starts.append(s - d)
-        eye = torch.eye(d, dtype=torch.bfloat16, device=dev)
-        for j0 in starts:
-            bias = torch.full((1, 1, 1, s), -1e9, device=dev)
-            bias[..., j0:j0 + d] = 0.0
-            v = torch.zeros_like(qk)
-            v[:, j0:j0 + d] = eye[None, :, None, :]
-            o = A.flash_attention(qk, qk, v, bias=bias, dropout_rate=rate,
-                                  dropout_seed=seed, **kw)
-            bits = o.float() * d * (1 - rate) > 0.5          # (b, s, h, d)
-            got[:, :, j0:j0 + d] = bits.transpose(1, 2).reshape(b * h, s, d)
-        drop = A._dropout_blocks(s, s, *blocks)
-        want = A._keep_mask_dense(seed, b, h, s, s, *drop, rate)
-        wrong = int((got != want).sum())
-        if wrong:
-            raise AssertionError(f"mask probe S={s} {kw}: {wrong} of "
-                                 f"{want.numel()} keep bits differ")
-        log(f"phase kernels: mask probe S={s} {kw or 'default blocks'} "
-            f"(dropout blocks {drop}): {want.numel()} keep bits equal the "
-            f"plain mask bit for bit (kept {want.float().mean().item():.4f}, "
-            f"{len(starts)} windows)")
-
-
-def check_flash_determinism(rnd, gen):
-    """Two launches of each flash kernel on the same inputs are bitwise
-    equal (each block owns its outputs and sums them in a fixed order, no
-    atomics): BERT's (16, 512, 16, 64) bf16 as it is and with the padding
-    bias and dropout 0.1."""
-    import torch
-    from apex_tpu_torch.ops import attention as A
-
-    dev = torch.device("cuda")
-    seed = torch.tensor([4321], dtype=torch.int32, device=dev)
-    for label, opts in (("BERT", {}), ("BERT padding+dropout", dict(
-            bias=_padding_bias(gen, 16, 512), rate=0.1, seed=seed))):
-        q, k, v, do = (rnd(16, 512, 16, 64) for _ in range(4))
-        scale = 0.125
-        runs = [A.flash_fwd_kernel(q, k, v, scale, **opts) for _ in range(2)]
-        if not all(torch.equal(a, b) for a, b in zip(*runs)):
-            raise AssertionError(f"flash_attn_fwd {label}: two launches "
-                                 f"differ")
-        o, lse = runs[0]
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
-            16 * 16, 512).contiguous()
-        runs = [A.flash_bwd_kernel(q, k, v, do, lse, delta, scale, **opts)
-                for _ in range(2)]
-        if not all(torch.equal(a, b) for a, b in zip(*runs)):
-            raise AssertionError(f"flash_attn_bwd {label}: two launches "
-                                 f"differ")
-        log(f"phase kernels: flash attention {label}: two launches of each "
-            f"kernel bitwise equal (o, lse; dq, dk, dv)")
-
-
-def check_xentropy_resnet(rnd, gen, flush):
-    """The cross-entropy kernels at ResNet-50's (256, 1000) bf16 logits
-    (every label valid, the mean's 1/256 as the incoming gradient): held
-    against the plain versions and timed (a check line; the rows keep the
-    BERT-Large shape)."""
+def time_xentropy_resnet(rnd, gen, flush):
+    """The cross-entropy kernels at ResNet-50's (256, 1000) bf16 logits,
+    timed for the log (the rows keep the BERT-Large shape)."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import xentropy as X
@@ -1092,13 +806,7 @@ def check_xentropy_resnet(rnd, gen, flush):
     logits = rnd(n, v, std=3.0)
     labels = torch.randint(0, v, (n,), generator=gen, device=logits.device)
     gl = torch.full((n,), 1.0 / n, device=logits.device)
-    e1 = compare("xentropy_fwd (256, 1000)",
-                 X.xentropy_fwd_kernel(logits, labels, 0.0),
-                 X.xentropy_fwd_plain(logits, labels, 0.0))
     _, lse = X.xentropy_fwd_plain(logits, labels, 0.0)
-    e2 = compare("xentropy_bwd (256, 1000)",
-                 [X.xentropy_bwd_kernel(logits, labels, lse, gl, 0.0)],
-                 [X.xentropy_bwd_plain(logits, labels, lse, gl, 0.0)])
     times = [timed(f, flush=flush) for f in (
         lambda: X.xentropy_fwd_kernel(logits, labels, 0.0),
         lambda: X.xentropy_fwd_plain(logits, labels, 0.0),
@@ -1111,131 +819,50 @@ def check_xentropy_resnet(rnd, gen, flush):
         ll, lg, gl.to(ll.dtype), retain_graph=True), flush=flush))
     b_fwd = (n * v * 2 + n * 8 + 2 * n * 4) / HBM_BYTES_PER_S * 1e3
     b_bwd = (2 * n * v * 2 + n * 8 + 2 * n * 4) / HBM_BYTES_PER_S * 1e3
-    log(f"kernel xentropy at (256, 1000) bf16: fwd max_abs_err {e1:.3e} "
-        f"kernel {times[0]:.4f} ms plain {times[1]:.4f} ms library "
-        f"{times[2]:.4f} ms bound {b_fwd:.4f} ms (bytes); bwd max_abs_err "
-        f"{e2:.3e} kernel {times[3]:.4f} ms plain {times[4]:.4f} ms "
-        f"library {times[5]:.4f} ms bound {b_bwd:.4f} ms (bytes)")
+    log(f"kernel xentropy at (256, 1000) bf16: fwd kernel {times[0]:.4f} ms "
+        f"plain {times[1]:.4f} ms library {times[2]:.4f} ms bound "
+        f"{b_fwd:.4f} ms (bytes); bwd kernel {times[3]:.4f} ms plain "
+        f"{times[4]:.4f} ms library {times[5]:.4f} ms bound {b_bwd:.4f} ms "
+        f"(bytes)")
 
 
-def check_xentropy_labels(rnd, gen):
-    """Labels >= V on the card: (4096, 1000) bf16 logits, a view of the
-    first 4096 rows of a buffer whose next row is NaN, with labels V, V+5
-    and 2**31-1 on many rows, -1 on some and V on the last row; smoothing
-    0 and 0.1. Only a label in [0, V) names a column, so the forward must
-    read no logit outside its row: a read of another row's logit shows as a
-    wrong loss, and one past the last row as a NaN, against the plain
-    versions."""
-    import torch
-    from apex_tpu_torch.ops import xentropy as X
-
-    n, v = 4096, 1000
-    buf = rnd(n + 1, v, std=3.0)
-    buf[n] = float("nan")
-    logits = buf[:n]
-    labels = torch.randint(0, v, (n,), generator=gen, device=buf.device)
-    labels[0::7] = v
-    labels[1::7] = v + 5
-    labels[2::11] = 2 ** 31 - 1
-    labels[3::13] = -1
-    labels[-1] = v
-    gl = torch.rand(n, generator=gen, device=buf.device)
-    errs = []
-    for sm in (0.0, 0.1):
-        errs.append(compare(f"xentropy_fwd labels >= V eps={sm}",
-                            X.xentropy_fwd_kernel(logits, labels, sm),
-                            X.xentropy_fwd_plain(logits, labels, sm)))
-        _, lse = X.xentropy_fwd_plain(logits, labels, sm)
-        errs.append(compare(f"xentropy_bwd labels >= V eps={sm}",
-                            [X.xentropy_bwd_kernel(logits, labels, lse, gl,
-                                                   sm)],
-                            [X.xentropy_bwd_plain(logits, labels, lse, gl,
-                                                  sm)]))
-    past = int((labels >= v).sum())
-    log(f"phase kernels: xentropy fwd/bwd with {past} of {n} labels >= V "
-        f"(the last row's too; the next row of the buffer NaN) agree with "
-        f"the plain versions, max_abs_err {max(errs):.3e}")
+def time_bn_sums(args, flush):
+    """The sums kernel at a layer-1 join or a layer-4 unit, for the log:
+    events and device time beside the byte bound (x and g read; z read and
+    dr written at a join)."""
+    from apex_tpu_torch.ops import bn_act as B
+    x, mode = args[0], args[7]
+    m, c = x.shape
+    kernel = lambda: B.bn_sums_kernel(*args)  # noqa: E731
+    nbytes = (4 if mode == "addrelu" else 2) * m * c * x.element_size()
+    log(f"kernel bn_sums at {m}x{c} {mode}: kernel "
+        f"{timed(kernel, flush=flush):.4f} ms, device "
+        f"{device_ms(kernel, flush=flush):.4f} ms, bound "
+        f"{(nbytes + 4 * c * 4) / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
 
 
-def check_bn_kernels(rnd, flush, row):
-    """The BN backward pair against its plain versions: every mode at the
-    ResNet-50 stem (3,211,264 x 64), at a layer-4 unit (12,544 x 2048) and
-    at a ragged (12,345 x 96); "addrelu" at a layer-1 join (802,816 x
-    256). bf16 activations and scale/bias (O2 casts them), f32 statistics
-    of x. The incoming gradient has a per-channel mean and a part along
-    x̂, so k1 and x̂·k2 are as large as g itself: at every shape and mode
-    the check asserts that a dx fed zeroed sums, a negated Σg·x̂ or twice
-    the count lies outside the tolerance.
-
-    Timed at the stem in "plain" mode, against the library calls that
-    compute the same two functions without a ReLU mask:
-    ``torch.batch_norm_backward_reduce`` (Σg, Σg·(x−μ) and dγ, dβ) and
-    ``torch.batch_norm_backward_elemt`` (dx from those sums), on the same
-    channels-last bf16 tensor. "relu" mode and the two-pass autograd
-    backward of ``F.batch_norm(training=True)`` are timed for the log."""
+def time_bn_kernels(rnd, flush, row):
+    """Rows bn_sums and bn_dx at the ResNet-50 stem (3,211,264 x 64) bf16
+    in "plain" mode, against the library calls that compute the same two
+    functions without a ReLU mask: ``torch.batch_norm_backward_reduce``
+    (Σg, Σg·(x−μ) and dγ, dβ) and ``torch.batch_norm_backward_elemt`` (dx
+    from those sums), on the same channels-last bf16 tensor. "relu" mode,
+    the two-pass autograd backward of ``F.batch_norm(training=True)`` and
+    the sums kernel at a layer-1 join and a layer-4 unit are timed for the
+    log."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import bn_act as B
 
     bf16 = torch.bfloat16
-    all_modes = ("plain", "relu", "addrelu")
-    errs = {"sums": 0.0, "dx": 0.0}
-    for (m, c), modes in (((3211264, 64), all_modes),
-                          ((802816, 256), ("addrelu",)),
-                          ((12544, 2048), all_modes),
-                          ((12345, 96), all_modes)):
-        x = rnd(m, c, std=2.0) + 0.5
-        z = rnd(m, c).clamp_min(0.0)
-        scale, bias = rnd(c, std=0.3) + 1.0, rnd(c, std=0.3)
-        x32 = x.float()
-        mean = x32.mean(dim=0)
-        invstd = torch.rsqrt(x32.var(dim=0, unbiased=False) + 1e-5)
-        g = ((rnd(m, c, dtype=torch.float32)
-              + rnd(c, dtype=torch.float32, std=0.5)
-              + rnd(c, dtype=torch.float32, std=0.7) * (x32 - mean) * invstd)
-             * 1e-3).to(bf16)
-        del x32
-        for mode in modes:
-            args = (x, g, z, scale, bias, mean, invstd, mode, bf16)
-            ks, kdr = B.bn_sums_kernel(*args)
-            ps, pdr = B.bn_sums_plain(*args)
-            e1 = compare(f"bn_sums {m}x{c} {mode}",
-                         [ks] + ([kdr] if kdr is not None else []),
-                         [ps] + ([pdr] if pdr is not None else []))
-            check_bn_masks(f"bn_sums {m}x{c} {mode}", args, kdr, pdr)
-            if (m, c, mode) in ((802816, 256, "addrelu"),
-                                (12544, 2048, "plain")):
-                time_bn_sums(args, flush)
-            dx_args = (x, pdr if mode == "addrelu" else g, scale, bias,
-                       mean, invstd, ps, m, mode == "relu", bf16)
-            want = B.bn_dx_plain(*dx_args)
-            e2 = compare(f"bn_dx {m}x{c} {mode}", [B.bn_dx_kernel(*dx_args)],
-                         [want])
-            for fault, sums, count in (
-                    ("zeroed sums", torch.zeros_like(ps), m),
-                    ("negated sum of g*xhat", ps * ps.new_tensor([[1.], [-1.]]),
-                     m),
-                    ("twice the count", ps, 2 * m)):
-                bad = B.bn_dx_kernel(*dx_args[:6], sums, count, *dx_args[8:])
-                try:
-                    compare("", [bad], [want])
-                except AssertionError:
-                    continue
-                raise AssertionError(f"bn_dx {m}x{c} {mode}: a dx with "
-                                     f"{fault} passes the check")
-            if m == 3211264:
-                errs["sums"] = max(errs["sums"], e1)
-                errs["dx"] = max(errs["dx"], e2)
-                stem = (x, g, z, scale, bias, mean, invstd)
-        if m != 3211264:
-            del x, g, z
-    log("phase kernels: bn_sums (3 modes) and bn_dx (2 modes) agree with "
-        "the plain versions at the stem, a layer-1 join, layer 4 and a "
-        "ragged shape; a dx with zeroed sums, a negated sum of g*xhat or "
-        "twice the count fails the check at each")
-
+    for (m, c), mode in (((802816, 256), "addrelu"), ((12544, 2048),
+                                                     "plain")):
+        x, g, z, scale, bias, mean, invstd = compile_check.bn_inputs(rnd, m,
+                                                                     c)
+        time_bn_sums((x, g, z, scale, bias, mean, invstd, mode, bf16), flush)
+        del x, g, z
     (m, c), n = (3211264, 64), 256
-    x, g, z, scale, bias, mean, invstd = stem
+    x, g, z, scale, bias, mean, invstd = compile_check.bn_inputs(rnd, m, c)
     times, plain_out, dev = {}, None, {}
     for mode in ("plain", "relu"):
         args = (x, g, z, scale, bias, mean, invstd, mode, bf16)
@@ -1289,58 +916,20 @@ def check_bn_kernels(rnd, flush, row):
         f"versions to {lib_err[0]:.3e} (sums, of their max) and "
         f"{lib_err[1]:.3e} (dx, abs)")
     k = times["plain"]
-    row("bn_sums", errs["sums"], k[0], k[1], lib_sums,
+    row("bn_sums", k[0], k[1], lib_sums,
         nbytes=4 * m * c + 4 * c * 4, flops=5 * m * c, peak=F32_FLOPS,
         dev_ms=dev["sums"], lib_dev_ms=lib_dev[0])
-    row("bn_dx", errs["dx"], k[2], k[3], lib_dx,
+    row("bn_dx", k[2], k[3], lib_dx,
         nbytes=6 * m * c + 6 * c * 4, flops=6 * m * c, peak=F32_FLOPS,
         dev_ms=dev["dx"], lib_dev_ms=lib_dev[1])
 
 
-def check_bn_masks(name, args, kdr, pdr, xhat=False):
-    """The sums kernel's masks against the plain version's, exactly: dr
-    ("addrelu") bit for bit, and the "relu" mask through its count per
-    channel (Σg with g = 1, an integer below 2**24, exact in any order)."""
-    import torch
-    from apex_tpu_torch.ops import bn_act as B
-    x, g, z, scale, bias, mean, invstd, mode, r_dtype = args
-    if kdr is not None and not torch.equal(kdr, pdr):
-        raise AssertionError(f"{name}: dr differs from the plain version")
-    if mode == "relu":
-        ones = torch.ones_like(g)
-        counts = [f(x, ones, z, scale, bias, mean, invstd, mode,
-                    xhat=xhat)[0][0]
-                  for f in (B.bn_sums_kernel, B.bn_sums_plain)]
-        if not torch.equal(*counts):
-            raise AssertionError(f"{name}: the ReLU mask's counts differ "
-                                 f"from the plain version's")
-
-
-def time_bn_sums(args, flush):
-    """The sums kernel at a layer-1 join or a layer-4 unit, for the log:
-    events and device time beside the byte bound (x and g read; z read and
-    dr written at a join)."""
-    from apex_tpu_torch.ops import bn_act as B
-    x, mode = args[0], args[7]
-    m, c = x.shape
-    kernel = lambda: B.bn_sums_kernel(*args)  # noqa: E731
-    nbytes = (4 if mode == "addrelu" else 2) * m * c * x.element_size()
-    log(f"kernel bn_sums at {m}x{c} {mode}: kernel "
-        f"{timed(kernel, flush=flush):.4f} ms, device "
-        f"{device_ms(kernel, flush=flush):.4f} ms, bound "
-        f"{(nbytes + 4 * c * 4) / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes)")
-
-
-def check_bn_f32_fp8(rnd, flush, row):
-    """The BN pair at the ResNet-50 stem (3,211,264 x 64) in the dtypes two
-    new paths give it: f32 x, g, z, γ and β (ResNet-50 at O0), and the e4m3
-    x̂ of fp8 residuals with bf16 g, z, γ and β (``xhat=True``). Every mode
-    against the plain versions (dr bit for bit, the ReLU mask by its
-    counts), each with the check that a dx fed zeroed sums, a negated
-    Σg·x̂ or twice the count fails. Rows ``bn_sums_f32``/``bn_dx_f32`` are
+def time_bn_f32_fp8(rnd, flush, row):
+    """Rows ``bn_sums_f32``/``bn_dx_f32`` (f32 x, g, γ, β: ResNet-50 at O0)
     timed in "plain" mode beside ``torch.batch_norm_backward_reduce``/
-    ``_elemt`` on the same f32 tensor; ``bn_sums_fp8``/``bn_dx_fp8`` have no
-    library call that takes an e4m3 operand."""
+    ``_elemt`` on the same f32 tensor, and ``bn_sums_fp8``/``bn_dx_fp8``
+    (the e4m3 x̂ of fp8 residuals with bf16 g, γ, β), which no library
+    call takes, at the ResNet-50 stem (3,211,264 x 64)."""
     import torch
     from apex_tpu_torch.ops import bn_act as B
 
@@ -1349,8 +938,7 @@ def check_bn_f32_fp8(rnd, flush, row):
     x = rnd(m, c, dtype=f32, std=2.0) + 0.5
     mean = x.mean(dim=0)
     invstd = torch.rsqrt(x.var(dim=0, unbiased=False) + 1e-5)
-    g = ((rnd(m, c, dtype=f32) + rnd(c, dtype=f32, std=0.5)
-          + rnd(c, dtype=f32, std=0.7) * (x - mean) * invstd) * 1e-3)
+    g = rnd(m, c, dtype=f32) * 1e-3
     z = rnd(m, c, dtype=f32).clamp_min(0.0)
     scale, bias = rnd(c, dtype=f32, std=0.3) + 1.0, rnd(c, dtype=f32, std=0.3)
     x8 = ((x - mean) * invstd).to(B.XHAT_DTYPE)
@@ -1358,37 +946,6 @@ def check_bn_f32_fp8(rnd, flush, row):
              "fp8": (x8, g.to(bf16), z.to(bf16), scale.to(bf16),
                      bias.to(bf16), bf16, True)}
     for label, (xx, gg, zz, sc, bi, dt, xhat) in cases.items():
-        errs = {"sums": 0.0, "dx": 0.0}
-        for mode in ("plain", "relu", "addrelu"):
-            args = (xx, gg, zz, sc, bi, mean, invstd, mode, dt)
-            ks, kdr = B.bn_sums_kernel(*args, xhat=xhat)
-            ps, pdr = B.bn_sums_plain(*args, xhat=xhat)
-            errs["sums"] = max(errs["sums"], compare(
-                f"bn_sums {label} {mode}",
-                [ks] + ([kdr] if kdr is not None else []),
-                [ps] + ([pdr] if pdr is not None else [])))
-            check_bn_masks(f"bn_sums {label} {mode}", args, kdr, pdr, xhat)
-            g_src = pdr if mode == "addrelu" else gg
-            dx_args = (xx, g_src, sc, bi, mean, invstd, ps, m,
-                       mode == "relu", dt)
-            want = B.bn_dx_plain(*dx_args, xhat=xhat)
-            errs["dx"] = max(errs["dx"], compare(
-                f"bn_dx {label} {mode}", [B.bn_dx_kernel(*dx_args,
-                                                         xhat=xhat)],
-                [want]))
-            for fault, sums, count in (
-                    ("zeroed sums", torch.zeros_like(ps), m),
-                    ("negated sum of g*xhat",
-                     ps * ps.new_tensor([[1.], [-1.]]), m),
-                    ("twice the count", ps, 2 * m)):
-                bad = B.bn_dx_kernel(*dx_args[:6], sums, count, *dx_args[8:],
-                                     xhat=xhat)
-                try:
-                    compare("", [bad], [want])
-                except AssertionError:
-                    continue
-                raise AssertionError(f"bn_dx {label} {mode}: a dx with "
-                                     f"{fault} passes the check")
         args = (xx, gg, zz, sc, bi, mean, invstd, "plain", dt)
         sums = B.bn_sums_plain(*args, xhat=xhat)[0]
         dx_args = (xx, gg, sc, bi, mean, invstd, sums, m, False, dt)
@@ -1414,62 +971,29 @@ def check_bn_f32_fp8(rnd, flush, row):
             del red
         # bytes: x (or x̂) and g read once; dx written once; the vectors
         xb, gb = xx.element_size(), gg.element_size()
-        row(f"bn_sums_{label}", errs["sums"], t[0], t[1], lib[0],
+        row(f"bn_sums_{label}", t[0], t[1], lib[0],
             nbytes=(xb + gb) * m * c + (2 if xhat else 4) * c * 4,
             flops=(3 if xhat else 5) * m * c, peak=F32_FLOPS, dev_ms=dev[0],
             lib_dev_ms=lib_dev[0])
-        row(f"bn_dx_{label}", errs["dx"], t[2], t[3], lib[1],
+        row(f"bn_dx_{label}", t[2], t[3], lib[1],
             nbytes=(xb + 2 * gb) * m * c + 6 * c * 4,
             flops=(4 if xhat else 6) * m * c, peak=F32_FLOPS, dev_ms=dev[1],
             lib_dev_ms=lib_dev[1])
-    log("phase kernels: bn_sums and bn_dx in f32 and on an e4m3 x-hat agree "
-        "with the plain versions at the stem in every mode; a dx with zeroed "
-        "sums, a negated sum of g*xhat or twice the count fails the check")
 
 
-def check_bn_dx_count(rnd, flush, row):
-    """Row 13's variant with the group's count as a 1-element f32 operand
-    on the card (``COUNT_PTR``, what a unit with statistics across ranks
-    launches): at the stem (3,211,264 x 64) and a ragged (12,345 x 96),
-    "plain" and "relu", against ``bn_dx_plain`` fed the same tensor count,
-    and bit for bit against the kernel fed the count as a number (the same
-    f32 division). Timed in "plain" mode at the stem beside
-    ``torch.batch_norm_backward_elemt``, whose per-rank counts are a tensor
-    on the card too."""
+def time_bn_dx_count(rnd, flush, row):
+    """Row bn_dx_count: the dx kernel with the group's count on the card,
+    "plain" mode at the stem, beside ``torch.batch_norm_backward_elemt``,
+    whose per-rank counts are a tensor on the card too."""
     import torch
     from apex_tpu_torch.ops import bn_act as B
 
     bf16 = torch.bfloat16
-    err = 0.0
-    for m, c in ((3211264, 64), (12345, 96)):
-        x = rnd(m, c, std=2.0) + 0.5
-        scale, bias = rnd(c, std=0.3) + 1.0, rnd(c, std=0.3)
-        x32 = x.float()
-        mean = x32.mean(dim=0)
-        invstd = torch.rsqrt(x32.var(dim=0, unbiased=False) + 1e-5)
-        g = ((rnd(m, c, dtype=torch.float32)
-              + rnd(c, dtype=torch.float32, std=0.5)
-              + rnd(c, dtype=torch.float32, std=0.7) * (x32 - mean) * invstd)
-             * 1e-3).to(bf16)
-        del x32
-        count = torch.full((), float(m), device=x.device)
-        for mode in ("plain", "relu"):
-            sums = B.bn_sums_plain(x, g, None, scale, bias, mean, invstd,
-                                   mode)[0]
-            args = (x, g, scale, bias, mean, invstd, sums)
-            tail = (mode == "relu", bf16)
-            got = B.bn_dx_kernel(*args, count, *tail)
-            if not torch.equal(got, B.bn_dx_kernel(*args, m, *tail)):
-                raise AssertionError(f"bn_dx_count {m}x{c} {mode}: differs "
-                                     f"from the kernel fed the count as a "
-                                     f"number")
-            e = compare(f"bn_dx_count {m}x{c} {mode}", [got],
-                        [B.bn_dx_plain(*args, count, *tail)])
-            if m == 3211264:
-                err = max(err, e)
-                stem = (args, count)
-    (args, count), (m, c), n = stem, (3211264, 64), 256
-    x, g, scale, bias, mean, invstd, sums = args
+    (m, c), n = (3211264, 64), 256
+    x, g, _z, scale, bias, mean, invstd = compile_check.bn_inputs(rnd, m, c)
+    count = torch.full((), float(m), device=x.device)
+    sums = B.bn_sums_plain(x, g, None, scale, bias, mean, invstd, "plain")[0]
+    args = (x, g, scale, bias, mean, invstd, sums)
     kernel = lambda: B.bn_dx_kernel(*args, count, False, bf16)  # noqa: E731
     t = [timed(f, flush=flush) for f in (
         kernel, lambda: B.bn_dx_plain(*args, count, False, bf16))]
@@ -1480,183 +1004,27 @@ def check_bn_dx_count(rnd, flush, row):
     counts = torch.tensor([m], dtype=torch.int32, device=x.device)
     lib = lambda: torch.batch_norm_backward_elemt(  # noqa: E731
         gl, xl, mean, invstd, w, red[0], red[1], counts)
-    row("bn_dx_count", err, t[0], t[1], timed(lib, flush=flush),
+    row("bn_dx_count", t[0], t[1], timed(lib, flush=flush),
         nbytes=6 * m * c + 6 * c * 4 + 4, flops=6 * m * c, peak=F32_FLOPS,
         dev_ms=device_ms(kernel, flush=flush),
         lib_dev_ms=device_ms(lib, flush=flush))
     del red
-    log("phase kernels: bn_dx with the count on the card agrees with the "
-        "plain version at the stem and a ragged shape, and bit for bit "
-        "with the kernel fed the count as a number")
 
 
-def check_ln_paths(rnd):
-    """The LayerNorm forward kernel's other paths against the plain
-    version: a ragged H = 300 and a base off 16 bytes (one element a load),
-    f32 and fp16 rows, no affine, 16-bit weights, H = 2048 (64 elements a
-    lane), H = 4096 (a block a row, staged in shared memory) and an f32 row
-    of 70000 (a block a row, read from device memory)."""
-    import torch
-    from apex_tpu_torch.ops import layer_norm as L
-    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
-    cases = [((512, 300), bf16, f32), ((100, 768), f32, f32),
-             ((33, 1024), f16, None), ((64, 1024), bf16, bf16),
-             ((50, 2048), bf16, f32), ((9, 4096), bf16, f32),
-             ((3, 70000), f32, f32)]
-    for (n, h), dt, wdt in cases:
-        x = (rnd(n, h, dtype=f32, std=2.0) + 0.5).to(dt)
-        w = None if wdt is None else rnd(h, dtype=f32, std=0.2).to(wdt) + 1
-        b = None if wdt is None else rnd(h, dtype=f32, std=0.2).to(wdt)
-        compare(f"layer_norm_fwd {n}x{h} {dt} weights {wdt}",
-                [L.ln_fwd_kernel(x, w, b, 1e-5)],
-                [L.ln_fwd_plain(x, w, b, 1e-5)])
-    # bases off 16 bytes: one element a load, f32 past 512 a block a row
-    off = [((128, 1024), bf16), ((64, 300), f32), ((32, 1000), f32)]
-    for (n, h), dt in off:
-        x = rnd(n * h + 1, dtype=dt)[1:].view(n, h)
-        w, b = rnd(h, dtype=f32) + 1.0, rnd(h, dtype=f32)
-        compare(f"layer_norm_fwd {n}x{h} {dt} off 16 bytes",
-                [L.ln_fwd_kernel(x, w, b, 1e-5)],
-                [L.ln_fwd_plain(x, w, b, 1e-5)])
-    log(f"phase kernels: layer_norm fwd agrees with the plain version on "
-        f"{len(cases) + len(off)} more shapes (ragged, off 16 bytes, f32, "
-        f"fp16, no affine, 16-bit weights, H = 2048, 4096, 70000)")
-
-
-def check_norm_determinism(rnd):
-    """Two launches of the LayerNorm forward (BERT's (8192, 1024) bf16) and
-    of the BN sums (the stem's (3211264, 64) bf16, "addrelu") are bitwise
-    equal: a warp owns a row, and the sums' blocks and their order are
-    fixed by the shape."""
-    import torch
-    from apex_tpu_torch.ops import bn_act as B
-    from apex_tpu_torch.ops import layer_norm as L
-    f32 = torch.float32
-    x = rnd(8192, 1024, std=2.0) + 0.5
-    w, b = rnd(1024, dtype=f32, std=0.2) + 1.0, rnd(1024, dtype=f32, std=0.2)
-    if not torch.equal(L.ln_fwd_kernel(x, w, b, 1e-12),
-                       L.ln_fwd_kernel(x, w, b, 1e-12)):
-        raise AssertionError("layer_norm_fwd: two launches differ")
-    m, c = 3211264, 64
-    x, g = rnd(m, c, std=2.0) + 0.5, rnd(m, c, std=1e-3)
-    z = rnd(m, c).clamp_min(0.0)
-    mean = x.float().mean(dim=0)
-    invstd = torch.rsqrt(x.float().var(dim=0, unbiased=False) + 1e-5)
-    args = (x, g, z, rnd(c) + 1.0, rnd(c), mean, invstd, "addrelu",
-            torch.bfloat16)
-    (s1, d1), (s2, d2) = B.bn_sums_kernel(*args), B.bn_sums_kernel(*args)
-    if not (torch.equal(s1, s2) and torch.equal(d1, d2)):
-        raise AssertionError("bn_sums: two launches differ")
-    log("phase kernels: layer_norm fwd (BERT) and bn_sums (stem, addrelu): "
-        "two launches of each bitwise equal (y; sums, dr)")
-
-
-def check_ln_bwd_paths(rnd):
-    """The LayerNorm backward kernel on every path of its plan against the
-    plain version: 16-byte vectors (bf16 at 1024 and 2048, f32 rows of
-    512 and 768, a ragged H = 1000), one element a load (H = 300, bases
-    off 16 bytes), fp16 without affine params, bf16 weights, n below the
-    grid (5 rows, one block) and just past a block a warp row, a block a
-    row staged in shared memory (H = 4096 and 8192) and read from device
-    memory (f32, H = 70000). dγ and dβ within TOL32 of the plain sums."""
-    import torch
-    from apex_tpu_torch.ops import layer_norm as L
-    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
-    cases = [((300, 1000), bf16, f32), ((257, 512), f32, f32),
-             ((100, 768), f32, f32), ((512, 300), bf16, f32),
-             ((33, 1024), f16, None), ((64, 1024), bf16, bf16),
-             ((50, 2048), bf16, f32), ((5, 1024), bf16, f32),
-             ((2049, 1024), bf16, f32), ((9, 4096), bf16, f32),
-             ((6, 8192), bf16, f32), ((3, 70000), f32, f32),
-             ((40, 1500), f32, None)]
-    paths = set()
-    for (n, h), dt, wdt in cases:
-        x = (rnd(n, h, dtype=f32, std=2.0) + 0.5).to(dt)
-        g = rnd(n, h, dtype=dt)
-        w = None if wdt is None else (rnd(h, dtype=f32, std=0.2) + 1).to(wdt)
-        outs = [L.ln_bwd_kernel(g, x, w, 1e-5), L.ln_bwd_plain(g, x, w, 1e-5)]
-        compare(f"layer_norm_bwd {n}x{h} {dt} weights {wdt}",
-                *[o if w is not None else o[:1] for o in outs])
-        paths.add(L._ln_bwd_plan(n, h, x.element_size(), True)[0])
-    off = [((128, 1024), bf16), ((64, 300), f32), ((32, 1000), f32)]
-    for (n, h), dt in off:
-        x = rnd(n * h + 1, dtype=dt)[1:].view(n, h)
-        g = rnd(n * h + 1, dtype=dt)[1:].view(n, h)
-        w = rnd(h, dtype=f32) + 1.0
-        compare(f"layer_norm_bwd {n}x{h} {dt} off 16 bytes",
-                L.ln_bwd_kernel(g, x, w, 1e-5), L.ln_bwd_plain(g, x, w, 1e-5))
-        paths.add(L._ln_bwd_plan(n, h, x.element_size(), False)[0])
-    if paths != {L._SCALAR, L._VECTOR, L._STAGED, L._STREAMED}:
-        raise AssertionError(f"layer_norm_bwd: paths checked {paths}")
-    log(f"phase kernels: layer_norm bwd agrees with the plain version on "
-        f"{len(cases) + len(off)} more shapes (every path: vector, scalar, "
-        f"staged, streamed; bf16, f32, fp16; no affine; off 16 bytes; n "
-        f"below the grid)")
-
-
-def check_ln_bwd_determinism(rnd):
-    """Two launches of the LayerNorm backward bitwise equal in dx, dγ and
-    dβ at BERT's (8192, 1024) bf16, a ragged (300, 1000) and a block a row
-    (9, 4096): the blocks' rows and the order of every sum are fixed by
-    the shape."""
-    import torch
-    from apex_tpu_torch.ops import layer_norm as L
-    for n, h in ((8192, 1024), (300, 1000), (9, 4096)):
-        x = rnd(n, h, std=2.0) + 0.5
-        g = rnd(n, h)
-        w = rnd(h, dtype=torch.float32, std=0.2) + 1.0
-        one, two = L.ln_bwd_kernel(g, x, w, 1e-5), L.ln_bwd_kernel(g, x, w,
-                                                                   1e-5)
-        for name, a, b in zip(("dx", "dgamma", "dbeta"), one, two):
-            if not torch.equal(a, b):
-                raise AssertionError(f"layer_norm_bwd {n}x{h}: two launches "
-                                     f"differ in {name}")
-    log("phase kernels: layer_norm bwd: two launches bitwise equal in dx, "
-        "dgamma and dbeta (8192x1024, 300x1000, 9x4096)")
-
-
-def check_sgd_kernel(rnd, flush, row):
-    """The SGD kernel against its plain version: every flag on a ragged
-    arena of an f32 and a bf16 partition (the f32 one with a bf16
-    copy-out), then ResNet-50's one f32 partition, where it is timed. The
-    library yardstick is ``torch._fused_sgd_`` over ResNet-50's 161
-    tensors."""
+def time_sgd_kernel(rnd, flush, row):
+    """Row sgd at ResNet-50's one f32 partition; the library yardstick is
+    ``torch._fused_sgd_`` over ResNet-50's 161 tensors."""
     import torch
     from apex_tpu_torch import arena, models
     from apex_tpu_torch.ops import _arena, optim_kernels as K
 
     dev = torch.device("cuda")
     f32 = torch.float32
-    tree = {"w": rnd(1000, 300, dtype=f32), "e": rnd(513, 129),
-            "b": rnd(77, dtype=f32), "s": rnd(5)}
-    spec = arena.plan(tree)
-    pb = arena.flatten(tree, spec)
-    gb = arena.flatten({k: rnd(*t.shape, dtype=f32) for k, t in tree.items()},
-                       spec, cast=f32)
-    for dt, p in pb.items():
-        m = rnd(p.numel(), dtype=f32, std=0.1)
-        copy = torch.bfloat16 if dt == "float32" else None
-        for nesterov in (False, True):
-            for wd_after in (False, True):
-                for first in (0.0, 1.0):
-                    s = _arena.device_scalars((0.1, 0.9, 0.0, 1e-4, 0.5,
-                                               first), dev)
-                    compare(f"sgd ragged {dt} nesterov={nesterov} "
-                            f"wd_after={wd_after} first={first}",
-                            K.sgd_kernel(p, gb[dt], m, s, nesterov, wd_after,
-                                         copy),
-                            K.sgd_plain(p, gb[dt], m, s, nesterov, wd_after,
-                                        copy), TOL_ARENA)
-
     rspec = arena.plan(dict(models.ResNet50(device="meta").named_parameters()))
     n = rspec.partition("float32").buffer_len
     p, g, m = (rnd(n, dtype=f32), rnd(n, dtype=f32, std=1e-2),
                rnd(n, dtype=f32, std=1e-2))
     s = _arena.device_scalars((0.1, 0.9, 0.0, 0.0, 1.0, 0.0), dev)
-    err = compare("sgd ResNet-50", K.sgd_kernel(p, g, m, s, False, False),
-                  K.sgd_plain(p, g, m, s, False, False), TOL_ARENA)
-    log(f"phase kernels: sgd agrees with the plain version (ResNet-50 "
-        f"buffer of {n} elements, ragged bf16 + f32, every flag)")
     kernel = lambda: K.sgd_kernel(p, g, m, s, False, False)  # noqa: E731
     ms = timed(kernel, flush=flush)
     plain = timed(lambda: K.sgd_plain(p, g, m, s, False, False), flush=flush)
@@ -1671,57 +1039,28 @@ def check_sgd_kernel(rnd, flush, row):
     except (RuntimeError, TypeError, AttributeError) as e:
         lib = lib_dev = None
         log(f"kernel sgd: library null: torch._fused_sgd_ did not run: {e}")
-    row("sgd", err, ms, plain, lib, nbytes=20 * n, flops=6 * n,
+    row("sgd", ms, plain, lib, nbytes=20 * n, flops=6 * n,
         peak=F32_FLOPS, dev_ms=device_ms(kernel, flush=flush),
         lib_dev_ms=lib_dev)
 
 
-def check_adam_kernel(rnd, flush, row):
-    """The Adam kernel against its plain version: AdamW mode on and off,
-    the copy-out on and off, on a ragged arena of an f32 and a bf16
-    partition; then at the DCGAN generator's one f32 partition, where it
-    is timed. The library yardstick is ``torch._fused_adam_`` over the
-    generator's 13 tensors (context only; the port does not call it)."""
+def time_adam_kernel(rnd, flush, row):
+    """Row adam at the DCGAN generator's one f32 partition; the library
+    yardstick is ``torch._fused_adam_`` over the generator's 13 tensors
+    (context only; the port does not call it)."""
     import torch
     from apex_tpu_torch import arena, models
     from apex_tpu_torch.ops import _arena, optim_kernels as K
 
     dev = torch.device("cuda")
     f32 = torch.float32
-    s = _arena.device_scalars((2e-4, 0.5, 0.999, 1e-8, 1e-2, 1 - 0.5 ** 3,
-                               1 - 0.999 ** 3, 0.5), dev)
-    tree = {"w": rnd(1000, 300, dtype=f32), "e": rnd(513, 129),
-            "b": rnd(77, dtype=f32), "s": rnd(5)}
-    spec = arena.plan(tree)
-    pb = arena.flatten(tree, spec)
-    gb = arena.flatten({k: rnd(*t.shape, dtype=f32) for k, t in tree.items()},
-                       spec, cast=f32)
-    for dt, p in pb.items():
-        m = rnd(p.numel(), dtype=f32, std=0.1)
-        v = rnd(p.numel(), dtype=f32, std=0.01).abs()
-        half = torch.bfloat16 if dt == "float32" else torch.float16
-        for adam_w in (True, False):
-            for copy in (None, half):
-                compare(f"adam ragged {dt} adam_w={adam_w} copy={copy}",
-                        K.adam_kernel(p, gb[dt], m, v, s, adam_w, copy),
-                        K.adam_plain(p, gb[dt], m, v, s, adam_w, copy),
-                        TOL_ARENA)
-
     gparams = dict(models.Generator(device="meta").named_parameters())
     gspec = arena.plan(gparams)
     n = gspec.partition("float32").buffer_len
-    live = sum(t.numel() for t in gparams.values())
     p, g = rnd(n, dtype=f32, std=0.02), rnd(n, dtype=f32, std=1e-2)
     m, v = rnd(n, dtype=f32, std=1e-3), rnd(n, dtype=f32, std=1e-2).square()
     s = _arena.device_scalars((2e-4, 0.5, 0.999, 1e-8, 0.0, 1 - 0.5 ** 3,
                                1 - 0.999 ** 3, 1.0), dev)
-    err = max(compare(f"adam generator adam_w={w}",
-                      K.adam_kernel(p, g, m, v, s, w),
-                      K.adam_plain(p, g, m, v, s, w), TOL_ARENA)
-              for w in (True, False))
-    log(f"phase kernels: adam agrees with the plain version (DCGAN "
-        f"generator buffer of {n} elements for {live} params, ragged bf16 "
-        f"+ f32, AdamW on/off, copy-out on/off)")
     kernel = lambda: K.adam_kernel(p, g, m, v, s, True)  # noqa: E731
     ms = timed(kernel, flush=flush)
     plain = timed(lambda: K.adam_plain(p, g, m, v, s, True), flush=flush)
@@ -1737,119 +1076,103 @@ def check_adam_kernel(rnd, flush, row):
     except (RuntimeError, TypeError, AttributeError) as e:
         lib = lib_dev = None
         log(f"kernel adam: library null: torch._fused_adam_ did not run: {e}")
-    row("adam", err, ms, plain, lib, nbytes=28 * n, flops=18 * n,
+    row("adam", ms, plain, lib, nbytes=28 * n, flops=18 * n,
         peak=F32_FLOPS, dev_ms=device_ms(kernel, flush=flush),
         lib_dev_ms=lib_dev)
 
 
-def _mlp_operands(rnd, n, dims, act, bias, dt, wdt):
-    """x ~ N(0, 1) and weights scaled to keep every layer's output O(1)."""
+def _mlp_chain(x, ws, bs, act, od=None):
+    """The chain of ``torch.addmm`` + activation in f32 on the same
+    operands (rounded to ``od`` first where given): the MLP rows' library
+    yardstick (no single PyTorch call computes an MLP)."""
     import torch
-    x = rnd(n, dims[0], dtype=dt)
-    gain = 4.0 if act == "sigmoid" else 2.0
-    ws = [rnd(a, b, dtype=wdt, std=math.sqrt(gain / a))
-          for a, b in zip(dims, dims[1:])]
-    bs = [rnd(b, dtype=wdt, std=0.1) for b in dims[1:]] if bias else None
-    return x, ws, bs
+    acts = {"relu": torch.relu, "sigmoid": torch.sigmoid}
+    xr = x.float() if od is None else x.to(od).float()
+    wr = [t.float() if od is None else t.to(od).float() for t in ws]
+    br = [b.float() for b in bs] if bs else None
+
+    def chain():
+        h = xr
+        for i, t in enumerate(wr):
+            if i and od is not None:
+                h = h.to(od).float()
+            h = acts[act](torch.addmm(br[i], h, t) if br else torch.mm(h, t))
+        return h
+    return chain
 
 
-def check_mlp_kernel(rnd, flush, row):
-    """mlp_fwd against its plain version (the f32 chain with one cast),
-    TF32 off, timed with that version and with the chain of ``torch.addmm``
-    + activation in f32 (a chain: no single PyTorch call computes an MLP),
-    at the path's shape (B2048 x [13, 512, 256, 128], relu, bias, bf16 x
-    and bf16 weights as O2 gives them: the JSON row), the budget's edge
-    (B8192 x [1024, 1024, 1024] f32, exactly 8 MiB of weights, which <=
-    admits) and compile_check's ragged [224, 200, 136, 10] at 96 rows
-    (f32, sigmoid, no bias), each also held bitwise equal to a second
-    launch. Then, compared only: a layer too wide for the fused kernel
-    (one launch per layer over the f32 workspace) and 40 layers (two fused
-    launches), fp16, and x, weights and biases of different dtypes, each
-    with its launch count."""
+def time_mlp_kernel(rnd, flush, row):
+    """mlp_fwd timed with its plain version and the addmm chain in f32, TF32
+    off, at the path's shape (the JSON row), the budget's edge and the
+    ragged shape of the compile check (``compile_check.MLP_CASES``)."""
     import torch
     from apex_tpu_torch.ops import mlp as P
 
-    t0 = time.perf_counter()
-    if torch.backends.cuda.matmul.allow_tf32:
-        raise AssertionError("the MLP check needs TF32 off")
-    acts = {"relu": torch.relu, "sigmoid": torch.sigmoid}
-    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
-    cases = [("path", 2048, list(MLP_BOTTOM), "relu", True, bf16, bf16),
-             ("edge", 8192, [1024, 1024, 1024], "relu", True, f32, f32),
-             ("ragged", 96, [224, 200, 136, 10], "sigmoid", False, f32, f32)]
-    for name, n, dims, act, bias, dt, wdt in cases:
-        x, ws, bs = _mlp_operands(rnd, n, dims, act, bias, dt, wdt)
-        if name == "edge" and (sum(w.numel() for w in ws) * 4 != 8 << 20
-                               or not P.weights_fit(ws)):
-            raise AssertionError("the edge case must hold exactly 8 MiB")
-        before = P.mlp_fwd_kernel.launches
-        out = P.mlp_fwd_kernel(x, ws, bs, act)
-        if P.mlp_fwd_kernel.launches - before != 1:
-            raise AssertionError(f"mlp_fwd {name}: "
-                                 f"{P.mlp_fwd_kernel.launches - before} "
-                                 f"launches, expected 1")
-        err = compare(f"mlp_fwd {name} {n}x{dims} {dt}", [out],
-                      [P.mlp_fused_reference(x, ws, bs, act)], 1e-4)
-        if not torch.equal(out, P.mlp_fwd_kernel(x, ws, bs, act)):
-            raise AssertionError(f"mlp_fwd {name}: two launches differ")
+    for name, n, dims, act, bias, dt, wdt in compile_check.MLP_CASES:
+        x, ws, bs = compile_check.mlp_operands(
+            rnd, n, dims, act, bias, getattr(torch, dt), getattr(torch, wdt))
         ms = timed(lambda: P.mlp_fwd_kernel(x, ws, bs, act), flush=flush)
         plain = timed(lambda: P.mlp_fused_reference(x, ws, bs, act),
                       flush=flush)
-        x32, w32 = x.float(), [w.float() for w in ws]
-        b32 = [b.float() for b in bs] if bias else None
-
-        def chain():
-            h = x32
-            for i, w in enumerate(w32):
-                h = acts[act](torch.addmm(b32[i], h, w) if bias
-                              else torch.mm(h, w))
-            return h
-
+        chain = _mlp_chain(x, ws, bs, act)
         lib = timed(chain, flush=flush)
         nbytes = (x.numel() + n * dims[-1]) * x.element_size() + sum(
             t.numel() * t.element_size() for t in ws + (bs or []))
         flops = 2 * n * sum(a * b for a, b in zip(dims, dims[1:]))
         if name == "path":
-            row("mlp_fwd", err, ms, plain, lib, nbytes, flops, F32_FLOPS,
+            row("mlp_fwd", ms, plain, lib, nbytes, flops, F32_FLOPS,
                 dev_ms=device_ms(lambda: P.mlp_fwd_kernel(x, ws, bs, act),
                                  flush=flush),
                 lib_dev_ms=device_ms(chain, flush=flush))
         else:
             bound = max(nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS) * 1e3
-            log(f"kernel mlp_fwd {name} {n}x{dims} {dt}: max_abs_err "
-                f"{err:.3e}  kernel {ms:.4f} ms  plain {plain:.4f} ms  "
-                f"library (addmm chain, f32) {lib:.4f} ms  bound "
-                f"{bound:.4f} ms (operations)")
-    for name, n, dims, act, dt, wdt, bdt, want in (
-            ("wide", 200, [96, 4096, 48], "relu", f16, f16, f16, 2),
-            ("deep", 100, [64] * 41, "sigmoid", f16, f16, f16, 2),
-            ("mixed", 50, [39, 128, 57], "none", bf16, f32, f32, 1),
-            ("mixed16", 33, [20, 64, 12], "relu", f16, f32, bf16, 1)):
-        x, ws, bs = _mlp_operands(rnd, n, dims, act, True, dt, wdt)
-        bs = [b.to(bdt) for b in bs]
-        before = P.mlp_fwd_kernel.launches
-        compare(f"mlp_fwd {name} {n}x{dims[:3]}... ({len(ws)} layers) x "
-                f"{dt}, weights {wdt}, biases {bdt}",
-                [P.mlp_fwd_kernel(x, ws, bs, act)],
-                [P.mlp_fused_reference(x, ws, bs, act)], 1e-4)
-        got = P.mlp_fwd_kernel.launches - before
-        if got != want:
-            raise AssertionError(f"mlp_fwd {name}: {got} launches, expected "
-                                 f"{want}")
-    log(f"phase kernels: mlp_fwd agrees with the plain version (path, edge, "
-        f"ragged, each two launches bitwise equal; a layer past the fused "
-        f"width: 2 launches; 40 layers: 2; x, weights and biases of three "
-        f"dtypes) in "
-        f"{time.perf_counter() - t0:.1f} s")
+            log(f"kernel mlp_fwd {name} {n}x{list(dims)} {dt}: kernel "
+                f"{ms:.4f} ms  plain {plain:.4f} ms  library (addmm chain, "
+                f"f32) {lib:.4f} ms  bound {bound:.4f} ms (operations)")
 
 
-def check_arena_kernels(rnd, flush, row):
-    """The arena kernels against their plain versions: a ragged arena of
-    an f32 and a bf16 partition (stage 2 with a bf16 copy-out), then
-    BERT-Large's one f32 partition (``buffer_len`` from ``arena.plan``),
-    where they are timed."""
+def time_mlp_o1(rnd, flush, row):
+    """The MLP kernel's half-operand mode (row mlp_fwd_o1 at "path") at the
+    compile check's shapes (``compile_check.MLP_O1_CASES``), timed beside
+    the plain version and the addmm + ReLU chain on the rounded operands
+    upcast to f32 (the same function). The bound is at the tensor cores'
+    bf16/fp16 rate: half operands, f32 sums."""
     import torch
-    from apex_tpu_torch import arena, models
+    from apex_tpu_torch.ops import mlp as P
+
+    f32 = torch.float32
+    for label, n, dims, od, _want in compile_check.MLP_O1_CASES:
+        od = getattr(torch, od)
+        x, ws, bs = compile_check.mlp_operands(rnd, n, dims, "relu", True,
+                                               f32, f32)
+        chain = _mlp_chain(x, ws, bs, "relu", od)
+        kernel = lambda: P.mlp_fwd_kernel(x, ws, bs, "relu", od)  # noqa
+        ms = timed(kernel, flush=flush)
+        plain = timed(lambda: P.mlp_fused_reference(x, ws, bs, "relu", od),
+                      iters=3, flush=flush)
+        lib = timed(chain, flush=flush)
+        nbytes = (x.numel() + n * dims[-1]) * 4 + sum(
+            t.numel() * 4 for t in ws + bs)
+        flops = 2 * n * sum(a * c for a, c in zip(dims, dims[1:]))
+        dev_ms = device_ms(kernel, flush=flush)
+        # the function's products are of half operands with f32 sums: the
+        # tensor cores' rate, though the kernel runs them as f32 FMAs
+        if label == "path":
+            row("mlp_fwd_o1", ms, plain, lib, nbytes, flops, BF16_FLOPS,
+                dev_ms=dev_ms, lib_dev_ms=device_ms(chain, flush=flush))
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
+        log(f"kernel mlp_fwd_o1 {label} {n}x{list(dims)} f32, {od} "
+            f"operands: kernel {ms:.4f} ms (device {dev_ms:.4f} ms)  plain "
+            f"{plain:.4f} ms  library (addmm chain) {lib:.4f} ms  bound "
+            f"{max(t_bytes, t_ops) * 1e3:.4f} ms "
+            f"({'bytes' if t_bytes >= t_ops else 'operations'})")
+
+
+def time_arena_kernels(rnd, flush, row):
+    """Rows multi_tensor_l2norm, lamb_stage1 and lamb_stage2 at
+    BERT-Large's one f32 partition (``buffer_len`` from ``arena.plan``);
+    the l2norm's library yardstick ``torch.linalg.vector_norm``."""
+    import torch
     from apex_tpu_torch.ops import _arena, multi_tensor as M
     from apex_tpu_torch.ops import optim_kernels as K
 
@@ -1858,197 +1181,51 @@ def check_arena_kernels(rnd, flush, row):
     s1 = _arena.device_scalars((0.9, 0.999, 1e-6, 0.01, 1 - 0.9 ** 3,
                                 1 - 0.999 ** 3, 0.5, 0.1), dev)
     s2 = _arena.device_scalars((1e-3,), dev)
-
-    def moments(n):
-        return rnd(n, dtype=f32, std=0.1), rnd(n, dtype=f32, std=0.01).abs()
-
-    # ragged: two partitions, each of the kernels' constexpr variants
-    tree = {"w": rnd(1000, 300, dtype=f32), "e": rnd(513, 129),
-            "b": rnd(77, dtype=f32), "s": rnd(5)}
-    spec = arena.plan(tree)
-    pb = arena.flatten(tree, spec)
-    gb = arena.flatten({k: rnd(*t.shape, dtype=f32) for k, t in tree.items()},
-                       spec, cast=f32)
-    for dt, adam_w, copy in (("float32", True, torch.bfloat16),
-                             ("bfloat16", False, None)):
-        p, g = pb[dt], gb[dt]
-        m, v = moments(p.numel())
-        for x in (p, g):
-            compare(f"multi_tensor_l2norm ragged {dt} {x.dtype}",
-                    [M.l2norm_kernel(x)], [M.l2norm_plain(x)], TOL_ARENA)
-        compare(f"lamb_stage1 ragged {dt} adam_w={adam_w}",
-                K.lamb_stage1_kernel(p, g, m, v, s1, adam_w),
-                K.lamb_stage1_plain(p, g, m, v, s1, adam_w), TOL_ARENA)
-        u = K.lamb_stage1_plain(p, g, m, v, s1, adam_w)[0]
-        r = rnd(p.numel(), dtype=f32).abs()
-        outs = [K.lamb_stage2_kernel(p, u, r, s2, copy),
-                K.lamb_stage2_plain(p, u, r, s2, copy)]
-        if copy is None:
-            outs = [[o] for o in outs]
-        compare(f"lamb_stage2 ragged {dt} copy={copy}", *outs, TOL_ARENA)
-
-    # BERT-Large: one f32 partition of buffer_len elements
-    n = arena.plan(dict(models.BertLarge(device=dev).named_parameters())
-                   ).partition("float32").buffer_len
+    n = compile_check.buffer_len("BertLarge")
     p, g, r = (rnd(n, dtype=f32), rnd(n, dtype=f32, std=3.0),
                rnd(n, dtype=f32).abs())
-    m, v = moments(n)
-    l2_err = compare("multi_tensor_l2norm BERT-Large", [M.l2norm_kernel(g)],
-                     [M.l2norm_plain(g)], TOL_ARENA)
-    s1_err = compare("lamb_stage1 BERT-Large",
-                     K.lamb_stage1_kernel(p, g, m, v, s1, True),
-                     K.lamb_stage1_plain(p, g, m, v, s1, True), TOL_ARENA)
+    m, v = rnd(n, dtype=f32, std=0.1), rnd(n, dtype=f32, std=0.01).abs()
     u = K.lamb_stage1_plain(p, g, m, v, s1, True)[0]
-    s2_err = compare("lamb_stage2 BERT-Large",
-                     [K.lamb_stage2_kernel(p, u, r, s2)],
-                     [K.lamb_stage2_plain(p, u, r, s2)], TOL_ARENA)
-    log(f"phase kernels: arena l2norm and LAMB stages agree with the plain "
-        f"versions (BERT-Large buffer of {n} elements, ragged bf16 + f32)")
     kernel = lambda: M.l2norm_kernel(g)  # noqa: E731
     library = lambda: torch.linalg.vector_norm(g)  # noqa: E731
     ms = timed(kernel, flush=flush)
     plain = timed(lambda: M.l2norm_plain(g), flush=flush)
     lib = timed(library, flush=flush)
-    row("multi_tensor_l2norm", l2_err, ms, plain, lib, nbytes=4 * n,
+    row("multi_tensor_l2norm", ms, plain, lib, nbytes=4 * n,
         flops=2 * n, peak=F32_FLOPS, dev_ms=device_ms(kernel, flush=flush),
         lib_dev_ms=device_ms(library, flush=flush))
     kernel = lambda: K.lamb_stage1_kernel(p, g, m, v, s1, True)  # noqa: E731
     ms = timed(kernel, flush=flush)
     plain = timed(lambda: K.lamb_stage1_plain(p, g, m, v, s1, True),
                   flush=flush)
-    row("lamb_stage1", s1_err, ms, plain, None, nbytes=28 * n,
+    row("lamb_stage1", ms, plain, None, nbytes=28 * n,
         flops=15 * n, peak=F32_FLOPS, dev_ms=device_ms(kernel, flush=flush))
     kernel = lambda: K.lamb_stage2_kernel(p, u, r, s2)  # noqa: E731
     ms = timed(kernel, flush=flush)
     plain = timed(lambda: K.lamb_stage2_plain(p, u, r, s2), flush=flush)
-    row("lamb_stage2", s2_err, ms, plain, None, nbytes=16 * n,
+    row("lamb_stage2", ms, plain, None, nbytes=16 * n,
         flops=3 * n, peak=F32_FLOPS, dev_ms=device_ms(kernel, flush=flush))
 
 
-def _check_flagged(name, got, want):
-    """(out, all-finite flag) of a kernel against its plain version: flags
-    equal, outputs within TOL_ARENA (16-bit: TOL16) of the largest."""
-    if bool(got[1]) != bool(want[1]):
-        raise AssertionError(f"{name}: flag {bool(got[1])}, plain "
-                             f"{bool(want[1])}")
-    return compare(name, [got[0]], [want[0]], TOL_ARENA)
-
-
-def check_arena_remainder(rnd, flush, row):
-    """Rows 15d-f and 15i-j against their plain versions: maxnorm, scale
-    and axpby (out_dtype None, bf16, f16), Adagrad (both weight-decay
-    modes) and NovoGrad (both moment modes) on a ragged arena of an f32
-    and a bf16 partition; the flags' cases (an inf makes each flag False;
-    1e5 scaled into f16 overflows only in the cast, so the flag is True
-    and the output inf, as in the JAX package); maxnorm NaN with a NaN in
-    the first or the last block, 0 on zeros. Then BERT-Large's f32
-    partition, where each is timed. Library yardsticks: maxnorm
-    ``torch.linalg.vector_norm(ord=inf)``, scale ``torch.mul(out=)``,
-    Adagrad ``torch._fused_adagrad_`` over BERT-Large's 292 tensors (if
-    this build has it on CUDA); axpby and NovoGrad have no single call."""
+def time_arena_remainder(rnd, flush, row):
+    """Rows 15d-f and 15i-j at BERT-Large's f32 partition. Library
+    yardsticks: maxnorm ``torch.linalg.vector_norm(ord=inf)``, scale
+    ``torch.mul(out=)``, Adagrad ``torch._fused_adagrad_`` over
+    BERT-Large's 292 tensors (if this build has it on CUDA); axpby and
+    NovoGrad have no single call."""
     import torch
     from apex_tpu_torch import arena, models
-    from apex_tpu_torch.ops import _arena, multi_tensor as M
+    from apex_tpu_torch.ops import multi_tensor as M
     from apex_tpu_torch.ops import optim_kernels as K
 
     dev = torch.device("cuda")
-    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
-    s_scale = _arena.device_scalars((0.37,), dev)
-    s_axpby = _arena.device_scalars((1.7, -0.6), dev)
-    s_ada = _arena.device_scalars((1e-2, 1e-10, 1e-4, 0.5), dev)
-    s_novo = _arena.device_scalars((1e-3, 0.95, 0.05, 1e-8, 1e-3,
-                                    1 - 0.95 ** 3,
-                                    math.sqrt(1 - 0.98 ** 3)), dev)
-    tree = {"w": rnd(1000, 300, dtype=f32), "e": rnd(513, 129),
-            "b": rnd(77, dtype=f32), "s": rnd(5)}
-    spec = arena.plan(tree)
-    pb = arena.flatten(tree, spec)
-    gb = arena.flatten({k: rnd(*t.shape, dtype=f32) for k, t in tree.items()},
-                       spec, cast=f32)
-    for dt, p in pb.items():
-        n, g = p.numel(), gb[dt]
-        h = rnd(n, dtype=f32, std=0.1).abs()
-        m = rnd(n, dtype=f32, std=0.1)
-        vpos = rnd(n, dtype=f32).abs() + 0.1
-        for x in (p, g):
-            compare(f"multi_tensor_maxnorm ragged {dt} {x.dtype}",
-                    [M.maxnorm_kernel(x)], [M.maxnorm_plain(x)], TOL_ARENA)
-        for out in (p.dtype, bf16, f16):
-            _check_flagged(f"multi_tensor_scale ragged {dt} -> {out}",
-                           M.scale_kernel(p, s_scale, out),
-                           M.scale_plain(p, s_scale, out))
-            _check_flagged(f"multi_tensor_axpby ragged {dt} -> {out}",
-                           M.axpby_kernel(p, g, s_axpby, out),
-                           M.axpby_plain(p, g, s_axpby, out))
-        for w in (False, True):
-            compare(f"adagrad ragged {dt} adagrad_w={w}",
-                    K.adagrad_kernel(p, g, h, s_ada, w),
-                    K.adagrad_plain(p, g, h, s_ada, w), TOL_ARENA)
-        for r in (False, True):
-            compare(f"novograd ragged {dt} reg_inside_moment={r}",
-                    K.novograd_kernel(p, g, m, vpos, s_novo, r),
-                    K.novograd_plain(p, g, m, vpos, s_novo, r), TOL_ARENA)
-
-    # the flags' and the norm's edge cases, each on kernel and plain
-    x = rnd(2 * 65536, dtype=f32)
-    one = _arena.device_scalars((1.0,), dev)
-    for pos in (0, x.numel() - 1):
-        bad = x.clone()
-        bad[pos] = float("nan")
-        for fn in (M.maxnorm_kernel, M.maxnorm_plain):
-            if not math.isnan(fn(bad).item()):
-                raise AssertionError(f"{fn.__name__}: a NaN at {pos} did "
-                                     f"not give NaN")
-        bad[pos] = float("inf")
-        for fn, args in ((M.scale_kernel, (bad, one, f32)),
-                         (M.scale_plain, (bad, one, f32)),
-                         (M.axpby_kernel, (x, bad, s_axpby, f32)),
-                         (M.axpby_plain, (x, bad, s_axpby, f32))):
-            if bool(fn(*args)[1]):
-                raise AssertionError(f"{fn.__name__}: an inf at {pos} left "
-                                     f"the flag True")
-    big = x.clone()
-    big[70000] = 1e5
-    for fn in (M.scale_kernel, M.scale_plain):
-        out, ok = fn(big, one, f16)
-        if not (bool(ok) and math.isinf(out[70000].item())):
-            raise AssertionError(f"{fn.__name__}: 1e5 into f16 gave flag "
-                                 f"{bool(ok)}, out {out[70000].item()}")
-    zeros = torch.zeros_like(x)
-    if M.maxnorm_kernel(zeros).item() != 0.0:
-        raise AssertionError("maxnorm of zeros is not 0")
-    log("phase kernels: maxnorm, scale, axpby, adagrad and novograd agree "
-        "with the plain versions (ragged bf16 + f32, every variant); NaN "
-        "gives NaN from maxnorm, an inf makes each flag False, 1e5 into "
-        "f16 gives inf with the flag True, as in the JAX package")
-
-    # BERT-Large: one f32 partition of buffer_len elements
+    f32 = torch.float32
+    s_scale, s_axpby, s_ada, s_novo = compile_check.remainder_scalars()
     bspec = arena.plan(dict(models.BertLarge(device=dev).named_parameters()))
     n = bspec.partition("float32").buffer_len
     p, g = rnd(n, dtype=f32), rnd(n, dtype=f32, std=1e-2)
     h, m = rnd(n, dtype=f32, std=1e-2).square(), rnd(n, dtype=f32, std=1e-3)
     vpos = rnd(n, dtype=f32).abs() + 0.1
-    errs = {
-        "multi_tensor_maxnorm": compare("multi_tensor_maxnorm BERT-Large",
-                                        [M.maxnorm_kernel(g)],
-                                        [M.maxnorm_plain(g)], TOL_ARENA),
-        "multi_tensor_scale": _check_flagged(
-            "multi_tensor_scale BERT-Large", M.scale_kernel(g, s_scale, f32),
-            M.scale_plain(g, s_scale, f32)),
-        "multi_tensor_axpby": _check_flagged(
-            "multi_tensor_axpby BERT-Large",
-            M.axpby_kernel(p, g, s_axpby, f32),
-            M.axpby_plain(p, g, s_axpby, f32)),
-        "adagrad": compare("adagrad BERT-Large",
-                           K.adagrad_kernel(p, g, h, s_ada, False),
-                           K.adagrad_plain(p, g, h, s_ada, False), TOL_ARENA),
-        "novograd": compare("novograd BERT-Large",
-                            K.novograd_kernel(p, g, m, vpos, s_novo, False),
-                            K.novograd_plain(p, g, m, vpos, s_novo, False),
-                            TOL_ARENA)}
-    log(f"phase kernels: maxnorm, scale, axpby, adagrad and novograd agree "
-        f"with the plain versions (BERT-Large buffer of {n} elements)")
-
     lists = [list(arena.unflatten({"float32": t.clone()}, bspec).values())
              for t in (p, g, h)]
     steps = [torch.full((), 3.0, device=dev) for _ in lists[0]]
@@ -2089,9 +1266,99 @@ def check_arena_remainder(rnd, flush, row):
             None if lib is None else timed(lib, flush=flush))
         lib_dev = ada_lib_dev if name == "adagrad" else (
             None if lib is None else device_ms(lib, flush=flush))
-        row(name, errs[name], ms, plain_ms, lib_ms, nbytes=nbytes,
-            flops=flops, peak=F32_FLOPS,
+        row(name, ms, plain_ms, lib_ms, nbytes=nbytes, flops=flops,
+            peak=F32_FLOPS,
             dev_ms=device_ms(kernel, flush=flush), lib_dev_ms=lib_dev)
+
+
+def time_zero_kernels(rnd, flush, row):
+    """Rows lamb_shard_stage{1,2} (LAMB's stages on rank 1's shard of
+    BERT-Large's f32 partition at world size 2) and adam_e5m2_copy (the
+    Adam kernel with an e5m2 copy at ResNet-50's f32 master partition)."""
+    import torch
+    from apex_tpu_torch import arena, models
+    from apex_tpu_torch.ops import _arena, optim_kernels as K
+
+    dev = torch.device("cuda")
+    f32 = torch.float32
+    enc = models.BertLarge(device=dev)
+    spec = arena.plan(dict(enc.named_parameters()))
+    del enc
+    valid, _start, per = compile_check.shard_valid(spec, "float32", 2, 1)
+    p, g = rnd(per, dtype=f32) * valid, rnd(per, dtype=f32, std=3.0) * valid
+    m = rnd(per, dtype=f32, std=0.1) * valid
+    v = rnd(per, dtype=f32, std=0.01).abs() * valid
+    r = rnd(per, dtype=f32).abs() + 0.5
+    s1 = _arena.device_scalars((0.9, 0.999, 1e-6, 0.01, 1 - 0.9 ** 3,
+                                1 - 0.999 ** 3, 0.5, 0.1), dev)
+    s2 = _arena.device_scalars((1e-3,), dev)
+    u = K.lamb_stage1_plain(p, g, m, v, s1, True)[0]
+    kernel = lambda: K.lamb_stage1_kernel(p, g, m, v, s1, True)  # noqa: E731
+    row("lamb_shard_stage1", timed(kernel, flush=flush),
+        timed(lambda: K.lamb_stage1_plain(p, g, m, v, s1, True),
+              flush=flush), None, nbytes=28 * per, flops=15 * per,
+        peak=F32_FLOPS, dev_ms=device_ms(kernel, flush=flush))
+    kernel = lambda: K.lamb_stage2_kernel(p, u, r, s2)  # noqa: E731
+    row("lamb_shard_stage2", timed(kernel, flush=flush),
+        timed(lambda: K.lamb_stage2_plain(p, u, r, s2), flush=flush), None,
+        nbytes=16 * per, flops=3 * per, peak=F32_FLOPS,
+        dev_ms=device_ms(kernel, flush=flush))
+    del p, g, m, v, u, r, valid
+
+    n = compile_check.buffer_len("ResNet50")
+    p = rnd(n, dtype=f32, std=0.05)
+    g, m = rnd(n, dtype=f32, std=1e-2), rnd(n, dtype=f32, std=1e-3)
+    v = rnd(n, dtype=f32, std=1e-2).square()
+    s = _arena.device_scalars((1e-3, 0.9, 0.999, 1e-8, 0.0, 1 - 0.9 ** 3,
+                               1 - 0.999 ** 3, 1.0), dev)
+    e8 = torch.float8_e5m2
+    kernel = lambda: K.adam_kernel(p, g, m, v, s, True, e8)  # noqa: E731
+    row("adam_e5m2_copy", timed(kernel, flush=flush),
+        timed(lambda: K.adam_plain(p, g, m, v, s, True, e8), flush=flush),
+        None, nbytes=29 * n, flops=18 * n, peak=F32_FLOPS,
+        dev_ms=device_ms(kernel, flush=flush))
+
+
+def time_ring_hop_kernels(rnd, flush, row):
+    """Rows flash_ring_hop_{fwd,bwd}: the flash kernels at a ring hop's
+    shape (BERT-Large's heads, B2, a 4096-query shard against a 4096-key
+    block, every key visible: causal offset +4096 read from the card),
+    beside SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from apex_tpu_torch.ops import attention as A
+
+    dev = torch.device("cuda")
+    b, s, h, d = RING_B, RING_S // SEQ_RANKS, RING_H, RING_D
+    q, k, vv, do = (rnd(b, s, h, d) for _ in range(4))
+    scale = 1.0 / math.sqrt(d)
+    kw = dict(causal=True, causal_off=torch.tensor([s], dtype=torch.int32,
+                                                   device=dev))
+    io = b * s * h * d * 2
+    fwd = lambda: A.flash_fwd_kernel(q, k, vv, scale, **kw)  # noqa: E731
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, vv))
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+    row("flash_ring_hop_fwd", timed(fwd, flush=flush),
+        timed(lambda: A.flash_fwd_plain(q, k, vv, scale, **kw), flush=flush),
+        timed(sdpa, flush=flush), nbytes=4 * io + b * h * s * 4,
+        flops=4 * b * h * s * s * d, dev_ms=device_ms(fwd, flush=flush),
+        lib_dev_ms=device_ms(sdpa, flush=flush))
+    o, lse = fwd()
+    delta = compile_check.delta_of(do, o)
+    bwd = lambda: A.flash_bwd_kernel(  # noqa: E731
+        q, k, vv, do, lse, delta, scale, **kw)
+    plain = timed(lambda: A.flash_bwd_plain(q, k, vv, do, lse, delta, scale,
+                                            **kw), flush=flush)
+    qg, kg_, vg = (t.detach().transpose(1, 2).requires_grad_(True)
+                   for t in (q, k, vv))
+    og = F.scaled_dot_product_attention(qg, kg_, vg)
+    dot = do.transpose(1, 2)
+    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
+        og, (qg, kg_, vg), dot, retain_graph=True)
+    row("flash_ring_hop_bwd", timed(bwd, flush=flush), plain,
+        timed(sdpa_bwd, flush=flush), nbytes=7 * io + 2 * b * h * s * 4,
+        flops=10 * b * h * s * s * d, dev_ms=device_ms(bwd, flush=flush),
+        lib_dev_ms=device_ms(sdpa_bwd, flush=flush))
 
 
 def train_bert_large(phase, rows, strategy="auto", optimizer=None,
@@ -2377,9 +1644,9 @@ def multi_tensor_ops(rows, state):
                    rows, steps=1)
     one = torch.ones(1, device=p.device)
     two = torch.tensor([1.0, 1.0 / 65536], device=p.device)
-    _check_flagged("multi_tensor_ops scale", (model, ok_copy),
+    check_flagged("multi_tensor_ops scale", (model, ok_copy),
                    M.scale_plain(p, one, torch.bfloat16))
-    _check_flagged("multi_tensor_ops axpby", (acc, ok_acc),
+    check_flagged("multi_tensor_ops axpby", (acc, ok_acc),
                    M.axpby_plain(stash, scaled, two, torch.float32))
     want = M.maxnorm_plain(acc)
     if not (bool(ok_copy) and bool(ok_acc) and norm.item() == want.item()):
@@ -3143,225 +2410,6 @@ def syncbn_two_ranks():
                                  f"(ranks' mean/full batch) > 1e-4")
 
 
-def _shard_valid(spec, dt, world, rank, device):
-    """Bool mask of the tensor positions (not padding) in rank ``rank``'s
-    ZeRO shard of partition ``dt``, and the shard's start and length."""
-    import torch
-    from apex_tpu_torch import arena
-    from apex_tpu_torch.optim.distributed import _padded_len
-
-    part = spec.partition(dt)
-    per = _padded_len(part.buffer_len, world) // world
-    ids = arena.segment_ids_device(spec, dt, device)
-    ids = torch.cat([ids, torch.full((per * world - ids.numel(),), -1,
-                                     dtype=ids.dtype, device=device)])
-    return ids[rank * per:(rank + 1) * per] >= 0, rank * per, per
-
-
-def _copy_bits_equal(name, kp, kc, pp, pc):
-    """A copy-out kernel's low-precision copy bit for bit against the plain
-    version's wherever the two f32 results are equal (elsewhere an f32 ulp
-    may move a rounding); returns the count of such unequal elements."""
-    import torch
-    same = kp.view(torch.int32) == pp.view(torch.int32)
-    width = {1: torch.uint8, 2: torch.int16}[kc.element_size()]
-    bad = int(((kc.view(width) != pc.view(width)) & same).sum())
-    if bad:
-        raise AssertionError(f"{name}: {bad} copy elements differ in bits "
-                             f"where the f32 results agree")
-    return int((~same).sum())
-
-
-def check_zero_kernels(rnd, flush, row):
-    """The arena kernels at the ZeRO paths' shapes. ``lamb_shard``: LAMB's
-    stages on rank 1's shard of BERT-Large's f32 partition at world size 2
-    (the shard begins inside a tensor), the trust ratio from
-    ``per_tensor_sq_shard`` spread by ``spread_per_tensor_shard``, stage 2
-    also with the bf16 and e5m2 copies of the compressed gathers.
-    ``adam_e5m2_copy``: the Adam kernel with an e5m2 copy at ResNet-50's
-    f32 master partition (the shard at world size 1), elements at and past
-    e5m2's largest finite value (57344) included: the copy bit for bit
-    against the plain version's (PTX's convert saturates; the kernel rounds
-    |p| >= 61440 to inf, as PyTorch and JAX do)."""
-    import torch
-    from apex_tpu_torch import arena, models
-    from apex_tpu_torch.ops import _arena, multi_tensor as M
-    from apex_tpu_torch.ops import optim_kernels as K
-
-    dev = torch.device("cuda")
-    f32 = torch.float32
-    enc = models.BertLarge(device=dev)
-    spec = arena.plan(dict(enc.named_parameters()))
-    del enc
-    part = spec.partition("float32")
-    valid, start, per = _shard_valid(spec, "float32", 2, 1, dev)
-    if not any(o < start < o + n for o, n in zip(part.offsets, part.sizes)):
-        raise AssertionError("rank 1's shard of BERT-Large should begin "
-                             "inside a tensor")
-    p, g = rnd(per, dtype=f32) * valid, rnd(per, dtype=f32, std=3.0) * valid
-    m = rnd(per, dtype=f32, std=0.1) * valid
-    v = rnd(per, dtype=f32, std=0.01).abs() * valid
-    s1 = _arena.device_scalars((0.9, 0.999, 1e-6, 0.01, 1 - 0.9 ** 3,
-                                1 - 0.999 ** 3, 0.5, 0.1), dev)
-    s2 = _arena.device_scalars((1e-3,), dev)
-    e1 = compare("lamb_shard stage1", K.lamb_stage1_kernel(p, g, m, v, s1,
-                                                           True),
-                 K.lamb_stage1_plain(p, g, m, v, s1, True), TOL_ARENA)
-    u = K.lamb_stage1_plain(p, g, m, v, s1, True)[0]
-    sq_p = M.per_tensor_sq_shard(p, part.offsets, part.sizes, start)
-    sq_u = M.per_tensor_sq_shard(u, part.offsets, part.sizes, start)
-    ratio = torch.where((sq_p > 0) & (sq_u > 0),
-                        torch.sqrt(sq_p) / torch.sqrt(sq_u), 1.0)
-    r = M.spread_per_tensor_shard(ratio, part.offsets, part.sizes, start, per)
-    e2 = compare("lamb_shard stage2", [K.lamb_stage2_kernel(p, u, r, s2)],
-                 [K.lamb_stage2_plain(p, u, r, s2)], TOL_ARENA)
-    for copy in (torch.bfloat16, torch.float8_e5m2):
-        kp, kc = K.lamb_stage2_kernel(p, u, r, s2, copy)
-        pp, pc = K.lamb_stage2_plain(p, u, r, s2, copy)
-        e2 = max(e2, compare(f"lamb_shard stage2 copy={copy}", [kp], [pp],
-                             TOL_ARENA))
-        apart = _copy_bits_equal(f"lamb_shard stage2 copy={copy}", kp, kc,
-                                 pp, pc)
-        log(f"phase kernels: lamb_shard stage2 {copy} copy bit for bit "
-            f"where the f32 results agree ({apart} of {per} f32 results "
-            f"an ulp apart)")
-    log(f"phase kernels: lamb_shard: BERT-Large world-2 shard of {per} "
-        f"elements from {start} (inside a tensor), {len(part.sizes)} "
-        f"tensors' trust ratios; stages agree with the plain versions")
-    kernel = lambda: K.lamb_stage1_kernel(p, g, m, v, s1, True)  # noqa: E731
-    row("lamb_shard_stage1", e1, timed(kernel, flush=flush),
-        timed(lambda: K.lamb_stage1_plain(p, g, m, v, s1, True),
-              flush=flush), None, nbytes=28 * per, flops=15 * per,
-        peak=F32_FLOPS, dev_ms=device_ms(kernel, flush=flush))
-    kernel = lambda: K.lamb_stage2_kernel(p, u, r, s2)  # noqa: E731
-    row("lamb_shard_stage2", e2, timed(kernel, flush=flush),
-        timed(lambda: K.lamb_stage2_plain(p, u, r, s2), flush=flush), None,
-        nbytes=16 * per, flops=3 * per, peak=F32_FLOPS,
-        dev_ms=device_ms(kernel, flush=flush))
-    del p, g, m, v, u, r, valid
-
-    rparams = dict(models.ResNet50(dtype=torch.bfloat16, device=dev)
-                   .named_parameters())
-    n = arena.plan(rparams).partition("float32").buffer_len
-    del rparams
-    p = rnd(n, dtype=f32, std=0.05)
-    g, m = rnd(n, dtype=f32, std=1e-2), rnd(n, dtype=f32, std=1e-3)
-    v = rnd(n, dtype=f32, std=1e-2).square()
-    big = torch.tensor([57344.0, 59000.0, 61439.0, 61440.0, 61441.0, 1e6,
-                        -61440.0, -1e6, -57344.0, 1e-6], device=dev)
-    p[:big.numel()] = big
-    for t in (g, m, v):
-        t[:big.numel()] = 0.0
-    s = _arena.device_scalars((1e-3, 0.9, 0.999, 1e-8, 0.0, 1 - 0.9 ** 3,
-                               1 - 0.999 ** 3, 1.0), dev)
-    e8 = torch.float8_e5m2
-    kout = K.adam_kernel(p, g, m, v, s, True, e8)
-    pout = K.adam_plain(p, g, m, v, s, True, e8)
-    err = compare("adam_e5m2_copy", kout[:3], pout[:3], TOL_ARENA)
-    apart = _copy_bits_equal("adam_e5m2_copy", kout[0], kout[3], pout[0],
-                             pout[3])
-    head = kout[3][:big.numel()].view(torch.uint8).tolist()
-    if head != pout[3][:big.numel()].view(torch.uint8).tolist() or \
-            head[:6] != [123, 123, 123, 124, 124, 124]:
-        raise AssertionError(f"adam_e5m2_copy: the copy's bytes of {big} "
-                             f"are {head}")
-    log(f"phase kernels: adam_e5m2_copy: the e5m2 copy bit for bit against "
-        f"the plain version ({apart} of {n} f32 results an ulp apart); "
-        f"bytes of {big.tolist()}: {head} (0x7B = 57344, 0x7C = inf)")
-    kernel = lambda: K.adam_kernel(p, g, m, v, s, True, e8)  # noqa: E731
-    row("adam_e5m2_copy", err, timed(kernel, flush=flush),
-        timed(lambda: K.adam_plain(p, g, m, v, s, True, e8), flush=flush),
-        None, nbytes=29 * n, flops=18 * n, peak=F32_FLOPS,
-        dev_ms=device_ms(kernel, flush=flush))
-
-
-def check_ring_hop_kernels(rnd, flush, row):
-    """The flash kernels at a ring hop's shape: BERT-Large's heads (H16,
-    D64), B2, a 4096-query shard against a 4096-key block, with the causal
-    frontier read from the card at offsets +4096 (the block before this
-    rank's: every key visible), 0 (the diagonal) and -4096 (a later rank's
-    block, which the ring masks: every row sees no key), and dropout 0.1 at
-    block offsets (1, 0); the backward with an lse cotangent (the merge's).
-    Rows that see no key give o = 0, lse = -1e30 and zero gradients, not
-    NaN, in the kernel and the plain version alike."""
-    import torch
-    import torch.nn.functional as F
-    from apex_tpu_torch.ops import attention as A
-
-    dev = torch.device("cuda")
-    b, s, h, d = RING_B, RING_S // SEQ_RANKS, RING_H, RING_D
-    q, k, vv, do = (rnd(b, s, h, d) for _ in range(4))
-    dlse = rnd(b * h, s, dtype=torch.float32, std=0.1)
-    scale = 1.0 / math.sqrt(d)
-
-    def hop(off, drop):
-        kw = dict(causal=True, causal_off=torch.tensor(
-            [off], dtype=torch.int32, device=dev))
-        if drop:
-            kw.update(seed=torch.tensor([1234], dtype=torch.int32,
-                                        device=dev), rate=0.1,
-                      dbo=torch.tensor([1, 0], dtype=torch.int32,
-                                       device=dev))
-        return kw
-
-    def delta_of(o):
-        return ((do.float() * o.float()).sum(-1).transpose(1, 2)
-                .reshape(b * h, s) - dlse).contiguous()
-
-    ef = eb = 0.0
-    for off, drop in ((s, False), (0, False), (-s, False), (s, True)):
-        kw = hop(off, drop)
-        (ko, kl), (po, pl) = (A.flash_fwd_kernel(q, k, vv, scale, **kw),
-                              A.flash_fwd_plain(q, k, vv, scale, **kw))
-        delta = delta_of(po)
-        kg = A.flash_bwd_kernel(q, k, vv, do, pl, delta, scale, **kw)
-        pg = A.flash_bwd_plain(q, k, vv, do, pl, delta, scale, **kw)
-        what = f"flash ring hop off={off} dropout={drop}"
-        if off < 0:
-            for name, t in (("o", ko), ("o plain", po), *(
-                    (f"d{x}", t) for x, t in zip("qkv", kg)), *(
-                    (f"d{x} plain", t) for x, t in zip("qkv", pg))):
-                if not torch.isfinite(t).all() or t.abs().max().item():
-                    raise AssertionError(f"{what}: {name} is not all zero "
-                                         f"and finite")
-            if not (kl == A.NEG_INF).all() or not (pl == A.NEG_INF).all():
-                raise AssertionError(f"{what}: lse is not -1e30 everywhere")
-            log(f"phase kernels: {what}: no row sees a key; o, dq, dk, dv "
-                f"are 0 (finite) and lse -1e30, kernel and plain")
-            continue
-        ef = max(ef, compare(f"{what} fwd", [ko, kl], [po, pl]))
-        eb = max(eb, compare(f"{what} bwd", kg, pg))
-    log("phase kernels: flash attention at a ring hop's shape agrees with "
-        "the plain versions (causal offsets +S, 0, -S on the card, dropout "
-        "at block offsets (1, 0), the lse cotangent)")
-    del po, pl, pg, kg, ko, kl
-    torch.cuda.empty_cache()
-    kw = hop(s, False)
-    io = b * s * h * d * 2
-    fwd = lambda: A.flash_fwd_kernel(q, k, vv, scale, **kw)  # noqa: E731
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, vv))
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
-    row("flash_ring_hop_fwd", ef, timed(fwd, flush=flush),
-        timed(lambda: A.flash_fwd_plain(q, k, vv, scale, **kw), flush=flush),
-        timed(sdpa, flush=flush), nbytes=4 * io + b * h * s * 4,
-        flops=4 * b * h * s * s * d, dev_ms=device_ms(fwd, flush=flush),
-        lib_dev_ms=device_ms(sdpa, flush=flush))
-    o, lse = fwd()
-    delta = delta_of(o)
-    bwd = lambda: A.flash_bwd_kernel(  # noqa: E731
-        q, k, vv, do, lse, delta, scale, **kw)
-    plain = timed(lambda: A.flash_bwd_plain(q, k, vv, do, lse, delta, scale,
-                                            **kw), flush=flush)
-    qg, kg_, vg = (t.detach().transpose(1, 2).requires_grad_(True)
-                   for t in (q, k, vv))
-    og = F.scaled_dot_product_attention(qg, kg_, vg)
-    dot = do.transpose(1, 2)
-    sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
-        og, (qg, kg_, vg), dot, retain_graph=True)
-    row("flash_ring_hop_bwd", eb, timed(bwd, flush=flush), plain,
-        timed(sdpa_bwd, flush=flush), nbytes=7 * io + 2 * b * h * s * 4,
-        flops=10 * b * h * s * s * d, dev_ms=device_ms(bwd, flush=flush),
-        lib_dev_ms=device_ms(sdpa_bwd, flush=flush))
 
 
 def bert_large_zero(rows, arena_losses, mesh):
@@ -3372,13 +2420,22 @@ def bert_large_zero(rows, arena_losses, mesh):
     each arena LAMB kernel a step and the five collectives of
     ``ZERO_COLLECTIVES``; losses within 1e-3 relative of phase
     bert_large_arena's (at world size 1 the sharded step is the arena
-    step). Step ms, seq/s and peak GiB are logged."""
+    step). The steps run as users run them, with
+    ``APEX_TPU_AUTOTUNE=db``: the LayerNorm, cross-entropy and shard
+    consults hit the committed DB where it holds their keys
+    (``check_db_consults``). Step ms, seq/s and peak GiB are logged."""
+    from apex_tpu_torch.ops import autotune
     from apex_tpu_torch.optim import DistributedFusedLAMB
 
     opt = DistributedFusedLAMB(lr=1e-3)
-    losses, state, step_ms = train_bert_large(
-        "bert_large_zero", rows, optimizer=opt, per_step=ZERO_PER_STEP,
-        mesh=mesh, collectives=ZERO_COLLECTIVES)
+    autotune.reset_counters()
+    with autotune_mode("db"):
+        losses, state, step_ms = train_bert_large(
+            "bert_large_zero", rows, optimizer=opt, per_step=ZERO_PER_STEP,
+            mesh=mesh, collectives=ZERO_COLLECTIVES)
+        shard = state.opt_state.slots["master"]["float32"].numel()
+        check_db_consults("bert_large_zero", [autotune.fingerprint(
+            "optimizer", (shard,), "float32")])
     take_phase_launches("bert_large_zero", rows)
     rel = max(abs(a - b) / abs(b) for a, b in zip(losses, arena_losses))
     if not rel <= 1e-3:
@@ -4374,9 +3431,13 @@ def mlp_dlrm_bottom(rows):
     ``ASP(FusedAdam(lr=1e-3), "m4n2_1d")`` on an MSE loss, built by
     ``train.build_mlp_step``: one mlp_fwd launch and one adam launch a step
     (the masters are one f32 arena partition), every weight 2:4 under its
-    mask after every step, the biases dense, and finite, falling losses."""
+    mask after every step, the biases dense, and finite, falling losses.
+    The steps run as users run them, with ``APEX_TPU_AUTOTUNE=db``: the
+    Adam partition's consult hits the committed DB where it holds the
+    key (``check_db_consults``)."""
     import torch
     from apex_tpu_torch import arena, ops, sparsity, train
+    from apex_tpu_torch.ops import autotune
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -4398,15 +3459,19 @@ def mlp_dlrm_bottom(rows):
         raise AssertionError("mlp_dlrm_bottom: expected 2:4 masks on the "
                              "three weights only and one arena partition")
     ops.reset_launch_counts()
+    autotune.reset_counters()
     times, losses = [], []
-    for i in range(MLP_STEPS):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, loss = step(state, x, t)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(loss.item())
-        _check_two_four("mlp_dlrm_bottom", i, state)
+    with autotune_mode("db"):
+        for i in range(MLP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = step(state, x, t)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            losses.append(loss.item())
+            _check_two_four("mlp_dlrm_bottom", i, state)
+        check_db_consults("mlp_dlrm_bottom", [autotune.fingerprint(
+            "optimizer", (parts[0].buffer_len,), "float32")])
     counts = ops.launch_counts()
     for i in (0, 1, MLP_STEPS // 2, MLP_STEPS - 1):
         log(f"mlp_dlrm_bottom step {i}: loss {losses[i]:.6f}  "
@@ -4600,139 +3665,6 @@ def fp16_overflow_run():
 
 # --- the amp remainder, fp16_utils and the legacy optimizers -----------------
 
-def check_fp16_kernels(rnd, gen, flush, row):
-    """fp16 at BERT-Large's shapes against the plain versions (TOL16; f32
-    outputs TOL32): LayerNorm forward and backward on fp16 x with fp16 γ/β
-    (as O2 and ``network_to_half`` give them) and with f32 γ/β;
-    flash forward and backward on fp16 q/k/v, plain and with the padding
-    bias and dropout 0.1; cross-entropy on fp16 logits. Then the MLP
-    kernel's half-operand mode (row mlp_fwd_o1): at the DLRM bottom MLP's
-    shape in f32 (as O1 gives it) with bf16 and fp16 operands and at the
-    budget's edge, and a layer past the fused width (one launch a layer
-    over the f32 workspace), each bit for bit against its plain version
-    (operands rounded, so every product is exact in f32 and the plain
-    version sums them in the kernel's order) and against a second launch,
-    timed beside the plain version and the chain of ``torch.addmm`` + ReLU
-    on the rounded operands upcast to f32 (the same function). The bound
-    is at the tensor cores' bf16/fp16 rate: half operands, f32 sums."""
-    import torch
-    from apex_tpu_torch.ops import attention as A
-    from apex_tpu_torch.ops import layer_norm as L
-    from apex_tpu_torch.ops import mlp as P
-    from apex_tpu_torch.ops import xentropy as X
-
-    t0 = time.perf_counter()
-    dev = torch.device("cuda")
-    fp16, f32 = torch.float16, torch.float32
-    x = rnd(8192, 1024, dtype=fp16, std=2.0) + 0.5
-    w = rnd(1024, dtype=f32, std=0.2) + 1.0
-    b = rnd(1024, dtype=f32, std=0.2)
-    g = rnd(8192, 1024, dtype=fp16)
-    errs = {}
-    # O2 and network_to_half give BERT's LayerNorms fp16 gamma/beta; f32
-    # gamma/beta is the extra case
-    for wdt in (fp16, f32):
-        wt, bt, name = w.to(wdt), b.to(wdt), f"{wdt}".split(".")[-1]
-        errs[f"layer_norm_fwd {name} gamma"] = compare(
-            f"layer_norm_fwd fp16 x, {name} gamma",
-            [L.ln_fwd_kernel(x, wt, bt, 1e-12)],
-            [L.ln_fwd_plain(x, wt, bt, 1e-12)])
-        errs[f"layer_norm_bwd {name} gamma"] = compare(
-            f"layer_norm_bwd fp16 x, {name} gamma",
-            L.ln_bwd_kernel(g, x, wt, 1e-12),
-            L.ln_bwd_plain(g, x, wt, 1e-12))
-    del x, g
-    i32 = torch.tensor([4242], dtype=torch.int32, device=dev)
-    for label, opts in (("plain", {}), ("padding+dropout 0.1", dict(
-            bias=_padding_bias(gen, 16, 512), rate=0.1, seed=i32))):
-        q, k, v, do = (rnd(16, 512, 16, 64, dtype=fp16) for _ in range(4))
-        scale = 0.125
-        errs[f"flash_attn_fwd {label}"] = compare(
-            f"flash_attn_fwd fp16 {label}",
-            A.flash_fwd_kernel(q, k, v, scale, **opts),
-            A.flash_fwd_plain(q, k, v, scale, **opts))
-        o, lse = A.flash_fwd_plain(q, k, v, scale, **opts)
-        delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
-            16 * 16, 512).contiguous()
-        errs[f"flash_attn_bwd {label}"] = compare(
-            f"flash_attn_bwd fp16 {label}",
-            A.flash_bwd_kernel(q, k, v, do, lse, delta, scale, **opts),
-            A.flash_bwd_plain(q, k, v, do, lse, delta, scale, **opts))
-        del q, k, v, do, o, lse, delta
-    n, vocab = 8192, 30522
-    logits = rnd(n, vocab, dtype=fp16, std=3.0)
-    labels = torch.randint(0, vocab, (n,), generator=gen, device=dev)
-    labels[torch.rand(n, generator=gen, device=dev) < 0.15] = -1
-    gl = torch.rand(n, generator=gen, device=dev)
-    errs["xentropy_fwd"] = compare(
-        "xentropy_fwd fp16", X.xentropy_fwd_kernel(logits, labels, 0.0),
-        X.xentropy_fwd_plain(logits, labels, 0.0))
-    _, lse = X.xentropy_fwd_plain(logits, labels, 0.0)
-    errs["xentropy_bwd"] = compare(
-        "xentropy_bwd fp16", [X.xentropy_bwd_kernel(logits, labels, lse, gl,
-                                                    0.0)],
-        [X.xentropy_bwd_plain(logits, labels, lse, gl, 0.0)])
-    del logits
-    log("phase kernels: fp16 at BERT-Large's shapes agrees with the plain "
-        "versions: " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-
-    for label, n, dims, od, want in (
-            ("path", 2048, list(MLP_BOTTOM), torch.bfloat16, 1),
-            ("path fp16", 2048, list(MLP_BOTTOM), fp16, 1),
-            ("edge", 8192, [1024, 1024, 1024], torch.bfloat16, 1),
-            ("wide", 200, [96, 4096, 48], torch.bfloat16, 2),
-            ("wide fp16", 200, [96, 4096, 48], fp16, 2)):
-        x, ws, bs = _mlp_operands(rnd, n, dims, "relu", True, f32, f32)
-        before = P.mlp_fwd_kernel.launches
-        out = P.mlp_fwd_kernel(x, ws, bs, "relu", od)
-        if P.mlp_fwd_kernel.launches - before != want:
-            raise AssertionError(f"mlp_fwd_o1 {label}: expected {want} "
-                                 f"launches")
-        plain_out = P.mlp_fused_reference(x, ws, bs, "relu", od)
-        err = compare(f"mlp_fwd_o1 {label} {od}", [out], [plain_out], 1e-4)
-        if not torch.equal(out, plain_out):
-            raise AssertionError(f"mlp_fwd_o1 {label}: not bitwise equal to "
-                                 f"the plain version")
-        if not torch.equal(out, P.mlp_fwd_kernel(x, ws, bs, "relu", od)):
-            raise AssertionError(f"mlp_fwd_o1 {label}: two launches differ")
-        off = (out - P.mlp_fwd_kernel(x, ws, bs, "relu")).abs().max().item()
-        if off == 0.0:
-            raise AssertionError(f"mlp_fwd_o1 {label}: the mode changed "
-                                 f"nothing")
-        xr = x.to(od).float()
-        wr = [t.to(od).float() for t in ws]
-
-        def chain():
-            h = xr
-            for i, t in enumerate(wr):
-                if i:
-                    h = h.to(od).float()
-                h = torch.relu(torch.addmm(bs[i], h, t))
-            return h
-
-        kernel = lambda: P.mlp_fwd_kernel(x, ws, bs, "relu", od)  # noqa
-        ms = timed(kernel, flush=flush)
-        plain = timed(lambda: P.mlp_fused_reference(x, ws, bs, "relu", od),
-                      iters=3, flush=flush)
-        lib = timed(chain, flush=flush)
-        nbytes = (x.numel() + n * dims[-1]) * 4 + sum(
-            t.numel() * 4 for t in ws + bs)
-        flops = 2 * n * sum(a * c for a, c in zip(dims, dims[1:]))
-        dev_ms = device_ms(kernel, flush=flush)
-        # the function's products are of half operands with f32 sums: the
-        # tensor cores' rate, though the kernel runs them as f32 FMAs
-        if label == "path":
-            row("mlp_fwd_o1", err, ms, plain, lib, nbytes, flops, BF16_FLOPS,
-                dev_ms=dev_ms, lib_dev_ms=device_ms(chain, flush=flush))
-        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS
-        log(f"kernel mlp_fwd_o1 {label} {n}x{dims} f32, {od} operands: "
-            f"bitwise as the plain version, {off:.3e} from the mode off; "
-            f"kernel {ms:.4f} ms (device {dev_ms:.4f} ms)  plain "
-            f"{plain:.4f} ms  library (addmm chain) {lib:.4f} ms  bound "
-            f"{max(t_bytes, t_ops) * 1e3:.4f} ms "
-            f"({'bytes' if t_bytes >= t_ops else 'operations'})")
-    log(f"phase kernels: fp16 checks and mlp_fwd_o1 in "
-        f"{time.perf_counter() - t0:.1f} s")
 
 
 def _bert_inputs(batch, seq, seed=0, vocab=30000):
@@ -6063,7 +4995,6 @@ def bert_large_guard(rows):
     CPU."""
     import tempfile
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from apex_tpu_torch import ckpt, guard, ops, train
 
     phase = "bert_large_guard"
@@ -6223,24 +5154,11 @@ def bert_large_guard(rows):
     with clock("cost: profiled steps"):
         for name, fn in (("plain", plain), ("guarded", guarded),
                          ("guarded", guarded), ("plain", plain)):
-            # the session opens with short spins for the profiler to drop
-            # (device_ms); they are left out by name, and a session that
-            # kept none of them is taken again
-            while True:
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    for _ in range(_LEAD[0]):
-                        torch.cuda._sleep(SHORT_CYCLES)
-                    fn()
-                    torch.cuda.synchronize()
-                ks = device_kernels(prof)
-                if not _SPIN_NAMES or any(e.name in _SPIN_NAMES for e in ks):
-                    break
-                if _LEAD[0] >= MAX_LEAD:
-                    raise AssertionError(f"{phase}: profiler sessions lost "
-                                         f"records after a {_LEAD[0]}-kernel "
-                                         f"lead")
-                _LEAD[0] *= 2
+            # a guarded session (its lead of short spins doubled up to
+            # MAX_LEAD while a session keeps none of them); the spins are
+            # left out by name
+            _, ks = guarded_session(fn, lambda ks: any(
+                e.name in _SPIN_NAMES for e in ks))
             ks = [e for e in ks if e.name not in _SPIN_NAMES]
             kernels.setdefault(name, collections.Counter(e.name for e in ks))
             dev[name].append(sum(e.time_range.elapsed_us() for e in ks)
@@ -7367,12 +6285,17 @@ def cluster_zombie_elastic():
     t0 = time.perf_counter()
 
     def launch(name, mode, rank, world, store):
+        # each child in a session of its own: the stopped zombie must not
+        # share this process's group, which a runner may have started
+        # orphaned (no parent in its session): there the kernel sends a
+        # group holding a stopped process SIGHUP when a member exits
         out = os.path.join(work, f"{name}.json")
         procs[name] = (subprocess.Popen(
             [sys.executable, "-c", _ZOMBIE_CHILD, mode, str(rank),
              str(world), root, cdir, os.path.join(work, "barrier"),
              os.path.join(work, store), out],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out)
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            start_new_session=True), out)
 
     def result(name, timeout=300):
         p, out = procs[name]
@@ -7487,39 +6410,21 @@ def _schema(path, kind):
 
 
 def _kernel_census(fn, iters=2, by_name=False):
-    """(device kernels, device ms) of one ``fn()`` call, from a profiler
-    session opened with ``device_ms``'s lead of short spins and closed by
-    one (left out by name); retaken with a longer lead when the session
-    lost the opening or closing spin. ``by_name`` adds a third element:
+    """(device kernels, device ms) of one ``fn()`` call, from a guarded
+    profiler session of ``iters`` calls (``prof.report.guarded_session``:
+    retaken with a longer lead when it lost the opening or closing spin;
+    the spins left out by name). ``by_name`` adds a third element:
     {kernel name: (launches, device ms)} of one call."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    while not _SPIN_NAMES:                 # a session of spins names them
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(_LEAD[0]):
-                torch.cuda._sleep(SHORT_CYCLES)
-            torch.cuda.synchronize()
-        _SPIN_NAMES.update(e.name for e in device_kernels(prof))
-    while True:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(_LEAD[0]):
-                torch.cuda._sleep(SHORT_CYCLES)
-            torch.cuda._sleep(PAD_CYCLES)
-            for _ in range(iters):
-                fn()
-            torch.cuda._sleep(SHORT_CYCLES)
-            torch.cuda.synchronize()
-        ks = device_kernels(prof)
-        if sum(e.name in _SPIN_NAMES for e in ks) >= 3:
-            break
-        if _LEAD[0] >= MAX_LEAD:
-            raise AssertionError("kernel census: sessions lost records")
-        _LEAD[0] *= 2
+
+    def calls():
+        for _ in range(iters):
+            fn()
+
+    _, ks = guarded_session(calls)
     ks = [e for e in ks if e.name not in _SPIN_NAMES]
     out = (len(ks) / iters,
            sum(e.time_range.elapsed_us() for e in ks) / 1e3 / iters)
@@ -9193,6 +8098,315 @@ def simple_distributed_example(smi, rows):
         f"{finals}")
 
 
+# --- the autotuner, its DB and the link probe on the card -------------------
+
+#: BERT-Large's consults a step of the families with a committed entry:
+#: 49 + 49 LayerNorm launches, the cross-entropy's 2, the arena LAMB's 3
+TUNED_CONSULTS_PER_STEP = {"layer_norm": 98, "xentropy": 2, "optimizer": 3}
+TUNED_STEPS = 5
+
+
+def _tune_script():
+    """``scripts/torch_kernel_tune.py`` as a module (its launchers)."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "scripts", "torch_kernel_tune.py")
+    spec = importlib.util.spec_from_file_location("torch_kernel_tune", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@contextlib.contextmanager
+def autotune_mode(mode):
+    """``APEX_TPU_AUTOTUNE=mode`` inside the block."""
+    prev = os.environ.get("APEX_TPU_AUTOTUNE")
+    os.environ["APEX_TPU_AUTOTUNE"] = mode
+    try:
+        yield
+    finally:
+        if prev is None:
+            os.environ.pop("APEX_TPU_AUTOTUNE", None)
+        else:
+            os.environ["APEX_TPU_AUTOTUNE"] = prev
+
+
+def autotune_db(smi):
+    """Phase autotune_db: the committed ``scripts/torch_kernel_tuning_db.json``
+    loads stale-free with every entry under this card's ``chip_kind``; at
+    each entry's shape exactly the kernels its sweep timed (the ones the
+    main path consults there, ``torch_kernel_tune.launcher``) consult it
+    and hit, match their plain versions at the kernel rows' tolerances
+    (f32 TOL_ARENA for the arena kernels, else TOL32; 16-bit TOL16) and
+    themselves bit for bit on a second launch; each tuned knob's device
+    time beside the default's (``autotune.sweep_entry`` over the two, in
+    alternating pairs). Returns the DB."""
+    import torch
+    from apex_tpu_torch.ops import autotune
+
+    tune = _tune_script()
+    db = autotune.TuningDB.load(tune.DB_PATH)
+    chip = autotune.chip_kind()
+    fams = {e.family for e in db.entries.values()}
+    if not db.entries or any(e.chip != chip for e in db.entries.values()) \
+            or not set(tune.TUNED_FAMILIES) <= fams:
+        raise AssertionError(f"autotune_db: the committed DB does not cover "
+                             f"{tune.TUNED_FAMILIES} on {chip}: "
+                             f"{sorted(db.entries)}")
+    flush = tune.flusher()
+    with autotune_mode("db"), autotune.use_db(db):
+        for fp, e in sorted(db.entries.items()):
+            kernels = e.sweep.get("kernels")
+            run, plain = tune.launcher(e.family, e.dims, e.dtype, kernels)
+            autotune.reset_counters()
+            got = run()
+            consults = autotune.recent_consults()
+            if not consults or any(c != (fp, True) for c in consults):
+                raise AssertionError(f"autotune_db: {fp}: consults "
+                                     f"{consults}, not each a hit")
+            if not all(torch.equal(a, b) for a, b in zip(got, run())):
+                raise AssertionError(f"autotune_db: {fp}: two tuned "
+                                     f"launches differ")
+            tol = TOL_ARENA if e.family == "optimizer" else TOL32
+            err = compare(f"autotune_db {fp}", got, plain(), tol)
+            default = autotune.candidate_grid(e.family, e.dims, e.dtype)[0]
+            cmp = autotune.sweep_entry(e.family, e.dims, e.dtype, run,
+                                       candidates=[default, e.block],
+                                       flush=flush).sweep
+            now = (f"device {cmp['candidates'][0]['us']} us tuned vs "
+                   f"{cmp['default_us']} us default now, won "
+                   f"{cmp['candidates'][0]['wins']} of {cmp['pairs']} "
+                   f"pairs" if cmp["candidates"] else
+                   f"device {cmp['default_us']} us now (the default)")
+            log(f"phase autotune_db: {fp} ({', '.join(kernels)}): knobs "
+                f"{e.block} (default {default}; swept "
+                f"{e.sweep['default_us']} -> {e.sweep['best_us']} us, won "
+                f"{e.sweep['won']}): {now}; {len(consults)} consults, all "
+                f"hits; max_abs_err {err:.3e}; {smi}")
+            del run, plain, got
+            torch.cuda.empty_cache()
+    return db
+
+
+def check_db_consults(phase, fps):
+    """Under the default ``APEX_TPU_AUTOTUNE=db``: every consult since the
+    counters' reset hit exactly when the committed DB holds its key, and
+    each of ``fps`` that the DB holds was hit. Returns the fingerprints
+    that hit."""
+    from apex_tpu_torch.ops import autotune
+    if autotune.mode() != "db":
+        raise AssertionError(f"{phase}: runs with APEX_TPU_AUTOTUNE="
+                             f"{autotune.mode()}, not the default db")
+    db = autotune.active_db()
+    recent = set(autotune.recent_consults())
+    wrong = {(fp, hit) for fp, hit in recent
+             if hit != (db.lookup(fp) is not None)}
+    hits = {fp for fp, hit in recent if hit}
+    missing = {fp for fp in fps if db.lookup(fp) is not None} - hits
+    if wrong or missing:
+        raise AssertionError(f"{phase}: consults {sorted(recent)}; wrong "
+                             f"{sorted(wrong)}, DB keys not hit "
+                             f"{sorted(missing)}")
+    log(f"phase {phase}: autotune db, {autotune.counters()} consults, hits "
+        f"{ {fp: db.lookup(fp).block for fp in sorted(hits)} }")
+    return hits
+
+
+ZERO_SHARD_STEPS = 2
+
+
+def zero_shard_rank(rank, world):
+    """One rank of bert_large_zero_two_ranks: BERT-Large (B16 S512, O1
+    bf16, every rank the same seeded batch) ZERO_SHARD_STEPS steps of
+    ``DistributedFusedLAMB(lr=1e-3)`` on its half of the f32 partition,
+    with the default ``APEX_TPU_AUTOTUNE=db``. Returns the losses, the
+    shard's length, the kernels' launches and the consults (each checked
+    against the committed DB: a hit exactly where it holds the key)."""
+    import torch
+    from apex_tpu_torch import ops, parallel, train
+    from apex_tpu_torch.ops import autotune
+    from apex_tpu_torch.optim import DistributedFusedLAMB
+
+    os.environ["APEX_TPU_AUTOTUNE"] = "db"
+    with parallel.use_mesh(parallel.data_parallel_mesh()):
+        step, state, (toks, labels), _, _ = train.build_bert_step(
+            16, 512, optimizer=DistributedFusedLAMB(lr=1e-3))
+        ops.reset_launch_counts()
+        autotune.reset_counters()
+        losses = []
+        for _ in range(ZERO_SHARD_STEPS):
+            state, loss = step(state, toks, labels)
+            losses.append(loss.item())
+    db = autotune.active_db()
+    recent = set(autotune.recent_consults())
+    return {"losses": losses,
+            "shard": state.opt_state.slots["master"]["float32"].numel(),
+            "counts": dict(ops.launch_counts()),
+            "counters": autotune.counters(),
+            "hits": sorted(fp for fp, hit in recent if hit),
+            "wrong": sorted((fp, hit) for fp, hit in recent
+                            if hit != (db.lookup(fp) is not None))}
+
+
+def zero_shard_body(rank, world, tmp):
+    _run_rank(zero_shard_rank, rank, world, tmp)
+
+
+def bert_large_zero_two_ranks(arena_losses, smi):
+    """Phase bert_large_zero_two_ranks: BERT-Large's ZeRO at world size 2
+    (two gloo processes on the card), as users run it, with the default
+    ``APEX_TPU_AUTOTUNE=db``: each rank's update consults the committed DB
+    at its shard of the f32 partition (``_padded_len(n, 2) / 2``) and
+    hits where the DB holds it, every other consult a hit exactly where
+    the DB holds its key; the ranks' losses equal bit for bit and within
+    1e-3 relative of bert_large_arena's (the same batch on both ranks:
+    the mean gradient is the whole batch's); each kernel's launches a step
+    bert_large_zero's."""
+    from apex_tpu_torch.ops import autotune
+
+    t0 = time.perf_counter()
+    ranks = _spawn("bert_large_zero_two_ranks", zero_shard_body, 2,
+                   timeout_s=600)
+    shard = ranks[0]["shard"]
+    fp = autotune.fingerprint("optimizer", (shard,), "float32")
+    db = autotune.active_db()
+    for r, res in enumerate(ranks):
+        check_launches(f"bert_large_zero_two_ranks rank {r}", res["counts"],
+                       dict(EXPECTED_PER_STEP, **ZERO_PER_STEP), None,
+                       ZERO_SHARD_STEPS)
+        if res["wrong"] or res["shard"] != shard or (
+                db.lookup(fp) is not None and fp not in res["hits"]):
+            raise AssertionError(f"bert_large_zero_two_ranks rank {r}: "
+                                 f"shard {res['shard']}, hits "
+                                 f"{res['hits']}, wrong {res['wrong']}")
+    losses = ranks[0]["losses"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, arena_losses))
+    if ranks[1]["losses"] != losses or not rel <= 1e-3:
+        raise AssertionError(f"bert_large_zero_two_ranks: losses "
+                             f"{[r['losses'] for r in ranks]} vs the arena "
+                             f"run's {arena_losses}: rel {rel:.2e}")
+    log(f"phase bert_large_zero_two_ranks: a rank's shard {shard} "
+        f"elements of the f32 partition, consults "
+        f"{ranks[0]['counters']} a rank, hits "
+        f"{ {h: db.lookup(h).block for h in ranks[0]['hits']} }; losses "
+        f"{losses} (both ranks bit for bit), within {rel:.2e} relative of "
+        f"bert_large_arena's (limit 1e-3); launches a step "
+        f"bert_large_zero's; {time.perf_counter() - t0:.1f} s; {smi}")
+
+
+def consult_host_us(n=20000):
+    """Host µs of one cached consult (``autotune.launch_knobs`` of a key
+    already answered), the median of 5 runs of ``n`` calls."""
+    from apex_tpu_torch.ops import autotune
+    autotune.launch_knobs("optimizer", (65536,), "float32")
+    runs = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            autotune.launch_knobs("optimizer", (65536,), "float32")
+        runs.append((time.perf_counter() - t0) / n * 1e6)
+    return _median(runs)
+
+
+def bert_large_tuned(rows, arena_losses, db, smi):
+    """Phase bert_large_tuned: BERT-Large (B16 S512, O1 bf16, arena
+    FusedLAMB) TUNED_STEPS steps with ``APEX_TPU_AUTOTUNE=off`` and with
+    ``db`` against the committed DB: the off run's losses equal
+    bert_large_arena's bit for bit, the tuned run's within its 1e-3
+    relative of them, the kernels' launches a step those of the arena run
+    (rows 1-6, 15a-c) in both, and the tuned run's consults hit the DB at
+    TUNED_CONSULTS_PER_STEP a step (the attention's miss: no entry). Device
+    ms a step of both (one profiled step each) and the consult's host cost
+    a step."""
+    import torch
+    from apex_tpu_torch import ops, train
+    from apex_tpu_torch.ops import autotune
+
+    per_step = dict(EXPECTED_PER_STEP, **ARENA_PER_STEP)
+    out = {}
+    for mode in ("off", "db"):
+        torch.cuda.empty_cache()
+        with autotune_mode(mode), autotune.use_db(db):
+            step, state, (toks, labels), _, _ = train.build_bert_step(
+                16, 512, strategy="arena")
+            ops.reset_launch_counts()
+            autotune.reset_counters()
+            losses = []
+            for _ in range(TUNED_STEPS):
+                state, loss = step(state, toks, labels)
+                losses.append(loss.item())
+            counts = ops.launch_counts()
+            consults = autotune.counters()
+            check_launches(f"bert_large_tuned ({mode})", counts, per_step,
+                           None, TUNED_STEPS)
+            box = [state]
+
+            def one():
+                box[0], _ = step(box[0], toks, labels)
+            n_k, dev_ms = _kernel_census(one, iters=1)
+        out[mode] = (losses, consults, n_k, dev_ms)
+        del step, state, box
+    off, tuned = out["off"][0], out["db"][0]
+    if off != arena_losses:
+        raise AssertionError(f"bert_large_tuned: off losses {off} are not "
+                             f"bert_large_arena's {arena_losses} bit for bit")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(tuned, off))
+    if not rel <= 1e-3:
+        raise AssertionError(f"bert_large_tuned: tuned losses {tuned} vs off "
+                             f"{off}: rel {rel:.2e} > 1e-3")
+    want_hits = TUNED_STEPS * sum(
+        v for k, v in TUNED_CONSULTS_PER_STEP.items()
+        if any(e.family == k for e in db.entries.values()))
+    hits = out["db"][1]["hits"]
+    if hits != want_hits or out["off"][1] != {"hits": 0, "misses": 0}:
+        raise AssertionError(f"bert_large_tuned: consults {out['db'][1]} "
+                             f"(want {want_hits} hits), off "
+                             f"{out['off'][1]}")
+    per_consult = consult_host_us()
+    n_consults = sum(out["db"][1].values()) / TUNED_STEPS
+    log(f"phase bert_large_tuned: losses off {off} (bert_large_arena's bit "
+        f"for bit), tuned {tuned} (rel {rel:.2e}); launches a step as the "
+        f"arena run's both ways; consults a step {n_consults:.0f} "
+        f"({hits // TUNED_STEPS} hits); device ms a step: tuned "
+        f"{out['db'][3]:.3f} ({out['db'][2]:.0f} kernels) vs off "
+        f"{out['off'][3]:.3f} ({out['off'][2]:.0f} kernels); the consult's "
+        f"host cost {per_consult:.3f} us a call, "
+        f"{per_consult * n_consults:.1f} us a step; {smi}")
+
+
+def link_probe_phase(smi):
+    """Phase link_probe: ``scripts/torch_link_probe.py`` end to end (two
+    gloo processes on this one card: gloo through this host, not NVLink),
+    its JSON read by ``lint.mesh_model.MeshModel`` (measured, the backend
+    named) and planned with by ``parallel.plan_comm``."""
+    from apex_tpu_torch import parallel
+    from apex_tpu_torch.lint.mesh_model import MeshModel
+
+    os.makedirs(BUILD_OUT, exist_ok=True)
+    path = os.path.join(BUILD_OUT, "mesh_measured.json")
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "scripts",
+        "torch_link_probe.py"), "--out", path], capture_output=True,
+        text=True, timeout=600)
+    if r.returncode != 0:
+        raise AssertionError(f"link_probe: exit {r.returncode}\n"
+                             f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    with open(path) as f:
+        data = json.load(f)
+    model = MeshModel.from_json(data)
+    plan = parallel.plan_comm(model, PLAN_BYTES)
+    cal = model.calibration["ici"]
+    if not (model.measured and data["probe"]["backend"] in ("gloo", "nccl")
+            and cal["bytes_per_s"] > 0 and plan.hops):
+        raise AssertionError(f"link_probe: {data}")
+    log(f"phase link_probe: {data['probe']['world']} ranks over "
+        f"{data['probe']['backend']} on {data['probe']['device']}: alpha "
+        f"{cal['alpha_us']} us, {cal['bytes_per_s']:.4g} bytes/s, residual "
+        f"{cal['residual']}; plan_comm({PLAN_BYTES}) {plan.describe()}; took "
+        f"{time.perf_counter() - t0:.1f} s; {smi}")
+
+
 def prof_phases(smi, rows):
     """This slice's phases, after the monitor phases; each logs its wall
     time."""
@@ -9371,12 +8585,21 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s")
     echo_ptxas(libs)
 
+    # the phases run with the kernels' default launch knobs (the earlier
+    # slices' launches) but mlp_dlrm_bottom, bert_large_zero,
+    # bert_large_zero_two_ranks, autotune_db and bert_large_tuned, which
+    # consult the committed DB
+    os.environ["APEX_TPU_AUTOTUNE"] = "off"
     rows = {}
-    check_kernels(rows)
+    errs = compile_check_phase()
+    check_kernels(rows, errs)
     mlp_phases(rows)
     o1_backward_thread()
     tree_losses = bert_large_steps(rows)
     arena_losses = bert_large_arena(rows, tree_losses)
+    torch.cuda.empty_cache()
+    db = autotune_db(smi)
+    bert_large_tuned(rows, arena_losses, db, smi)
     bert_large_dropout(rows)
     torch.cuda.empty_cache()
     bert_large_ckpt_resume()
@@ -9400,6 +8623,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     monitor_phases(smi, arena_losses)
     torch.cuda.empty_cache()
+    link_probe_phase(smi)
     prof_phases(smi, rows)
     torch.cuda.empty_cache()
     resnet_plain_vs_kernel()
@@ -9441,6 +8665,8 @@ def main() -> int:
     torch.distributed.destroy_process_group()
     shutil.rmtree(store, ignore_errors=True)
     zero_and_ring_two_ranks(rows)
+    torch.cuda.empty_cache()
+    bert_large_zero_two_ranks(arena_losses, smi)
     torch.cuda.empty_cache()
     hierarchy_four_ranks()
     torch.cuda.empty_cache()

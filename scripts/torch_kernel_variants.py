@@ -121,7 +121,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import chip_smoke
-    from apex_tpu_torch.ops import _build, layer_norm as L, mlp as P
+    from apex_tpu_torch.ops import _build, compile_check
+    from apex_tpu_torch.ops import layer_norm as L, mlp as P
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -134,7 +135,7 @@ def main() -> int:
            "build_s": time.perf_counter() - t0,
            "variants": {k: v[2] for k, v in VARIANTS.items()}}
     rows = {}
-    rnd, _gen, flush, _row = chip_smoke.bench_tools(rows)
+    rnd, _gen, flush, _row = chip_smoke.bench_tools(rows, {})
 
     def through(module, attr, fn, call):
         """``call`` with ``module.attr`` (the wrapper's entry point
@@ -167,7 +168,7 @@ def main() -> int:
         {"ln_bwd": lambda: L.ln_bwd_kernel(g, x, None, 1e-5)}, flush)
     del x, g
 
-    x, ws, bs = chip_smoke._mlp_operands(
+    x, ws, bs = compile_check.mlp_operands(
         rnd, 2048, list(chip_smoke.MLP_BOTTOM), "relu", True, torch.bfloat16,
         torch.bfloat16)
     mlp = {k: entry(libs[k], "apex_mlp_fwd") for k in VARIANTS

@@ -9,8 +9,9 @@ checkout's, in one process on one card.
 ``mlp_fwd_kernel`` is loaded from there with its own ``ops/_build.py`` (its
 CUDA sources build into ``DIR/build``), beside this checkout's. First this
 checkout's kernel is held against its plain version on every case of
-``chip_smoke.check_mlp_kernel`` (path, edge, ragged, each two launches
-bitwise equal; the per-layer and multi-launch plans; mixed dtypes), then
+the compile check's ``kernels/mlp`` case (path, edge, ragged, each two
+launches bitwise equal; the per-layer and multi-launch plans; mixed
+dtypes), then
 both kernels are timed in turns (other, this, this, other) at the path's
 shape (DLRM's bottom MLP, B2048 x [13, 512, 256, 128], bf16 x and
 weights), the budget's edge (B8192 x [1024]·3, f32) and the ragged 96 x
@@ -49,7 +50,7 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
     import chip_smoke
-    from apex_tpu_torch.ops import _build, mlp as P
+    from apex_tpu_torch.ops import _build, compile_check, mlp as P
     from torch_norm_ab import load_parent, measure, turns
 
     other_build, (PP,) = load_parent(args.parent, ("mlp",))
@@ -65,13 +66,16 @@ def main() -> int:
     chip_smoke.echo_ptxas({"mlp_fwd": libs["mlp_fwd"]})
 
     rows = {}
-    rnd, _gen, flush, row = chip_smoke.bench_tools(rows)
-    chip_smoke.check_mlp_kernel(rnd, flush, row)
+    compile_check.ERRS.clear()
+    dict(compile_check.CASES)["kernels/mlp"]()
+    rnd, _gen, flush, row = chip_smoke.bench_tools(rows,
+                                                   compile_check.ERRS)
+    chip_smoke.time_mlp_kernel(rnd, flush, row)
     acts = {"relu": torch.relu, "sigmoid": torch.sigmoid}
     for name, n, dims, act, bias, dt in CASES:
         dt = getattr(torch, dt)
-        x, ws, bs = chip_smoke._mlp_operands(rnd, n, list(dims), act, bias,
-                                             dt, dt)
+        x, ws, bs = compile_check.mlp_operands(rnd, n, list(dims), act,
+                                               bias, dt, dt)
         rec = turns(f"mlp_fwd {name} {n}x{list(dims)} {dt}",
                     lambda: PP.mlp_fwd_kernel(x, ws, bs, act),
                     lambda: P.mlp_fwd_kernel(x, ws, bs, act), flush, out)

@@ -219,7 +219,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import chip_smoke
-    from apex_tpu_torch.ops import _build, bn_act as B, layer_norm as L
+    from apex_tpu_torch.ops import _build, bn_act as B, compile_check
+    from apex_tpu_torch.ops import layer_norm as L
 
     other_build, (PL, PB) = load_parent(args.parent,
                                         ("layer_norm", "bn_act"))
@@ -244,12 +245,13 @@ def main() -> int:
                         os.path.join(out_dir, f"{k}.ptxas.txt"))
 
     rows = {}
-    rnd, _gen, flush, _row = chip_smoke.bench_tools(rows)
+    rnd, _gen, flush, _row = chip_smoke.bench_tools(rows, {})
     out["ln_cases"] = check_layer_norm(rnd, L)
     out["bn_cases"] = check_bn_sums(rnd, B)
     check_determinism(rnd, L, B)
-    chip_smoke.check_ln_bwd_paths(rnd)
-    chip_smoke.check_ln_bwd_determinism(rnd)
+    cases = dict(compile_check.CASES)
+    cases["kernels/layer_norm-bwd-paths"]()
+    cases["kernels/layer_norm-bwd-determinism"]()
     print(f"checks: {out['ln_cases']} LayerNorm forward and "
           f"{out['bn_cases']} bn_sums cases and every path of the LayerNorm "
           f"backward agree with the plain versions; two launches of each "

@@ -1305,3 +1305,16 @@ def linkbench_pipeline(rank, world, mesh, inputs):
             "rows": [dataclasses.asdict(h) for h in rep.hops],
             "plan": plan.to_json(), "table": linkbench.fit_table(fits,
                                                                  samples)}
+
+
+# --- the compile check's integrity census (tests/test_torch_compile_check.py) --
+
+@case
+def integrity_census(rank, world, mesh, inputs):
+    """``integrity/no-extra-dispatch`` of ``apex_tpu_torch.ops``'s compile
+    check, on the CPU inside this group: an off-step of the fingerprint
+    check adds only its cadence's bookkeeping to the step."""
+    from apex_tpu_torch.ops import compile_check
+    compile_check.DEVICE = "cpu"
+    dict(compile_check.CASES)["integrity/no-extra-dispatch"]()
+    return {"ok": np.ones(1)}

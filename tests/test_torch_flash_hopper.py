@@ -139,21 +139,29 @@ def test_ptxas_report_names_each_flash_instance():
 
 
 def test_chip_smoke_checks_flash_determinism_and_device_time():
-    flash = inspect.getsource(chip_smoke.check_flash)
-    assert "check_attention_options(" in flash and "mask_probe()" in flash
-    assert "check_flash_determinism(" in flash
-    det = inspect.getsource(chip_smoke.check_flash_determinism)
+    # the checks are the compile check's cases (chip_smoke's phase
+    # compile_check runs them); the kernel phase times the rows
+    from apex_tpu_torch.ops import compile_check
+    cases = dict(compile_check.CASES)
+    assert {"kernels/flash-bert", "kernels/flash-options",
+            "kernels/flash-mask-probe", "kernels/flash-determinism"} <= set(
+        cases)
+    det = inspect.getsource(cases["kernels/flash-determinism"])
     assert det.count("torch.equal") == 2
     assert "flash_fwd_kernel" in det and "flash_bwd_kernel" in det
-    assert "_padding_bias" in det and "rate=0.1" in det
+    assert "padding_bias" in det and "rate=0.1" in det
     tools = inspect.getsource(chip_smoke.bench_tools)
     assert '"device_ms": dev_ms' in tools
     assert '"library_device_ms": lib_dev_ms' in tools
-    # every flash row gets both device times: BERT's and the extra rows
-    timed_rows = flash + inspect.getsource(chip_smoke.check_attention_options)
-    assert len(re.findall(r"\bdev_ms=device_ms\(", timed_rows)) == 4
-    assert len(re.findall(r"\blib_dev_ms=device_ms\(", timed_rows)) == 4
-    assert "check_flash(" in inspect.getsource(chip_smoke.check_kernels)
+    # every flash row gets both device times: BERT's and the extra rows,
+    # each pair from one _flash_rows call
+    timed_rows = inspect.getsource(chip_smoke._flash_rows)
+    assert len(re.findall(r"\bdev_ms=device_ms\(", timed_rows)) == 2
+    assert len(re.findall(r"\blib_dev_ms=device_ms\(", timed_rows)) == 2
+    flash = inspect.getsource(chip_smoke.time_flash)
+    for suffix in ('("",', '("_mask_dropout",', '("_h15",', '("_s64",'):
+        assert suffix in flash, suffix
+    assert "time_flash(" in inspect.getsource(chip_smoke.check_kernels)
 
 
 def test_device_ms_leaves_the_flush_out():

@@ -62,7 +62,8 @@ def test_import_leaves_no_jax_or_apex_tpu():
                 "trace.recorder", "trace.watchdog", "trace.podview",
                 "monitor", "monitor.metrics", "monitor.sinks",
                 "monitor.logger", "monitor.goodput",
-                "monitor.collectives"):
+                "monitor.collectives", "ops.autotune", "ops.compile_check",
+                "ops.__main__"):
         assert f"apex_tpu_torch.{pkg}" in loaded
     assert [m for m in loaded if _forbidden(m, package=True)] == []
 

@@ -245,8 +245,10 @@ def test_summation_model_at_a_ragged_shape():
 
 def test_chip_smoke_checks_the_mlp_kernel_bitwise_and_by_device_time():
     import inspect
-    src = inspect.getsource(chip_smoke.check_mlp_kernel)
+    from apex_tpu_torch.ops import compile_check
+    src = inspect.getsource(dict(compile_check.CASES)["kernels/mlp"])
     assert "torch.equal(" in src and "two launches differ" in src
+    src = inspect.getsource(chip_smoke.time_mlp_kernel)
     assert 'row("mlp_fwd"' in src and "dev_ms=device_ms(" in src
     assert chip_smoke.SOURCES["mlp_fwd"] == ("cuda",
                                              "apex_tpu_torch/csrc/mlp_fwd.cu")

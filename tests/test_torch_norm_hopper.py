@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import chip_smoke
+from apex_tpu_torch.ops import compile_check
 from apex_tpu.ops import bn_act as JB
 from apex_tpu.ops import layer_norm as JL
 from apex_tpu_torch.ops import bn_act as B
@@ -368,10 +369,10 @@ def _row_call(src, name):
 @pytest.mark.parametrize("fn,names", [
     ("check_kernels", ["layer_norm_fwd", "layer_norm_bwd", "xentropy_fwd",
                        "xentropy_bwd"]),
-    ("check_bn_kernels", ["bn_sums", "bn_dx"]),
-    ("check_mlp_kernel", ["mlp_fwd"]),
-    ("check_arena_kernels", ["multi_tensor_l2norm"]),
-    ("check_adam_kernel", ["adam"]),
+    ("time_bn_kernels", ["bn_sums", "bn_dx"]),
+    ("time_mlp_kernel", ["mlp_fwd"]),
+    ("time_arena_kernels", ["multi_tensor_l2norm"]),
+    ("time_adam_kernel", ["adam"]),
 ])
 def test_chip_smoke_rows_carry_device_time(fn, names):
     """Rows 1-4, 12-14, 15a and 15g (15d below) carry device_ms and
@@ -385,15 +386,15 @@ def test_chip_smoke_rows_carry_device_time(fn, names):
 def test_chip_smoke_maxnorm_row_carries_device_time():
     """Rows 15d-f and 15i-j: every row of the loop carries device_ms, and
     library_device_ms where a library call exists (15d, 15e, 15i)."""
-    src = inspect.getsource(chip_smoke.check_arena_remainder)
+    src = inspect.getsource(chip_smoke.time_arena_remainder)
     assert "dev_ms=device_ms(kernel, flush=flush), lib_dev_ms=lib_dev" in src
     assert "None if lib is None else device_ms(lib, flush=flush)" in src
     assert "ada_lib_dev = device_ms(ada, flush=flush)" in src
 
 
 @pytest.mark.parametrize("fn,names,lib", [
-    ("check_arena_kernels", ["lamb_stage1", "lamb_stage2"], False),
-    ("check_sgd_kernel", ["sgd"], True),
+    ("time_arena_kernels", ["lamb_stage1", "lamb_stage2"], False),
+    ("time_sgd_kernel", ["sgd"], True),
 ])
 def test_chip_smoke_remaining_rows_carry_device_time(fn, names, lib):
     """Rows 15b-c (no library call) and 15h (``torch._fused_sgd_``)."""
@@ -409,16 +410,19 @@ def test_chip_smoke_checks_the_new_kernels():
         "cuda", "apex_tpu_torch/csrc/layer_norm_fwd.cu")
     assert chip_smoke.SOURCES["bn_sums"] == (
         "cuda", "apex_tpu_torch/csrc/bn_sums.cu")
-    kernels = inspect.getsource(chip_smoke.check_kernels)
-    assert "check_ln_paths(rnd)" in kernels
-    assert "check_norm_determinism(rnd)" in kernels
-    det = inspect.getsource(chip_smoke.check_norm_determinism)
+    # the checks are the compile check's cases, which chip_smoke's phase
+    # compile_check runs; its kernel phase keeps the timings
+    assert "compile_check.run(" in inspect.getsource(
+        chip_smoke.compile_check_phase)
+    cases = dict(compile_check.CASES)
+    det = inspect.getsource(cases["kernels/norm-determinism"])
     assert det.count("torch.equal") == 3 and '"addrelu"' in det
-    bn = inspect.getsource(chip_smoke.check_bn_kernels)
-    assert "check_bn_masks(" in bn and "time_bn_sums(" in bn
-    masks = inspect.getsource(chip_smoke.check_bn_masks)
+    bn = inspect.getsource(cases["kernels/bn"])
+    assert "_check_bn_masks(" in bn and "_check_bn_dx_faults(" in bn
+    assert "time_bn_sums(" in inspect.getsource(chip_smoke.time_bn_kernels)
+    masks = inspect.getsource(compile_check._check_bn_masks)
     assert "torch.equal(kdr, pdr)" in masks and "torch.ones_like(g)" in masks
-    paths = inspect.getsource(chip_smoke.check_ln_paths)
+    paths = inspect.getsource(cases["kernels/layer_norm-paths"])
     assert "(512, 300)" in paths and "[1:].view(n, h)" in paths
 
 
@@ -546,14 +550,12 @@ def test_ln_bwd_model_matches_the_plain_version_and_jax(n, h, itemsize):
 def test_chip_smoke_checks_the_ln_backward():
     assert chip_smoke.SOURCES["layer_norm_bwd"] == (
         "cuda", "apex_tpu_torch/csrc/layer_norm_bwd.cu")
-    kernels = inspect.getsource(chip_smoke.check_kernels)
-    assert "check_ln_bwd_paths(rnd)" in kernels
-    assert "check_ln_bwd_determinism(rnd)" in kernels
-    paths = inspect.getsource(chip_smoke.check_ln_bwd_paths)
+    cases = dict(compile_check.CASES)
+    paths = inspect.getsource(cases["kernels/layer_norm-bwd-paths"])
     for shape in ("(300, 1000)", "(9, 4096)", "(6, 8192)", "(3, 70000)",
                   "(5, 1024)", "[1:].view(n, h)"):
         assert shape in paths, shape
     assert "L._SCALAR, L._VECTOR, L._STAGED, L._STREAMED" in paths
-    det = inspect.getsource(chip_smoke.check_ln_bwd_determinism)
+    det = inspect.getsource(cases["kernels/layer_norm-bwd-determinism"])
     assert "torch.equal(a, b)" in det and '"dgamma", "dbeta"' in det
     assert chip_smoke.EXPECTED_PER_STEP["layer_norm_bwd"] == 49
