@@ -29,7 +29,7 @@ from __future__ import annotations
 import ast
 import re
 import types
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -231,25 +231,34 @@ def zero_state_from_jax(states, params, port_params, rank: int,
     whole buffer, cut into tensors by the JAX layout, mapped, packed in the
     port's layout (``arena.plan(port_params)``), padded for the world size
     and cut into shards again."""
-    world = len(states)
+    whole = {slot: {dt: np.concatenate([np.asarray(s.slots[slot][dt],
+                                                   np.float32)
+                                        for s in states])
+                    for dt in states[0].slots[slot]}
+             for slot in states[0].slots}
+    return _zero_state(whole, states[0].count, params, port_params, rank,
+                       len(states), device)
+
+
+def _zero_state(whole, count, params, port_params, rank, world, device):
+    """Rank ``rank`` of ``world``'s ``ShardedOptState`` from each slot's
+    whole buffers in the JAX layout (``{slot: {dtype: array}}``, padding
+    past the layout's length ignored): cut into tensors, mapped, packed in
+    the port's layout, padded for ``world`` and cut into its shard."""
     order = list(port_params)
     jleaves = dict(_flatten(params, sort=True))
     jspec = arena.plan({k: np.asarray(v) for k, v in jleaves.items()})
     tspec = arena.plan(port_params)
     slots = {}
-    for slot in states[0].slots:
-        whole = {dt: np.concatenate([np.asarray(s.slots[slot][dt],
-                                                np.float32)
-                                     for s in states])
-                 for dt in states[0].slots[slot]}
-        bufs = _relayout(whole, jspec, tspec, order, device)
+    for slot, bufs_j in whole.items():
+        bufs = _relayout(bufs_j, jspec, tspec, order, device)
         slots[slot] = {}
         for part in tspec.partitions:
             per = _padded_len(part.buffer_len, world) // world
             buf = torch.nn.functional.pad(
                 bufs[part.dtype], (0, per * world - part.buffer_len))
             slots[slot][part.dtype] = buf[rank * per:(rank + 1) * per].clone()
-    count = torch.tensor(int(np.asarray(states[0].count)), dtype=torch.int32,
+    count = torch.tensor(int(np.asarray(count)), dtype=torch.int32,
                          device=device)
     return ShardedOptState(count=count, slots=slots)
 
@@ -462,8 +471,55 @@ def _tree_from_paths(arrays: Dict[str, torch.Tensor], prefix: str = ""):
     return build(root)
 
 
+def _zero_slots(tree, manifest, path):
+    """A saved ``ShardedOptState``'s slot buffers at checkpoint path
+    ``path``, each cut to its logical length (the manifest's ``zero``
+    entry; the layout's length for one without): ``{slot: {dtype:
+    array}}``."""
+    zero = manifest.get("zero") or {}
+    out = {}
+    for slot, by_dt in vars(tree).get("slots", {}).items():
+        out[slot] = {}
+        for dt, buf in by_dt.items():
+            key = f"{path}.slots[{slot!r}][{dt!r}]"
+            arr = np.asarray(buf.float() if isinstance(buf, torch.Tensor)
+                             else buf, np.float32)
+            out[slot][dt] = arr[:zero[key]] if key in zero else arr
+    return out
+
+
+def _is_sharded(manifest, path):
+    return any(k.startswith(f"{path}.slots[")
+               for k in (manifest.get("zero") or {}))
+
+
+def zero_state_from_jax_checkpoint(ckpt_dir, params, port_params, rank: int,
+                                   world: int, device="cuda", *,
+                                   prefix: str = ""):
+    """Rank ``rank`` of ``world``'s ``optim.ShardedOptState`` from a ZeRO
+    checkpoint the JAX package's ``ckpt.CheckpointManager`` committed
+    (``DistributedFusedAdam``/``DistributedFusedLAMB`` state saved with
+    ``params=``), and the manifest.
+
+    ``prefix`` is the saved ``ShardedOptState``'s path in the checkpointed
+    tree (e.g. ``"['opt']"``), ``params`` the flax params tree the state
+    was built for, ``port_params`` the port's ``{name: tensor}`` params in
+    the port optimizer's order. Each slot buffer is assembled from every
+    rank's file, cut to the logical length the manifest's ``zero`` entry
+    records (dropping the saved world's padding) and relaid out as
+    :func:`zero_state_from_jax` relays it, at ``world``, which need not be
+    the saved world."""
+    from apex_tpu_torch.ckpt import format as _format
+    manifest = _format.read_manifest(ckpt_dir)
+    arrays = _format.assemble_arrays(ckpt_dir, manifest)
+    tree = _tree_from_paths(arrays, prefix)
+    return _zero_state(_zero_slots(tree, manifest, prefix), tree.count,
+                       params, port_params, rank, world, device), manifest
+
+
 def amp_state_from_jax_checkpoint(ckpt_dir, port_params, device="cuda", *,
-                                  prefix: str = ""):
+                                  prefix: str = "", rank: int = 0,
+                                  world: Optional[int] = None):
     """The port's ``amp.AmpState`` from a checkpoint directory the JAX
     package's ``ckpt.CheckpointManager`` committed, and its manifest.
 
@@ -474,10 +530,29 @@ def amp_state_from_jax_checkpoint(ckpt_dir, port_params, device="cuda", *,
     layout) and mapped by :func:`amp_state_from_jax`: port names, port
     layouts, the arena relaid out for ``port_params``. A state whose
     scalers hold no leaves (bf16: ``(None,)``) gets one ``None`` scaler;
-    a saved ``metrics`` tuple (``Amp(monitor=True)``) comes across too."""
+    a saved ``metrics`` tuple (``Amp(monitor=True)``) comes across too.
+
+    An optimizer state the manifest records as ZeRO-sharded (a
+    ``ShardedOptState``: ``zero`` entries under ``opt_state``) becomes
+    rank ``rank`` of ``world``'s ``ShardedOptState`` through
+    :func:`zero_state_from_jax_checkpoint`'s path; ``world`` is then
+    required."""
     from apex_tpu_torch.ckpt import format as _format
     manifest = _format.read_manifest(ckpt_dir)
     arrays = _format.assemble_arrays(ckpt_dir, manifest)
     tree = _tree_from_paths(arrays, prefix)
     tree.scalers = tuple(getattr(tree, "scalers", ()) or ()) or (None,)
-    return amp_state_from_jax(tree, port_params, device), manifest
+    opt_path = f"{prefix}.opt_state"
+    if not _is_sharded(manifest, opt_path):
+        return amp_state_from_jax(tree, port_params, device), manifest
+    if world is None:
+        raise ValueError("the checkpoint's optimizer state is ZeRO-sharded: "
+                         "pass rank= and world=")
+    sharded = _zero_state(_zero_slots(tree.opt_state, manifest, opt_path),
+                          tree.opt_state.count, tree.params,
+                          _params_like(tree.params, port_params, device),
+                          rank, world, device)
+    tree.opt_state = types.SimpleNamespace(count=tree.opt_state.count,
+                                           slots={})
+    state = amp_state_from_jax(tree, port_params, device)
+    return state._replace(opt_state=sharded), manifest

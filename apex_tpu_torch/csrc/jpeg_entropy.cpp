@@ -1,4 +1,5 @@
-// Host library of the port's JPEG decoder and bilinear resampler.
+// Host library of the port's JPEG decoder, PNG unfilter and bilinear
+// resampler.
 //
 // Plain C interface, loaded with ctypes (which releases the GIL for the
 // length of each call, so decode threads run in parallel). The stages
@@ -8,13 +9,25 @@
 //                      extended sequential scan into 8x8 blocks of int16
 //                      coefficients (natural order), restart markers
 //                      included;
+//   jpeg_decode_progressive_scan
+//                      one scan of a progressive Huffman frame (jdphuff.c):
+//                      DC first and refine scans (interleaved or not), AC
+//                      first scans with end-of-band runs and AC refine
+//                      scans (one component), spectral selection and
+//                      successive approximation, restart markers included;
+//                      coefficients accumulate across scans;
 //   jpeg_idct_islow    dequantisation and libjpeg's JDCT_ISLOW integer
 //                      IDCT (jidctint.c), samples clamped to [0, 255];
 //   jpeg_upsample      "fancy" triangle upsampling (jdsample.c: h2v1,
 //                      h1v2, h2v2; plain replication where libjpeg uses
 //                      it), edges replicated;
 //   jpeg_color         libjpeg's fixed-point YCbCr->RGB tables
-//                      (jdcolor.c), or gray/RGB copies;
+//                      (jdcolor.c), or gray/RGB copies; with four
+//                      channels (jpeg_pixels), Adobe CMYK or YCCK to RGB as
+//                      PIL gives it: libjpeg's YCCK->CMYK, PIL's inverted
+//                      "CMYK;I" unpacking, then PIL's CMYK->RGB;
+//   png_unfilter       PNG's five scanline filters undone (None, Sub, Up,
+//                      Average, Paeth), a row at a time;
 //   resample_rgb       Pillow's Resample.c bilinear resize of 8-bit RGB:
 //                      double-precision triangle coefficients, int32
 //                      weights of 22 fractional bits, a horizontal pass
@@ -197,6 +210,115 @@ int decode_block(Bits* b, const Huff& dc, const Huff& ac, int* pred,
       if (r != 15) break;      // end of block
       k += 16;                 // sixteen zeros
     }
+  }
+  return 0;
+}
+
+inline bool get_bits(Bits* b, int k, int* v) {
+  if (k == 0) {
+    *v = 0;
+    return true;
+  }
+  if (b->n < 32) b->fill();
+  *v = b->peek(k);
+  return b->take(k);
+}
+
+// A progressive scan's block steps (jdphuff.c decode_mcu_*). Blocks are
+// natural order and keep what earlier scans put there.
+int dc_first(Bits* b, const Huff& dc, int al, int* pred, int16_t* blk) {
+  int s = decode_sym(b, dc);
+  if (s < 0) return s;
+  if (s > 16) return -2;
+  int diff;
+  if (!receive_extend(b, s, &diff)) return -1;
+  *pred += diff;
+  blk[0] = static_cast<int16_t>(static_cast<uint32_t>(*pred) << al);
+  return 0;
+}
+
+int dc_refine(Bits* b, int al, int16_t* blk) {
+  int bit;
+  if (!get_bits(b, 1, &bit)) return -1;
+  if (bit) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+  return 0;
+}
+
+int ac_first(Bits* b, const Huff& ac, int ss, int se, int al, int* eobrun,
+             int16_t* blk) {
+  if (*eobrun > 0) {
+    --*eobrun;
+    return 0;
+  }
+  for (int k = ss; k <= se; k++) {
+    int rs = decode_sym(b, ac);
+    if (rs < 0) return rs;
+    int r = rs >> 4, s = rs & 15;
+    if (s) {
+      k += r;
+      int v;
+      if (!receive_extend(b, s, &v)) return -1;
+      blk[kNatural[k < 79 ? k : 79]] =
+          static_cast<int16_t>(static_cast<uint32_t>(v) << al);
+    } else if (r == 15) {
+      k += 15;                 // sixteen zeros
+    } else {
+      int extra;
+      if (!get_bits(b, r, &extra)) return -1;
+      *eobrun = (1 << r) + extra - 1;
+      break;
+    }
+  }
+  return 0;
+}
+
+// a nonzero coefficient's correction bit: add ±p1 unless that bit is set
+inline bool refine_nonzero(Bits* b, int16_t* coef, int p1) {
+  int bit;
+  if (!get_bits(b, 1, &bit)) return false;
+  if (bit && (*coef & p1) == 0)
+    *coef = static_cast<int16_t>(*coef >= 0 ? *coef + p1 : *coef - p1);
+  return true;
+}
+
+int ac_refine(Bits* b, const Huff& ac, int ss, int se, int al, int* eobrun,
+              int16_t* blk) {
+  const int p1 = 1 << al, m1 = -p1;
+  int k = ss;
+  if (*eobrun == 0) {
+    for (; k <= se; k++) {
+      int rs = decode_sym(b, ac);
+      if (rs < 0) return rs;
+      int r = rs >> 4, s = rs & 15;
+      if (s) {                 // s is 1 in a valid stream: a new ±1 << Al
+        int bit;
+        if (!get_bits(b, 1, &bit)) return -1;
+        s = bit ? p1 : m1;
+      } else if (r != 15) {
+        int extra;
+        if (!get_bits(b, r, &extra)) return -1;
+        *eobrun = (1 << r) + extra;
+        break;                 // the rest of the band: the EOB logic below
+      }
+      // pass nonzero coefficients (refining each) and r zero ones
+      do {
+        int16_t* c = blk + kNatural[k];
+        if (*c != 0) {
+          if (!refine_nonzero(b, c, p1)) return -1;
+        } else if (--r < 0) {
+          break;               // the zero coefficient the new value takes
+        }
+        k++;
+      } while (k <= se);
+      if (s) blk[kNatural[k < 79 ? k : 79]] = static_cast<int16_t>(s);
+    }
+  }
+  if (*eobrun > 0) {
+    for (; k <= se; k++) {
+      int16_t* c = blk + kNatural[k];
+      if (*c != 0 && !refine_nonzero(b, c, p1)) return -1;
+    }
+    --*eobrun;
   }
   return 0;
 }
@@ -555,6 +677,84 @@ int jpeg_decode_scan(const uint8_t* buf, int64_t len, int64_t pos,
   return 0;
 }
 
+// Decode one scan of a progressive frame, as jpeg_decode_scan (comps,
+// huff, coefs, returns and *end alike) with the scan's spectral band
+// [ss, se] and successive-approximation bits ah (0: a first scan), al.
+// A DC scan (ss = 0) may interleave components; an AC scan has one.
+int jpeg_decode_progressive_scan(const uint8_t* buf, int64_t len,
+                                 int64_t pos, int ncomp,
+                                 const int32_t* comps, const uint8_t* huff,
+                                 int mcus_x, int mcus_y,
+                                 int restart_interval, int16_t** coefs,
+                                 int ss, int se, int ah, int al,
+                                 int64_t* end) {
+  const bool dc = ss == 0;
+  Huff tables[8];
+  bool used[8] = {false};
+  for (int i = 0; i < ncomp; i++) {
+    if (dc && ah == 0) used[comps[7 * i + 2]] = true;
+    if (!dc) used[4 + comps[7 * i + 3]] = true;
+  }
+  for (int t = 0; t < 8; t++)
+    if (used[t] && !build_huff(huff + t * 272, huff + t * 272 + 16,
+                               &tables[t]))
+      return -2;
+  Bits b;
+  b.buf = buf;
+  b.len = len;
+  b.pos = pos;
+  int pred[4] = {0, 0, 0, 0};
+  int eobrun = 0;
+  auto block = [&](int i, int16_t* blk) {
+    const int32_t* c = comps + 7 * i;
+    if (dc)
+      return ah == 0 ? dc_first(&b, tables[c[2]], al, &pred[i], blk)
+                     : dc_refine(&b, al, blk);
+    return ah == 0 ? ac_first(&b, tables[4 + c[3]], ss, se, al, &eobrun, blk)
+                   : ac_refine(&b, tables[4 + c[3]], ss, se, al, &eobrun,
+                               blk);
+  };
+  int64_t n_mcu;
+  if (ncomp == 1)
+    n_mcu = static_cast<int64_t>(comps[5]) * comps[6];
+  else
+    n_mcu = static_cast<int64_t>(mcus_x) * mcus_y;
+  int next_rst = 0;
+  for (int64_t m = 0; m < n_mcu; m++) {
+    if (restart_interval && m && m % restart_interval == 0) {
+      b.acc = 0;
+      b.n = 0;
+      b.pad = 0;
+      int64_t at = next_marker(buf, len, b.pos);
+      if (at + 1 >= len || buf[at + 1] != 0xD0 + next_rst) return -3;
+      b.pos = at + 2;
+      b.marker = false;
+      next_rst = (next_rst + 1) & 7;
+      pred[0] = pred[1] = pred[2] = pred[3] = 0;
+      eobrun = 0;
+    }
+    if (ncomp == 1) {
+      const int32_t* c = comps;
+      int64_t by = m / c[5], bx = m % c[5];
+      int err = block(0, coefs[0] + (by * c[4] + bx) * 64);
+      if (err) return err;
+      continue;
+    }
+    int64_t my = m / mcus_x, mx = m % mcus_x;
+    for (int i = 0; i < ncomp; i++) {
+      const int32_t* c = comps + 7 * i;
+      for (int v = 0; v < c[1]; v++)
+        for (int h = 0; h < c[0]; h++) {
+          int64_t by = my * c[1] + v, bx = mx * c[0] + h;
+          int err = block(i, coefs[i] + (by * c[4] + bx) * 64);
+          if (err) return err;
+        }
+    }
+  }
+  *end = next_marker(buf, len, b.pos);
+  return 0;
+}
+
 // Dequantise and inverse-transform (rows x cols) blocks of coefficients
 // into a (rows * 8) x (cols * 8) plane; qtable in natural order.
 void jpeg_idct_islow(const int16_t* coefs, int64_t rows, int64_t cols,
@@ -600,13 +800,41 @@ void jpeg_color(const uint8_t* c0, const uint8_t* c1, const uint8_t* c2,
   }
 }
 
+// Four full-resolution channels -> RGB, as PIL converts an Adobe CMYK
+// (kind 3) or YCCK (kind 4) JPEG: libjpeg's YCCK->CMYK (jdcolor.c
+// ycck_cmyk_convert: C, M, Y = 255 - the YCC->RGB of the first three, K
+// as read), PIL's "CMYK;I" raw mode (every channel inverted), then PIL's
+// cmyk2rgb: each of R, G, B = nk - muldiv255(c, nk) with nk = 255 - k.
+void jpeg_color4(const uint8_t* c0, const uint8_t* c1, const uint8_t* c2,
+                 const uint8_t* c3, int64_t npix, int kind, uint8_t* out) {
+  for (int64_t i = 0; i < npix; i++) {
+    int cmy[3];
+    if (kind == 4) {           // YCCK: the inverted CMY is the YCC->RGB
+      int y = c0[i], cb = c1[i], cr = c2[i];
+      cmy[0] = clamp8(y + kYcc.cr_r[cr]);
+      cmy[1] = clamp8(y + ((kYcc.cb_g[cb] + kYcc.cr_g[cr]) >> 16));
+      cmy[2] = clamp8(y + kYcc.cb_b[cb]);
+    } else {
+      cmy[0] = 255 - c0[i];
+      cmy[1] = 255 - c1[i];
+      cmy[2] = 255 - c2[i];
+    }
+    int nk = c3[i];            // 255 - (255 - k)
+    for (int j = 0; j < 3; j++) {
+      int t = cmy[j] * nk + 128;
+      int v = nk - (((t >> 8) + t) >> 8);
+      out[3 * i + j] = static_cast<uint8_t>(v < 0 ? 0 : (v > 255 ? 255 : v));
+    }
+  }
+}
+
 // The whole pixel path of a decoded frame in one call: every component's
 // IDCT, upsampling to full resolution and the colour conversion into out
 // (H x W x 3). dims: per component (rows, cols, dw, dh, hf, vf).
 void jpeg_pixels(int ncomp, const int16_t* const* coefs,
                  const uint16_t* const* qtables, const int32_t* dims, int W,
                  int H, int kind, uint8_t* out) {
-  std::vector<uint8_t> chans[3];
+  std::vector<uint8_t> chans[4];
   for (int i = 0; i < ncomp; i++) {
     const int32_t* d = dims + 6 * i;
     int64_t rows = d[0], cols = d[1];
@@ -617,9 +845,54 @@ void jpeg_pixels(int ncomp, const int16_t* const* coefs,
                   chans[i].data());
   }
   const uint8_t* c0 = chans[0].data();
+  if (ncomp == 4) {
+    jpeg_color4(c0, chans[1].data(), chans[2].data(), chans[3].data(),
+                static_cast<int64_t>(W) * H, kind, out);
+    return;
+  }
   jpeg_color(c0, ncomp > 1 ? chans[1].data() : c0,
              ncomp > 2 ? chans[2].data() : c0, static_cast<int64_t>(W) * H,
              kind, out);
+}
+
+// Undo the filters of rows PNG scanlines: raw holds rows x (1 + rowbytes)
+// bytes (each line's filter type, then its filtered bytes), out gets rows x
+// rowbytes; bpp is the bytes a pixel (1 below 8 bits). Each byte adds its
+// filter's predictor from the reconstructed byte bpp to the left (a), the
+// one above (b) and the one above-left (c), each 0 past the image's edge.
+// Returns 0, or -1 for a filter type past 4.
+int png_unfilter(const uint8_t* raw, int64_t rows, int64_t rowbytes, int bpp,
+                 uint8_t* out) {
+  const uint8_t* prev = nullptr;
+  for (int64_t r = 0; r < rows; r++) {
+    const uint8_t* line = raw + r * (rowbytes + 1);
+    const int ft = line[0];
+    const uint8_t* f = line + 1;
+    uint8_t* o = out + r * rowbytes;
+    if (ft > 4) return -1;
+    for (int64_t i = 0; i < rowbytes; i++) {
+      const int a = i >= bpp ? o[i - bpp] : 0;
+      const int b = prev ? prev[i] : 0;
+      const int c = prev && i >= bpp ? prev[i - bpp] : 0;
+      int pred = 0;
+      if (ft == 1) {
+        pred = a;
+      } else if (ft == 2) {
+        pred = b;
+      } else if (ft == 3) {
+        pred = (a + b) >> 1;
+      } else if (ft == 4) {
+        const int p = a + b - c;
+        const int pa = p > a ? p - a : a - p;
+        const int pb = p > b ? p - b : b - p;
+        const int pc = p > c ? p - c : c - p;
+        pred = pa <= pb && pa <= pc ? a : (pb <= pc ? b : c);
+      }
+      o[i] = static_cast<uint8_t>(f[i] + pred);
+    }
+    prev = o;
+  }
+  return 0;
 }
 
 // Pillow's resize of an (in_h, in_w, 3) image, BILINEAR, box (x0, y0, x1,

@@ -1,18 +1,27 @@
 """The port's JPEG codec: what PIL computes for the JAX loader, bit for bit.
 
-The JAX package decodes with PIL (libjpeg-turbo). The machine beside the
-card has neither PIL nor torchvision, so the port carries its own codec,
-held to libjpeg-turbo's output bit for bit:
+The JAX package decodes with PIL (libjpeg-turbo). The port does not
+depend on PIL or torchvision (PIL may be installed beside the card; the
+port never imports it), so it carries its own codec, held to
+libjpeg-turbo's output bit for bit:
 
-- **decode** (:func:`decode`, :func:`read_rgb`): baseline and extended
-  sequential Huffman JPEG (SOF0/SOF1), 8-bit, 1 or 3 components, sampling
-  factors up to 2x2 (4:4:4, 4:2:2, 4:2:0, 4:4:0), restart intervals,
-  the JFIF and Adobe colour-transform flags; APPn and COM segments are
-  skipped. Progressive, arithmetic-coded, lossless, hierarchical, 12-bit
-  and 4-component (CMYK/YCCK) files raise ``OSError`` naming the file and
-  the marker, as PIL raises ``OSError`` for a file it cannot read. The
-  stages, each a C++ call (``csrc/jpeg_entropy.cpp``, built with the host
-  compiler at first use): Huffman decoding into int16 coefficients
+- **decode** (:func:`decode`, :func:`read_rgb`): baseline, extended
+  sequential and progressive Huffman JPEG (SOF0/SOF1/SOF2), 8-bit, 1, 3
+  or 4 components, sampling factors up to 2x2 (4:4:4, 4:2:2, 4:2:0,
+  4:4:0), restart intervals, the JFIF and Adobe colour-transform flags;
+  APPn and COM segments are skipped. Progressive scans: DC first and
+  refine, AC first (end-of-band runs) and refine, any spectral selection
+  and successive approximation. Four components are Adobe CMYK or YCCK,
+  converted as PIL converts them (libjpeg's YCCK->CMYK, PIL's inverted
+  ``CMYK;I`` raw mode, PIL's CMYK->RGB). Arithmetic-coded, lossless,
+  hierarchical and 12-bit files raise ``OSError`` naming the file and the
+  marker, as PIL raises ``OSError`` for a file it cannot read; so does a
+  progressive file whose scans leave any of the first nine AC
+  coefficients of a component unrefined (or unsent) while its DC is
+  known: libjpeg-turbo (3.1 in PIL 12) block-smooths such a file
+  (``jdcoefct.c`` ``smoothing_ok``), which this decoder does not do.
+  The stages, each a C++ call (``csrc/jpeg_entropy.cpp``, built with the
+  host compiler at first use): Huffman decoding into int16 coefficients
   (:func:`read_coefficients`), libjpeg's ``JDCT_ISLOW`` integer IDCT
   (:func:`idct`), "fancy" upsampling and the fixed-point YCbCr->RGB
   tables (:func:`to_rgb`). Marker parsing and tables are here.
@@ -94,7 +103,7 @@ STD_HUFFMAN = {
         f3 f4 f5 f6 f7 f8 f9 fa""")),
 }
 
-_SOF_NAMES = {0xC2: "progressive (SOF2)", 0xC3: "lossless (SOF3)",
+_SOF_NAMES = {0xC3: "lossless (SOF3)",
               0xC5: "hierarchical (SOF5)", 0xC6: "hierarchical (SOF6)",
               0xC7: "hierarchical (SOF7)", 0xC8: "reserved (JPG)",
               0xC9: "arithmetic-coded (SOF9)", 0xCA: "arithmetic-coded "
@@ -119,6 +128,9 @@ def _lib():
         lib.jpeg_decode_scan.argtypes = [p, i64, i64, i32, p, p, i32, i32,
                                          i32, p, p]
         lib.jpeg_decode_scan.restype = i32
+        lib.jpeg_decode_progressive_scan.argtypes = [
+            p, i64, i64, i32, p, p, i32, i32, i32, p, i32, i32, i32, i32, p]
+        lib.jpeg_decode_progressive_scan.restype = i32
         lib.jpeg_idct_islow.argtypes = [p, i64, i64, p, p]
         lib.jpeg_idct_islow.restype = None
         lib.jpeg_upsample.argtypes = [p, i64, i32, i32, i32, i32, i32, i32,
@@ -126,8 +138,12 @@ def _lib():
         lib.jpeg_upsample.restype = None
         lib.jpeg_color.argtypes = [p, p, p, i64, i32, p]
         lib.jpeg_color.restype = None
+        lib.jpeg_color4.argtypes = [p, p, p, p, i64, i32, p]
+        lib.jpeg_color4.restype = None
         lib.jpeg_pixels.argtypes = [i32, p, p, p, i32, i32, i32, p]
         lib.jpeg_pixels.restype = None
+        lib.png_unfilter.argtypes = [p, i64, i64, i32, p]
+        lib.png_unfilter.restype = i32
         lib.resample_rgb.argtypes = [p, i64, i64, p, i64, i64, p]
         lib.resample_rgb.restype = i32
         _LIB[0] = lib
@@ -163,8 +179,12 @@ class Frame:
     components: List[Component]
     hmax: int
     vmax: int
-    color: str                 # "gray" | "ycc" | "rgb"
+    color: str                 # "gray" | "ycc" | "rgb" | "cmyk" | "ycck"
     restart_interval: int
+    progressive: bool = False
+    #: per component, libjpeg's coef_bits: the successive-approximation
+    #: bit each zigzag coefficient is known down to (-1: never sent)
+    coef_bits: Optional[np.ndarray] = None
 
 
 def _be16(data: bytes, pos: int) -> int:
@@ -172,9 +192,11 @@ def _be16(data: bytes, pos: int) -> int:
 
 
 def _color_space(comps, jfif: bool, adobe: Optional[int]) -> str:
-    """libjpeg's default_decompress_parms for 1 and 3 components."""
+    """libjpeg's default_decompress_parms for 1, 3 and 4 components."""
     if len(comps) == 1:
         return "gray"
+    if len(comps) == 4:
+        return "ycck" if adobe is not None and adobe != 0 else "cmyk"
     if jfif:
         return "ycc"
     if adobe is not None:
@@ -225,7 +247,7 @@ def read_coefficients(data: bytes, name: str = "<bytes>") -> Frame:
             raise bad(f"{_SOF_NAMES[m]} JPEG (marker 0xFF{m:02X}) is not "
                       f"supported: baseline or extended sequential Huffman "
                       f"(SOF0/SOF1) only")
-        if m in (0xC0, 0xC1):
+        if m in (0xC0, 0xC1, 0xC2):
             if frame is not None:
                 raise bad("a second frame header (SOF)")
             frame = _read_sof(seg, m, bad)
@@ -259,7 +281,32 @@ def read_coefficients(data: bytes, name: str = "<bytes>") -> Frame:
             raise bad(f"component {c.ident} appears in no scan")
     frame.restart_interval = restart
     frame.color = _color_space(frame.components, jfif, adobe)
+    if frame.progressive and _smoothed(frame):
+        raise bad("a progressive file whose scans leave low AC "
+                  "coefficients unrefined: libjpeg block-smooths it "
+                  "(jdcoefct.c smoothing_ok), which this decoder does not")
     return frame
+
+
+#: zigzag coefficients whose precision decides libjpeg-turbo's smoothing
+#: (its SAVED_COEFS = 10), and the natural positions of the quantisers it
+#: divides by
+_SMOOTH_COEFS = 10
+_SMOOTH_Q = (0, 1, 8, 16, 9, 2, 3, 10, 17, 24)
+
+
+def _smoothed(frame: Frame) -> bool:
+    """libjpeg-turbo's ``smoothing_ok`` after the last scan: every
+    component's DC at least partly known, its quantisers nonzero, and some
+    component's AC coefficient 1..9 not known to its last bit."""
+    useful = False
+    for c, bits in zip(frame.components, frame.coef_bits):
+        if c.qtable is None or not all(c.qtable[i] for i in _SMOOTH_Q):
+            return False
+        if bits[0] < 0:
+            return False
+        useful = useful or bool((bits[1:_SMOOTH_COEFS] != 0).any())
+    return useful
 
 
 def _read_sof(seg: bytes, marker: int, bad) -> Frame:
@@ -272,10 +319,8 @@ def _read_sof(seg: bytes, marker: int, bad) -> Frame:
     if height == 0 or width == 0:
         raise bad("a zero image dimension (DNL-defined height) is not "
                   "supported")
-    if nf == 4:
-        raise bad("4-component (CMYK/YCCK) JPEG is not supported")
-    if nf not in (1, 3) or len(seg) < 6 + 3 * nf:
-        raise bad(f"{nf} components: 1 or 3 only")
+    if nf not in (1, 3, 4) or len(seg) < 6 + 3 * nf:
+        raise bad(f"{nf} components: 1, 3 or 4 only")
     raw = [(seg[6 + 3 * i], seg[7 + 3 * i] >> 4, seg[7 + 3 * i] & 15,
             seg[8 + 3 * i]) for i in range(nf)]
     for ident, h, v, _ in raw:
@@ -294,7 +339,9 @@ def _read_sof(seg: bytes, marker: int, bad) -> Frame:
         cols = max(mcus_x * h, -(-dw // 8))
         comps.append(Component(ident, h, v, tq, dw, dh,
                                np.zeros((rows, cols, 64), np.int16)))
-    return Frame(width, height, comps, hmax, vmax, "", 0)
+    progressive = marker == 0xC2
+    return Frame(width, height, comps, hmax, vmax, "", 0, progressive,
+                 np.full((nf, 64), -1, np.int64) if progressive else None)
 
 
 def _read_dht(seg: bytes, huff: dict, bad) -> None:
@@ -338,9 +385,18 @@ def _decode_scan(data, buf, pos, seg, frame: Frame, qt, huff, restart,
     if ns < 1 or ns > 4 or len(seg) < 4 + 2 * ns:
         raise bad("a malformed scan header (SOS)")
     ss, se, ahal = seg[1 + 2 * ns], seg[2 + 2 * ns], seg[3 + 2 * ns]
-    if (ss, se, ahal) != (0, 63, 0):
+    ah, al = ahal >> 4, ahal & 15
+    if not frame.progressive and (ss, se, ahal) != (0, 63, 0):
         raise bad(f"scan parameters Ss={ss} Se={se} Ah/Al={ahal:#x} are "
                   f"not sequential")
+    # libjpeg's progressive checks (jdinput.c/jdphuff.c start_pass)
+    if frame.progressive and (
+            (ss == 0 and se != 0) or (ss > 0 and (se < ss or se > 63
+                                                  or ns != 1))
+            or al > 13 or (ah and ah - 1 != al)):
+        raise bad(f"invalid progressive scan parameters Ss={ss} Se={se} "
+                  f"Ah={ah} Al={al}")
+    dc_only = frame.progressive and ss == 0
     by_id = {c.ident: c for c in frame.components}
     comps, tables = [], np.zeros((8, 272), np.uint8)
     spec = np.zeros((ns, 7), np.int32)
@@ -350,11 +406,16 @@ def _decode_scan(data, buf, pos, seg, frame: Frame, qt, huff, restart,
             raise bad(f"scan names unknown component {cid}")
         c = by_id[cid]
         td, ta = tsel >> 4, tsel & 15
-        if td > 3 or ta > 3 or (0, td) not in huff or (1, ta) not in huff:
+        need_dc = not frame.progressive or (dc_only and ah == 0)
+        need_ac = not frame.progressive or not dc_only
+        if td > 3 or ta > 3 or (need_dc and (0, td) not in huff) or (
+                need_ac and (1, ta) not in huff):
             raise bad(f"component {cid} uses a Huffman table that is not "
                       f"defined")
-        tables[td] = np.frombuffer(huff[(0, td)], np.uint8)
-        tables[4 + ta] = np.frombuffer(huff[(1, ta)], np.uint8)
+        if need_dc:
+            tables[td] = np.frombuffer(huff[(0, td)], np.uint8)
+        if need_ac:
+            tables[4 + ta] = np.frombuffer(huff[(1, ta)], np.uint8)
         if c.qtable is None:
             if c.tq not in qt:
                 raise bad(f"component {cid} uses quantisation table "
@@ -367,9 +428,16 @@ def _decode_scan(data, buf, pos, seg, frame: Frame, qt, huff, restart,
     end = ctypes.c_int64(0)
     mcus_x = -(-frame.width // (8 * frame.hmax))
     mcus_y = -(-frame.height // (8 * frame.vmax))
-    rc = _lib().jpeg_decode_scan(
-        _ptr(buf), len(data), pos, ns, _ptr(spec), _ptr(tables), mcus_x,
-        mcus_y, restart, ptrs, ctypes.byref(end))
+    if frame.progressive:
+        ci = [frame.components.index(c) for c in comps]
+        frame.coef_bits[ci, ss:se + 1] = al
+        rc = _lib().jpeg_decode_progressive_scan(
+            _ptr(buf), len(data), pos, ns, _ptr(spec), _ptr(tables), mcus_x,
+            mcus_y, restart, ptrs, ss, se, ah, al, ctypes.byref(end))
+    else:
+        rc = _lib().jpeg_decode_scan(
+            _ptr(buf), len(data), pos, ns, _ptr(spec), _ptr(tables), mcus_x,
+            mcus_y, restart, ptrs, ctypes.byref(end))
     if rc:
         raise bad(_SCAN_ERRORS.get(rc, f"scan error {rc}"))
     return int(end.value)
@@ -389,7 +457,8 @@ def idct(c: Component) -> np.ndarray:
 def to_rgb(frame: Frame, planes: List[np.ndarray]) -> np.ndarray:
     """The upsample-and-colour stage: each plane to full resolution
     (libjpeg's fancy upsampling), then libjpeg's YCbCr->RGB (or the gray
-    and RGB copies). Returns (height, width, 3) uint8."""
+    and RGB copies, or CMYK/YCCK as PIL converts them). Returns (height,
+    width, 3) uint8."""
     lib = _lib()
     w, h = frame.width, frame.height
     chans = []
@@ -401,6 +470,9 @@ def to_rgb(frame: Frame, planes: List[np.ndarray]) -> np.ndarray:
         chans.append(ch)
     out = np.empty((h, w, 3), np.uint8)
     kind = _KINDS[frame.color]
+    if len(chans) == 4:
+        lib.jpeg_color4(*(_ptr(c) for c in chans), h * w, kind, _ptr(out))
+        return out
     c1 = chans[1] if len(chans) > 1 else chans[0]
     c2 = chans[2] if len(chans) > 2 else chans[0]
     lib.jpeg_color(_ptr(chans[0]), _ptr(c1), _ptr(c2), h * w, kind,
@@ -408,7 +480,7 @@ def to_rgb(frame: Frame, planes: List[np.ndarray]) -> np.ndarray:
     return out
 
 
-_KINDS = {"gray": 0, "ycc": 1, "rgb": 2}
+_KINDS = {"gray": 0, "ycc": 1, "rgb": 2, "cmyk": 3, "ycck": 4}
 
 
 def pixels(frame: Frame) -> np.ndarray:

@@ -33,7 +33,7 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
-from apex_tpu_torch.data import jpeg
+from apex_tpu_torch.data import image
 
 META = "meta.json"
 
@@ -94,7 +94,7 @@ def _decode_store(path: str, store_size: int) -> np.ndarray:
     from apex_tpu_torch.data.pipeline import _center_box
     from apex_tpu_torch.data.resample import resize
 
-    img = jpeg.read_rgb(path)
+    img = image.read_rgb(path)
     return resize(img, (store_size, store_size),
                   _center_box(img.shape[1], img.shape[0]))
 

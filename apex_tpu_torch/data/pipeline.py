@@ -4,9 +4,11 @@ The port of ``apex_tpu/data/pipeline.py``: the reference's input machinery
 for ``examples/imagenet`` (torch DataLoader / DALI decode+augment feeding
 the CUDA-stream ``data_prefetcher``).
 
-- **Decode/augment workers**: a thread pool decodes JPEGs with the port's
-  codec (:mod:`~apex_tpu_torch.data.jpeg`: its C++ stages run under
-  ctypes, which drops the GIL, so threads scale to the host's cores) and
+- **Decode/augment workers**: a thread pool decodes each file by its
+  content, as PIL does (:func:`~apex_tpu_torch.data.image.read_rgb`:
+  JPEG through the port's codec, whose C++ stages run under ctypes, which
+  drops the GIL, so threads scale to the host's cores; PNG and BMP in
+  numpy) and
   applies the standard train transform — RandomResizedCrop (scale
   0.08-1.0, ratio 3/4-4/3) through PIL's bilinear resampler
   (:mod:`~apex_tpu_torch.data.resample`) + horizontal flip — with the
@@ -33,7 +35,7 @@ from typing import Iterator, Optional, Tuple
 
 import numpy as np
 
-from apex_tpu_torch.data import jpeg
+from apex_tpu_torch.data import image, jpeg
 from apex_tpu_torch.data.resample import resize
 from apex_tpu_torch.utils.ranks import rank_default, world_default
 
@@ -52,7 +54,7 @@ def _read_rgb_with_retry(path: str, attempts: int = None) -> np.ndarray:
     last = None
     for k in range(attempts):
         try:
-            return jpeg.read_rgb(path)
+            return image.read_rgb(path)
         except OSError as e:
             last = e
             if k + 1 < attempts:

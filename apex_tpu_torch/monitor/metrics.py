@@ -83,8 +83,10 @@ class Metrics(NamedTuple):
 METRIC_FIELDS = Metrics._fields
 
 
-def metrics_init(device="cpu") -> Metrics:
-    """Zeroed metrics on ``device`` — carry them through the step."""
+def metrics_init(device="cuda") -> Metrics:
+    """Zeroed metrics on ``device`` (the card unless the caller asks for
+    the CPU, as the port's other entry points) — carry them through the
+    step."""
     def i32(v):
         return torch.tensor(v, dtype=torch.int32, device=device)
 

@@ -5,7 +5,9 @@ raises. Every kernel wrapper counts its launches in ``.launches``."""
 
 from apex_tpu_torch.ops.attention import (  # noqa: F401
     attention_reference, flash_attention, flash_attention_lse,
-    flash_bwd_kernel, flash_fwd_kernel, mask_softmax_dropout,
+    flash_bwd_kernel, flash_fwd_kernel, flash_generic_bwd_kernel,
+    flash_generic_fwd_kernel, flash_wgmma_bwd_kernel, flash_wgmma_fwd_kernel,
+    mask_softmax_dropout,
 )
 from apex_tpu_torch.ops.bn_act import (  # noqa: F401
     FusedBNAct, bn_act_reference, bn_act_train, bn_add_act_train,
@@ -45,8 +47,8 @@ KERNELS = {
     "layer_norm_bwd": ln_bwd_kernel,
     "xentropy_fwd": xentropy_fwd_kernel,
     "xentropy_bwd": xentropy_bwd_kernel,
-    "flash_attn_fwd": flash_fwd_kernel,
-    "flash_attn_bwd": flash_bwd_kernel,
+    "flash_attn_fwd": flash_wgmma_fwd_kernel,
+    "flash_attn_bwd": flash_wgmma_bwd_kernel,
     "multi_tensor_l2norm": l2norm_kernel,
     "lamb_stage1": lamb_stage1_kernel,
     "lamb_stage2": lamb_stage2_kernel,
@@ -60,6 +62,8 @@ KERNELS = {
     "adagrad": adagrad_kernel,
     "novograd": novograd_kernel,
     "mlp_fwd": mlp_fwd_kernel,
+    "flash_generic_fwd": flash_generic_fwd_kernel,
+    "flash_generic_bwd": flash_generic_bwd_kernel,
 }
 
 

@@ -7,24 +7,35 @@ causal masking with an optional runtime frontier, Sq ≠ Sk, and softmax
 dropout whose keep mask is the JAX package's counter-based hash, bit for
 bit. Kernels replaced (sources under ``apex_tpu_torch/csrc/``):
 
-- ``flash_fwd_kernel`` (``flash_attn_fwd.cu``) ← ``_fwd_kernel_nl``
+- ``flash_wgmma_fwd_kernel`` (``flash_attn_fwd.cu``) ← ``_fwd_kernel_nl``
   (``_flash_fwd_nl``'s pallas_call) and ``_fwd_kernel`` (``_flash_fwd``,
   the (B·H, S, D) layout the JAX package takes when the heads do not group
   into 128 lanes): online-softmax attention giving o and lse (f32,
   (B·H, Sq)), with P cast to v's dtype before PV.
-- ``flash_bwd_kernel`` (``flash_attn_bwd.cu``) ← ``_bwd_fused_kernel_nl``,
-  the split ``_bwd_dq_kernel_nl``/``_bwd_dkv_kernel_nl`` and the
-  (B·H, S, D) pair ``_bwd_dq_kernel``/``_bwd_dkv_kernel``: a dk/dv kernel
-  per k tile looping over q tiles and a dq kernel per q tile looping over
-  k tiles, both recomputing P and the dropout mask; no atomics, so the
-  result is deterministic. ``delta = Σ do·o`` (less the lse cotangent in
-  the lse variant) is plain PyTorch, as the JAX package computes it in jnp.
+- ``flash_wgmma_bwd_kernel`` (``flash_attn_bwd.cu``) ←
+  ``_bwd_fused_kernel_nl``, the split
+  ``_bwd_dq_kernel_nl``/``_bwd_dkv_kernel_nl`` and the (B·H, S, D) pair
+  ``_bwd_dq_kernel``/``_bwd_dkv_kernel``: a dk/dv kernel per k tile looping
+  over q tiles and a dq kernel per q tile looping over k tiles, both
+  recomputing P and the dropout mask; no atomics, so the result is
+  deterministic. ``delta = Σ do·o`` (less the lse cotangent in the lse
+  variant) is plain PyTorch, as the JAX package computes it in jnp.
+- ``flash_generic_fwd_kernel``/``flash_generic_bwd_kernel``
+  (``flash_attn_generic.cu``) ← the same JAX kernels for the operands the
+  wgmma kernels refuse: f32 q, k, v, and any head dim 1 ≤ D ≤ 256 (the
+  JAX kernels pad D to whole 128-lane rows and take f32). FFMA products on
+  f32 tiles in shared memory, the same options, the same keep mask and
+  the same two-pass, atomic-free backward.
 
-The CUDA kernels index (b, h) directly, so they take any H and D in
-{32, 64, 128} with no second layout. The gradient of a learned bias is
-dense plain PyTorch, computed only when the bias requires grad (the JAX
-package's ``_bias_grad`` is jnp). Dropout block coordinates come from the
-JAX package's block choice (``_choose_block``), not from the CUDA tile.
+:func:`flash_fwd_kernel`/:func:`flash_bwd_kernel` pick one of the two
+families from (dtype, D) alone (:func:`kernel_route`): bf16/fp16 at D in
+{32, 64, 128} take the wgmma kernels, every other f32/bf16/fp16 call
+with 1 ≤ D ≤ 256 the generic ones; nothing else launches. The CUDA kernels index
+(b, h) directly, so they take any H with no second layout. The gradient of a
+learned bias is dense plain PyTorch, computed only when the bias requires
+grad (the JAX package's ``_bias_grad`` is jnp). Dropout block coordinates
+come from the JAX package's block choice (``_choose_block``), not from the
+CUDA tile.
 """
 
 from __future__ import annotations
@@ -46,8 +57,12 @@ DEFAULT_BLOCK_K = 1024
 #: a function of block coordinates, so the mask depends on this number
 DROPOUT_TILE = 512
 
-_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
-_HEAD_DIMS = (32, 64, 128)
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+#: the wgmma kernels' domain: 16-bit operands at these head dims
+_WGMMA_DTYPES = (torch.bfloat16, torch.float16)
+_WGMMA_HEAD_DIMS = (32, 64, 128)
+#: the generic kernels' domain: any of _DTYPES at 1 <= D <= MAX_HEAD_DIM
+MAX_HEAD_DIM = 256
 _M32 = 0xFFFFFFFF
 
 
@@ -196,24 +211,42 @@ class _FlashArgs(ctypes.Structure):
            ("scale", ctypes.c_float)])
 
 
+def kernel_route(dtype, d: int) -> str:
+    """The flash kernel family a CUDA call with q of ``dtype`` and head
+    dim ``d`` launches: ``"wgmma"`` for bf16/fp16 at D in {32, 64, 128},
+    ``"generic"`` for any other f32/bf16/fp16 call with 1 <= D <= 256.
+    Raises ValueError outside both domains."""
+    if dtype in _WGMMA_DTYPES and d in _WGMMA_HEAD_DIMS:
+        return "wgmma"
+    if dtype in _DTYPES and 1 <= d <= MAX_HEAD_DIM:
+        return "generic"
+    raise ValueError(f"flash kernels take f32/bf16/fp16 q, k, v and head "
+                     f"dims 1..{MAX_HEAD_DIM}; got {dtype}, D = {d}")
+
+
 def _check_kernel_operands(q, k, v):
-    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash kernels take bf16/fp16 q, k, v; got "
-                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    """Shapes, dtypes and layout a flash kernel takes; returns its route."""
     _check_shapes(q, k, v)
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash kernels take q, k, v of one dtype; got "
+                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     b, sq, h, d = q.shape
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"flash kernels take head dims {_HEAD_DIMS}, got {d}")
+    route = kernel_route(q.dtype, d)
     if b * h >= 65536 or sq == 0 or k.shape[1] == 0:
         raise ValueError("flash kernels take B·H < 65536 and Sq, Sk > 0")
     for t in (q, k, v):
         if not t.is_cuda or t.device != q.device:
             raise ValueError("q, k, v must share one CUDA device")
-        # rows of each head are D contiguous elements, 16-byte aligned
-        if (t.stride(3) != 1 or t.stride(2) != d or t.stride(1) % 8
-                or t.stride(0) % 8 or t.data_ptr() % 16):
+        # rows of each head are D contiguous elements; the wgmma kernels'
+        # TMA loads also want them 16-byte aligned
+        if t.stride(3) != 1 or t.stride(2) != d:
             raise ValueError("flash kernels take (B, S, H, D) tensors whose "
-                             "head rows are contiguous and 16-byte aligned")
+                             "head rows are contiguous")
+        if route == "wgmma" and (t.stride(1) % 8 or t.stride(0) % 8
+                                 or t.data_ptr() % 16):
+            raise ValueError("the wgmma flash kernels take head rows that "
+                             "are 16-byte aligned")
+    return route
 
 
 def _device_int32(t, n, what, device):
@@ -224,11 +257,12 @@ def _device_int32(t, n, what, device):
     return t.data_ptr()
 
 
-def _kernel_args(q, k, v, scale, bias, causal, causal_off, seed, rate, dbo,
-                 blocks):
-    """(_FlashArgs, tensors the launch reads) for q, k, v and the options;
-    ``blocks`` are the caller's (block_q, block_k)."""
-    _check_kernel_operands(q, k, v)
+def _kernel_args(q, k, v, scale, bias=None, causal=False, causal_off=None,
+                 seed=None, rate=0.0, dbo=None,
+                 blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
+    """(_FlashArgs, tensors the launch reads, route) for q, k, v and the
+    options; ``blocks`` are the caller's (block_q, block_k)."""
+    route = _check_kernel_operands(q, k, v)
     b, sq, h, d = q.shape
     sk = k.shape[1]
     a = _FlashArgs(q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
@@ -258,12 +292,13 @@ def _kernel_args(q, k, v, scale, bias, causal, causal_off, seed, rate, dbo,
         a.drop_bq, a.drop_bk = _dropout_blocks(sq, sk, *blocks)
         if dbo is not None:
             a.dbo = _device_int32(dbo, 2, "dropout_block_offset", q.device)
-    return a, held
+    return a, held, route
 
 
-def _lib(name):
-    """The C entry point ``apex_<name>(dtype, D, FlashArgs*, stream)``."""
-    fn = getattr(_build.load(name), f"apex_{name}")
+def _lib(name, entry=None):
+    """The C entry point ``apex_<entry or name>(dtype, D, FlashArgs*,
+    stream)`` of the library built from ``csrc/<name>.cu``."""
+    fn = getattr(_build.load(name), f"apex_{entry or name}")
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_int, ctypes.c_int,
                        ctypes.POINTER(_FlashArgs), ctypes.c_void_p]
@@ -271,43 +306,34 @@ def _lib(name):
     return fn
 
 
-@priced("flash_attn_fwd")
-def flash_fwd_kernel(q, k, v, scale, bias=None, causal=False, causal_off=None,
-                     seed=None, rate=0.0, dbo=None,
-                     blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
-    """CUDA forward: (o (B, Sq, H, D) in q's dtype, lse f32 (B·H, Sq)).
+_GENERIC = "flash_attn_generic"
 
-    ``bias`` broadcasts against (B, H, Sq, Sk); ``causal`` masks keys past
-    ``row + off`` with ``off`` read from the int32 device tensor
-    ``causal_off`` or Sk − Sq; ``rate > 0`` applies softmax dropout seeded
-    by the int32 device tensor ``seed``, shifted by the (2,) int32 block
-    offsets ``dbo``, in the dropout blocks that the caller's ``blocks``
-    (block_q, block_k) realize."""
-    a, _held = _kernel_args(q, k, v, scale, bias, causal, causal_off, seed,
-                            rate, dbo, blocks)
+
+def _args_for(lib, q, k, v, scale, opts):
+    """_kernel_args for the library ``lib``: the wgmma ones take only their
+    domain, the generic one every call :func:`kernel_route` accepts."""
+    a, held, route = _kernel_args(q, k, v, scale, **opts)
+    if route != "wgmma" and lib != _GENERIC:
+        raise ValueError(f"the wgmma flash kernels take bf16/fp16 at head "
+                         f"dims {_WGMMA_HEAD_DIMS}")
+    return a, held
+
+
+def _launch_fwd(lib, q, k, v, scale, opts):
+    a, _held = _args_for(lib, q, k, v, scale, opts)
     b, sq, h, d = q.shape
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b * h, sq), dtype=torch.float32, device=q.device)
     a.o, a.lse, a.o_bs, a.o_rs = (o.data_ptr(), lse.data_ptr(), o.stride(0),
                                   o.stride(1))
-    err = _lib("flash_attn_fwd")(_DTYPES[q.dtype], d, ctypes.byref(a),
-                                 _build.stream_ptr(q))
-    _build.check(err, "flash_attn_fwd")
-    flash_fwd_kernel.launches += 1
+    entry = f"{lib}_fwd" if lib == _GENERIC else lib
+    _build.check(_lib(lib, entry)(_DTYPES[q.dtype], d, ctypes.byref(a),
+                                  _build.stream_ptr(q)), entry)
     return o, lse
 
 
-flash_fwd_kernel.launches = 0
-
-
-@priced("flash_attn_bwd")
-def flash_bwd_kernel(q, k, v, do, lse, delta, scale, bias=None, causal=False,
-                     causal_off=None, seed=None, rate=0.0, dbo=None,
-                     blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
-    """CUDA backward (dk/dv kernel, then dq kernel): (dq, dk, dv), with the
-    forward's options."""
-    a, _held = _kernel_args(q, k, v, scale, bias, causal, causal_off, seed,
-                            rate, dbo, blocks)
+def _launch_bwd(lib, q, k, v, do, lse, delta, scale, opts):
+    a, _held = _args_for(lib, q, k, v, scale, opts)
     b, sq, h, d = q.shape
     if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
         raise ValueError("do must be a contiguous tensor like q")
@@ -323,14 +349,111 @@ def flash_bwd_kernel(q, k, v, do, lse, delta, scale, bias=None, causal=False,
     a.do_bs, a.do_rs = do.stride(0), do.stride(1)
     a.dq_bs, a.dq_rs = dq.stride(0), dq.stride(1)
     a.dkv_bs, a.dkv_rs = dk.stride(0), dk.stride(1)
-    err = _lib("flash_attn_bwd")(_DTYPES[q.dtype], d, ctypes.byref(a),
-                                 _build.stream_ptr(q))
-    _build.check(err, "flash_attn_bwd")
-    flash_bwd_kernel.launches += 1
+    entry = f"{lib}_bwd" if lib == _GENERIC else lib
+    _build.check(_lib(lib, entry)(_DTYPES[q.dtype], d, ctypes.byref(a),
+                                  _build.stream_ptr(q)), entry)
     return dq, dk, dv
 
 
-flash_bwd_kernel.launches = 0
+def _opts(bias, causal, causal_off, seed, rate, dbo, blocks):
+    return dict(bias=bias, causal=causal, causal_off=causal_off, seed=seed,
+                rate=rate, dbo=dbo, blocks=blocks)
+
+
+@priced("flash_attn_fwd")
+def flash_wgmma_fwd_kernel(q, k, v, scale, bias=None, causal=False,
+                           causal_off=None, seed=None, rate=0.0, dbo=None,
+                           blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
+    """The wgmma forward (``flash_attn_fwd.cu``): bf16/fp16, D in {32, 64,
+    128}; :func:`flash_fwd_kernel`'s arguments and results."""
+    out = _launch_fwd("flash_attn_fwd", q, k, v, scale, _opts(
+        bias, causal, causal_off, seed, rate, dbo, blocks))
+    flash_wgmma_fwd_kernel.launches += 1
+    return out
+
+
+flash_wgmma_fwd_kernel.launches = 0
+
+
+@priced("flash_attn_bwd")
+def flash_wgmma_bwd_kernel(q, k, v, do, lse, delta, scale, bias=None,
+                           causal=False, causal_off=None, seed=None,
+                           rate=0.0, dbo=None,
+                           blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
+    """The wgmma backward (``flash_attn_bwd.cu``: dk/dv kernel, then dq)."""
+    out = _launch_bwd("flash_attn_bwd", q, k, v, do, lse, delta, scale,
+                      _opts(bias, causal, causal_off, seed, rate, dbo,
+                            blocks))
+    flash_wgmma_bwd_kernel.launches += 1
+    return out
+
+
+flash_wgmma_bwd_kernel.launches = 0
+
+
+@priced("flash_generic_fwd")
+def flash_generic_fwd_kernel(q, k, v, scale, bias=None, causal=False,
+                             causal_off=None, seed=None, rate=0.0, dbo=None,
+                             blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
+    """The generic forward (``flash_attn_generic.cu``): f32/bf16/fp16 at
+    any 1 <= D <= 256; :func:`flash_fwd_kernel`'s arguments and results."""
+    out = _launch_fwd(_GENERIC, q, k, v, scale, _opts(
+        bias, causal, causal_off, seed, rate, dbo, blocks))
+    flash_generic_fwd_kernel.launches += 1
+    return out
+
+
+flash_generic_fwd_kernel.launches = 0
+
+
+@priced("flash_generic_bwd")
+def flash_generic_bwd_kernel(q, k, v, do, lse, delta, scale, bias=None,
+                             causal=False, causal_off=None, seed=None,
+                             rate=0.0, dbo=None,
+                             blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
+    """The generic backward (``flash_attn_generic.cu``: dk/dv kernel, then
+    dq)."""
+    out = _launch_bwd(_GENERIC, q, k, v, do, lse, delta, scale,
+                      _opts(bias, causal, causal_off, seed, rate, dbo,
+                            blocks))
+    flash_generic_bwd_kernel.launches += 1
+    return out
+
+
+flash_generic_bwd_kernel.launches = 0
+
+
+def flash_fwd_kernel(q, k, v, scale, bias=None, causal=False,
+                     causal_off=None, seed=None, rate=0.0, dbo=None,
+                     blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
+    """CUDA forward: (o (B, Sq, H, D) in q's dtype, lse f32 (B·H, Sq)),
+    through the family :func:`kernel_route` picks.
+
+    ``bias`` broadcasts against (B, H, Sq, Sk); ``causal`` masks keys past
+    ``row + off`` with ``off`` read from the int32 device tensor
+    ``causal_off`` or Sk − Sq; ``rate > 0`` applies softmax dropout seeded
+    by the int32 device tensor ``seed``, shifted by the (2,) int32 block
+    offsets ``dbo``, in the dropout blocks that the caller's ``blocks``
+    (block_q, block_k) realize."""
+    _check_shapes(q, k, v)
+    fn = (flash_wgmma_fwd_kernel if kernel_route(q.dtype, q.shape[3])
+          == "wgmma" else flash_generic_fwd_kernel)
+    return fn(q, k, v, scale, bias=bias, causal=causal,
+              causal_off=causal_off, seed=seed, rate=rate, dbo=dbo,
+              blocks=blocks)
+
+
+def flash_bwd_kernel(q, k, v, do, lse, delta, scale, bias=None,
+                     causal=False, causal_off=None, seed=None, rate=0.0,
+                     dbo=None, blocks=(DEFAULT_BLOCK_Q, DEFAULT_BLOCK_K)):
+    """CUDA backward: (dq, dk, dv), with the forward's options, through
+    the family :func:`kernel_route` picks."""
+    _check_shapes(q, k, v)
+    fn = (flash_wgmma_bwd_kernel if kernel_route(q.dtype, q.shape[3])
+          == "wgmma" else flash_generic_bwd_kernel)
+    return fn(q, k, v, do, lse, delta, scale, bias=bias, causal=causal,
+              causal_off=causal_off, seed=seed, rate=rate, dbo=dbo,
+              blocks=blocks)
 
 
 # --- plain versions (the kernels' arithmetic, in PyTorch) --------------------

@@ -52,7 +52,10 @@ values an existing kernel instantiation accepts (:func:`legal_values`):
   exactly as the JAX package's ``_tuned_qk`` (no dropout, an explicit
   override wins). In the port they only place the dropout mask's blocks,
   and the consult skips dropout, so they change no launch: the family's
-  grid holds only the default and no attention entry is committed.
+  grid holds only the default and no attention entry is committed. The
+  same consult fronts both flash families (the wgmma kernels and the
+  generic f32/any-D ones, ``flash_attn_generic.cu``), whose launches take
+  no knob: every generic call is a counted miss.
 
 A tuned launch keeps the kernels' determinism: its partials are reduced
 in an order fixed by the shape and the knob, with no float atomics, so

@@ -11,9 +11,10 @@ card alone. This module holds those checks as a registry of cases
   1003, a tail partition, a non-power-of-two block preference), each
   holding the kernel path against the same call through the plain
   versions (:func:`plain_versions`) at the tolerances below. The JAX
-  cases in f32 attention run in bf16, the flash kernels' dtype, and
-  assert that f32 is refused with its message: that is a limit of the
-  port (``ROADMAP.md``), not a skip. ``bn_act/pallas-bwd-variant`` runs
+  cases in f32 attention run at f32 through the generic flash kernels
+  (``flash_attn_generic.cu``), each recording its error in :data:`ERRS`
+  under ``"<label> f32"``, and again in bf16 through the wgmma kernels,
+  as the JAX package's bf16 cases run. ``bn_act/pallas-bwd-variant`` runs
   its channel grid through the port's one BN backward (the CUDA sums and
   the Triton dx);
 - **the kernel phase's checks** (``kernels/*``), at the main paths'
@@ -120,6 +121,10 @@ def plain_versions():
              (X, "xentropy_bwd_kernel", X.xentropy_bwd_plain),
              (A, "flash_fwd_kernel", A.flash_fwd_plain),
              (A, "flash_bwd_kernel", A.flash_bwd_plain),
+             (A, "flash_wgmma_fwd_kernel", A.flash_fwd_plain),
+             (A, "flash_wgmma_bwd_kernel", A.flash_bwd_plain),
+             (A, "flash_generic_fwd_kernel", A.flash_fwd_plain),
+             (A, "flash_generic_bwd_kernel", A.flash_bwd_plain),
              (M, "l2norm_kernel", M.l2norm_plain),
              (K, "lamb_stage1_kernel", K.lamb_stage1_plain),
              (K, "lamb_stage2_kernel", K.lamb_stage2_plain),
@@ -183,48 +188,45 @@ def _grads(loss, leaves):
 
 # --- flash attention (the JAX package's cases) -------------------------------
 
-def _f32_refused(b, sq, sk, h, d):
-    """The flash kernels take bf16/fp16 only: an f32 call is refused with
-    its message (the JAX case runs in f32; the port runs it in bf16)."""
-    import torch
-    from apex_tpu_torch.ops import attention as A
-    rnd, _ = seeded(99)
-    q = rnd(b, sq, h, d, dtype=torch.float32)
-    k = rnd(b, sk, h, d, dtype=torch.float32)
-    try:
-        A.flash_fwd_kernel(q, k, k, 1.0 / math.sqrt(d))
-    except ValueError as e:
-        if "flash kernels take bf16/fp16" not in str(e):
-            raise
-        return
-    raise AssertionError("the flash kernel took f32 q, k, v")
+#: the flash kernels a call launches: 16-bit at D in {32, 64, 128} (the
+#: wgmma kernels), or f32 (the generic ones)
+WGMMA = ("flash_attn_fwd", "flash_attn_bwd")
+GENERIC = ("flash_generic_fwd", "flash_generic_bwd")
 
 
 def _attn_case(label, b, sq, sk, h, d, *, causal=False, with_bias=False,
                block_q=None, block_k=None, f32=True, seed=0,
                dropout_rate=0.0, dropout_seed=None):
+    """The JAX case against the plain versions: at f32 through the generic
+    kernels (an f32 case, whose error goes to :data:`ERRS`), then in bf16
+    through the wgmma kernels. Returns the bf16 run's error."""
     import torch
     from apex_tpu_torch.ops.attention import flash_attention
-    if f32:
-        _f32_refused(b, sq, sk, h, d)
-    rnd, _ = seeded(seed)
-    q, k, v = (rnd(b, s, h, d, std=0.5) for s in (sq, sk, sk))
-    bias = rnd(b, h, sq, sk, dtype=torch.float32, std=0.5) \
-        if with_bias else None
-    g = rnd(b, sq, h, d, dtype=torch.float32, std=0.5)
     kw = {k_: v_ for k_, v_ in (("block_q", block_q), ("block_k", block_k))
           if v_}
+    err = 0.0
+    for dt in ((torch.float32, torch.bfloat16) if f32 else (torch.bfloat16,)):
+        rnd, _ = seeded(seed)
+        q, k, v = (rnd(b, s, h, d, dtype=dt, std=0.5) for s in (sq, sk, sk))
+        bias = rnd(b, h, sq, sk, dtype=torch.float32, std=0.5) \
+            if with_bias else None
+        g = rnd(b, sq, h, d, dtype=torch.float32, std=0.5)
 
-    def run():
-        leaves = [t.detach().requires_grad_(True)
-                  for t in (q, k, v) + ((bias,) if with_bias else ())]
-        o = flash_attention(*leaves[:3], bias=leaves[3] if with_bias
-                            else None, causal=causal,
-                            dropout_rate=dropout_rate,
-                            dropout_seed=dropout_seed, **kw)
-        return [o] + _grads((o.float() * g).sum(), leaves)
+        def run(q=q, k=k, v=v, bias=bias, g=g):
+            leaves = [t.detach().requires_grad_(True)
+                      for t in (q, k, v) + ((bias,) if with_bias else ())]
+            o = flash_attention(*leaves[:3], bias=leaves[3] if with_bias
+                                else None, causal=causal,
+                                dropout_rate=dropout_rate,
+                                dropout_seed=dropout_seed, **kw)
+            return [o] + _grads((o.float() * g).sum(), leaves)
 
-    return _vs_plain(label, run, ("flash_attn_fwd", "flash_attn_bwd"))
+        f32_run = dt == torch.float32
+        err = _vs_plain(label, run, GENERIC if f32_run else WGMMA)
+        if f32_run:
+            ERRS[f"{label} f32"] = err
+            log(f"  {label} f32 (generic kernels): max_abs_err {err:.3e}")
+    return err
 
 
 @case("attention/basic-256")
@@ -308,17 +310,22 @@ def _():
 @case("attention/dropout-runs-finite")
 def _():
     import torch
+    from apex_tpu_torch import ops
     from apex_tpu_torch.ops.attention import flash_attention
-    _f32_refused(1, 256, 256, 2, 64)
-    for s in (256, 2048):
-        rnd, _ = seeded(s)
-        leaves = [rnd(1, s, 2, 64).requires_grad_(True) for _ in range(3)]
-        o = flash_attention(*leaves, dropout_rate=0.1, dropout_seed=7)
-        loss = (o.float() ** 2).sum()
-        grads = _grads(loss, leaves)
-        if not math.isfinite(loss.item()) or not all(
-                torch.isfinite(t).all() for t in grads):
-            raise AssertionError(f"dropout S={s}: a non-finite value")
+    for dt, kernels in ((torch.float32, GENERIC), (torch.bfloat16, WGMMA)):
+        for s in (256, 2048):
+            rnd, _ = seeded(s)
+            leaves = [rnd(1, s, 2, 64, dtype=dt).requires_grad_(True)
+                      for _ in range(3)]
+            before = ops.launch_counts()
+            o = flash_attention(*leaves, dropout_rate=0.1, dropout_seed=7)
+            loss = (o.float() ** 2).sum()
+            grads = _grads(loss, leaves)
+            _launched(before, kernels)
+            if not math.isfinite(loss.item()) or not all(
+                    torch.isfinite(t).all() for t in grads):
+                raise AssertionError(f"dropout S={s} {dt}: a non-finite "
+                                     f"value")
 
 
 @case("attention/dropout-mask-equivalence-256")
@@ -348,23 +355,27 @@ def _():
 
 @case("attention/lse-dropout-block-offset")
 def _():
+    import torch
     from apex_tpu_torch.ops.attention import flash_attention_lse
-    _f32_refused(1, 512, 512, 2, 64)
-    rnd, _ = seeded(0)
-    q, k, v = (rnd(1, 512, 2, 64) for _ in range(3))
-    g = rnd(1, 512, 2, 64)
     dbo = [2, 3]
+    for dt, kernels in ((torch.float32, GENERIC), (torch.bfloat16, WGMMA)):
+        rnd, _ = seeded(0)
+        q, k, v = (rnd(1, 512, 2, 64, dtype=dt) for _ in range(3))
+        g = rnd(1, 512, 2, 64, dtype=dt)
 
-    def run():
-        leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
-        o, lse = flash_attention_lse(*leaves, dropout_rate=0.3,
-                                     dropout_seed=9,
-                                     dropout_block_offset=dbo)
-        loss = (o.float() * g.float()).sum() + 1e-3 * lse.sum()
-        return [o, lse] + _grads(loss, leaves)
+        def run(q=q, k=k, v=v, g=g):
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            o, lse = flash_attention_lse(*leaves, dropout_rate=0.3,
+                                         dropout_seed=9,
+                                         dropout_block_offset=dbo)
+            loss = (o.float() * g.float()).sum() + 1e-3 * lse.sum()
+            return [o, lse] + _grads(loss, leaves)
 
-    _vs_plain("attention lse block offset", run,
-              ("flash_attn_fwd", "flash_attn_bwd"))
+        err = _vs_plain("attention lse block offset", run, kernels)
+        if dt == torch.float32:
+            ERRS["attention lse block offset f32"] = err
+            log(f"  attention lse block offset f32 (generic kernels): "
+                f"max_abs_err {err:.3e}")
 
 
 @case("attention/ring-hop-shapes")
@@ -989,50 +1000,70 @@ def _():
             ERRS[f"flash_attn_bwd_{rows[label]}"] = e2
 
 
+def _mask_probe(s, blocks, dtype, d, seed, b=2, h=2, rate=0.1):
+    """The keep mask read out of ``flash_attention`` at S = ``s`` for
+    (dtype, D = ``d``): windows of ``d`` keys (see the case); returns
+    (wrong bits, kept share, windows, dropout blocks)."""
+    import torch
+    from apex_tpu_torch.ops import attention as A
+    kw = dict(zip(("block_q", "block_k"), blocks))
+    qk = torch.zeros(b, s, h, d, dtype=dtype, device=DEVICE)
+    got = torch.zeros(b * h, s, s, dtype=torch.bool, device=DEVICE)
+    starts = list(range(0, s - d + 1, d))
+    if starts[-1] + d < s:
+        starts.append(s - d)
+    eye = torch.eye(d, dtype=dtype, device=DEVICE)
+    for j0 in starts:
+        bias = torch.full((1, 1, 1, s), -1e9, device=DEVICE)
+        bias[..., j0:j0 + d] = 0.0
+        v = torch.zeros_like(qk)
+        v[:, j0:j0 + d] = eye[None, :, None, :]
+        o = A.flash_attention(qk, qk, v, bias=bias, dropout_rate=rate,
+                              dropout_seed=seed, **kw)
+        bits = o.float() * d * (1 - rate) > 0.5          # (b, s, h, d)
+        got[:, :, j0:j0 + d] = bits.transpose(1, 2).reshape(b * h, s, d)
+    drop = A._dropout_blocks(s, s, *blocks)
+    want = A._keep_mask_dense(seed, b, h, s, s, *drop, rate)
+    return (int((got != want).sum()), want.float().mean().item(),
+            len(starts), drop, want.numel())
+
+
 @case("kernels/flash-mask-probe")
 def _():
     """The dropout keep mask read out of the forward kernel through
     ``flash_attention``, bit for bit against the plain ``_keep_mask_dense``
     (a tolerance alone can miss a wrong bit: at S = 512 one changed keep
     bit moves o by about 1/512). With q = k = 0 and a (1, 1, 1, S) bias 0
-    on keys [j0, j0 + 64) and -1e9 elsewhere, p is 1/64 on that window; v
-    is the identity there, so o[r, d]·64·(1 − rate) is 1 where keep[r, j0 +
-    d] and 0 where not (> 0.5 read as kept; o is bf16). j0 sweeps the keys,
-    at S = 512 (one JAX dropout block), S = 600 (blocks of 128), S = 64 (the
-    MHA benchmark's length: one block of 64, half a CUDA tile of rows) and
-    S = 512 with the caller's ``block_q = block_k = 128`` (blocks of 128),
-    B = H = 2."""
+    on keys [j0, j0 + D) and -1e9 elsewhere, p is 1/D on that window; v
+    is the identity there, so o[r, d]·D·(1 − rate) is 1 where keep[r, j0 +
+    d] and 0 where not (> 0.5 read as kept). j0 sweeps the keys, at S =
+    512 (one JAX dropout block), S = 600 (blocks of 128), S = 64 (the MHA
+    benchmark's length: one block of 64, half a CUDA tile of rows) and S =
+    512 with the caller's ``block_q = block_k = 128`` (blocks of 128), B =
+    H = 2: in bf16 at D = 64 through the wgmma kernels, and through the
+    generic kernels in f32 at D = 64 and in bf16 at D = 80 (ViT-H's head),
+    at S = 512 and 600 and with the caller's blocks of 128."""
     import torch
-    from apex_tpu_torch.ops import attention as A
-    b, h, d, rate = 2, 2, 64, 0.1
+    from apex_tpu_torch import ops
     seed = torch.tensor([-1234567], dtype=torch.int32, device=DEVICE)
-    for s, blocks in ((512, ()), (600, ()), (64, ()), (512, (128, 128))):
-        kw = dict(zip(("block_q", "block_k"), blocks))
-        qk = torch.zeros(b, s, h, d, dtype=torch.bfloat16, device=DEVICE)
-        got = torch.zeros(b * h, s, s, dtype=torch.bool, device=DEVICE)
-        starts = list(range(0, s - d + 1, d))
-        if starts[-1] + d < s:
-            starts.append(s - d)
-        eye = torch.eye(d, dtype=torch.bfloat16, device=DEVICE)
-        for j0 in starts:
-            bias = torch.full((1, 1, 1, s), -1e9, device=DEVICE)
-            bias[..., j0:j0 + d] = 0.0
-            v = torch.zeros_like(qk)
-            v[:, j0:j0 + d] = eye[None, :, None, :]
-            o = A.flash_attention(qk, qk, v, bias=bias, dropout_rate=rate,
-                                  dropout_seed=seed, **kw)
-            bits = o.float() * d * (1 - rate) > 0.5          # (b, s, h, d)
-            got[:, :, j0:j0 + d] = bits.transpose(1, 2).reshape(b * h, s, d)
-        drop = A._dropout_blocks(s, s, *blocks)
-        want = A._keep_mask_dense(seed, b, h, s, s, *drop, rate)
-        wrong = int((got != want).sum())
-        if wrong:
-            raise AssertionError(f"mask probe S={s} {kw}: {wrong} of "
-                                 f"{want.numel()} keep bits differ")
-        log(f"  mask probe S={s} {kw or 'default blocks'} (dropout blocks "
-            f"{drop}): {want.numel()} keep bits equal the plain mask bit for "
-            f"bit (kept {want.float().mean().item():.4f}, {len(starts)} "
-            f"windows)")
+    geos = ((512, ()), (600, ()), (64, ()), (512, (128, 128)))
+    for dtype, d, kernels, sizes in (
+            (torch.bfloat16, 64, WGMMA, geos),
+            (torch.float32, 64, GENERIC, (geos[0], geos[1], geos[3])),
+            (torch.bfloat16, 80, GENERIC, (geos[0], geos[1], geos[3]))):
+        for s, blocks in sizes:
+            before = ops.launch_counts()
+            wrong, kept, n, drop, total = _mask_probe(s, blocks, dtype, d,
+                                                      seed)
+            _launched(before, kernels[:1])
+            if wrong:
+                raise AssertionError(
+                    f"mask probe {dtype} D={d} S={s} blocks {blocks}: "
+                    f"{wrong} of {total} keep bits differ")
+            log(f"  mask probe {str(dtype)[6:]} D={d} S={s} "
+                f"{blocks or 'default blocks'} ({kernels[0]}, dropout "
+                f"blocks {drop}): {total} keep bits equal the plain mask "
+                f"bit for bit (kept {kept:.4f}, {n} windows)")
 
 
 @case("kernels/flash-determinism")
@@ -1083,6 +1114,84 @@ def _():
         "flash_attn_bwd S64",
         A.flash_bwd_kernel(q, k, v, do, lse, delta_of(do, o), scale, **opts),
         A.flash_bwd_plain(q, k, v, do, lse, delta_of(do, o), scale, **opts))
+
+
+@case("kernels/flash-generic")
+def _():
+    """The generic flash kernels (every operand the wgmma kernels refuse)
+    against the plain versions: BERT-Large's attention in f32 (16, 512,
+    16, 64) as it is and with the padding bias and dropout 0.1, and
+    ViT-H/14's (16, 257, 16, 80) in bf16 (the kernels-JSON rows); then,
+    for correctness only, D = 48, 96, 160 and 256 in bf16 and fp16 (causal
+    Sq 200 / Sk 328 at H = 3, D = 160 with a head bias and dropout) and
+    f32 at D = 128 with a full bias, and Sq > Sk causal in f32 (rows that
+    see no key: o = 0, lse = -1e30). Two launches of each at BERT's f32
+    shape with dropout, and at D = 80, are bitwise equal. TOL32 for f32
+    outputs, TOL16 for 16-bit ones."""
+    import torch
+    from apex_tpu_torch import ops
+    from apex_tpu_torch.ops import attention as A
+    rnd, gen = seeded(14)
+    bf16, fp16, f32 = torch.bfloat16, torch.float16, torch.float32
+
+    def i32(*vals):
+        return torch.tensor(vals, dtype=torch.int32, device=DEVICE)
+
+    cases = [
+        ("", (16, 512, 512, 16, 64), f32, {}),
+        ("_mask_dropout", (16, 512, 512, 16, 64), f32,
+         dict(bias=padding_bias(gen, 16, 512), rate=0.1, seed=i32(12345))),
+        ("_d80", (16, 257, 257, 16, 80), bf16, {}),
+    ]
+    for d in (48, 96, 160, 256):
+        for dt in (bf16, fp16):
+            opts = (dict(bias=rnd(1, 3, 200, 328, dtype=f32), rate=0.1,
+                         seed=i32(9)) if d == 160 else dict(causal=True))
+            cases.append((None, (2, 200, 328, 3, d), dt, opts))
+    cases += [(None, (2, 256, 192, 4, 128), f32,
+               dict(bias=rnd(2, 4, 256, 192, dtype=f32))),
+              (None, (2, 200, 128, 2, 64), f32, dict(causal=True))]
+    for row, (b, sq, sk, h, d), dt, opts in cases:
+        q, do = rnd(b, sq, h, d, dtype=dt), rnd(b, sq, h, d, dtype=dt)
+        k, v = rnd(b, sk, h, d, dtype=dt), rnd(b, sk, h, d, dtype=dt)
+        scale = 1.0 / math.sqrt(d)
+        before = ops.launch_counts()
+        o_k, lse_k = A.flash_fwd_kernel(q, k, v, scale, **opts)
+        o_p, lse_p = A.flash_fwd_plain(q, k, v, scale, **opts)
+        blind = lse_p == A.NEG_INF
+        if not torch.equal(blind, lse_k == A.NEG_INF) or (
+                blind.any() and o_k.transpose(1, 2).reshape(
+                    b * h, sq, d)[blind].abs().max().item() != 0.0):
+            raise AssertionError(f"flash_generic {dt} D={d}: rows without "
+                                 f"a key differ")
+        e1 = compare(f"flash_generic_fwd {dt} D={d}", [
+            o_k, lse_k.masked_fill(blind, 0.0)], [
+            o_p, lse_p.masked_fill(blind, 0.0)])
+        delta = delta_of(do, o_p)
+        e2 = compare(f"flash_generic_bwd {dt} D={d}",
+                     A.flash_bwd_kernel(q, k, v, do, lse_p, delta, scale,
+                                        **opts),
+                     A.flash_bwd_plain(q, k, v, do, lse_p, delta, scale,
+                                       **opts))
+        now = ops.launch_counts()
+        if any(now[n] - before[n] != 1 for n in GENERIC) or any(
+                now[n] != before[n] for n in WGMMA):
+            raise AssertionError(f"flash_generic {dt} D={d}: the generic "
+                                 f"kernels did not take the call")
+        log(f"  flash generic {(b, sq, sk, h, d)} {str(dt)[6:]} "
+            f"{sorted(opts)}: fwd max_abs_err {e1:.3e}, bwd {e2:.3e}")
+        if row is not None:
+            ERRS[f"flash_generic_fwd{row}"] = e1
+            ERRS[f"flash_generic_bwd{row}"] = e2
+        if row in ("_mask_dropout", "_d80"):
+            runs = [A.flash_fwd_kernel(q, k, v, scale, **opts)
+                    for _ in range(2)]
+            grads = [A.flash_bwd_kernel(q, k, v, do, lse_p, delta, scale,
+                                        **opts) for _ in range(2)]
+            if not all(torch.equal(x, y) for x, y in zip(*runs)) or not all(
+                    torch.equal(x, y) for x, y in zip(*grads)):
+                raise AssertionError(f"flash_generic{row}: two launches "
+                                     f"differ")
 
 
 @case("kernels/flash-ring-hop")

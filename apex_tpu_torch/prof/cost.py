@@ -123,7 +123,8 @@ def _flash(args, kw, out, fwd):
     nbytes = _nbytes(*ins, opts.get("bias"), out)
     factor = 4.0 if fwd else 10.0
     return Cost(factor * b * h * sq * sk * d, nbytes,
-                HASH_OPS * b * h * sq * sk if rate else 0.0, "bf16",
+                HASH_OPS * b * h * sq * sk if rate else 0.0,
+                "f32" if q.dtype == torch.float32 else "bf16",
                 _sig(q, k) + (f",rate={rate}" if rate else "")
                 + (",bias" if opts.get("bias") is not None else ""))
 
@@ -178,6 +179,8 @@ KERNEL_COSTS = {
     "adagrad": _elementwise(10),
     "novograd": _elementwise(11),
     "mlp_fwd": _mlp,
+    "flash_generic_fwd": lambda a, k, o: _flash(a, k, o, True),
+    "flash_generic_bwd": lambda a, k, o: _flash(a, k, o, False),
 }
 
 

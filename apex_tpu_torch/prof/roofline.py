@@ -51,6 +51,7 @@ BOUND_CLASSES = ("compute", "memory", "unknown")
 _FAMILY_PATTERNS: Tuple[Tuple[str, str], ...] = (
     ("flash_attention", "attention"),
     ("flash_attn", "attention"),
+    ("flash_generic", "attention"),
     ("attention", "attention"),
     ("attn", "attention"),
     ("layer_norm", "layer_norm"),

@@ -92,8 +92,14 @@ def build_bert_step(batch: int, seq: int, encoder=None, opt_level="O1",
                     half_dtype=torch.bfloat16, device="cuda", seed: int = 0,
                     vocab: Optional[int] = None, strategy: str = "auto",
                     dropout: float = 0.0, padded: bool = False,
-                    optimizer=None, monitor: bool = False):
+                    optimizer=None, monitor: bool = False, policy=None):
     """Returns ``(step, state, (toks, labels), policy, enc)``.
+
+    ``policy`` (an ``amp.Policy``) replaces the preset of ``opt_level`` and
+    ``half_dtype``, as in :func:`build_resnet_step`: ``amp.Policy(
+    opt_level="O0", enabled=False)``, the JAX package's default policy,
+    trains BERT in f32 end to end (the attention through the generic flash
+    kernels, the f32 baseline every amp speed-up is stated against).
 
     ``optimizer=None`` trains with ``FusedLAMB(lr=1e-3, strategy=
     strategy)``; an optimizer given (``FusedNovoGrad(...)``,
@@ -123,7 +129,8 @@ def build_bert_step(batch: int, seq: int, encoder=None, opt_level="O1",
     elif strategy != "auto":
         raise ValueError("build_bert_step takes strategy= for its default "
                          "FusedLAMB only; set it on the optimizer given")
-    policy = amp.Policy.from_opt_level(opt_level, half_dtype=half_dtype)
+    if policy is None:
+        policy = amp.Policy.from_opt_level(opt_level, half_dtype=half_dtype)
     enc = encoder if encoder is not None else models.BertLarge(
         device=device, seed=seed, dropout=dropout)
     vocab = vocab if vocab is not None else min(30000, enc.vocab_size)

@@ -347,6 +347,8 @@ REPLACES = {
     "adagrad": "apex_tpu/ops/optim_kernels.py:141",
     "novograd": "apex_tpu/ops/optim_kernels.py:244",
     "mlp_fwd": "apex_tpu/ops/mlp.py:52",
+    "flash_generic_fwd": "apex_tpu/ops/attention.py:720",
+    "flash_generic_bwd": "apex_tpu/ops/attention.py:1064",
 }
 # rows of the kernels JSON line beyond one per kernel: the two attention
 # wrappers timed again at the published BERT path's shape (padding bias,
@@ -426,6 +428,34 @@ EXTRA_S64_ROWS = {
                            "apex_tpu/ops/attention.py:1064",
                            "mha_perf_test"),
 }
+# the generic flash kernels (every operand the wgmma kernels refuse): the
+# rows flash_generic_{fwd,bwd} are BERT-Large's attention in f32 (phase
+# bert_large_f32 gives their launches); these are the same shape with the
+# padding bias and dropout 0.1, and ViT-H/14's attention, (16, 257, 16,
+# 80) bf16, which no path runs (0 launches): {row: (kernel, TPU kernel
+# replaced, phase whose run gives this row's launches)}
+EXTRA_GENERIC_ROWS = {
+    "flash_generic_fwd_mask_dropout": ("flash_generic_fwd",
+                                       "apex_tpu/ops/attention.py:720", None),
+    "flash_generic_bwd_mask_dropout": ("flash_generic_bwd",
+                                       "apex_tpu/ops/attention.py:1064",
+                                       None),
+    "flash_generic_fwd_d80": ("flash_generic_fwd",
+                              "apex_tpu/ops/attention.py:720", None),
+    "flash_generic_bwd_d80": ("flash_generic_bwd",
+                              "apex_tpu/ops/attention.py:1064", None),
+}
+#: ViT-H/14's attention: 1280 wide, 16 heads of 80, 256 patches + CLS
+VIT_H_SHAPE = (16, 257, 16, 80)
+# BERT-Large in f32 end to end (amp disabled: Policy("O0", enabled=False),
+# the JAX package's default policy) on the arena LAMB: the generic flash
+# kernels take every attention, the wgmma ones none; 3 steps
+BERT_F32_PER_STEP = {"flash_attn_fwd": 0, "flash_attn_bwd": 0,
+                     "flash_generic_fwd": 24, "flash_generic_bwd": 24}
+BERT_F32_STEPS = 3
+# its depth-2 first step through the kernels against the plain versions:
+# loss within 1e-5 relative, each tensor's grads within 1e-4 of its max
+BERT_F32_LOSS_TOL, BERT_F32_GRAD_TOL = 1e-5, 1e-4
 # the reference Apex's MHA benchmark (perf_test_multihead_attn.py): seq-len
 # 64, 18 layers, hidden 1024, 16 heads, at B128 (8192 rows, BERT's row
 # count); 5 warm-up trials, then the median of 20, as the script times them
@@ -498,6 +528,8 @@ SOURCES = {
     "adagrad": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
     "novograd": ("triton", "apex_tpu_torch/ops/optim_kernels.py"),
     "mlp_fwd": ("cuda", "apex_tpu_torch/csrc/mlp_fwd.cu"),
+    "flash_generic_fwd": ("cuda", "apex_tpu_torch/csrc/flash_attn_generic.cu"),
+    "flash_generic_bwd": ("cuda", "apex_tpu_torch/csrc/flash_attn_generic.cu"),
 }
 # arena against tree update on BERT-Large: p and m within 1e-5 of each
 # tensor's largest magnitude; v within 2e-5, because the kernels take
@@ -568,7 +600,8 @@ def bench_tools(rows, errs):
         t_ops = bound_ms(0, flops, peak, int_ops)
         kernel, replaces, _ = {**EXTRA_ROWS, **EXTRA_BN_ROWS,
                                **EXTRA_ZERO_ROWS, **EXTRA_O1_ROWS,
-                               **EXTRA_S64_ROWS}.get(
+                               **EXTRA_S64_ROWS,
+                               **EXTRA_GENERIC_ROWS}.get(
             name, (name, REPLACES.get(name), None))
         route, src = SOURCES[kernel]
         rows[name] = {
@@ -712,6 +745,7 @@ def check_kernels(rows, errs):
     time_xentropy_resnet(rnd, gen, flush)
 
     time_flash(rnd, gen, flush, row)
+    time_flash_generic(rnd, gen, flush, row)
     time_arena_kernels(rnd, flush, row)
     time_arena_remainder(rnd, flush, row)
     time_bn_kernels(rnd, flush, row)
@@ -727,10 +761,26 @@ def check_kernels(rows, errs):
         f"kernel records (each opened with {_LEAD[0]} short spins)")
 
 
-def _flash_rows(name, q, k, v, do, scale, opts, flush, row, extra=0):
-    """Rows ``flash_attn_fwd{name}`` and ``flash_attn_bwd{name}``: each
+def sdpa_backend(fn):
+    """The SDPA backend a call took, read from its device kernels' names
+    in a guarded profiler session: "flash", "efficient" (the cutlass fmha
+    kernels), "cudnn" or "math"."""
+    _, ks = guarded_session(fn)
+    names = " ".join(e.name for e in ks
+                     if e.name not in _SPIN_NAMES).lower()
+    for key, backend in (("fmha", "efficient"), ("efficient", "efficient"),
+                         ("cudnn", "cudnn"), ("flash", "flash")):
+        if key in names:
+            return backend
+    return "math"
+
+
+def _flash_rows(name, q, k, v, do, scale, opts, flush, row, extra=0,
+                family="flash_attn"):
+    """Rows ``{family}_fwd{name}`` and ``{family}_bwd{name}``: each
     kernel beside its plain version and SDPA with the same mask and
-    dropout rate (its mask differs, its work does not)."""
+    dropout rate (its mask differs, its work does not); the bound at the
+    peak of q's dtype (f32: the f32 rate, else the bf16 tensor cores)."""
     import torch
     import torch.nn.functional as F
     from apex_tpu_torch.ops import attention as A
@@ -738,20 +788,33 @@ def _flash_rows(name, q, k, v, do, scale, opts, flush, row, extra=0):
     b, s, h, d = q.shape
     rate = opts.get("rate", 0.0)
     bias = opts.get("bias")
-    io = b * s * h * d * 2
+    io = b * s * h * d * q.element_size()
+    peak = F32_FLOPS if q.dtype == torch.float32 else BF16_FLOPS
     hash_ops = HASH_OPS * b * h * s * s if rate else 0
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     mask = None if bias is None else bias.to(q.dtype)
 
+    # at f32 SDPA's default dispatch takes its math backend (two GEMMs and
+    # a softmax); the yardstick is its fused f32 kernel, the efficient
+    # backend
+    f32 = q.dtype == torch.float32
+
     def sdpa(qt=qt, kt=kt, vt=vt):
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                              dropout_p=rate)
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        with (sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]) if f32
+              else contextlib.nullcontext()):
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, dropout_p=rate)
     fwd = lambda: A.flash_fwd_kernel(q, k, v, scale, **opts)  # noqa: E731
-    row(f"flash_attn_fwd{name}", timed(fwd, flush=flush),
+    if family != "flash_attn":
+        log(f"kernel {family}_fwd{name}: SDPA ({str(q.dtype)[6:]}, "
+            f"{'mask' if bias is not None else 'no mask'}, dropout {rate}) "
+            f"takes the {sdpa_backend(sdpa)} backend")
+    row(f"{family}_fwd{name}", timed(fwd, flush=flush),
         timed(lambda: A.flash_fwd_plain(q, k, v, scale, **opts),
               flush=flush), timed(sdpa, flush=flush),
         nbytes=4 * io + b * h * s * 4 + extra,
-        flops=4 * b * h * s * s * d, int_ops=hash_ops,
+        flops=4 * b * h * s * s * d, int_ops=hash_ops, peak=peak,
         dev_ms=device_ms(fwd, flush=flush),
         lib_dev_ms=device_ms(sdpa, flush=flush))
     o, lse = fwd()
@@ -765,10 +828,10 @@ def _flash_rows(name, q, k, v, do, scale, opts, flush, row, extra=0):
     dot = do.transpose(1, 2)
     sdpa_bwd = lambda: torch.autograd.grad(  # noqa: E731
         og, (qg, kg, vg), dot, retain_graph=True)
-    row(f"flash_attn_bwd{name}", timed(bwd, flush=flush), plain,
+    row(f"{family}_bwd{name}", timed(bwd, flush=flush), plain,
         timed(sdpa_bwd, flush=flush),
         nbytes=7 * io + 2 * b * h * s * 4 + extra,
-        flops=10 * b * h * s * s * d, int_ops=hash_ops,
+        flops=10 * b * h * s * s * d, int_ops=hash_ops, peak=peak,
         dev_ms=device_ms(bwd, flush=flush),
         lib_dev_ms=device_ms(sdpa_bwd, flush=flush))
     del qg, kg, vg, og
@@ -792,6 +855,31 @@ def time_flash(rnd, gen, flush, row):
         extra = b * s * 4 if "bias" in opts else 0
         _flash_rows(name, q, k, v, do, 1.0 / math.sqrt(d), opts, flush,
                     row, extra)
+        del q, k, v, do
+
+
+def time_flash_generic(rnd, gen, flush, row):
+    """The generic flash rows: BERT-Large's (16, 512, 16, 64) in f32 as it
+    is and with the padding bias and dropout 0.1 (the library call is
+    SDPA at f32; its backend is logged), and ViT-H/14's attention in
+    bf16."""
+    import torch
+    i32 = torch.tensor([12345], dtype=torch.int32, device="cuda")
+    # the sweep as an add, not ``zero_``: SDPA's f32 backward zeroes its
+    # accumulators with the kernel ``zero_`` launches, so device_ms, which
+    # counts the flush's kernels by name, could not tell them apart
+    sweep = flush.__self__
+    flush = lambda: sweep.add_(1)  # noqa: E731
+    for name, (b, s, h, d), dt, opts in (
+            ("", (16, 512, 16, 64), torch.float32, {}),
+            ("_mask_dropout", (16, 512, 16, 64), torch.float32, dict(
+                bias=compile_check.padding_bias(gen, 16, 512), rate=0.1,
+                seed=i32)),
+            ("_d80", VIT_H_SHAPE, torch.bfloat16, {})):
+        q, k, v, do = (rnd(b, s, h, d, dtype=dt) for _ in range(4))
+        extra = b * s * 4 if "bias" in opts else 0
+        _flash_rows(name, q, k, v, do, 1.0 / math.sqrt(d), opts, flush,
+                    row, extra, family="flash_generic")
         del q, k, v, do
 
 
@@ -1362,10 +1450,12 @@ def time_ring_hop_kernels(rnd, flush, row):
 
 
 def train_bert_large(phase, rows, strategy="auto", optimizer=None,
-                     per_step=None, mesh=None, collectives=None, **options):
-    """5 BERT-Large steps (B16, S512, O1 bf16) with ``FusedLAMB(lr=1e-3,
-    strategy=strategy)``, or with ``optimizer``, built by
-    ``train.build_bert_step`` (``options``: its ``dropout``/``padded``);
+                     per_step=None, mesh=None, collectives=None, steps=5,
+                     **options):
+    """``steps`` BERT-Large steps (B16, S512, O1 bf16) with
+    ``FusedLAMB(lr=1e-3, strategy=strategy)``, or with ``optimizer``, built
+    by ``train.build_bert_step`` (``options``: its ``dropout``/``padded``/
+    ``policy``);
     checks every kernel's launches in those steps (``per_step``: the
     optimizer's kernels). With ``mesh`` the build and the steps run inside
     ``parallel.use_mesh(mesh)`` and ``collectives`` (a step's, by registry
@@ -1396,7 +1486,7 @@ def train_bert_large(phase, rows, strategy="auto", optimizer=None,
     ops.reset_launch_counts()
     parallel.reset_collective_counts()
     times, losses = [], []
-    for _ in range(5):
+    for _ in range(steps):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with bound():
@@ -1406,26 +1496,28 @@ def train_bert_large(phase, rows, strategy="auto", optimizer=None,
         times.append((time.perf_counter() - t0) * 1e3)
     counts = ops.launch_counts()
     issued = dict(parallel.collective_counts)
-    if issued != {k: 5 * v for k, v in (collectives or {}).items()}:
-        raise AssertionError(f"{phase}: collectives in 5 steps {issued}, "
-                             f"expected 5 x {collectives or {}}")
+    if issued != {k: steps * v for k, v in (collectives or {}).items()}:
+        raise AssertionError(f"{phase}: collectives in {steps} steps "
+                             f"{issued}, expected {steps} x "
+                             f"{collectives or {}}")
     if collectives:
         log(f"phase {phase}: collectives per step "
-            f"{ {k: v // 5 for k, v in issued.items()} }")
+            f"{ {k: v // steps for k, v in issued.items()} }")
     for i, (l, t) in enumerate(zip(losses, times)):
         log(f"{phase} step {i}: loss {l:.6f}  {t:.2f} ms")
         if not math.isfinite(l):
             raise AssertionError(f"step {i} loss is not finite: {l}")
-    if int(state.step.item()) != 5:
-        raise AssertionError(f"state.step {int(state.step)} != 5")
+    if int(state.step.item()) != steps:
+        raise AssertionError(f"state.step {int(state.step)} != {steps}")
     check_launches(phase, counts, dict(
         EXPECTED_PER_STEP, **(ARENA_PER_STEP if strategy == "arena" else {}),
-        **(per_step or {})), rows)
+        **(per_step or {})), rows, steps=steps)
     step_ms = sorted(times[1:])[len(times[1:]) // 2]
     train_bert_large.peak_gib = torch.cuda.max_memory_allocated() / 2**30
     log(f"phase {phase}: launches per step "
-        f"{ {k: v // 5 for k, v in counts.items()} }")
-    log(f"phase {phase}: median step {step_ms:.2f} ms (steps 1-4), "
+        f"{ {k: v // steps for k, v in counts.items()} }")
+    log(f"phase {phase}: median step {step_ms:.2f} ms (steps 1-"
+        f"{steps - 1}), "
         f"{16 / step_ms * 1e3:.2f} seq/s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return losses, state, step_ms
@@ -1473,8 +1565,8 @@ def take_phase_launches(phase, rows):
     from the run ``check_launches`` just recorded for ``phase``; the others
     keep theirs."""
     for name, (kernel, _, driven_by) in {**EXTRA_ROWS, **EXTRA_BN_ROWS,
-                                         **EXTRA_ZERO_ROWS,
-                                         **EXTRA_O1_ROWS}.items():
+                                         **EXTRA_ZERO_ROWS, **EXTRA_O1_ROWS,
+                                         **EXTRA_GENERIC_ROWS}.items():
         if driven_by == phase:
             rows[name]["launches"] = rows[kernel]["launches"]
 
@@ -1488,6 +1580,65 @@ def bert_large_dropout(rows):
                                      padded=True)
     take_phase_launches("bert_large_dropout", rows)
     return step_ms
+
+
+def bert_large_f32(rows):
+    """Phase bert_large_f32: BERT-Large (B16 S512) in f32 end to end,
+    ``build_bert_step(policy=Policy("O0", enabled=False))``, the arena
+    FusedLAMB, BERT_F32_STEPS steps: 24 launches of each generic flash
+    kernel a step and none of the wgmma ones, the LayerNorm and
+    cross-entropy kernels at f32 (49 + 49, 1 + 1), finite losses; step
+    ms, seq/s and peak GiB. Then a depth-2 first step through the kernels
+    against the same step through the plain versions: the loss within
+    BERT_F32_LOSS_TOL relative, every tensor's grads within
+    BERT_F32_GRAD_TOL of its largest magnitude. The generic rows take
+    their launches from the full-depth run; the other rows keep theirs."""
+    import torch
+    from apex_tpu_torch import amp, ops
+
+    phase = "bert_large_f32"
+    kept = {n: r["launches"] for n, r in rows.items()}
+    policy = amp.Policy(opt_level="O0", enabled=False)
+    losses, state, step_ms = train_bert_large(
+        phase, rows, "arena", per_step=BERT_F32_PER_STEP,
+        steps=BERT_F32_STEPS, policy=policy)
+    dtypes = {p.dtype for p in state.params.values()}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"{phase}: params in {dtypes}, not f32")
+    for n in rows:
+        if n not in ("flash_generic_fwd", "flash_generic_bwd"):
+            rows[n]["launches"] = kept[n]
+    log(f"phase {phase}: " + json.dumps({
+        "step_ms": round(step_ms, 3),
+        "seq_s": round(16 / step_ms * 1e3, 2),
+        "peak_gib": round(train_bert_large.peak_gib, 3),
+        "losses": [round(v, 6) for v in losses]}))
+    del state
+    torch.cuda.empty_cache()
+
+    enc = depth2_encoder()
+    mp = {k: v.detach().requires_grad_(True)
+          for k, v in enc.named_parameters()}
+    toks, labels = _bert_inputs(16, 512)
+    loss_fn = _mlm_fn(enc)
+
+    def first_step():
+        loss = loss_fn(mp, toks, labels)
+        grads = torch.autograd.grad(loss, list(mp.values()))
+        return loss.item(), {k: g.float() for k, g in zip(mp, grads)}
+
+    ops.reset_launch_counts()
+    loss_k, grads_k = first_step()
+    counts = ops.launch_counts()
+    if (counts["flash_generic_fwd"], counts["flash_generic_bwd"],
+            counts["flash_attn_fwd"], counts["flash_attn_bwd"]) != (
+                2, 2, 0, 0):
+        raise AssertionError(f"{phase}: depth-2 step launched {counts}")
+    with plain_versions():
+        loss_p, grads_p = first_step()
+    _close_grads(f"{phase} depth-2 kernel vs plain", grads_k, grads_p,
+                 loss_k, loss_p, tol=BERT_F32_GRAD_TOL,
+                 loss_tol=BERT_F32_LOSS_TOL)
 
 
 def bert_large_arena(rows, tree_losses):
@@ -5447,7 +5598,16 @@ def start_data_tree():
 
 
 def _host_cpu():
-    """The host CPU's model and thread count, as ``lscpu`` gives them."""
+    """The host CPU's model and thread count: ``/proc/cpuinfo``'s model
+    name where it has one, else ``lscpu``'s."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            names = [line.split(":", 1)[1].strip() for line in f
+                     if line.startswith("model name")]
+        if names and names[0].lower() not in ("", "unknown"):
+            return f"{names[0]}, {len(names)} threads"
+    except OSError:
+        pass
     try:
         out = subprocess.run(["lscpu"], capture_output=True, text=True,
                              timeout=10).stdout
@@ -5742,6 +5902,94 @@ def imagenet_example_resnet50():
         f"normalise equal on the card and the CPU for "
         f"all 256 values (bf16, fp16, f32); deterministic cuDNN costs "
         f"{det - syn:.3f} ms a step ({syn:.3f} -> {det:.3f} ms)")
+
+
+#: the image-format fixtures (``scripts/torch_make_image_fixtures.py``:
+#: files of every format the JAX loader reads, PIL's pixels beside them)
+FORMATS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "tests", "data", "torch_image_formats")
+FORMATS_IMAGES, FORMATS_CLASSES, FORMATS_STEPS = 512, 8, 6
+FORMATS_TIMING_S = 0.5          # decode timing a format, one thread
+
+
+def imagenet_example_formats():
+    """Phase imagenet_example_formats: every fixture of
+    ``tests/data/torch_image_formats/`` decodes through
+    ``data.image.read_rgb`` equal to PIL's pixels (its ``.npy``) bit for
+    bit, and every file PIL refuses (or block-smooths) raises OSError;
+    decode img/s and MPix/s by format (one thread, beside the host CPU);
+    then the ImageNet example (ResNet-50 B256 224^2, O2 bf16, FusedSGD)
+    trains FORMATS_STEPS steps by live decode from a FORMATS_IMAGES-image
+    tree that copies the readable fixtures round-robin under
+    FORMATS_CLASSES class folders: 53 + 53 BN and 1 + 1 CE launches a
+    step, finite losses, step ms."""
+    import tempfile
+
+    import numpy as np
+    from apex_tpu_torch.data import image
+
+    phase = "imagenet_example_formats"
+    with open(os.path.join(FORMATS_DIR, "manifest.json")) as f:
+        manifest = json.load(f)
+    readable = sorted(n for n, v in manifest.items() if v["port"] == "ok")
+    for name, v in sorted(manifest.items()):
+        path = os.path.join(FORMATS_DIR, name)
+        if v["port"] == "ok":
+            got = image.read_rgb(path)
+            want = np.load(path + ".npy")
+            if got.shape != want.shape or not np.array_equal(got, want):
+                raise AssertionError(f"{phase}: {name} ({v['what']}) "
+                                     f"differs from PIL's pixels")
+            continue
+        try:
+            image.read_rgb(path)
+        except OSError:
+            continue
+        raise AssertionError(f"{phase}: {name} ({v['what']}) decoded; the "
+                             f"port must raise OSError")
+    log(f"phase {phase}: {len(readable)} files equal PIL's pixels bit for "
+        f"bit, {len(manifest) - len(readable)} refused with OSError "
+        f"({', '.join(n for n in sorted(manifest) if n not in readable)})")
+    rates = {}
+    for fmt in ("jpeg", "png", "bmp"):
+        files = [os.path.join(FORMATS_DIR, n) for n in readable
+                 if manifest[n]["format"] == fmt]
+        n_img = n_pix = 0
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < FORMATS_TIMING_S:
+            for path in files:
+                n_pix += image.read_rgb(path)[..., 0].size
+                n_img += 1
+        dt = time.perf_counter() - t0
+        rates[fmt] = {"files": len(files), "img_s": round(n_img / dt, 1),
+                      "mpix_s": round(n_pix / dt / 1e6, 2)}
+    log(f"phase {phase}: decode by format, one thread on {_host_cpu()}: "
+        + json.dumps(rates))
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_formats_")
+    try:
+        for i in range(FORMATS_IMAGES):
+            name = readable[i % len(readable)]
+            cls = os.path.join(root, f"class{i % FORMATS_CLASSES}")
+            os.makedirs(cls, exist_ok=True)
+            shutil.copy(os.path.join(FORMATS_DIR, name),
+                        os.path.join(cls, f"{i:04d}_{name}"))
+        argv = ["--arch", "resnet50", "-b", str(IMAGENET_BATCH),
+                "--image-size", str(IMAGENET_SIZE), "--opt-level", "O2",
+                "--device", DEVICE, "--steps-per-epoch", str(FORMATS_STEPS),
+                "--print-freq", "1", "--data", root]
+        r = _run_example(_imagenet_script(), phase, argv, RESNET_PER_STEP,
+                         FORMATS_STEPS)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"phase {phase}: " + json.dumps({
+        "images": FORMATS_IMAGES, "step_ms": round(r["step_ms"], 3),
+        "img_s": round(IMAGENET_BATCH / r["step_ms"] * 1e3, 1),
+        "loader_img_s": None if r["loader"] is None
+        else round(r["loader"], 1),
+        "peak_gib": round(r["peak"], 3),
+        "launches_per_step": r["launches"],
+        "losses": [round(v, 6) for v in r["losses"]]}))
 
 
 def imagenet_example_syncbn():
@@ -8476,7 +8724,8 @@ def data_cluster_phases():
     ImageNet example from JPEGs, the data-cursor resume, the coordinated
     rewind and the elastic zombie."""
     import torch
-    for fn in (jpeg_codec, imagenet_example_resnet50, data_cursor_resume,
+    for fn in (jpeg_codec, imagenet_example_resnet50,
+               imagenet_example_formats, data_cursor_resume,
                cluster_coordinated_rewind, cluster_zombie_elastic):
         t = time.perf_counter()
         fn()
@@ -8602,6 +8851,10 @@ def main() -> int:
     bert_large_tuned(rows, arena_losses, db, smi)
     bert_large_dropout(rows)
     torch.cuda.empty_cache()
+    t = time.perf_counter()
+    bert_large_f32(rows)
+    log(f"phase bert_large_f32: {time.perf_counter() - t:.1f} s")
+    torch.cuda.empty_cache()
     bert_large_ckpt_resume()
     torch.cuda.empty_cache()
     bert_large_guard(rows)
@@ -8685,7 +8938,7 @@ def main() -> int:
     from apex_tpu_torch import ops
     print(json.dumps({"kernels": [rows[n] for n in (
         *ops.KERNELS, *EXTRA_ROWS, *EXTRA_BN_ROWS, *EXTRA_ZERO_ROWS,
-        *EXTRA_O1_ROWS, *EXTRA_S64_ROWS)]}))
+        *EXTRA_O1_ROWS, *EXTRA_S64_ROWS, *EXTRA_GENERIC_ROWS)]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

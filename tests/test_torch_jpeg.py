@@ -170,21 +170,34 @@ def _cmyk_bytes():
     return b.getvalue()
 
 
+def test_cmyk_file_decodes_like_pil():
+    data = _cmyk_bytes()
+    want = np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))
+    np.testing.assert_array_equal(jpeg.decode(data), want)
+
+
 @pytest.mark.parametrize("kind,match", [
     ("truncated", "ends early|truncated"),
-    ("progressive", r"progressive \(SOF2\).*0xFFC2"),
-    ("cmyk", "CMYK"),
+    ("progressive_smoothed", "block-smooths"),
+    ("arithmetic", r"arithmetic-coded \(SOF9\).*0xFFC9"),
     ("png", "not a JPEG"),
 ])
 def test_unsupported_or_broken_files_raise_oserror(kind, match, tmp_path):
+    """What the codec refuses: a truncated file; a progressive file whose
+    cut-short progression libjpeg would block-smooth (a whole progression,
+    and CMYK, decode: tests/test_torch_image_formats.py); arithmetic
+    coding; another format."""
     img = _image(64, 64, 5)
     if kind == "truncated":
         full = _pil_bytes(img, quality=85)
         data = full[:len(full) // 2]
-    elif kind == "progressive":
-        data = _pil_bytes(img, quality=85, progressive=True)
-    elif kind == "cmyk":
-        data = _cmyk_bytes()
+    elif kind == "progressive_smoothed":
+        full = _pil_bytes(img, quality=85, progressive=True)
+        data = full[:full.rindex(b"\xff\xda")] + b"\xff\xd9"
+    elif kind == "arithmetic":
+        full = bytearray(_pil_bytes(img, quality=85))
+        full[full.index(b"\xff\xc0") + 1] = 0xC9
+        data = bytes(full)
     else:
         b = io.BytesIO()
         Image.fromarray(img).save(b, format="PNG")

@@ -65,15 +65,20 @@ def test_kernel_wrappers_refuse_cpu_tensors(call):
 
 
 def test_flash_wrapper_checks_layout_before_device():
-    q = torch.ones(1, 8, 2, 64, dtype=torch.float32)
-    with pytest.raises(ValueError, match="bf16/fp16"):
-        A.flash_fwd_kernel(q, q, q, 0.125)
-    q = torch.ones(1, 8, 2, 48, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head dims"):
-        A.flash_fwd_kernel(q, q, q, 0.125)
+    """f32 and D = 48 are in the generic kernels' domain: refused here only
+    for lying on the CPU; D = 257 and f64 are in no kernel's domain and are
+    refused for that, before the device check."""
+    for dt, d in ((torch.float32, 64), (torch.bfloat16, 48)):
+        q = torch.ones(1, 8, 2, d, dtype=dt)
+        with pytest.raises(ValueError, match="CUDA device"):
+            A.flash_fwd_kernel(q, q, q, 0.125)
+    for dt, d in ((torch.bfloat16, 257), (torch.float64, 64)):
+        q = torch.ones(1, 8, 2, d, dtype=dt)
+        with pytest.raises(ValueError, match="head dims"):
+            A.flash_fwd_kernel(q, q, q, 0.125)
 
 
-@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("d", [32, 64, 128, 48, 80, 256, "f32-64"])
 @pytest.mark.parametrize("opts", [
     {}, {"bias": torch.zeros(2, 1, 1, 24)}, {"causal": True},
     {"causal": True, "causal_off": torch.tensor([3], dtype=torch.int32)},
@@ -82,8 +87,11 @@ def test_flash_wrapper_checks_layout_before_device():
 def test_flash_wrappers_refuse_cpu_tensors_with_every_option(d, opts):
     """Each option and head dim the kernels take is refused on CPU
     tensors, forward and backward, before any launch."""
-    q = torch.ones(2, 16, 3, d, dtype=torch.bfloat16)
-    k = torch.ones(2, 24, 3, d, dtype=torch.bfloat16)
+    dt = torch.bfloat16
+    if d == "f32-64":
+        dt, d = torch.float32, 64
+    q = torch.ones(2, 16, 3, d, dtype=dt)
+    k = torch.ones(2, 24, 3, d, dtype=dt)
     lse = torch.zeros(6, 16)
     before = ops.launch_counts()
     with pytest.raises(ValueError, match="CUDA device"):
@@ -136,14 +144,15 @@ def test_chip_smoke_extra_rows_take_only_their_phase_launches():
 
 def test_chip_smoke_names_every_kernel():
     names = set(ops.KERNELS)
-    assert len(names) == 19
+    assert len(names) == 21
     per_step = set(chip_smoke.EXPECTED_PER_STEP)
     assert per_step | set(chip_smoke.ARENA_PER_STEP) \
         | set(chip_smoke.RESNET_PER_STEP) | set(chip_smoke.SGD_PER_STEP) \
         | set(chip_smoke.DCGAN_PER_STEP) | set(chip_smoke.NOVOGRAD_PER_STEP) \
         | set(chip_smoke.ADAGRAD_PER_STEP) \
         | set(chip_smoke.MULTI_TENSOR_OPS) \
-        | set(chip_smoke.MLP_PER_STEP) == names
+        | set(chip_smoke.MLP_PER_STEP) \
+        | set(chip_smoke.BERT_F32_PER_STEP) == names
     assert chip_smoke.NOVOGRAD_PER_STEP == {"novograd": 1}
     assert chip_smoke.ADAGRAD_PER_STEP == {"adagrad": 1}
     assert not set(chip_smoke.MULTI_TENSOR_OPS) & (

@@ -62,8 +62,10 @@ def _same_metrics(tm, jm, rtol=1e-5):
 
 def test_metrics_fields_and_init_match_jax():
     assert tmon.METRIC_FIELDS == jmon.METRIC_FIELDS
-    assert _tdict(tmon.metrics_init()) == _jdict(jmon.metrics_init())
-    m = tmon.metrics_init().count_step(torch.tensor(False)).record_loss(
+    assert _tdict(tmon.metrics_init(device="cpu")) == _jdict(
+        jmon.metrics_init())
+    m = tmon.metrics_init(device="cpu").count_step(
+        torch.tensor(False)).record_loss(
         torch.tensor(3.5)).record_norms(grad_norm=2.0, param_norm=1.5)
     jm = jmon.metrics_init().count_step(jnp.bool_(False)).record_loss(
         3.5).record_norms(grad_norm=2.0, param_norm=1.5)
@@ -82,7 +84,7 @@ def test_scaler_events_match_jax(case):
            "static": [False, True]}[case]
     jc, tc = jamp.LossScaleConfig(**kw), tamp.LossScaleConfig(**kw)
     js, ts = jamp.loss_scale_init(jc), tamp.loss_scale_init(tc, "cpu")
-    jm, tm = jmon.metrics_init(), tmon.metrics_init()
+    jm, tm = jmon.metrics_init(), tmon.metrics_init(device="cpu")
     for fin in seq:
         js, jm = jamp.loss_scale_update(js, jnp.bool_(fin), jc, metrics=jm)
         ts, tm = tamp.loss_scale_update(ts, torch.tensor(fin), tc,
@@ -290,7 +292,7 @@ def test_logger_fetches_once_a_flush(monkeypatch, donation_safe):
     monkeypatch.setattr(torch.Tensor, "cpu", spy)
     logger = tmon.MetricsLogger(sinks=[Sink()], flush_every=5,
                                 donation_safe=donation_safe)
-    m = tmon.metrics_init()
+    m = tmon.metrics_init(device="cpu")
     for _ in range(5):
         m = m.count_step(torch.tensor(True))
         logger.record(m)
@@ -356,7 +358,7 @@ def test_logger_waits_for_prof_and_nulls_nonfinite(tmp_path):
         assert call() is logger
     with pytest.raises(NotImplementedError, match="item 12"):
         logger.attach_lint_report(None)
-    logger.record(tmon.metrics_init().record_loss(float("inf")))
+    logger.record(tmon.metrics_init(device="cpu").record_loss(float("inf")))
     logger.close()
     rec = json.loads((tmp_path / "m.jsonl").read_text())
     assert rec["loss"] is None and rec["mfu"] is None
@@ -367,7 +369,7 @@ def test_logger_flushes_buffered_tail_on_exception(tmp_path):
     with pytest.raises(RuntimeError):
         with tmon.MetricsLogger(sinks=[tmon.JSONLSink(str(jsonl))],
                                 flush_every=100) as logger:
-            logger.record(tmon.metrics_init().count_step(True))
+            logger.record(tmon.metrics_init(device="cpu").count_step(True))
             raise RuntimeError("mid-run crash")
     assert json.loads(jsonl.read_text())["step"] == 1
 
@@ -378,7 +380,7 @@ def test_logger_atexit_flush_in_subprocess(tmp_path):
         from apex_tpu_torch import monitor
         logger = monitor.MetricsLogger(
             sinks=[monitor.JSONLSink({str(jsonl)!r})], flush_every=100)
-        logger.record(monitor.metrics_init().count_step(True))
+        logger.record(monitor.metrics_init(device="cpu").count_step(True))
     """)
     r = subprocess.run([sys.executable, "-c", child], cwd=_ROOT,
                        capture_output=True, text=True, timeout=120)
@@ -489,3 +491,12 @@ def test_build_bert_step_monitor_tracks_jax(monkeypatch):
     for k in GAUGES:
         assert t[k] == pytest.approx(j[k], rel=2e-2), k
     assert t["loss"] == tloss.item()
+
+
+def test_metrics_init_defaults_to_the_card():
+    """Like the port's other entry points, ``metrics_init`` lands on the
+    card unless the caller asks for the CPU (read from the signature: no
+    tensor is made)."""
+    import inspect
+    default = inspect.signature(tmon.metrics_init).parameters["device"]
+    assert default.default == "cuda"

@@ -294,7 +294,7 @@ def test_recorder_dump_schema_and_metrics(tmp_path):
     tracer = trace.Tracer()
     rec = trace.FlightRecorder(str(tmp_path / "c.jsonl"), tracer=tracer,
                                collective_bytes=4096)
-    m = monitor.metrics_init().count_step(torch.tensor(True))
+    m = monitor.metrics_init(device="cpu").count_step(torch.tensor(True))
     rec.note_guard({"kind": "guard_action", "step": 0, "action": "skip"})
     rec.note_straggler({"kind": "straggler", "rank": 1, "step": 0})
     rec.attach_memory_report({"peak_bytes": 123})
@@ -467,7 +467,7 @@ def test_watchdog_fires_on_stalled_step_and_dump_validates(tmp_path):
 def test_watchdog_path_not_double_ranked_and_skips_metrics_read(tmp_path):
     ranked = str(tmp_path / "crash.rank0.jsonl")
     rec = trace.FlightRecorder(ranked)
-    rec.record(step=0, metrics=monitor.metrics_init())
+    rec.record(step=0, metrics=monitor.metrics_init(device="cpu"))
     wd = trace.HangWatchdog(30.0, recorder=rec)
     assert wd.path == str(tmp_path / "crash.rank0.hang.jsonl")
     jwd = jtrace.HangWatchdog(30.0, recorder=jtrace.FlightRecorder(ranked))
