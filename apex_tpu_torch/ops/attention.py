@@ -23,9 +23,13 @@ bit. Kernels replaced (sources under ``apex_tpu_torch/csrc/``):
 - ``flash_generic_fwd_kernel``/``flash_generic_bwd_kernel``
   (``flash_attn_generic.cu``) ← the same JAX kernels for the operands the
   wgmma kernels refuse: f32 q, k, v, and any head dim 1 ≤ D ≤ 256 (the
-  JAX kernels pad D to whole 128-lane rows and take f32). FFMA products on
-  f32 tiles in shared memory, the same options, the same keep mask and
-  the same two-pass, atomic-free backward.
+  JAX kernels pad D to whole 128-lane rows and take f32), at any base
+  address and row stride. Warp-level ``mma.sync`` on the tensor cores:
+  m16n8k16 at 16 bits, and at f32 three m16n8k8 TF32 products a product
+  (x = hi + lo, hi·hi + hi·lo + lo·hi, f32 accuracy); tiles loaded by
+  ``cp.async`` (16-byte copies where the base, strides and D allow, else
+  narrower), D padded only to the MMA's depth; the same options, the same
+  keep mask and the same two-pass, atomic-free backward.
 
 :func:`flash_fwd_kernel`/:func:`flash_bwd_kernel` pick one of the two
 families from (dtype, D) alone (:func:`kernel_route`): bf16/fp16 at D in

@@ -1122,12 +1122,16 @@ def _():
     against the plain versions: BERT-Large's attention in f32 (16, 512,
     16, 64) as it is and with the padding bias and dropout 0.1, and
     ViT-H/14's (16, 257, 16, 80) in bf16 (the kernels-JSON rows); then,
-    for correctness only, D = 48, 96, 160 and 256 in bf16 and fp16 (causal
-    Sq 200 / Sk 328 at H = 3, D = 160 with a head bias and dropout) and
-    f32 at D = 128 with a full bias, and Sq > Sk causal in f32 (rows that
-    see no key: o = 0, lse = -1e30). Two launches of each at BERT's f32
-    shape with dropout, and at D = 80, are bitwise equal. TOL32 for f32
-    outputs, TOL16 for 16-bit ones."""
+    for correctness only, D = 1, 33, 48, 96, 160, 255 and 256 in bf16 and
+    fp16 (causal Sq 200 / Sk 328 at H = 3, D = 160 with a head bias and
+    dropout), f32 at D = 80 and 256 causal and at D = 128 with a full
+    bias, Sq > Sk causal in f32 (rows that see no key: o = 0, lse =
+    -1e30), and q, k, v, do cut from a larger tensor at an element offset
+    that leaves their first element off 16-byte alignment (f32 at D = 64
+    and bf16 at D = 80 one element on: 4- and 2-byte copies; fp16 at D =
+    80 four on: 8-byte copies). Two launches of each at BERT's f32 shape
+    as it is and with dropout, and at D = 80, are bitwise equal. TOL32 for
+    f32 outputs, TOL16 for 16-bit ones."""
     import torch
     from apex_tpu_torch import ops
     from apex_tpu_torch.ops import attention as A
@@ -1137,23 +1141,35 @@ def _():
     def i32(*vals):
         return torch.tensor(vals, dtype=torch.int32, device=DEVICE)
 
+    def offset(shape, dt, off):
+        """A (B, S, H, D) tensor starting ``off`` elements into a larger
+        one (off = 0: a tensor of its own)."""
+        n = math.prod(shape)
+        return rnd(n + off, dtype=dt)[off:].view(shape)
+
     cases = [
-        ("", (16, 512, 512, 16, 64), f32, {}),
+        ("", (16, 512, 512, 16, 64), f32, {}, 0),
         ("_mask_dropout", (16, 512, 512, 16, 64), f32,
-         dict(bias=padding_bias(gen, 16, 512), rate=0.1, seed=i32(12345))),
-        ("_d80", (16, 257, 257, 16, 80), bf16, {}),
+         dict(bias=padding_bias(gen, 16, 512), rate=0.1, seed=i32(12345)),
+         0),
+        ("_d80", (16, 257, 257, 16, 80), bf16, {}, 0),
     ]
-    for d in (48, 96, 160, 256):
+    for d in (1, 33, 48, 96, 160, 255, 256):
         for dt in (bf16, fp16):
             opts = (dict(bias=rnd(1, 3, 200, 328, dtype=f32), rate=0.1,
                          seed=i32(9)) if d == 160 else dict(causal=True))
-            cases.append((None, (2, 200, 328, 3, d), dt, opts))
+            cases.append((None, (2, 200, 328, 3, d), dt, opts, 0))
+    cases += [(None, (2, 200, 328, 3, d), f32, dict(causal=True), 0)
+              for d in (80, 256)]
     cases += [(None, (2, 256, 192, 4, 128), f32,
-               dict(bias=rnd(2, 4, 256, 192, dtype=f32))),
-              (None, (2, 200, 128, 2, 64), f32, dict(causal=True))]
-    for row, (b, sq, sk, h, d), dt, opts in cases:
-        q, do = rnd(b, sq, h, d, dtype=dt), rnd(b, sq, h, d, dtype=dt)
-        k, v = rnd(b, sk, h, d, dtype=dt), rnd(b, sk, h, d, dtype=dt)
+               dict(bias=rnd(2, 4, 256, 192, dtype=f32)), 0),
+              (None, (2, 200, 128, 2, 64), f32, dict(causal=True), 0)]
+    cases += [(None, (2, 200, 328, 3, d), dt, dict(causal=True), off)
+              for d, dt, off in ((64, f32, 1), (80, bf16, 1),
+                                 (80, fp16, 4))]
+    for row, (b, sq, sk, h, d), dt, opts, off in cases:
+        q, do = (offset((b, sq, h, d), dt, off) for _ in range(2))
+        k, v = (offset((b, sk, h, d), dt, off) for _ in range(2))
         scale = 1.0 / math.sqrt(d)
         before = ops.launch_counts()
         o_k, lse_k = A.flash_fwd_kernel(q, k, v, scale, **opts)
@@ -1179,11 +1195,12 @@ def _():
             raise AssertionError(f"flash_generic {dt} D={d}: the generic "
                                  f"kernels did not take the call")
         log(f"  flash generic {(b, sq, sk, h, d)} {str(dt)[6:]} "
-            f"{sorted(opts)}: fwd max_abs_err {e1:.3e}, bwd {e2:.3e}")
+            f"{sorted(opts)}" + (f", {off} elements off" if off else "")
+            + f": fwd max_abs_err {e1:.3e}, bwd {e2:.3e}")
         if row is not None:
             ERRS[f"flash_generic_fwd{row}"] = e1
             ERRS[f"flash_generic_bwd{row}"] = e2
-        if row in ("_mask_dropout", "_d80"):
+        if row in ("", "_mask_dropout", "_d80"):
             runs = [A.flash_fwd_kernel(q, k, v, scale, **opts)
                     for _ in range(2)]
             grads = [A.flash_bwd_kernel(q, k, v, do, lse_p, delta, scale,

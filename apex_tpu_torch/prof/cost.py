@@ -18,7 +18,9 @@ compiles no program, so the port counts one run instead:
   CPU the plain version's aten ops are hidden from the counter, so the
   CPU and the card count the same FLOPs for the same step. Flash
   attention is priced as the JAX roofline prices it: 4·B·H·Sq·Sk·D
-  forward, 10·B·H·Sq·Sk·D backward.
+  forward, 10·B·H·Sq·Sk·D backward, at the bf16 tensor-core rate, or at
+  f32 a third of the TF32 rate (the generic kernels' three TF32 products
+  a product).
 
 ``compiled_hlo``, ``op_estimates_from_text`` and ``iter_instructions``
 have no analogue: the port produces no HLO text.
@@ -53,8 +55,9 @@ HASH_OPS = 20
 
 class Cost(NamedTuple):
     """One call's analytic cost: ``peak`` names the rate its FLOPs run
-    at (``"bf16"`` tensor cores or ``"f32"``); ``int_ops`` run at the f32
-    rate."""
+    at (``"bf16"`` tensor cores, ``"f32"``, or ``"3xtf32"``: f32 products
+    made of three TF32 products each, a third of the TF32 rate); ``int_ops``
+    run at the f32 rate."""
 
     flops: float
     bytes: float
@@ -124,7 +127,8 @@ def _flash(args, kw, out, fwd):
     factor = 4.0 if fwd else 10.0
     return Cost(factor * b * h * sq * sk * d, nbytes,
                 HASH_OPS * b * h * sq * sk if rate else 0.0,
-                "f32" if q.dtype == torch.float32 else "bf16",
+                # f32 attention runs on the generic kernels' 3×TF32
+                "3xtf32" if q.dtype == torch.float32 else "bf16",
                 _sig(q, k) + (f",rate={rate}" if rate else "")
                 + (",bias" if opts.get("bias") is not None else ""))
 

@@ -36,25 +36,32 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 __all__ = ["trace", "profile_step", "StepReport", "PEAK_FLOPS",
-           "PEAK_F32_FLOPS", "PEAK_HBM_BW", "HBM_BYTES_PER_S", "BF16_FLOPS",
-           "F32_FLOPS", "device_peak_flops", "device_peak_hbm_bw",
+           "PEAK_F32_FLOPS", "PEAK_TF32_FLOPS", "PEAK_HBM_BW",
+           "HBM_BYTES_PER_S", "BF16_FLOPS", "TF32_FLOPS", "F32_FLOPS",
+           "device_peak_flops", "device_peak_hbm_bw",
            "device_kind", "lookup_peak", "guarded_session", "device_ms",
            "WINDOW"]
 
-#: H100 SXM data sheet: HBM3 bandwidth, dense bf16/fp16 tensor-core and
-#: f32 (outside the tensor cores) peaks
+#: H100 SXM data sheet: HBM3 bandwidth, dense bf16/fp16 and TF32
+#: tensor-core peaks, and the f32 peak outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 494.7e12
 F32_FLOPS = 67e12
 
 #: peak dense bf16/fp16 FLOP/s by ``torch.cuda.get_device_name()`` prefix
 PEAK_FLOPS = {"NVIDIA H100 80GB HBM3": BF16_FLOPS}
 #: peak f32 FLOP/s (the rate the f32 elementwise kernels are held to)
 PEAK_F32_FLOPS = {"NVIDIA H100 80GB HBM3": F32_FLOPS}
+#: peak dense TF32 FLOP/s
+PEAK_TF32_FLOPS = {"NVIDIA H100 80GB HBM3": TF32_FLOPS}
 #: peak device-memory bytes/s
 PEAK_HBM_BW = {"NVIDIA H100 80GB HBM3": HBM_BYTES_PER_S}
-#: the tables by the name a cost's ``peak`` gives
+#: the tables by the name a cost's ``peak`` gives; "3xtf32" is the rate
+#: of f32 products made of three TF32 products each (hi·hi + hi·lo +
+#: lo·hi, as the generic flash kernels run f32), a third of TF32's
 PEAK_TABLES = {"bf16": PEAK_FLOPS, "f32": PEAK_F32_FLOPS,
+               "3xtf32": {k: v / 3 for k, v in PEAK_TF32_FLOPS.items()},
                "hbm": PEAK_HBM_BW}
 
 #: the range :func:`profile_step` opens around its measured runs

@@ -38,8 +38,8 @@ import re
 from typing import Any, Dict, List, Optional, Tuple
 
 from apex_tpu_torch.prof.report import (PEAK_F32_FLOPS, PEAK_FLOPS,
-                                        PEAK_HBM_BW, device_kind,
-                                        lookup_peak)
+                                        PEAK_HBM_BW, PEAK_TABLES,
+                                        device_kind, lookup_peak)
 
 __all__ = ["RooflineRow", "RooflineReport", "roofline_report",
            "classify_family", "FAMILIES", "BOUND_CLASSES"]
@@ -390,7 +390,8 @@ def roofline_report(report=None, profile=None, *, counter=None,
     hbm_bw = lookup_peak(PEAK_HBM_BW, kind) if hbm_bw is None else hbm_bw
     f32 = lookup_peak(PEAK_F32_FLOPS, kind) if f32_flops is None \
         else f32_flops
-    peaks = {"bf16": peak_flops, "f32": f32}
+    peaks = {"bf16": peak_flops, "f32": f32,
+             "3xtf32": lookup_peak(PEAK_TABLES["3xtf32"], kind)}
     ests = dict(counter.ops) if counter is not None else {}
 
     def _mk(name, opcode, scope, est, occ, measured, category, kernels):
