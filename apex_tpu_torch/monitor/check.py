@@ -12,12 +12,12 @@ step once and reports what it did instead.
 from __future__ import annotations
 
 import warnings
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-__all__ = ["HOST_SYNC_OPS", "module_count_and_host_ops"]
+__all__ = ["HOST_SYNC_OPS", "host_sync", "module_count_and_host_ops"]
 
 _aten = torch.ops.aten
 
@@ -29,9 +29,27 @@ HOST_SYNC_OPS = (_aten._local_scalar_dense.default, _aten.nonzero.default,
                  _aten.equal.default, _aten.is_nonzero.default)
 
 
+def host_sync(func, args, kwargs) -> Optional[str]:
+    """What an aten call hands to the host, or None: the op's name for an op
+    of :data:`HOST_SYNC_OPS`, ``"<op> <device>->cpu"`` for a copy from a
+    device to the host (``.cpu()``, ``.tolist()``, ``.numpy()`` of a card
+    tensor). The one test of :class:`_SyncSpy` and of the lint's record
+    (``lint.record``, rule APX004)."""
+    if func in HOST_SYNC_OPS:
+        return str(func)
+    if func in (_aten._to_copy.default, _aten.copy_.default):
+        src = args[1] if func is _aten.copy_.default else args[0]
+        dst = (args[0].device if func is _aten.copy_.default
+               else kwargs.get("device"))
+        if (isinstance(src, torch.Tensor) and src.device.type != "cpu"
+                and dst is not None and torch.device(dst).type == "cpu"):
+            return f"{func} {src.device}->cpu"
+    return None
+
+
 class _SyncSpy(TorchDispatchMode):
     """Records each host-sync op, and each copy from a device to the host
-    (``.cpu()``, ``.tolist()``, ``.numpy()`` of a card tensor)."""
+    (:func:`host_sync`)."""
 
     def __init__(self):
         super().__init__()
@@ -39,16 +57,9 @@ class _SyncSpy(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
-        if func in HOST_SYNC_OPS:
-            self.seen.append(str(func))
-        elif func in (_aten._to_copy.default, _aten.copy_.default):
-            src = args[1] if func is _aten.copy_.default else args[0]
-            dst = (args[0].device if func is _aten.copy_.default
-                   else kwargs.get("device"))
-            if (isinstance(src, torch.Tensor) and src.device.type != "cpu"
-                    and dst is not None
-                    and torch.device(dst).type == "cpu"):
-                self.seen.append(f"{func} {src.device}->cpu")
+        seen = host_sync(func, args, kwargs)
+        if seen is not None:
+            self.seen.append(seen)
         return func(*args, **kwargs)
 
 

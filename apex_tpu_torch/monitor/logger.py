@@ -23,9 +23,9 @@ On top of the device counters the logger derives host-side health:
   ``DistributedDataParallel.collective_bytes`` reads it).
 
 ``sample_memory`` and ``attach_{memory,shard,roofline}_report`` emit the
-:mod:`apex_tpu_torch.prof` reports on their channels;
-``attach_lint_report`` waits for the port's ``lint/`` (ROADMAP.md queue
-A, item 12).
+:mod:`apex_tpu_torch.prof` reports on their channels, and
+``attach_lint_report`` an :class:`apex_tpu_torch.lint.Report` on the lint
+channel.
 
 Typical wiring::
 
@@ -53,9 +53,6 @@ from apex_tpu_torch.monitor.metrics import Metrics, metrics_to_dict
 from apex_tpu_torch.monitor.sinks import Sink, StdoutSink
 
 __all__ = ["MetricsLogger", "ChannelSpec", "CHANNELS"]
-
-_LINT = ("{} reads lint/, which the port does not have yet (ROADMAP.md "
-         "queue A, item 12)")
 
 
 def _rank() -> int:
@@ -255,6 +252,7 @@ class MetricsLogger:
             peak_flops = device_peak_flops() or None
         self.peak_flops = peak_flops
         self.memory_report = None      # last attached prof.MemoryReport
+        self.lint_report = None        # last attached lint.Report
         self.roofline_report = None    # last attached RooflineReport
         self.shard_report = None       # last attached prof.ShardReport
         valid = {f"{c.name}_sink" for c in CHANNELS}
@@ -433,8 +431,14 @@ class MetricsLogger:
 
     def attach_lint_report(self, report,
                            step: Optional[int] = None) -> "MetricsLogger":
-        raise NotImplementedError(_LINT.format(
-            "MetricsLogger.attach_lint_report"))
+        """Attach an :class:`apex_tpu_torch.lint.Report`: emits its
+        ``lint_report`` header + one ``lint_finding`` event per finding
+        on the lint channel and keeps the report on ``self.lint_report``."""
+        self.lint_report = report
+        if report is not None:
+            for ev in report.to_events(step=step):
+                self.record_lint(ev)
+        return self
 
     def attach_roofline_report(self, report, step: Optional[int] = None,
                                top: Optional[int] = None

@@ -19,17 +19,14 @@ import os
 import sys
 from typing import Dict, List, Optional, TextIO
 
-__all__ = ["Sink", "StdoutSink", "JSONLSink", "CSVSink"]
+from apex_tpu_torch.utils.format import fmt_bytes
 
-_UNITS = (("G", 2 ** 30), ("M", 2 ** 20), ("K", 2 ** 10))
+__all__ = ["Sink", "StdoutSink", "JSONLSink", "CSVSink"]
 
 
 def _fmt_bytes(n) -> str:
     """``47.7M``: a byte count at column width."""
-    for short, div in _UNITS:
-        if abs(n) >= div:
-            return f"{n / div:.1f}{short}"
-    return f"{int(n)}"
+    return fmt_bytes(n, compact=True)
 
 
 class Sink:

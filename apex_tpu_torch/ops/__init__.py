@@ -67,6 +67,14 @@ KERNELS = {
 }
 
 
+#: the operands each kernel writes in place, by parameter name: none. Every
+#: wrapper returns fresh outputs (the arena kernels' new buffers too), so a
+#: step record (:mod:`apex_tpu_torch.lint.record`), which cannot see a
+#: ``ctypes`` or Triton write, copies nothing before a kernel call; the lint
+#: tests hold this table against each plain version's in-place aten ops
+KERNEL_WRITES = {name: () for name in KERNELS}
+
+
 def launch_counts() -> dict:
     return {name: fn.launches for name, fn in KERNELS.items()}
 

@@ -14,9 +14,11 @@ and logs the call's registry cost; while a cost counter
 call's registry cost to it and hides the plain version's aten ops from
 it, so the CPU and the card count the same FLOPs for the same step; a
 memory tracker records the call's outputs and not the plain version's
-intermediates, for the same reason. A
-priced call inside another (a plain version calling a plain version)
-is not priced again.
+intermediates, for the same reason; a step record
+(:func:`apex_tpu_torch.lint.record.record_step`) takes the call as one
+kernel node (its inputs, outputs and declared writes), for the same
+reason again. A priced call inside another (a plain version calling a
+plain version) is not priced again.
 """
 
 from __future__ import annotations
@@ -37,6 +39,9 @@ WATCHERS: List = []
 #: ``(name, cost)`` of every priced call made while a profiler ran and
 #: :data:`LOG_ON` was set, in call order (the profiled session clears it)
 PROFILED_CALLS: List = []
+#: open step records: each is told of a priced call before it runs
+#: (``kernel_begin``) and handed its outputs after (``kernel_end``)
+RECORDERS: List = []
 LOG_ON = [False]
 _depth = threading.local()
 
@@ -51,7 +56,8 @@ def priced(name: str) -> Callable:
     def deco(fn):
         @functools.wraps(fn)
         def wrapped(*args, **kwargs):
-            if not COUNTERS and not WATCHERS and not _profiler_enabled():
+            if (not COUNTERS and not WATCHERS and not RECORDERS
+                    and not _profiler_enabled()):
                 return fn(*args, **kwargs)
             return _observed(name, fn, args, kwargs)
         return wrapped
@@ -61,6 +67,7 @@ def priced(name: str) -> Callable:
 def _observed(name, fn, args, kwargs):
     if suppressed():
         return fn(*args, **kwargs)
+    calls = [r.kernel_begin(name, fn, args, kwargs) for r in RECORDERS]
     _depth.n = 1
     try:
         if _profiler_enabled():
@@ -70,6 +77,8 @@ def _observed(name, fn, args, kwargs):
             out = fn(*args, **kwargs)
     finally:
         _depth.n = 0
+    for r, call in zip(RECORDERS, calls):
+        r.kernel_end(call, out)
     for w in WATCHERS:
         w.kernel_out(name, out)
     if COUNTERS or (LOG_ON[0] and _profiler_enabled()):

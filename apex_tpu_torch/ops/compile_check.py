@@ -2174,6 +2174,74 @@ def _():
     logger.close()
 
 
+# --- apexlint: the one run leaves no trace -----------------------------------
+
+def _same_run(label, linted, twin, steps=3):
+    """``steps`` steps of ``linted`` and of its never-linted ``twin`` (two
+    :func:`_stepper` calls of steps built alike): bitwise equal losses and
+    states, then the same aten ops and device kernels in one step's
+    census each."""
+    import torch
+    from apex_tpu_torch.utils import tree_leaves
+    for i in range(steps):
+        la, lb = linted(), twin()
+        if not torch.equal(la, lb):
+            raise AssertionError(f"{label}: step {i} loss {la.item()!r} "
+                                 f"after linting, {lb.item()!r} unlinted")
+    for j, (a, b) in enumerate(zip(tree_leaves(linted.state[0]),
+                                   tree_leaves(twin.state[0]))):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: state leaf {j} differs from "
+                                 f"the unlinted twin's")
+    (a_ops, a_k), (o_ops, o_k) = same_dispatch(label, twin, linted)
+    if a_ops != o_ops or a_k != o_k:
+        raise AssertionError(f"{label}: censuses differ")
+
+
+@case("lint/no-extra-dispatch")
+def _():
+    """Linting a step is observation: ``lint_step`` runs the step once and
+    puts back every generator it drew from and every pre-existing tensor
+    it wrote, so a depth-2 encoder step linted once then takes three steps
+    bit for bit as its twin built alike from the same seed and never
+    linted, with the same census; the lint itself sees no host sync."""
+    from apex_tpu_torch import lint
+    step, state, toks, labels = encoder_step()
+    twin = _stepper(*encoder_step())
+    rep = lint.lint_step(step, state, toks, labels,
+                         policy=step.amp_opt.policy)
+    if rep.by_rule("host-callback-in-step"):
+        raise AssertionError(f"lint: the step syncs the host\n"
+                             f"{rep.table()}")
+    _same_run("lint", _stepper(step, state, toks, labels), twin)
+
+
+@case("lint/precision-no-extra-dispatch")
+def _():
+    """The precision pass at O1 fp16 with dynamic loss scaling, so that a
+    scale/unscale pair really runs the taint code (one loss-scale token
+    minted and cancelled): no unscaled-narrow-cast, no scale-leak, and the
+    linted step then runs three steps bit for bit as its unlinted twin."""
+    import torch
+    from apex_tpu_torch import lint
+    step, state, toks, labels = encoder_step(half_dtype=torch.float16)
+    twin = _stepper(*encoder_step(half_dtype=torch.float16))
+    policy = step.amp_opt.policy
+    if not policy.uses_loss_scaling:
+        raise AssertionError("lint: O1 fp16 runs without a loss scaler")
+    rec = lint.record_step(step, state, toks, labels)
+    pa = lint.precision_analysis(rec, policy=policy)
+    if pa.n_loss_scale_tokens != 1:
+        raise AssertionError(f"lint: {pa.n_loss_scale_tokens} loss-scale "
+                             f"tokens minted, want 1")
+    rep = lint.lint_step(None, record=rec, policy=policy)
+    bad = [f for f in rep.findings
+           if f.rule in ("unscaled-narrow-cast", "scale-leak")]
+    if bad:
+        raise AssertionError(f"lint: {rep.table()}")
+    _same_run("lint precision", _stepper(step, state, toks, labels), twin)
+
+
 @contextlib.contextmanager
 def world1():
     """A world-1 process group (NCCL on a card, gloo on the CPU) over a

@@ -42,6 +42,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from apex_tpu_torch.ops import _priced
 from apex_tpu_torch.prof.cost import tensors_of
+from apex_tpu_torch.utils.format import fmt_bytes
 
 __all__ = ["MemoryReport", "BufferRecord", "memory_report", "hbm_capacity",
            "device_memory_sample", "BUFFER_CLASSES", "classify_arg_path",
@@ -121,12 +122,7 @@ class BufferRecord:
 
 
 def _fmt_bytes(n: Optional[float]) -> str:
-    if n is None:
-        return "n/a"
-    for unit, k in (("GiB", 1 << 30), ("MiB", 1 << 20), ("KiB", 1 << 10)):
-        if abs(n) >= k:
-            return f"{n / k:.2f} {unit}"
-    return f"{int(n)} B"
+    return fmt_bytes(n)
 
 
 @dataclasses.dataclass

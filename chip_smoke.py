@@ -550,8 +550,12 @@ TOL_ADAGRAD_UPDATE = {"p": 1e-5, "h": 1e-5}
 TOL_NOVOGRAD_UPDATE = {"p": 1e-5, "m": 1e-5, "vnorm": 1e-5}
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
-    print(msg, flush=True)
+    """Print ``msg`` after the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def timed(fn, iters=10, flush=None):
@@ -8816,6 +8820,183 @@ def echo_ptxas(libs):
             log(f"  ptxas {name}: {w}")
 
 
+# --- apexlint on the card --------------------------------------------------
+
+# phase lint_card's configurations: (label, model kind, its options, kernel
+# launches of one step); BERT-Large with the arena LAMB, plain and as
+# published, and ResNet-50 O2 B256 with the default (tree) SGD
+LINT_CONFIGS = (
+    ("bert_large", "bert", dict(strategy="arena"),
+     dict(EXPECTED_PER_STEP, **ARENA_PER_STEP)),
+    ("bert_large_dropout", "bert",
+     dict(strategy="arena", dropout=0.1, padded=True),
+     dict(EXPECTED_PER_STEP, **ARENA_PER_STEP)),
+    ("resnet50", "resnet", dict(opt_level="O2"), RESNET_PER_STEP),
+)
+
+
+def _lint_build(kind, options):
+    """(step, carry, batch, policy) of BERT-Large B16 S512 or ResNet-50
+    B256 224², built from seed 0."""
+    from apex_tpu_torch import train
+    if kind == "bert":
+        step, state, batch, policy, _ = train.build_bert_step(16, 512,
+                                                               **options)
+        return step, (state,), batch, policy
+    step, carry, batch, policy, _ = train.build_resnet_step(256, 224,
+                                                            **options)
+    return step, carry, batch, policy
+
+
+def _lint_advance(step, carry, batch):
+    """One step: (the carried state after it, the loss)."""
+    out = step(*carry, *batch)
+    return tuple(out[:-1]), out[-1]
+
+
+def _reseeded(g):
+    """Two draws from one generator re-seeded alike (APX001)."""
+    import torch
+    g.manual_seed(7)
+    a = torch.rand(4, device=g.device, generator=g)
+    g.manual_seed(7)
+    return a + torch.rand(4, device=g.device, generator=g)
+
+
+def _host_value(x):
+    """A host sync off the commit path (APX004)."""
+    x.sum().item()
+    return x * 2
+
+
+def _leaky(p, x, s):
+    """A loss-scaled gradient committed with no unscale (APX303)."""
+    import torch
+    p = p.detach().requires_grad_()
+    loss = ((x @ p) ** 2).mean() * s
+    g, = torch.autograd.grad(loss, p)
+    return p.detach() - 0.1 * g
+
+
+def lint_seeded_cases(device="cuda"):
+    """(rule id, severity, step, args, policy) of one seeded step a rule,
+    each firing its rule and nothing else; the fp16 product beside its
+    ``aten.mm.dtype`` twin (f32 out), which stays clean."""
+    import torch
+    from apex_tpu_torch import amp
+    gen = torch.Generator(device).manual_seed(0)
+
+    def rnd(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=device).to(dtype)
+
+    h = torch.float16
+    return (
+        ("APX001", "error", _reseeded, (torch.Generator(device),), None),
+        ("APX002", "error", lambda x: (x.double() * 2).float(), (rnd(8),),
+         None),
+        ("APX003", "warning", lambda a, b: a @ b, (rnd(16, 16),
+                                                 rnd(16, 16)),
+         amp.Policy.from_opt_level("O1")),
+        ("APX004", "error", _host_value, (rnd(8),), None),
+        ("APX204", "error", lambda x: x + torch.rand(8, device=device),
+         (rnd(8),), None),
+        ("APX204", "warning", lambda x, i, v: x.index_add(0, i, v),
+         (rnd(8), torch.tensor([0, 1, 0], device=device), rnd(3)), None),
+        ("APX301", "error", lambda x: x.to(torch.float8_e4m3fn),
+         (rnd(16),), None),
+        ("APX305", "warning", lambda a, b: (
+            a @ b, torch.ops.aten.mm.dtype(a, b, torch.float32)),
+         (rnd(16, 16, dtype=h), rnd(16, 16, dtype=h)), None),
+        ("APX303", "error", _leaky,
+         (rnd(4, 4), rnd(8, 4), torch.tensor(1024.0, device=device)),
+         None),
+    )
+
+
+def lint_card(smi):
+    """Phase lint_card: ``lint.lint_step`` at full width on BERT-Large (O1
+    bf16, arena LAMB, B16 S512; plain, then with dropout 0.1 and padding)
+    and ResNet-50 (O2 bf16, B256): each report's table and summary, and
+
+    (a) no error-severity finding;
+    (b) the record's kernel nodes equal the ``ops.KERNELS`` launch counts
+        of one unlinted step (its twin's first), and the path's table;
+    (c) the linted step's next two losses equal, bit for bit, those of a
+        twin built alike and never linted;
+    (d) each seeded step of :func:`lint_seeded_cases` fires its rule and
+        nothing else.
+
+    Prints one JSON line: the lint's wall time (the record's one run and
+    the passes) against the unlinted step's, and the record's node counts,
+    with the card's name and power limit."""
+    import torch
+    from apex_tpu_torch import lint, ops
+
+    t_phase = time.perf_counter()
+    out = {}
+    for label, kind, options, per_step in LINT_CONFIGS:
+        torch.cuda.empty_cache()
+        step, carry, batch, policy = _lint_build(kind, options)
+        tstep, tcarry, tbatch, _ = _lint_build(kind, options)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = lint.record_step(step, *carry, *batch, fn_name=label)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        rep = lint.lint_step(None, record=rec, policy=policy,
+                             fn_name=label)
+        t2 = time.perf_counter()
+        log(f"phase lint_card {label}:\n{rep.table()}")
+        log(f"phase lint_card {label}: summary {json.dumps(rep.summary())}")
+        if rep.errors:                                             # (a)
+            raise AssertionError(f"lint_card {label}: error findings")
+        ops.reset_launch_counts()                                  # (b)
+        tcarry, tl0 = _lint_advance(tstep, tcarry, tbatch)
+        launched = {k: v for k, v in ops.launch_counts().items() if v}
+        nodes = dict(rec.kernel_counts())
+        if launched != nodes or launched != per_step:
+            raise AssertionError(
+                f"lint_card {label}: kernel nodes {nodes}, one unlinted "
+                f"step's launches {launched}, the path's {per_step}")
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        tcarry, tl1 = _lint_advance(tstep, tcarry, tbatch)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t3) * 1e3
+        carry, l0 = _lint_advance(step, carry, batch)              # (c)
+        carry, l1 = _lint_advance(step, carry, batch)
+        for i, (a, b) in enumerate(((l0, tl0), (l1, tl1))):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"lint_card {label}: step {i} after linting loss "
+                    f"{a.item()!r}, unlinted twin {b.item()!r}")
+        out[label] = {"lint_s": t2 - t0, "record_s": t1 - t0,
+                      "passes_s": t2 - t1, "step_ms": step_ms,
+                      "record": rec.counts(), "kernel_nodes": nodes,
+                      "losses": [l0.item(), l1.item()],
+                      "findings": rep.summary()}
+        log(f"phase lint_card {label}: lint {t2 - t0:.2f} s (record "
+            f"{t1 - t0:.2f} s, passes {t2 - t1:.2f} s) against an "
+            f"unlinted step of {step_ms:.2f} ms; record {rec.counts()}; "
+            f"kernel nodes = one step's launches {nodes}; the next two "
+            f"losses {l0.item():.6f}, {l1.item():.6f} equal the twin's")
+        del step, carry, batch, tstep, tcarry, tbatch, rec
+    fired = {}
+    for rid, sev, fn, args, policy in lint_seeded_cases():         # (d)
+        rep = lint.lint_step(fn, *args, policy=policy)
+        got = [(f.id, f.severity) for f in rep.findings]
+        if got != [(rid, sev)]:
+            raise AssertionError(f"lint_card: the seeded {rid} {sev} step "
+                                 f"fired {got}\n{rep.table()}")
+        fired[f"{rid} {sev}"] = rep.findings[0].message
+    log(f"phase lint_card: seeded steps, each firing its rule alone: "
+        f"{sorted(fired)}")
+    torch.cuda.empty_cache()
+    print(json.dumps({"lint_card": {"device": smi, "configs": out,
+                                    "seeded": fired}}), flush=True)
+    log(f"phase lint_card: {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> int:
     import torch
     import torch.distributed
@@ -8941,6 +9122,8 @@ def main() -> int:
     amp_remainder_phases(rows)
     torch.cuda.empty_cache()
     attention_remainder_phases(rows)
+    torch.cuda.empty_cache()
+    lint_card(smi)
     torch.cuda.empty_cache()
     ckpt_crash_and_escalate()
 

@@ -341,8 +341,8 @@ def test_channel_registry_matches_jax(tmp_path):
 
 
 def test_logger_waits_for_prof_and_nulls_nonfinite(tmp_path):
-    # prof/ is ported: the MFU statics are taken, attach runs the step
-    # once, and only the lint report still waits (queue A, item 12)
+    # prof/ and lint/ are ported: the MFU statics are taken, attach runs
+    # the step once, and every report attaches (none: nothing emitted)
     assert tmon.MetricsLogger(sinks=[], peak_flops=1e12).peak_flops == 1e12
     assert tmon.MetricsLogger(
         sinks=[], flops_per_step=1e9).flops_per_step == 1e9
@@ -354,10 +354,10 @@ def test_logger_waits_for_prof_and_nulls_nonfinite(tmp_path):
     assert logger.sample_memory(0) is None          # no memory sink
     for call in (lambda: logger.attach_memory_report(None),
                  lambda: logger.attach_shard_report(None),
-                 lambda: logger.attach_roofline_report(None)):
+                 lambda: logger.attach_roofline_report(None),
+                 lambda: logger.attach_lint_report(None)):
         assert call() is logger
-    with pytest.raises(NotImplementedError, match="item 12"):
-        logger.attach_lint_report(None)
+    assert logger.lint_report is None
     logger.record(tmon.metrics_init(device="cpu").record_loss(float("inf")))
     logger.close()
     rec = json.loads((tmp_path / "m.jsonl").read_text())
